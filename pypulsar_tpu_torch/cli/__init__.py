@@ -1,0 +1,1 @@
+"""cli layer of the PyTorch/CUDA port (mirrors pypulsar_tpu/cli)."""

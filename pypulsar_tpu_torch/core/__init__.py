@@ -1,0 +1,1 @@
+"""core layer of the PyTorch/CUDA port (mirrors pypulsar_tpu/core)."""

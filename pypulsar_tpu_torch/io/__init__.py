@@ -1,0 +1,1 @@
+"""io layer of the PyTorch/CUDA port (mirrors pypulsar_tpu/io)."""

@@ -1,0 +1,1 @@
+"""parallel layer of the PyTorch/CUDA port (mirrors pypulsar_tpu/parallel)."""

@@ -1,0 +1,102 @@
+"""Ordered background ship of streamed blocks to the device.
+
+Port of ``pypulsar_tpu/parallel/prefetch.py`` and ``staged._ship_ahead``.
+A daemon thread pulls raw blocks (disk reads), copies each into pinned
+host memory and starts its host-to-device copy with ``non_blocking`` on a
+side CUDA stream, ``depth`` blocks ahead of the consumer. The consumer's
+stream waits on each block's copy event before using it, so the copy of
+block N+1 overlaps the kernels of block N.
+
+Contract (as the reference's): items arrive in order; an exception in the
+worker re-raises in the consumer at its next pull; a consumer that stops
+early signals the worker, which then stops producing.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+_DONE = object()
+CLEANUP_DEADLINE_S = 5.0
+
+
+def prefetch(items: Iterable, depth: int = 2,
+             transform: Optional[Callable] = None, name: str = "prefetch"):
+    """Yield ``transform(item)`` for each item, produced ``depth`` ahead
+    on a daemon thread."""
+    xf = transform if transform is not None else (lambda it: it)
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+
+    def worker():
+        try:
+            for item in items:
+                if stop.is_set():
+                    return
+                q.put(xf(item))
+        except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
+            q.put(e)
+            return
+        q.put(_DONE)
+
+    t = threading.Thread(target=worker, name=f"pypulsar-torch-{name}",
+                         daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _DONE:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        # an abandoned consumer: signal the worker and free a parked put
+        stop.set()
+        give_up = time.monotonic() + CLEANUP_DEADLINE_S
+        while t.is_alive() and time.monotonic() < give_up:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                t.join(timeout=0.1)
+
+
+def _as_tensor(block: np.ndarray) -> torch.Tensor:
+    """Host tensor over a native-dtype block (uint16 travels as int16 and
+    is widened on the device)."""
+    block = np.ascontiguousarray(block)
+    if block.dtype == np.uint16:
+        block = block.view(np.int16)
+    return torch.from_numpy(block)
+
+
+def ship_ahead(raw_blocks: Iterable, device: torch.device, depth: int = 2):
+    """(pos, device tensor) for each (pos, host block), shipped ahead."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        for pos, block in prefetch(raw_blocks, depth, name="read"):
+            yield pos, _as_tensor(block).to(device)
+        return
+    side = torch.cuda.Stream(device)
+
+    def ship(item):
+        pos, block = item
+        host = _as_tensor(block).pin_memory()
+        with torch.cuda.stream(side):
+            dev = host.to(device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return pos, dev, ready, host
+
+    current = torch.cuda.current_stream(device)
+    for pos, dev, ready, host in prefetch(raw_blocks, depth, ship, "ship"):
+        current.wait_event(ready)
+        dev.record_stream(current)
+        del host  # the pinned buffer is the allocator's once the copy is done
+        yield pos, dev

@@ -1,0 +1,462 @@
+"""The DM-trial sweep on one device: two-stage subband dedispersion of
+every trial followed by boxcar detection statistics, streamed over the
+time axis in overlap-save chunks.
+
+Port of the single-device core of ``pypulsar_tpu/parallel/sweep.py`` with
+the ``gather`` engine (the reference's bit-parity formulation):
+
+  stage 1: each trial group shifts its channels to the group's mean DM and
+     sums them into ``nsub`` subbands;
+  stage 2: each trial shifts and sums its group's subbands at its own DM;
+  then: per-trial payload moments and, per boxcar width, the window-sum
+     maximum and its first start.
+
+Both stages are one :func:`~pypulsar_tpu_torch.ops.gather_sum.shifted_gather_sum`
+each over ALL trial groups of a chunk (the reference scans the groups
+one by one): stage 1 reads ``rows[g*nsub + s, k] = s*per + k`` at the
+group's shifts, stage 2 indexes the stacked ``[G*nsub, L1]`` subbands
+with ``rows[g*gs + t, s] = g*nsub + s``. Groups are split, in order, only
+where the stacked subbands would pass :data:`SUBBAND_BUDGET_BYTES`.
+
+SNR accumulation-order contract (the reference's): a single per-channel
+baseline (the f32 mean of the first streamed block, or the caller's) is
+subtracted before dedispersion; dedispersion and per-chunk statistics run
+in float32 on the device; the cross-chunk moments, the cross-chunk max
+(strict >: the earlier chunk keeps a tie) and the SNR formula run on the
+host in float64.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from pypulsar_tpu_torch.core import psrmath
+from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
+from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum, table_bounds
+
+DEFAULT_WIDTHS = (1, 2, 4, 8, 16, 32)
+DEFAULT_CHUNK_FFT_LEN = 1 << 18
+#: stacked stage-1 subbands one launch may hold; more trial groups split
+SUBBAND_BUDGET_BYTES = 4 << 30
+#: chunks queued on the device ahead of the host's read-back
+MAX_PENDING = 2
+_NOT_PORTED = ("scan", "fourier", "tree")
+
+
+def resolve_engine(engine: str = "auto") -> str:
+    """The chunk formulation: only ``gather`` is ported (``auto`` is it)."""
+    if engine in ("auto", "gather"):
+        return "gather"
+    if engine in _NOT_PORTED:
+        raise NotImplementedError(
+            f"sweep engine {engine!r} is not ported yet (ROADMAP.md Queue 1, "
+            f"'the other dedispersion engines'); use 'gather'")
+    raise ValueError(f"unknown sweep engine {engine!r}; expected 'gather' "
+                     f"or 'auto'")
+
+
+def choose_group_size(dms, freqs, dt: float, nsub: int = 64,
+                      max_extra_smear_bins: float = 1.0,
+                      max_group: int = 128) -> int:
+    """Largest power-of-two stage-1 group whose extra subband smearing
+    (a trial at the group edge is dedispersed at the group mean DM within
+    each subband) stays under ``max_extra_smear_bins`` samples."""
+    dms = np.asarray(dms, dtype=np.float64)
+    if len(dms) < 2:
+        return 1
+    ddm = float(np.max(np.abs(np.diff(dms))))
+    freqs = np.asarray(freqs, dtype=np.float64)
+    f_low = float(freqs.min())
+    bw_sub = float(abs(freqs.max() - freqs.min())) / nsub
+    g = 1
+    while g * 2 <= max_group:
+        off = g * ddm
+        if psrmath.dm_smear(off, bw_sub, f_low) > max_extra_smear_bins * dt:
+            break
+        g *= 2
+    return g
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """Host-side geometry of a sweep.
+
+    stage1_bins[G, C]    int32  per-group per-channel shifts (to group subdm)
+    stage2_bins[G, g, S] int32  per-trial per-subband shifts (trial dm)
+    dms[G*g] float64 trial DMs (padded trials repeat the last real one)
+    """
+
+    dms: np.ndarray
+    freqs: np.ndarray
+    dt: float
+    nsub: int
+    group_size: int
+    stage1_bins: np.ndarray
+    stage2_bins: np.ndarray
+    subdms: np.ndarray
+    n_real_trials: int
+    widths: Tuple[int, ...] = DEFAULT_WIDTHS
+
+    @property
+    def n_groups(self) -> int:
+        return self.stage1_bins.shape[0]
+
+    @property
+    def n_trials(self) -> int:
+        return self.n_groups * self.group_size
+
+    @property
+    def max_shift1(self) -> int:
+        return int(self.stage1_bins.max(initial=0))
+
+    @property
+    def max_shift2(self) -> int:
+        return int(self.stage2_bins.max(initial=0))
+
+    @property
+    def min_overlap(self) -> int:
+        return self.max_shift1 + self.max_shift2 + max(self.widths)
+
+
+def make_sweep_plan(dms: Sequence[float], freqs: np.ndarray, dt: float,
+                    nsub: int = 64, group_size: int = 32,
+                    widths: Tuple[int, ...] = DEFAULT_WIDTHS) -> SweepPlan:
+    """Integer shift tables from float64 host math, bit-identical to the
+    reference's. Channels must be high-frequency-first."""
+    dms = np.asarray(dms, dtype=np.float64)
+    freqs = np.asarray(freqs, dtype=np.float64)
+    if group_size <= 0:
+        group_size = choose_group_size(dms, freqs, dt, nsub)
+    C = len(freqs)
+    if C > 1 and not np.all(np.diff(freqs) <= 0):
+        raise ValueError(
+            "make_sweep_plan needs monotonically descending (high-"
+            "frequency-first) channels: flip/sort the data and frequency "
+            "axes first (the staged block sources flip ascending tables "
+            "automatically)")
+    if C % nsub:
+        raise ValueError(f"nsub={nsub} must divide nchan={C}")
+    per = C // nsub
+    n_real = len(dms)
+    G = -(-n_real // group_size)
+    padded = np.concatenate([dms, np.repeat(dms[-1], G * group_size - n_real)])
+
+    sub_hif = freqs[np.arange(nsub) * per]  # top frequency of each subband
+    f_ref = freqs.max()
+    stage1 = np.zeros((G, C), dtype=np.int32)
+    stage2 = np.zeros((G, group_size, nsub), dtype=np.int32)
+    subdms = np.zeros(G, dtype=np.float64)
+    for gi in range(G):
+        block = padded[gi * group_size:(gi + 1) * group_size]
+        subdm = float(np.mean(block))
+        subdms[gi] = subdm
+        d_chan = psrmath.delay_from_DM(subdm, freqs)
+        d_ref = np.repeat(psrmath.delay_from_DM(subdm, sub_hif), per)
+        stage1[gi] = np.round((d_chan - d_ref) / dt).astype(np.int32)
+        for ti, dm in enumerate(block):
+            d_sub = psrmath.delay_from_DM(dm, sub_hif)
+            d0 = psrmath.delay_from_DM(dm, f_ref)
+            stage2[gi, ti] = np.round((d_sub - d0) / dt).astype(np.int32)
+    return SweepPlan(dms=padded, freqs=freqs, dt=float(dt), nsub=nsub,
+                     group_size=group_size, stage1_bins=stage1,
+                     stage2_bins=stage2, subdms=subdms, n_real_trials=n_real,
+                     widths=tuple(widths))
+
+
+def default_chunk_payload(min_overlap: int) -> int:
+    """Streaming chunk payload: 2^18 samples, doubled until the overlap
+    fits in half of it, less the overlap."""
+    n = DEFAULT_CHUNK_FFT_LEN
+    while min_overlap >= n // 2:
+        n <<= 1
+    return n - min_overlap
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupBatch:
+    """Index tables of one launch of both stages over groups [g0, g1)."""
+
+    g0: int
+    g1: int
+    rows1: torch.Tensor
+    shifts1: torch.Tensor
+    bounds1: Tuple[int, int, int, int]
+    rows2: torch.Tensor
+    shifts2: torch.Tensor
+    bounds2: Tuple[int, int, int, int]
+
+
+def group_batches(stage1_bins: np.ndarray, stage2_bins: np.ndarray,
+                  nsub: int, L1: int, device,
+                  budget: int = SUBBAND_BUDGET_BYTES) -> List[GroupBatch]:
+    """Split the trial groups, in order, so that each batch's stacked
+    [groups*nsub, L1] float32 subbands fit ``budget``, and lay out each
+    batch's stage-1 and stage-2 tables on ``device``."""
+    stage1_bins = np.asarray(stage1_bins, dtype=np.int32)
+    stage2_bins = np.asarray(stage2_bins, dtype=np.int32)
+    G, C = stage1_bins.shape
+    gs = stage2_bins.shape[1]
+    per = C // nsub
+    step = max(1, int(budget) // max(1, nsub * L1 * 4))
+    base1 = np.arange(C, dtype=np.int32).reshape(nsub, per)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    out = []
+    for g0 in range(0, G, step):
+        g1 = min(G, g0 + step)
+        n = g1 - g0
+        rows1 = np.tile(base1, (n, 1))
+        shifts1 = stage1_bins[g0:g1].reshape(n * nsub, per)
+        rows2 = np.repeat(
+            (np.arange(n, dtype=np.int32)[:, None] * nsub
+             + np.arange(nsub, dtype=np.int32)[None, :]), gs, axis=0)
+        shifts2 = stage2_bins[g0:g1].reshape(n * gs, nsub)
+        out.append(GroupBatch(
+            g0, g1, put(rows1), put(shifts1), table_bounds(rows1, shifts1),
+            put(rows2), put(shifts2), table_bounds(rows2, shifts2)))
+    return out
+
+
+def _dedisperse_batch(data, b: GroupBatch, out_len: int, L1: int):
+    sub = shifted_gather_sum(data, b.rows1, b.shifts1, L1, b.bounds1)
+    return shifted_gather_sum(sub, b.rows2, b.shifts2, out_len, b.bounds2)
+
+
+def run_chunk(data, batches: Sequence[GroupBatch], out_len: int, L1: int,
+              widths: Tuple[int, ...], stat_len: int):
+    """Both stages and the boxcar statistics of one chunk ``data[C, L]``
+    (L >= L1 + max stage-1 shift), batch by batch in group order; returns
+    the list of per-batch (s, ss, mb, ab) device tensors."""
+    return [boxcar_stats(_dedisperse_batch(data, b, out_len, L1), widths,
+                         stat_len) for b in batches]
+
+
+def sweep_chunk(data, stage1_bins, stage2_bins, nsub: int, out_len: int,
+                slack2: int, widths, stat_len: int):
+    """One chunk for all trial groups (the reference's ``sweep_chunk`` with
+    the gather engine): data[C, L] with L >= out_len + slack2 + max
+    stage-1 shift; returns per-trial (sum[D], sumsq[D], maxbox[D, W],
+    argbox[D, W]) on data's device."""
+    L1 = out_len + slack2
+    batches = group_batches(stage1_bins, stage2_bins, nsub, L1, data.device)
+    parts = run_chunk(data, batches, out_len, L1, tuple(widths), stat_len)
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(4))
+
+
+def dedisperse_series_chunk(data, stage1_bins, stage2_bins, nsub: int,
+                            out_len: int, slack2: int):
+    """Two-stage dedispersed series [D, out_len] of one chunk: the sweep's
+    chunk with the detection statistics left off."""
+    L1 = out_len + slack2
+    batches = group_batches(stage1_bins, stage2_bins, nsub, L1, data.device)
+    return torch.cat([_dedisperse_batch(data, b, out_len, L1)
+                      for b in batches])
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """``snr[d, w]``: matched-filter SNR of the best width-``widths[w]``
+    boxcar of trial ``dms[d]``, ``(max_w_sum - w*mean) / (sqrt(w)*std)``
+    with the mean and std of the whole series."""
+
+    dms: np.ndarray
+    widths: Tuple[int, ...]
+    snr: np.ndarray  # [D, W]
+    peak_sample: np.ndarray  # [D, W] global sample of the best box start
+    mean: np.ndarray
+    std: np.ndarray
+
+    def best(self, k: int = 10):
+        """Top-k (dm, width, snr, sample) candidates over all trials."""
+        flat = self.snr.reshape(-1)
+        order = np.argsort(flat)[::-1][:k]
+        d, w = np.unravel_index(order, self.snr.shape)
+        return [dict(dm=float(self.dms[di]), width=int(self.widths[wi]),
+                     snr=float(self.snr[di, wi]),
+                     sample=int(self.peak_sample[di, wi]))
+                for di, wi in zip(d, w)]
+
+
+class AccumParts(NamedTuple):
+    """Raw accumulator state: host-f64 moment sums over ``n`` payload
+    samples, f32 window-sum maxima ``mb`` at global starts ``ab``, and
+    the baseline sum that restores original units."""
+
+    n: int
+    s: np.ndarray
+    ss: np.ndarray
+    mb: np.ndarray
+    ab: np.ndarray
+    baseline_sum: float
+
+
+class _Accum:
+    """Host float64 accumulation of per-chunk statistics, in stream order."""
+
+    def __init__(self, D: int, W: int):
+        self.n = 0
+        self.s = np.zeros(D)
+        self.ss = np.zeros(D)
+        self.mb = np.full((D, W), -np.inf)
+        self.ab = np.zeros((D, W), dtype=np.int64)
+
+    def update(self, start, stat_len, s, ss, mb, ab):
+        self.n += stat_len
+        self.s += np.asarray(s, dtype=np.float64)
+        self.ss += np.asarray(ss, dtype=np.float64)
+        mb = np.asarray(mb)
+        ab = np.asarray(ab, dtype=np.int64) + start
+        better = mb > self.mb  # the incumbent keeps a tie
+        self.mb = np.where(better, mb, self.mb)
+        self.ab = np.where(better, ab, self.ab)
+
+
+def finalize_sweep(plan: SweepPlan, n: int, s, ss, mb, ab,
+                   baseline_sum: float = 0.0) -> SweepResult:
+    """Host float64 SNR over the accumulated moments and window maxima;
+    ``baseline_sum`` restores the reported mean to original units."""
+    s = np.asarray(s, dtype=np.float64)
+    ss = np.asarray(ss, dtype=np.float64)
+    mb = np.asarray(mb, dtype=np.float64)
+    ab = np.asarray(ab, dtype=np.int64)
+    mean = s / max(n, 1)
+    var = np.maximum(ss / max(n, 1) - mean * mean, 0.0)
+    std = np.sqrt(var)
+    ws = np.array(plan.widths, dtype=np.float64)
+    denom = np.sqrt(ws)[None, :] * np.where(std > 0, std, 1.0)[:, None]
+    snr = (mb - ws[None, :] * mean[:, None]) / denom
+    nr = plan.n_real_trials
+    return SweepResult(dms=plan.dms[:nr], widths=plan.widths, snr=snr[:nr],
+                       peak_sample=ab[:nr], mean=mean[:nr] + baseline_sum,
+                       std=std[:nr])
+
+
+def block_mean(data):
+    """Float32 per-channel mean of ``data[C, L]`` rounded as the reference
+    rounds it: XLA divides by a constant as a multiply by its float32
+    reciprocal. (The sum of an integer-valued block below 2^24 is exact in
+    any order, so on such blocks the two means agree bit for bit.)"""
+    recip = float(np.float32(1.0) / np.float32(data.shape[1]))
+    return data.sum(dim=1, keepdim=True) * recip
+
+
+def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
+                 engine: str = "auto", device="cuda", finalize: bool = True):
+    """Run the sweep over a stream of (startsamp, block[chan, time])
+    chunks, each ``chunk_payload`` samples plus an overlap of at least
+    ``plan.min_overlap`` (only the last may be shorter). Blocks may be
+    numpy arrays or tensors; they are moved to ``device``.
+
+    ``baseline`` ([C] or [C, 1]) is subtracted from every block; when None
+    it is the f32 per-channel mean of the first block. The tail past the
+    end of data is zero-padded AFTER the subtraction. Up to
+    :data:`MAX_PENDING` chunks run ahead on the device before their
+    statistics are read back and accumulated on the host. With
+    ``finalize=False`` the raw :class:`AccumParts` come back instead of
+    the :class:`SweepResult`."""
+    resolve_engine(engine)
+    device = resolve_device(device)
+    W = max(plan.widths)
+    out_len = chunk_payload + W
+    L1 = out_len + plan.max_shift2
+    need = L1 + plan.max_shift1
+    acc = _Accum(plan.n_trials, len(plan.widths))
+    batches = group_batches(plan.stage1_bins, plan.stage2_bins, plan.nsub, L1,
+                            device)
+    pending: list = []  # (start, stat_len, host outputs, copy-done event)
+
+    def drain(limit: int) -> None:
+        while len(pending) > limit:
+            start, stat_len, host, ready = pending.pop(0)
+            if ready is not None:
+                ready.synchronize()
+            acc.update(start, stat_len, *(t.numpy() for t in host))
+
+    def process(start: int, data, L: int) -> None:
+        if L < need:  # end of data: zero tail
+            data = F.pad(data, (0, need - L))
+        stat_len = min(chunk_payload, L)
+        parts = run_chunk(data, batches, out_len, L1, plan.widths, stat_len)
+        # start the read-back right behind this chunk's kernels, so that
+        # reading it later does not wait for the chunks queued after it
+        host = [torch.cat([p[i] for p in parts]).to("cpu", non_blocking=True)
+                for i in range(4)]
+        ready = None
+        if device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        pending.append((start, stat_len, host, ready))
+        drain(MAX_PENDING)
+
+    if baseline is not None:
+        baseline = torch.as_tensor(baseline, dtype=torch.float32,
+                                   device=device).reshape(-1, 1)
+    # hold one block back: a short block is legal only at end of data
+    prev = None
+    for start, block in blocks:
+        data = torch.as_tensor(block, dtype=torch.float32, device=device)
+        if baseline is None:
+            baseline = block_mean(data)
+        data = data - baseline
+        L = data.shape[1]
+        if prev is not None:
+            pstart, pdata, pL = prev
+            if pL < need and pstart + pL < start + L:
+                raise ValueError(
+                    f"interior block at sample {pstart} has {pL} samples but "
+                    f"data continues to sample {start + L}; the sweep needs "
+                    f"{need} per block (payload {chunk_payload} + overlap >= "
+                    f"plan.min_overlap = {plan.min_overlap})")
+            process(pstart, pdata, pL)
+        prev = (start, data, L)
+    if prev is not None:
+        process(*prev)
+    drain(0)
+    B = (float(baseline.double().sum().item())
+         if baseline is not None else 0.0)
+    if not finalize:
+        return AccumParts(acc.n, acc.s, acc.ss, acc.mb, acc.ab, B)
+    return finalize_sweep(plan, acc.n, acc.s, acc.ss, acc.mb, acc.ab, B)
+
+
+def sweep_spectra(data, freqs, dt: float, dms, nsub: int = 64,
+                  group_size: int = 32, widths=DEFAULT_WIDTHS,
+                  chunk_payload: Optional[int] = None,
+                  device="cuda") -> SweepResult:
+    """Sweep an in-memory ``data[chan, time]`` (numpy or tensor, channels
+    high-frequency-first) over ``dms``. The baseline is the whole-series
+    per-channel mean (float64 on the host for numpy data, cast to f32), so
+    the result does not depend on the chunking."""
+    device = resolve_device(device)
+    freqs = np.asarray(freqs, dtype=np.float64)
+    if group_size <= 0:
+        group_size = choose_group_size(dms, freqs, dt, nsub)
+    plan = make_sweep_plan(dms, freqs, dt, nsub=nsub, group_size=group_size,
+                           widths=tuple(widths))
+    T = int(data.shape[1])
+    if chunk_payload is None:
+        chunk_payload = T
+    if isinstance(data, np.ndarray):
+        baseline = np.mean(data, axis=1, keepdims=True,
+                           dtype=np.float64).astype(np.float32)
+    else:
+        baseline = data.to(torch.float32).mean(dim=1, keepdim=True)
+
+    def blocks():
+        ov = plan.min_overlap
+        pos = 0
+        while pos < T:
+            n = min(chunk_payload + ov, T - pos)
+            yield pos, data[:, pos:pos + n]
+            pos += chunk_payload
+
+    return sweep_stream(plan, blocks(), chunk_payload, baseline=baseline,
+                        device=device)

@@ -1,0 +1,1 @@
+"""resilience layer of the PyTorch/CUDA port (mirrors pypulsar_tpu/resilience)."""

@@ -1,0 +1,132 @@
+"""The PyTorch port stands alone: importing every module of
+``pypulsar_tpu_torch`` loads no ``jax`` and nothing of ``pypulsar_tpu``,
+no source of the port names them, and its entry points refuse to run on
+the CPU unless asked."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "pypulsar_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "pypulsar_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_forbidden_prefix_rule():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("pypulsar_tpu") and _forbidden("pypulsar_tpu.io")
+    assert not _forbidden("pypulsar_tpu_torch")
+    assert not _forbidden("pypulsar_tpu_torch.ops.gather_sum")
+    assert not _forbidden("jaxtyping_like")
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import pypulsar_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'pypulsar_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "print(len(names))\n"
+        "print('\\n'.join(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert int(lines[0]) >= 20  # every module was imported
+    loaded = [m for m in lines[1:] if _forbidden(m)]
+    assert loaded == []
+
+
+def test_no_source_of_the_port_imports_jax():
+    offenders = []
+    for dirpath, _, files in os.walk(PKG):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fn)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module]
+                offenders += [(path, n) for n in names if _forbidden(n)]
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            offenders += [("chip_smoke.py", a.name) for a in node.names
+                          if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and _forbidden(node.module):
+            offenders.append(("chip_smoke.py", node.module))
+    assert offenders == []
+
+
+def test_entry_points_default_to_the_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default path would run")
+    from pypulsar_tpu_torch.parallel.sweep import sweep_spectra, sweep_stream
+    from pypulsar_tpu_torch.parallel.sweep import make_sweep_plan
+
+    freqs = 1500.0 - np.arange(16)
+    data = np.zeros((16, 500), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sweep_spectra(data, freqs, 1e-3, [0.0, 5.0], nsub=4)
+    plan = make_sweep_plan([0.0], freqs, 1e-3, nsub=4, group_size=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sweep_stream(plan, iter([(0, data)]), 400)
+    # asked explicitly, the CPU runs
+    res = sweep_spectra(data, freqs, 1e-3, [0.0, 5.0], nsub=4, device="cpu")
+    assert res.snr.shape == (2, 6)
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_prints_no_result_off_the_card(tmp_path, where):
+    """Without a card, or copied away from the package, chip_smoke.py
+    fails and prints nothing on stdout (no ok line)."""
+    import shutil
+
+    import torch
+
+    if where == "checkout" and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the smoke test would run")
+    script = os.path.join(REPO, "chip_smoke.py")
+    if where == "alone":
+        script = shutil.copy(script, tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert out.stdout == ""
+    assert "FAIL" in out.stderr
+
+
+def test_kernel_wrappers_dispatch_on_tensor_device():
+    """CPU tensors take the plain versions and count no launch."""
+    import torch
+
+    from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
+    from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
+
+    n0, m0 = shifted_gather_sum.launches, boxcar_stats.launches
+    data = torch.ones((4, 64))
+    idx = torch.zeros((2, 3), dtype=torch.int32)
+    out = shifted_gather_sum(data, idx, idx, 32, (0, 0, 0, 0))
+    assert torch.equal(out, torch.full((2, 32), 3.0))
+    boxcar_stats(out, (1, 2), 16)
+    assert (shifted_gather_sum.launches, boxcar_stats.launches) == (n0, m0)
