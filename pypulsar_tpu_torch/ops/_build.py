@@ -43,9 +43,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """The shared library a build of ``csrc/<name>.cu`` produces."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The shared library a build of ``csrc/<name>.cu`` produces (its
+    digest covers the source, the headers of ``csrc/`` and the flags)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".h"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -19,8 +19,8 @@ import torch
 
 from pypulsar_tpu_torch.ops import _build
 
-_MAX_SEGMENTS = 65535  # CUDA grid.y limit on segments of window starts
-_MAX_WIDTH = 8192  # segment + halo within 48 KB of shared memory
+_MAX_SEGMENTS = 65535  # CUDA grid.y limit on stretches of window starts
+_MAX_WIDTH = 8192  # 5 buffers of sub-tile + halo within 227 KB of shared memory
 
 
 def _check(ts, widths: Tuple[int, ...], stat_len: int) -> None:
@@ -64,13 +64,12 @@ def _cuda_boxcar_stats(ts, widths: Tuple[int, ...], stat_len: int):
     W = len(widths)
     order = sorted(range(W), key=lambda k: widths[k])
     ascending = [widths[k] for k in order]
-    seg = lib.boxcar_seg()
-    nseg = -(-stat_len // seg)
+    nseg = -(-stat_len // lib.boxcar_stretch(W))
     if W > lib.boxcar_max_widths() or ascending[-1] > _MAX_WIDTH \
             or nseg > _MAX_SEGMENTS:
         raise ValueError(f"{W} widths up to {ascending[-1]} over stat_len="
                          f"{stat_len} exceed the kernel's limits")
-    ts = ts.contiguous()
+    ts = ts.contiguous()  # may start anywhere (a row of a view, say)
     dev = ts.device
     seg_s = torch.empty((D, nseg), dtype=torch.float32, device=dev)
     seg_ss = torch.empty_like(seg_s)

@@ -1,17 +1,23 @@
-"""Shifted gather-sum: the dedispersion operation of both subband stages.
+"""Shared-source shifted gather-sum: the dedispersion operation of both
+subband stages.
 
-    out[o, t] = sum_k data[rows[o, k], shifts[o, k] + t],   t < out_len
+    out[out_rows[b, j], t] = sum_k data[src_rows[b, k], shifts[b, j, k] + t]
 
-Port of ``pypulsar_tpu/ops/pallas_dedisperse.py`` ``shifted_gather_sum``.
+for ``t < out_len``: the J output rows of source set ``b`` read the same K
+source rows at their own shifts. The generic ``[O, K]`` form of
+``pypulsar_tpu/ops/pallas_dedisperse.py`` ``shifted_gather_sum`` is the
+case J = 1 (:func:`expand_tables` goes the other way).
+
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel ``csrc/gather_sum.cu``. Both sum the K windows in k
-order, so on the same inputs they give the same bits.
+order from zero, so on the same inputs they give the same bits.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -19,108 +25,219 @@ import torch
 from pypulsar_tpu_torch.ops import _build
 
 _INDEX_BUDGET = 1 << 26  # int64 index elements the plain version builds at once
-_MAX_TILES = 65535  # CUDA grid.y limit on time tiles
-_MAX_K = 6144  # int64 offsets per block in 48 KB of shared memory
+#: output rows per block -> (samples per thread, threads per block): the
+#: instantiations of csrc/gather_sum.cu. 16 rows serve stage 1, 8 rows
+#: stage 2 (64 register sums a thread); one row serves the generic J = 1
+#: form and spreads too wide for 8 rows, as a single row's window has none.
+_CONFIGS = {16: (4, 128), 8: (8, 256), 1: (8, 256)}
+_JBS = tuple(sorted(_CONFIGS))  # the order of Bounds.spreads
+_STAGES = 4  # window buffers per block (csrc/gather_sum.cu STAGES)
+_TILES_PER_BLOCK = 4  # time tiles per block (csrc/gather_sum.cu)
+_MAX_SMEM = 232448  # bytes of shared memory a Hopper block may use
+_MAX_GRID_YZ = 65535  # CUDA grid.y/z limit: source sets, time-tile runs
 
 
-def table_bounds(rows: np.ndarray,
-                 shifts: np.ndarray) -> Tuple[int, int, int, int]:
-    """(min_row, max_row, min_shift, max_shift) of host index tables: the
-    ``bounds`` argument of :func:`shifted_gather_sum`."""
-    def ext(a):
-        a = np.asarray(a)
-        if a.size == 0:
-            return 0, 0
-        return int(a.min()), int(a.max())
+class Bounds(NamedTuple):
+    """What the host knows of a table set: the row and shift ranges, and
+    ``spreads[i]``, the largest ``max - min`` of one source row's shifts
+    over a chunk of ``_JBS[i]`` consecutive output rows of a set."""
 
-    return (*ext(rows), *ext(shifts))
+    min_row: int
+    max_row: int
+    min_shift: int
+    max_shift: int
+    spreads: Tuple[int, ...]
 
 
-def _check(data, rows, shifts, out_len: int, bounds) -> None:
+class GatherTables(NamedTuple):
+    """Index tables of one gather-sum on one device, with their host
+    bounds; ``stage`` names the launch counter the kernel adds to."""
+
+    src_rows: torch.Tensor  # [B, K] int32
+    shifts: torch.Tensor  # [B, J, K] int32
+    out_rows: torch.Tensor  # [B, J] int32, a permutation of range(B * J)
+    bounds: Bounds
+    stage: str
+
+
+def table_bounds(src_rows: np.ndarray, shifts: np.ndarray) -> Bounds:
+    """:class:`Bounds` of host tables ``src_rows[B, K]``, ``shifts[B, J, K]``."""
+    src_rows = np.asarray(src_rows)
+    shifts = np.asarray(shifts)
+    B, J, K = shifts.shape
+    if shifts.size == 0:
+        return Bounds(0, 0, 0, 0, (0,) * len(_JBS))
+    spreads = []
+    for jb in _JBS:
+        pad = -J % jb  # repeat the last row: it widens no chunk
+        s = np.concatenate([shifts, np.repeat(shifts[:, -1:], pad, axis=1)], 1)
+        s = s.reshape(B, (J + pad) // jb, jb, K)
+        spreads.append(int((s.max(axis=2) - s.min(axis=2)).max()))
+    return Bounds(int(src_rows.min()), int(src_rows.max()), int(shifts.min()),
+                  int(shifts.max()), tuple(spreads))
+
+
+def gather_tables(src_rows: np.ndarray, shifts: np.ndarray,
+                  out_rows: np.ndarray, device, stage: str) -> GatherTables:
+    """Check host tables, take their bounds, and put them on ``device``."""
+    src_rows = np.ascontiguousarray(src_rows, dtype=np.int32)
+    shifts = np.ascontiguousarray(shifts, dtype=np.int32)
+    out_rows = np.ascontiguousarray(out_rows, dtype=np.int32)
+    if src_rows.ndim != 2 or shifts.ndim != 3 or out_rows.ndim != 2:
+        raise ValueError("src_rows must be [B, K], shifts [B, J, K] and "
+                         "out_rows [B, J]")
+    B, J, K = shifts.shape
+    if src_rows.shape != (B, K) or out_rows.shape != (B, J):
+        raise ValueError(f"src_rows {src_rows.shape} and out_rows "
+                         f"{out_rows.shape} do not fit shifts {shifts.shape}")
+    if K < 1:
+        raise ValueError("each source set needs at least one source row")
+    if not np.array_equal(np.sort(out_rows, axis=None), np.arange(B * J)):
+        raise ValueError(f"out_rows must be a permutation of range({B * J})")
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    return GatherTables(put(src_rows), put(shifts), put(out_rows),
+                        table_bounds(src_rows, shifts), stage)
+
+
+def expand_tables(src_rows: np.ndarray, shifts: np.ndarray,
+                  out_rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The generic ``[O, K]`` form of host tables:
+    ``rows[out_rows[b, j]] = src_rows[b]``,
+    ``row_shifts[out_rows[b, j]] = shifts[b, j]``."""
+    B, J, K = np.shape(shifts)
+    o = np.asarray(out_rows).reshape(-1)
+    rows = np.empty((B * J, K), np.int32)
+    row_shifts = np.empty((B * J, K), np.int32)
+    rows[o] = np.repeat(np.asarray(src_rows), J, axis=0)
+    row_shifts[o] = np.asarray(shifts).reshape(B * J, K)
+    return rows, row_shifts
+
+
+def _check(data, tables: GatherTables, out_len: int) -> None:
     if data.dim() != 2 or data.dtype != torch.float32:
         raise ValueError(f"data must be 2-D float32; got {tuple(data.shape)} "
                          f"{data.dtype}")
-    if rows.shape != shifts.shape or rows.dim() != 2:
-        raise ValueError(f"rows {tuple(rows.shape)} and shifts "
-                         f"{tuple(shifts.shape)} must be one [O, K] shape")
-    if rows.dtype != torch.int32 or shifts.dtype != torch.int32:
-        raise ValueError("rows and shifts must be int32")
-    if rows.device != data.device or shifts.device != data.device:
-        raise ValueError("data, rows and shifts must lie on one device")
+    if any(t.device != data.device for t in tables[:3]):
+        raise ValueError("data and the index tables must lie on one device")
     if out_len < 0:
         raise ValueError(f"out_len must be >= 0; got {out_len}")
     R, L = data.shape
-    lo_r, hi_r, lo_s, hi_s = bounds
-    if rows.numel() and (lo_r < 0 or hi_r >= R):
-        raise ValueError(f"rows span [{lo_r}, {hi_r}] outside [0, {R})")
-    if rows.numel() and (lo_s < 0 or hi_s + out_len > L):
+    bd = tables.bounds
+    if tables.shifts.numel() == 0:
+        return
+    if bd.min_row < 0 or bd.max_row >= R:
+        raise ValueError(f"rows span [{bd.min_row}, {bd.max_row}] outside "
+                         f"[0, {R})")
+    if bd.min_shift < 0 or bd.max_shift + out_len > L:
         raise ValueError(
-            f"windows reach [{lo_s}, {hi_s} + {out_len}) outside the "
-            f"{L} samples of each row")
+            f"windows reach [{bd.min_shift}, {bd.max_shift} + {out_len}) "
+            f"outside the {L} samples of each row")
 
 
-def _torch_gather_sum(data, rows, shifts, out_len: int):
+def _torch_gather_sum(data, tables: GatherTables, out_len: int):
     """Plain PyTorch version (any device): one flat ``take`` per k, added
-    in k order, over slices of the output rows that bound the index
-    memory."""
-    O, K = rows.shape
+    in k order from zero, over slices of the output rows that bound the
+    index memory."""
+    B, J, K = tables.shifts.shape
+    O = B * J
     L = data.shape[1]
     flat = data.reshape(-1)
-    out = torch.zeros((O, out_len), dtype=data.dtype, device=data.device)
+    rows = tables.src_rows.to(torch.int64)[:, None, :].expand(B, J, K)
+    rows = rows.reshape(O, K)
+    shifts = tables.shifts.reshape(O, K).to(torch.int64)
+    dest = tables.out_rows.reshape(O).to(torch.int64)
+    out = torch.empty((O, out_len), dtype=data.dtype, device=data.device)
     t = torch.arange(out_len, device=data.device, dtype=torch.int64)
     step = max(1, _INDEX_BUDGET // max(out_len, 1))
     for o0 in range(0, O, step):
-        r = rows[o0:o0 + step].to(torch.int64)
-        s = shifts[o0:o0 + step].to(torch.int64)
+        acc = torch.zeros((min(step, O - o0), out_len), dtype=data.dtype,
+                          device=data.device)
+        r, s = rows[o0:o0 + step], shifts[o0:o0 + step]
         for k in range(K):
-            idx = (r[:, k] * L + s[:, k])[:, None] + t[None, :]
-            out[o0:o0 + step] += torch.take(flat, idx)
+            acc += torch.take(flat, (r[:, k] * L + s[:, k])[:, None] + t[None, :])
+        out[dest[o0:o0 + step]] = acc
     return out
 
 
-def _cuda_gather_sum(data, rows, shifts, out_len: int):
-    O, K = rows.shape
-    R, L = data.shape
+def _smem_bytes(K: int, jb: int, win_len: int) -> int:
+    """Shared memory of one block (the layout in csrc/gather_sum.cu,
+    which refuses a launch given less)."""
+    def align16(n):
+        return -(-n // 16) * 16
+
+    return (align16(align16(4 * K * jb) + 12 * K)
+            + _STAGES * 4 * ((win_len + 6) // 4 * 4))
+
+
+def launch_config(J: int, K: int, spreads: Tuple[int, ...]):
+    """(JB, E, threads, window length, shared bytes) of a launch: the
+    largest JB of ``_CONFIGS``, from the least that covers J down, whose
+    ring of windows of ``threads * E + spread`` samples fits in shared
+    memory. Raises ValueError when even one output row per block does not
+    fit."""
+    first = next(i for i, jb in enumerate(_JBS) if jb >= min(J, _JBS[-1]))
+    for i in range(first, -1, -1):
+        jb = _JBS[i]
+        e, threads = _CONFIGS[jb]
+        win_len = threads * e + spreads[i]
+        smem = _smem_bytes(K, jb, win_len)
+        if smem <= _MAX_SMEM:
+            return jb, e, threads, win_len, smem
+    raise ValueError(
+        f"gather-sum: a window of {win_len} samples over K={K} source "
+        f"rows needs {smem} bytes of shared memory, more than {_MAX_SMEM}")
+
+
+def _cuda_gather_sum(data, tables: GatherTables, out_len: int):
+    B, J, K = tables.shifts.shape
+    L = data.shape[1]
+    jb, e, threads, win_len, smem = launch_config(J, K, tables.bounds.spreads)
+    tile_runs = -(-out_len // (threads * e * _TILES_PER_BLOCK))
+    if B > _MAX_GRID_YZ or tile_runs > _MAX_GRID_YZ:
+        raise ValueError(f"B={B}, out_len={out_len} exceed the kernel's grid")
+    out = torch.empty((B * J, out_len), dtype=torch.float32, device=data.device)
+    if out.numel() == 0:
+        return out
     lib = _build.load("gather_sum")
-    if -(-out_len // lib.gather_sum_tile()) > _MAX_TILES or K > _MAX_K:
-        raise ValueError(f"out_len={out_len}, K={K} exceed the kernel's grid")
-    data = data.contiguous()
-    rows = rows.contiguous()
-    shifts = shifts.contiguous()
-    out = torch.empty((O, out_len), dtype=torch.float32, device=data.device)
+    data = data.contiguous()  # may start anywhere (a row of a view, say)
     fn = lib.gather_sum_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
-                                          ctypes.c_int, ctypes.c_int64,
-                                          ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(data.device).cuda_stream
-    _build.check(fn(data.data_ptr(), rows.data_ptr(), shifts.data_ptr(),
-                    out.data_ptr(), L, O, K, out_len, stream), "gather_sum")
-    shifted_gather_sum.launches += 1
+    _build.check(fn(data.data_ptr(), data.numel(), tables.src_rows.data_ptr(),
+                    tables.shifts.data_ptr(), tables.out_rows.data_ptr(),
+                    out.data_ptr(), L, B, J, K, out_len, jb, e, threads,
+                    win_len, smem, stream), "gather_sum")
+    shifted_gather_sum.launches[tables.stage] += 1
     return out
 
 
-def shifted_gather_sum(data: torch.Tensor, rows: torch.Tensor,
-                       shifts: torch.Tensor, out_len: int,
-                       bounds: Tuple[int, int, int, int]):
-    """``out[o, t] = sum_k data[rows[o, k], shifts[o, k] + t]`` for
-    ``t < out_len``.
+def shifted_gather_sum(data: torch.Tensor, tables: GatherTables,
+                       out_len: int) -> torch.Tensor:
+    """``out[out_rows[b, j], t] = sum_k data[src_rows[b, k],
+    shifts[b, j, k] + t]`` for ``t < out_len``; ``out`` is
+    ``[B * J, out_len]`` float32.
 
-    ``data`` is [R, L] float32; ``rows``/``shifts`` are [O, K] int32 on
-    the same device. ``bounds`` = (min_row, max_row, min_shift, max_shift)
-    of the tables, from :func:`table_bounds` on their host copies (the
-    sweep computes them once per plan). Every window must lie inside
-    ``data``: the check is made on the host from ``bounds`` and raises
-    rather than read out of bounds.
+    ``data`` is [R, L] float32 on the tables' device; ``tables`` come from
+    :func:`gather_tables`, whose host bounds let every window be checked
+    against ``data`` before anything runs (ValueError, never an
+    out-of-bounds read).
 
     A CPU tensor runs the plain PyTorch version; a CUDA tensor launches
-    ``csrc/gather_sum.cu`` (counted in ``shifted_gather_sum.launches``)."""
-    _check(data, rows, shifts, out_len, bounds)
+    ``csrc/gather_sum.cu``, counted in
+    ``shifted_gather_sum.launches[tables.stage]``."""
+    _check(data, tables, out_len)
     if data.device.type == "cpu":
-        return _torch_gather_sum(data, rows, shifts, out_len)
+        return _torch_gather_sum(data, tables, out_len)
     if data.device.type == "cuda":
-        return _cuda_gather_sum(data, rows, shifts, out_len)
+        return _cuda_gather_sum(data, tables, out_len)
     raise ValueError(f"no gather-sum for device {data.device}")
 
 
-shifted_gather_sum.launches = 0
+shifted_gather_sum.launches = collections.Counter()

@@ -13,10 +13,12 @@ the ``gather`` engine (the reference's bit-parity formulation):
 
 Both stages are one :func:`~pypulsar_tpu_torch.ops.gather_sum.shifted_gather_sum`
 each over ALL trial groups of a chunk (the reference scans the groups
-one by one): stage 1 reads ``rows[g*nsub + s, k] = s*per + k`` at the
-group's shifts, stage 2 indexes the stacked ``[G*nsub, L1]`` subbands
-with ``rows[g*gs + t, s] = g*nsub + s``. Groups are split, in order, only
-where the stacked subbands would pass :data:`SUBBAND_BUDGET_BYTES`.
+one by one), in its shared-source form: at stage 1 source set ``s`` is
+subband ``s``'s channels ``s*per + k``, read by every group ``j`` of the
+batch into row ``j*nsub + s``; at stage 2 source set ``g`` is group
+``g``'s stacked subbands ``g*nsub + s``, read by each of its trials ``i``
+into row ``g*gs + i``. Groups are split, in order, only where the stacked
+subbands would pass :data:`SUBBAND_BUDGET_BYTES`.
 
 SNR accumulation-order contract (the reference's): a single per-channel
 baseline (the f32 mean of the first streamed block, or the caller's) is
@@ -38,7 +40,11 @@ import torch.nn.functional as F
 from pypulsar_tpu_torch.core import psrmath
 from pypulsar_tpu_torch.core.device import resolve_device
 from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
-from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum, table_bounds
+from pypulsar_tpu_torch.ops.gather_sum import (
+    GatherTables,
+    gather_tables,
+    shifted_gather_sum,
+)
 
 DEFAULT_WIDTHS = (1, 2, 4, 8, 16, 32)
 DEFAULT_CHUNK_FFT_LEN = 1 << 18
@@ -184,12 +190,8 @@ class GroupBatch:
 
     g0: int
     g1: int
-    rows1: torch.Tensor
-    shifts1: torch.Tensor
-    bounds1: Tuple[int, int, int, int]
-    rows2: torch.Tensor
-    shifts2: torch.Tensor
-    bounds2: Tuple[int, int, int, int]
+    stage1: GatherTables
+    stage2: GatherTables
 
 
 def group_batches(stage1_bins: np.ndarray, stage2_bins: np.ndarray,
@@ -204,30 +206,28 @@ def group_batches(stage1_bins: np.ndarray, stage2_bins: np.ndarray,
     gs = stage2_bins.shape[1]
     per = C // nsub
     step = max(1, int(budget) // max(1, nsub * L1 * 4))
-    base1 = np.arange(C, dtype=np.int32).reshape(nsub, per)
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    src1 = np.arange(C, dtype=np.int32).reshape(nsub, per)
 
     out = []
     for g0 in range(0, G, step):
         g1 = min(G, g0 + step)
         n = g1 - g0
-        rows1 = np.tile(base1, (n, 1))
-        shifts1 = stage1_bins[g0:g1].reshape(n * nsub, per)
-        rows2 = np.repeat(
-            (np.arange(n, dtype=np.int32)[:, None] * nsub
-             + np.arange(nsub, dtype=np.int32)[None, :]), gs, axis=0)
-        shifts2 = stage2_bins[g0:g1].reshape(n * gs, nsub)
-        out.append(GroupBatch(
-            g0, g1, put(rows1), put(shifts1), table_bounds(rows1, shifts1),
-            put(rows2), put(shifts2), table_bounds(rows2, shifts2)))
+        j = np.arange(n, dtype=np.int32)
+        s = np.arange(nsub, dtype=np.int32)
+        stage1 = gather_tables(
+            src1, stage1_bins[g0:g1].reshape(n, nsub, per).transpose(1, 0, 2),
+            j[None, :] * nsub + s[:, None], device, "stage1")
+        stage2 = gather_tables(
+            j[:, None] * nsub + s[None, :], stage2_bins[g0:g1],
+            j[:, None] * gs + np.arange(gs, dtype=np.int32)[None, :], device,
+            "stage2")
+        out.append(GroupBatch(g0, g1, stage1, stage2))
     return out
 
 
 def _dedisperse_batch(data, b: GroupBatch, out_len: int, L1: int):
-    sub = shifted_gather_sum(data, b.rows1, b.shifts1, L1, b.bounds1)
-    return shifted_gather_sum(sub, b.rows2, b.shifts2, out_len, b.bounds2)
+    sub = shifted_gather_sum(data, b.stage1, L1)
+    return shifted_gather_sum(sub, b.stage2, out_len)
 
 
 def run_chunk(data, batches: Sequence[GroupBatch], out_len: int, L1: int,

@@ -1,6 +1,8 @@
 """Shifted gather-sum of the PyTorch port against the JAX reference.
 
-The port's plain version (what a CPU tensor runs) is held against
+The port's plain version (what a CPU tensor runs) takes shared-source
+tables; :func:`expand_tables` turns them into the reference's ``[O, K]``
+form, and the two are held against
 ``pypulsar_tpu.ops.pallas_dedisperse.shifted_gather_sum`` in interpret mode
 and its lax twin, and against a per-row numpy sum, on the same numpy
 inputs. Tolerance rtol = atol = 1e-5: the K windows are summed in another
@@ -17,7 +19,12 @@ from pypulsar_tpu.ops.pallas_dedisperse import (
     shifted_gather_sum as jax_gather_sum,
 )
 from pypulsar_tpu_torch.core import psrmath
-from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum, table_bounds
+from pypulsar_tpu_torch.ops import gather_sum as gs
+from pypulsar_tpu_torch.ops.gather_sum import (
+    expand_tables,
+    gather_tables,
+    shifted_gather_sum,
+)
 
 
 def _ref(data, rows, shifts, out_len):
@@ -29,9 +36,15 @@ def _ref(data, rows, shifts, out_len):
 
 
 def _port(data, rows, shifts, out_len):
-    return shifted_gather_sum(torch.from_numpy(data), torch.from_numpy(rows),
-                              torch.from_numpy(shifts), out_len,
-                              table_bounds(rows, shifts)).numpy()
+    """The generic [O, K] tables as O source sets of one output row."""
+    O, K = rows.shape
+    return _shared(data, rows, shifts[:, None, :],
+                   np.arange(O, dtype=np.int32)[:, None], out_len)
+
+
+def _shared(data, src_rows, shifts, out_rows, out_len):
+    tables = gather_tables(src_rows, shifts, out_rows, "cpu", "test")
+    return shifted_gather_sum(torch.from_numpy(data), tables, out_len).numpy()
 
 
 @pytest.mark.parametrize("backend", ["interpret", "lax"])
@@ -50,6 +63,96 @@ def test_gather_sum_matches_reference(O, K, out_len, backend):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got, _ref(data, rows, shifts, out_len),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["interpret", "lax"])
+@pytest.mark.parametrize("B,J,K,out_len", [(3, 20, 4, 700), (2, 9, 16, 1100),
+                                           (5, 1, 3, 257), (1, 33, 1, 300)])
+def test_shared_source_gather_sum_matches_reference(B, J, K, out_len,
+                                                    backend):
+    """Shared-source tables (J output rows per source set, J not a
+    multiple of the kernel's 16 or 8 rows per block, output rows in
+    shuffled order) equal the reference on their expanded [O, K] form."""
+    rng = np.random.default_rng(3)
+    R, L = 40, out_len + 3000
+    data = rng.standard_normal((R, L)).astype(np.float32)
+    src_rows = rng.integers(0, R, size=(B, K)).astype(np.int32)
+    shifts = rng.integers(0, L - out_len, size=(B, J, K)).astype(np.int32)
+    out_rows = rng.permutation(B * J).astype(np.int32).reshape(B, J)
+    rows, row_shifts = expand_tables(src_rows, shifts, out_rows)
+    ref = np.asarray(jax_gather_sum(data, rows, row_shifts, out_len,
+                                    backend=backend))
+    got = _shared(data, src_rows, shifts, out_rows, out_len)
+    assert got.dtype == np.float32 and got.shape == (B * J, out_len)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got, _port(data, rows, row_shifts, out_len))
+    b, j = divmod(int(np.argmax(out_rows.reshape(-1) == 0)), J)
+    np.testing.assert_allclose(
+        got[0], sum(data[src_rows[b, k], shifts[b, j, k]:
+                         shifts[b, j, k] + out_len] for k in range(K)),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_expand_tables_layout():
+    src_rows = np.array([[7, 8], [9, 10]], np.int32)
+    shifts = np.arange(12, dtype=np.int32).reshape(2, 3, 2)
+    out_rows = np.array([[5, 0, 2], [1, 4, 3]], np.int32)
+    rows, row_shifts = expand_tables(src_rows, shifts, out_rows)
+    np.testing.assert_array_equal(rows[[5, 0, 2]], [[7, 8]] * 3)
+    np.testing.assert_array_equal(rows[[1, 4, 3]], [[9, 10]] * 3)
+    np.testing.assert_array_equal(row_shifts[4], [8, 9])
+    np.testing.assert_array_equal(row_shifts[5], [0, 1])
+
+
+def test_table_bounds_spreads_per_rows_per_block():
+    """spreads[i] is the widest shift range of one source row over a
+    chunk of _JBS[i] = 1, 8, 16 output rows; a ragged last chunk counts
+    its real rows only."""
+    assert gs._JBS == (1, 8, 16)
+    shifts = np.zeros((1, 10, 2), np.int32)
+    shifts[0, :, 0] = [0, 1, 2, 3, 4, 5, 6, 7, 100, 90]
+    shifts[0, :, 1] = 4
+    bd = gs.table_bounds(np.zeros((1, 2), np.int32), shifts)
+    assert (bd.min_shift, bd.max_shift) == (0, 100)
+    assert bd.spreads == (0, 10, 100)
+
+
+def test_launch_config_narrows_rows_per_block_to_fit_shared_memory():
+    """The widest block that fits: 16 rows at small spreads (8 where J is
+    at most 8, 1 for the generic J = 1 form), fewer where the ring of four
+    windows of threads*E + spread samples passes the 227 KB a block may
+    use, and a ValueError where even one row does not fit."""
+    small = (0, 20, 20)
+    assert gs.launch_config(64, 16, small)[:4] == (16, 4, 128, 512 + 20)
+    assert gs.launch_config(8, 64, (0, 56, 56))[:4] == (8, 8, 256, 2048 + 56)
+    assert gs.launch_config(12, 16, small)[0] == 16
+    assert gs.launch_config(3, 16, small)[0] == 8
+    assert gs.launch_config(1, 1024, small)[:3] == (1, 8, 256)
+    jb, e, threads, win, smem = gs.launch_config(64, 16, (0, 2000, 2000))
+    assert (jb, win) == (16, 512 + 2000) and smem <= gs._MAX_SMEM
+    wide = (0, 11000, 14000)  # 16 rows: 4*4*(512+14000) > 227 KB
+    jb, e, threads, win, smem = gs.launch_config(64, 16, wide)
+    assert (jb, e, win) == (8, 8, 2048 + 11000) and smem <= gs._MAX_SMEM
+    wider = (0, 14000, 14000)  # 8 rows: 4*4*(2048+14000) > 227 KB
+    assert gs.launch_config(64, 16, wider)[:4] == (1, 8, 256, 2048)
+    with pytest.raises(ValueError, match="shared memory"):
+        gs.launch_config(64, 15000, (0, 0, 0))
+    with pytest.raises(ValueError, match="shared memory"):
+        gs.launch_config(64, 16, (60000,) * 3)
+
+
+def test_gather_tables_refuse_a_bad_layout():
+    src = np.zeros((2, 3), np.int32)
+    shifts = np.zeros((2, 4, 3), np.int32)
+    ok = np.arange(8, dtype=np.int32).reshape(2, 4)
+    gather_tables(src, shifts, ok, "cpu", "x")
+    with pytest.raises(ValueError, match="permutation"):
+        gather_tables(src, shifts, np.zeros((2, 4), np.int32), "cpu", "x")
+    with pytest.raises(ValueError):
+        gather_tables(src[:, :2], shifts, ok, "cpu", "x")
+    with pytest.raises(ValueError):
+        gather_tables(np.zeros((2, 0), np.int32), shifts[:, :, :0], ok,
+                      "cpu", "x")
 
 
 def test_gather_sum_sums_in_k_order():
@@ -106,9 +209,12 @@ def test_gather_sum_refuses_out_of_bounds(case):
 
 def test_gather_sum_rejects_bad_types():
     data = torch.zeros((4, 100))
-    rows = torch.zeros((2, 3), dtype=torch.int64)
+    tables = gather_tables(np.zeros((2, 3)), np.zeros((2, 1, 3)),
+                           np.arange(2)[:, None], "cpu", "x")
+    assert shifted_gather_sum(data, tables, 10).shape == (2, 10)
     with pytest.raises(ValueError):
-        shifted_gather_sum(data, rows, rows, 10, (0, 0, 0, 0))
+        shifted_gather_sum(data.double(), tables, 10)
     with pytest.raises(ValueError):
-        shifted_gather_sum(data.double(), rows.int(), rows.int(), 10,
-                           (0, 0, 0, 0))
+        shifted_gather_sum(data[0], tables, 10)
+    with pytest.raises(ValueError):
+        shifted_gather_sum(data.to("meta"), tables, 10)

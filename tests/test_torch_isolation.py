@@ -121,12 +121,17 @@ def test_kernel_wrappers_dispatch_on_tensor_device():
     import torch
 
     from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
-    from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
+    from pypulsar_tpu_torch.ops.gather_sum import (
+        gather_tables,
+        shifted_gather_sum,
+    )
 
-    n0, m0 = shifted_gather_sum.launches, boxcar_stats.launches
+    n0, m0 = dict(shifted_gather_sum.launches), boxcar_stats.launches
     data = torch.ones((4, 64))
-    idx = torch.zeros((2, 3), dtype=torch.int32)
-    out = shifted_gather_sum(data, idx, idx, 32, (0, 0, 0, 0))
+    tables = gather_tables(np.zeros((1, 3)), np.zeros((1, 2, 3)),
+                           np.arange(2)[None, :], "cpu", "stage1")
+    out = shifted_gather_sum(data, tables, 32)
     assert torch.equal(out, torch.full((2, 32), 3.0))
     boxcar_stats(out, (1, 2), 16)
-    assert (shifted_gather_sum.launches, boxcar_stats.launches) == (n0, m0)
+    assert (dict(shifted_gather_sum.launches), boxcar_stats.launches) == \
+        (n0, m0)

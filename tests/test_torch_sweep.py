@@ -131,6 +131,37 @@ def test_group_batches_split_in_order_and_agree():
                                    rtol=0, atol=0)
 
 
+def test_group_batches_expand_to_the_generic_layout():
+    """The shared-source tables of each batch expand to the generic [O, K]
+    tables of one launch over all groups: stage 1 reads
+    ``rows1[g*nsub + s, k] = s*per + k`` at the group's shifts, stage 2
+    ``rows2[g*gs + t, s] = g*nsub + s`` at the trial's."""
+    from pypulsar_tpu_torch.ops.gather_sum import expand_tables
+
+    plan = sweep.make_sweep_plan(np.linspace(0, 200, 20), _freqs(), 5e-4,
+                                 nsub=16, group_size=4)
+    L1 = 1032 + plan.max_shift2
+    split = sweep.group_batches(plan.stage1_bins, plan.stage2_bins, 16, L1,
+                                "cpu", budget=2 * 16 * L1 * 4)
+    per, gs = 64 // 16, plan.group_size
+    for b in split:
+        n = b.g1 - b.g0
+        rows1 = np.tile(np.arange(64, dtype=np.int32).reshape(16, per),
+                        (n, 1))
+        shifts1 = plan.stage1_bins[b.g0:b.g1].reshape(n * 16, per)
+        rows2 = np.repeat(np.arange(n)[:, None] * 16 + np.arange(16)[None, :],
+                          gs, axis=0)
+        shifts2 = plan.stage2_bins[b.g0:b.g1].reshape(n * gs, 16)
+        for tables, rows, shifts in ((b.stage1, rows1, shifts1),
+                                     (b.stage2, rows2, shifts2)):
+            got = expand_tables(*(t.numpy() for t in tables[:3]))
+            np.testing.assert_array_equal(got[0], rows)
+            np.testing.assert_array_equal(got[1], shifts)
+        assert (b.stage1.stage, b.stage2.stage) == ("stage1", "stage2")
+        assert b.stage1.shifts.shape == (16, n, per)
+        assert b.stage2.shifts.shape == (n, gs, 16)
+
+
 def test_sweep_spectra_matches_reference():
     rng = np.random.default_rng(7)
     C, T, dt = 64, 6000, 1e-3
