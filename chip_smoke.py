@@ -34,18 +34,43 @@ Phases, each of which raises on failure (exit code 1, no result lines):
 4. the main path: ``python -m pypulsar_tpu_torch.cli.sweep``'s entry point
    on a 1024-channel, 2^20-sample 8-bit file with a pulsar at DM 70, over
    1024 trials; the pulsar must be found and every kernel (gather-sum
-   of stage 1, of stage 2, boxcar) must have been launched by that run.
+   of stage 1, of stage 2, boxcar) must have been launched by that run;
+5. the acceleration search on the card against the port on the CPU, on
+   8 seeded series of 2^15 samples (tones, drifting tones, a weak tone,
+   noise): the normalized spectra within 2e-5 of the largest magnitude,
+   the candidates under the matched-candidate contract (dr, dz, dsig) =
+   (0.5, 1.0, 0.5) above sigma_min + 0.5, and the card's candidates the
+   same bits searched as one batch of 8 or two of 4; then a probe
+   (printed, not a check) of whether cuFFT keeps a spectrum's bits when
+   the search's transforms are batched, and what batching saves;
+6. the survey's sweep stage on the same file, through the same entry
+   point: ``--accel-search --write-dats`` over 32 trials from DM 54
+   (the survey's defaults: zmax 200, 8 harmonics, sigma 2, batch 32).
+   First its kernels at its own shapes against the plain versions (both
+   gather-sum stages of the single-pulse pass's plan and of the series
+   pass's, at the group size the stage picks, and boxcar on the
+   single-pulse pass's series; exact, and boxcar as in phase 2; run
+   before phase 4 on the file phase 4 reads).
+   Every artifact must be written, the DM-70 table must hold a harmonic
+   of the pulsar's 3.8147 Hz with |z| <= 2 and sigma > 10, the series
+   pass must have launched both gather-sum stages (counted apart from
+   the single-pulse pass), and the DM-70 ``.dat`` must equal the series
+   the handoff searched. Then the handoff once more, over 8 trials,
+   under ``torch.profiler``: device time by op family and idle share.
 
 Then one JSON line of per-kernel numbers, the card line, and the last
 line ``{"ok": true, "device": {...}}``.
 """
 
+import collections
+import glob
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from fractions import Fraction
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -391,14 +416,27 @@ def check_small_sweep(tmp):
           f"best DM {a.best(1)[0]['dm']}")
 
 
-def main_path(tmp):
-    """The CLI's entry point on the full-width file; returns its numbers."""
-    import torch
-
-    from pypulsar_tpu_torch.cli import sweep as cli
-    from pypulsar_tpu_torch.io.synth import write_synthetic_fil
+def launch_counts() -> dict:
+    """Every kernel's launch count, by the kernels line's names."""
     from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
     from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
+
+    return {"gather_sum/stage1": shifted_gather_sum.launches["stage1"],
+            "gather_sum/stage2": shifted_gather_sum.launches["stage2"],
+            "boxcar_stats": boxcar_stats.launches}
+
+
+def reset_launch_counts() -> None:
+    from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
+    from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
+
+    shifted_gather_sum.launches.clear()
+    boxcar_stats.launches = 0
+
+
+def write_obs(tmp):
+    """The full-width file both driven paths read."""
+    from pypulsar_tpu_torch.io.synth import write_synthetic_fil
 
     fn = os.path.join(tmp, "obs.fil")
     t0 = time.perf_counter()
@@ -409,19 +447,25 @@ def main_path(tmp):
     print(f"wrote {info['nsamp']} x {info['nchan']} 8-bit samples "
           f"({os.path.getsize(fn) / 1e9:.3f} GB) in "
           f"{time.perf_counter() - t0:.1f} s")
+    return fn, info
+
+
+def main_path(tmp, fn, info):
+    """The CLI's entry point on the full-width file; returns its numbers."""
+    import torch
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+
     out = os.path.join(tmp, "obs")
     argv = [fn, "--lodm", "0", "--dmstep", "0.5", "--numdms", "1024",
             "--nsub", "64", "-o", out, "--device", "cuda"]
-    shifted_gather_sum.launches.clear()
-    boxcar_stats.launches = 0
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"gather_sum/stage1": shifted_gather_sum.launches["stage1"],
-                "gather_sum/stage2": shifted_gather_sum.launches["stage2"],
-                "boxcar_stats": boxcar_stats.launches}
+    launches = launch_counts()
     if rc != 0:
         fail(f"sweep CLI exited {rc}")
     if min(launches.values()) < 1:
@@ -467,6 +511,395 @@ def profile_main_path(cli, argv):
         "top": [[k[:80], round(v[0], 3), v[1]] for k, v in top]}))
 
 
+ACCEL_BATTERY = [  # (f0 Hz, z bins over T, amplitude)
+    (37.0, 0.0, 0.30), (61.0, 0.0, 0.18), (43.0, 8.0, 0.25),
+    (29.0, -12.0, 0.25), (53.0, 4.0, 0.10), (71.0, 0.0, 0.07),
+    (47.0, 0.0, 0.0), (83.0, -4.0, 0.20)]
+
+
+def unmatched(a, b, floor, dr=0.5, dz=1.0, dsig=0.5):
+    """Candidates of ``a`` above ``floor`` with no partner in ``b`` within
+    (dr, dz, dsig): the matched-candidate contract's violations."""
+    return [c for c in a if c.sigma > floor and not any(
+        abs(c.r - o.r) < dr and abs(c.z - o.z) < dz
+        and abs(c.sigma - o.sigma) < dsig for o in b)]
+
+
+def check_small_accel(device):
+    """Prep and search on the card against the port on the CPU."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.fourier import accelsearch as accel
+    from pypulsar_tpu_torch.fourier import kernels
+
+    n, dt = 1 << 15, 2.5e-4
+    T = n * dt
+    t = np.arange(n) * dt
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for f0, z, amp in ACCEL_BATTERY:
+        ts = rng.standard_normal(n).astype(np.float32)
+        ts += (amp * np.cos(2 * np.pi * (f0 * t + 0.5 * z / T ** 2 * t * t))
+               ).astype(np.float32)
+        rows.append(ts)
+    series = np.stack(rows)
+    cfg = accel.AccelSearchConfig(zmax=20.0, dz=2.0, numharm=4,
+                                  sigma_min=3.0, seg_width=1 << 12)
+    card = kernels.prep_spectra_batch(series, device=device)
+    cpu = kernels.prep_spectra_batch(series, device="cpu")
+    prep_err = float((card.cpu() - cpu).abs().max()
+                     / cpu[:, 1:].abs().max())
+    if not prep_err < 2e-5:
+        fail(f"small accel: card and CPU spectra differ by {prep_err:.3g} "
+             f"of the largest magnitude")
+    got = accel.accel_search_batch(card, T, cfg, device=device)
+    want = accel.accel_search_batch(cpu, T, cfg, device="cpu")
+    bound = cfg.sigma_min + 0.5
+    for i, (g, w) in enumerate(zip(got, want)):
+        bad = unmatched(g, w, bound) + unmatched(w, g, bound)
+        if bad:
+            fail(f"small accel: spectrum {i} breaks the matched-candidate "
+                 f"contract: {bad[:3]}")
+    detecting = sum(any(c.sigma > bound for c in g) for g in got)
+    if detecting < 6:
+        fail(f"small accel: only {detecting}/8 spectra detect a tone")
+    # the same spectra prepped and searched as two batches of 4
+    halves = []
+    for s in (slice(0, 4), slice(4, 8)):
+        halves += accel.accel_search_batch(
+            kernels.prep_spectra_batch(series[s], device=device), T, cfg,
+            device=device)
+    torch.cuda.synchronize()
+    if halves != got:
+        fail("small accel: the card's candidates differ between one batch "
+             "of 8 and two batches of 4")
+    print(f"small accel (8 x 2^15 samples, zmax 20, 4 harmonics, card vs "
+          f"CPU): spectra max abs diff {prep_err:.3g} of the largest "
+          f"magnitude; candidates {sum(map(len, got))} card / "
+          f"{sum(map(len, want))} CPU, every one above {bound} matched; "
+          f"{detecting}/8 spectra detect; batch of 8 and 2 x 4 on the card: "
+          f"identical candidates")
+
+
+def probe_batched_transforms(device):
+    """Whether cuFFT gives a spectrum the same bits transformed alone and
+    in a batch, at the shapes of the stage's search (a segment slice of
+    L = 32,768 at an odd offset of the padded spectra, and the inverse
+    FFT of its product with a 402-row bank) and of its prep (rfft of 2^20
+    samples), and the device time of each form. The search transforms
+    each spectrum alone (``accelsearch._run_stage_batch``); this measures
+    what batching them would keep and save."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+
+    def crandn(*shape):
+        return torch.complex(
+            torch.randn(shape, generator=gen, device=device),
+            torch.randn(shape, generator=gen, device=device))
+
+    L, rows, start = 32768, 402, 4097
+    tf = crandn(rows, L)
+    res = {}
+    for B in (8, 32):
+        pad = crandn(B, 2 * L + 13)
+        one = torch.stack([torch.fft.fft(pad[b, start:start + L])
+                           for b in range(B)])
+        many = torch.fft.fft(pad[:, start:start + L])
+        fwd_same = torch.equal(one, many)
+        big = torch.fft.ifft(many[:, None] * tf, dim=2)
+        inv_same = all(torch.equal(torch.fft.ifft(many[b] * tf, dim=1),
+                                   big[b]) for b in range(B))
+        del big, one
+
+        def fwd_alone():
+            for b in range(B):
+                torch.fft.fft(pad[b, start:start + L])
+
+        def inv_alone():
+            for b in range(B):
+                torch.fft.ifft(many[b] * tf, dim=1)
+
+        res[f"B={B}"] = {
+            "fft_same_bits": fwd_same, "ifft_same_bits": inv_same,
+            "fft_ms_alone": cuda_time_ms(fwd_alone, reps=3),
+            "fft_ms_batched": cuda_time_ms(
+                lambda: torch.fft.fft(pad[:, start:start + L]), reps=3),
+            "ifft_ms_alone": cuda_time_ms(inv_alone, reps=3),
+            "ifft_ms_batched": cuda_time_ms(
+                lambda: torch.fft.ifft(many[:, None] * tf, dim=2), reps=3)}
+        del pad, many
+        torch.cuda.empty_cache()
+    series = torch.randn((32, 1 << 20), generator=gen, device=device)
+    one = torch.stack([torch.fft.rfft(row) for row in series])
+    res["rfft 32 x 2^20"] = {
+        "same_bits": torch.equal(one, torch.fft.rfft(series)),
+        "ms_alone": cuda_time_ms(
+            lambda: [torch.fft.rfft(row) for row in series], reps=3),
+        "ms_batched": cuda_time_ms(lambda: torch.fft.rfft(series), reps=3)}
+    del series, one, tf
+    torch.cuda.empty_cache()
+    print("fft batching probe: " + json.dumps(res))
+
+
+class Timed:
+    """For one run, wrap ``module.name`` to add up the wall seconds of its
+    calls (the device synchronized at the end of each), the kernel
+    launches inside them, and keep its last result."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.seconds, self.calls, self.result = 0.0, 0, None
+        self.launches = collections.Counter()
+
+    def __enter__(self):
+        import torch
+
+        def wrapper(*a, **kw):
+            before = collections.Counter(launch_counts())
+            t0 = time.perf_counter()
+            out = self.real(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.launches.update(collections.Counter(launch_counts())
+                                 - before)
+            self.result = out
+            return out
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+STAGE_LODM, STAGE_DMS = 54, 32  # the sweep stage's trials: DM 54..85
+
+
+def check_stage_kernels(fn, device):
+    """The kernels at the sweep stage's own shapes, on the card against
+    the plain versions: both gather-sum stages of the first trial-group
+    batch of each pass's plan (the single-pulse pass with the sweep's
+    widths, the series pass with one width, both at the group size the
+    stage picks over its whole grid), and boxcar on the single-pulse
+    pass's series. Random channels; any difference fails."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.parallel import staged, sweep
+
+    dms = STAGE_LODM + 1.0 * np.arange(STAGE_DMS)
+    with FilterbankFile(fn) as r:
+        src = staged.ReaderSource(r)
+        g = sweep.choose_group_size(dms, src.frequencies, src.tsamp, 64)
+        plan, payload, _ = staged.step_geometry(
+            src, dms, 1, 64, g, sweep.DEFAULT_WIDTHS, None)
+        passes = {"single-pulse pass": (plan, payload,
+                                        payload + max(plan.widths))}
+        plan, payload, _ = staged.dats_geometry(r, dms, nsub=64,
+                                                group_size=g)
+        passes["series pass"] = (plan, payload, payload)
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    done = []
+    for what, (plan, payload, out_len) in passes.items():
+        L1 = out_len + plan.max_shift2
+        b = sweep.group_batches(plan.stage1_bins, plan.stage2_bins,
+                                plan.nsub, L1, device)[0]
+        data = torch.randn((len(plan.freqs), L1 + plan.max_shift1),
+                           generator=gen, device=device)
+        sub, _ = check_gather_exact(f"{what} stage 1", data, b.stage1, L1)
+        del data
+        ts, _ = check_gather_exact(f"{what} stage 2", sub, b.stage2, out_len)
+        del sub
+        B1, J1, _ = b.stage1.shifts.shape
+        line = (f"{what} (group {plan.group_size}, widths "
+                f"{list(plan.widths)}): stage 1 -> [{B1 * J1}x{L1}], "
+                f"stage 2 -> [{ts.shape[0]}x{out_len}] exact")
+        if plan.widths != (1,):
+            err, n_diff = compare_boxcar(what, ts, plan.widths, payload)
+            line += (f", boxcar stat_len {payload}: max abs err {err:.3g}, "
+                     f"{n_diff} argbox cells differ")
+        done.append(line)
+        del ts
+    torch.cuda.empty_cache()
+    print("sweep stage kernels equal the plain versions: "
+          + "; ".join(done))
+
+
+def stage_argv(fn, out, lodm, numdms, extra=()):
+    """The sweep stage's argv with the survey's defaults."""
+    return [fn, "--lodm", str(lodm), "--dmstep", "1", "--numdms",
+            str(numdms), "--nsub", "64", "--group-size", "0", "--threshold",
+            "6", "-o", out, "--device", "cuda", "--accel-search",
+            "--accel-zmax", "200", "--accel-dz", "2", "--accel-numharm", "8",
+            "--accel-sigma", "2", "--accel-batch", "32", *extra]
+
+
+def stage_path(tmp, fn, info):
+    """The sweep stage with its streamed handoff at full width; returns
+    the launches of its two passes."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.fourier import accelsearch as accel
+    from pypulsar_tpu_torch.io.prestocand import read_rzwcands
+    from pypulsar_tpu_torch.parallel import accelpipe, staged
+
+    out = os.path.join(tmp, "stage")
+    D, lodm = STAGE_DMS, STAGE_LODM
+    argv = stage_argv(fn, out, lodm, D, ["--write-dats"])
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with Timed(staged, "sweep_flat") as sp, \
+            Timed(accelpipe, "sweep_accel_stream") as ho, \
+            Timed(accelpipe, "stream_series") as ser, \
+            Timed(accelpipe, "accel_search_batch") as srch:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0:
+        fail(f"sweep stage exited {rc}")
+    if min(launches.values()) < 1:
+        fail(f"a kernel was not launched on the sweep stage: {launches}")
+    for what, counts in (("single-pulse pass", sp.launches),
+                         ("series pass", ser.launches)):
+        if min(counts["gather_sum/stage1"], counts["gather_sum/stage2"]) < 1:
+            fail(f"the {what} launched no gather-sum stage: {dict(counts)}")
+    dms = lodm + np.arange(D)
+    want = {".dat": D, ".inf": D, "_ACCEL_200.cand": D,
+            "_ACCEL_200.txtcand": D}
+    for suffix, n in want.items():
+        got = len(glob.glob(f"{out}_DM*{suffix}"))
+        if got != n:
+            fail(f"sweep stage wrote {got} {suffix} files, not {n}")
+    if not os.path.exists(out + ".cands"):
+        fail("sweep stage wrote no .cands")
+    i70 = int(np.nonzero(dms == 70)[0][0])
+    series = ser.result[0]
+    dat = np.fromfile(f"{out}_DM70.00.dat", dtype=np.float32)
+    if not np.array_equal(dat, series[i70]):
+        fail("the DM-70 .dat differs from the series the handoff searched")
+    if not np.isfinite(series).all() or series.shape != (D, info["nsamp"]):
+        fail(f"series buffer misshapen or non-finite: {series.shape}")
+    T = info["nsamp"] * info["tsamp"]
+    f0 = 1.0 / (info["period_samples"] * info["tsamp"])
+    cands = read_rzwcands(f"{out}_DM70.00_ACCEL_200.cand")
+
+    def harmonic(c):
+        k = (c.r / T) / f0
+        return k > 0.5 and abs(k - round(k)) < 0.02
+
+    hits = [c for c in cands[:10] if harmonic(c) and abs(c.z) <= 2.0
+            and c.sig > 10]
+    if not hits:
+        fail(f"the DM-70 table holds no harmonic of {f0:.4f} Hz with "
+             f"|z| <= 2 and sigma > 10: {cands[:5]}")
+    # the host's bank build, which the stage's first search call paid
+    # for, timed once more from an empty cache; then the stage chunks the
+    # search planned (host arithmetic on the banks)
+    cfg = accel.AccelSearchConfig()
+    N = info["nsamp"] // 2 + 1
+    accel._BANK_CACHE.clear()
+    accel._BANK_CACHE_BYTES[0] = 0
+    t0 = time.perf_counter()
+    setup = accel._search_setup(N, T, cfg)
+    bank_build_s = time.perf_counter() - t0
+    banks = setup[6]
+    chunks = {}
+    for H in cfg.stages:
+        fixed = accel._stage_fixed_bytes(
+            [banks[Fraction(b, H)][0] for b in range(1, H + 1)])
+        per = accel._stage_chunk_bytes(len(cfg.zs), 1, cfg.seg_width)
+        chunks[H] = max(1, min(D, (int(accel.ACCEL_HBM_BYTES) - fixed)
+                               // per))
+    accel_s = ho.seconds - ser.seconds
+    numbers = {
+        "trials": D, "samples": info["nsamp"], "spectral_bins": N,
+        "wall_s": wall, "single_pulse_s": sp.seconds, "handoff_s": ho.seconds,
+        "series_s": ser.seconds, "accel_s": accel_s,
+        "search_calls_s": srch.seconds, "search_calls": srch.calls,
+        "bank_build_s": bank_build_s,
+        "spectra_per_s": D / accel_s, "peak_device_gb": peak_gb,
+        "stage_chunk_spectra": chunks,
+        "launches": launches,
+        "launches_single_pulse": dict(sp.launches),
+        "launches_series": dict(ser.launches),
+        "dm70_best": [{"r": c.r, "z": c.z, "sigma": c.sig,
+                       "harmonic": round((c.r / T) / f0)} for c in hits[:3]]}
+    print("stage: " + json.dumps(numbers))
+    profile_handoff(cli, fn, os.path.join(tmp, "prof"))
+    return sp.launches, ser.launches
+
+
+# op families of the handoff's device time, by the aten op that launched
+# each kernel (its self device time)
+FAMILIES = (
+    ("fft/ifft", ("fft",)),
+    ("multiply, |.|^2", ("aten::mul", "aten::abs", "aten::square",
+                         "aten::pow")),
+    ("stretch gather + accumulate", ("aten::index_select", "aten::gather",
+                                     "aten::add")),
+    ("topk/detection", ("aten::topk", "aten::ge", "aten::gt",
+                        "aten::bitwise_and", "aten::__and__", "aten::where",
+                        "aten::constant_pad_nd", "aten::index",
+                        "aten::full_like", "aten::stack")),
+    ("deredden sort", ("aten::sort",)),
+)
+
+
+def profile_handoff(cli, fn, out):
+    """The handoff (``--accel-only``) over 8 trials from DM 66 under
+    torch.profiler: device time by op family, and the device's idle
+    share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    argv = stage_argv(fn, out, 66, 8, ["--accel-only"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            fail("profiled handoff failed")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernel_ms, copy_ms, ours = 0.0, 0.0, 0.0
+    fam, other = collections.Counter(), collections.Counter()
+    top = []
+    for ev in prof.key_averages():
+        ms = ev.self_device_time_total / 1e3
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if "Memcpy" in ev.key or "Memset" in ev.key:
+                copy_ms += ms
+            else:
+                kernel_ms += ms
+                top.append((ev.key[:70], round(ms, 3), ev.count))
+            if "gather_sum" in ev.key or "boxcar" in ev.key:
+                ours += ms
+        elif ms > 0:
+            name = next((f for f, keys in FAMILIES
+                         if any(k in ev.key for k in keys)), "other ops")
+            fam[name] += ms
+            if name == "other ops":
+                other[ev.key] += ms
+    fam["dedispersion kernels (gather-sum)"] = ours
+    top.sort(key=lambda r: -r[1])
+    print("handoff profile: " + json.dumps({
+        "trials": 8, "wall_ms": wall_ms, "kernel_ms": kernel_ms,
+        "copy_ms": copy_ms, "idle_share": 1.0 - kernel_ms / wall_ms,
+        "by_family_ms": dict(fam),
+        "other_ops_ms": dict(other.most_common(8)),
+        "top_kernels": top[:12]}))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -492,11 +925,20 @@ def main() -> int:
     check_boxcar(device, report, ts, payload)
     del ts
     torch.cuda.empty_cache()
+    check_small_accel(device)
+    probe_batched_transforms(device)
     with tempfile.TemporaryDirectory() as tmp:
         check_small_sweep(tmp)
-        launches, _ = main_path(tmp)
+        fn, info = write_obs(tmp)
+        check_stage_kernels(fn, device)
+        launches, _ = main_path(tmp, fn, info)
+        stage_sp, stage_series = stage_path(tmp, fn, info)
     for k in report:
         k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {
+            "sweep_1024_trials": launches[k["name"]],
+            "stage_single_pulse_pass": stage_sp[k["name"]],
+            "stage_series_pass": stage_series[k["name"]]}
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Flat DM sweep of a SIGPROC filterbank from the command line.
+"""Flat DM sweep of a SIGPROC filterbank from the command line: the
+survey's sweep stage.
 
 Port of the flat single-file mode of ``pypulsar_tpu/cli/sweep.py``: sweep
 ``--numdms`` trials from ``--lodm`` in steps of ``--dmstep`` on the card
@@ -7,6 +8,13 @@ list ``{outbase}.cands`` in the reference's format::
 
     # DM      SNR      time_s       sample    width_bins  downsamp
     80.0000   12.310   0.700000     700       2           1
+
+``--accel-search`` then streams every trial's dedispersed series into the
+batched acceleration search and writes
+``{outbase}_DM{dm:.2f}_ACCEL_{zmax}.cand/.txtcand`` and ``.inf`` sidecars
+(``--write-dats`` adds the ``.dat`` series); ``--accel-only`` skips the
+single-pulse pass. ``--write-dats`` alone writes the ``.dat``/``.inf``
+series after the single-pulse pass.
 
 Run as ``python -m pypulsar_tpu_torch.cli.sweep FILE.fil --numdms N ...``.
 """
@@ -20,6 +28,19 @@ import numpy as np
 
 from pypulsar_tpu_torch.resilience.dataguard import finite_rows
 from pypulsar_tpu_torch.resilience.journal import atomic_write_text
+
+#: flags of the reference's sweep stage that the port does not take yet,
+#: with the ROADMAP.md item that brings each
+NOT_PORTED = {
+    "mask": ("--mask", "Queue 1 S2 (rfifind masks)"),
+    "mesh": ("--mesh", "Queue 1 item 14 (multi-GPU)"),
+    "spectral": ("--spectral", "Queue 1 item 13 (spectral fusion)"),
+    "journal": ("--journal", "Queue 1 S1 (checkpoint/resume)"),
+    "accel_skip_existing": ("--accel-skip-existing",
+                            "Queue 1 S1 (checkpoint/resume)"),
+    "no_accel_device_prep": ("--no-accel-device-prep",
+                             "Queue 1 S9 (host prep of the accel search)"),
+}
 
 
 def write_cands(path, cands) -> None:
@@ -37,10 +58,11 @@ def write_cands(path, cands) -> None:
     atomic_write_text(path, "".join(lines))
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="sweep",
-        description="Flat DM-trial sweep of a .fil file on the GPU")
+        description="Flat DM-trial sweep of a .fil file on the GPU, with "
+                    "the streamed acceleration search")
     ap.add_argument("infile", help="SIGPROC .fil input (8/4/2/1/16-bit)")
     ap.add_argument("-o", "--outbase", default=None,
                     help="output basename (default: input sans extension)")
@@ -71,9 +93,61 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
+    ap.add_argument("--write-dats", action="store_true",
+                    help="also write per-DM .dat/.inf series, streamed "
+                         "(prepsubband semantics); with --accel-search a "
+                         "tee of the handoff's own stream")
+    ap.add_argument("--accel-search", action="store_true",
+                    help="after the sweep, stream every DM trial's "
+                         "dedispersed series into the batched acceleration "
+                         "search and write {outbase}_DM*_ACCEL_*.cand files")
+    ap.add_argument("--accel-only", action="store_true",
+                    help="with --accel-search: skip the single-pulse sweep "
+                         "pass and its .cands")
+    ap.add_argument("--accel-zmax", type=float, default=200.0,
+                    help="accel: max drift in Fourier bins (default 200)")
+    ap.add_argument("--accel-dz", type=float, default=2.0,
+                    help="accel: drift step in bins (default 2)")
+    ap.add_argument("--accel-numharm", type=int, default=8,
+                    choices=(1, 2, 4, 8),
+                    help="accel: max harmonics summed (default 8)")
+    ap.add_argument("--accel-sigma", type=float, default=2.0,
+                    help="accel: candidate significance floor (default 2)")
+    ap.add_argument("--accel-batch", type=int, default=32,
+                    help="accel: spectra per search dispatch against the "
+                         "shared template banks (default 32)")
+    ap.add_argument("--accel-max-cands", type=int, default=200,
+                    help="accel: cap on written candidates per trial "
+                         "(default 200)")
+    ap.add_argument("--accel-prefetch", type=int, default=1,
+                    help="accel: batches prepped ahead of the search "
+                         "(0 = inline). Default 1")
+    not_ported = "not ported yet: ROADMAP.md "
+    ap.add_argument("--mask", dest="mask", default=None,
+                    help=not_ported + NOT_PORTED["mask"][1])
+    ap.add_argument("--mesh", type=int, default=0,
+                    help=not_ported + NOT_PORTED["mesh"][1])
+    ap.add_argument("--spectral", action="store_true",
+                    help=not_ported + NOT_PORTED["spectral"][1])
+    ap.add_argument("--journal", default=None,
+                    help=not_ported + NOT_PORTED["journal"][1])
+    ap.add_argument("--accel-skip-existing", action="store_true",
+                    help=not_ported + NOT_PORTED["accel_skip_existing"][1])
+    ap.add_argument("--no-accel-device-prep", action="store_true",
+                    help=not_ported + NOT_PORTED["no_accel_device_prep"][1])
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = _parser()
     args = ap.parse_args(argv)
+    for dest, (flag, item) in NOT_PORTED.items():
+        if getattr(args, dest):
+            ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
     if args.downsamp < 1:
         ap.error("--downsamp must be >= 1")
+    if args.accel_only and not args.accel_search:
+        ap.error("--accel-only requires --accel-search")
 
     from pypulsar_tpu_torch.io.filterbank import FilterbankFile
     from pypulsar_tpu_torch.parallel.staged import sweep_flat
@@ -82,19 +156,54 @@ def main(argv=None) -> int:
     outbase = args.outbase or os.path.splitext(args.infile)[0]
     dms = args.lodm + args.dmstep * np.arange(args.numdms)
     with FilterbankFile(args.infile) as reader:
-        staged = sweep_flat(reader, dms, downsamp=args.downsamp,
-                            nsub=args.nsub, group_size=args.group_size,
-                            widths=widths, chunk_payload=args.chunk,
-                            verbose=True, engine=args.engine,
-                            device=args.device)
-    hits = staged.above_threshold(args.threshold)
-    write_cands(outbase + ".cands", hits)
-    print(f"# {staged.n_trials} DM trials swept; {len(hits)} detections "
-          f">= {args.threshold} sigma -> {outbase}.cands")
-    for c in staged.best(args.topk):
-        print(f"DM {c['dm']:8.3f}  SNR {c['snr']:7.2f}  t "
-              f"{c['time_sec']:10.4f}s  width {c['width_bins']:3d} bins "
-              f"({c['width_sec']*1e3:.2f} ms)  ds {c['downsamp']}")
+        if not args.accel_only:
+            staged = sweep_flat(reader, dms, downsamp=args.downsamp,
+                                nsub=args.nsub, group_size=args.group_size,
+                                widths=widths, chunk_payload=args.chunk,
+                                verbose=True, engine=args.engine,
+                                device=args.device)
+            # publish the single-pulse artifacts before the accel stage
+            hits = staged.above_threshold(args.threshold)
+            write_cands(outbase + ".cands", hits)
+            print(f"# {staged.n_trials} DM trials swept; {len(hits)} "
+                  f"detections >= {args.threshold} sigma -> "
+                  f"{outbase}.cands")
+            for c in staged.best(args.topk):
+                print(f"DM {c['dm']:8.3f}  SNR {c['snr']:7.2f}  t "
+                      f"{c['time_sec']:10.4f}s  width {c['width_bins']:3d} "
+                      f"bins ({c['width_sec']*1e3:.2f} ms)  ds "
+                      f"{c['downsamp']}")
+        if args.accel_search:
+            from pypulsar_tpu_torch.fourier.accelsearch import (
+                AccelSearchConfig,
+            )
+            from pypulsar_tpu_torch.parallel.accelpipe import (
+                sweep_accel_stream,
+            )
+
+            acfg = AccelSearchConfig(
+                zmax=args.accel_zmax, dz=args.accel_dz,
+                numharm=args.accel_numharm, sigma_min=args.accel_sigma)
+            summary = sweep_accel_stream(
+                reader, dms, acfg, outbase, batch=args.accel_batch,
+                downsamp=args.downsamp, nsub=args.nsub,
+                # 0 = auto, resolved once over the whole grid inside
+                group_size=args.group_size, engine=args.engine,
+                chunk_payload=args.chunk, write_dats=args.write_dats,
+                max_cands=args.accel_max_cands,
+                prefetch_depth=args.accel_prefetch, device=args.device,
+                verbose=True)
+            print(f"# accel handoff: {summary['n_searched']} trials "
+                  f"searched in {summary['n_slices']} DM slice(s), "
+                  f"{summary['unit']} spectra per prep batch")
+        elif args.write_dats:
+            from pypulsar_tpu_torch.parallel.accelpipe import stream_series
+
+            stream_series(reader, dms, downsamp=args.downsamp, nsub=args.nsub,
+                          group_size=args.group_size, chunk_payload=args.chunk,
+                          dat_outbase=outbase, keep=False, device=args.device,
+                          verbose=True)
+            print(f"# wrote {len(dms)} .dat/.inf series")
     return 0
 
 

@@ -1,0 +1,253 @@
+"""The streamed sweep->accel handoff: every DM trial's dedispersed series
+goes straight into the batched acceleration search, with no ``.dat``
+round trip.
+
+Port of ``pypulsar_tpu/parallel/accelpipe.py`` on one device:
+
+- :func:`sweep_accel_stream` streams the observation once through the
+  sweep's two-stage chunk kernels
+  (:func:`~pypulsar_tpu_torch.parallel.staged.iter_dedispersed_chunks`,
+  the values the ``.dat`` writer puts on disk), gathers every trial's
+  series in a host buffer, and hands batches to
+  :func:`~pypulsar_tpu_torch.fourier.kernels.prep_spectra_batch` +
+  :func:`~pypulsar_tpu_torch.fourier.accelsearch.accel_search_batch`.
+  ``write_dats`` tees the same bytes to ``.dat`` files.
+- The host half of each batch (row gather, copy to the device, rfft +
+  deredden) runs one batch ahead of the search on a worker thread
+  (:func:`~pypulsar_tpu_torch.parallel.prefetch.prefetch`).
+- Host RAM for the series buffer is budgeted (``stream_ram_bytes``,
+  12e9): a trial set too large for it is processed in DM slices aligned
+  to stage-1 groups, each slice one more pass over the file.
+
+A batch that runs out of device memory halves and retries (per-spectrum
+results do not depend on the batch); any other failure raises. The
+``.cand`` files are written in trial order, ``.txtcand`` first and
+``.cand`` last, both atomically.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+
+from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.fourier.accelsearch import (
+    ACCEL_HBM_BYTES,
+    BANK_CACHE_BYTES,
+    accel_search_batch,
+)
+from pypulsar_tpu_torch.fourier.kernels import (
+    deredden_schedule,
+    prep_spectra_batch,
+)
+from pypulsar_tpu_torch.io.prestocand import write_rzwcands
+from pypulsar_tpu_torch.parallel.prefetch import prefetch
+from pypulsar_tpu_torch.parallel.staged import (
+    ReaderSource,
+    dat_append_rows,
+    dat_finalize_paths,
+    dat_truncate_paths,
+    dats_geometry,
+    iter_dedispersed_chunks,
+    write_dat_infs,
+)
+from pypulsar_tpu_torch.parallel.sweep import choose_group_size, resolve_engine
+from pypulsar_tpu_torch.resilience.dataguard import finite_cands
+from pypulsar_tpu_torch.resilience.journal import atomic_write_text
+from pypulsar_tpu_torch.resilience.retry import halving_dispatch
+
+__all__ = [
+    "accel_out_names",
+    "stream_series",
+    "sweep_accel_stream",
+    "write_candfiles",
+]
+
+#: spectra per batched search dispatch
+ACCEL_BATCH = 32
+#: host bytes of the handoff's series buffer
+STREAM_RAM_BYTES = 12e9
+
+
+def accel_out_names(outbase: str, zmax: float, wmax: float = 0.0
+                    ) -> Tuple[str, str]:
+    """(candfn, txtfn) of one spectrum under the PRESTO naming scheme."""
+    ztag = int(round(zmax))
+    if wmax > 0:
+        ztag = f"{ztag}_JERK_{int(round(wmax))}"
+    return f"{outbase}_ACCEL_{ztag}.cand", f"{outbase}_ACCEL_{ztag}.txtcand"
+
+
+def write_candfiles(candfn: str, txtfn: str, cands, T: float,
+                    max_cands: int = 200) -> str:
+    """Write one spectrum's .txtcand + .cand pair, both atomically (tmp +
+    os.replace), .txtcand first and .cand last: the .cand's existence
+    marks a complete pair."""
+    # finite gate BEFORE the cap: a NaN-sigma row must not occupy one of
+    # the max_cands slots, and no non-finite value may reach the tables
+    cands = finite_cands(cands, T, what=os.path.basename(candfn))
+    cands = cands[:max_cands]
+    lines = ["# cand   sigma    power  numharm          r          z"
+             "        freq(Hz)       fdot(Hz/s)      period(s)\n"]
+    for i, c in enumerate(cands):
+        freq = c.freq(T)
+        lines.append(
+            f"{i + 1:6d} {c.sigma:7.2f} {c.power:8.2f} {c.numharm:8d} "
+            f"{c.r:10.2f} {c.z:10.2f} {freq:15.8f} "
+            f"{c.fdot(T):16.6e} {1.0 / freq:14.10f}\n"
+        )
+    atomic_write_text(txtfn, "".join(lines))
+    write_rzwcands(candfn, [c.as_fourierprops() for c in cands])
+    return candfn
+
+
+def stream_series(reader, dms, downsamp: int = 1, nsub: int = 64,
+                  group_size: int = 32, chunk_payload: Optional[int] = None,
+                  dat_outbase: Optional[str] = None, keep: bool = True,
+                  device="cuda", verbose: bool = False
+                  ) -> Tuple[Optional[np.ndarray], float]:
+    """One pass over ``reader``: every DM trial's full dedispersed series
+    as a host ``[D, T_ds]`` float32 buffer, and the effective sampling
+    time. ``dat_outbase`` tees the same bytes to ``.dat``/``.inf`` files
+    as they stream (PRESTO prepsubband's semantics: subband dedispersion,
+    a zero-padded tail); ``keep=False`` writes only those files and
+    returns no buffer, so any file length needs one chunk of memory."""
+    factor = max(1, int(downsamp))
+    dms = np.asarray(dms, dtype=np.float64)
+    dt_eff = ReaderSource(reader).tsamp * factor
+    _plan, _payload, T = dats_geometry(reader, dms, downsamp=factor,
+                                       nsub=nsub, group_size=group_size,
+                                       chunk_payload=chunk_payload)
+    buf = np.empty((len(dms), T), dtype=np.float32) if keep else None
+    paths = None
+    if dat_outbase is not None:
+        paths = dat_truncate_paths(dat_outbase, dms)
+    for pos, rows in iter_dedispersed_chunks(
+            reader, dms, downsamp=factor, nsub=nsub, group_size=group_size,
+            chunk_payload=chunk_payload, device=device, verbose=verbose):
+        if buf is not None:
+            buf[:, pos:pos + rows.shape[1]] = rows
+        if paths is not None:
+            dat_append_rows(paths, rows)
+    if paths is not None:
+        dat_finalize_paths(paths)
+        write_dat_infs(dat_outbase, reader, dms, T, dt_eff)
+    return buf, dt_eff
+
+
+def sweep_accel_stream(
+    reader,
+    dms,
+    config,
+    outbase: str,
+    batch: int = ACCEL_BATCH,
+    downsamp: int = 1,
+    nsub: int = 64,
+    group_size: int = 32,
+    engine: str = "auto",
+    chunk_payload: Optional[int] = None,
+    write_dats: bool = False,
+    max_cands: int = 200,
+    prefetch_depth: int = 1,
+    stream_ram_bytes: float = STREAM_RAM_BYTES,
+    hbm_budget_bytes: float = ACCEL_HBM_BYTES,
+    bank_cache_bytes: float = BANK_CACHE_BYTES,
+    device="cuda",
+    verbose: bool = False,
+) -> dict:
+    """Dedisperse ``dms`` over ``reader`` and accel-search every trial on
+    ``device``, writing ``{outbase}_DM{dm:.2f}_ACCEL_{zmax}.cand/.txtcand``
+    and the ``{outbase}_DM{dm:.2f}.inf`` sidecars (``write_dats`` adds the
+    ``.dat`` series). ``group_size`` <= 0 picks the group once over the
+    whole grid. Returns a summary dict: trials searched, DM slices and
+    spectra per prep batch."""
+    resolve_engine(engine)
+    device = resolve_device(device)
+    batch = max(1, int(batch))
+    dms = np.asarray(dms, dtype=np.float64)
+    D = len(dms)
+    names = [accel_out_names(f"{outbase}_DM{dm:.2f}", config.zmax,
+                             config.wmax) for dm in dms]
+    src0 = ReaderSource(reader)
+    factor = max(1, int(downsamp))
+    if group_size <= 0:
+        # resolve the auto group size ONCE over the FULL grid: a RAM-sliced
+        # run must not let a slice's spacing pick a different group (the
+        # group mean DM shapes the series)
+        group_size = choose_group_size(dms, src0.frequencies,
+                                       src0.tsamp * factor, nsub)
+    _plan, _payload, T = dats_geometry(reader, dms, downsamp=factor,
+                                       nsub=nsub, group_size=group_size,
+                                       chunk_payload=chunk_payload)
+    # .inf sidecars are written even without the .dat payloads: the sift
+    # and plotting stages resolve each trial's DM and T from them
+    write_dat_infs(outbase, reader, dms, T, src0.tsamp * factor)
+
+    # host-RAM budget for the series buffer: past it, the trial set is
+    # processed in DM slices of one extra file pass each. Slices MUST align
+    # to stage-1 group boundaries: make_sweep_plan regroups each slice's
+    # DMs from its own start, and a misaligned slice would move later
+    # trials into groups with a different mean DM
+    slice_dms = max(batch, int(stream_ram_bytes // (4 * max(T, 1))))
+    slice_dms = max(group_size, (slice_dms // group_size) * group_size)
+    n_slices = -(-D // slice_dms)
+    if n_slices > 1 and verbose:
+        print(f"# series buffer {4 * D * T / 1e9:.1f} GB exceeds the "
+              f"{stream_ram_bytes / 1e9:.1f} GB budget; streaming in "
+              f"{n_slices} DM slices of {slice_dms} (one file pass each)")
+
+    # device-prep residency: series + spectrum + rfft workspace is ~24
+    # bytes per sample per spectrum, and the pipeline holds the batch that
+    # searches, the queued ones and the one the worker holds
+    inflight = prefetch_depth + 2 if prefetch_depth > 0 else 1
+    unit = min(batch, max(1, (int(hbm_budget_bytes) // inflight)
+                          // (24 * max(T, 1))))
+    schedule = deredden_schedule(T // 2 + 1)
+    n_searched = 0
+
+    for d0 in range(0, D, slice_dms):
+        d1 = min(d0 + slice_dms, D)
+        series, dt_eff = stream_series(
+            reader, dms[d0:d1], downsamp=factor, nsub=nsub,
+            group_size=group_size, chunk_payload=chunk_payload,
+            dat_outbase=outbase if write_dats else None, device=device,
+            verbose=verbose)
+        T_sec = T * dt_eff
+
+        def groups(d0=d0, d1=d1):
+            for g0 in range(d0, d1, unit):
+                yield list(range(g0, min(g0 + unit, d1)))
+
+        def prep(idxs, series=series, d0=d0):
+            """Worker-side half: the batch's rows to the device, rfft and
+            deredden, while the previous batch searches."""
+            rows = np.ascontiguousarray(series[idxs[0] - d0:idxs[-1] + 1 - d0])
+            return idxs, prep_spectra_batch(rows, schedule, device=device)
+
+        if prefetch_depth > 0:
+            source = prefetch(groups(), depth=prefetch_depth,
+                              transform=prep, name="accel.pipe")
+        else:  # inline, single-threaded
+            source = (prep(g) for g in groups())
+        for idxs, spectra in source:
+            def run(lo, hi, spectra=spectra):
+                return accel_search_batch(
+                    spectra[lo:hi], T_sec, config,
+                    hbm_budget_bytes=hbm_budget_bytes,
+                    bank_cache_bytes=bank_cache_bytes, device=device)
+
+            parts = halving_dispatch(run, len(idxs), what="accel.batch")
+            all_cands = [c for _, _, cands in parts for c in cands]
+            for i, cands in zip(idxs, all_cands):
+                write_candfiles(names[i][0], names[i][1], cands, T_sec,
+                                max_cands)
+                n_searched += 1
+            if verbose:
+                print(f"# searched trials {idxs[0]}..{idxs[-1]} "
+                      f"({n_searched}/{D})")
+            del spectra
+        del series
+
+    return {"n_searched": n_searched, "n_slices": n_slices, "unit": unit}

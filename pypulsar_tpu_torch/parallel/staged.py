@@ -6,23 +6,34 @@ in the file's native dtype ship ahead to the device
 transposed to [chan, time], widened to float32 and band-flipped there
 (:func:`ingest_tc`), optionally downsampled, and fed to
 :func:`~pypulsar_tpu_torch.parallel.sweep.sweep_stream`.
+
+The series path (:func:`iter_dedispersed_chunks`) streams the same blocks
+through both dedispersion stages only and hands every trial's series back
+to the host, where the sweep->accel handoff
+(:func:`pypulsar_tpu_torch.parallel.accelpipe.stream_series`, which also
+tees them to the ``.dat`` files) reads them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.io.infodata import InfoData
 from pypulsar_tpu_torch.parallel.prefetch import ship_ahead
 from pypulsar_tpu_torch.parallel.sweep import (
     DEFAULT_WIDTHS,
     SweepResult,
     choose_group_size,
+    dedisperse_batches,
     default_chunk_payload,
+    group_batches,
     make_sweep_plan,
     resolve_engine,
     sweep_stream,
@@ -158,33 +169,147 @@ def downsampled_blocks(src, factor: int, payload_ds: int, overlap_ds: int,
         yield pos // factor, data
 
 
-def run_step(src, dms, factor: int, nsub: int, group_size: int,
-             widths: Tuple[int, ...], chunk_payload: Optional[int],
-             device, verbose: bool = False) -> Optional[StepResult]:
-    """Sweep ``dms`` over ``src`` downsampled by ``factor``.
-    ``group_size`` <= 0 picks the largest group within the smearing bound."""
+def step_geometry(src, dms, factor: int, nsub: int, group_size: int,
+                  widths: Tuple[int, ...], chunk_payload: Optional[int]):
+    """(plan, payload, n_ds) of one pass over ``src`` downsampled by
+    ``factor``: the plan of ``dms`` (``group_size`` <= 0 picks the largest
+    group within the smearing bound), the chunk payload and the
+    downsampled length. The sweep and the series pass chunk by it."""
     dt_eff = src.tsamp * factor
     n_ds = src.nsamples // factor
-    if n_ds == 0:
-        return None
     if group_size <= 0:
         group_size = choose_group_size(dms, src.frequencies, dt_eff, nsub)
-    plan = make_sweep_plan(dms, src.frequencies, dt_eff, nsub=nsub,
+    plan = make_sweep_plan(np.asarray(dms, dtype=np.float64),
+                           src.frequencies, dt_eff, nsub=nsub,
                            group_size=group_size, widths=widths)
     if chunk_payload is None:
         chunk_payload = default_chunk_payload(plan.min_overlap)
     payload = min(chunk_payload, n_ds)
     if payload <= plan.min_overlap:
         payload = min(n_ds, 2 * plan.min_overlap + 1)
+    return plan, payload, n_ds
+
+
+def run_step(src, dms, factor: int, nsub: int, group_size: int,
+             widths: Tuple[int, ...], chunk_payload: Optional[int],
+             device, verbose: bool = False) -> Optional[StepResult]:
+    """Sweep ``dms`` over ``src`` downsampled by ``factor``.
+    ``group_size`` <= 0 picks the largest group within the smearing bound."""
+    dt_eff = src.tsamp * factor
+    if src.nsamples // factor == 0:
+        return None
+    plan, payload, _ = step_geometry(src, dms, factor, nsub, group_size,
+                                     widths, chunk_payload)
     if verbose:
         print(f"# downsamp={factor} dt={dt_eff:.3e}s "
               f"DMs {dms[0]:.2f}..{dms[-1]:.2f} ({len(dms)} trials, "
-              f"group {group_size}) payload={payload}")
+              f"group {plan.group_size}) payload={payload}")
     res = sweep_stream(
         plan, downsampled_blocks(src, factor, payload, plan.min_overlap,
                                  device),
         payload, device=device)
     return StepResult(downsamp=factor, dt=dt_eff, result=res)
+
+
+def dats_geometry(reader, dms, downsamp: int = 1, nsub: int = 64,
+                  group_size: int = 32, chunk_payload: Optional[int] = None):
+    """(plan, payload, T_ds) of the streamed series pass for these
+    parameters: a plan of the trial DMs with one boxcar width (the series
+    needs no detection overlap), the chunk payload and the downsampled
+    series length. ``group_size`` <= 0 picks the group automatically."""
+    return step_geometry(ReaderSource(reader), dms, max(1, int(downsamp)),
+                         nsub, group_size, (1,), chunk_payload)
+
+
+def iter_dedispersed_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
+                            group_size: int = 32,
+                            chunk_payload: Optional[int] = None,
+                            device="cuda", verbose: bool = False):
+    """Stream the file once on ``device`` and yield ``(pos, rows[D, valid])``
+    host float32 chunks of every DM trial's two-stage dedispersed series:
+    the values a ``.dat`` file holds. No baseline is subtracted; the tail
+    past the end of data is zero-padded to the chunk's length, and each
+    chunk keeps its first ``valid = min(payload, T - pos)`` samples.
+    ``pos`` is the downsampled sample of the chunk's start."""
+    factor = max(1, int(downsamp))
+    dms = np.asarray(dms, dtype=np.float64)
+    device = resolve_device(device)
+    plan, payload, T = dats_geometry(reader, dms, downsamp=factor, nsub=nsub,
+                                     group_size=group_size,
+                                     chunk_payload=chunk_payload)
+    L1 = payload + plan.max_shift2
+    need = payload + plan.min_overlap
+    batches = group_batches(plan.stage1_bins, plan.stage2_bins, plan.nsub,
+                            L1, device)
+    for pos, block in downsampled_blocks(ReaderSource(reader), factor,
+                                         payload, plan.min_overlap, device):
+        L = int(block.shape[1])
+        if L < need:  # tail: zero-pad to the chunk's length
+            block = F.pad(block, (0, need - L))
+        valid = min(payload, T - pos)
+        series = dedisperse_batches(block, batches, payload, L1)
+        # the plan pads trial groups to the group size; only the real
+        # trials leave this generator
+        host = series[:len(dms), :valid].contiguous().cpu().numpy()
+        if verbose:
+            print(f"# dats chunk at {pos}: {valid} samples x {len(dms)} DMs")
+        yield pos, host
+
+
+def dat_truncate_paths(outbase: str, dms) -> List[str]:
+    """Create (truncated) the per-DM ``{outbase}_DM{dm:.2f}.dat`` paths.
+    Bytes accumulate in ``{path}.tmp`` and land on the final name only at
+    :func:`dat_finalize_paths` (tmp + os.replace): a killed run leaves tmp
+    debris, never a truncated ``.dat`` that a later stage would trust."""
+    paths = [f"{outbase}_DM{dm:.2f}.dat" for dm in dms]
+    # truncate once, then reopen per chunk in append mode: one open
+    # descriptor per DM trial would hit the fd limit on large grids
+    for p in paths:
+        open(p + ".tmp", "wb").close()
+    return paths
+
+
+def dat_append_rows(paths: List[str], rows) -> None:
+    """Append one chunk's [D, valid] float32 rows to the per-DM .dat
+    byte streams (to the ``.tmp`` staging names)."""
+    for p, row in zip(paths, rows):
+        with open(p + ".tmp", "ab") as f:
+            row.tofile(f)
+
+
+def dat_finalize_paths(paths: List[str]) -> None:
+    """Atomically publish completed .dat streams (``.tmp`` -> final)."""
+    for p in paths:
+        os.replace(p + ".tmp", p)
+
+
+def write_dat_infs(outbase: str, reader, dms, N: int, dt: float) -> None:
+    """PRESTO .inf sidecars of the per-DM series ``{outbase}_DM{dm:.2f}``."""
+    freqs = np.asarray(ReaderSource(reader).frequencies)
+    for dm in np.asarray(dms, dtype=np.float64):
+        base = f"{outbase}_DM{dm:.2f}"
+        make_dat_inf(base, reader, float(dm), N, dt, freqs).to_file(
+            base + ".inf")
+
+
+def make_dat_inf(basenm: str, reader, dm: float, N: int, dt: float,
+                 freqs: np.ndarray) -> InfoData:
+    """InfoData of a dedispersed series of this reader."""
+    inf = InfoData()
+    inf.basenm = os.path.basename(basenm)
+    inf.telescope = getattr(reader, "telescope", "unknown") or "unknown"
+    inf.object = getattr(reader, "source_name", "synthetic") or "synthetic"
+    inf.epoch = float(getattr(reader, "tstart", 0.0) or 0.0)
+    inf.N = int(N)
+    inf.dt = float(dt)
+    inf.DM = float(dm)
+    inf.numchan = len(freqs)
+    inf.lofreq = float(freqs.min())
+    inf.BW = float(abs(freqs.max() - freqs.min()))
+    inf.chan_width = float(inf.BW / max(inf.numchan - 1, 1))
+    inf.bary = 0
+    inf.analyzer = "pypulsar_tpu_torch"
+    return inf
 
 
 def sweep_flat(source, dms, downsamp: int = 1, nsub: int = 64,

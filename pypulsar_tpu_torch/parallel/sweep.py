@@ -251,14 +251,21 @@ def sweep_chunk(data, stage1_bins, stage2_bins, nsub: int, out_len: int,
     return tuple(torch.cat([p[i] for p in parts]) for i in range(4))
 
 
+def dedisperse_batches(data, batches: Sequence[GroupBatch], out_len: int,
+                       L1: int):
+    """Two-stage dedispersed series [D, out_len] of one chunk ``data[C, L]``
+    over the trial groups of ``batches``, in group order."""
+    return torch.cat([_dedisperse_batch(data, b, out_len, L1)
+                      for b in batches])
+
+
 def dedisperse_series_chunk(data, stage1_bins, stage2_bins, nsub: int,
                             out_len: int, slack2: int):
     """Two-stage dedispersed series [D, out_len] of one chunk: the sweep's
     chunk with the detection statistics left off."""
     L1 = out_len + slack2
     batches = group_batches(stage1_bins, stage2_bins, nsub, L1, data.device)
-    return torch.cat([_dedisperse_batch(data, b, out_len, L1)
-                      for b in batches])
+    return dedisperse_batches(data, batches, out_len, L1)
 
 
 @dataclasses.dataclass

@@ -1,19 +1,24 @@
-"""The state a sweep carries besides its data: the plan.
+"""The state a search carries besides its data: the sweep's plan and the
+acceleration search's configuration.
 
 A sweep has no weights. What fixes its result apart from the data is the
 plan's trial DMs and integer shift tables, so this is what is carried
 over from the reference: :func:`plan_from_reference` builds the port's
 :class:`~pypulsar_tpu_torch.parallel.sweep.SweepPlan` from the fields of
 a reference ``SweepPlan`` given as numpy arrays, so both packages can run
-the same shift tables.
+the same shift tables. :func:`accel_config_from_reference` does the same
+for the acceleration search's configuration (its grids, stages and
+thresholds follow from the fields).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
 
+from pypulsar_tpu_torch.fourier.accelsearch import AccelSearchConfig
 from pypulsar_tpu_torch.parallel.sweep import SweepPlan
 
 
@@ -39,3 +44,11 @@ def plan_from_reference(dms, freqs, dt: float, nsub: int, group_size: int,
                      subdms=np.asarray(subdms, dtype=np.float64),
                      n_real_trials=int(n_real_trials),
                      widths=tuple(int(w) for w in widths))
+
+
+def accel_config_from_reference(cfg) -> AccelSearchConfig:
+    """The port's :class:`~pypulsar_tpu_torch.fourier.accelsearch.
+    AccelSearchConfig` with every field of a reference configuration
+    ``cfg`` (any object with those attributes)."""
+    return AccelSearchConfig(**{f.name: getattr(cfg, f.name)
+                                for f in dataclasses.fields(AccelSearchConfig)})

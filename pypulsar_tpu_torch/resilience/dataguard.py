@@ -1,6 +1,6 @@
-"""Output gate of the text tables (copy of ``finite_rows`` from
-``pypulsar_tpu/resilience/dataguard.py``): a non-finite value never
-reaches a published row."""
+"""Output gates of the candidate tables (copies of ``finite_rows`` and
+``finite_cands`` from ``pypulsar_tpu/resilience/dataguard.py``, without
+telemetry): a non-finite value never reaches a published row."""
 
 from __future__ import annotations
 
@@ -24,4 +24,22 @@ def finite_rows(rows: Sequence[dict], keys: Sequence[str],
     if dropped:
         print(f"# dataguard: dropped {dropped} non-finite {what} "
               f"row(s) at the output gate")
+    return good
+
+
+def finite_cands(cands, T: float, what: str = "accel") -> list:
+    """The accel-candidate form of the gate: sigma/power/r/z finite AND
+    a usable frequency (r=0 debris would divide by zero in the period
+    column)."""
+    cands = list(cands)
+    good = []
+    for c in cands:
+        if all(_finite(v) for v in (c.sigma, c.power, c.r, c.z)):
+            freq = c.freq(T) if T else 0.0
+            if np.isfinite(freq) and freq > 0:
+                good.append(c)
+    dropped = len(cands) - len(good)
+    if dropped:
+        print(f"# dataguard: dropped {dropped} non-finite {what} "
+              f"candidate(s) at the output gate")
     return good
