@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each of which raises on failure (exit code 1, no result lines):
 
 1. the card (``nvidia-smi`` name and power limit), the torch and CUDA
-   versions, and the build of every CUDA kernel of the sweep (one ``nvcc``
+   versions, and the build of every CUDA kernel of the port (one ``nvcc``
    per source, all started together);
 2. each kernel against its plain PyTorch version on the card, on the
    shapes the 1024-channel x 1024-trial sweep gives it (gather-sum once
@@ -56,7 +56,31 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    pass must have launched both gather-sum stages (counted apart from
    the single-pulse pass), and the DM-70 ``.dat`` must equal the series
    the handoff searched. Then the handoff once more, over 8 trials,
-   under ``torch.profiler``: device time by op family and idle share.
+   under ``torch.profiler``: device time by op family and idle share;
+7. the survey's fold stage on phase 6's output, at the survey's settings.
+   First the fold kernel against its plain version on the DM-70 ``.dat``
+   (2^20 samples), 32 periods from 1.5 ms to 2 s that include the
+   pulsar's, 64 bins, 32 partitions: counts exact, profiles rtol 1e-5 /
+   atol 1e-3 (float32 sums in another order; the JAX package's own fold
+   tolerance), and each candidate's profile the same bits in one batch
+   of 32, two of 16 and alone; then edge cases (50 bins, T not a
+   multiple of npart with an odd partition length, a series view 4 bytes
+   off a 16-byte boundary, one candidate, every sample in one bin, the
+   largest nbins, and one past it, which must raise ValueError), timed
+   beside its bound and one ``index_add_`` of the same sums. Then
+   ``cli.sift`` over the stage's 32 ``.cand`` files (``-s 4 --min-hits
+   2``), ``cli.foldbatch --datbase`` (``-n 64 --npart 32 --batch 32``,
+   the 33 x 17 refinement grid), ``cli.pfd_snr --json``, ``cli.foldbatch``
+   on the raw file (the stream source, ``-s 64 --group-size 0``) and
+   ``--datbase`` once more at ``--batch 7``. Every sifted candidate must
+   have its archives, each archive the same bytes at batch 32 and 7, both
+   sources must have launched the fold kernel and the stream source both
+   gather-sum stages, and a candidate within 2 DM of 70 at the pulsar's
+   period or a harmonic (k or 1/k an integer <= 8) must fold to SNR > 10
+   from both sources with a refined period within one grid step of the
+   true one. Then one more ``--datbase`` fold under ``torch.profiler``:
+   the fold kernel's, ``refine_chi2``'s and the copies' device time, the
+   host prep's wall time and the idle share.
 
 Then one JSON line of per-kernel numbers, the card line, and the last
 line ``{"ok": true, "device": {...}}``.
@@ -419,19 +443,32 @@ def check_small_sweep(tmp):
 def launch_counts() -> dict:
     """Every kernel's launch count, by the kernels line's names."""
     from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
+    from pypulsar_tpu_torch.ops.fold import fold_parts_batch
     from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
 
     return {"gather_sum/stage1": shifted_gather_sum.launches["stage1"],
             "gather_sum/stage2": shifted_gather_sum.launches["stage2"],
-            "boxcar_stats": boxcar_stats.launches}
+            "boxcar_stats": boxcar_stats.launches,
+            "fold_parts_batch": fold_parts_batch.launches}
+
+
+SWEEP_KERNELS = ("gather_sum/stage1", "gather_sum/stage2", "boxcar_stats")
+
+
+def sweep_launches() -> dict:
+    """The launch counts of the sweep's kernels."""
+    counts = launch_counts()
+    return {k: counts[k] for k in SWEEP_KERNELS}
 
 
 def reset_launch_counts() -> None:
     from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
+    from pypulsar_tpu_torch.ops.fold import fold_parts_batch
     from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
 
     shifted_gather_sum.launches.clear()
     boxcar_stats.launches = 0
+    fold_parts_batch.launches = 0
 
 
 def write_obs(tmp):
@@ -465,7 +502,7 @@ def main_path(tmp, fn, info):
     rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = sweep_launches()
     if rc != 0:
         fail(f"sweep CLI exited {rc}")
     if min(launches.values()) < 1:
@@ -764,7 +801,7 @@ def stage_path(tmp, fn, info):
         rc = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = sweep_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if rc != 0:
         fail(f"sweep stage exited {rc}")
@@ -900,6 +937,339 @@ def profile_handoff(cli, fn, out):
         "top_kernels": top[:12]}))
 
 
+FOLD_NBINS, FOLD_NPART = 64, 32  # the survey's fold stage (-n 64 --npart 32)
+
+
+def fold_bins(series, dt, periods, nbins, npart):
+    """[K, T] int32 bin indices of ``periods`` over ``series``, by the fold
+    stage's own host prep."""
+    from pypulsar_tpu_torch.parallel import foldpipe
+
+    members = [(i, foldpipe.FoldCandidate(float(p), 70.0))
+               for i, p in enumerate(periods)]
+    _, _, _, bins, err = foldpipe._prep_group(
+        (70.0, series, dt, {}, members), nbins, npart)
+    if err is not None:
+        raise err
+    return bins
+
+
+def compare_fold(what, s, b, nbins, npart):
+    """The fold kernel against its plain version: counts exact, profiles
+    rtol 1e-5 / atol 1e-3; returns (profiles, counts, max abs err)."""
+    import torch
+
+    from pypulsar_tpu_torch.ops import fold
+
+    got_p, got_c = fold.fold_parts_batch(s, b, nbins, npart)
+    want_p, want_c = fold._torch_fold_parts_batch(s, b, nbins, npart)
+    torch.cuda.synchronize()
+    if not torch.equal(got_c, want_c):
+        fail(f"fold_parts_batch {what}: counts differ from the plain version")
+    err = float((got_p - want_p).abs().max()) if got_p.numel() else 0.0
+    if not torch.allclose(got_p, want_p, rtol=1e-5, atol=1e-3):
+        fail(f"fold_parts_batch {what}: profiles differ from the plain "
+             f"version (max abs err {err:.3g})")
+    return got_p, got_c, err
+
+
+def check_fold(device, report, datfn, dt):
+    """The fold kernel at the fold stage's shapes (the DM-70 series, 32
+    periods from 1.5 ms to 2 s that include the pulsar's, 64 bins, 32
+    partitions) against its plain version, a candidate's bits in one batch
+    of 32, two of 16 and alone, then the edge cases; timed beside its
+    bound and one ``index_add_`` over precomputed flat indices."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.ops import fold
+
+    series = np.fromfile(datfn, dtype=np.float32)
+    T, nbins, npart = len(series), FOLD_NBINS, FOLD_NPART
+    psr = 4096 * 64e-6
+    periods = np.sort(np.append(np.geomspace(1.5e-3, 2.0, 31), psr))
+    bins_np = fold_bins(series, dt, periods, nbins, npart)
+    s = torch.from_numpy(series).to(device)
+    b = torch.from_numpy(bins_np).to(device)
+    K = b.shape[0]
+    profs, counts, err = compare_fold("stage shapes", s, b, nbins, npart)
+    halves = torch.cat([fold.fold_parts_batch(s, b[:16], nbins, npart)[0],
+                        fold.fold_parts_batch(s, b[16:], nbins, npart)[0]])
+    alone = torch.cat([fold.fold_parts_batch(s, b[k:k + 1], nbins, npart)[0]
+                       for k in range(K)])
+    torch.cuda.synchronize()
+    if not (torch.equal(halves, profs) and torch.equal(alone, profs)):
+        fail("fold_parts_batch: a candidate's profile changes with its batch")
+    done = []
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    # (what, series, bins, nbins, npart): 50 bins; T not a multiple of
+    # npart with an odd part_len (3125) and bin rows off a 16-byte
+    # boundary at odd k; a view whose samples start 4 bytes past one; a
+    # lone candidate; every sample in one bin; the largest nbins
+    odd = torch.randn(100003, generator=gen, device=device)
+    cases = [
+        ("nbins 50", s, torch.from_numpy(fold_bins(
+            series, dt, periods[::8], 50, npart)).to(device), 50, npart),
+        ("T 100003, part_len 3125", odd, torch.from_numpy(rng.integers(
+            0, nbins, (5, 100003), dtype=np.int32)).to(device), nbins, npart),
+        ("series view at +1 float, npart 7", odd[1:100002], torch.from_numpy(
+            rng.integers(0, nbins, (3, 100001), dtype=np.int32)).to(device),
+         nbins, 7),
+        ("K 1", s, b[13:14], nbins, npart),
+        ("one bin", odd, torch.full((2, 100003), 17, dtype=torch.int32,
+                                    device=device), nbins, npart),
+        (f"nbins {fold.MAX_NBINS}", odd[:8000], torch.from_numpy(
+            rng.integers(0, fold.MAX_NBINS, (2, 8000),
+                         dtype=np.int32)).to(device), fold.MAX_NBINS, 2),
+    ]
+    for what, es, eb, enb, enp in cases:
+        _, _, e_err = compare_fold(what, es, eb, enb, enp)
+        done.append(f"{what}: {fold.launch_threads(enb)} threads, max abs "
+                    f"err {e_err:.3g}")
+    try:
+        fold.fold_parts_batch(odd[:8000], torch.zeros(
+            (1, 8000), dtype=torch.int32, device=device),
+            fold.MAX_NBINS + 1, 2)
+    except ValueError as e:
+        done.append(f"nbins {fold.MAX_NBINS + 1} refused ({e})")
+    else:
+        fail("fold_parts_batch launched past its largest nbins")
+    ms = cuda_time_ms(lambda: fold.fold_parts_batch(s, b, nbins, npart))
+    single_ms = single_call_ms(
+        lambda: fold.fold_parts_batch(s, b, nbins, npart))
+    plain_ms = cuda_time_ms(
+        lambda: fold._torch_fold_parts_batch(s, b, nbins, npart), reps=3)
+    # the library yardstick: one index_add_ of the same sums into a flat
+    # [K * npart * nbins] buffer from precomputed flat indices (profiles
+    # only, float atomics: a time, not a port)
+    P = T // npart
+    t = torch.arange(npart * P, device=device)
+    flat = ((torch.arange(K, device=device)[:, None] * npart + t // P) * nbins
+            + b[:, :npart * P].long()).reshape(-1)
+    src = s[:npart * P].repeat(K)
+    buf = torch.zeros(K * npart * nbins, device=device)
+    library_ms = cuda_time_ms(lambda: buf.index_add_(0, flat, src))
+    buf.zero_().index_add_(0, flat, src)
+    lib_err = float((buf.reshape(K, npart, nbins) - profs).abs().max())
+    del flat, src, buf
+    nbytes = 4.0 * K * T + 4.0 * T + 8.0 * K * npart * nbins
+    bms, by = bound(nbytes, float(K) * npart * P)
+    report.append(dict(
+        name="fold_parts_batch", route="cuda",
+        source="pypulsar_tpu_torch/ops/csrc/fold_parts.cu",
+        replaces="pypulsar_tpu/fold/engine.py:323",
+        shape=f"series [{T}], bin_idx [{K}, {T}], nbins {nbins}, npart "
+              f"{npart}; {fold.launch_threads(nbins)} threads per block",
+        max_abs_err=err, ms=ms, single_call_ms=single_ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=library_ms))
+    print(f"fold_parts_batch: series [{T}] x {K} candidates -> [{K}x{npart}x"
+          f"{nbins}]: kernel {ms:.3f} ms (single calls {single_ms:.3f} ms), "
+          f"plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms (max abs "
+          f"diff {lib_err:.3g}), bound {bms:.3f} ms ({by}: "
+          f"{nbytes / 1e9:.4f} GB), max abs err {err:.3g}, counts exact; "
+          f"batch of 32, 2 x 16 and alone: identical bits; "
+          + "; ".join(done))
+    del s, b, profs, counts, halves, alone, odd
+    torch.cuda.empty_cache()
+
+
+def harmonic_of(period, psr):
+    """(k, true period at that harmonic) when ``period`` is the pulsar's
+    or a harmonic of it, |P k / psr - 1| < 1e-3 with k or 1/k an integer
+    <= 8; else None."""
+    ratio = period / psr
+    m = round(1.0 / ratio) if ratio < 1 else round(ratio)
+    if not 1 <= m <= 8:
+        return None
+    k = m if ratio < 1 else 1.0 / m
+    if abs(period * k / psr - 1.0) >= 1e-3:
+        return None
+    return k, psr / k
+
+
+def fold_stage(tmp, fn, info, device, report):
+    """Phase 7: sift -> foldbatch -> pfd_snr on the sweep stage's output at
+    the survey's settings, the stream source over the same list, a second
+    ``--datbase`` fold at batch 7, then a profiled ``--datbase`` fold.
+    Returns the launches of the ``.dat`` and the stream folds."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.cli import foldbatch, pfd_snr, sift
+    from pypulsar_tpu_torch.fold import profile_snr
+    from pypulsar_tpu_torch.io.accelcands import parse_candlist
+    from pypulsar_tpu_torch.io.prestopfd import PfdFile
+
+    stage = os.path.join(tmp, "stage")
+    dt = info["tsamp"]
+    check_fold(device, report, f"{stage}_DM70.00.dat", dt)
+    cand_files = sorted(glob.glob(f"{stage}_DM*_ACCEL_200.cand"))
+    sifted = os.path.join(tmp, "fold.accelcands")
+    t0 = time.perf_counter()
+    rc = sift.main(cand_files + ["-s", "4", "--min-hits", "2", "-o", sifted])
+    sift_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"sift exited {rc}")
+    n_sifted = len(parse_candlist(sifted))
+    if n_sifted == 0:
+        fail("sift kept no candidate")
+    fold_args = ["--cands", sifted, "-n", str(FOLD_NBINS), "--npart",
+                 str(FOLD_NPART), "--device", "cuda"]
+
+    def run_fold(out, extra):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = foldbatch.main(fold_args + ["-o", out, *extra])
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"foldbatch {' '.join(extra)} exited {rc}")
+        with open(f"{out}_foldbatch.json") as f:
+            summary = json.load(f)
+        return (summary, took, launch_counts(),
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    dats = os.path.join(tmp, "fold_dats")
+    summ, fold_dats_s, l_dats, peak_dats = run_fold(
+        dats, ["--datbase", stage, "--batch", "32"])
+    t0 = time.perf_counter()
+    rc = pfd_snr.main([f"{dats}_*.pfd", "--json", dats + "_snr.json"])
+    pfd_snr_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"pfd_snr exited {rc}")
+    stream = os.path.join(tmp, "fold_stream")
+    _, fold_stream_s, l_stream, peak_stream = run_fold(
+        stream, [fn, "-s", "64", "--group-size", "0"])
+    b7 = os.path.join(tmp, "fold_b7")
+    run_fold(b7, ["--datbase", stage, "--batch", "7"])
+    if min(l_dats["fold_parts_batch"], l_stream["fold_parts_batch"]) < 1:
+        fail(f"a fold source launched no fold kernel: {l_dats}, {l_stream}")
+    if min(l_stream["gather_sum/stage1"], l_stream["gather_sum/stage2"]) < 1:
+        fail(f"the stream fold launched no gather-sum stage: {l_stream}")
+    results = summ["results"]
+    if len(results) != n_sifted or summ["n_folded"] != n_sifted:
+        fail(f"{summ['n_folded']} of {n_sifted} sifted candidates folded")
+    for r in results:
+        for base in (dats, stream, b7):
+            if not os.path.exists(f"{base}_{r['name']}.pfd"):
+                fail(f"no archive {base}_{r['name']}.pfd")
+        with open(f"{dats}_{r['name']}.pfd", "rb") as a, \
+                open(f"{b7}_{r['name']}.pfd", "rb") as c:
+            if a.read() != c.read():
+                fail(f"{r['name']}: archive bytes differ between --batch 32 "
+                     f"and --batch 7")
+    with open(dats + "_snr.json") as f:
+        snr = {row["name"]: row["snr"] for row in json.load(f)}
+    psr = info["period_samples"] * dt
+    T_sec = FOLD_NPART * (info["nsamp"] // FOLD_NPART) * dt
+    hits = []
+    for r in results:
+        h = harmonic_of(r["period"], psr)
+        if h is None or abs(r["dm"] - 70.0) > 2.0 or not snr[r["name"]]:
+            continue
+        step = 4.0 / 32 * r["period"] ** 2 / T_sec  # one grid step in P
+        if snr[r["name"]] > 10 and abs(r["best_period"] - h[1]) <= step:
+            hits.append(dict(name=r["name"], dm=r["dm"], period=r["period"],
+                             harmonic=h[0], snr=snr[r["name"]],
+                             best_period=r["best_period"], true_period=h[1],
+                             grid_step=step))
+    if not hits:
+        fail("no sifted candidate within 2 DM of 70 at the pulsar's period "
+             "or a harmonic (k <= 8) folds to SNR > 10 with a refined "
+             "period within one grid step")
+    row = max(hits, key=lambda h: h["snr"])
+    row["snr_stream"] = float(profile_snr.pfd_snr(
+        PfdFile(f"{stream}_{row['name']}.pfd"))["snr"])
+    if not row["snr_stream"] > 10:
+        fail(f"the stream source folds the pulsar to SNR "
+             f"{row['snr_stream']:.2f}")
+    groups = collections.Counter(r["dm"] for r in results)
+    numbers = {
+        "sifted": n_sifted, "dm_groups": len(groups),
+        "cands_per_group": sorted(groups.values(), reverse=True),
+        "sift_s": sift_s, "fold_dats_s": fold_dats_s,
+        "fold_stream_s": fold_stream_s, "pfd_snr_s": pfd_snr_s,
+        "cands_per_s": {"dats": n_sifted / fold_dats_s,
+                        "stream": n_sifted / fold_stream_s},
+        "peak_device_gb": {"dats": peak_dats, "stream": peak_stream},
+        "launches": {"dats": l_dats, "stream": l_stream},
+        "pulsar": row, "pulsar_rows_found": len(hits)}
+    print("fold stage: " + json.dumps(numbers))
+    profile_fold(fold_args + ["-o", os.path.join(tmp, "fold_prof"),
+                              "--datbase", stage])
+    return l_dats, l_stream
+
+
+def profile_fold(argv):
+    """One more ``--datbase`` fold under torch.profiler: device time of the
+    fold kernel, of ``refine_chi2``'s ops and of copies, the host prep's
+    wall time (on the prefetch worker) and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from pypulsar_tpu_torch.cli import foldbatch
+    from pypulsar_tpu_torch.fold import engine
+    from pypulsar_tpu_torch.parallel import foldpipe
+
+    real_prep, real_refine = foldpipe._prep_group, engine.refine_chi2
+    prep_s = [0.0]
+
+    def prep(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_prep(*a, **kw)
+        prep_s[0] += time.perf_counter() - t0
+        return out
+
+    def refine(*a, **kw):
+        with record_function("refine_chi2"):
+            return real_refine(*a, **kw)
+
+    foldpipe._prep_group, engine.refine_chi2 = prep, refine
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if foldbatch.main(argv) != 0:
+                fail("profiled fold failed")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        foldpipe._prep_group, engine.refine_chi2 = real_prep, real_refine
+    kernel_ms = copy_ms = fold_ms = refine_ms = 0.0
+    h2d_ms, fold_n = 0.0, 0
+    top, by_op = [], collections.Counter()
+    for ev in prof.key_averages():
+        ms = ev.self_device_time_total / 1e3
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if ev.key == "refine_chi2":
+                continue  # the annotation's span on the device timeline
+            if "Memcpy" in ev.key or "Memset" in ev.key:
+                copy_ms += ms
+                h2d_ms += ms if "HtoD" in ev.key else 0.0
+            else:
+                kernel_ms += ms
+                top.append((ev.key[:70], round(ms, 3), ev.count))
+            if "fold_parts" in ev.key:
+                fold_ms += ms
+                fold_n += ev.count
+        elif ev.key == "refine_chi2":
+            refine_ms += ev.device_time_total / 1e3
+        elif ms > 0:
+            by_op[ev.key] += ms
+    top.sort(key=lambda r: -r[1])
+    print("fold profile: " + json.dumps({
+        "wall_ms": wall_ms, "kernel_ms": kernel_ms, "copy_ms": copy_ms,
+        "h2d_ms": h2d_ms, "fold_kernel_ms": fold_ms,
+        "fold_launches": fold_n, "refine_chi2_ms": refine_ms,
+        "other_kernels_ms": kernel_ms - fold_ms - refine_ms,
+        "host_prep_s": prep_s[0],
+        "idle_share": 1.0 - kernel_ms / wall_ms,
+        "by_op_ms": dict(by_op.most_common(8)), "top_kernels": top[:8]}))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -933,12 +1303,18 @@ def main() -> int:
         check_stage_kernels(fn, device)
         launches, _ = main_path(tmp, fn, info)
         stage_sp, stage_series = stage_path(tmp, fn, info)
+        fold_dats, fold_stream = fold_stage(tmp, fn, info, device, report)
+    paths = {"sweep_1024_trials": launches,
+             "stage_single_pulse_pass": stage_sp,
+             "stage_series_pass": stage_series,
+             "fold_dats": fold_dats, "fold_stream": fold_stream}
     for k in report:
-        k["launches"] = launches[k["name"]]
-        k["launches_by_path"] = {
-            "sweep_1024_trials": launches[k["name"]],
-            "stage_single_pulse_pass": stage_sp[k["name"]],
-            "stage_series_pass": stage_series[k["name"]]}
+        k["launches_by_path"] = {p: c.get(k["name"], 0)
+                                 for p, c in paths.items()}
+        # the first path that drives the kernel: the 1024-trial sweep for
+        # the dedispersion kernels, the --datbase fold for the fold
+        k["launches"] = (fold_dats if k["name"] == "fold_parts_batch"
+                         else launches)[k["name"]]
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,33 @@
-"""Pulsar math the sweep needs, on the host in float64 numpy.
+"""Pulsar math the sweep and the fold need, on the host in float64 numpy.
 
-Copy of the dispersion helpers of ``pypulsar_tpu/core/psrmath.py`` (the
-port imports nothing of the JAX package). The sweep's integer shift
-tables are rounded from these delays, so the formulas stay bit-identical
-to the reference's: PRESTO's convention ``t = DM / (2.41e-4 * f^2)``
-seconds with ``f`` in MHz.
+Copy of the dispersion and period helpers of
+``pypulsar_tpu/core/psrmath.py`` (the port imports nothing of the JAX
+package). The sweep's integer shift tables are rounded from these delays
+and the fold's phase bins from these frequencies, so the formulas stay
+bit-identical to the reference's: PRESTO's convention
+``t = DM / (2.41e-4 * f^2)`` seconds with ``f`` in MHz.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+SECPERDAY = 86400.0
 #: dispersion constant: delay[s] = DM / (DM_CONST_INV * f_MHz^2)
 DM_CONST_INV = 2.41e-4
+
+
+def p_to_f(p, pd, pdd=None):
+    """Convert period (+derivatives) to frequency (+derivatives)."""
+    f = 1.0 / p
+    fd = -pd / (p * p)
+    if pdd is None:
+        return f, fd
+    if pdd == 0.0:
+        fdd = 0.0
+    else:
+        fdd = 2.0 * pd * pd / (p ** 3.0) - pdd / (p * p)
+    return f, fd, fdd
 
 
 def delay_from_DM(DM, freq_emitted):

@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(
     "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("gather_sum", "boxcar_stats")
+KERNELS = ("gather_sum", "boxcar_stats", "fold_parts")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

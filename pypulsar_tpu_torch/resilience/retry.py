@@ -1,11 +1,13 @@
-"""OOM-adaptive dispatch: halve the batch, back off, re-run.
+"""OOM-adaptive dispatch: halve the batch, back off, re-run; and the
+transient-IO retry of a read.
 
-Port of ``is_oom_error`` and ``halving_dispatch`` from
-``pypulsar_tpu/resilience/retry.py``, without telemetry, fault injection
-or the mesh's slice multiple. The accel handoff's spectrum batches and
-the batched search's device chunks are independent per spectrum, so
-halving a dispatch that ran out of device memory and running the halves
-gives the same results as the whole dispatch would have.
+Port of ``is_oom_error``, ``halving_dispatch`` and ``retry_transient``
+from ``pypulsar_tpu/resilience/retry.py``, without telemetry, fault
+injection or the mesh's slice multiple. The accel handoff's spectrum
+batches, the batched search's device chunks and the fold's candidate
+batches are independent per item, so halving a dispatch that ran out of
+device memory and running the halves gives the same results as the whole
+dispatch would have.
 """
 
 from __future__ import annotations
@@ -32,6 +34,37 @@ def backoff_delay(attempt: int) -> float:
     factor in [0.5, 1.0)."""
     delay = min(BACKOFF_BASE_S * (2 ** (max(1, attempt) - 1)), BACKOFF_MAX_S)
     return delay * (0.5 + 0.5 * random.random())
+
+
+#: cap on the transient-IO retry backoff: an NFS hiccup gets seconds to
+#: clear, a real outage still fails within ~retries * 5 s
+RETRY_BACKOFF_MAX_S = 5.0
+#: OSError subclasses that fail the same way on every attempt (a typo'd
+#: path, a bad permission): never retried
+NON_TRANSIENT_OS_ERRORS = (FileNotFoundError, PermissionError,
+                           IsADirectoryError, NotADirectoryError)
+
+
+def retry_transient(fn, *, retries: int = 2, backoff: float = 0.1,
+                    what: str = "io"):
+    """Run ``fn()``, retrying an ``OSError`` up to ``retries`` times with
+    jittered exponential backoff from ``backoff`` seconds (capped at
+    :data:`RETRY_BACKOFF_MAX_S`); :data:`NON_TRANSIENT_OS_ERRORS` and the
+    last failure re-raise. Port of ``retry_transient`` without its
+    telemetry."""
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except OSError as e:
+            if isinstance(e, NON_TRANSIENT_OS_ERRORS) or attempt >= retries:
+                raise
+            attempt += 1
+            delay = min(backoff * 2 ** (attempt - 1), RETRY_BACKOFF_MAX_S)
+            delay *= 0.5 + 0.5 * random.random()
+            print(f"# {what}: transient {type(e).__name__} ({e}); "
+                  f"retry {attempt}/{retries} in {delay:.2f}s")
+            time.sleep(delay)
 
 
 def is_oom_error(e: BaseException) -> bool:
