@@ -58,29 +58,39 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    the handoff searched. Then the handoff once more, over 8 trials,
    under ``torch.profiler``: device time by op family and idle share;
 7. the survey's fold stage on phase 6's output, at the survey's settings.
-   First the fold kernel against its plain version on the DM-70 ``.dat``
-   (2^20 samples), 32 periods from 1.5 ms to 2 s that include the
-   pulsar's, 64 bins, 32 partitions: counts exact, profiles rtol 1e-5 /
-   atol 1e-3 (float32 sums in another order; the JAX package's own fold
-   tolerance), and each candidate's profile the same bits in one batch
-   of 32, two of 16 and alone; then edge cases (50 bins, T not a
-   multiple of npart with an odd partition length, a series view 4 bytes
-   off a 16-byte boundary, one candidate, every sample in one bin, the
-   largest nbins, and one past it, which must raise ValueError), timed
-   beside its bound and one ``index_add_`` of the same sums. Then
-   ``cli.sift`` over the stage's 32 ``.cand`` files (``-s 4 --min-hits
-   2``), ``cli.foldbatch --datbase`` (``-n 64 --npart 32 --batch 32``,
-   the 33 x 17 refinement grid), ``cli.pfd_snr --json``, ``cli.foldbatch``
-   on the raw file (the stream source, ``-s 64 --group-size 0``) and
-   ``--datbase`` once more at ``--batch 7``. Every sifted candidate must
-   have its archives, each archive the same bytes at batch 32 and 7, both
-   sources must have launched the fold kernel and the stream source both
-   gather-sum stages, and a candidate within 2 DM of 70 at the pulsar's
-   period or a harmonic (k or 1/k an integer <= 8) must fold to SNR > 10
-   from both sources with a refined period within one grid step of the
-   true one. Then one more ``--datbase`` fold under ``torch.profiler``:
-   the fold kernel's, ``refine_chi2``'s and the copies' device time, the
-   host prep's wall time and the idle share.
+   First both forms of the fold kernel on the DM-70 ``.dat`` (2^20
+   samples), 32 periods from 1.5 ms to 2 s that include the pulsar's, 64
+   bins, 32 partitions, with f2 = 0 (the stage's coefficients) and with
+   pdot and f2 != 0: the polynomial form (bins evaluated on the card in
+   float64) must give, bit for bit, the profiles and counts of the array
+   form fed numpy's bins (``phase_to_bins`` of the host's float64
+   phases); the plain version's own bins on the card must be numpy's;
+   both forms hold counts exact and profiles within rtol 1e-5 / atol 1e-3
+   of their plain versions (float32 sums in another order; the JAX
+   package's own fold tolerance); each candidate's profile has the same
+   bits in one batch of 32, two of 16 and alone. Then edge cases of both
+   forms (50 bins, T not a multiple of npart with an odd partition
+   length, a series view 4 bytes off a 16-byte boundary, one candidate,
+   every sample in one bin, the largest nbins, and one past it, which
+   must raise ValueError; for the polynomial form also phases that turn
+   back below zero or start negative, more than a turn a sample, and bins
+   past 2^31), each form's kernel timed on inputs on the card beside its
+   bound, its plain version and one ``index_add_`` of the same sums, and
+   over all-short and all-long periods, and the polynomial form's wrapper
+   with its host check and upload of the table. Then ``cli.sift`` over the stage's 32 ``.cand`` files (``-s 4
+   --min-hits 2``), ``cli.foldbatch --datbase`` (``-n 64 --npart 32
+   --batch 32``, the 33 x 17 refinement grid), ``cli.pfd_snr --json``,
+   ``cli.foldbatch`` on the raw file (the stream source, ``-s 64
+   --group-size 0``), and both sources once more at ``--batch 7``. Every
+   sifted candidate must have its archives, each archive the same bytes
+   at batch 32 and 7 from each source, both sources must have launched the
+   polynomial form and the stream source both gather-sum stages, and a
+   candidate within 2 DM of 70 at the pulsar's period or a harmonic (k or
+   1/k an integer <= 8) must fold to SNR > 10 from both sources with a
+   refined period within one grid step of the true one. Then one more
+   ``--datbase`` fold under ``torch.profiler``: the fold kernel's,
+   ``refine_chi2``'s and the copies' device time, the host prep's wall
+   time and the idle share.
 
 Then one JSON line of per-kernel numbers, the card line, and the last
 line ``{"ok": true, "device": {...}}``.
@@ -99,6 +109,10 @@ from fractions import Fraction
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# H100 SXM float64 outside the tensor cores: the data sheet's 34 TFLOP/s
+# counts a fused multiply-add as two; the fold's bins take separate
+# multiplies, adds and conversions, one instruction each
+FP64_OPS_PER_S = 17e12
 SEED = 20261016
 REPS = 10
 
@@ -153,10 +167,11 @@ def single_call_ms(fn, reps: int = REPS, warmup: int = 1) -> float:
     return times[len(times) // 2]
 
 
-def bound(nbytes: float, nops: float):
+def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    float32 operations over the card's peak rate."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    operations over the card's peak rate for their type (float32 unless
+    ``ops_per_s`` says otherwise)."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -443,13 +458,14 @@ def check_small_sweep(tmp):
 def launch_counts() -> dict:
     """Every kernel's launch count, by the kernels line's names."""
     from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
-    from pypulsar_tpu_torch.ops.fold import fold_parts_batch
+    from pypulsar_tpu_torch.ops.fold import fold_parts_batch, fold_parts_poly
     from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
 
     return {"gather_sum/stage1": shifted_gather_sum.launches["stage1"],
             "gather_sum/stage2": shifted_gather_sum.launches["stage2"],
             "boxcar_stats": boxcar_stats.launches,
-            "fold_parts_batch": fold_parts_batch.launches}
+            "fold_parts_batch": fold_parts_batch.launches,
+            "fold_parts_poly": fold_parts_poly.launches}
 
 
 SWEEP_KERNELS = ("gather_sum/stage1", "gather_sum/stage2", "boxcar_stats")
@@ -463,12 +479,13 @@ def sweep_launches() -> dict:
 
 def reset_launch_counts() -> None:
     from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
-    from pypulsar_tpu_torch.ops.fold import fold_parts_batch
+    from pypulsar_tpu_torch.ops.fold import fold_parts_batch, fold_parts_poly
     from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
 
     shifted_gather_sum.launches.clear()
     boxcar_stats.launches = 0
     fold_parts_batch.launches = 0
+    fold_parts_poly.launches = 0
 
 
 def write_obs(tmp):
@@ -940,22 +957,37 @@ def profile_handoff(cli, fn, out):
 FOLD_NBINS, FOLD_NPART = 64, 32  # the survey's fold stage (-n 64 --npart 32)
 
 
-def fold_bins(series, dt, periods, nbins, npart):
-    """[K, T] int32 bin indices of ``periods`` over ``series``, by the fold
-    stage's own host prep."""
-    from pypulsar_tpu_torch.parallel import foldpipe
+def fold_coeffs(periods, pdots=None, pdds=None):
+    """[K, 3] float64 (f0, f1 / 2.0, f2) of each (period, pdot, pdd), the
+    fold stage's phase coefficients."""
+    import numpy as np
 
-    members = [(i, foldpipe.FoldCandidate(float(p), 70.0))
-               for i, p in enumerate(periods)]
-    _, _, _, bins, err = foldpipe._prep_group(
-        (70.0, series, dt, {}, members), nbins, npart)
-    if err is not None:
-        raise err
-    return bins
+    from pypulsar_tpu_torch.core import psrmath
+
+    rows = []
+    for i, p in enumerate(periods):
+        f0, f1, f2 = psrmath.p_to_f(
+            float(p), 0.0 if pdots is None else float(pdots[i]),
+            0.0 if pdds is None else float(pdds[i]))
+        rows.append((f0, f1 / 2.0, f2))
+    return np.asarray(rows, np.float64)
+
+
+def fold_bins(T, dt, coeffs, nbins):
+    """[K, T] int32 bins of the fold stage's host expression, numpy's
+    ``t * (f0 + t * (f1 / 2.0 + t * f2 / 6.0))`` through ``phase_to_bins``
+    (the parity anchor of the polynomial form)."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.fold.engine import phase_to_bins
+
+    t = np.arange(T, dtype=np.float64) * dt
+    return np.stack([phase_to_bins(t * (f0 + t * (h1 + t * f2 / 6.0)), nbins)
+                     for f0, h1, f2 in coeffs])
 
 
 def compare_fold(what, s, b, nbins, npart):
-    """The fold kernel against its plain version: counts exact, profiles
+    """The array form against its plain version: counts exact, profiles
     rtol 1e-5 / atol 1e-3; returns (profiles, counts, max abs err)."""
     import torch
 
@@ -973,12 +1005,69 @@ def compare_fold(what, s, b, nbins, npart):
     return got_p, got_c, err
 
 
+def compare_poly(what, s, c, dt, nbins, npart, bins_np):
+    """The polynomial form (a) bit for bit against the array form fed
+    numpy's bins ``bins_np``, (b) against its plain version (counts exact,
+    profiles rtol 1e-5 / atol 1e-3), whose bins (c) must be numpy's;
+    returns (profiles, counts, max abs err against the plain version)."""
+    import torch
+
+    from pypulsar_tpu_torch.ops import fold
+
+    n = npart * (s.shape[0] // npart)
+    b = torch.from_numpy(bins_np).to(s.device)
+    c_dev = torch.from_numpy(c).to(s.device)
+    if not torch.equal(fold.poly_bins(c_dev, dt, n, nbins), b[:, :n]):
+        fail(f"fold_parts_poly {what}: the plain version's bins on the card "
+             f"differ from numpy's")
+    got_p, got_c = fold.fold_parts_poly(s, c, dt, nbins, npart)
+    arr_p, arr_c = fold.fold_parts_batch(s, b, nbins, npart)
+    want_p, want_c = fold._torch_fold_parts_poly(s, c_dev, dt, nbins, npart)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_p, arr_p) and torch.equal(got_c, arr_c)):
+        fail(f"fold_parts_poly {what}: not the bits of the array form fed "
+             f"numpy's bins (counts differ in "
+             f"{int((got_c != arr_c).sum())} bins)")
+    if not torch.equal(got_c, want_c):
+        fail(f"fold_parts_poly {what}: counts differ from the plain version")
+    err = float((got_p - want_p).abs().max()) if got_p.numel() else 0.0
+    if not torch.allclose(got_p, want_p, rtol=1e-5, atol=1e-3):
+        fail(f"fold_parts_poly {what}: profiles differ from the plain "
+             f"version (max abs err {err:.3g})")
+    return got_p, got_c, err
+
+
+def batch_invariant(fn, K):
+    """fn(lo, hi) -> profiles of candidates [lo, hi): the bits of one batch
+    of K, two halves and each alone must agree."""
+    import torch
+
+    whole = fn(0, K)
+    halves = torch.cat([fn(0, K // 2), fn(K // 2, K)])
+    alone = torch.cat([fn(k, k + 1) for k in range(K)])
+    torch.cuda.synchronize()
+    return torch.equal(halves, whole) and torch.equal(alone, whole)
+
+
+def fold_flops(coeffs, n):
+    """float64 instructions the polynomial form's bins take for these
+    candidates over n samples, none a fused multiply-add: 7 a sample
+    ((double)i, t = i*dt, t*h1, f0 + that, t * that, * nbins, the floor),
+    3 more where f2 != 0."""
+    return float(sum((10 if f2 != 0.0 else 7) * n for _, _, f2 in coeffs))
+
+
 def check_fold(device, report, datfn, dt):
-    """The fold kernel at the fold stage's shapes (the DM-70 series, 32
-    periods from 1.5 ms to 2 s that include the pulsar's, 64 bins, 32
-    partitions) against its plain version, a candidate's bits in one batch
-    of 32, two of 16 and alone, then the edge cases; timed beside its
-    bound and one ``index_add_`` over precomputed flat indices."""
+    """Both forms of the fold kernel at the fold stage's shapes (the DM-70
+    series, 32 periods from 1.5 ms to 2 s that include the pulsar's, 64
+    bins, 32 partitions), with f2 = 0 (the stage's) and with f2 != 0:
+    the polynomial form bit for bit against the array form fed numpy's
+    bins, both against their plain versions, a candidate's bits in one
+    batch of 32, two of 16 and alone; then the edge cases; each form's
+    kernel timed on inputs on the card beside its bound, its plain
+    version, and one ``index_add_`` of the same sums from precomputed
+    indices, and each wrapper as called; then both kernels over all-short
+    and all-long periods (printed, not a check)."""
     import numpy as np
     import torch
 
@@ -988,29 +1077,43 @@ def check_fold(device, report, datfn, dt):
     T, nbins, npart = len(series), FOLD_NBINS, FOLD_NPART
     psr = 4096 * 64e-6
     periods = np.sort(np.append(np.geomspace(1.5e-3, 2.0, 31), psr))
-    bins_np = fold_bins(series, dt, periods, nbins, npart)
+    K = len(periods)
+    coeffs_np = fold_coeffs(periods)
+    bins_np = fold_bins(T, dt, coeffs_np, nbins)
     s = torch.from_numpy(series).to(device)
     b = torch.from_numpy(bins_np).to(device)
-    K = b.shape[0]
     profs, counts, err = compare_fold("stage shapes", s, b, nbins, npart)
-    halves = torch.cat([fold.fold_parts_batch(s, b[:16], nbins, npart)[0],
-                        fold.fold_parts_batch(s, b[16:], nbins, npart)[0]])
-    alone = torch.cat([fold.fold_parts_batch(s, b[k:k + 1], nbins, npart)[0]
-                       for k in range(K)])
-    torch.cuda.synchronize()
-    if not (torch.equal(halves, profs) and torch.equal(alone, profs)):
+    pprofs, _, perr = compare_poly("stage shapes", s, coeffs_np, dt, nbins,
+                                   npart, bins_np)
+    if not batch_invariant(lambda lo, hi: fold.fold_parts_batch(
+            s, b[lo:hi], nbins, npart)[0], K):
         fail("fold_parts_batch: a candidate's profile changes with its batch")
+    if not batch_invariant(lambda lo, hi: fold.fold_parts_poly(
+            s, coeffs_np[lo:hi], dt, nbins, npart)[0], K):
+        fail("fold_parts_poly: a candidate's profile changes with its batch")
+    # f2 != 0 and pdot != 0 at the same shapes
+    rng = np.random.default_rng(SEED + 5)
+    c2_np = fold_coeffs(periods, rng.choice([-1.0, 1.0], K) * 10.0
+                        ** rng.uniform(-12, -9, K),
+                        rng.choice([-1.0, 1.0], K) * 10.0
+                        ** rng.uniform(-20, -16, K))
+    _, _, perr2 = compare_poly("stage shapes, f2 != 0", s, c2_np, dt, nbins,
+                               npart, fold_bins(T, dt, c2_np, nbins))
+    if not batch_invariant(lambda lo, hi: fold.fold_parts_poly(
+            s, c2_np[lo:hi], dt, nbins, npart)[0], K):
+        fail("fold_parts_poly (f2 != 0): a candidate's profile changes with "
+             "its batch")
     done = []
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    rng = np.random.default_rng(SEED + 5)
-    # (what, series, bins, nbins, npart): 50 bins; T not a multiple of
-    # npart with an odd part_len (3125) and bin rows off a 16-byte
-    # boundary at odd k; a view whose samples start 4 bytes past one; a
-    # lone candidate; every sample in one bin; the largest nbins
     odd = torch.randn(100003, generator=gen, device=device)
+    tmax = T * dt
+    # array form (what, series, bins, nbins, npart): 50 bins; T not a
+    # multiple of npart with an odd part_len (3125) and bin rows off a
+    # 16-byte boundary at odd k; a view whose samples start 4 bytes past
+    # one; a lone candidate; every sample in one bin; the largest nbins
     cases = [
         ("nbins 50", s, torch.from_numpy(fold_bins(
-            series, dt, periods[::8], 50, npart)).to(device), 50, npart),
+            T, dt, coeffs_np[::8], 50)).to(device), 50, npart),
         ("T 100003, part_len 3125", odd, torch.from_numpy(rng.integers(
             0, nbins, (5, 100003), dtype=np.int32)).to(device), nbins, npart),
         ("series view at +1 float, npart 7", odd[1:100002], torch.from_numpy(
@@ -1025,25 +1128,52 @@ def check_fold(device, report, datfn, dt):
     ]
     for what, es, eb, enb, enp in cases:
         _, _, e_err = compare_fold(what, es, eb, enb, enp)
-        done.append(f"{what}: {fold.launch_threads(enb)} threads, max abs "
-                    f"err {e_err:.3g}")
-    try:
-        fold.fold_parts_batch(odd[:8000], torch.zeros(
-            (1, 8000), dtype=torch.int32, device=device),
-            fold.MAX_NBINS + 1, 2)
-    except ValueError as e:
-        done.append(f"nbins {fold.MAX_NBINS + 1} refused ({e})")
-    else:
-        fail("fold_parts_batch launched past its largest nbins")
-    ms = cuda_time_ms(lambda: fold.fold_parts_batch(s, b, nbins, npart))
-    single_ms = single_call_ms(
-        lambda: fold.fold_parts_batch(s, b, nbins, npart))
-    plain_ms = cuda_time_ms(
-        lambda: fold._torch_fold_parts_batch(s, b, nbins, npart), reps=3)
+        done.append(f"array {what}: {fold.launch_threads(enb)} threads, max "
+                    f"abs err {e_err:.3g}")
+    # polynomial form (what, series, coeffs, nbins, npart), each against
+    # the array form fed numpy's bins: the same shapes, then phases that
+    # turn back below zero or start negative, more than a turn a sample,
+    # and bins past 2^31
+    pcases = [
+        ("nbins 50", s, coeffs_np[::8], 50, npart),
+        ("T 100003, part_len 3125", odd, c2_np[::7], nbins, npart),
+        ("series view at +1 float, npart 7", odd[1:100002], c2_np[3:6],
+         nbins, 7),
+        ("K 1", s, coeffs_np[13:14], nbins, npart),
+        ("one bin", odd, np.zeros((2, 3)), nbins, npart),
+        ("negative and turning phases", s, np.array(
+            [(37.0, -2.0 * 37.0 / tmax, 0.0), (-211.3, 0.0, 0.0),
+             (0.01, 3.0e-5, -1.0e-5)]), nbins, npart),
+        ("more than a turn a sample", s, np.array(
+            [(1.0 / (0.7 * dt), 0.0, 0.0), (1.0 / (0.3 * dt), 1.0, 0.0)]),
+         nbins, npart),
+        ("past 2^31 bins", s, np.array([(5.0e7, 0.0, 0.0),
+                                        (3.1e6, -20.0, 1e-3)]), nbins, npart),
+        (f"nbins {fold.MAX_NBINS}", odd[:8000], coeffs_np[20:22],
+         fold.MAX_NBINS, 2),
+    ]
+    for what, es, ec, enb, enp in pcases:
+        ec = np.ascontiguousarray(ec, np.float64)
+        _, _, e_err = compare_poly(what, es, ec, dt, enb, enp,
+                                   fold_bins(es.shape[0], dt, ec, enb))
+        done.append(f"poly {what}: max abs err {e_err:.3g}")
+    for form, call in (
+            ("fold_parts_batch", lambda nb: fold.fold_parts_batch(
+                odd[:8000], torch.zeros((1, 8000), dtype=torch.int32,
+                                        device=device), nb, 2)),
+            ("fold_parts_poly", lambda nb: fold.fold_parts_poly(
+                odd[:8000], coeffs_np[:1], dt, nb, 2))):
+        try:
+            call(fold.MAX_NBINS + 1)
+        except ValueError as e:
+            done.append(f"{form} nbins {fold.MAX_NBINS + 1} refused ({e})")
+        else:
+            fail(f"{form} launched past its largest nbins")
+    P = T // npart
+    threads = fold.launch_threads(nbins)
     # the library yardstick: one index_add_ of the same sums into a flat
     # [K * npart * nbins] buffer from precomputed flat indices (profiles
     # only, float atomics: a time, not a port)
-    P = T // npart
     t = torch.arange(npart * P, device=device)
     flat = ((torch.arange(K, device=device)[:, None] * npart + t // P) * nbins
             + b[:, :npart * P].long()).reshape(-1)
@@ -1052,25 +1182,78 @@ def check_fold(device, report, datfn, dt):
     library_ms = cuda_time_ms(lambda: buf.index_add_(0, flat, src))
     buf.zero_().index_add_(0, flat, src)
     lib_err = float((buf.reshape(K, npart, nbins) - profs).abs().max())
-    del flat, src, buf
-    nbytes = 4.0 * K * T + 4.0 * T + 8.0 * K * npart * nbins
-    bms, by = bound(nbytes, float(K) * npart * P)
-    report.append(dict(
-        name="fold_parts_batch", route="cuda",
-        source="pypulsar_tpu_torch/ops/csrc/fold_parts.cu",
-        replaces="pypulsar_tpu/fold/engine.py:323",
-        shape=f"series [{T}], bin_idx [{K}, {T}], nbins {nbins}, npart "
-              f"{npart}; {fold.launch_threads(nbins)} threads per block",
-        max_abs_err=err, ms=ms, single_call_ms=single_ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=library_ms))
-    print(f"fold_parts_batch: series [{T}] x {K} candidates -> [{K}x{npart}x"
-          f"{nbins}]: kernel {ms:.3f} ms (single calls {single_ms:.3f} ms), "
-          f"plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms (max abs "
-          f"diff {lib_err:.3g}), bound {bms:.3f} ms ({by}: "
-          f"{nbytes / 1e9:.4f} GB), max abs err {err:.3g}, counts exact; "
-          f"batch of 32, 2 x 16 and alone: identical bits; "
+    del flat, src, buf, t
+    # the kernel is timed on inputs already on the card; the polynomial
+    # form's wrapper also checks the host table and uploads it (its own
+    # time, wrapper_ms)
+    c_dev = torch.from_numpy(coeffs_np).to(device)
+    forms = {}
+    for name, call, wrapper, plain, nbytes, nops, ops_rate, lib in (
+            ("fold_parts_batch",
+             lambda: fold.fold_parts_batch(s, b, nbins, npart),
+             lambda: fold.fold_parts_batch(s, b, nbins, npart),
+             lambda: fold._torch_fold_parts_batch(s, b, nbins, npart),
+             4.0 * K * T + 4.0 * T + 8.0 * K * npart * nbins,
+             float(K) * npart * P, FP32_OPS_PER_S, library_ms),
+            ("fold_parts_poly",
+             lambda: fold._cuda_fold_parts_poly(s, c_dev, dt, nbins, npart),
+             lambda: fold.fold_parts_poly(s, coeffs_np, dt, nbins, npart),
+             lambda: fold._torch_fold_parts_poly(s, c_dev, dt, nbins, npart),
+             4.0 * T + 24.0 * K + 8.0 * K * npart * nbins,
+             fold_flops(coeffs_np, npart * P), FP64_OPS_PER_S, None)):
+        ms = cuda_time_ms(call)
+        single_ms = single_call_ms(call)
+        wrapper_ms = cuda_time_ms(wrapper)
+        plain_ms = cuda_time_ms(plain, reps=3)
+        bms, by = bound(nbytes, nops, ops_rate)
+        forms[name] = dict(ms=ms, single_call_ms=single_ms,
+                           wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by, nbytes=nbytes,
+                           nops=nops, library_ms=lib)
+    # all-short and all-long periods: the run-length accumulation's range
+    by_periods = {}
+    for label, p in (("32 x 1.5 ms", 1.5e-3), ("32 x 2 s", 2.0)):
+        pc_np = fold_coeffs(np.full(K, p))
+        pc = torch.from_numpy(pc_np).to(device)
+        pb = torch.from_numpy(fold_bins(T, dt, pc_np, nbins)).to(device)
+        by_periods[label] = {
+            "fold_parts_batch": cuda_time_ms(
+                lambda: fold.fold_parts_batch(s, pb, nbins, npart)),
+            "fold_parts_poly": cuda_time_ms(
+                lambda: fold._cuda_fold_parts_poly(s, pc, dt, nbins, npart))}
+        del pb
+    shape = (f"series [{T}], nbins {nbins}, npart {npart}; {threads} threads "
+             f"per block")
+    for name, f, e, extra in (
+            ("fold_parts_batch", forms["fold_parts_batch"], err,
+             f"bin_idx [{K}, {T}] int32"),
+            ("fold_parts_poly", forms["fold_parts_poly"], perr,
+             f"coeffs [{K}, 3] float64, f2 = 0")):
+        report.append(dict(
+            name=name, route="cuda",
+            source="pypulsar_tpu_torch/ops/csrc/fold_parts.cu",
+            replaces="pypulsar_tpu/fold/engine.py:323",
+            shape=f"{shape}, {extra}", max_abs_err=e, ms=f["ms"],
+            single_call_ms=f["single_call_ms"], wrapper_ms=f["wrapper_ms"],
+            plain_ms=f["plain_ms"],
+            bound_ms=f["bound_ms"], bound_by=f["bound_by"],
+            library_ms=f["library_ms"],
+            ms_by_periods={k: v[name] for k, v in by_periods.items()}))
+        print(f"{name}: series [{T}] x {K} candidates -> [{K}x{npart}x"
+              f"{nbins}] ({extra}): kernel {f['ms']:.4f} ms (single calls "
+              f"{f['single_call_ms']:.4f} ms), wrapper {f['wrapper_ms']:.4f} "
+              f"ms, plain {f['plain_ms']:.3f} ms, "
+              f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}: "
+              f"{f['nbytes'] / 1e9:.4f} GB, {f['nops'] / 1e9:.4f} G ops), "
+              f"max abs err {e:.3g}, counts exact; all 1.5 ms / all 2 s "
+              f"periods {by_periods['32 x 1.5 ms'][name]:.4f} / "
+              f"{by_periods['32 x 2 s'][name]:.4f} ms")
+    print(f"fold forms: polynomial == array fed numpy's bins, bit for bit "
+          f"(f2 = 0 and f2 != 0, max abs err vs plain {perr:.3g} / "
+          f"{perr2:.3g}); index_add_ {library_ms:.4f} ms (max abs diff "
+          f"{lib_err:.3g}); batch of 32, 2 x 16 and alone: identical bits; "
           + "; ".join(done))
-    del s, b, profs, counts, halves, alone, odd
+    del s, b, c_dev, profs, counts, pprofs, odd
     torch.cuda.empty_cache()
 
 
@@ -1145,7 +1328,9 @@ def fold_stage(tmp, fn, info, device, report):
         stream, [fn, "-s", "64", "--group-size", "0"])
     b7 = os.path.join(tmp, "fold_b7")
     run_fold(b7, ["--datbase", stage, "--batch", "7"])
-    if min(l_dats["fold_parts_batch"], l_stream["fold_parts_batch"]) < 1:
+    s7 = os.path.join(tmp, "fold_stream_b7")
+    run_fold(s7, [fn, "-s", "64", "--group-size", "0", "--batch", "7"])
+    if min(l_dats["fold_parts_poly"], l_stream["fold_parts_poly"]) < 1:
         fail(f"a fold source launched no fold kernel: {l_dats}, {l_stream}")
     if min(l_stream["gather_sum/stage1"], l_stream["gather_sum/stage2"]) < 1:
         fail(f"the stream fold launched no gather-sum stage: {l_stream}")
@@ -1153,14 +1338,15 @@ def fold_stage(tmp, fn, info, device, report):
     if len(results) != n_sifted or summ["n_folded"] != n_sifted:
         fail(f"{summ['n_folded']} of {n_sifted} sifted candidates folded")
     for r in results:
-        for base in (dats, stream, b7):
+        for base in (dats, stream, b7, s7):
             if not os.path.exists(f"{base}_{r['name']}.pfd"):
                 fail(f"no archive {base}_{r['name']}.pfd")
-        with open(f"{dats}_{r['name']}.pfd", "rb") as a, \
-                open(f"{b7}_{r['name']}.pfd", "rb") as c:
-            if a.read() != c.read():
-                fail(f"{r['name']}: archive bytes differ between --batch 32 "
-                     f"and --batch 7")
+        for b32, b_7 in ((dats, b7), (stream, s7)):
+            with open(f"{b32}_{r['name']}.pfd", "rb") as a, \
+                    open(f"{b_7}_{r['name']}.pfd", "rb") as c:
+                if a.read() != c.read():
+                    fail(f"{r['name']}: archive bytes differ between "
+                         f"--batch 32 and --batch 7 ({os.path.basename(b32)})")
     with open(dats + "_snr.json") as f:
         snr = {row["name"]: row["snr"] for row in json.load(f)}
     psr = info["period_samples"] * dt
@@ -1252,7 +1438,7 @@ def profile_fold(argv):
             else:
                 kernel_ms += ms
                 top.append((ev.key[:70], round(ms, 3), ev.count))
-            if "fold_parts" in ev.key:
+            if "fold_poly_kernel" in ev.key or "fold_array_kernel" in ev.key:
                 fold_ms += ms
                 fold_n += ev.count
         elif ev.key == "refine_chi2":
@@ -1264,7 +1450,6 @@ def profile_fold(argv):
         "wall_ms": wall_ms, "kernel_ms": kernel_ms, "copy_ms": copy_ms,
         "h2d_ms": h2d_ms, "fold_kernel_ms": fold_ms,
         "fold_launches": fold_n, "refine_chi2_ms": refine_ms,
-        "other_kernels_ms": kernel_ms - fold_ms - refine_ms,
         "host_prep_s": prep_s[0],
         "idle_share": 1.0 - kernel_ms / wall_ms,
         "by_op_ms": dict(by_op.most_common(8)), "top_kernels": top[:8]}))
@@ -1312,8 +1497,9 @@ def main() -> int:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}
         # the first path that drives the kernel: the 1024-trial sweep for
-        # the dedispersion kernels, the --datbase fold for the fold
-        k["launches"] = (fold_dats if k["name"] == "fold_parts_batch"
+        # the dedispersion kernels, the --datbase fold for the fold (whose
+        # array form no driven path calls: its launches stay 0)
+        k["launches"] = (fold_dats if k["name"].startswith("fold_parts")
                          else launches)[k["name"]]
     print(json.dumps({"kernels": report}))
     print(card)

@@ -4,8 +4,11 @@ Port of the batched part of ``pypulsar_tpu/fold/engine.py``:
 
 - :func:`phase_to_bins`: fractional rotations -> phase bin indices on
   the host in float64 (the parity anchor of every fold);
-- :func:`fold_parts_batch`: the wrapper of the CUDA fold kernel
-  (:mod:`pypulsar_tpu_torch.ops.fold`);
+- :func:`fold_parts_batch` and :func:`fold_parts_poly`: the wrappers of
+  the CUDA fold kernel (:mod:`pypulsar_tpu_torch.ops.fold`), fed bin
+  indices or each candidate's phase polynomial (:func:`phase_coeffs`),
+  whose bins the kernel evaluates itself, equal to :func:`phase_to_bins`
+  of the host's float64 phases;
 - :func:`refine_chi2`: chi2 of every candidate at every trial of a shared
   drift grid, by rotating each candidate's ``[npart, nbins]``
   sub-profiles with a Fourier phase ramp (zero refolds), and the grid's
@@ -24,16 +27,27 @@ import math
 import numpy as np
 import torch
 
-from pypulsar_tpu_torch.ops.fold import fold_parts_batch
+from pypulsar_tpu_torch.core import psrmath
+from pypulsar_tpu_torch.ops.fold import fold_parts_batch, fold_parts_poly
 
 __all__ = ["drift_offsets", "drift_to_p_pd", "fold_parts_batch",
-           "phase_to_bins", "refine_chi2", "refine_drift_grid"]
+           "fold_parts_poly", "phase_coeffs", "phase_to_bins", "refine_chi2",
+           "refine_drift_grid"]
 
 
 def phase_to_bins(phases: np.ndarray, nbins: int) -> np.ndarray:
     """Fractional rotation counts -> phase bin indices (host, float64)."""
     return (np.floor(np.asarray(phases, np.float64) * nbins).astype(np.int64)
             % nbins).astype(np.int32)
+
+
+def phase_coeffs(period: float, pdot: float) -> tuple:
+    """A candidate's ``(f0, f1 / 2.0, f2)`` for :func:`fold_parts_poly`:
+    the terms of the fold stage's phase ``t * (f0 + t * (f1 / 2.0 + t *
+    f2 / 6.0))``, with ``f1 / 2.0`` taken here in float64 as that
+    expression takes it."""
+    f0, f1, f2 = psrmath.p_to_f(period, pdot, 0.0)
+    return f0, f1 / 2.0, f2
 
 
 def refine_chi2(part_profs: torch.Tensor, offsets: torch.Tensor

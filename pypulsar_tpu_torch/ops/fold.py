@@ -1,27 +1,39 @@
 """Batched candidate fold: K candidates fold one shared series into
 sub-integration profiles.
 
-    profs[k, i, b]  = sum of series[i*P + t], t < P, where bins[k, i*P + t] == b
+    profs[k, i, b]  = sum of series[i*P + t], t < P, where bin(k, i*P + t) == b
     counts[k, i, b] = number of such t
 
-with ``P = T // npart`` (the tail is dropped) and bin indices outside
-``[0, nbins)`` adding to nothing. Port of ``fold_parts_batch`` of
-``pypulsar_tpu/fold/engine.py``.
+with ``P = T // npart`` (the tail is dropped). Two forms, one kernel body
+(``csrc/fold_parts.cu``):
 
-A CPU tensor takes the plain PyTorch version, the reference's
-formulation: a float32 contraction with a 0/1 selection matrix per
+- :func:`fold_parts_batch` takes the bins as an int32 ``[K, T]`` array,
+  indices outside ``[0, nbins)`` adding to nothing: the port of
+  ``fold_parts_batch`` of ``pypulsar_tpu/fold/engine.py``;
+- :func:`fold_parts_poly` takes each candidate's phase polynomial,
+  ``coeffs[k] = (f0, f1 / 2.0, f2)`` in float64, and evaluates every bin
+  from the sample time ``i * dt`` in the order of the fold stage's host
+  expression ``t * (f0 + t * (f1 / 2.0 + t * f2 / 6.0))`` and
+  ``phase_to_bins``: the same bins, bit for bit, with no ``[K, T]`` array
+  built or moved.
+
+A CPU tensor takes the plain PyTorch version: the bins by float64 torch
+steps in that order (:func:`poly_bins`), and the reference's formulation
+of the fold, a float32 contraction with a 0/1 selection matrix per
 partition, accumulated over ``_FOLD_BLOCK``-sample blocks where a
 partition is longer, one call per candidate so that a candidate's bits
-never depend on the batch. A CUDA tensor launches the hand-written kernel
-``csrc/fold_parts.cu``, whose order of additions is fixed by
-``(part_len, nbins)`` alone: it, too, gives a candidate the same bits in
-any batch.
+never depend on the batch. A CUDA tensor launches the hand-written kernel,
+whose order of additions is fixed by ``(part_len, nbins)`` and the
+candidate's own bins: it, too, gives a candidate the same bits in any
+batch, and both forms the same bits from the same bins.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from pypulsar_tpu_torch.ops import _build
@@ -44,10 +56,21 @@ def launch_threads(nbins: int) -> int:
     return min(_MAX_THREADS, _MAX_SMEM // (8 * nbins))
 
 
-def _check(series, bin_idx, nbins: int, npart: int) -> None:
+def _check_series(series, nbins: int, npart: int) -> None:
     if series.dim() != 1 or series.dtype != torch.float32:
         raise ValueError(f"series must be 1-D float32; got "
                          f"{tuple(series.shape)} {series.dtype}")
+    if nbins < 1 or npart < 1:
+        raise ValueError(f"nbins={nbins} and npart={npart} must be >= 1")
+    part_len = series.shape[0] // npart
+    if part_len >= 1 << 24:
+        raise ValueError(
+            f"part_len={part_len} >= 2^24: f32 one-hot counts would lose "
+            f"exactness; use more partitions")
+
+
+def _check(series, bin_idx, nbins: int, npart: int) -> None:
+    _check_series(series, nbins, npart)
     if bin_idx.dim() != 2 or bin_idx.dtype != torch.int32:
         raise ValueError(f"bin_idx must be 2-D int32; got "
                          f"{tuple(bin_idx.shape)} {bin_idx.dtype}")
@@ -57,13 +80,6 @@ def _check(series, bin_idx, nbins: int, npart: int) -> None:
     if series.device != bin_idx.device:
         raise ValueError(f"series on {series.device}, bin_idx on "
                          f"{bin_idx.device}")
-    if nbins < 1 or npart < 1:
-        raise ValueError(f"nbins={nbins} and npart={npart} must be >= 1")
-    part_len = series.shape[0] // npart
-    if part_len >= 1 << 24:
-        raise ValueError(
-            f"part_len={part_len} >= 2^24: f32 one-hot counts would lose "
-            f"exactness; use more partitions")
 
 
 def _torch_fold_parts_batch(series, bin_idx, nbins: int, npart: int):
@@ -94,21 +110,28 @@ def _torch_fold_parts_batch(series, bin_idx, nbins: int, npart: int):
     return profs, counts
 
 
-def _cuda_fold_parts_batch(series, bin_idx, nbins: int, npart: int):
+def _launch_setup(series, nbins: int, npart: int, K: int):
+    """(library, threads, profs, counts, stream) of one kernel launch."""
     lib = _build.load("fold_parts")
     threads = launch_threads(nbins)
-    series = series.contiguous()
-    bin_idx = bin_idx.contiguous()
-    K, T = bin_idx.shape
     dev = series.device
     profs = torch.empty((K, npart, nbins), dtype=torch.float32, device=dev)
     counts = torch.empty((K, npart, nbins), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return lib, threads, profs, counts, stream
+
+
+def _cuda_fold_parts_batch(series, bin_idx, nbins: int, npart: int):
+    series = series.contiguous()
+    bin_idx = bin_idx.contiguous()
+    K, T = bin_idx.shape
+    lib, threads, profs, counts, stream = _launch_setup(series, nbins, npart,
+                                                        K)
     fn = lib.fold_parts_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
                                           ctypes.c_int, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(fn(series.data_ptr(), bin_idx.data_ptr(), profs.data_ptr(),
                     counts.data_ptr(), K, T, npart, nbins, threads, stream),
                  "fold_parts")
@@ -134,3 +157,129 @@ def fold_parts_batch(series: torch.Tensor, bin_idx: torch.Tensor, nbins: int,
 
 
 fold_parts_batch.launches = 0
+
+
+#: a phase past this many bins is refused: numpy's floor-to-int64 of the
+#: host expression stops being defined near 2^63
+_MAX_PHASE_BINS = 2.0 ** 62
+
+
+def phase_bins_bound(coeffs, dt: float, n: int, nbins: int) -> np.ndarray:
+    """Per candidate, a bound on ``|phase * nbins|`` over samples
+    ``0..n-1`` of ``coeffs[K, 3]`` (host float64), term by term."""
+    c = np.abs(np.asarray(coeffs, np.float64).reshape(-1, 3))
+    tmax = (n - 1) * dt
+    return tmax * (c[:, 0] + tmax * (c[:, 1] + tmax * c[:, 2] / 6.0)) * nbins
+
+
+def check_coeffs(coeffs: np.ndarray, dt: float, n: int, nbins: int) -> None:
+    """ValueError unless every coefficient is finite with ``|phase *
+    nbins|`` under 2^62 over ``n`` samples, the range in which the
+    polynomial form's bins are numpy's."""
+    if n and coeffs.size and not (np.isfinite(coeffs).all() and (
+            phase_bins_bound(coeffs, dt, n, nbins) < _MAX_PHASE_BINS).all()):
+        raise ValueError(f"coeffs must be finite with |phase * nbins| under "
+                         f"2^62 over the {n} folded samples")
+
+
+def _host_coeffs(coeffs) -> np.ndarray:
+    """The ``[K, 3]`` float64 table as a numpy array: a numpy array or a
+    CPU tensor; ValueError on another type, shape or device."""
+    if isinstance(coeffs, torch.Tensor):
+        if coeffs.device.type != "cpu":
+            raise ValueError(f"coeffs on {coeffs.device}: pass the [K, 3] "
+                             f"table as a host array (numpy or a CPU tensor)")
+        coeffs = coeffs.numpy()
+    c = np.asarray(coeffs)
+    if c.ndim != 2 or c.shape[1] != 3 or c.dtype != np.float64:
+        raise ValueError(f"coeffs must be [K, 3] float64 (f0, f1 / 2.0, f2); "
+                         f"got {c.shape} {c.dtype}")
+    return c
+
+
+def poly_bins(coeffs: torch.Tensor, dt: float, n: int, nbins: int
+              ) -> torch.Tensor:
+    """Plain PyTorch bins ``[K, n]`` int32 of samples ``0..n-1``, on
+    ``coeffs``' device: per candidate, ``t = i * dt``, then ``t * f2``,
+    ``/ 6.0``, ``h1 +``, ``t *``, ``f0 +``, ``t *``, ``* nbins``, floor and
+    floor-modulo ``nbins``, each a float64 torch operation of its own, in
+    numpy's order (so no step is contracted with another). Every scalar is
+    a tensor on the device: PyTorch divides a CUDA tensor by a CPU scalar
+    as a product with its reciprocal, which is not numpy's division."""
+    dev = coeffs.device
+    t = torch.arange(n, dtype=torch.float64, device=dev) * torch.tensor(
+        dt, dtype=torch.float64, device=dev)
+    six = torch.tensor(6.0, dtype=torch.float64, device=dev)
+    dn = torch.tensor(float(nbins), dtype=torch.float64, device=dev)
+    out = torch.empty((coeffs.shape[0], n), dtype=torch.int32, device=dev)
+    for k in range(coeffs.shape[0]):
+        f0, h1, f2 = coeffs[k, 0], coeffs[k, 1], coeffs[k, 2]
+        phase = t * (f0 + t * (h1 + (t * f2) / six))
+        out[k] = torch.remainder(torch.floor(phase * dn).to(torch.int64),
+                                 nbins).to(torch.int32)
+    return out
+
+
+def _torch_fold_parts_poly(series, coeffs, dt: float, nbins: int,
+                           npart: int):
+    """Plain PyTorch version of :func:`fold_parts_poly`: the bins of
+    :func:`poly_bins`, then the array form's plain fold."""
+    n = npart * (series.shape[0] // npart)
+    return _torch_fold_parts_batch(series, poly_bins(coeffs, dt, n, nbins),
+                                   nbins, npart)
+
+
+def _cuda_fold_parts_poly(series, coeffs, dt: float, nbins: int, npart: int):
+    series = series.contiguous()
+    K = coeffs.shape[0]
+    lib, threads, profs, counts, stream = _launch_setup(series, nbins, npart,
+                                                        K)
+    fn = lib.fold_poly_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(series.data_ptr(), coeffs.data_ptr(), dt,
+                    profs.data_ptr(), counts.data_ptr(), K,
+                    series.shape[0], npart, nbins, threads, stream),
+                 "fold_poly")
+    fold_parts_poly.launches += 1
+    return profs, counts
+
+
+def fold_parts_poly(series: torch.Tensor, coeffs, dt: float, nbins: int,
+                    npart: int):
+    """(profs[K, npart, nbins] float32, counts[K, npart, nbins] int32) of
+    ``series[T]`` float32 folded at the bins of each candidate's phase
+    polynomial, ``coeffs[k] = (f0, f1 / 2.0, f2)``, a ``[K, 3]`` float64
+    host array (numpy or a CPU tensor), ``dt`` seconds a sample: sample
+    ``i`` of the whole series falls in ``floor(phase * nbins) mod nbins``
+    with ``phase = t * (f0 + t * (f1 / 2.0 + t * f2 / 6.0))``, ``t = i *
+    dt``, exactly as :func:`~pypulsar_tpu_torch.fold.engine.phase_to_bins`
+    gives it on the host. Raises ValueError on other types, shapes or
+    devices, a ``dt`` that is not positive and finite, coefficients that
+    are not finite or reach ``|phase * nbins|`` of 2^62 (numpy's own cast
+    to int64 is undefined past that: :func:`check_coeffs`), for ``T //
+    npart >= 2^24``, and (on the card) past :data:`MAX_NBINS`. The table
+    is checked on the host and then moved to the series' device: a CPU
+    series runs the plain PyTorch version; a CUDA series launches
+    ``csrc/fold_parts.cu`` (counted in ``fold_parts_poly.launches``)."""
+    dt = float(dt)
+    _check_series(series, nbins, npart)
+    c = _host_coeffs(coeffs)
+    if not (math.isfinite(dt) and dt > 0.0):
+        raise ValueError(f"dt must be a positive finite float; got {dt!r}")
+    check_coeffs(c, dt, npart * (series.shape[0] // npart), nbins)
+    c = torch.from_numpy(np.ascontiguousarray(c))
+    if series.device.type == "cpu":
+        return _torch_fold_parts_poly(series, c, dt, nbins, npart)
+    if series.device.type == "cuda":
+        # pinned and asynchronous: a pageable copy would wait for the
+        # stream's queued work
+        c = c.pin_memory().to(series.device, non_blocking=True)
+        return _cuda_fold_parts_poly(series, c, dt, nbins, npart)
+    raise ValueError(f"no fold for device {series.device}")
+
+
+fold_parts_poly.launches = 0

@@ -5,9 +5,11 @@ refinement and no refold.
 Port of ``pypulsar_tpu/parallel/foldpipe.py`` on one device:
 
 - candidates are grouped by DM, and each group folds off ONE shared
-  dedispersed series (:func:`~pypulsar_tpu_torch.fold.engine.fold_parts_batch`,
-  the CUDA fold kernel; per-candidate phase polynomials give per-candidate
-  bin indices);
+  dedispersed series (:func:`~pypulsar_tpu_torch.fold.engine.fold_parts_poly`,
+  the CUDA fold kernel, fed each candidate's float64 phase polynomial: it
+  evaluates every sample's bin on the device, equal bit for bit to
+  ``phase_to_bins`` of the host's float64 phases, so no ``[K, T]`` bin
+  array is built or copied);
 - :func:`~pypulsar_tpu_torch.fold.engine.refine_chi2` rotates each
   candidate's ``[npart, nbins]`` sub-profiles over a shared drift grid
   and reports the chi2-best (p, pdot);
@@ -15,8 +17,8 @@ Port of ``pypulsar_tpu/parallel/foldpipe.py`` on one device:
   reads retried on transient IO errors) or from one streamed pass over
   the raw file (:func:`iter_groups_stream`, over
   :func:`~pypulsar_tpu_torch.parallel.accelpipe.stream_series`);
-- the host prep (float64 phase polynomials -> bin indices, per-partition
-  data moments) of the next group runs on a worker thread while the
+- the host prep (per-partition data moments, the ``[K, 3]`` table of
+  phase coefficients) of the next group runs on a worker thread while the
   device folds the current one (:func:`~pypulsar_tpu_torch.parallel.prefetch.prefetch`);
 - every ``.pfd`` lands through tmp + ``os.replace``.
 
@@ -36,8 +38,8 @@ Left out of the reference, each with its reason:
 - the NumPy-twin fallback on a device failure: a fold on another path
   than the one asked for is no result of that path;
 - the batch broker (ROADMAP.md Queue 1 S12), the auto-tuning consult and
-  the environment knobs (plain module constants here,
-  :data:`STREAM_RAM_BYTES`, :data:`BINIDX_RAM_BYTES`), ``--journal``
+  the environment knobs (a plain module constant here,
+  :data:`STREAM_RAM_BYTES`), ``--journal``
   (S1), ``--mask`` on the stream source (S2) and telemetry (S5).
 """
 
@@ -51,7 +53,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pypulsar_tpu_torch.core import psrmath
 from pypulsar_tpu_torch.core.device import resolve_device
 
 __all__ = [
@@ -69,8 +70,6 @@ __all__ = [
 #: host bytes of the stream source's series buffer (one raw-file pass per
 #: slice of DMs past it)
 STREAM_RAM_BYTES = 12e9
-#: host bytes of one group's [K, T] int32 bin indices: caps the batch
-BINIDX_RAM_BYTES = 4e9
 
 
 @dataclass
@@ -281,9 +280,10 @@ def iter_groups_stream(groups, reader, downsamp: int = 1, nsub: int = 64,
 
 def _prep_group(group, nbins: int, npart: int):
     """Host half of a group: per-partition moments of the shared series
-    and every member's phase-polynomial bin indices (float64). A failure
-    travels as a value: the consumer fails the group."""
-    from pypulsar_tpu_torch.fold.engine import phase_to_bins
+    and every member's phase coefficients, ``[K, 3]`` float64 (the device
+    evaluates the bins). A failure travels as a value: the consumer fails
+    the group."""
+    from pypulsar_tpu_torch.fold.engine import phase_coeffs
 
     dm, series, dt, meta, members = group
     if isinstance(series, Exception):
@@ -298,15 +298,11 @@ def _prep_group(group, nbins: int, npart: int):
         parts = used.reshape(npart, part_len)
         pmean = parts.mean(axis=1)
         pvar = parts.var(axis=1)
-        t = np.arange(T, dtype=np.float64) * dt
-        bin_idx = np.empty((len(members), T), np.int32)
-        for j, (_, c) in enumerate(members):
-            f0, f1, f2 = psrmath.p_to_f(c.period, c.pdot, 0.0)
-            phase = t * (f0 + t * (f1 / 2.0 + t * f2 / 6.0))
-            bin_idx[j] = phase_to_bins(phase, nbins)
+        coeffs = np.array([phase_coeffs(c.period, c.pdot)
+                           for _, c in members], np.float64).reshape(-1, 3)
     except Exception as e:  # noqa: BLE001 - consumer decides
         return group, None, None, None, e
-    return group, pmean, pvar, bin_idx, None
+    return group, pmean, pvar, coeffs, None
 
 
 def fold_pipeline(
@@ -341,7 +337,7 @@ def fold_pipeline(
     from pypulsar_tpu_torch.fold.engine import (
         drift_offsets,
         drift_to_p_pd,
-        fold_parts_batch,
+        fold_parts_poly,
         refine_chi2,
         refine_drift_grid,
     )
@@ -380,27 +376,6 @@ def fold_pipeline(
     if not todo:
         return summary
 
-    # bound the host's [K, T] int32 bin-index buffer of a group (the
-    # largest host allocation and copy to the device): halving only
-    # shrinks the device's share, so the batch is capped before prep
-    T_est = None
-    if source == "stream":
-        from pypulsar_tpu_torch.parallel.staged import ReaderSource
-
-        T_est = ReaderSource(reader).nsamples // max(1, downsamp)
-    else:
-        try:
-            T_est = os.path.getsize(dat_for_dm(cands[todo[0]].dm)) // 4
-        except OSError:
-            T_est = None  # the provider reports the real read error
-    if T_est:
-        cap = max(1, int(BINIDX_RAM_BYTES // (4 * T_est)))
-        if cap < batch:
-            if verbose:
-                print(f"# candidate batch {batch} -> {cap}: bin-index "
-                      f"buffers capped at {BINIDX_RAM_BYTES / 1e9:.1f} GB "
-                      f"for the {T_est}-sample series")
-            batch = cap
     groups = _group_by_dm([(i, cands[i]) for i in todo], batch)
     if source == "stream":
         group_iter = iter_groups_stream(
@@ -419,7 +394,7 @@ def fold_pipeline(
     else:  # inline, single-threaded (same values)
         prepped = (_prep_group(g, nbins, npart) for g in group_iter)
 
-    for group, pmean, pvar, bin_idx, prep_err in prepped:
+    for group, pmean, pvar, coeffs, prep_err in prepped:
         dm, series, dt, meta, members = group
         K = len(members)
         if prep_err is not None:
@@ -439,9 +414,8 @@ def fold_pipeline(
         series_dev = torch.from_numpy(np.ascontiguousarray(series)).to(device)
 
         def run(lo, hi):
-            bins_dev = torch.from_numpy(bin_idx[lo:hi]).to(device)
-            profs_dev, _ = fold_parts_batch(series_dev, bins_dev, nbins,
-                                            npart)
+            profs_dev, _ = fold_parts_poly(series_dev, coeffs[lo:hi], dt,
+                                           nbins, npart)
             chi2 = (refine_chi2(profs_dev, offsets).cpu().numpy()
                     if refine else None)
             return profs_dev.cpu().numpy(), chi2

@@ -10,7 +10,12 @@ Contracts:
   ``drift_to_p_pd`` equal the reference's exactly (host float64);
 - ``refine_chi2`` within rtol 1e-4 of each candidate's largest chi2
   (float32 FFT rounding in both), with the same argmax except where the
-  top two lie within that tolerance.
+  top two lie within that tolerance;
+- the polynomial form's plain bins (``ops.fold.poly_bins``) equal, bit for
+  bit, ``phase_to_bins`` (the port's and the reference's) of the fold
+  stage's host expression ``t * (f0 + t * (f1 / 2.0 + t * f2 / 6.0))``;
+  its plain fold equals the array form's plain fold fed those bins, bit
+  for bit, and so the reference's within the fold tolerance.
 
 The CUDA kernel itself runs on the card only; ``chip_smoke.py`` holds it
 against the plain version tested here.
@@ -24,6 +29,152 @@ from pypulsar_tpu.fold import engine as jax_engine
 from pypulsar_tpu_torch.core import psrmath
 from pypulsar_tpu_torch.fold import engine
 from pypulsar_tpu_torch.ops import fold
+
+
+def _host_bins(T, dt, coeffs, nbins, phase_to_bins):
+    """[K, T] bins of the fold stage's host expression, per coefficient
+    row (f0, f1 / 2.0, f2), through ``phase_to_bins``."""
+    t = np.arange(T, dtype=np.float64) * dt
+    return np.stack([phase_to_bins(t * (f0 + t * (h1 + t * f2 / 6.0)), nbins)
+                     for f0, h1, f2 in coeffs])
+
+
+def _battery(T, dt, seed):
+    """64 coefficient rows: periods 1.5 ms - 2 s with pdot 0 and +-1e-12 ..
+    1e-9, some with f2 != 0, and rows whose phases go negative (a pdot
+    that turns the phase back within the series; a negative f0) or pass
+    2^31 bins."""
+    rng = np.random.default_rng(seed)
+    periods = rng.permutation(np.geomspace(1.5e-3, 2.0, 56))
+    pdots = np.where(np.arange(56) % 2 == 0, 0.0, rng.choice([-1.0, 1.0], 56)
+                     * 10.0 ** rng.uniform(-12, -9, 56))
+    rows = [engine.phase_coeffs(p, pd) for p, pd in zip(periods, pdots)]
+    for p, pd, pdd in ((0.0031, 2e-10, 1e-9), (0.7, -5e-10, -3e-12),
+                       (0.0517, 0.0, 2e-8), (1.3, 1e-9, 1e-15)):
+        f0, f1, f2 = psrmath.p_to_f(p, pd, pdd)
+        assert f2 != 0.0
+        rows.append((f0, f1 / 2.0, f2))
+    tmax = T * dt
+    rows += [(37.0, -2.0 * 37.0 / tmax, 0.0),   # phase back below 0
+             (-211.3, 0.0, 0.0),                  # negative from the start
+             (5.0e7, 0.0, 0.0),                   # past 2^31 bins
+             (0.01, 3.0e-7, -1.0e-5)]             # tiny, turning, f2 < 0
+    return np.asarray(rows, np.float64)
+
+
+@pytest.mark.parametrize("nbins", [50, 64, 128, 29056])
+@pytest.mark.parametrize("dt", [64e-6, 2.5e-4])
+def test_poly_bins_equal_phase_to_bins_of_the_host_phases(nbins, dt):
+    """64 candidates x 2^18 samples: every bin of the plain polynomial
+    form equals the port's and the reference's ``phase_to_bins`` of
+    numpy's float64 phases."""
+    T = 1 << 18
+    coeffs = _battery(T, dt, seed=nbins)
+    assert coeffs.shape == (64, 3)
+    got = fold.poly_bins(torch.from_numpy(coeffs), dt, T, nbins).numpy()
+    assert got.dtype == np.int32
+    want = _host_bins(T, dt, coeffs, nbins, engine.phase_to_bins)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        want, _host_bins(T, dt, coeffs, nbins, jax_engine.phase_to_bins))
+    # the battery reaches what it is meant to: negative phases, and bins
+    # of 2^31 and more, both sides of the int32 range; the bound that
+    # check_coeffs holds under 2^62 covers every |phase * nbins|
+    t = np.arange(T) * dt
+    y = np.stack([t * (f0 + t * (h1 + t * f2 / 6.0)) * nbins
+                  for f0, h1, f2 in coeffs])
+    assert y.min() < 0 and y.max() > 2**31
+    bound = fold.phase_bins_bound(coeffs, dt, T, nbins)
+    assert (np.abs(y).max(axis=1) <= bound).all()
+    assert (bound < 2**31).any() and (bound >= 2**31).any()
+
+
+@pytest.mark.parametrize("T,K,nbins,npart", [
+    (1 << 15, 8, 64, 32),
+    (30001, 5, 50, 7),
+    ((1 << 17) + 1000, 2, 32, 1),
+])
+def test_plain_poly_fold_equals_array_fold_of_host_bins(T, K, nbins, npart):
+    dt = 2.5e-4
+    series = _series(T, seed=T + K, period=0.0517, dt=dt)
+    coeffs = np.array([engine.phase_coeffs(p, pd) for p, pd in zip(
+        np.geomspace(0.004, 0.9, K), np.linspace(-1e-10, 1e-10, K))])
+    coeffs[-1, 2] = 3e-9  # one candidate with f2 != 0
+    bins = _host_bins(T, dt, coeffs, nbins, engine.phase_to_bins)
+    s = torch.from_numpy(series)
+    got_p, got_c = fold.fold_parts_poly(s, torch.from_numpy(coeffs), dt,
+                                        nbins, npart)
+    arr_p, arr_c = fold.fold_parts_batch(s, torch.from_numpy(bins), nbins,
+                                         npart)
+    assert torch.equal(got_p, arr_p) and torch.equal(got_c, arr_c)
+    want_p, want_c = jax_engine.fold_parts_batch(series, bins, nbins, npart)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=1e-5,
+                               atol=1e-3)
+    # a candidate's bits do not depend on its batch
+    for k in range(K):
+        alone = fold.fold_parts_poly(s, torch.from_numpy(coeffs[k:k + 1]), dt,
+                                     nbins, npart)[0]
+        assert torch.equal(alone[0], got_p[k])
+
+
+def test_poly_wrapper_refuses_what_it_does_not_take():
+    s = torch.zeros(64)
+    c = torch.tensor([[10.0, 0.0, 0.0], [3.0, -1e-3, 0.0]],
+                     dtype=torch.float64)
+    with pytest.raises(ValueError, match="float64"):
+        fold.fold_parts_poly(s, c.float(), 1e-3, 8, 2)
+    with pytest.raises(ValueError, match=r"\[K, 3\]"):
+        fold.fold_parts_poly(s, c[:, :2], 1e-3, 8, 2)
+    with pytest.raises(ValueError, match=r"\[K, 3\]"):
+        fold.fold_parts_poly(s, c[0], 1e-3, 8, 2)
+    with pytest.raises(ValueError, match="float32"):
+        fold.fold_parts_poly(s.double(), c, 1e-3, 8, 2)
+    with pytest.raises(ValueError, match="coeffs on meta"):
+        fold.fold_parts_poly(s, c.to("meta"), 1e-3, 8, 2)
+    with pytest.raises(ValueError, match="dt"):
+        fold.fold_parts_poly(s, c, 0.0, 8, 2)
+    with pytest.raises(ValueError, match="dt"):
+        fold.fold_parts_poly(s, c, float("nan"), 8, 2)
+    for bad in (float("nan"), float("inf"), 1e20):
+        c_bad = c.clone()
+        c_bad[1, 0] = bad
+        with pytest.raises(ValueError, match="2\\^62"):
+            fold.fold_parts_poly(s, c_bad, 1e-3, 8, 2)
+    with pytest.raises(ValueError, match=">= 1"):
+        fold.fold_parts_poly(s, c, 1e-3, 0, 2)
+    big = torch.zeros(1).expand(1 << 24)
+    with pytest.raises(ValueError, match="2\\^24"):
+        fold.fold_parts_poly(big, c, 1e-3, 8, 1)
+
+
+def test_poly_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    n0, m0 = fold.fold_parts_poly.launches, fold.fold_parts_batch.launches
+    c = torch.tensor([[125.0, 0.0, 0.0]], dtype=torch.float64)
+    p, n = fold.fold_parts_poly(torch.ones(16), c, 1e-3, 8, 2)
+    assert n.tolist() == [[[1] * 8, [1] * 8]]
+    assert p.tolist() == [[[1.0] * 8, [1.0] * 8]]
+    assert (fold.fold_parts_poly.launches, fold.fold_parts_batch.launches) \
+        == (n0, m0)
+
+
+def test_poly_takes_a_numpy_table_as_a_cpu_tensor():
+    s = torch.from_numpy(_series(4000, seed=3, period=0.0517, dt=2.5e-4))
+    c = np.array([engine.phase_coeffs(p, 1e-11) for p in (0.01, 0.3)])
+    got = fold.fold_parts_poly(s, c, 2.5e-4, 16, 4)
+    want = fold.fold_parts_poly(s, torch.from_numpy(c), 2.5e-4, 16, 4)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # every row slice of the table, contiguous or not
+    got_odd = fold.fold_parts_poly(s, c[::-1], 2.5e-4, 16, 4)
+    assert torch.equal(got_odd[0], want[0].flip(0))
+    with pytest.raises(ValueError, match="float64"):
+        fold.fold_parts_poly(s, c.astype(np.float32), 2.5e-4, 16, 4)
+
+
+def test_phase_coeffs_are_the_host_expression_terms():
+    for p, pd in ((0.262144, 0.0), (0.0015, -3e-15), (1.7, 1e-9)):
+        f0, f1, f2 = psrmath.p_to_f(p, pd, 0.0)
+        assert engine.phase_coeffs(p, pd) == (f0, f1 / 2.0, f2)
 
 
 def _bins(T, dt, periods, nbins, pdots=None):

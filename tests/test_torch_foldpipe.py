@@ -33,7 +33,7 @@ from pypulsar_tpu_torch.fourier.accelsearch import AccelCandidate
 from pypulsar_tpu_torch.io.filterbank import FilterbankFile
 from pypulsar_tpu_torch.io.prestopfd import PfdFile
 from pypulsar_tpu_torch.io.synth import write_synthetic_fil
-from pypulsar_tpu_torch.parallel import accelpipe
+from pypulsar_tpu_torch.parallel import accelpipe, foldpipe
 from pypulsar_tpu_torch.resilience import retry
 
 DT, NSAMP, PERIOD, DM = 5e-4, 1 << 14, 256, 40.0
@@ -166,16 +166,16 @@ def test_pfd_bytes_do_not_depend_on_the_batch(obs, dats_runs, batch):
 
 
 def test_oom_halving_keeps_pfd_bytes(obs, dats_runs, monkeypatch, capsys):
-    real = engine.fold_parts_batch
+    real = engine.fold_parts_poly
     sizes = []
 
-    def tight(series, bins, nbins, npart):
-        sizes.append(bins.shape[0])
-        if bins.shape[0] > 1:
+    def tight(series, coeffs, dt, nbins, npart):
+        sizes.append(coeffs.shape[0])
+        if coeffs.shape[0] > 1:
             raise torch.cuda.OutOfMemoryError("CUDA out of memory (injected)")
-        return real(series, bins, nbins, npart)
+        return real(series, coeffs, dt, nbins, npart)
 
-    monkeypatch.setattr(engine, "fold_parts_batch", tight)
+    monkeypatch.setattr(engine, "fold_parts_poly", tight)
     monkeypatch.setattr(retry.time, "sleep", lambda s: None)
     out = str(obs["dir"] / "oom")
     assert _port(obs, out, "--datbase", obs["base"], "--batch", "8") == 0
@@ -189,11 +189,34 @@ def test_other_fold_failures_raise_and_write_nothing(obs, monkeypatch,
     def broken(*a, **kw):
         raise RuntimeError("fold_parts: CUDA error 700 at launch")
 
-    monkeypatch.setattr(engine, "fold_parts_batch", broken)
+    monkeypatch.setattr(engine, "fold_parts_poly", broken)
     out = str(tmp_path / "fail")
     with pytest.raises(RuntimeError, match="CUDA error"):
         _port(obs, out, "--datbase", obs["base"])
     assert os.listdir(tmp_path) == []
+
+
+def test_prep_group_builds_no_bin_array():
+    """The host half of a group keeps the per-partition moments and a
+    [K, 3] float64 coefficient table; no [K, T] bin array is built (the
+    device evaluates the bins)."""
+    T, npart = 10007, 16
+    series = np.random.default_rng(3).standard_normal(T).astype(np.float32)
+    members = [(i, foldpipe.FoldCandidate(p, 40.0, pd))
+               for i, (p, pd) in enumerate(((P0, 0.0), (0.0517, 1e-12),
+                                            (0.0099, -3e-11)))]
+    group = (40.0, series, DT, {}, members)
+    got_group, pmean, pvar, coeffs, err = foldpipe._prep_group(group, 64,
+                                                               npart)
+    assert err is None and got_group is group
+    assert pmean.shape == pvar.shape == (npart,)
+    assert coeffs.shape == (3, 3) and coeffs.dtype == np.float64
+    assert [tuple(r) for r in coeffs] == [engine.phase_coeffs(c.period,
+                                                              c.pdot)
+                                          for _, c in members]
+    assert not any(isinstance(v, np.ndarray) and T in v.shape
+                   for v in (pmean, pvar, coeffs))
+    assert not hasattr(foldpipe, "BINIDX_RAM_BYTES")
 
 
 def test_missing_dat_fails_its_group_not_the_run(obs, tmp_path, capsys):
