@@ -92,14 +92,39 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    ``refine_chi2``'s and the copies' device time, the host prep's wall
    time and the idle share.
 
+8. the survey's whole chain (``survey.dag.run_observation``: mask ->
+   sweep ``--mask --journal`` -> sift -> fold -> snr) with the survey's
+   default ``SurveyConfig`` from DM 54 (mask on, 1-s intervals, 32
+   trials, the chain journal), on a copy of the phase-4 file with RFI
+   written into its data bytes: a square-wave tone of period 16 samples
+   at 0/255 on 16 adjacent channels, and +25 counts on every channel over
+   one 1-s interval. First the mask stage's gates: the card's block
+   statistics on the first read (16 intervals x 1024 channels; timed)
+   within mean/std atol 1e-5 and max power rtol 2e-3 of the float64
+   twin; the card's ``.mask`` of the file's first 2^18 samples the bytes
+   of the port's on the CPU, or every differing flag within the
+   statistics' bounds of its threshold by the twin
+   (``ops.rfifind.decision_margins``).
+   Then the chain, whose mask must zap the 16 tone channels and the
+   interval whole and flag under 1% of the other cells; a candidate
+   within 2 DM of 70 at the pulsar's period or a harmonic must fold to
+   SNR > 10 in ``_snr.json``; the chain must have launched both
+   gather-sum stages, boxcar and the polynomial fold; and a second run of
+   its sweep stage with the same journal must search and sweep nothing
+   and leave every artifact's sha256 unchanged. Each stage's wall time
+   is printed beside phase 6's unmasked sweep stage, with the blocks the
+   mask fill filled and its device time per block of each shape.
+
 Then one JSON line of per-kernel numbers, the card line, and the last
 line ``{"ok": true, "device": {...}}``.
 """
 
 import collections
 import glob
+import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -891,7 +916,7 @@ def stage_path(tmp, fn, info):
                        "harmonic": round((c.r / T) / f0)} for c in hits[:3]]}
     print("stage: " + json.dumps(numbers))
     profile_handoff(cli, fn, os.path.join(tmp, "prof"))
-    return sp.launches, ser.launches
+    return sp.launches, ser.launches, wall
 
 
 # op families of the handoff's device time, by the aten op that launched
@@ -1455,6 +1480,241 @@ def profile_fold(argv):
         "by_op_ms": dict(by_op.most_common(8)), "top_kernels": top[:8]}))
 
 
+MASK_TIME, TONE_CHANS, RFI_INTERVAL = 1.0, range(500, 516), 20
+
+
+def write_rfi_copy(tmp, fn, info):
+    """A copy of the phase-4 file with RFI in its data bytes: file
+    channels ``TONE_CHANS`` hold a square wave of period 16 samples at 0
+    and 255, and every other channel gains 25 counts over the 1-s
+    interval ``RFI_INTERVAL`` (noise and pulse stay <= 229, so <= 254).
+    Returns its path and the mask channels and interval that must be
+    zapped (mask channels run low-frequency-first; the file descends)."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+
+    out = os.path.join(tmp, "rfi.fil")
+    t0 = time.perf_counter()
+    shutil.copyfile(fn, out)
+    with FilterbankFile(out) as r:
+        hdr_bytes, C, T = r.header_size, r.nchans, r.nspec
+    pts = int(round(MASK_TIME / info["tsamp"]))
+    data = np.memmap(out, dtype=np.uint8, mode="r+", offset=hdr_bytes,
+                     shape=(T, C))
+    data[RFI_INTERVAL * pts:(RFI_INTERVAL + 1) * pts] += np.uint8(25)
+    c0, c1 = TONE_CHANS[0], TONE_CHANS[-1] + 1
+    step = 1 << 16
+    tone = np.where((np.arange(step) // 8) % 2 == 0, 0, 255).astype(np.uint8)
+    for a in range(0, T, step):  # step is a whole number of periods
+        n = min(step, T - a)
+        data[a:a + n, c0:c1] = tone[:n, None]
+    data.flush()
+    del data
+    print(f"wrote the RFI copy in {time.perf_counter() - t0:.1f} s: tone "
+          f"on file channels {c0}..{c1 - 1}, +25 over interval "
+          f"{RFI_INTERVAL} ({pts} samples)")
+    return out, sorted(C - 1 - c for c in TONE_CHANS), RFI_INTERVAL
+
+
+def write_head(tmp, fn, n):
+    """A file of the first ``n`` samples of ``fn`` (all, if fewer)."""
+    from pypulsar_tpu_torch.io import sigproc
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+
+    out = os.path.join(tmp, "rfi_head.fil")
+    with FilterbankFile(fn) as r:
+        n = min(n, r.nspec)
+        hdr = dict(r.header, nsamples=n)
+        raw = r._read_raw_block(0, n)
+    with open(out, "wb") as f:
+        f.write(sigproc.pack_header(hdr))
+        raw.tofile(f)
+    return out
+
+
+def check_mask_stage(tmp, fn, device):
+    """The mask stage's gates on the card before the chain: block stats
+    of the first read against the float64 twin, and the ``.mask`` of the
+    first 2^18 samples against the port's on the CPU."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import rfifind as cli
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.ops import rfifind
+
+    with FilterbankFile(fn) as r:
+        pts = max(int(round(MASK_TIME / r.tsamp)), 2)
+        nchan = r.nchans
+        blocks = rfifind._iter_file_blocks(r, pts * 16, device)
+        first = next(blocks)
+        blocks.close()
+    got = [x.cpu().numpy() for x in rfifind.block_stats(first, pts)]
+    want = rfifind.block_stats_numpy(first.cpu().numpy(), pts)
+    stats_ms = cuda_time_ms(lambda: rfifind.block_stats(first, pts))
+    del first
+    errs = {"mean": float(np.abs(got[0] - want[0]).max()),
+            "std": float(np.abs(got[1] - want[1]).max()),
+            "maxpow_rel": float(np.abs(got[2] / want[2] - 1).max())}
+    if got[0].shape != (16, nchan) or not all(
+            np.isfinite(g).all() for g in got):
+        fail(f"block stats misshapen or non-finite: {got[0].shape}")
+    if not (errs["mean"] <= 1e-5 and errs["std"] <= 1e-5
+            and errs["maxpow_rel"] <= 2e-3):
+        fail(f"the card's block stats of the first read miss the float64 "
+             f"twin's bounds: {errs}")
+    head = write_head(tmp, fn, 1 << 18)
+    masks = {}
+    for dev in (device.type, "cpu"):
+        base = os.path.join(tmp, f"head_{dev}")
+        if cli.main([head, "-o", base, "-t", str(MASK_TIME),
+                     "--device", dev]) != 0:
+            fail(f"rfifind --device {dev} failed on the head file")
+        with open(base + "_rfifind.mask", "rb") as f:
+            masks[dev] = f.read()
+    n_diff = 0
+    if masks[device.type] != masks["cpu"]:
+        flags = [rfifind.clip_stats(rfifind.RfiStats.load(
+            os.path.join(tmp, f"head_{d}_rfifind.stats.npz")))
+            for d in masks]
+        with FilterbankFile(head) as r:
+            x = r.get_samples(0, r.nspec).T[::-1]
+            dt = r.tsamp
+        tail = x.shape[1] % pts
+        if tail >= pts // 2:
+            x = np.concatenate([x, np.repeat(x[:, -1:], pts - tail, 1)], 1)
+        twin = rfifind.RfiStats(*rfifind.block_stats_numpy(x, pts), pts,
+                                pts * dt, 0.0, 0.0)
+        diff = flags[0] != flags[1]
+        n_diff = int(diff.sum())
+        if not (rfifind.decision_margins(twin)[diff] <= 1.0).all():
+            fail(f"the card's head mask differs from the CPU's in {n_diff} "
+                 f"flags, not all within the stats' bounds of a threshold")
+    print(f"mask stage: first-read block stats ({stats_ms:.3f} ms on the "
+          f"card) vs the float64 twin {json.dumps(errs)}; head mask (2^18 "
+          f"samples) card vs CPU: "
+          + ("equal bytes" if not n_diff else
+             f"{n_diff} flags differ, each at its threshold"))
+    return errs
+
+
+def sha256s(paths):
+    out = {}
+    for p in paths:
+        with open(p, "rb") as f:
+            out[p] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def survey_chain(tmp, fn, info, device, unmasked_stage_s):
+    """Phase 8: the survey's whole chain on the RFI copy of the file;
+    returns the chain's launches."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.io.rfimask import RfifindMask
+    from pypulsar_tpu_torch.parallel import accelpipe, staged
+    from pypulsar_tpu_torch.survey import dag
+    from pypulsar_tpu_torch.survey.state import Observation
+
+    rfi, tone_mask_chans, rfi_int = write_rfi_copy(tmp, fn, info)
+    stats_err = check_mask_stage(tmp, rfi, device)
+    os.makedirs(os.path.join(tmp, "chain"))
+    obs = Observation("rfi", rfi, os.path.join(tmp, "chain", "rfi"))
+    cfg = dag.SurveyConfig(lodm=float(STAGE_LODM))
+    fill = collections.Counter()
+    real_fill = staged.masked_block
+
+    def counted_fill(data, *a):  # counts the fill's blocks, no sync
+        fill[tuple(data.shape)] += 1
+        return real_fill(data, *a)
+
+    staged.masked_block = counted_fill
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        walls = dag.run_observation(obs, cfg, device=device)
+        torch.cuda.synchronize()
+    finally:
+        staged.masked_block = real_fill
+    chain_s = time.perf_counter() - t0
+    launches = launch_counts()
+    need = ("gather_sum/stage1", "gather_sum/stage2", "boxcar_stats",
+            "fold_parts_poly")
+    if min(launches[k] for k in need) < 1:
+        fail(f"the survey chain did not launch every kernel: {launches}")
+    mask = RfifindMask(obs.outbase + "_rfifind.mask")
+    table = mask._zap_table
+    if not (set(tone_mask_chans) <= set(mask.mask_zap_chans.tolist())
+            and rfi_int in mask.mask_zap_ints.tolist()):
+        fail(f"the mask zaps channels {mask.mask_zap_chans.tolist()} and "
+             f"intervals {mask.mask_zap_ints.tolist()}, not the tone's "
+             f"{tone_mask_chans} and interval {rfi_int}")
+    rest = np.delete(np.delete(table, tone_mask_chans, axis=1), [rfi_int],
+                     axis=0)
+    if rest.mean() >= 0.01:
+        fail(f"the mask flags {rest.mean():.2%} of the cells without RFI")
+    with open(obs.outbase + "_foldbatch.json") as f:
+        results = json.load(f)["results"]
+    with open(obs.outbase + "_snr.json") as f:
+        snr = {row["name"]: row["snr"] for row in json.load(f)}
+    psr = info["period_samples"] * info["tsamp"]
+    hits = [dict(name=r["name"], dm=r["dm"], period=r["period"],
+                 snr=snr.get(r["name"])) for r in results
+            if harmonic_of(r["period"], psr) is not None
+            and abs(r["dm"] - 70.0) <= 2.0 and (snr.get(r["name"]) or 0) > 10]
+    if not hits:
+        fail("no chain candidate within 2 DM of 70 at the pulsar's period "
+             "or a harmonic folds to SNR > 10")
+    # the sweep stage once more with the same journal: nothing to redo
+    sweep = next(s for s in dag.build_dag(cfg) if s.name == "sweep")
+    arts = [p for s in dag.build_dag(cfg) for p in s.outputs(obs, cfg)]
+    before = sha256s(arts)
+    with open(obs.outbase + ".chain.jsonl") as f:
+        done_before = sum('"type": "done"' in ln for ln in f)
+    with Timed(staged, "sweep_flat") as sp, \
+            Timed(accelpipe, "accel_search_batch") as srch:
+        t0 = time.perf_counter()
+        sweep.execute(obs, cfg, device=device)
+        rerun_s = time.perf_counter() - t0
+    with open(obs.outbase + ".chain.jsonl") as f:
+        done_after = sum('"type": "done"' in ln for ln in f)
+    if sp.calls or srch.calls or done_after != done_before:
+        fail(f"the journalled rerun redid work: {sp.calls} sweeps, "
+             f"{srch.calls} searches, {done_after - done_before} new units")
+    if sha256s(arts) != before:
+        fail("the journalled rerun changed an artifact's bytes")
+    # the fill of one block of each shape the chain filled, on the card
+    fill_ms = {}
+    table = torch.from_numpy(np.ascontiguousarray(table[:, ::-1])).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    for shape in fill:
+        block = torch.randint(0, 256, shape, generator=gen, device=device,
+                              dtype=torch.uint8).float()
+        fill_ms["x".join(map(str, shape))] = cuda_time_ms(
+            lambda: real_fill(block, table, rfi_int, 0, mask.ptsperint))
+        del block
+    size_gb = os.path.getsize(rfi) / 1e9
+    best = max(hits, key=lambda h: h["snr"])
+    print("survey chain: " + json.dumps({
+        "stage_wall_s": walls, "chain_wall_s": chain_s,
+        "mask_gb_per_s": size_gb / walls["mask"],
+        "masked_sweep_stage_s": walls["sweep"],
+        "unmasked_sweep_stage_s": unmasked_stage_s,
+        "mask_zap_chans": len(mask.mask_zap_chans),
+        "mask_zap_ints": mask.mask_zap_ints.tolist(),
+        "mask_coverage": float(mask._zap_table.mean()),
+        "other_cells_flagged": float(rest.mean()),
+        "fill_blocks": {"x".join(map(str, k)): v for k, v in fill.items()},
+        "fill_ms_per_block": fill_ms,
+        "first_read_stats_err": stats_err,
+        "pulsar": best, "pulsar_rows_found": len(hits),
+        "rerun_sweep_s": rerun_s, "units_done": done_before,
+        "artifacts": len(arts), "launches": launches}))
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -1487,12 +1747,14 @@ def main() -> int:
         fn, info = write_obs(tmp)
         check_stage_kernels(fn, device)
         launches, _ = main_path(tmp, fn, info)
-        stage_sp, stage_series = stage_path(tmp, fn, info)
+        stage_sp, stage_series, stage_s = stage_path(tmp, fn, info)
         fold_dats, fold_stream = fold_stage(tmp, fn, info, device, report)
+        chain = survey_chain(tmp, fn, info, device, stage_s)
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
-             "fold_dats": fold_dats, "fold_stream": fold_stream}
+             "fold_dats": fold_dats, "fold_stream": fold_stream,
+             "survey_chain": chain}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}

@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of pypulsar_tpu, beside the JAX package it is checked
-against. It runs the survey's sweep stage: the flat single-pulse DM sweep
-of a SIGPROC filterbank, with the two TPU kernels rewritten as CUDA for
-Hopper (``ops/csrc``), and the streamed sweep->accel handoff
-(``parallel/accelpipe.py``): every trial's series through rfft, deredden
-and the Fourier acceleration search (``fourier/``).
+against. It runs the survey's per-observation chain (``survey/dag.py``):
+the rfifind mask stage (``cli/rfifind.py``), the sweep stage (the flat
+single-pulse DM sweep of a SIGPROC filterbank, masked, with the two TPU
+kernels rewritten as CUDA for Hopper in ``ops/csrc``, and the streamed
+sweep->accel handoff of ``parallel/accelpipe.py``), sift, the batched
+fold (a third CUDA kernel) and the SNR summary.
 
 The port imports ``torch``, numpy and scipy, never ``jax`` and nothing of
 ``pypulsar_tpu``. Its entry points run on the card (``device="cuda"``)

@@ -11,7 +11,8 @@ Series sources (exactly one):
 - ``--datbase BASE``: per-DM ``{BASE}_DM{dm:.2f}.dat`` files (the sweep
   stage's ``--write-dats`` artifacts);
 - a raw ``.fil`` positional: one streamed pass dedisperses every
-  candidate DM through the sweep's chunk kernels;
+  candidate DM through the sweep's chunk kernels (``--mask`` applies the
+  sweep's rfifind mask to it);
 - a single ``.dat`` positional: every candidate folds that one series
   (its ``.inf`` DM replaces the candidates' own).
 
@@ -36,7 +37,6 @@ import sys
 #: with the ROADMAP.md item that brings each
 NOT_PORTED = {
     "journal": ("--journal", "Queue 1 S1 (checkpoint/resume)"),
-    "maskfile": ("--mask", "Queue 1 S2 (rfifind masks)"),
     "telemetry": ("--telemetry", "Queue 1 S5 (telemetry)"),
     "fault_inject": ("--fault-inject", "Queue 1 S5 (telemetry)"),
 }
@@ -94,11 +94,13 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the fold "
                         "kernel's plain PyTorch version)")
+    p.add_argument("--mask", dest="maskfile", default=None,
+                   help="stream source: rfifind .mask applied per raw "
+                        "block, as the sweep stage applied it (.dat "
+                        "series were masked when written)")
     not_ported = "not ported yet: ROADMAP.md "
     p.add_argument("--journal", default=None,
                    help=not_ported + NOT_PORTED["journal"][1])
-    p.add_argument("--mask", dest="maskfile", default=None,
-                   help=not_ported + NOT_PORTED["maskfile"][1])
     p.add_argument("--telemetry", default=None,
                    help=not_ported + NOT_PORTED["telemetry"][1])
     p.add_argument("--fault-inject", default=None,
@@ -115,6 +117,12 @@ def main(argv=None) -> int:
     if (args.infile is None) == (args.datbase is None):
         parser.error("give exactly one series source: a raw/.dat infile "
                      "OR --datbase")
+    if args.maskfile and (args.datbase is not None
+                          or args.infile.endswith(".dat")):
+        parser.error("--mask applies to the raw-stream source only "
+                     "(.dat/--datbase series were masked when written); "
+                     "a silently ignored mask would fold a different "
+                     "series than asked")
 
     from pypulsar_tpu_torch.parallel.foldpipe import (
         FoldCandidate,
@@ -153,12 +161,14 @@ def main(argv=None) -> int:
             dat_for_dm=lambda dm: args.infile, **kwargs)
     else:
         from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+        from pypulsar_tpu_torch.io.rfimask import RfifindMask
 
+        rfimask = RfifindMask(args.maskfile) if args.maskfile else None
         with FilterbankFile(args.infile) as reader:
             summary = fold_pipeline(
                 cands, outbase, source="stream", reader=reader,
                 downsamp=args.downsamp, nsub=args.nsub,
-                group_size=args.group_size, **kwargs)
+                group_size=args.group_size, rfimask=rfimask, **kwargs)
 
     print_fold_results(summary)
     print(f"# folded {summary['n_folded']} candidates "

@@ -14,7 +14,15 @@ batched acceleration search and writes
 ``{outbase}_DM{dm:.2f}_ACCEL_{zmax}.cand/.txtcand`` and ``.inf`` sidecars
 (``--write-dats`` adds the ``.dat`` series); ``--accel-only`` skips the
 single-pulse pass. ``--write-dats`` alone writes the ``.dat``/``.inf``
-series after the single-pulse pass.
+series after the single-pulse pass. ``--mask FILE.mask`` applies an
+rfifind mask to every pass (median-mid80 fill per raw block).
+
+``--journal PATH.jsonl`` keeps a work-unit journal of the chain: the
+``.cands`` are published and journalled (``sweep:cands``) before the
+accel pass, each trial's ``.cand`` pair once written, and a rerun with
+the same journal and flags skips every unit whose artifacts still
+validate (size and sha256). ``--accel-skip-existing`` skips trials whose
+``.cand`` pair already validates.
 
 Run as ``python -m pypulsar_tpu_torch.cli.sweep FILE.fil --numdms N ...``.
 """
@@ -22,6 +30,7 @@ Run as ``python -m pypulsar_tpu_torch.cli.sweep FILE.fil --numdms N ...``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 
 import numpy as np
@@ -32,12 +41,10 @@ from pypulsar_tpu_torch.resilience.journal import atomic_write_text
 #: flags of the reference's sweep stage that the port does not take yet,
 #: with the ROADMAP.md item that brings each
 NOT_PORTED = {
-    "mask": ("--mask", "Queue 1 S2 (rfifind masks)"),
     "mesh": ("--mesh", "Queue 1 item 14 (multi-GPU)"),
     "spectral": ("--spectral", "Queue 1 item 13 (spectral fusion)"),
-    "journal": ("--journal", "Queue 1 S1 (checkpoint/resume)"),
-    "accel_skip_existing": ("--accel-skip-existing",
-                            "Queue 1 S1 (checkpoint/resume)"),
+    "checkpoint": ("--checkpoint", "Queue 1 S1 (checkpoint/resume)"),
+    "resume": ("--resume", "Queue 1 S1 (checkpoint/resume)"),
     "no_accel_device_prep": ("--no-accel-device-prep",
                              "Queue 1 S9 (host prep of the accel search)"),
 }
@@ -122,20 +129,67 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--accel-prefetch", type=int, default=1,
                     help="accel: batches prepped ahead of the search "
                          "(0 = inline). Default 1")
+    ap.add_argument("--accel-skip-existing", action="store_true",
+                    help="accel: skip trials whose .cand/.txtcand pair "
+                         "already validates")
+    ap.add_argument("--mask", dest="maskfile", default=None,
+                    help="rfifind .mask file applied per raw block with "
+                         "the median-mid80 fill")
+    ap.add_argument("--journal", default=None, metavar="PATH.jsonl",
+                    help="work-unit journal of the sweep->accel chain; a "
+                         "rerun with the same journal skips the units "
+                         "whose artifacts still validate")
     not_ported = "not ported yet: ROADMAP.md "
-    ap.add_argument("--mask", dest="mask", default=None,
-                    help=not_ported + NOT_PORTED["mask"][1])
     ap.add_argument("--mesh", type=int, default=0,
                     help=not_ported + NOT_PORTED["mesh"][1])
     ap.add_argument("--spectral", action="store_true",
                     help=not_ported + NOT_PORTED["spectral"][1])
-    ap.add_argument("--journal", default=None,
-                    help=not_ported + NOT_PORTED["journal"][1])
-    ap.add_argument("--accel-skip-existing", action="store_true",
-                    help=not_ported + NOT_PORTED["accel_skip_existing"][1])
+    ap.add_argument("--checkpoint", default=None,
+                    help=not_ported + NOT_PORTED["checkpoint"][1])
+    ap.add_argument("--resume", action="store_true",
+                    help=not_ported + NOT_PORTED["resume"][1])
     ap.add_argument("--no-accel-device-prep", action="store_true",
                     help=not_ported + NOT_PORTED["no_accel_device_prep"][1])
     return ap
+
+
+def _journal_fingerprint(args, dms, widths, outbase, rfimask) -> str:
+    """Hash of what determines the chain's artifacts, ``outbase``, the
+    mask's path and its zap table included: a journal written under other
+    flags, or under another mask at the same path (the survey's mask
+    stage rewrites ``{outbase}_rfifind.mask`` on every run), starts over.
+    Flags the port does not take are hashed at the values it runs (device
+    prep on, no spectral fusion, no per-chunk events), as the reference
+    hashes them."""
+    from pypulsar_tpu_torch.parallel.staged import mask_tag
+
+    h = hashlib.sha256()
+    h.update(np.asarray(dms, dtype=np.float64).tobytes())
+    h.update(np.int64(widths).tobytes())
+    h.update(np.float64([args.threshold, args.accel_zmax, args.accel_dz,
+                         args.accel_sigma]).tobytes())
+    h.update(np.int64([args.downsamp, args.nsub, args.group_size,
+                       args.accel_numharm, int(bool(args.accel_search)),
+                       0, args.accel_max_cands, 1, 0]).tobytes())
+    h.update((args.infile + "|" + (args.maskfile or "")
+              + "|" + outbase).encode())
+    h.update(mask_tag(rfimask).encode())
+    return h.hexdigest()
+
+
+def _emit_sweep_artifacts(staged, outbase, args, journal) -> None:
+    """Write the single-pulse ``.cands``, record it in the journal
+    (``sweep:cands``) and print the summary."""
+    hits = staged.above_threshold(args.threshold)
+    write_cands(outbase + ".cands", hits)
+    if journal is not None:
+        journal.done("sweep:cands", [outbase + ".cands"])
+    print(f"# {staged.n_trials} DM trials swept; {len(hits)} detections "
+          f">= {args.threshold} sigma -> {outbase}.cands")
+    for c in staged.best(args.topk):
+        print(f"DM {c['dm']:8.3f}  SNR {c['snr']:7.2f}  t "
+              f"{c['time_sec']:10.4f}s  width {c['width_bins']:3d} "
+              f"bins ({c['width_sec']*1e3:.2f} ms)  ds {c['downsamp']}")
 
 
 def main(argv=None) -> int:
@@ -150,60 +204,75 @@ def main(argv=None) -> int:
         ap.error("--accel-only requires --accel-search")
 
     from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.io.rfimask import RfifindMask
     from pypulsar_tpu_torch.parallel.staged import sweep_flat
+    from pypulsar_tpu_torch.resilience.journal import RunJournal
 
     widths = tuple(int(w) for w in args.widths.split(","))
     outbase = args.outbase or os.path.splitext(args.infile)[0]
     dms = args.lodm + args.dmstep * np.arange(args.numdms)
-    with FilterbankFile(args.infile) as reader:
-        if not args.accel_only:
-            staged = sweep_flat(reader, dms, downsamp=args.downsamp,
-                                nsub=args.nsub, group_size=args.group_size,
-                                widths=widths, chunk_payload=args.chunk,
-                                verbose=True, engine=args.engine,
-                                device=args.device)
-            # publish the single-pulse artifacts before the accel stage
-            hits = staged.above_threshold(args.threshold)
-            write_cands(outbase + ".cands", hits)
-            print(f"# {staged.n_trials} DM trials swept; {len(hits)} "
-                  f"detections >= {args.threshold} sigma -> "
-                  f"{outbase}.cands")
-            for c in staged.best(args.topk):
-                print(f"DM {c['dm']:8.3f}  SNR {c['snr']:7.2f}  t "
-                      f"{c['time_sec']:10.4f}s  width {c['width_bins']:3d} "
-                      f"bins ({c['width_sec']*1e3:.2f} ms)  ds "
-                      f"{c['downsamp']}")
-        if args.accel_search:
-            from pypulsar_tpu_torch.fourier.accelsearch import (
-                AccelSearchConfig,
-            )
-            from pypulsar_tpu_torch.parallel.accelpipe import (
-                sweep_accel_stream,
-            )
+    rfimask = RfifindMask(args.maskfile) if args.maskfile else None
+    journal = None
+    journal_done = set()
+    if args.journal:
+        journal = RunJournal(
+            args.journal, _journal_fingerprint(args, dms, widths, outbase,
+                                               rfimask),
+            tool="sweep-accel")
+        journal_done = journal.completed()
+    try:
+        with FilterbankFile(args.infile) as reader:
+            if "sweep:cands" in journal_done and not args.accel_only:
+                print(f"# journal: {outbase}.cands validated complete; "
+                      f"skipping the single-pulse sweep pass")
+            elif not args.accel_only:
+                staged = sweep_flat(
+                    reader, dms, downsamp=args.downsamp, nsub=args.nsub,
+                    group_size=args.group_size, widths=widths,
+                    chunk_payload=args.chunk, verbose=True,
+                    engine=args.engine, rfimask=rfimask, device=args.device)
+                # published (and journalled) before the accel stage: a
+                # kill during the accel pass must not force a re-sweep
+                _emit_sweep_artifacts(staged, outbase, args, journal)
+            if args.accel_search:
+                from pypulsar_tpu_torch.fourier.accelsearch import (
+                    AccelSearchConfig,
+                )
+                from pypulsar_tpu_torch.parallel.accelpipe import (
+                    sweep_accel_stream,
+                )
 
-            acfg = AccelSearchConfig(
-                zmax=args.accel_zmax, dz=args.accel_dz,
-                numharm=args.accel_numharm, sigma_min=args.accel_sigma)
-            summary = sweep_accel_stream(
-                reader, dms, acfg, outbase, batch=args.accel_batch,
-                downsamp=args.downsamp, nsub=args.nsub,
-                # 0 = auto, resolved once over the whole grid inside
-                group_size=args.group_size, engine=args.engine,
-                chunk_payload=args.chunk, write_dats=args.write_dats,
-                max_cands=args.accel_max_cands,
-                prefetch_depth=args.accel_prefetch, device=args.device,
-                verbose=True)
-            print(f"# accel handoff: {summary['n_searched']} trials "
-                  f"searched in {summary['n_slices']} DM slice(s), "
-                  f"{summary['unit']} spectra per prep batch")
-        elif args.write_dats:
-            from pypulsar_tpu_torch.parallel.accelpipe import stream_series
+                acfg = AccelSearchConfig(
+                    zmax=args.accel_zmax, dz=args.accel_dz,
+                    numharm=args.accel_numharm, sigma_min=args.accel_sigma)
+                summary = sweep_accel_stream(
+                    reader, dms, acfg, outbase, batch=args.accel_batch,
+                    downsamp=args.downsamp, nsub=args.nsub,
+                    # 0 = auto, resolved once over the whole grid inside
+                    group_size=args.group_size, engine=args.engine,
+                    chunk_payload=args.chunk, write_dats=args.write_dats,
+                    max_cands=args.accel_max_cands,
+                    prefetch_depth=args.accel_prefetch, rfimask=rfimask,
+                    skip_existing=args.accel_skip_existing, journal=journal,
+                    device=args.device, verbose=True)
+                print(f"# accel handoff: {summary['n_searched']} trials "
+                      f"searched, {summary['n_skipped']} skipped, in "
+                      f"{summary['n_slices']} DM slice(s), "
+                      f"{summary['unit']} spectra per prep batch")
+            elif args.write_dats:
+                from pypulsar_tpu_torch.parallel.accelpipe import (
+                    stream_series,
+                )
 
-            stream_series(reader, dms, downsamp=args.downsamp, nsub=args.nsub,
-                          group_size=args.group_size, chunk_payload=args.chunk,
-                          dat_outbase=outbase, keep=False, device=args.device,
-                          verbose=True)
-            print(f"# wrote {len(dms)} .dat/.inf series")
+                stream_series(reader, dms, downsamp=args.downsamp,
+                              nsub=args.nsub, group_size=args.group_size,
+                              chunk_payload=args.chunk, dat_outbase=outbase,
+                              keep=False, rfimask=rfimask,
+                              device=args.device, verbose=True)
+                print(f"# wrote {len(dms)} .dat/.inf series")
+    finally:
+        if journal is not None:
+            journal.close()
     return 0
 
 

@@ -23,6 +23,14 @@ A batch that runs out of device memory halves and retries (per-spectrum
 results do not depend on the batch); any other failure raises. The
 ``.cand`` files are written in trial order, ``.txtcand`` first and
 ``.cand`` last, both atomically.
+
+Resume: ``skip_existing`` skips trials whose ``.cand``/``.txtcand`` pair
+validates (:func:`~pypulsar_tpu_torch.resilience.journal.candfile_complete`);
+a :class:`~pypulsar_tpu_torch.resilience.journal.RunJournal`
+(``journal=``, opened and fingerprinted by the caller, as ``cli.sweep``
+does) records each trial done once its pair is written, and a rerun
+skips the trials whose recorded artifacts still validate. Per-spectrum results do not depend on which trials share a
+batch, so a resumed run writes the bytes an uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -55,7 +63,11 @@ from pypulsar_tpu_torch.parallel.staged import (
 )
 from pypulsar_tpu_torch.parallel.sweep import choose_group_size, resolve_engine
 from pypulsar_tpu_torch.resilience.dataguard import finite_cands
-from pypulsar_tpu_torch.resilience.journal import atomic_write_text
+from pypulsar_tpu_torch.resilience.journal import (
+    RunJournal,
+    atomic_write_text,
+    candfile_complete,
+)
 from pypulsar_tpu_torch.resilience.retry import halving_dispatch
 
 __all__ = [
@@ -106,14 +118,16 @@ def write_candfiles(candfn: str, txtfn: str, cands, T: float,
 def stream_series(reader, dms, downsamp: int = 1, nsub: int = 64,
                   group_size: int = 32, chunk_payload: Optional[int] = None,
                   dat_outbase: Optional[str] = None, keep: bool = True,
-                  device="cuda", verbose: bool = False
+                  rfimask=None, device="cuda", verbose: bool = False
                   ) -> Tuple[Optional[np.ndarray], float]:
     """One pass over ``reader``: every DM trial's full dedispersed series
     as a host ``[D, T_ds]`` float32 buffer, and the effective sampling
     time. ``dat_outbase`` tees the same bytes to ``.dat``/``.inf`` files
     as they stream (PRESTO prepsubband's semantics: subband dedispersion,
     a zero-padded tail); ``keep=False`` writes only those files and
-    returns no buffer, so any file length needs one chunk of memory."""
+    returns no buffer, so any file length needs one chunk of memory.
+    ``rfimask`` fills the zapped cells of each raw block
+    (:class:`~pypulsar_tpu_torch.parallel.staged.MaskedSource`)."""
     factor = max(1, int(downsamp))
     dms = np.asarray(dms, dtype=np.float64)
     dt_eff = ReaderSource(reader).tsamp * factor
@@ -126,7 +140,8 @@ def stream_series(reader, dms, downsamp: int = 1, nsub: int = 64,
         paths = dat_truncate_paths(dat_outbase, dms)
     for pos, rows in iter_dedispersed_chunks(
             reader, dms, downsamp=factor, nsub=nsub, group_size=group_size,
-            chunk_payload=chunk_payload, device=device, verbose=verbose):
+            chunk_payload=chunk_payload, rfimask=rfimask, device=device,
+            verbose=verbose):
         if buf is not None:
             buf[:, pos:pos + rows.shape[1]] = rows
         if paths is not None:
@@ -154,15 +169,20 @@ def sweep_accel_stream(
     stream_ram_bytes: float = STREAM_RAM_BYTES,
     hbm_budget_bytes: float = ACCEL_HBM_BYTES,
     bank_cache_bytes: float = BANK_CACHE_BYTES,
+    rfimask=None,
+    skip_existing: bool = False,
+    journal: Optional[RunJournal] = None,
     device="cuda",
     verbose: bool = False,
 ) -> dict:
     """Dedisperse ``dms`` over ``reader`` and accel-search every trial on
     ``device``, writing ``{outbase}_DM{dm:.2f}_ACCEL_{zmax}.cand/.txtcand``
     and the ``{outbase}_DM{dm:.2f}.inf`` sidecars (``write_dats`` adds the
-    ``.dat`` series). ``group_size`` <= 0 picks the group once over the
-    whole grid. Returns a summary dict: trials searched, DM slices and
-    spectra per prep batch."""
+    ``.dat`` series, rewritten whole even when every trial is skipped).
+    ``group_size`` <= 0 picks the group once over the whole grid.
+    ``rfimask`` masks the raw blocks; ``skip_existing`` and ``journal``
+    resume (module docstring). Returns a summary dict:
+    trials searched and skipped, DM slices and spectra per prep batch."""
     resolve_engine(engine)
     device = resolve_device(device)
     batch = max(1, int(batch))
@@ -170,6 +190,18 @@ def sweep_accel_stream(
     D = len(dms)
     names = [accel_out_names(f"{outbase}_DM{dm:.2f}", config.zmax,
                              config.wmax) for dm in dms]
+    units = [f"cand:DM{dm:.2f}" for dm in dms]
+    journal_done = journal.completed() if journal is not None else set()
+    todo = [i for i in range(D)
+            if not (units[i] in journal_done or (
+                skip_existing and candfile_complete(*names[i])))]
+    n_skipped = D - len(todo)
+    if n_skipped and verbose:
+        print(f"# {n_skipped}/{D} trials already have validated .cands, "
+              f"skipping")
+    if not todo and not write_dats:
+        return {"n_searched": 0, "n_skipped": n_skipped, "n_slices": 0,
+                "unit": 0}
     src0 = ReaderSource(reader)
     factor = max(1, int(downsamp))
     if group_size <= 0:
@@ -209,21 +241,24 @@ def sweep_accel_stream(
 
     for d0 in range(0, D, slice_dms):
         d1 = min(d0 + slice_dms, D)
+        sl_todo = [i for i in todo if d0 <= i < d1]
+        if not sl_todo and not write_dats:
+            continue
         series, dt_eff = stream_series(
             reader, dms[d0:d1], downsamp=factor, nsub=nsub,
             group_size=group_size, chunk_payload=chunk_payload,
-            dat_outbase=outbase if write_dats else None, device=device,
-            verbose=verbose)
+            dat_outbase=outbase if write_dats else None, rfimask=rfimask,
+            device=device, verbose=verbose)
         T_sec = T * dt_eff
 
-        def groups(d0=d0, d1=d1):
-            for g0 in range(d0, d1, unit):
-                yield list(range(g0, min(g0 + unit, d1)))
+        def groups(sl_todo=sl_todo):
+            for g0 in range(0, len(sl_todo), unit):
+                yield sl_todo[g0:g0 + unit]
 
         def prep(idxs, series=series, d0=d0):
             """Worker-side half: the batch's rows to the device, rfft and
             deredden, while the previous batch searches."""
-            rows = np.ascontiguousarray(series[idxs[0] - d0:idxs[-1] + 1 - d0])
+            rows = np.ascontiguousarray(series[[i - d0 for i in idxs]])
             return idxs, prep_spectra_batch(rows, schedule, device=device)
 
         if prefetch_depth > 0:
@@ -243,11 +278,17 @@ def sweep_accel_stream(
             for i, cands in zip(idxs, all_cands):
                 write_candfiles(names[i][0], names[i][1], cands, T_sec,
                                 max_cands)
+                if journal is not None:
+                    journal.done(units[i], names[i])
                 n_searched += 1
             if verbose:
                 print(f"# searched trials {idxs[0]}..{idxs[-1]} "
-                      f"({n_searched}/{D})")
+                      f"({n_searched}/{len(todo)})")
             del spectra
         del series
 
-    return {"n_searched": n_searched, "n_slices": n_slices, "unit": unit}
+    if journal is not None:
+        journal.note(event="accel_stream_done", n_searched=n_searched,
+                     n_skipped=n_skipped)
+    return {"n_searched": n_searched, "n_skipped": n_skipped,
+            "n_slices": n_slices, "unit": unit}

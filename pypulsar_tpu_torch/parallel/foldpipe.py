@@ -16,7 +16,8 @@ Port of ``pypulsar_tpu/parallel/foldpipe.py`` on one device:
 - series come from the per-DM ``.dat`` files (:func:`iter_groups_dats`,
   reads retried on transient IO errors) or from one streamed pass over
   the raw file (:func:`iter_groups_stream`, over
-  :func:`~pypulsar_tpu_torch.parallel.accelpipe.stream_series`);
+  :func:`~pypulsar_tpu_torch.parallel.accelpipe.stream_series`, with the
+  sweep's rfifind mask when one is given);
 - the host prep (per-partition data moments, the ``[K, 3]`` table of
   phase coefficients) of the next group runs on a worker thread while the
   device folds the current one (:func:`~pypulsar_tpu_torch.parallel.prefetch.prefetch`);
@@ -26,9 +27,11 @@ A device fold that runs out of memory halves its candidate axis
 (:func:`~pypulsar_tpu_torch.resilience.retry.halving_dispatch`): per-
 candidate folds are independent and the kernel's order of additions does
 not depend on the batch, so the halves give the same archive bytes. Any
-other failure of the fold raises. A missing or unreadable ``.dat`` is a
-data error, not a device one: it fails its group (recorded in the
-summary) and the run goes on.
+other failure of the fold raises. A missing or unreadable ``.dat``, or a
+candidate whose phase coefficients the fold kernel refuses (a non-finite
+or out-of-range period: ``ops.fold.check_coeffs``), is a data error, not
+a device one: it fails its group (recorded in the summary) and the run
+goes on.
 
 Left out of the reference, each with its reason:
 
@@ -39,8 +42,8 @@ Left out of the reference, each with its reason:
   than the one asked for is no result of that path;
 - the batch broker (ROADMAP.md Queue 1 S12), the auto-tuning consult and
   the environment knobs (a plain module constant here,
-  :data:`STREAM_RAM_BYTES`), ``--journal``
-  (S1), ``--mask`` on the stream source (S2) and telemetry (S5).
+  :data:`STREAM_RAM_BYTES`), ``--journal`` with its fingerprint of the
+  series source (S1) and telemetry (S5).
 """
 
 from __future__ import annotations
@@ -213,7 +216,8 @@ def iter_groups_dats(groups, dat_for_dm):
 def iter_groups_stream(groups, reader, downsamp: int = 1, nsub: int = 64,
                        group_size: int = 32,
                        chunk_payload: Optional[int] = None,
-                       all_dms=None, device="cuda", verbose: bool = False):
+                       all_dms=None, rfimask=None, device="cuda",
+                       verbose: bool = False):
     """Yield fold groups from one streamed pass over the raw file: the
     DMs dedisperse through the sweep's chunk kernels
     (:func:`~pypulsar_tpu_torch.parallel.accelpipe.stream_series`) into a
@@ -223,7 +227,8 @@ def iter_groups_stream(groups, reader, downsamp: int = 1, nsub: int = 64,
 
     ``all_dms`` (default: the groups' own DMs) is the whole candidate
     list's DM grid: group sizing, stage-1 grouping and slicing plan over
-    it, so the series do not depend on which groups are left to fold."""
+    it, so the series do not depend on which groups are left to fold.
+    ``rfimask`` masks the raw blocks as the sweep stage did."""
     from pypulsar_tpu_torch.parallel.accelpipe import stream_series
     from pypulsar_tpu_torch.parallel.staged import ReaderSource, dats_geometry
     from pypulsar_tpu_torch.parallel.sweep import choose_group_size
@@ -264,7 +269,7 @@ def iter_groups_stream(groups, reader, downsamp: int = 1, nsub: int = 64,
         series_buf, dt_eff = stream_series(
             reader, np.asarray(dm_slice, np.float64), downsamp=downsamp,
             nsub=nsub, group_size=group_size, chunk_payload=chunk_payload,
-            device=device, verbose=verbose)
+            rfimask=rfimask, device=device, verbose=verbose)
         row = {dm: i for i, dm in enumerate(dm_slice)}
         for dm, members in groups:
             if dm in row:
@@ -281,9 +286,10 @@ def iter_groups_stream(groups, reader, downsamp: int = 1, nsub: int = 64,
 def _prep_group(group, nbins: int, npart: int):
     """Host half of a group: per-partition moments of the shared series
     and every member's phase coefficients, ``[K, 3]`` float64 (the device
-    evaluates the bins). A failure travels as a value: the consumer fails
-    the group."""
+    evaluates the bins), checked as the fold kernel's wrapper checks
+    them. A failure travels as a value: the consumer fails the group."""
     from pypulsar_tpu_torch.fold.engine import phase_coeffs
+    from pypulsar_tpu_torch.ops.fold import check_coeffs
 
     dm, series, dt, meta, members = group
     if isinstance(series, Exception):
@@ -300,6 +306,7 @@ def _prep_group(group, nbins: int, npart: int):
         pvar = parts.var(axis=1)
         coeffs = np.array([phase_coeffs(c.period, c.pdot)
                            for _, c in members], np.float64).reshape(-1, 3)
+        check_coeffs(coeffs, dt, npart * part_len, nbins)
     except Exception as e:  # noqa: BLE001 - consumer decides
         return group, None, None, None, e
     return group, pmean, pvar, coeffs, None
@@ -325,14 +332,15 @@ def fold_pipeline(
     nsub: int = 64,
     group_size: int = 0,
     chunk_payload: Optional[int] = None,
+    rfimask=None,
     device="cuda",
     verbose: bool = False,
 ) -> dict:
     """Fold every candidate into ``{outbase}_{name}.pfd``, one batched
     device fold per DM group, on ``device``. ``source`` picks the series:
     ``"dats"`` (``dat_for_dm(dm) -> path``) or ``"stream"`` (one pass
-    over ``reader``). ``skip_existing`` skips candidates whose archive
-    already parses complete. Returns a summary dict: per-candidate rows
+    over ``reader``, masked by ``rfimask`` when given). ``skip_existing``
+    skips candidates whose archive already parses complete. Returns a summary dict: per-candidate rows
     (archive path, refined p/pdot, chi2) and counts."""
     from pypulsar_tpu_torch.fold.engine import (
         drift_offsets,
@@ -381,7 +389,8 @@ def fold_pipeline(
         group_iter = iter_groups_stream(
             groups, reader, downsamp=downsamp, nsub=nsub,
             group_size=group_size, chunk_payload=chunk_payload,
-            all_dms={c.dm for c in cands}, device=device, verbose=verbose)
+            all_dms={c.dm for c in cands}, rfimask=rfimask, device=device,
+            verbose=verbose)
     else:
         group_iter = iter_groups_dats(groups, dat_for_dm)
 

@@ -4,8 +4,9 @@ Port of the flat path of ``pypulsar_tpu/parallel/staged.py``: raw blocks
 in the file's native dtype ship ahead to the device
 (:func:`~pypulsar_tpu_torch.parallel.prefetch.ship_ahead`), are unpacked,
 transposed to [chan, time], widened to float32 and band-flipped there
-(:func:`ingest_tc`), optionally downsampled, and fed to
-:func:`~pypulsar_tpu_torch.parallel.sweep.sweep_stream`.
+(:func:`ingest_tc`), optionally masked with an rfifind mask
+(:class:`MaskedSource`, at the full sample rate), optionally downsampled,
+and fed to :func:`~pypulsar_tpu_torch.parallel.sweep.sweep_stream`.
 
 The series path (:func:`iter_dedispersed_chunks`) streams the same blocks
 through both dedispersion stages only and hands every trial's series back
@@ -17,6 +18,7 @@ tees them to the ``.dat`` files) reads them.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 from typing import List, Optional, Sequence, Tuple
 
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 
 from pypulsar_tpu_torch.core.device import resolve_device
 from pypulsar_tpu_torch.io.infodata import InfoData
+from pypulsar_tpu_torch.ops.masking import masked
 from pypulsar_tpu_torch.parallel.prefetch import ship_ahead
 from pypulsar_tpu_torch.parallel.sweep import (
     DEFAULT_WIDTHS,
@@ -145,11 +148,78 @@ class ReaderSource:
         if self.nbits == 32:
             # float payloads have no native-dtype ingest to save wire bytes
             raise NotImplementedError(
-                "float32 .fil input is not ported yet (ROADMAP.md Queue 1)")
+                "float32 .fil input is not ported yet (ROADMAP.md Queue 1 "
+                "S7)")
         raw = self.reader.iter_blocks(payload, overlap, raw=True)
         nbits = min(self.nbits, 8)
         for pos, dev in ship_ahead(raw, device):
             yield pos, ingest_tc(dev, self._flip, nbits)
+
+
+class MaskedSource:
+    """A block source with an rfifind mask applied: each block's zapped
+    cells take their channel's median-mid80 fill over that block, overlap
+    included (the reference's waterfaller semantics at the sweep's
+    streaming boundary). The [nint, nchan] zap table goes to ``device``
+    once, flipped there to the source's high-frequency-first rows (mask
+    channels are low-frequency-first); a block's [C, L] mask is expanded
+    from interval indices on the device. A block none of whose intervals
+    is zapped passes through unfilled."""
+
+    def __init__(self, src, rfimask, device):
+        self.frequencies = src.frequencies
+        self.tsamp = src.tsamp
+        self.nsamples = src.nsamples
+        self._src = src
+        self._pts = int(rfimask.ptsperint)
+        self._host_table = np.asarray(rfimask._zap_table, dtype=bool)
+        self._table = torch.from_numpy(
+            np.ascontiguousarray(self._host_table[:, ::-1])).to(device)
+
+    def chan_major_blocks(self, payload: int, overlap: int, device):
+        nint = self._host_table.shape[0]
+        for pos, block in self._src.chan_major_blocks(payload, overlap,
+                                                      device):
+            L = int(block.shape[1])
+            i0 = min(pos // self._pts, nint - 1)
+            i1 = min((pos + L - 1) // self._pts, nint - 1)
+            if self._host_table[i0:i1 + 1].any():
+                block = masked_block(block, self._table, pos // self._pts,
+                                     pos % self._pts, self._pts)
+            yield pos, block
+
+
+def masked_block(data: torch.Tensor, table: torch.Tensor, base: int,
+                 rem: int, pts: int) -> torch.Tensor:
+    """Expand the [nint, C] zap table to this block's [C, L] mask
+    (interval = sample // pts, clamped to the last interval as
+    ``RfifindMask.get_sample_mask`` does) and apply the median-mid80
+    fill. ``base`` and ``rem`` are the interval and the offset in it of
+    the block's first sample."""
+    L = data.shape[1]
+    iv = torch.clamp_max(
+        base + (rem + torch.arange(L, dtype=torch.int64,
+                                   device=data.device)) // pts,
+        table.shape[0] - 1)
+    return masked(data, table[iv].T)
+
+
+def mask_tag(rfimask) -> str:
+    """A tag of the applied mask for resume fingerprints: artifacts made
+    under another (or no) mask must not be resumed."""
+    if rfimask is None:
+        return ""
+    h = hashlib.sha256()
+    h.update(np.int64([rfimask.nchan, rfimask.nint,
+                       rfimask.ptsperint]).tobytes())
+    h.update(np.packbits(rfimask._zap_table).tobytes())
+    return "/mask=" + h.hexdigest()[:16]
+
+
+def make_source(reader, rfimask, device):
+    """The block source of ``reader``, masked when ``rfimask`` is given."""
+    src = ReaderSource(reader)
+    return src if rfimask is None else MaskedSource(src, rfimask, device)
 
 
 def downsampled_blocks(src, factor: int, payload_ds: int, overlap_ds: int,
@@ -224,13 +294,16 @@ def dats_geometry(reader, dms, downsamp: int = 1, nsub: int = 64,
 def iter_dedispersed_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
                             group_size: int = 32,
                             chunk_payload: Optional[int] = None,
-                            device="cuda", verbose: bool = False):
+                            rfimask=None, device="cuda",
+                            verbose: bool = False):
     """Stream the file once on ``device`` and yield ``(pos, rows[D, valid])``
     host float32 chunks of every DM trial's two-stage dedispersed series:
     the values a ``.dat`` file holds. No baseline is subtracted; the tail
     past the end of data is zero-padded to the chunk's length, and each
     chunk keeps its first ``valid = min(payload, T - pos)`` samples.
-    ``pos`` is the downsampled sample of the chunk's start."""
+    ``pos`` is the downsampled sample of the chunk's start. ``rfimask``
+    (an :class:`~pypulsar_tpu_torch.io.rfimask.RfifindMask`) fills the
+    zapped cells of each raw block before it is downsampled."""
     factor = max(1, int(downsamp))
     dms = np.asarray(dms, dtype=np.float64)
     device = resolve_device(device)
@@ -241,8 +314,9 @@ def iter_dedispersed_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
     need = payload + plan.min_overlap
     batches = group_batches(plan.stage1_bins, plan.stage2_bins, plan.nsub,
                             L1, device)
-    for pos, block in downsampled_blocks(ReaderSource(reader), factor,
-                                         payload, plan.min_overlap, device):
+    for pos, block in downsampled_blocks(make_source(reader, rfimask, device),
+                                         factor, payload, plan.min_overlap,
+                                         device):
         L = int(block.shape[1])
         if L < need:  # tail: zero-pad to the chunk's length
             block = F.pad(block, (0, need - L))
@@ -315,13 +389,17 @@ def make_dat_inf(basenm: str, reader, dm: float, N: int, dt: float,
 def sweep_flat(source, dms, downsamp: int = 1, nsub: int = 64,
                group_size: int = 32, widths: Sequence[int] = DEFAULT_WIDTHS,
                chunk_payload: Optional[int] = None, verbose: bool = False,
-               engine: str = "auto", device="cuda") -> StagedSweepResult:
+               engine: str = "auto", rfimask=None,
+               device="cuda") -> StagedSweepResult:
     """Single-step sweep of an explicit DM grid over a filterbank reader,
     streamed in chunks of ``chunk_payload`` (default: 2^18 samples less
-    the overlap) on ``device``."""
+    the overlap) on ``device``. ``rfimask`` (an
+    :class:`~pypulsar_tpu_torch.io.rfimask.RfifindMask`) applies the
+    median-mid80 mask fill per raw block."""
     resolve_engine(engine)
     device = resolve_device(device)
-    step = run_step(ReaderSource(source), np.asarray(dms, dtype=np.float64),
+    step = run_step(make_source(source, rfimask, device),
+                    np.asarray(dms, dtype=np.float64),
                     int(downsamp), nsub, group_size, tuple(widths),
                     chunk_payload, device, verbose=verbose)
     return StagedSweepResult(steps=[] if step is None else [step])

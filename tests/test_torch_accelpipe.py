@@ -184,11 +184,10 @@ def test_plain_write_dats_uses_the_streamed_writer(runs):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mask", "x.mask"], "Queue 1 S2"),
+    (["--checkpoint", "c.npz"], "Queue 1 S1"),
     (["--mesh", "2"], "Queue 1 item 14"),
     (["--spectral"], "Queue 1 item 13"),
-    (["--journal", "j.jsonl"], "Queue 1 S1"),
-    (["--accel-skip-existing"], "Queue 1 S1"),
+    (["--resume"], "Queue 1 S1"),
     (["--no-accel-device-prep"], "Queue 1 S9"),
 ])
 def test_left_out_flags_fail_naming_the_roadmap(runs, capsys, flags, item):

@@ -13,7 +13,8 @@ Contracts, per archive (the same names on both sides):
 
 Within the port, ``.pfd`` bytes do not depend on ``--batch`` or on an
 out-of-memory halving; any other failure of the fold raises and writes no
-archive; a missing ``.dat`` fails its group and not the run.
+archive; a missing ``.dat`` or a candidate whose phase coefficients the
+fold kernel refuses fails its group and not the run.
 """
 
 import glob
@@ -30,6 +31,7 @@ from pypulsar_tpu.io import prestopfd as jax_prestopfd
 from pypulsar_tpu_torch.cli import foldbatch, sift
 from pypulsar_tpu_torch.fold import engine, profile_snr
 from pypulsar_tpu_torch.fourier.accelsearch import AccelCandidate
+from pypulsar_tpu_torch.io import rfimask
 from pypulsar_tpu_torch.io.filterbank import FilterbankFile
 from pypulsar_tpu_torch.io.prestopfd import PfdFile
 from pypulsar_tpu_torch.io.synth import write_synthetic_fil
@@ -235,6 +237,61 @@ def test_missing_dat_fails_its_group_not_the_run(obs, tmp_path, capsys):
     assert "FAILED" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("bad", ["nan", "1e-17"])
+def test_bad_candidate_fails_only_its_group(obs, tmp_path, capsys, bad):
+    """A candidate whose phase coefficients the fold kernel refuses (a
+    non-finite period, or one whose phases pass 2^62 bins) fails its DM
+    group as a data error named in the summary; every other group folds
+    to the archives a list without it gives."""
+    good = [(P0, 40.0), (P0 / 2, 40.0), (P0, 30.0), (0.0731, 30.0)]
+    lists = {}
+    for tag, rows in (("good", good), ("bad", good + [(bad, 50.0)])):
+        lists[tag] = str(tmp_path / f"{tag}.txt")
+        with open(lists[tag], "w") as f:
+            f.writelines(f"{p} {dm!r}\n" for p, dm in rows)
+    outs = {tag: str(tmp_path / tag) for tag in lists}
+    for tag, cands in lists.items():
+        rc = foldbatch.main(["--cands", cands, "-o", outs[tag], *FOLD,
+                             "--datbase", obs["base"], "--device", "cpu"])
+        assert rc == (1 if tag == "bad" else 0)
+    with open(outs["bad"] + "_foldbatch.json") as f:
+        summary = json.load(f)
+    failed = [r for r in summary["results"] if r.get("failed")]
+    assert summary["n_failed"] == len(failed) == 1
+    assert failed[0]["dm"] == 50.0 and "ValueError" in failed[0]["error"]
+    assert summary["n_folded"] == len(good)
+    assert _bytes_by_name(outs["bad"]) == _bytes_by_name(outs["good"])
+    assert "prep FAILED" in capsys.readouterr().out
+
+
+def test_stream_source_with_mask_matches_reference(obs, tmp_path):
+    """``--mask`` on the raw-file stream: the sweep's rfifind fill before
+    dedispersion, as the JAX package applies it; the archives change."""
+    mask = rfimask.write_mask(
+        str(tmp_path / "obs.mask"), nchan=64, nint=8, ptsperint=2000,
+        zap_chans=[10, 11], zap_ints=[3],
+        zap_chans_per_int=[[], [40], [], [], [5, 6], [], [], []])
+    port, ref = str(tmp_path / "mport"), str(tmp_path / "mref")
+    stream = [obs["fil"], "-s", "8", "--group-size", "0", "--mask", mask]
+    assert _port(obs, port, *stream) == 0
+    assert jax_foldbatch.main(["--cands", obs["cands"], "-o", ref, *FOLD,
+                               *stream]) == 0
+    _compare_to_reference(port, ref)
+    plain = str(tmp_path / "plain")
+    assert _port(obs, plain, *stream[:-2]) == 0
+    assert _bytes_by_name(port) != _bytes_by_name(plain)
+
+
+@pytest.mark.parametrize("source", ["datbase", "dat"])
+def test_mask_needs_the_stream_source(obs, capsys, source):
+    src = (["--datbase", obs["base"]] if source == "datbase"
+           else [obs["base"] + "_DM40.00.dat"])
+    with pytest.raises(SystemExit) as e:
+        _port(obs, str(obs["dir"] / "m"), *src, "--mask", "x.mask")
+    assert e.value.code == 2
+    assert "raw-stream source only" in capsys.readouterr().err
+
+
 def test_skip_existing_skips_validated_archives(obs, dats_runs):
     port, _ = dats_runs
     before = _bytes_by_name(port)
@@ -276,7 +333,6 @@ def test_sift_fold_folds_what_foldbatch_folds(obs, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--journal", "j.jsonl"], "S1"),
-    (["--mask", "x.mask"], "S2"),
     (["--telemetry", "t.jsonl"], "S5"),
     (["--fault-inject", "oom:fold.batch_dispatch:1"], "S5"),
 ])
