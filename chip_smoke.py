@@ -115,8 +115,38 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    is printed beside phase 6's unmasked sweep stage, with the blocks the
    mask fill filled and its device time per block of each shape.
 
-Then one JSON line of per-kernel numbers, the card line, and the last
-line ``{"ok": true, "device": {...}}``.
+9. the sweep's other dedispersion paths. (a) Before the engines, the
+   tree engine's widest merge level (gather-sum, K = 2 over the previous
+   level's rows, written into the wider state buffer) and its snap (K = 1)
+   at the 1024-trial sweep's shape against the plain version on random
+   state rows (exact), timed beside their bounds (each distinct source
+   row read once, each output written once); then ``cli.sweep --engine
+   tree`` and ``--engine fourier`` over phase 4's 1024 trials: the pulsar
+   found, every trial's SNR within 2e-6 relative of phase 4's gather run
+   (``|a - b| / max(|b|, 1)``), every peak start equal or an exact tie
+   proven on the file's integer samples (counted), the tree run through
+   ``tree_level``, ``tree_snap`` and boxcar, the Fourier run through
+   boxcar; wall, DM-trials/s, peak device memory and the tree's adds per
+   sample and state bytes printed. (b) ``--accel-search --spectral``
+   over phase 6's 32 trials: every ``.cand``/``.txtcand`` the bytes of
+   phase 6's, the DM-70 harmonic found, no series byte copied to the
+   host; wall and spectra/s beside phase 6's. (c) The decimated regime
+   (``sweep_accel_stream(spectral=True, specfuse_mode="decimate")``, the
+   Fourier engine, one chunk) over the same trials: the harmonic found
+   with sigma > 10, and the candidates it and the stitched run do not
+   match under (0.5, 1.0, 0.5) counted (printed only: decimation is
+   circular dedispersion by design). (d) ``run_observation`` with
+   ``SurveyConfig(lodm=54, accel_spectral=True)`` on phase 8's RFI copy:
+   each ``.cand``/``.txtcand`` the bytes of phase 8's chain, the pulsar
+   folded to SNR > 10 from the raw-file stream, a journalled rerun of the
+   sweep stage redoing nothing; each stage's wall beside phase 8's. (e)
+   ``cli.sweep --ddplan --lodm 0 --hidm 512`` on the phase-4 file: the
+   plan's steps printed, the best candidate within one step's dDM of DM
+   70, every step through both gather-sum stages and boxcar; the wall.
+
+Then one JSON line of per-kernel numbers (each with its launches on every
+driven path), the card line, and the last line ``{"ok": true, "device":
+{...}}``.
 """
 
 import collections
@@ -488,6 +518,8 @@ def launch_counts() -> dict:
 
     return {"gather_sum/stage1": shifted_gather_sum.launches["stage1"],
             "gather_sum/stage2": shifted_gather_sum.launches["stage2"],
+            "gather_sum/tree_level": shifted_gather_sum.launches["tree_level"],
+            "gather_sum/tree_snap": shifted_gather_sum.launches["tree_snap"],
             "boxcar_stats": boxcar_stats.launches,
             "fold_parts_batch": fold_parts_batch.launches,
             "fold_parts_poly": fold_parts_poly.launches}
@@ -534,16 +566,18 @@ def main_path(tmp, fn, info):
     import torch
 
     from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.parallel import staged
 
     out = os.path.join(tmp, "obs")
     argv = [fn, "--lodm", "0", "--dmstep", "0.5", "--numdms", "1024",
             "--nsub", "64", "-o", out, "--device", "cuda"]
     reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rc = cli.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with Timed(staged, "sweep_flat") as sp:  # keeps the result for phase 9
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = sweep_launches()
     if rc != 0:
         fail(f"sweep CLI exited {rc}")
@@ -563,7 +597,7 @@ def main_path(tmp, fn, info):
           f"real-time factor {duration / wall:.2f} ({duration:.1f} s of data); "
           f"best DM {best[0]} SNR {best[1]}; launches {launches}")
     profile_main_path(cli, argv)
-    return launches, wall
+    return launches, wall, sp.result.steps[0].result
 
 
 def profile_main_path(cli, argv):
@@ -916,7 +950,7 @@ def stage_path(tmp, fn, info):
                        "harmonic": round((c.r / T) / f0)} for c in hits[:3]]}
     print("stage: " + json.dumps(numbers))
     profile_handoff(cli, fn, os.path.join(tmp, "prof"))
-    return sp.launches, ser.launches, wall
+    return sp.launches, ser.launches, wall, numbers
 
 
 # op families of the handoff's device time, by the aten op that launched
@@ -1712,6 +1746,459 @@ def survey_chain(tmp, fn, info, device, unmasked_stage_s):
         "pulsar": best, "pulsar_rows_found": len(hits),
         "rerun_sweep_s": rerun_s, "units_done": done_before,
         "artifacts": len(arts), "launches": launches}))
+    return dict(launches=launches, rfi=rfi, walls=walls,
+                outbase=obs.outbase)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the sweep's other dedispersion paths
+# ---------------------------------------------------------------------------
+
+def check_tree_kernels(device, report):
+    """The tree engine's widest merge level and its snap at the 1024-trial
+    sweep's shape (random state rows), on the card against the plain
+    version (exact: both add in k order from zero), each timed beside its
+    bound. Returns the plan's structural numbers."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.ops import gather_sum as gs
+    from pypulsar_tpu_torch.ops import tree_dedisperse as tdd
+
+    plan, _, out_len, L1, _ = path_geometry(device)
+    need = L1 + plan.max_shift1
+    t0 = time.perf_counter()
+    tp = tdd._build_plan(plan.stage1_bins, plan.stage2_bins)
+    build_s = time.perf_counter() - t0
+    levels, snap = tp.device_tables(device)
+    state = tdd.TreeState(tp, need, device)
+    src, dst = state.bufs
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    src[:tp.rows, :need].normal_(generator=gen)  # row R, pad columns: 0
+    li = int(np.argmax(tp.rows_per_level))
+    n = tp.rows_per_level[li]
+    cases = (("tree_level", levels[li], need, dst[:n, :need],
+              tp.tabs[0:2, li, :n], f"level {li} of {tp.n_levels}: "
+              f"{n} rows, K 2"),
+             ("tree_snap", snap, out_len, None, tp.trial_row,
+              f"snap: {tp.n_trials} trials, K 1"))
+    for stage, tables, m, out, srcs, what in cases:
+        got = gs.shifted_gather_sum(src, tables, m, out=out)
+        want = gs._torch_gather_sum(src, tables, m)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"gather_sum {stage} disagrees with its plain version "
+                 f"(max abs err {float((got - want).abs().max())})")
+        del want, got
+        B, J, K = tables.shifts.shape
+        ms = cuda_time_ms(lambda: gs.shifted_gather_sum(src, tables, m,
+                                                        out=out))
+        single_ms = single_call_ms(lambda: gs.shifted_gather_sum(
+            src, tables, m, out=out))
+        plain_ms = cuda_time_ms(lambda: gs._torch_gather_sum(
+            src, tables, m, out=out), reps=3)
+        # each source row read once over the output's window, each output
+        # row written once, the tables read once
+        n_src = len(np.unique(srcs))
+        nbytes = 4.0 * (n_src + B * J) * m + 4.0 * B * (2 * K + 1)
+        bms, by = bound(nbytes, float(B) * J * K * m)
+        jb, e, threads, win, _ = gs.launch_config(J, K, tables.bounds.spreads)
+        report.append(dict(
+            name=f"gather_sum/{stage}", route="cuda",
+            source="pypulsar_tpu_torch/ops/csrc/gather_sum.cu",
+            replaces="pypulsar_tpu/ops/pallas_dedisperse.py:107",
+            shape=f"state [{tp.rows + 1}, {need + tp.pad}], {what}, "
+                  f"{n_src} distinct source rows, out_len {m}; {jb} row x "
+                  f"{e} samples per thread, {threads} threads",
+            max_abs_err=0.0, ms=ms, single_call_ms=single_ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+        print(f"gather_sum {stage}: {what} -> [{B * J}x{m}]: kernel "
+              f"{ms:.3f} ms (single calls {single_ms:.3f} ms), plain "
+              f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by}: "
+              f"{nbytes / 1e9:.3f} GB; 2 reads + 1 write per output "
+              f"sample would be {12.0 * B * m / 1e9:.3f} GB), exact")
+    info = dict(plan_build_s=build_s, merge_levels=tp.n_levels,
+                rows=tp.rows, adds_per_sample=tp.adds_per_sample,
+                rows_per_level=list(tp.rows_per_level), pad=tp.pad,
+                state_gb=state.nbytes / 1e9)
+    del state, src, dst
+    torch.cuda.empty_cache()
+    return info
+
+
+def prove_ties(fn, plan, got, ref, widths):
+    """Where two sweeps' peak starts differ, the window sums of the raw
+    8-bit samples at both starts (integer sums, exact) must be equal: an
+    exact tie, which either start may report. The baseline is the same
+    constant for both windows of a width. Returns the number of ties."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+
+    with FilterbankFile(fn) as r:
+        hdr, C, T = r.header_size, r.nchans, r.nspec
+        if r.frequencies[0] < r.frequencies[-1]:
+            fail("tie proof: the file's band ascends")
+    raw = np.memmap(fn, dtype=np.uint8, mode="r", offset=hdr, shape=(T, C))
+    per = C // plan.nsub
+    diff = np.argwhere(got != ref)
+    for d, wi in diff:
+        g, ti = divmod(int(d), plan.group_size)
+        tot = plan.stage1_bins[g] + np.repeat(plan.stage2_bins[g, ti], per)
+        w = widths[wi]
+        sums = []
+        for a in (int(got[d, wi]), int(ref[d, wi])):
+            if a + int(tot.max()) + w > T:
+                fail(f"tie proof: trial {d} width {w} peak at {a} reads "
+                     f"past the end of data")
+            sums.append(sum(int(raw[a + tot[c]:a + tot[c] + w, c].sum(
+                dtype=np.int64)) for c in range(C)))
+        if sums[0] != sums[1]:
+            fail(f"trial {d} width {w}: peaks {got[d, wi]} and "
+                 f"{ref[d, wi]} differ and hold window sums {sums}")
+    return len(diff)
+
+
+def engine_paths(tmp, fn, info, device, report, gather_res):
+    """Phase 9 (a): ``cli.sweep --engine tree`` and ``--engine fourier``
+    over phase 4's 1024 trials, each held to phase 4's gather run on the
+    card; returns each engine's launches."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.parallel import staged
+
+    tree_info = check_tree_kernels(device, report)
+    plan = path_geometry(device)[0]
+    out_by_engine = {}
+    for engine in ("tree", "fourier"):
+        out = os.path.join(tmp, f"engine_{engine}")
+        argv = [fn, "--lodm", "0", "--dmstep", "0.5", "--numdms", "1024",
+                "--nsub", "64", "-o", out, "--device", "cuda", "--engine",
+                engine]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        with Timed(staged, "sweep_flat") as sp:
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if rc != 0:
+            fail(f"sweep --engine {engine} exited {rc}")
+        need = ["boxcar_stats"] + (["gather_sum/tree_level",
+                                    "gather_sum/tree_snap"]
+                                   if engine == "tree" else [])
+        if min(launches[k] for k in need) < 1:
+            fail(f"sweep --engine {engine} did not launch {need}: "
+                 f"{launches}")
+        res = sp.result.steps[0].result
+        g = gather_res
+        if not (np.isfinite(res.snr).all() and res.snr.shape == g.snr.shape):
+            fail(f"--engine {engine}: non-finite or misshapen SNR")
+        rel = np.abs(res.snr - g.snr) / np.maximum(np.abs(g.snr), 1.0)
+        if rel.max() > 2e-6:
+            d, w = np.unravel_index(np.argmax(rel), rel.shape)
+            fail(f"--engine {engine}: SNR off gather's by {rel.max():.3g} "
+                 f"relative at trial {d}, width {res.widths[w]}")
+        ties = prove_ties(fn, plan, res.peak_sample, g.peak_sample,
+                          res.widths)
+        best = res.best(1)[0]
+        if abs(best["dm"] - 70.0) > 1.0:
+            fail(f"--engine {engine}: best DM {best['dm']}, not 70")
+        numbers = dict(
+            engine=engine, wall_s=wall, dm_trials_per_s=1024 / wall,
+            peak_device_gb=peak_gb, max_rel_snr_vs_gather=float(rel.max()),
+            peaks_differing_proven_ties=ties, best=best, launches=launches,
+            engine_info=res.engine_info)
+        if engine == "tree":
+            numbers["tree"] = tree_info
+        print(f"engine {engine}: " + json.dumps(numbers, default=float))
+        out_by_engine[engine] = launches
+    torch.cuda.empty_cache()
+    return out_by_engine
+
+
+def accel_hits(candfn, info, min_sigma=10.0):
+    """Rows of a ``.cand`` file at a harmonic of the pulsar's frequency
+    with |z| <= 2 and sigma above ``min_sigma``, among its first 10."""
+    from pypulsar_tpu_torch.io.prestocand import read_rzwcands
+
+    T = info["nsamp"] * info["tsamp"]
+    f0 = 1.0 / (info["period_samples"] * info["tsamp"])
+    out = []
+    for c in read_rzwcands(candfn)[:10]:
+        k = (c.r / T) / f0
+        if k > 0.5 and abs(k - round(k)) < 0.02 and abs(c.z) <= 2.0 \
+                and c.sig > min_sigma:
+            out.append({"r": c.r, "z": c.z, "sigma": c.sig,
+                        "harmonic": round(k)})
+    return out
+
+
+def same_bytes(paths_a, prefix_a, prefix_b):
+    """Fail unless each file of ``paths_a`` has the bytes of its twin
+    under ``prefix_b``; returns the count."""
+    for pa in paths_a:
+        pb = prefix_b + pa[len(prefix_a):]
+        with open(pa, "rb") as a, open(pb, "rb") as b:
+            if a.read() != b.read():
+                fail(f"{pb} differs from {pa}")
+    return len(paths_a)
+
+
+def spectral_stage(tmp, fn, info, stage_s, stage_numbers):
+    """Phase 9 (b): the sweep stage with ``--spectral`` over phase 6's 32
+    trials; every ``.cand`` must have phase 6's bytes."""
+    import torch
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.parallel import accelpipe, staged
+
+    out = os.path.join(tmp, "spectral")
+    argv = stage_argv(fn, out, STAGE_LODM, STAGE_DMS, ["--spectral"])
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with Timed(staged, "sweep_flat") as sp, \
+            Timed(accelpipe, "sweep_accel_stream") as ho, \
+            Timed(accelpipe, "fused_spectra_slice") as fu:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if rc != 0:
+        fail(f"the spectral sweep stage exited {rc}")
+    summary = ho.result
+    if summary["series_host_bytes"] != 0 or summary["regime"] != "stitched":
+        fail(f"the spectral stage copied series to the host: {summary}")
+    if glob.glob(out + "_DM*.dat"):
+        fail("the spectral stage wrote .dat files")
+    stage = os.path.join(tmp, "stage")
+    n = same_bytes(sorted(glob.glob(stage + "_DM*_ACCEL_200.*cand")), stage,
+                   out)
+    if n != 2 * STAGE_DMS:
+        fail(f"phase 6 left {n} candidate files, not {2 * STAGE_DMS}")
+    hits = accel_hits(f"{out}_DM70.00_ACCEL_200.cand", info)
+    if not hits:
+        fail("the spectral stage's DM-70 table holds no harmonic with "
+             "|z| <= 2 and sigma > 10")
+    accel_s = ho.seconds - fu.seconds
+    numbers = dict(
+        wall_s=wall, phase6_wall_s=stage_s, single_pulse_s=sp.seconds,
+        fused_slice_s=fu.seconds, accel_s=accel_s,
+        spectra_per_s=STAGE_DMS / accel_s,
+        phase6_spectra_per_s=stage_numbers["spectra_per_s"],
+        phase6_series_s=stage_numbers["series_s"],
+        series_host_bytes=summary["series_host_bytes"],
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+        cand_files_equal=n, dm70_best=hits[:3], launches=launches,
+        launches_fused_slice=dict(fu.launches))
+    print("spectral stage: " + json.dumps(numbers))
+    return launches
+
+
+def decimated_regime(tmp, fn, info):
+    """Phase 9 (c): the decimated regime (Fourier engine, one chunk) over
+    the same 32 trials; the pulsar must be found, and the candidates that
+    the stitched run does not match are counted (the boundary semantics
+    differ by design)."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.fourier.accelsearch import AccelSearchConfig
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.io.prestocand import read_rzwcands
+    from pypulsar_tpu_torch.parallel import accelpipe
+
+    out = os.path.join(tmp, "decimated")
+    dms = STAGE_LODM + 1.0 * np.arange(STAGE_DMS)
+    cfg = AccelSearchConfig(zmax=200.0, dz=2.0, numharm=8, sigma_min=2.0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    with FilterbankFile(fn) as r, \
+            Timed(accelpipe, "fused_spectra_slice") as fu:
+        t0 = time.perf_counter()
+        summary = accelpipe.sweep_accel_stream(
+            r, dms, cfg, out, batch=32, nsub=64, group_size=0,
+            engine="fourier", chunk_payload=info["nsamp"], spectral=True,
+            specfuse_mode="decimate", device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if summary["regime"] != "decimated" or summary["n_searched"] != STAGE_DMS:
+        fail(f"the decimated regime did not run: {summary}")
+    hits = accel_hits(f"{out}_DM70.00_ACCEL_200.cand", info)
+    if not hits:
+        fail("the decimated regime's DM-70 table holds no harmonic with "
+             "|z| <= 2 and sigma > 10")
+    floor = cfg.sigma_min + 0.5
+    n_unmatched = n_cands = 0
+    stitched = os.path.join(tmp, "spectral")
+    for dm in dms:
+        a = read_rzwcands(f"{out}_DM{dm:.2f}_ACCEL_200.cand")
+        b = read_rzwcands(f"{stitched}_DM{dm:.2f}_ACCEL_200.cand")
+        n_cands += len(a)
+        for x, pool in ((a, b), (b, a)):
+            n_unmatched += sum(
+                1 for c in x if c.sig > floor and not any(
+                    abs(c.r - o.r) < 0.5 and abs(c.z - o.z) < 1.0
+                    and abs(c.sig - o.sig) < 0.5 for o in pool))
+    numbers = dict(wall_s=wall, fused_slice_s=fu.seconds,
+                   accel_s=wall - fu.seconds,
+                   spectra_per_s=STAGE_DMS / (wall - fu.seconds),
+                   peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   candidates=n_cands, unmatched_vs_stitched=n_unmatched,
+                   dm70_best=hits[:3], launches=launches)
+    print("decimated regime: " + json.dumps(numbers))
+    torch.cuda.empty_cache()
+    return launches
+
+
+def spectral_chain(tmp, info, device, chain):
+    """Phase 9 (d): the survey chain with ``accel_spectral=True`` on phase
+    8's RFI copy: each ``.cand`` must have phase 8's bytes, the pulsar
+    must fold to SNR > 10 from the raw-file stream, and a journalled rerun
+    of the sweep stage must redo nothing."""
+    import torch
+
+    from pypulsar_tpu_torch.parallel import accelpipe, staged
+    from pypulsar_tpu_torch.survey import dag
+    from pypulsar_tpu_torch.survey.state import Observation
+
+    os.makedirs(os.path.join(tmp, "chain_spectral"))
+    obs = Observation("rfi", chain["rfi"],
+                      os.path.join(tmp, "chain_spectral", "rfi"))
+    cfg = dag.SurveyConfig(lodm=float(STAGE_LODM), accel_spectral=True)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walls = dag.run_observation(obs, cfg, device=device)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    launches = launch_counts()
+    need = ("gather_sum/stage1", "gather_sum/stage2", "boxcar_stats",
+            "fold_parts_poly")
+    if min(launches[k] for k in need) < 1:
+        fail(f"the spectral chain did not launch every kernel: {launches}")
+    if glob.glob(obs.outbase + "_DM*.dat"):
+        fail("the spectral chain wrote .dat files")
+    n = same_bytes(sorted(glob.glob(chain["outbase"]
+                                    + "_DM*_ACCEL_200.*cand")),
+                   chain["outbase"], obs.outbase)
+    with open(obs.outbase + "_foldbatch.json") as f:
+        results = json.load(f)["results"]
+    with open(obs.outbase + "_snr.json") as f:
+        snr = {row["name"]: row["snr"] for row in json.load(f)}
+    psr = info["period_samples"] * info["tsamp"]
+    hits = [dict(name=r["name"], dm=r["dm"], period=r["period"],
+                 snr=snr.get(r["name"])) for r in results
+            if harmonic_of(r["period"], psr) is not None
+            and abs(r["dm"] - 70.0) <= 2.0 and (snr.get(r["name"]) or 0) > 10]
+    if not hits:
+        fail("no spectral-chain candidate within 2 DM of 70 at the pulsar's "
+             "period or a harmonic folds to SNR > 10")
+    sweep = next(s for s in dag.build_dag(cfg) if s.name == "sweep")
+    arts = [p for s in dag.build_dag(cfg) for p in s.outputs(obs, cfg)]
+    before = sha256s(arts)
+    with Timed(staged, "sweep_flat") as sp, \
+            Timed(accelpipe, "fused_spectra_slice") as fu, \
+            Timed(accelpipe, "accel_search_batch") as srch:
+        t0 = time.perf_counter()
+        sweep.execute(obs, cfg, device=device)
+        rerun_s = time.perf_counter() - t0
+    if sp.calls or fu.calls or srch.calls:
+        fail(f"the spectral chain's journalled rerun redid work: "
+             f"{sp.calls} sweeps, {fu.calls} fused slices, {srch.calls} "
+             f"searches")
+    if sha256s(arts) != before:
+        fail("the spectral chain's rerun changed an artifact's bytes")
+    best = max(hits, key=lambda h: h["snr"])
+    print("spectral chain: " + json.dumps({
+        "stage_wall_s": walls, "chain_wall_s": chain_s,
+        "phase8_stage_wall_s": chain["walls"],
+        "cand_files_equal_phase8": n, "pulsar": best,
+        "pulsar_rows_found": len(hits), "rerun_sweep_s": rerun_s,
+        "artifacts": len(arts), "launches": launches}))
+    return launches
+
+
+def ddplan_path(tmp, fn):
+    """Phase 9 (e): ``cli.sweep --ddplan --lodm 0 --hidm 512`` on the
+    phase-4 file: the pulsar within one step's dDM of DM 70, and every
+    step through both gather-sum stages and boxcar."""
+    import argparse
+
+    import torch
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.parallel import staged
+
+    out = os.path.join(tmp, "ddplan")
+    argv = [fn, "--ddplan", "--lodm", "0", "--hidm", "512", "--nsub", "64",
+            "-o", out, "--device", "cuda"]
+    with FilterbankFile(fn) as r:
+        plan = cli.make_ddplan(r, argparse.Namespace(
+            lodm=0.0, hidm=512.0, plan_numsub=0, resolution=0.0))
+    per_step = []
+    real = staged.run_step
+
+    def counted(*a, **kw):  # each step's launches and wall
+        before = collections.Counter(launch_counts())
+        t0 = time.perf_counter()
+        res = real(*a, **kw)
+        torch.cuda.synchronize()
+        per_step.append(dict(wall_s=time.perf_counter() - t0, launches=dict(
+            collections.Counter(launch_counts()) - before)))
+        return res
+
+    reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    staged.run_step = counted
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        staged.run_step = real
+    launches = launch_counts()
+    if rc != 0:
+        fail(f"sweep --ddplan exited {rc}")
+    if len(per_step) != len(plan.DDsteps):
+        fail(f"{len(per_step)} steps swept, the plan has "
+             f"{len(plan.DDsteps)}")
+    for i, st in enumerate(per_step):
+        if min(st["launches"].get(k, 0) for k in SWEEP_KERNELS) < 1:
+            fail(f"DDplan step {i} did not launch {SWEEP_KERNELS}: "
+                 f"{st['launches']}")
+    with open(out + ".cands") as f:
+        rows = [ln.split() for ln in f.read().splitlines()[1:]]
+    if not rows:
+        fail("the DDplan sweep wrote no candidates")
+    best = max(rows, key=lambda r: float(r[1]))
+    dm = float(best[0])
+    step = next(s for s in plan.DDsteps if s.loDM <= dm < s.hiDM)
+    if abs(dm - 70.0) > step.dDM:
+        fail(f"the DDplan's best candidate is at DM {dm}, more than one "
+             f"step ({step.dDM}) from 70")
+    print("ddplan: " + json.dumps({
+        "steps": [dict(lo_dm=float(s.loDM), hi_dm=float(s.hiDM),
+                       ddm=float(s.dDM), downsamp=int(s.downsamp),
+                       numdms=int(s.numDMs)) for s in plan.DDsteps],
+        "trials": int(sum(s.numDMs for s in plan.DDsteps)), "wall_s": wall,
+        "per_step": per_step, "best": {"dm": dm, "snr": float(best[1]),
+                                        "downsamp": int(best[5])},
+        "launches": launches}))
     return launches
 
 
@@ -1746,23 +2233,35 @@ def main() -> int:
         check_small_sweep(tmp)
         fn, info = write_obs(tmp)
         check_stage_kernels(fn, device)
-        launches, _ = main_path(tmp, fn, info)
-        stage_sp, stage_series, stage_s = stage_path(tmp, fn, info)
+        launches, _, gather_res = main_path(tmp, fn, info)
+        stage_sp, stage_series, stage_s, stage_numbers = stage_path(
+            tmp, fn, info)
         fold_dats, fold_stream = fold_stage(tmp, fn, info, device, report)
         chain = survey_chain(tmp, fn, info, device, stage_s)
+        engines = engine_paths(tmp, fn, info, device, report, gather_res)
+        spectral = spectral_stage(tmp, fn, info, stage_s, stage_numbers)
+        decimated = decimated_regime(tmp, fn, info)
+        spectral_ch = spectral_chain(tmp, info, device, chain)
+        ddplan = ddplan_path(tmp, fn)
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
              "fold_dats": fold_dats, "fold_stream": fold_stream,
-             "survey_chain": chain}
+             "survey_chain": chain["launches"],
+             "sweep_tree": engines["tree"], "sweep_fourier": engines["fourier"],
+             "spectral_stage": spectral, "spectral_decimated": decimated,
+             "spectral_chain": spectral_ch, "ddplan": ddplan}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}
         # the first path that drives the kernel: the 1024-trial sweep for
-        # the dedispersion kernels, the --datbase fold for the fold (whose
-        # array form no driven path calls: its launches stay 0)
-        k["launches"] = (fold_dats if k["name"].startswith("fold_parts")
-                         else launches)[k["name"]]
+        # the dedispersion kernels, the tree engine's sweep for its levels
+        # and snap, the --datbase fold for the fold (whose array form no
+        # driven path calls: its launches stay 0)
+        first = (fold_dats if k["name"].startswith("fold_parts")
+                 else engines["tree"] if k["name"].startswith(
+                     "gather_sum/tree") else launches)
+        k["launches"] = first[k["name"]]
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

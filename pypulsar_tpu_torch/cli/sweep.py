@@ -17,6 +17,13 @@ single-pulse pass. ``--write-dats`` alone writes the ``.dat``/``.inf``
 series after the single-pulse pass. ``--mask FILE.mask`` applies an
 rfifind mask to every pass (median-mid80 fill per raw block).
 
+``--engine`` picks the chunk formulation (``gather``, the default;
+``tree``, shared merge levels; ``fourier``, phase multiply-reduce).
+``--spectral`` fuses the accel handoff on the device (no series crosses
+to the host; no ``.dat`` tee). ``--ddplan --hidm H`` sweeps a DDplan2b
+staged plan of ``--lodm`` .. ``H`` instead of a flat grid, each step at
+its own downsampling (single-pulse pass only).
+
 ``--journal PATH.jsonl`` keeps a work-unit journal of the chain: the
 ``.cands`` are published and journalled (``sweep:cands``) before the
 accel pass, each trial's ``.cand`` pair once written, and a rerun with
@@ -35,6 +42,8 @@ import os
 
 import numpy as np
 
+from pypulsar_tpu_torch.parallel.sweep import ENGINES
+from pypulsar_tpu_torch.parallel.sweep import NOT_PORTED as ENGINES_NOT_PORTED
 from pypulsar_tpu_torch.resilience.dataguard import finite_rows
 from pypulsar_tpu_torch.resilience.journal import atomic_write_text
 
@@ -42,7 +51,7 @@ from pypulsar_tpu_torch.resilience.journal import atomic_write_text
 #: with the ROADMAP.md item that brings each
 NOT_PORTED = {
     "mesh": ("--mesh", "Queue 1 item 14 (multi-GPU)"),
-    "spectral": ("--spectral", "Queue 1 item 13 (spectral fusion)"),
+    "all_events": ("--all-events", "Queue 1 S8 (per-chunk events)"),
     "checkpoint": ("--checkpoint", "Queue 1 S1 (checkpoint/resume)"),
     "resume": ("--resume", "Queue 1 S1 (checkpoint/resume)"),
     "no_accel_device_prep": ("--no-accel-device-prep",
@@ -76,8 +85,17 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lodm", type=float, default=0.0, help="lowest trial DM")
     ap.add_argument("--dmstep", type=float, default=1.0,
                     help="DM step (pc/cm^3)")
-    ap.add_argument("--numdms", type=int, required=True,
-                    help="number of DM trials")
+    ap.add_argument("--numdms", type=int, default=None,
+                    help="number of DM trials (flat mode)")
+    ap.add_argument("--ddplan", action="store_true",
+                    help="sweep a DDplan2b staged plan of --lodm..--hidm, "
+                         "each step at its own downsampling")
+    ap.add_argument("--hidm", type=float, default=None,
+                    help="highest DM (required with --ddplan)")
+    ap.add_argument("--plan-numsub", type=int, default=0,
+                    help="DDplan subband count hint (prepsubband staging)")
+    ap.add_argument("--resolution", type=float, default=0.0,
+                    help="DDplan acceptable time resolution (ms)")
     ap.add_argument("-s", "--nsub", type=int, default=64,
                     help="subbands of the two-stage dedispersion")
     ap.add_argument("--group-size", type=int, default=0,
@@ -95,8 +113,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("-k", "--topk", type=int, default=10,
                     help="candidates to print")
     ap.add_argument("--engine", default="auto",
-                    help="chunk formulation: auto or gather (the only one "
-                         "ported)")
+                    choices=("auto",) + ENGINES + tuple(ENGINES_NOT_PORTED),
+                    help="chunk formulation: auto (gather), gather, tree "
+                         "(shared pairwise merge levels) or fourier (phase "
+                         "multiply-reduce between FFTs); scan is not "
+                         "ported yet")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
@@ -132,6 +153,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--accel-skip-existing", action="store_true",
                     help="accel: skip trials whose .cand/.txtcand pair "
                          "already validates")
+    ap.add_argument("--spectral", action="store_true",
+                    help="with --accel-search: fuse the handoff on the "
+                         "device (the series never cross to the host; no "
+                         ".dat tee)")
     ap.add_argument("--mask", dest="maskfile", default=None,
                     help="rfifind .mask file applied per raw block with "
                          "the median-mid80 fill")
@@ -142,8 +167,8 @@ def _parser() -> argparse.ArgumentParser:
     not_ported = "not ported yet: ROADMAP.md "
     ap.add_argument("--mesh", type=int, default=0,
                     help=not_ported + NOT_PORTED["mesh"][1])
-    ap.add_argument("--spectral", action="store_true",
-                    help=not_ported + NOT_PORTED["spectral"][1])
+    ap.add_argument("--all-events", action="store_true",
+                    help=not_ported + NOT_PORTED["all_events"][1])
     ap.add_argument("--checkpoint", default=None,
                     help=not_ported + NOT_PORTED["checkpoint"][1])
     ap.add_argument("--resume", action="store_true",
@@ -158,10 +183,13 @@ def _journal_fingerprint(args, dms, widths, outbase, rfimask) -> str:
     mask's path and its zap table included: a journal written under other
     flags, or under another mask at the same path (the survey's mask
     stage rewrites ``{outbase}_rfifind.mask`` on every run), starts over.
+    The resolved chunk engine and ``--spectral`` are hashed too: the
+    engines agree only within tolerance, so a resume must not mix their
+    artifacts (the reference hashes ``--spectral`` but not the engine).
     Flags the port does not take are hashed at the values it runs (device
-    prep on, no spectral fusion, no per-chunk events), as the reference
-    hashes them."""
+    prep on, no per-chunk events), as the reference hashes them."""
     from pypulsar_tpu_torch.parallel.staged import mask_tag
+    from pypulsar_tpu_torch.parallel.sweep import resolve_engine
 
     h = hashlib.sha256()
     h.update(np.asarray(dms, dtype=np.float64).tobytes())
@@ -170,9 +198,11 @@ def _journal_fingerprint(args, dms, widths, outbase, rfimask) -> str:
                          args.accel_sigma]).tobytes())
     h.update(np.int64([args.downsamp, args.nsub, args.group_size,
                        args.accel_numharm, int(bool(args.accel_search)),
-                       0, args.accel_max_cands, 1, 0]).tobytes())
+                       0, args.accel_max_cands, 1,
+                       int(bool(args.spectral))]).tobytes())
     h.update((args.infile + "|" + (args.maskfile or "")
-              + "|" + outbase).encode())
+              + "|" + outbase + "|engine=" + resolve_engine(args.engine)
+              ).encode())
     h.update(mask_tag(rfimask).encode())
     return h.hexdigest()
 
@@ -192,26 +222,86 @@ def _emit_sweep_artifacts(staged, outbase, args, journal) -> None:
               f"bins ({c['width_sec']*1e3:.2f} ms)  ds {c['downsamp']}")
 
 
-def main(argv=None) -> int:
-    ap = _parser()
-    args = ap.parse_args(argv)
+def _check_args(ap, args) -> None:
+    """The reference's refusals of flag combinations, and the flags and
+    engine the port does not take (exit 2 naming their ROADMAP.md item)."""
     for dest, (flag, item) in NOT_PORTED.items():
         if getattr(args, dest):
             ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
+    if args.engine in ENGINES_NOT_PORTED:
+        ap.error(f"--engine {args.engine} is not ported yet (ROADMAP.md "
+                 f"{ENGINES_NOT_PORTED[args.engine]})")
     if args.downsamp < 1:
         ap.error("--downsamp must be >= 1")
+    if args.ddplan:
+        if args.write_dats:
+            ap.error("--write-dats is a flat-mode option (DDplan steps use "
+                     "varying time resolutions)")
+        if args.downsamp != 1:
+            ap.error("--downsamp is a flat-mode option (DDplan sets "
+                     "per-step downsampling itself)")
+        if args.accel_search:
+            ap.error("--accel-search is a flat-mode option (the handoff "
+                     "searches one fixed time resolution)")
+        if args.journal:
+            ap.error("--journal is a flat-mode option (the journal "
+                     "manifests one sweep->accel chain)")
+        if args.hidm is None:
+            ap.error("--ddplan requires --hidm")
+    elif args.numdms is None:
+        ap.error("flat mode requires --numdms (or use --ddplan)")
     if args.accel_only and not args.accel_search:
         ap.error("--accel-only requires --accel-search")
+    if args.spectral:
+        if not args.accel_search:
+            ap.error("--spectral requires --accel-search (it is the fused "
+                     "sweep->accel handoff)")
+        if args.write_dats:
+            ap.error("--spectral has no time series to tee: drop "
+                     "--write-dats or use the streamed handoff")
+
+
+def make_ddplan(reader, args):
+    """DDplan2b plan from the reader's header geometry and the CLI's
+    ``--lodm/--hidm/--plan-numsub/--resolution`` (the reference's
+    ``_make_ddplan``)."""
+    from pypulsar_tpu_torch.plan.ddplan import Observation
+
+    freqs = np.asarray(reader.frequencies, dtype=np.float64)
+    bw = abs(freqs.max() - freqs.min()) + abs(
+        freqs[1] - freqs[0] if len(freqs) > 1 else 0.0)
+    obs = Observation(dt=float(reader.tsamp), fctr=float(freqs.mean()),
+                      BW=float(bw), numchan=len(freqs))
+    return obs.gen_ddplan(args.lodm, args.hidm, numsub=args.plan_numsub,
+                          resolution=args.resolution)
+
+
+def main(argv=None) -> int:
+    ap = _parser()
+    args = ap.parse_args(argv)
+    _check_args(ap, args)
 
     from pypulsar_tpu_torch.io.filterbank import FilterbankFile
     from pypulsar_tpu_torch.io.rfimask import RfifindMask
-    from pypulsar_tpu_torch.parallel.staged import sweep_flat
+    from pypulsar_tpu_torch.parallel.staged import sweep_ddplan, sweep_flat
     from pypulsar_tpu_torch.resilience.journal import RunJournal
 
     widths = tuple(int(w) for w in args.widths.split(","))
     outbase = args.outbase or os.path.splitext(args.infile)[0]
-    dms = args.lodm + args.dmstep * np.arange(args.numdms)
     rfimask = RfifindMask(args.maskfile) if args.maskfile else None
+    if args.ddplan:
+        with FilterbankFile(args.infile) as reader:
+            plan = make_ddplan(reader, args)
+            print(f"# DDplan: {len(plan.DDsteps)} steps, "
+                  f"{sum(s.numDMs for s in plan.DDsteps)} total DM trials"
+                  f"{plan}")
+            staged = sweep_ddplan(
+                reader, plan, nsub=args.nsub, group_size=args.group_size,
+                widths=widths, chunk_payload=args.chunk, verbose=True,
+                engine=args.engine, rfimask=rfimask, device=args.device)
+        _emit_sweep_artifacts(staged, outbase, args, None)
+        return 0
+    dms = args.lodm + args.dmstep * np.arange(args.numdms)
     journal = None
     journal_done = set()
     if args.journal:
@@ -254,11 +344,14 @@ def main(argv=None) -> int:
                     max_cands=args.accel_max_cands,
                     prefetch_depth=args.accel_prefetch, rfimask=rfimask,
                     skip_existing=args.accel_skip_existing, journal=journal,
-                    device=args.device, verbose=True)
+                    spectral=args.spectral, device=args.device, verbose=True)
                 print(f"# accel handoff: {summary['n_searched']} trials "
                       f"searched, {summary['n_skipped']} skipped, in "
                       f"{summary['n_slices']} DM slice(s), "
-                      f"{summary['unit']} spectra per prep batch")
+                      f"{summary['unit']} spectra per prep batch, "
+                      f"{summary['series_host_bytes']} series bytes to the "
+                      f"host" + (f", {summary['regime']} spectral fusion"
+                                 if summary["regime"] else ""))
             elif args.write_dats:
                 from pypulsar_tpu_torch.parallel.accelpipe import (
                     stream_series,
@@ -268,7 +361,8 @@ def main(argv=None) -> int:
                               nsub=args.nsub, group_size=args.group_size,
                               chunk_payload=args.chunk, dat_outbase=outbase,
                               keep=False, rfimask=rfimask,
-                              device=args.device, verbose=True)
+                              engine=args.engine, device=args.device,
+                              verbose=True)
                 print(f"# wrote {len(dms)} .dat/.inf series")
     finally:
         if journal is not None:

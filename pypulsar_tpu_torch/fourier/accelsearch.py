@@ -51,6 +51,7 @@ from scipy.special import gammaincc, gammainccinv, gammaln, log_ndtr, ndtri
 
 from pypulsar_tpu_torch.core.device import resolve_device
 from pypulsar_tpu_torch.fourier.zresponse import template_bank_zw
+from pypulsar_tpu_torch.ops.fourier_dedisperse import fourier_chunk_len
 from pypulsar_tpu_torch.resilience.retry import halving_dispatch
 
 __all__ = [
@@ -67,15 +68,6 @@ HARM_STAGES = (1, 2, 4, 8)
 ACCEL_HBM_BYTES = 5e9
 #: host bytes of cached template banks
 BANK_CACHE_BYTES = 4e9
-
-
-def fourier_chunk_len(min_len: int) -> int:
-    """Smallest power-of-two FFT length >= min_len (copy of
-    ``pypulsar_tpu/ops/fourier_dedisperse.py``'s helper)."""
-    n = 1
-    while n < min_len:
-        n <<= 1
-    return n
 
 
 # ---------------------------------------------------------------------------

@@ -133,8 +133,9 @@ def _schedule_tensors(schedule: DereddenSchedule, device):
                            schedule.elem_block, schedule.elem_off))
 
 
-def prep_spectra_batch(series, schedule: Optional[DereddenSchedule] = None,
-                       device="cuda") -> torch.Tensor:
+def prep_spectra_batch(series=None,
+                       schedule: Optional[DereddenSchedule] = None,
+                       device="cuda", spectra=None) -> torch.Tensor:
     """rfft + deredden a batch of time series ``[B, n]`` (numpy or tensor)
     on ``device``: the normalized ``[B, n//2+1]`` complex64 spectra, left
     on the device for :func:`~pypulsar_tpu_torch.fourier.accelsearch.
@@ -150,8 +151,23 @@ def prep_spectra_batch(series, schedule: Optional[DereddenSchedule] = None,
     libraries choose their order, algorithm and threading by a call's
     shape, and a spectrum's bits must not depend on how many series share
     its batch. The deredden pass is batched (sorting and elementwise
-    arithmetic give the same bits in any batch)."""
+    arithmetic give the same bits in any batch).
+
+    ``spectra`` (instead of ``series``) is a ``[B, F]`` complex tensor of
+    one-sided spectra that are already transformed, the decimated regime
+    of spectral fusion (``parallel/specfuse.py``): only the deredden
+    runs. The series mean lives in bin 0 alone, which deredden overwrites
+    with 1 + 0j, so nothing is left to subtract."""
+    if (series is None) == (spectra is None):
+        raise ValueError("give exactly one of series= or spectra=")
     device = resolve_device(device)
+    if spectra is not None:
+        fft = torch.as_tensor(spectra).to(device=device,
+                                          dtype=torch.complex64)
+        if fft.dim() != 2:
+            raise ValueError(f"spectra must be [B, F]; got "
+                             f"{tuple(fft.shape)}")
+        return deredden(fft, schedule=schedule)
     s32 = torch.as_tensor(series).to(device=device, dtype=torch.float32)
     if s32.dim() != 2:
         raise ValueError(f"series must be [B, n]; got {tuple(s32.shape)}")

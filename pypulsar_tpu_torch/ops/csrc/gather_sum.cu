@@ -5,7 +5,9 @@
 //
 // for t < out_len: the J output rows of source set b all read the same K
 // source rows, each at its own shifts. The generic [O, K] form of the TPU
-// kernel is the case J = 1.
+// kernel is the case J = 1. Output rows lie ld_out floats apart (out_len
+// for a contiguous output; the tree engine's merge levels write the
+// first out_len columns of a wider state buffer).
 //
 // Replaces: pypulsar_tpu/ops/pallas_dedisperse.py `_gather_sum_kernel`
 // (pallas_call in `_pallas_gather_sum`), and with it the vmapped
@@ -77,7 +79,7 @@ __global__ void __launch_bounds__(THREADS, 512 / THREADS)
 gather_sum_kernel(const float* __restrict__ data, int64_t data_len,
                   const int* __restrict__ src_rows, const int* __restrict__ shifts,
                   const int* __restrict__ out_rows, float* __restrict__ out,
-                  int64_t L, int J, int K, int64_t out_len, int win4) {
+                  int64_t L, int J, int K, int64_t out_len, int64_t ld_out, int win4) {
   constexpr int TILE = THREADS * E;
   extern __shared__ __align__(16) unsigned char smem[];
   int* rel = reinterpret_cast<int*>(smem);
@@ -160,7 +162,7 @@ gather_sum_kernel(const float* __restrict__ data, int64_t data_len,
 #pragma unroll
       for (int j = 0; j < JB; ++j) {
         if (j < nj) {
-          float* dst = out + (int64_t)out_rows[b * J + j0 + j] * out_len + t0;
+          float* dst = out + (int64_t)out_rows[b * J + j0 + j] * ld_out + t0;
 #pragma unroll
           for (int e = 0; e < E; ++e) {
             const int i = threadIdx.x + e * THREADS;
@@ -178,7 +180,7 @@ gather_sum_kernel(const float* __restrict__ data, int64_t data_len,
 template <int JB, int E, int THREADS>
 int launch(const float* data, int64_t data_len, const int* src_rows, const int* shifts,
            const int* out_rows, float* out, int64_t L, int64_t B, int J, int K,
-           int64_t out_len, int win_len, size_t smem, cudaStream_t st) {
+           int64_t out_len, int64_t ld_out, int win_len, size_t smem, cudaStream_t st) {
   constexpr int TILE = THREADS * E;
   const int win4 = (int)win_stride(win_len);
   const size_t need = (size_t)win_offset(K, JB) + (size_t)STAGES * 4 * win4;
@@ -191,27 +193,27 @@ int launch(const float* data, int64_t data_len, const int* src_rows, const int* 
   const dim3 grid((unsigned)((J + JB - 1) / JB), (unsigned)B,
                   (unsigned)((tiles + TILES_PER_BLOCK - 1) / TILES_PER_BLOCK));
   kern<<<grid, THREADS, smem, st>>>(data, data_len, src_rows, shifts, out_rows, out, L,
-                                    J, K, out_len, win4);
+                                    J, K, out_len, ld_out, win4);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch on `stream` with JB output rows and E samples per thread per
-// block, with `threads` threads (the triples below); returns
-// cudaGetLastError() (0 on success).
+// Launch on `stream` (output rows ld_out floats apart) with JB output
+// rows and E samples per thread per block, with `threads` threads (the
+// triples below); returns cudaGetLastError() (0 on success).
 extern "C" int gather_sum_launch(const float* data, int64_t data_len,
                                  const int* src_rows, const int* shifts,
                                  const int* out_rows, float* out, int64_t L, int64_t B,
-                                 int J, int K, int64_t out_len, int jb, int e,
-                                 int threads, int win_len, int64_t smem,
-                                 void* stream) {
+                                 int J, int K, int64_t out_len, int64_t ld_out,
+                                 int jb, int e, int threads, int win_len,
+                                 int64_t smem, void* stream) {
   if (B == 0 || J == 0 || out_len == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
 #define GATHER_CASE(JB_, E_, T_)                                                 \
   if (jb == JB_ && e == E_ && threads == T_)                                     \
     return launch<JB_, E_, T_>(data, data_len, src_rows, shifts, out_rows, out, \
-                               L, B, J, K, out_len, win_len, (size_t)smem, st);
+                               L, B, J, K, out_len, ld_out, win_len, (size_t)smem, st);
   GATHER_CASE(16, 4, 128)
   GATHER_CASE(8, 8, 256)
   GATHER_CASE(1, 8, 256)

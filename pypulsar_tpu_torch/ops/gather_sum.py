@@ -116,7 +116,7 @@ def expand_tables(src_rows: np.ndarray, shifts: np.ndarray,
     return rows, row_shifts
 
 
-def _check(data, tables: GatherTables, out_len: int) -> None:
+def _check(data, tables: GatherTables, out_len: int, out=None) -> None:
     if data.dim() != 2 or data.dtype != torch.float32:
         raise ValueError(f"data must be 2-D float32; got {tuple(data.shape)} "
                          f"{data.dtype}")
@@ -124,6 +124,19 @@ def _check(data, tables: GatherTables, out_len: int) -> None:
         raise ValueError("data and the index tables must lie on one device")
     if out_len < 0:
         raise ValueError(f"out_len must be >= 0; got {out_len}")
+    if out is not None:
+        B, J, _ = tables.shifts.shape
+        if (out.dtype != torch.float32 or out.device != data.device
+                or tuple(out.shape) != (B * J, out_len)
+                or (out.numel() and (out.stride(1) != 1
+                                     or out.stride(0) < out_len))):
+            raise ValueError(
+                f"out must be float32 [{B * J}, {out_len}] on {data.device} "
+                f"with unit column stride; got {tuple(out.shape)} "
+                f"{out.dtype} strides {out.stride()} on {out.device}")
+        if out.untyped_storage().data_ptr() == \
+                data.untyped_storage().data_ptr():
+            raise ValueError("out must not share storage with data")
     R, L = data.shape
     bd = tables.bounds
     if tables.shifts.numel() == 0:
@@ -137,7 +150,7 @@ def _check(data, tables: GatherTables, out_len: int) -> None:
             f"outside the {L} samples of each row")
 
 
-def _torch_gather_sum(data, tables: GatherTables, out_len: int):
+def _torch_gather_sum(data, tables: GatherTables, out_len: int, out=None):
     """Plain PyTorch version (any device): one flat ``take`` per k, added
     in k order from zero, over slices of the output rows that bound the
     index memory."""
@@ -149,7 +162,8 @@ def _torch_gather_sum(data, tables: GatherTables, out_len: int):
     rows = rows.reshape(O, K)
     shifts = tables.shifts.reshape(O, K).to(torch.int64)
     dest = tables.out_rows.reshape(O).to(torch.int64)
-    out = torch.empty((O, out_len), dtype=data.dtype, device=data.device)
+    if out is None:
+        out = torch.empty((O, out_len), dtype=data.dtype, device=data.device)
     t = torch.arange(out_len, device=data.device, dtype=torch.int64)
     step = max(1, _INDEX_BUDGET // max(out_len, 1))
     for o0 in range(0, O, step):
@@ -191,14 +205,16 @@ def launch_config(J: int, K: int, spreads: Tuple[int, ...]):
         f"rows needs {smem} bytes of shared memory, more than {_MAX_SMEM}")
 
 
-def _cuda_gather_sum(data, tables: GatherTables, out_len: int):
+def _cuda_gather_sum(data, tables: GatherTables, out_len: int, out=None):
     B, J, K = tables.shifts.shape
     L = data.shape[1]
     jb, e, threads, win_len, smem = launch_config(J, K, tables.bounds.spreads)
     tile_runs = -(-out_len // (threads * e * _TILES_PER_BLOCK))
     if B > _MAX_GRID_YZ or tile_runs > _MAX_GRID_YZ:
         raise ValueError(f"B={B}, out_len={out_len} exceed the kernel's grid")
-    out = torch.empty((B * J, out_len), dtype=torch.float32, device=data.device)
+    if out is None:
+        out = torch.empty((B * J, out_len), dtype=torch.float32,
+                          device=data.device)
     if out.numel() == 0:
         return out
     lib = _build.load("gather_sum")
@@ -206,23 +222,27 @@ def _cuda_gather_sum(data, tables: GatherTables, out_len: int):
     fn = lib.gather_sum_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
+                      ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(data.device).cuda_stream
     _build.check(fn(data.data_ptr(), data.numel(), tables.src_rows.data_ptr(),
                     tables.shifts.data_ptr(), tables.out_rows.data_ptr(),
-                    out.data_ptr(), L, B, J, K, out_len, jb, e, threads,
-                    win_len, smem, stream), "gather_sum")
+                    out.data_ptr(), L, B, J, K, out_len, out.stride(0), jb, e,
+                    threads, win_len, smem, stream), "gather_sum")
     shifted_gather_sum.launches[tables.stage] += 1
     return out
 
 
 def shifted_gather_sum(data: torch.Tensor, tables: GatherTables,
-                       out_len: int) -> torch.Tensor:
+                       out_len: int, out=None) -> torch.Tensor:
     """``out[out_rows[b, j], t] = sum_k data[src_rows[b, k],
     shifts[b, j, k] + t]`` for ``t < out_len``; ``out`` is
-    ``[B * J, out_len]`` float32.
+    ``[B * J, out_len]`` float32, new unless the caller gives it: then a
+    view whose rows may lie further apart than ``out_len`` (the first
+    columns of a wider buffer), on data's device and sharing no storage
+    with it, written in place and returned.
 
     ``data`` is [R, L] float32 on the tables' device; ``tables`` come from
     :func:`gather_tables`, whose host bounds let every window be checked
@@ -232,11 +252,11 @@ def shifted_gather_sum(data: torch.Tensor, tables: GatherTables,
     A CPU tensor runs the plain PyTorch version; a CUDA tensor launches
     ``csrc/gather_sum.cu``, counted in
     ``shifted_gather_sum.launches[tables.stage]``."""
-    _check(data, tables, out_len)
+    _check(data, tables, out_len, out)
     if data.device.type == "cpu":
-        return _torch_gather_sum(data, tables, out_len)
+        return _torch_gather_sum(data, tables, out_len, out)
     if data.device.type == "cuda":
-        return _cuda_gather_sum(data, tables, out_len)
+        return _cuda_gather_sum(data, tables, out_len, out)
     raise ValueError(f"no gather-sum for device {data.device}")
 
 

@@ -36,6 +36,7 @@ import torch
 
 from pypulsar_tpu_torch.core.device import resolve_device
 from pypulsar_tpu_torch.io.rfimask import build_zap_table, write_mask
+from pypulsar_tpu_torch.ops.fourier_dedisperse import fourier_chunk_len
 from pypulsar_tpu_torch.resilience.journal import atomic_open
 
 __all__ = [
@@ -48,14 +49,6 @@ __all__ = [
     "mask_products",
     "rfifind",
 ]
-
-
-def fourier_chunk_len(min_len: int) -> int:
-    """Smallest power of two >= ``min_len``."""
-    n = 1
-    while n < min_len:
-        n <<= 1
-    return n
 
 
 def block_stats(data: torch.Tensor, pts: int):

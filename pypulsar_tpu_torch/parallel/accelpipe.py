@@ -18,6 +18,12 @@ Port of ``pypulsar_tpu/parallel/accelpipe.py`` on one device:
 - Host RAM for the series buffer is budgeted (``stream_ram_bytes``,
   12e9): a trial set too large for it is processed in DM slices aligned
   to stage-1 groups, each slice one more pass over the file.
+- ``spectral=True`` fuses the handoff instead
+  (:func:`~pypulsar_tpu_torch.parallel.specfuse.fused_spectra_slice`):
+  per DM slice (budgeted in device bytes, ``specfuse_hbm_bytes``), every
+  trial's prepped spectrum is built on the device, batches are row
+  gathers of it, and no series crosses to the host (``series_host_bytes``
+  in the summary is 0). It writes no ``.dat`` tee.
 
 A batch that runs out of device memory halves and retries (per-spectrum
 results do not depend on the batch); any other failure raises. The
@@ -39,6 +45,7 @@ import os
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from pypulsar_tpu_torch.core.device import resolve_device
 from pypulsar_tpu_torch.fourier.accelsearch import (
@@ -52,6 +59,11 @@ from pypulsar_tpu_torch.fourier.kernels import (
 )
 from pypulsar_tpu_torch.io.prestocand import write_rzwcands
 from pypulsar_tpu_torch.parallel.prefetch import prefetch
+from pypulsar_tpu_torch.parallel.specfuse import (
+    SPECFUSE_HBM_BYTES,
+    fused_spectra_slice,
+    spectral_trial_bytes,
+)
 from pypulsar_tpu_torch.parallel.staged import (
     ReaderSource,
     dat_append_rows,
@@ -118,7 +130,8 @@ def write_candfiles(candfn: str, txtfn: str, cands, T: float,
 def stream_series(reader, dms, downsamp: int = 1, nsub: int = 64,
                   group_size: int = 32, chunk_payload: Optional[int] = None,
                   dat_outbase: Optional[str] = None, keep: bool = True,
-                  rfimask=None, device="cuda", verbose: bool = False
+                  rfimask=None, engine: str = "auto", device="cuda",
+                  verbose: bool = False
                   ) -> Tuple[Optional[np.ndarray], float]:
     """One pass over ``reader``: every DM trial's full dedispersed series
     as a host ``[D, T_ds]`` float32 buffer, and the effective sampling
@@ -127,7 +140,8 @@ def stream_series(reader, dms, downsamp: int = 1, nsub: int = 64,
     a zero-padded tail); ``keep=False`` writes only those files and
     returns no buffer, so any file length needs one chunk of memory.
     ``rfimask`` fills the zapped cells of each raw block
-    (:class:`~pypulsar_tpu_torch.parallel.staged.MaskedSource`)."""
+    (:class:`~pypulsar_tpu_torch.parallel.staged.MaskedSource`); ``engine``
+    is the chunk engine of the dedispersion."""
     factor = max(1, int(downsamp))
     dms = np.asarray(dms, dtype=np.float64)
     dt_eff = ReaderSource(reader).tsamp * factor
@@ -140,8 +154,8 @@ def stream_series(reader, dms, downsamp: int = 1, nsub: int = 64,
         paths = dat_truncate_paths(dat_outbase, dms)
     for pos, rows in iter_dedispersed_chunks(
             reader, dms, downsamp=factor, nsub=nsub, group_size=group_size,
-            chunk_payload=chunk_payload, rfimask=rfimask, device=device,
-            verbose=verbose):
+            chunk_payload=chunk_payload, rfimask=rfimask, engine=engine,
+            device=device, verbose=verbose):
         if buf is not None:
             buf[:, pos:pos + rows.shape[1]] = rows
         if paths is not None:
@@ -172,6 +186,9 @@ def sweep_accel_stream(
     rfimask=None,
     skip_existing: bool = False,
     journal: Optional[RunJournal] = None,
+    spectral: bool = False,
+    specfuse_hbm_bytes: float = SPECFUSE_HBM_BYTES,
+    specfuse_mode: str = "stitch",
     device="cuda",
     verbose: bool = False,
 ) -> dict:
@@ -181,8 +198,15 @@ def sweep_accel_stream(
     ``.dat`` series, rewritten whole even when every trial is skipped).
     ``group_size`` <= 0 picks the group once over the whole grid.
     ``rfimask`` masks the raw blocks; ``skip_existing`` and ``journal``
-    resume (module docstring). Returns a summary dict:
-    trials searched and skipped, DM slices and spectra per prep batch."""
+    resume (module docstring). ``spectral`` fuses the handoff on the
+    device (module docstring; ``specfuse_mode`` "stitch" or "decimate").
+    Returns a summary dict: trials searched and skipped, DM slices,
+    spectra per prep batch, the series bytes copied to the host and the
+    spectral regime (None when streamed)."""
+    if spectral and write_dats:
+        raise ValueError("spectral fusion has no time series to tee: "
+                         "write_dats needs the streamed (non-spectral) "
+                         "handoff")
     resolve_engine(engine)
     device = resolve_device(device)
     batch = max(1, int(batch))
@@ -201,7 +225,7 @@ def sweep_accel_stream(
               f"skipping")
     if not todo and not write_dats:
         return {"n_searched": 0, "n_skipped": n_skipped, "n_slices": 0,
-                "unit": 0}
+                "unit": 0, "series_host_bytes": 0, "regime": None}
     src0 = ReaderSource(reader)
     factor = max(1, int(downsamp))
     if group_size <= 0:
@@ -222,43 +246,69 @@ def sweep_accel_stream(
     # to stage-1 group boundaries: make_sweep_plan regroups each slice's
     # DMs from its own start, and a misaligned slice would move later
     # trials into groups with a different mean DM
-    slice_dms = max(batch, int(stream_ram_bytes // (4 * max(T, 1))))
+    if spectral:
+        # the fused slice lives on the device (series rows and spectra),
+        # so its budget is device memory, not host RAM
+        budget = specfuse_hbm_bytes
+        slice_dms = max(batch, int(budget // spectral_trial_bytes(T)))
+    else:
+        budget = stream_ram_bytes
+        slice_dms = max(batch, int(budget // (4 * max(T, 1))))
     slice_dms = max(group_size, (slice_dms // group_size) * group_size)
     n_slices = -(-D // slice_dms)
     if n_slices > 1 and verbose:
-        print(f"# series buffer {4 * D * T / 1e9:.1f} GB exceeds the "
-              f"{stream_ram_bytes / 1e9:.1f} GB budget; streaming in "
+        print(f"# {'fused spectra' if spectral else 'series buffer'} "
+              f"exceed the {budget / 1e9:.1f} GB budget; streaming in "
               f"{n_slices} DM slices of {slice_dms} (one file pass each)")
 
     # device-prep residency: series + spectrum + rfft workspace is ~24
     # bytes per sample per spectrum, and the pipeline holds the batch that
-    # searches, the queued ones and the one the worker holds
+    # searches, the queued ones and the one the worker holds; fused
+    # spectra are prepped already, and a batch is a gather of their rows
     inflight = prefetch_depth + 2 if prefetch_depth > 0 else 1
-    unit = min(batch, max(1, (int(hbm_budget_bytes) // inflight)
-                          // (24 * max(T, 1))))
+    unit = batch if spectral else min(
+        batch, max(1, (int(hbm_budget_bytes) // inflight)
+                   // (24 * max(T, 1))))
     schedule = deredden_schedule(T // 2 + 1)
     n_searched = 0
+    series_host_bytes = 0
+    regime = None
 
     for d0 in range(0, D, slice_dms):
         d1 = min(d0 + slice_dms, D)
         sl_todo = [i for i in todo if d0 <= i < d1]
         if not sl_todo and not write_dats:
             continue
-        series, dt_eff = stream_series(
-            reader, dms[d0:d1], downsamp=factor, nsub=nsub,
-            group_size=group_size, chunk_payload=chunk_payload,
-            dat_outbase=outbase if write_dats else None, rfimask=rfimask,
-            device=device, verbose=verbose)
+        series = fused = None
+        if spectral:
+            fused = fused_spectra_slice(
+                reader, dms[d0:d1], schedule=schedule, downsamp=factor,
+                nsub=nsub, group_size=group_size, rfimask=rfimask,
+                engine=engine, chunk_payload=chunk_payload,
+                mode=specfuse_mode, device=device, verbose=verbose)
+            dt_eff, regime = fused["dt_eff"], fused["regime"]
+        else:
+            series, dt_eff = stream_series(
+                reader, dms[d0:d1], downsamp=factor, nsub=nsub,
+                group_size=group_size, chunk_payload=chunk_payload,
+                dat_outbase=outbase if write_dats else None, rfimask=rfimask,
+                engine=engine, device=device, verbose=verbose)
+            series_host_bytes += series.nbytes
         T_sec = T * dt_eff
 
         def groups(sl_todo=sl_todo):
             for g0 in range(0, len(sl_todo), unit):
                 yield sl_todo[g0:g0 + unit]
 
-        def prep(idxs, series=series, d0=d0):
+        def prep(idxs, series=series, fused=fused, d0=d0):
             """Worker-side half: the batch's rows to the device, rfft and
-            deredden, while the previous batch searches."""
-            rows = np.ascontiguousarray(series[[i - d0 for i in idxs]])
+            deredden, while the previous batch searches; under spectral
+            fusion a gather of the slice's resident spectra."""
+            loc = [i - d0 for i in idxs]
+            if fused is not None:
+                sp = fused["spectra"]
+                return idxs, sp[torch.tensor(loc, device=sp.device)]
+            rows = np.ascontiguousarray(series[loc])
             return idxs, prep_spectra_batch(rows, schedule, device=device)
 
         if prefetch_depth > 0:
@@ -285,10 +335,11 @@ def sweep_accel_stream(
                 print(f"# searched trials {idxs[0]}..{idxs[-1]} "
                       f"({n_searched}/{len(todo)})")
             del spectra
-        del series
+        del series, fused
 
     if journal is not None:
         journal.note(event="accel_stream_done", n_searched=n_searched,
                      n_skipped=n_skipped)
     return {"n_searched": n_searched, "n_skipped": n_skipped,
-            "n_slices": n_slices, "unit": unit}
+            "n_slices": n_slices, "unit": unit,
+            "series_host_bytes": series_host_bytes, "regime": regime}

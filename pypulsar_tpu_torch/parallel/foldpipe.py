@@ -216,8 +216,8 @@ def iter_groups_dats(groups, dat_for_dm):
 def iter_groups_stream(groups, reader, downsamp: int = 1, nsub: int = 64,
                        group_size: int = 32,
                        chunk_payload: Optional[int] = None,
-                       all_dms=None, rfimask=None, device="cuda",
-                       verbose: bool = False):
+                       all_dms=None, rfimask=None, engine: str = "auto",
+                       device="cuda", verbose: bool = False):
     """Yield fold groups from one streamed pass over the raw file: the
     DMs dedisperse through the sweep's chunk kernels
     (:func:`~pypulsar_tpu_torch.parallel.accelpipe.stream_series`) into a
@@ -228,7 +228,8 @@ def iter_groups_stream(groups, reader, downsamp: int = 1, nsub: int = 64,
     ``all_dms`` (default: the groups' own DMs) is the whole candidate
     list's DM grid: group sizing, stage-1 grouping and slicing plan over
     it, so the series do not depend on which groups are left to fold.
-    ``rfimask`` masks the raw blocks as the sweep stage did."""
+    ``rfimask`` masks the raw blocks as the sweep stage did; ``engine`` is
+    the chunk engine of the dedispersion."""
     from pypulsar_tpu_torch.parallel.accelpipe import stream_series
     from pypulsar_tpu_torch.parallel.staged import ReaderSource, dats_geometry
     from pypulsar_tpu_torch.parallel.sweep import choose_group_size
@@ -269,7 +270,7 @@ def iter_groups_stream(groups, reader, downsamp: int = 1, nsub: int = 64,
         series_buf, dt_eff = stream_series(
             reader, np.asarray(dm_slice, np.float64), downsamp=downsamp,
             nsub=nsub, group_size=group_size, chunk_payload=chunk_payload,
-            rfimask=rfimask, device=device, verbose=verbose)
+            rfimask=rfimask, engine=engine, device=device, verbose=verbose)
         row = {dm: i for i, dm in enumerate(dm_slice)}
         for dm, members in groups:
             if dm in row:
@@ -333,13 +334,15 @@ def fold_pipeline(
     group_size: int = 0,
     chunk_payload: Optional[int] = None,
     rfimask=None,
+    engine: str = "auto",
     device="cuda",
     verbose: bool = False,
 ) -> dict:
     """Fold every candidate into ``{outbase}_{name}.pfd``, one batched
     device fold per DM group, on ``device``. ``source`` picks the series:
     ``"dats"`` (``dat_for_dm(dm) -> path``) or ``"stream"`` (one pass
-    over ``reader``, masked by ``rfimask`` when given). ``skip_existing``
+    over ``reader`` by the chunk ``engine``, masked by ``rfimask`` when
+    given). ``skip_existing``
     skips candidates whose archive already parses complete. Returns a summary dict: per-candidate rows
     (archive path, refined p/pdot, chi2) and counts."""
     from pypulsar_tpu_torch.fold.engine import (
@@ -389,8 +392,8 @@ def fold_pipeline(
         group_iter = iter_groups_stream(
             groups, reader, downsamp=downsamp, nsub=nsub,
             group_size=group_size, chunk_payload=chunk_payload,
-            all_dms={c.dm for c in cands}, rfimask=rfimask, device=device,
-            verbose=verbose)
+            all_dms={c.dm for c in cands}, rfimask=rfimask, engine=engine,
+            device=device, verbose=verbose)
     else:
         group_iter = iter_groups_dats(groups, dat_for_dm)
 

@@ -8,11 +8,14 @@ transposed to [chan, time], widened to float32 and band-flipped there
 (:class:`MaskedSource`, at the full sample rate), optionally downsampled,
 and fed to :func:`~pypulsar_tpu_torch.parallel.sweep.sweep_stream`.
 
-The series path (:func:`iter_dedispersed_chunks`) streams the same blocks
-through both dedispersion stages only and hands every trial's series back
-to the host, where the sweep->accel handoff
+The series path (:func:`iter_device_chunks`) streams the same blocks
+through the dedispersion only, by any chunk engine;
+:func:`iter_dedispersed_chunks` hands every trial's series back to the
+host, where the sweep->accel handoff
 (:func:`pypulsar_tpu_torch.parallel.accelpipe.stream_series`, which also
-tees them to the ``.dat`` files) reads them.
+tees them to the ``.dat`` files) reads them, and spectral fusion
+(``parallel/specfuse.py``) keeps them on the device. :func:`sweep_ddplan`
+runs a DDplan's steps, each at its own downsampling.
 """
 
 from __future__ import annotations
@@ -32,11 +35,10 @@ from pypulsar_tpu_torch.ops.masking import masked
 from pypulsar_tpu_torch.parallel.prefetch import ship_ahead
 from pypulsar_tpu_torch.parallel.sweep import (
     DEFAULT_WIDTHS,
+    ChunkEngine,
     SweepResult,
     choose_group_size,
-    dedisperse_batches,
     default_chunk_payload,
-    group_batches,
     make_sweep_plan,
     resolve_engine,
     sweep_stream,
@@ -262,22 +264,29 @@ def step_geometry(src, dms, factor: int, nsub: int, group_size: int,
 
 def run_step(src, dms, factor: int, nsub: int, group_size: int,
              widths: Tuple[int, ...], chunk_payload: Optional[int],
-             device, verbose: bool = False) -> Optional[StepResult]:
-    """Sweep ``dms`` over ``src`` downsampled by ``factor``.
-    ``group_size`` <= 0 picks the largest group within the smearing bound."""
+             device, verbose: bool = False, engine: str = "auto",
+             label: str = "") -> Optional[StepResult]:
+    """Sweep ``dms`` over ``src`` downsampled by ``factor`` with the chunk
+    ``engine``. ``group_size`` <= 0 picks the largest group within the
+    smearing bound."""
     dt_eff = src.tsamp * factor
     if src.nsamples // factor == 0:
         return None
     plan, payload, _ = step_geometry(src, dms, factor, nsub, group_size,
                                      widths, chunk_payload)
     if verbose:
-        print(f"# downsamp={factor} dt={dt_eff:.3e}s "
+        print(f"# {label}downsamp={factor} dt={dt_eff:.3e}s "
               f"DMs {dms[0]:.2f}..{dms[-1]:.2f} ({len(dms)} trials, "
               f"group {plan.group_size}) payload={payload}")
     res = sweep_stream(
         plan, downsampled_blocks(src, factor, payload, plan.min_overlap,
                                  device),
-        payload, device=device)
+        payload, engine=engine, device=device)
+    if verbose and res.engine_info.get("engine") == "tree":
+        info = res.engine_info
+        print(f"# {label}tree: {info['merge_levels']} merge levels, "
+              f"{info['rows']} rows, {info['adds_per_sample']} adds per "
+              f"sample, {info['state_bytes'] / 1e9:.2f} GB of state")
     return StepResult(downsamp=factor, dt=dt_eff, result=res)
 
 
@@ -291,42 +300,55 @@ def dats_geometry(reader, dms, downsamp: int = 1, nsub: int = 64,
                          nsub, group_size, (1,), chunk_payload)
 
 
-def iter_dedispersed_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
-                            group_size: int = 32,
-                            chunk_payload: Optional[int] = None,
-                            rfimask=None, device="cuda",
-                            verbose: bool = False):
-    """Stream the file once on ``device`` and yield ``(pos, rows[D, valid])``
-    host float32 chunks of every DM trial's two-stage dedispersed series:
-    the values a ``.dat`` file holds. No baseline is subtracted; the tail
-    past the end of data is zero-padded to the chunk's length, and each
-    chunk keeps its first ``valid = min(payload, T - pos)`` samples.
-    ``pos`` is the downsampled sample of the chunk's start. ``rfimask``
-    (an :class:`~pypulsar_tpu_torch.io.rfimask.RfifindMask`) fills the
-    zapped cells of each raw block before it is downsampled."""
+def iter_device_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
+                       group_size: int = 32,
+                       chunk_payload: Optional[int] = None, rfimask=None,
+                       engine: str = "auto", device="cuda"):
+    """Stream the file once on ``device`` and yield ``(pos, valid,
+    series)``: each chunk's ``[D, payload]`` dedispersed series of every
+    (group-padded) trial on the device, by the chunk ``engine``, of which
+    the first ``valid = min(payload, T - pos)`` samples belong to it. No
+    baseline is subtracted; the tail past the end of data is zero-padded
+    to the chunk's length. ``pos`` is the downsampled sample of the
+    chunk's start. ``rfimask`` (an
+    :class:`~pypulsar_tpu_torch.io.rfimask.RfifindMask`) fills the zapped
+    cells of each raw block before it is downsampled."""
     factor = max(1, int(downsamp))
     dms = np.asarray(dms, dtype=np.float64)
     device = resolve_device(device)
     plan, payload, T = dats_geometry(reader, dms, downsamp=factor, nsub=nsub,
                                      group_size=group_size,
                                      chunk_payload=chunk_payload)
-    L1 = payload + plan.max_shift2
     need = payload + plan.min_overlap
-    batches = group_batches(plan.stage1_bins, plan.stage2_bins, plan.nsub,
-                            L1, device)
+    eng = ChunkEngine(engine, plan.stage1_bins, plan.stage2_bins, plan.nsub,
+                      payload, plan.max_shift2, need, device)
     for pos, block in downsampled_blocks(make_source(reader, rfimask, device),
                                          factor, payload, plan.min_overlap,
                                          device):
         L = int(block.shape[1])
         if L < need:  # tail: zero-pad to the chunk's length
             block = F.pad(block, (0, need - L))
-        valid = min(payload, T - pos)
-        series = dedisperse_batches(block, batches, payload, L1)
+        yield pos, min(payload, T - pos), eng.series(block)
+
+
+def iter_dedispersed_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
+                            group_size: int = 32,
+                            chunk_payload: Optional[int] = None,
+                            rfimask=None, engine: str = "auto",
+                            device="cuda", verbose: bool = False):
+    """:func:`iter_device_chunks` handed to the host: ``(pos, rows[D,
+    valid])`` float32 chunks of every real DM trial's series, the values a
+    ``.dat`` file holds."""
+    D = len(dms)
+    for pos, valid, series in iter_device_chunks(
+            reader, dms, downsamp=downsamp, nsub=nsub, group_size=group_size,
+            chunk_payload=chunk_payload, rfimask=rfimask, engine=engine,
+            device=device):
         # the plan pads trial groups to the group size; only the real
         # trials leave this generator
-        host = series[:len(dms), :valid].contiguous().cpu().numpy()
+        host = series[:D, :valid].contiguous().cpu().numpy()
         if verbose:
-            print(f"# dats chunk at {pos}: {valid} samples x {len(dms)} DMs")
+            print(f"# dats chunk at {pos}: {valid} samples x {D} DMs")
         yield pos, host
 
 
@@ -401,5 +423,32 @@ def sweep_flat(source, dms, downsamp: int = 1, nsub: int = 64,
     step = run_step(make_source(source, rfimask, device),
                     np.asarray(dms, dtype=np.float64),
                     int(downsamp), nsub, group_size, tuple(widths),
-                    chunk_payload, device, verbose=verbose)
+                    chunk_payload, device, verbose=verbose, engine=engine)
     return StagedSweepResult(steps=[] if step is None else [step])
+
+
+def sweep_ddplan(source, ddplan, nsub: int = 64, group_size: int = 32,
+                 widths: Sequence[int] = DEFAULT_WIDTHS,
+                 chunk_payload: Optional[int] = None, verbose: bool = False,
+                 engine: str = "auto", rfimask=None,
+                 device="cuda") -> StagedSweepResult:
+    """Sweep every step of ``ddplan`` (a
+    :class:`~pypulsar_tpu_torch.plan.ddplan.DDplan`) over the reader
+    ``source``: step i sweeps ``step.DMs`` at ``step.downsamp`` times the
+    sampling time, one pass over the file each, through the chunk
+    ``engine``; ``chunk_payload`` is in downsampled samples. The
+    reference's ``checkpoint_path`` is not ported (ROADMAP.md Queue 1
+    S1)."""
+    resolve_engine(engine)
+    device = resolve_device(device)
+    src = make_source(source, rfimask, device)
+    steps: List[StepResult] = []
+    for si, step in enumerate(ddplan.DDsteps):
+        sr = run_step(src, np.asarray(step.DMs, dtype=np.float64),
+                      int(step.downsamp), nsub, group_size, tuple(widths),
+                      chunk_payload, device, verbose=verbose, engine=engine,
+                      label=f"step {si}: ")
+        if sr is None:
+            break
+        steps.append(sr)
+    return StagedSweepResult(steps=steps)

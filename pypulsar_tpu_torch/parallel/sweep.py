@@ -2,8 +2,9 @@
 every trial followed by boxcar detection statistics, streamed over the
 time axis in overlap-save chunks.
 
-Port of the single-device core of ``pypulsar_tpu/parallel/sweep.py`` with
-the ``gather`` engine (the reference's bit-parity formulation):
+Port of the single-device core of ``pypulsar_tpu/parallel/sweep.py``.
+The ``gather`` engine (the reference's bit-parity formulation, and
+``auto``'s choice off a TPU):
 
   stage 1: each trial group shifts its channels to the group's mean DM and
      sums them into ``nsub`` subbands;
@@ -11,7 +12,13 @@ the ``gather`` engine (the reference's bit-parity formulation):
   then: per-trial payload moments and, per boxcar width, the window-sum
      maximum and its first start.
 
-Both stages are one :func:`~pypulsar_tpu_torch.ops.gather_sum.shifted_gather_sum`
+``engine="tree"`` (``ops/tree_dedisperse.py``: shared pairwise merge
+levels with the exact shifts) and ``engine="fourier"``
+(``ops/fourier_dedisperse.py``: phase multiply-reduce between FFTs) give
+the same statistics within 2e-6 relative SNR; :class:`ChunkEngine` runs
+any of the three over a stream of chunks. ``scan`` is not ported.
+
+Both ``gather`` stages are one :func:`~pypulsar_tpu_torch.ops.gather_sum.shifted_gather_sum`
 each over ALL trial groups of a chunk (the reference scans the groups
 one by one), in its shared-source form: at stage 1 source set ``s`` is
 subband ``s``'s channels ``s*per + k``, read by every group ``j`` of the
@@ -39,6 +46,8 @@ import torch.nn.functional as F
 
 from pypulsar_tpu_torch.core import psrmath
 from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.ops import fourier_dedisperse as fdd
+from pypulsar_tpu_torch.ops import tree_dedisperse as tdd
 from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
 from pypulsar_tpu_torch.ops.gather_sum import (
     GatherTables,
@@ -52,19 +61,24 @@ DEFAULT_CHUNK_FFT_LEN = 1 << 18
 SUBBAND_BUDGET_BYTES = 4 << 30
 #: chunks queued on the device ahead of the host's read-back
 MAX_PENDING = 2
-_NOT_PORTED = ("scan", "fourier", "tree")
+ENGINES = ("gather", "tree", "fourier")
+#: the reference's engine the port does not take, with its ROADMAP.md item
+NOT_PORTED = {"scan": "Queue 1 item 13"}
 
 
 def resolve_engine(engine: str = "auto") -> str:
-    """The chunk formulation: only ``gather`` is ported (``auto`` is it)."""
-    if engine in ("auto", "gather"):
+    """The chunk formulation: ``gather``, ``tree`` or ``fourier``;
+    ``auto`` is ``gather``, the reference's choice off a TPU."""
+    if engine == "auto":
         return "gather"
-    if engine in _NOT_PORTED:
+    if engine in ENGINES:
+        return engine
+    if engine in NOT_PORTED:
         raise NotImplementedError(
-            f"sweep engine {engine!r} is not ported yet (ROADMAP.md Queue 1, "
-            f"'the other dedispersion engines'); use 'gather'")
-    raise ValueError(f"unknown sweep engine {engine!r}; expected 'gather' "
-                     f"or 'auto'")
+            f"sweep engine {engine!r} is not ported yet (ROADMAP.md "
+            f"{NOT_PORTED[engine]}); use one of {ENGINES}")
+    raise ValueError(f"unknown sweep engine {engine!r}; expected one of "
+                     f"{ENGINES + ('auto',)}")
 
 
 def choose_group_size(dms, freqs, dt: float, nsub: int = 64,
@@ -239,18 +253,6 @@ def run_chunk(data, batches: Sequence[GroupBatch], out_len: int, L1: int,
                          stat_len) for b in batches]
 
 
-def sweep_chunk(data, stage1_bins, stage2_bins, nsub: int, out_len: int,
-                slack2: int, widths, stat_len: int):
-    """One chunk for all trial groups (the reference's ``sweep_chunk`` with
-    the gather engine): data[C, L] with L >= out_len + slack2 + max
-    stage-1 shift; returns per-trial (sum[D], sumsq[D], maxbox[D, W],
-    argbox[D, W]) on data's device."""
-    L1 = out_len + slack2
-    batches = group_batches(stage1_bins, stage2_bins, nsub, L1, data.device)
-    parts = run_chunk(data, batches, out_len, L1, tuple(widths), stat_len)
-    return tuple(torch.cat([p[i] for p in parts]) for i in range(4))
-
-
 def dedisperse_batches(data, batches: Sequence[GroupBatch], out_len: int,
                        L1: int):
     """Two-stage dedispersed series [D, out_len] of one chunk ``data[C, L]``
@@ -259,13 +261,93 @@ def dedisperse_batches(data, batches: Sequence[GroupBatch], out_len: int,
                       for b in batches])
 
 
+class ChunkEngine:
+    """One engine's chunk kernels for one plan's shift tables, chunk
+    geometry and device, built once for a stream of chunks: the gather
+    engine's group batches, the tree engine's plan and state buffers
+    (:class:`~pypulsar_tpu_torch.ops.tree_dedisperse.TreeState`, sized
+    for chunks of ``need`` samples), or the Fourier engine's shift
+    bounds. Chunks are ``data[C, L]`` with ``L >= need = out_len +
+    slack2 +`` the largest stage-1 shift."""
+
+    def __init__(self, engine: str, stage1_bins, stage2_bins, nsub: int,
+                 out_len: int, slack2: int, need: int, device):
+        self.engine = resolve_engine(engine)
+        self.stage1_bins = np.asarray(stage1_bins, dtype=np.int32)
+        self.stage2_bins = np.asarray(stage2_bins, dtype=np.int32)
+        self.nsub, self.out_len, self.slack2 = nsub, out_len, slack2
+        self.L1 = out_len + slack2
+        self.need = need
+        self.batches = self.tree = None
+        if self.engine == "gather":
+            self.batches = group_batches(self.stage1_bins, self.stage2_bins,
+                                         nsub, self.L1, device)
+        elif self.engine == "tree":
+            self.tree = tdd.TreeState(
+                tdd.plan_from_bins(self.stage1_bins, self.stage2_bins),
+                need, device)
+
+    def info(self) -> dict:
+        """The engine and, for the tree, its structural numbers: merge
+        levels, rows, adds per output sample, state bytes on the device."""
+        out = {"engine": self.engine}
+        if self.tree is not None:
+            plan = self.tree.plan
+            out.update(merge_levels=plan.n_levels, rows=plan.rows,
+                       adds_per_sample=plan.adds_per_sample,
+                       state_bytes=self.tree.nbytes)
+        return out
+
+    def series(self, data):
+        """The ``[D, out_len]`` dedispersed series of chunk ``data``."""
+        if self.engine == "gather":
+            return dedisperse_batches(data, self.batches, self.out_len,
+                                      self.L1)
+        if self.engine == "tree":
+            # the tree reads no sample past need; its state has that width
+            return self.tree.series(data[:, :self.need], self.out_len)
+        return fdd.dedisperse_series_fourier(
+            data, self.stage1_bins, self.stage2_bins, self.nsub,
+            self.out_len, fdd.fourier_chunk_len(data.shape[1]))
+
+    def stats(self, data, widths: Tuple[int, ...], stat_len: int):
+        """Per-trial (sum[D], sumsq[D], maxbox[D, W], argbox[D, W]) of
+        chunk ``data`` on its device."""
+        if self.engine == "gather":
+            parts = run_chunk(data, self.batches, self.out_len, self.L1,
+                              widths, stat_len)
+            return tuple(torch.cat([p[i] for p in parts]) for i in range(4))
+        if self.engine == "tree":
+            return boxcar_stats(self.series(data), widths, stat_len)
+        # the lut mode's stage-1 bound falls out of the chunk's shape, as
+        # in the reference
+        return fdd.sweep_chunk_fourier(
+            data, self.stage1_bins, self.stage2_bins, self.nsub,
+            self.out_len, widths, stat_len,
+            fdd.fourier_chunk_len(data.shape[1]),
+            max_shift1=max(int(data.shape[1]) - self.L1, 0),
+            max_shift2=self.slack2)
+
+
+def sweep_chunk(data, stage1_bins, stage2_bins, nsub: int, out_len: int,
+                slack2: int, widths, stat_len: int, engine: str = "gather"):
+    """One chunk for all trial groups (the reference's ``sweep_chunk``):
+    data[C, L] with L >= out_len + slack2 + max stage-1 shift; returns
+    per-trial (sum[D], sumsq[D], maxbox[D, W], argbox[D, W]) on data's
+    device."""
+    eng = ChunkEngine(engine, stage1_bins, stage2_bins, nsub, out_len,
+                      slack2, data.shape[1], data.device)
+    return eng.stats(data, tuple(widths), stat_len)
+
+
 def dedisperse_series_chunk(data, stage1_bins, stage2_bins, nsub: int,
-                            out_len: int, slack2: int):
+                            out_len: int, slack2: int,
+                            engine: str = "gather"):
     """Two-stage dedispersed series [D, out_len] of one chunk: the sweep's
     chunk with the detection statistics left off."""
-    L1 = out_len + slack2
-    batches = group_batches(stage1_bins, stage2_bins, nsub, L1, data.device)
-    return dedisperse_batches(data, batches, out_len, L1)
+    eng = ChunkEngine(engine, stage1_bins, stage2_bins, nsub, out_len,
+                      slack2, data.shape[1], data.device)
+    return eng.series(data)
 
 
 @dataclasses.dataclass
@@ -280,6 +362,8 @@ class SweepResult:
     peak_sample: np.ndarray  # [D, W] global sample of the best box start
     mean: np.ndarray
     std: np.ndarray
+    #: the engine that ran and its structural numbers (ChunkEngine.info)
+    engine_info: dict = dataclasses.field(default_factory=dict)
 
     def best(self, k: int = 10):
         """Top-k (dm, width, snr, sample) candidates over all trials."""
@@ -369,15 +453,14 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
     statistics are read back and accumulated on the host. With
     ``finalize=False`` the raw :class:`AccumParts` come back instead of
     the :class:`SweepResult`."""
-    resolve_engine(engine)
     device = resolve_device(device)
     W = max(plan.widths)
     out_len = chunk_payload + W
     L1 = out_len + plan.max_shift2
     need = L1 + plan.max_shift1
     acc = _Accum(plan.n_trials, len(plan.widths))
-    batches = group_batches(plan.stage1_bins, plan.stage2_bins, plan.nsub, L1,
-                            device)
+    eng = ChunkEngine(engine, plan.stage1_bins, plan.stage2_bins, plan.nsub,
+                      out_len, plan.max_shift2, need, device)
     pending: list = []  # (start, stat_len, host outputs, copy-done event)
 
     def drain(limit: int) -> None:
@@ -391,11 +474,10 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
         if L < need:  # end of data: zero tail
             data = F.pad(data, (0, need - L))
         stat_len = min(chunk_payload, L)
-        parts = run_chunk(data, batches, out_len, L1, plan.widths, stat_len)
+        parts = eng.stats(data, plan.widths, stat_len)
         # start the read-back right behind this chunk's kernels, so that
         # reading it later does not wait for the chunks queued after it
-        host = [torch.cat([p[i] for p in parts]).to("cpu", non_blocking=True)
-                for i in range(4)]
+        host = [p.to("cpu", non_blocking=True) for p in parts]
         ready = None
         if device.type == "cuda":
             ready = torch.cuda.Event()
@@ -431,12 +513,14 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
          if baseline is not None else 0.0)
     if not finalize:
         return AccumParts(acc.n, acc.s, acc.ss, acc.mb, acc.ab, B)
-    return finalize_sweep(plan, acc.n, acc.s, acc.ss, acc.mb, acc.ab, B)
+    res = finalize_sweep(plan, acc.n, acc.s, acc.ss, acc.mb, acc.ab, B)
+    res.engine_info = eng.info()
+    return res
 
 
 def sweep_spectra(data, freqs, dt: float, dms, nsub: int = 64,
                   group_size: int = 32, widths=DEFAULT_WIDTHS,
-                  chunk_payload: Optional[int] = None,
+                  chunk_payload: Optional[int] = None, engine: str = "auto",
                   device="cuda") -> SweepResult:
     """Sweep an in-memory ``data[chan, time]`` (numpy or tensor, channels
     high-frequency-first) over ``dms``. The baseline is the whole-series
@@ -466,4 +550,4 @@ def sweep_spectra(data, freqs, dt: float, dms, nsub: int = 64,
             pos += chunk_payload
 
     return sweep_stream(plan, blocks(), chunk_payload, baseline=baseline,
-                        device=device)
+                        engine=engine, device=device)

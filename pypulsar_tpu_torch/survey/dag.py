@@ -7,9 +7,13 @@ Five stages close the raw -> science chain::
       └─ sweep (device)  DM sweep + streamed accel handoff
            (``sweep --accel-search --write-dats --journal --mask``:
            single-pulse .cands, per-DM .dat/.inf tee, per-trial
-           .cand/.txtcand)
+           .cand/.txtcand; ``accel_spectral`` swaps ``--write-dats`` for
+           ``--spectral``, the handoff fused on the device)
            └─ sift (host)  cluster per-DM candidates -> .accelcands
                 └─ fold (device)  batched candidate folding -> .pfd
+                     (from the .dat tee; under ``accel_spectral``, which
+                     writes none, from the raw file with the sweep's
+                     subbands, group size, downsampling and mask)
                      └─ snr (host)  pfd_snr --json summary
 
 Each :class:`StageSpec` declares whether it needs the device, which
@@ -20,10 +24,8 @@ artifacts are the tools' own) and its outputs, enumerated after the run.
 reference's serial chain does; device-bound stages get ``--device``.
 
 Left out of the reference: the fleet scheduler, manifests and stage
-deadlines (host-only layers, ROADMAP.md Queue 1 item 16), spectral
-fusion (``accel_spectral``, item 13; :func:`build_dag` raises) and the
-gang form of the sweep (``--mesh``, item 14; the sweep CLI refuses the
-flag).
+deadlines (host-only layers, ROADMAP.md Queue 1 item 16) and the gang
+form of the sweep (``--mesh``, item 14; the sweep CLI refuses the flag).
 """
 
 from __future__ import annotations
@@ -45,12 +47,6 @@ __all__ = [
     "run_observation",
 ]
 
-#: what the port does not run yet, with the ROADMAP.md item that brings it
-NOT_PORTED = {
-    "spectral": "Queue 1 item 13 (spectral fusion)",
-}
-
-
 class StageExit(RuntimeError):
     """A stage's CLI entry point returned a nonzero exit code."""
 
@@ -63,8 +59,9 @@ class SurveyConfig:
     ``accel_batch=None`` leaves ``--accel-batch`` off the sweep's argv,
     so the sweep CLI's default of 32 applies: the port has no tuning
     registry (ROADMAP.md Queue 1 item 16), and 32 is the reference
-    registry's default. ``accel_spectral=True`` is not ported (item 13):
-    :func:`build_dag` raises."""
+    registry's default. ``accel_spectral=True`` fuses the sweep stage's
+    handoff on the device (``sweep --spectral``), and the fold stage
+    streams the raw file since no ``.dat`` exists."""
 
     # mask (rfifind)
     mask: bool = True
@@ -159,12 +156,14 @@ def _mask_outputs(obs: Observation, cfg: SurveyConfig) -> List[str]:
 
 
 def _sweep_argv(obs: Observation, cfg: SurveyConfig) -> List[str]:
+    # spectral fusion has no series to tee to .dat files
+    series = ["--spectral"] if cfg.accel_spectral else ["--write-dats"]
     argv = [obs.infile, "-o", obs.outbase,
             "--lodm", str(cfg.lodm), "--dmstep", str(cfg.dmstep),
             "--numdms", str(cfg.numdms), "-s", str(cfg.nsub),
             "--group-size", str(cfg.group_size),
             "--threshold", str(cfg.threshold),
-            "--write-dats", "--accel-search",
+            *series, "--accel-search",
             "--accel-zmax", str(cfg.accel_zmax),
             "--accel-dz", str(cfg.accel_dz),
             "--accel-numharm", str(cfg.accel_numharm),
@@ -206,9 +205,19 @@ def _sift_outputs(obs: Observation, cfg: SurveyConfig) -> List[str]:
 
 
 def _fold_argv(obs: Observation, cfg: SurveyConfig) -> List[str]:
-    return ["--cands", f"{obs.outbase}.accelcands", "-o", obs.outbase,
+    argv = ["--cands", f"{obs.outbase}.accelcands", "-o", obs.outbase,
             "-n", str(cfg.fold_nbins), "--npart", str(cfg.fold_npart),
-            "--batch", str(cfg.fold_batch), "--datbase", obs.outbase]
+            "--batch", str(cfg.fold_batch)]
+    if cfg.accel_spectral:
+        # no .dat tee: fold from the raw file, dedispersed with the
+        # sweep's own series geometry and mask, so the folded series are
+        # the ones the candidates were found in
+        return ([obs.infile, *argv, "-s", str(cfg.nsub),
+                 "--group-size", str(cfg.group_size)]
+                + (["--downsamp", str(cfg.downsamp)]
+                   if cfg.downsamp != 1 else [])
+                + (["--mask", _mask_file(obs)] if cfg.mask else []))
+    return argv + ["--datbase", obs.outbase]
 
 
 def _fold_outputs(obs: Observation, cfg: SurveyConfig) -> List[str]:
@@ -247,10 +256,6 @@ def _snr_outputs(obs: Observation, cfg: SurveyConfig) -> List[str]:
 def build_dag(cfg: SurveyConfig) -> List[StageSpec]:
     """The stage list in topological order (``mask`` drops out, and the
     sweep drops ``--mask``, under ``cfg.mask=False``)."""
-    if cfg.accel_spectral:
-        raise NotImplementedError(
-            f"accel_spectral=True is not ported yet (ROADMAP.md "
-            f"{NOT_PORTED['spectral']})")
     stages: List[StageSpec] = []
     sweep_deps: Tuple[str, ...] = ()
     if cfg.mask:

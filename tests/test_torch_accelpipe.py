@@ -186,7 +186,7 @@ def test_plain_write_dats_uses_the_streamed_writer(runs):
 @pytest.mark.parametrize("flags,item", [
     (["--checkpoint", "c.npz"], "Queue 1 S1"),
     (["--mesh", "2"], "Queue 1 item 14"),
-    (["--spectral"], "Queue 1 item 13"),
+    (["--engine", "scan"], "Queue 1 item 13"),
     (["--resume"], "Queue 1 S1"),
     (["--no-accel-device-prep"], "Queue 1 S9"),
 ])

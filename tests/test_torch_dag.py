@@ -10,7 +10,9 @@ apart from the archives' directory; every trial's ``.cand`` and its
 ``.txtcand`` table under the matched-candidate contract (dr, dz, dsig) =
 (0.5, 1.0, 0.5) above ``accel_sigma + 0.5``. The chain journal
 (``.chain.jsonl``) holds digests and is left out. A rerun with the same
-journal redoes no unit and changes no byte.
+journal redoes no unit and changes no byte. The spectral chain
+(``accel_spectral=True``: the sweep's handoff fused on the device, no
+``.dat``, the fold from the raw file) is held to the same standard.
 """
 
 import dataclasses
@@ -40,6 +42,9 @@ CFG_KW = dict(mask=True, mask_time=1.0, lodm=0.0, dmstep=10.0, numdms=6,
               fold_nbins=32, fold_npart=8)
 BYTE_EQUAL = ("_rfifind.mask", ".cands", "_DM*.dat", ".accelcands",
               "_cand*.pfd")
+#: the spectral chain (sweep --spectral, the fold from the raw file)
+SPECTRAL_KW = dict(CFG_KW, accel_spectral=True)
+SPECTRAL_EQUAL = ("_rfifind.mask", ".cands", ".accelcands", "_cand*.pfd")
 
 
 def pulsar_fil8(path, C=16, T=8192, dt=5e-4, dm=40.0, period=0.1024,
@@ -197,7 +202,10 @@ def test_empty_sift_writes_an_empty_summary(tmp_path):
 
 @pytest.mark.parametrize("kw", [CFG_KW, {}, dict(mask=False, chunk=4096,
                                                   downsamp=2,
-                                                  sift_min_dm=2.0)])
+                                                  sift_min_dm=2.0),
+                                SPECTRAL_KW,
+                                dict(accel_spectral=True, mask=False,
+                                     downsamp=2)])
 def test_stages_and_argv_equal_jax(tmp_path, kw):
     """The stage list (names, tools, devices, dependencies) and every
     argv and output list equal the reference's, at the toy settings,
@@ -240,8 +248,6 @@ def test_device_goes_to_the_device_bound_stages(monkeypatch, tmp_path):
 
 
 def test_left_out_configs_raise_naming_the_roadmap(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        dag.build_dag(dag.SurveyConfig(accel_spectral=True))
     # the gang form of the sweep stage is its --mesh flag, which the
     # sweep CLI refuses
     sweep = next(s for s in dag.build_dag(dag.SurveyConfig())
@@ -270,3 +276,69 @@ def test_the_chain_defaults_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dag.run_observation(obs, dag.SurveyConfig())
     assert not glob.glob(obs.outbase + "*")
+
+
+@pytest.fixture(scope="module")
+def spectral_chains(tmp_path_factory):
+    root = tmp_path_factory.mktemp("dag_spectral")
+    fil = pulsar_fil8(str(root / "psr0.fil"), **OBS)
+    for side in ("port", "ref"):
+        os.makedirs(root / side)
+    port, ref = str(root / "port" / "psr0"), str(root / "ref" / "psr0")
+    walls = dag.run_observation(Observation("psr0", fil, port),
+                                dag.SurveyConfig(**SPECTRAL_KW), device="cpu")
+    run_jax_chain(fil, ref, SPECTRAL_KW)
+    return dict(root=root, fil=fil, port=port, ref=ref, walls=walls)
+
+
+@pytest.mark.parametrize("pattern", SPECTRAL_EQUAL)
+def test_spectral_chain_artifacts_equal_jax(spectral_chains, pattern):
+    ours = _by_suffix(spectral_chains["port"], pattern)
+    theirs = _by_suffix(spectral_chains["ref"], pattern)
+    assert ours and ours.keys() == theirs.keys()
+    for key, path in theirs.items():
+        with open(path, "rb") as a, open(ours[key], "rb") as b:
+            assert a.read() == b.read(), key
+
+
+def test_spectral_chain_snr_and_cands_match_jax(spectral_chains):
+    port, ref = spectral_chains["port"], spectral_chains["ref"]
+    assert list(spectral_chains["walls"]) == ["mask", "sweep", "sift",
+                                              "fold", "snr"]
+    assert not glob.glob(port + "_DM*.dat") and not glob.glob(ref + "_DM*.dat")
+    assert _snr_rows(port + "_snr.json") == _snr_rows(ref + "_snr.json")
+    assert _snr_rows(port + "_snr.json")
+    ours = _by_suffix(port, "_DM*_ACCEL_*.cand")
+    theirs = _by_suffix(ref, "_DM*_ACCEL_*.cand")
+    assert len(theirs) == 6 and ours.keys() == theirs.keys()
+    floor = CFG_KW["accel_sigma"] + 0.5
+    for key, path in theirs.items():
+        _matched([(c.r, c.z, c.sig)
+                  for c in prestocand.read_rzwcands(ours[key])],
+                 [(c.r, c.z, c.sig)
+                  for c in jax_prestocand.read_rzwcands(path)], floor)
+
+
+def test_spectral_chain_cands_are_the_streamed_chains(chains,
+                                                      spectral_chains):
+    """The stitched regime's tables have the streamed handoff's bytes."""
+    ours = _by_suffix(spectral_chains["port"], "_DM*_ACCEL_*")
+    streamed = _by_suffix(chains["port"], "_DM*_ACCEL_*")
+    assert len(ours) == 12 and ours.keys() == streamed.keys()
+    for key, path in streamed.items():
+        with open(path, "rb") as a, open(ours[key], "rb") as b:
+            assert a.read() == b.read(), key
+
+
+def test_spectral_chain_rerun_redoes_nothing(spectral_chains, capsys):
+    port = spectral_chains["port"]
+    paths = [p for pattern in SPECTRAL_EQUAL + ("_DM*_ACCEL_*", "_snr.json")
+             for p in sorted(glob.glob(port + pattern))]
+    before = {p: open(p, "rb").read() for p in paths}
+    capsys.readouterr()
+    dag.run_observation(Observation("psr0", spectral_chains["fil"], port),
+                        dag.SurveyConfig(**SPECTRAL_KW), device="cpu")
+    said = capsys.readouterr().out
+    assert "skipping the single-pulse sweep pass" in said
+    assert "0 trials searched, 6 skipped" in said
+    assert {p: open(p, "rb").read() for p in paths} == before

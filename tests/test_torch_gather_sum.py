@@ -218,3 +218,26 @@ def test_gather_sum_rejects_bad_types():
         shifted_gather_sum(data[0], tables, 10)
     with pytest.raises(ValueError):
         shifted_gather_sum(data.to("meta"), tables, 10)
+
+
+def test_gather_sum_writes_into_a_wider_buffer():
+    """``out=`` a view of the first columns of a wider buffer (the tree
+    engine's state rows): the same values as a new output, the other
+    columns and rows untouched; a misfit or a view of ``data`` raises."""
+    rng = np.random.default_rng(12)
+    data = torch.from_numpy(rng.standard_normal((6, 90)).astype(np.float32))
+    tables = gather_tables(np.array([[0, 5], [2, 3], [4, 4]]),
+                           np.array([[[3, 0]], [[0, 7]], [[1, 2]]]),
+                           np.array([[2], [0], [1]]), "cpu", "tree_level")
+    want = shifted_gather_sum(data, tables, 80)
+    buf = torch.full((5, 100), 9.0)
+    got = shifted_gather_sum(data, tables, 80, out=buf[:3, :80])
+    assert got.data_ptr() == buf.data_ptr()
+    assert torch.equal(buf[:3, :80], want)
+    assert bool((buf[:3, 80:] == 9.0).all() and (buf[3:] == 9.0).all())
+    for bad in (buf[:2, :80], buf[:3, :79], buf[:3, :80].double(),
+                torch.zeros((3, 160))[:, ::2]):
+        with pytest.raises(ValueError, match="out must be"):
+            shifted_gather_sum(data, tables, 80, out=bad)
+    with pytest.raises(ValueError, match="share storage"):
+        shifted_gather_sum(data, tables, 80, out=data[3:6, :80])

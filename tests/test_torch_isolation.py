@@ -96,6 +96,42 @@ def test_entry_points_default_to_the_card():
     assert res.snr.shape == (2, 6)
 
 
+def test_engine_spectral_and_ddplan_entry_points_default_to_the_card(
+        tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default path would run")
+    from pypulsar_tpu_torch.fourier.accelsearch import AccelSearchConfig
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.io.synth import write_synthetic_fil
+    from pypulsar_tpu_torch.parallel import accelpipe, specfuse, staged
+    from pypulsar_tpu_torch.parallel.sweep import sweep_spectra
+    from pypulsar_tpu_torch.plan.ddplan import Observation
+
+    fil = str(tmp_path / "a.fil")
+    write_synthetic_fil(fil, nchan=16, nsamp=4096, period_samples=256)
+    data = np.zeros((16, 500), np.float32)
+    freqs = 1500.0 - np.arange(16)
+    for engine in ("tree", "fourier"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sweep_spectra(data, freqs, 1e-3, [0.0, 5.0], nsub=4,
+                          engine=engine)
+    with FilterbankFile(fil) as r:
+        plan = Observation(float(r.tsamp), 1400.0, 100.0, 16).gen_ddplan(
+            0.0, 50.0)
+        calls = [
+            lambda: staged.sweep_ddplan(r, plan, nsub=4),
+            lambda: specfuse.fused_spectra_slice(r, [0.0, 5.0], nsub=4),
+            lambda: accelpipe.sweep_accel_stream(
+                r, [0.0, 5.0], AccelSearchConfig(), str(tmp_path / "o"),
+                nsub=4, spectral=True)]
+        for call in calls:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    assert not list(tmp_path.glob("o*"))
+
+
 @pytest.mark.parametrize("where", ["checkout", "alone"])
 def test_chip_smoke_prints_no_result_off_the_card(tmp_path, where):
     """Without a card, or copied away from the package, chip_smoke.py

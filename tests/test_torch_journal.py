@@ -4,8 +4,8 @@ the sweep stage it keeps (``cli.sweep --journal``,
 
 Contracts: a rerun with the same journal and flags redoes no unit and
 changes no byte; a truncated ``.cand`` is redone to the same bytes; a
-changed mask (another path, or other contents at the same path) or DM
-grid starts over; the artifacts are the same bytes
+changed mask (another path, or other contents at the same path), DM
+grid or chunk engine starts over; the artifacts are the same bytes
 with and without ``--journal``; the journal itself tolerates a torn
 last line and refuses another tool's.
 """
@@ -211,11 +211,14 @@ def test_truncated_cand_is_redone_to_the_same_bytes(obs, monkeypatch,
     assert _artifacts(out) == first
 
 
-@pytest.mark.parametrize("change", ["mask", "mask_content", "grid"])
+@pytest.mark.parametrize("change", ["mask", "mask_content", "grid",
+                                    "engine"])
 def test_changed_mask_or_grid_starts_over(obs, capsys, change):
     """Another mask, another mask written at the same path (as the
-    survey's mask stage does on every run) or another DM grid: every unit
-    is redone."""
+    survey's mask stage does on every run), another DM grid or another
+    chunk engine (a journal written under ``gather`` rerun under
+    ``tree``; the engines agree only within tolerance): every unit is
+    redone."""
     import shutil
 
     out = str(obs["dir"] / f"c_{change}")
@@ -229,8 +232,10 @@ def test_changed_mask_or_grid_starts_over(obs, capsys, change):
     elif change == "mask_content":
         shutil.copyfile(obs["mask2"], at_one_path)
         assert _run(obs, out, mask=at_one_path) == 0
-    else:
+    elif change == "grid":
         assert _run(obs, out, "--dmstep", "11") == 0
+    else:
+        assert _run(obs, out, "--engine", "tree") == 0
     said = capsys.readouterr().out
     assert "skipping the single-pulse sweep pass" not in said
     assert "6 trials searched, 0 skipped" in said

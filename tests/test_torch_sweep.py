@@ -337,11 +337,13 @@ def test_accum_parts_finalize_to_the_streamed_result():
 
 
 def test_unported_engines_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sweep.resolve_engine("fourier")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
+        sweep.resolve_engine("scan")
     with pytest.raises(ValueError):
         sweep.resolve_engine("nonsense")
     assert sweep.resolve_engine("auto") == "gather"
+    assert [sweep.resolve_engine(e) for e in ("gather", "tree", "fourier")] \
+        == ["gather", "tree", "fourier"]
 
 
 def test_ingest_unpacks_like_reference_reader(tmp_path):
