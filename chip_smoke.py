@@ -143,9 +143,45 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    ``cli.sweep --ddplan --lodm 0 --hidm 512`` on the phase-4 file: the
    plan's steps printed, the best candidate within one step's dDM of DM
    70, every step through both gather-sum stages and boxcar; the wall.
+   The tree snap (K = 1) is also held, exactly, to one ``torch.gather``
+   of the flat state at index ``row * L + shift + t``, its library time.
+
+10. prepfold and the archive folds (the channel fold kernel
+   ``ops/csrc/fold_chan.cu``). (a) The kernel against its plain version
+   on the card at the JAX package's fold benchmark (a resident [1024,
+   2^20] float32 block made on the card from a seed, 128 bins, 64
+   partitions), prepfold's default block ([32, 32768], 64 bins) and the
+   widest archive ([1024, 16384], 128 bins), then padding and negative
+   indices, one bin, the largest nbins and one past it (ValueError), T
+   not a multiple of npart, partitions past the reference's 2^17-sample
+   seam, 37 channels, row views 4 bytes off a 16-byte boundary; each
+   channel folded alone has the bits of the same channel in the block,
+   and the 1-D ``fold_bins`` the bits of the C = 1 fold and of the 2-D
+   fold's row. Tolerances: counts exact, profiles rtol 1e-5 / atol 1e-3.
+   Timed as phase 2 (``ms``, ``single_call_ms``), beside the bound, the
+   plain version and the faster of one ``index_add_`` over the flattened
+   cube and one ``torch.bmm`` with the one-hot (named). (b) ``fold_stats``
+   and ``fold_snr_stats`` at that size with tests/test_timing.py's
+   injected pulsar: SNR > 10, the refined period within that test's
+   bound, the statistics within its tolerances of the plain version's
+   (the rotated profiles' rtol taken of their largest magnitude). (c)
+   ``cli.prepfold -p 0.262144 --dm 70`` on phase 4's file at prepfold's
+   defaults and at ``--nsub 1024 -n 128 --npart 64``: each writes its
+   ``.pfd`` and folds the pulsar to SNR > 10 through ``cli.pfd_snr
+   --json``; the default run keeps the prepfold contract of the CPU tests
+   against ``--device cpu``; the wide archive summed over subbands (bins
+   and partitions paired) equals the default's at rtol 1e-5; wall,
+   samples folded per second and the host's read + copy share printed.
+   (d) ``prepfold --par`` on a barycentred 2^20-sample ``.dat`` of 64 us
+   samples with a strong spin-down: contrast above 1.5 x the
+   constant-period fold's, ``curr_p2`` within 10% of ``-f1 / f0^2``. (e)
+   ``prepfold --cands`` on phase 7's sifted list with phase 7's fold
+   flags: each archive the bytes of ``cli.foldbatch`` run with the argv
+   prepfold builds.
 
 Then one JSON line of per-kernel numbers (each with its launches on every
-driven path), the card line, and the last line ``{"ok": true, "device":
+driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
+and ``prepfold_cands`` among them), the card line, and the last line ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -513,7 +549,11 @@ def check_small_sweep(tmp):
 def launch_counts() -> dict:
     """Every kernel's launch count, by the kernels line's names."""
     from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
-    from pypulsar_tpu_torch.ops.fold import fold_parts_batch, fold_parts_poly
+    from pypulsar_tpu_torch.ops.fold import (
+        fold_chan,
+        fold_parts_batch,
+        fold_parts_poly,
+    )
     from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
 
     return {"gather_sum/stage1": shifted_gather_sum.launches["stage1"],
@@ -522,7 +562,8 @@ def launch_counts() -> dict:
             "gather_sum/tree_snap": shifted_gather_sum.launches["tree_snap"],
             "boxcar_stats": boxcar_stats.launches,
             "fold_parts_batch": fold_parts_batch.launches,
-            "fold_parts_poly": fold_parts_poly.launches}
+            "fold_parts_poly": fold_parts_poly.launches,
+            "fold_chan": fold_chan.launches}
 
 
 SWEEP_KERNELS = ("gather_sum/stage1", "gather_sum/stage2", "boxcar_stats")
@@ -536,13 +577,18 @@ def sweep_launches() -> dict:
 
 def reset_launch_counts() -> None:
     from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
-    from pypulsar_tpu_torch.ops.fold import fold_parts_batch, fold_parts_poly
+    from pypulsar_tpu_torch.ops.fold import (
+        fold_chan,
+        fold_parts_batch,
+        fold_parts_poly,
+    )
     from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
 
     shifted_gather_sum.launches.clear()
     boxcar_stats.launches = 0
     fold_parts_batch.launches = 0
     fold_parts_poly.launches = 0
+    fold_chan.launches = 0
 
 
 def write_obs(tmp):
@@ -1789,8 +1835,28 @@ def check_tree_kernels(device, report):
         if not torch.equal(got, want):
             fail(f"gather_sum {stage} disagrees with its plain version "
                  f"(max abs err {float((got - want).abs().max())})")
-        del want, got
         B, J, K = tables.shifts.shape
+        library_ms = None
+        if stage == "tree_snap":
+            # the library yardstick of a K = 1 shifted gather: one
+            # torch.gather of the flat state at index row * L + shift + t,
+            # in output-row order; it must give the kernel's output exactly
+            dest = tables.out_rows.reshape(-1).long()
+            start = torch.empty_like(dest)
+            start[dest] = (tables.src_rows[:, 0].long().repeat_interleave(J)
+                           * src.shape[1]
+                           + tables.shifts.reshape(-1).long())
+            idx = (start[:, None] + torch.arange(m, device=device)
+                   ).reshape(-1)
+            flat_state = src.reshape(-1)
+            lib = torch.gather(flat_state, 0, idx).view(B * J, m)
+            if not torch.equal(lib, got):
+                fail("torch.gather of the snap's index differs from the "
+                     "kernel's output")
+            library_ms = cuda_time_ms(lambda: torch.gather(flat_state, 0,
+                                                           idx), reps=3)
+            del lib, idx, start
+        del want, got
         ms = cuda_time_ms(lambda: gs.shifted_gather_sum(src, tables, m,
                                                         out=out))
         single_ms = single_call_ms(lambda: gs.shifted_gather_sum(
@@ -1811,10 +1877,13 @@ def check_tree_kernels(device, report):
                   f"{n_src} distinct source rows, out_len {m}; {jb} row x "
                   f"{e} samples per thread, {threads} threads",
             max_abs_err=0.0, ms=ms, single_call_ms=single_ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=library_ms))
+        lib_txt = ("" if library_ms is None else
+                   f", torch.gather {library_ms:.3f} ms (exact)")
         print(f"gather_sum {stage}: {what} -> [{B * J}x{m}]: kernel "
               f"{ms:.3f} ms (single calls {single_ms:.3f} ms), plain "
-              f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by}: "
+              f"{plain_ms:.3f} ms{lib_txt}, bound {bms:.3f} ms ({by}: "
               f"{nbytes / 1e9:.3f} GB; 2 reads + 1 write per output "
               f"sample would be {12.0 * B * m / 1e9:.3f} GB), exact")
     info = dict(plan_build_s=build_s, merge_levels=tp.n_levels,
@@ -2202,6 +2271,526 @@ def ddplan_path(tmp, fn):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: prepfold and the archive folds (the channel fold kernel)
+# ---------------------------------------------------------------------------
+
+# the JAX package's fold benchmark (bench.py:1540-1640): fold_parts over a
+# [1024, 2^20] float32 block, 128 bins, 64 partitions
+CHAN_C, CHAN_T, CHAN_NBINS, CHAN_NPART = 1024, 1 << 20, 128, 64
+# tests/test_timing.py's injected pulsar, at the benchmark's size
+CHAN_DT, CHAN_P_TRUE = 1e-3, 0.512
+CHAN_P_FOLD = CHAN_P_TRUE * (1 + 2.0e-5)
+
+
+def compare_chan(what, d, b, nbins, npart):
+    """The channel kernel against its plain version on the card: counts
+    exact, profiles rtol 1e-5 / atol 1e-3; returns (profiles, counts, max
+    abs err)."""
+    import torch
+
+    from pypulsar_tpu_torch.ops import fold
+
+    got_p, got_c = fold.fold_chan(d, b, nbins, npart)
+    want_p, want_c = fold._torch_fold_chan(d, b, nbins, npart)
+    torch.cuda.synchronize()
+    if not torch.equal(got_c, want_c):
+        fail(f"fold_chan {what}: counts differ from the plain version")
+    err = float((got_p - want_p).abs().max()) if got_p.numel() else 0.0
+    if not torch.allclose(got_p, want_p, rtol=1e-5, atol=1e-3):
+        fail(f"fold_chan {what}: profiles differ from the plain version "
+             f"(max abs err {err:.3g})")
+    return got_p, got_c, err
+
+
+def alone_in_block(what, d, b, nbins, npart, got, chans):
+    """Each channel of ``chans`` folded alone (C = 1) must have the bits of
+    the same channel inside the block's fold ``got``."""
+    import torch
+
+    from pypulsar_tpu_torch.ops import fold
+
+    for c in chans:
+        alone, _ = fold.fold_chan(d[c:c + 1], b, nbins, npart)
+        if not torch.equal(alone[:, 0], got[:, c]):
+            fail(f"fold_chan {what}: channel {c} alone differs from the same "
+                 f"channel inside the block")
+
+
+def chan_block(device):
+    """The resident [1024, 2^20] block (seeded on the card) with the
+    injected pulsar of tests/test_timing.py, and its bins at the off fold
+    period, on the card."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.fold.engine import phase_to_bins
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    data = torch.randn((CHAN_C, CHAN_T), generator=gen, device=device)
+    t = np.arange(CHAN_T) * CHAN_DT
+    pulse = (np.abs(((t / CHAN_P_TRUE) % 1.0) - 0.5) < 0.02)
+    data += 0.6 * torch.from_numpy(pulse.astype(np.float32)).to(device)
+    bins = torch.from_numpy(phase_to_bins(t / CHAN_P_FOLD, CHAN_NBINS)).to(
+        device)
+    return data, bins
+
+
+def check_fold_chan(device, report, data, bins):
+    """Phase 10 (a): the channel kernel against its plain version at the
+    benchmark's size (resident), prepfold's default block and the widest
+    archive, then the edge cases; each channel alone against the same
+    channel in the block; timed beside its bound, its plain version and
+    the faster library call (one index_add_ over the flattened cube, or
+    one torch.bmm with the one-hot)."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.fold import engine
+    from pypulsar_tpu_torch.ops import fold
+
+    C, T, nbins, npart = CHAN_C, CHAN_T, CHAN_NBINS, CHAN_NPART
+    P = T // npart
+    profs, counts, err = compare_chan("benchmark block", data, bins, nbins,
+                                      npart)
+    alone_in_block("benchmark block", data, bins, nbins, npart, profs,
+                   (0, 1, 31, 32, 33, C // 2, C - 2, C - 1))
+    rng = np.random.default_rng(SEED + 10)
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    shapes = {}
+    for label, (sc, st, snb) in (("prepfold default [32, 32768], 64 bins",
+                                  (32, 32768, 64)),
+                                 ("widest archive [1024, 16384], 128 bins",
+                                  (1024, 16384, 128))):
+        sd = torch.randint(0, 256, (sc, st), generator=gen, device=device
+                           ).to(torch.float32)
+        sb = torch.from_numpy(rng.integers(0, snb, st, dtype=np.int32)).to(
+            device)
+        sp, _, serr = compare_chan(label, sd, sb, snb, 1)
+        alone_in_block(label, sd, sb, snb, 1, sp, range(sc))
+        nbytes = 4.0 * sc * st + 4.0 * st + 4.0 * sc * snb + 4.0 * snb
+        bms, by = bound(nbytes, float(sc) * st)
+        shapes[label] = dict(
+            ms=cuda_time_ms(lambda: fold.fold_chan(sd, sb, snb, 1)),
+            plain_ms=cuda_time_ms(lambda: fold._torch_fold_chan(
+                sd, sb, snb, 1), reps=3),
+            bound_ms=bms, bound_by=by, max_abs_err=serr)
+        del sd, sb, sp
+    done = []
+    # (what, data, bins, nbins, npart): padding and negative indices; one
+    # bin; the largest nbins; T not a multiple of npart; partitions past
+    # the reference's 2^17-sample block seam; a channel count off the
+    # tile; views whose rows start 4 bytes past a 16-byte boundary
+    base = torch.randn((37, 3 * (1 << 17) + 7), generator=gen, device=device)
+    nT = base.shape[1]
+    wild = torch.from_numpy(rng.integers(-3, 70, nT, dtype=np.int32)).to(
+        device)
+    cases = [
+        ("padding and negative indices", base[:, :40000], wild[:40000], 64,
+         8),
+        ("nbins 1", base[:, :40000], torch.zeros(40000, dtype=torch.int32,
+                                                 device=device), 1, 4),
+        (f"nbins {fold.MAX_CHAN_NBINS}", base[:5, :30000], torch.from_numpy(
+            rng.integers(0, fold.MAX_CHAN_NBINS, 30000,
+                         dtype=np.int32)).to(device), fold.MAX_CHAN_NBINS, 2),
+        ("T 100003 over 7 partitions", base[:, :100003], wild[:100003], 64,
+         7),
+        ("partitions of 196611 samples (past 2^17)", base, wild.remainder(
+            64).to(torch.int32), 64, 2),
+        ("37 channels (off the 32-channel tile)", base[:, :65536],
+         wild[:65536], 50, 4),
+        ("views at +1 float", base[:, 1:50001], wild[1:50001], 64, 5),
+    ]
+    for what, ed, eb, enb, enp in cases:
+        ep, _, e_err = compare_chan(what, ed, eb, enb, enp)
+        alone_in_block(what, ed, eb, enb, enp, ep, range(ed.shape[0]))
+        done.append(f"{what}: {fold.chan_layout(enb)} (segments, channels) "
+                    f"a block, max abs err {e_err:.3g}")
+    try:
+        fold.fold_chan(base[:2, :1000], wild[:1000], fold.MAX_CHAN_NBINS + 1,
+                       1)
+    except ValueError as e:
+        done.append(f"nbins {fold.MAX_CHAN_NBINS + 1} refused ({e})")
+    else:
+        fail("fold_chan launched past its largest nbins")
+    # C = 1 against the 1-D fold_bins, and the 1-D fold_bins against row c
+    # of the 2-D fold_bins: bit for bit
+    two_p, two_c = engine.fold_bins(base[:, :70001], wild[:70001], 64)
+    for c in (0, 17, 36):
+        one_p, one_c = engine.fold_bins(base[c, :70001], wild[:70001], 64)
+        c1_p, _ = fold.fold_chan(base[c:c + 1, :70001], wild[:70001], 64, 1)
+        if not (torch.equal(one_p, c1_p[0, 0]) and torch.equal(one_p, two_p[c])
+                and torch.equal(one_c, two_c)):
+            fail(f"fold_bins: the 1-D fold of channel {c} is not the bits of "
+                 f"the C = 1 fold and of row {c} of the 2-D fold")
+    done.append("1-D fold_bins == C = 1 == row of the 2-D fold, bit for bit")
+    del base, wild, two_p
+    # the kernel timed on the resident block, beside its plain version and
+    # the library calls
+    ms = cuda_time_ms(lambda: fold.fold_chan(data, bins, nbins, npart))
+    single_ms = single_call_ms(lambda: fold.fold_chan(data, bins, nbins,
+                                                      npart))
+    plain_ms = cuda_time_ms(lambda: fold._torch_fold_chan(
+        data, bins, nbins, npart), reps=3)
+    cols = torch.arange(nbins, device=device, dtype=torch.int32)
+    onehot = (bins.view(npart, P)[:, :, None] == cols).to(torch.float32)
+    parts = data.view(C, npart, P).permute(1, 0, 2)  # [npart, C, P] view
+    bmm_ms = cuda_time_ms(lambda: torch.bmm(parts, onehot), reps=3)
+    bmm_err = float((torch.bmm(parts, onehot) - profs).abs().max())
+    del onehot
+    flat = ((torch.arange(T, device=device) // P * C)[None, :]
+            + torch.arange(C, device=device)[:, None])
+    flat.mul_(nbins).add_(bins.long()[None, :])  # [C, T]: 8.6 GB of int64
+    buf = torch.zeros(npart * C * nbins, device=device)
+    src = data.reshape(-1)
+    index_add_ms = cuda_time_ms(lambda: buf.index_add_(
+        0, flat.view(-1), src), reps=3)
+    buf.zero_().index_add_(0, flat.view(-1), src)
+    ia_err = float((buf.view(npart, C, nbins) - profs).abs().max())
+    del flat, buf
+    torch.cuda.empty_cache()
+    library = min((bmm_ms, "torch.bmm with the one-hot"),
+                  (index_add_ms, "index_add_ over the flattened cube"))
+    nbytes = 4.0 * C * T + 4.0 * T + 4.0 * npart * C * nbins \
+        + 4.0 * npart * nbins
+    bms, by = bound(nbytes, float(C) * npart * P)
+    nseg, ct = fold.chan_layout(nbins)
+    report.append(dict(
+        name="fold_chan", route="cuda",
+        source="pypulsar_tpu_torch/ops/csrc/fold_chan.cu",
+        replaces="pypulsar_tpu/fold/engine.py:76",
+        shape=f"data [{C}, {T}] float32 (resident), bin_idx [{T}] int32, "
+              f"nbins {nbins}, npart {npart} -> [{npart}, {C}, {nbins}]; "
+              f"{nseg} segments x {ct} channels a block",
+        max_abs_err=err, ms=ms, single_call_ms=single_ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=library[0],
+        library_call=library[1], library_ms_by_call={
+            "torch.bmm": bmm_ms, "index_add_": index_add_ms},
+        ms_by_shape=shapes))
+    print(f"fold_chan: [{C}x{T}] -> [{npart}x{C}x{nbins}]: kernel {ms:.4f} "
+          f"ms (single calls {single_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+          f"bound {bms:.4f} ms ({by}: {nbytes / 1e9:.4f} GB), share "
+          f"{bms / ms:.3f}; library {library[1]} {library[0]:.4f} ms "
+          f"(bmm {bmm_ms:.4f} ms, max abs diff {bmm_err:.3g}; index_add_ "
+          f"{index_add_ms:.4f} ms, max abs diff {ia_err:.3g}); max abs err "
+          f"{err:.3g}, counts exact; 8 channels alone == in the block; "
+          + json.dumps(shapes) + "; " + "; ".join(done))
+    return profs, counts
+
+
+def archive_fold(device, data, bins):
+    """Phase 10 (b): fold_stats and fold_snr_stats at the benchmark's size
+    on the card: SNR > 10, the refined period within tests/test_timing.py's
+    bound, and fold_stats within that test's tolerances of the same
+    statistics over the plain version's cube. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.fold import engine
+    from pypulsar_tpu_torch.ops import fold
+
+    C, T, nbins, npart = CHAN_C, CHAN_T, CHAN_NBINS, CHAN_NPART
+    T_sec = npart * (T // npart) * CHAN_DT
+    dps, off = engine.bestprof_offsets(npart, T_sec, CHAN_P_FOLD)
+    off_dev = torch.from_numpy(off).to(device)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = engine.fold_stats(data, bins, nbins, npart, off_dev)
+    torch.cuda.synchronize()
+    stats_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = engine.fold_snr_stats(data, bins, nbins, npart, CHAN_DT,
+                                CHAN_P_FOLD)
+    snr_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want = engine.archive_stats(*fold._torch_fold_chan(data, bins, nbins,
+                                                       npart),
+                                data, npart, off_dev)
+    names = ("part_profs", "chan_profs", "counts", "dsum", "dsumsq",
+             "dp_profs")
+    errs = {}
+    for name, g, w, tol in zip(names, got, want, (1e-4,) * 3 + (2e-4,) * 3):
+        g, w = g.double().cpu().numpy(), w.double().cpu().numpy()
+        errs[name] = float(np.abs(g - w).max())
+        # the rotated profiles mix every bin through an rfft: float32
+        # rounding of the largest (on-pulse) bins, ~1e-7 of 5e6 here,
+        # lands in every bin, so their rtol is taken of the largest
+        # magnitude, as tests/test_torch_fold.py takes refine_chi2's
+        scale = np.abs(w).max() if name == "dp_profs" else np.abs(w)
+        if not (np.abs(g - w) <= 1e-2 + tol * scale).all():
+            fail(f"fold_stats {name} differs from the plain version's "
+                 f"(max abs err {errs[name]:.3g})")
+    if not res["snr"] > 10:
+        fail(f"fold_snr_stats: SNR {res['snr']:.2f} at the benchmark's size")
+    dgrid = dps[1] - dps[0]
+    if abs(res["best_period"] - CHAN_P_TRUE) > \
+            (CHAN_P_FOLD - CHAN_P_TRUE) * 0.3 + dgrid:
+        fail(f"fold_snr_stats: refined period {res['best_period']!r}, true "
+             f"{CHAN_P_TRUE}")
+    print("archive fold: " + json.dumps({
+        "shape": [C, T, nbins, npart], "fold_stats_s": stats_s,
+        "fold_snr_stats_s": snr_s, "snr": res["snr"],
+        "best_period": res["best_period"], "true_period": CHAN_P_TRUE,
+        "fold_period": CHAN_P_FOLD, "grid_step": dgrid,
+        "max_abs_err_vs_plain": errs, "launches": launches}))
+    return launches
+
+
+PFD_PROFILES = ("profs", "sumprof")
+
+
+def pfd_mismatch(a_fn, b_fn):
+    """Where two .pfd files break the prepfold contract of the CPU tests:
+    every header field equal, profiles rtol 1e-5 / atol 1e-3, stats means
+    and variances rtol 1e-5 and their counts exact. [] when they keep it."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.io.prestopfd import PfdFile
+
+    a, b = vars(PfdFile(a_fn)), vars(PfdFile(b_fn))
+    bad = sorted(set(a) ^ set(b))
+    for k in set(a) & set(b):
+        if k == "pfd_filename":
+            continue
+        if k in PFD_PROFILES:
+            ok = np.allclose(a[k], b[k], rtol=1e-5, atol=1e-3)
+        elif k == "stats":
+            ok = (np.array_equal(a[k][..., (0, 3, 6)], b[k][..., (0, 3, 6)])
+                  and np.allclose(a[k][..., (1, 2, 4, 5)],
+                                  b[k][..., (1, 2, 4, 5)], rtol=1e-5))
+        elif k == "varprof":
+            ok = abs(a[k] - b[k]) <= 1e-5 * abs(b[k])
+        elif isinstance(a[k], np.ndarray):
+            ok = np.array_equal(a[k], b[k])
+        else:
+            ok = a[k] == b[k]
+        if not ok:
+            bad.append(k)
+    return bad
+
+
+def snr_of(pfd_fn):
+    """SNR of one archive through ``cli.pfd_snr --json`` (dedispersed at
+    its bestdm)."""
+    from pypulsar_tpu_torch.cli import pfd_snr
+
+    out = pfd_fn + "_snr.json"
+    if pfd_snr.main([pfd_fn, "--json", out]) != 0:
+        fail(f"pfd_snr exited non-zero on {pfd_fn}")
+    with open(out) as f:
+        return json.load(f)[0]["snr"] or 0.0
+
+
+def prepfold_path(tmp, fn, info):
+    """Phase 10 (c): ``cli.prepfold -p 0.262144 --dm 70`` on phase 4's file
+    at prepfold's defaults and at ``--nsub 1024 -n 128 --npart 64``; each
+    writes its .pfd, folds the pulsar to SNR > 10, and the default run
+    keeps the prepfold contract against ``--device cpu``; the wide
+    archive summed over subbands (and its bins and partitions paired) is
+    the default's, at rtol 1e-5. Returns the default run's launches."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.cli import prepfold
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.io.prestopfd import PfdFile
+
+    period = info["period_samples"] * info["tsamp"]
+    base = [fn, "-p", repr(period), "--dm", "70"]
+    runs = {}
+    for label, extra in (("default", []),
+                         ("nsub1024", ["--nsub", "1024", "-n", "128",
+                                       "--npart", "64"])):
+        out = os.path.join(tmp, f"prepfold_{label}.pfd")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        with Timed(prepfold, "_fil_block") as blk, \
+                Timed(FilterbankFile, "_read_raw_block") as rd:
+            t0 = time.perf_counter()
+            rc = prepfold.main(base + extra + ["-o", out, "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = launch_counts()
+        if rc != 0 or not os.path.exists(out):
+            fail(f"prepfold {label} exited {rc}")
+        snr = snr_of(out)
+        if not snr > 10:
+            fail(f"prepfold {label}: the pulsar folds to SNR {snr}")
+        runs[label] = dict(
+            wall_s=wall, samples_per_s=1024 * info["nsamp"] / wall,
+            read_s=rd.seconds, read_h2d_convert_s=blk.seconds,
+            host_share=blk.seconds / wall, blocks=blk.calls, snr=snr,
+            launches=launches, pfd=out)
+    if runs["default"]["launches"]["fold_chan"] != 32 or \
+            runs["nsub1024"]["launches"]["fold_chan"] != 64:
+        fail(f"prepfold did not launch fold_chan once a partition: "
+             f"{ {k: v['launches'] for k, v in runs.items()} }")
+    cpu_out = os.path.join(tmp, "prepfold_cpu.pfd")
+    t0 = time.perf_counter()
+    if prepfold.main(base + ["-o", cpu_out, "--device", "cpu"]) != 0:
+        fail("prepfold --device cpu exited non-zero")
+    cpu_s = time.perf_counter() - t0
+    bad = pfd_mismatch(runs["default"]["pfd"], cpu_out)
+    if bad:
+        fail(f"prepfold on the card breaks the contract against --device "
+             f"cpu in {bad}")
+    wide = PfdFile(runs["nsub1024"]["pfd"]).profs.sum(axis=1)  # [64, 128]
+    wide = wide.reshape(32, 2, 64, 2).sum(axis=(1, 3))
+    narrow = PfdFile(runs["default"]["pfd"]).profs.sum(axis=1)  # [32, 64]
+    if not np.allclose(wide, narrow, rtol=1e-5):
+        fail(f"prepfold --nsub 1024: the archive summed over subbands is not "
+             f"the default's (max rel diff "
+             f"{float(np.abs(wide / narrow - 1).max()):.3g})")
+    print("prepfold: " + json.dumps({
+        **{k: {kk: vv for kk, vv in v.items() if kk != "pfd"}
+           for k, v in runs.items()},
+        "cpu_s": cpu_s, "wide_vs_default_max_abs": float(
+            np.abs(wide - narrow).max())}))
+    return runs["default"]["launches"]
+
+
+def write_spindown_dat(tmp, n, dt, f0, f1, width, seed):
+    """A barycentred ``.dat`` (and its ``.inf``) of n samples: unit noise
+    plus a unit pulse of Gaussian ``width`` turns whose phase follows the
+    spin-down ``f0 t + f1 t^2 / 2``."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.io.infodata import InfoData
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) * dt
+    phase = f0 * t + 0.5 * f1 * t * t
+    ts = rng.standard_normal(n).astype(np.float32)
+    ts += np.exp(-0.5 * (((phase % 1.0) - 0.5) / width) ** 2).astype(
+        np.float32)
+    base = os.path.join(tmp, "spindown")
+    inf = InfoData()
+    inf.basenm, inf.telescope, inf.object = "spindown", "Fake", "PARFOLD"
+    inf.epoch, inf.bary, inf.N, inf.dt = 55000.0, 1, n, dt
+    inf.lofreq, inf.BW, inf.numchan, inf.chan_width = 1400.0, 100.0, 1, 100.0
+    inf.to_file(base + ".inf")
+    ts.tofile(base + ".dat")
+    return base + ".dat"
+
+
+def prepfold_par(tmp):
+    """Phase 10 (d): ``prepfold --par`` on a barycentred 2^20-sample .dat
+    of 64 us samples with a strong spin-down: the ephemeris fold's
+    profile contrast above 1.5 x the constant-period fold's, and
+    ``curr_p2`` within 10% of ``-f1 / f0^2``. Returns the --par run's
+    launches.
+
+    tests/test_cli_prepfold.py's construction at this size, with two
+    changes that keep the contrast test decisive rather than left to the
+    noise: the constant-period fold drifts 112 turns (f1 = -0.05 Hz/s,
+    not 13), so it smears into the noise instead of keeping a peak where
+    the drift is slow, and the pulse is 0.01 turns wide (not 0.03), so
+    the ephemeris fold's peak stands well out of its own profile."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.cli import prepfold
+    from pypulsar_tpu_torch.io.prestopfd import PfdFile
+
+    n, dt, f0, f1 = 1 << 20, 64e-6, 19.37, -0.05
+    dat = write_spindown_dat(tmp, n, dt, f0, f1, 0.01, SEED + 12)
+    par = os.path.join(tmp, "spindown.par")
+    with open(par, "w") as f:
+        f.write(f"PSR J0000+0000\nF0 {f0}\nF1 {f1}\nPEPOCH 55000.0\n"
+                f"DM 12.5\n")
+    par_pfd = os.path.join(tmp, "spindown_par.pfd")
+    const_pfd = os.path.join(tmp, "spindown_const.pfd")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = prepfold.main([dat, "--par", par, "-o", par_pfd, "--device",
+                        "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if rc != 0 or prepfold.main([dat, "-p", repr(1.0 / f0), "-o", const_pfd,
+                                 "--device", "cuda"]) != 0:
+        fail("prepfold --par or -p exited non-zero on the spin-down .dat")
+
+    def contrast(fn):
+        prof = PfdFile(fn).sumprof
+        return float((prof.max() - np.median(prof)) / max(prof.std(), 1e-9))
+
+    c_par, c_const = contrast(par_pfd), contrast(const_pfd)
+    pd = PfdFile(par_pfd).curr_p2
+    want_pd = -f1 / f0 ** 2
+    if not c_par > 1.5 * c_const:
+        fail(f"prepfold --par: contrast {c_par:.3f} against the constant "
+             f"period's {c_const:.3f}")
+    if not abs(pd - want_pd) < 0.1 * abs(want_pd):
+        fail(f"prepfold --par: curr_p2 {pd!r}, want {want_pd!r}")
+    if launches["fold_chan"] < 1:
+        fail(f"prepfold --par launched no fold_chan: {launches}")
+    print("prepfold --par: " + json.dumps({
+        "samples": n, "dt": dt, "wall_s": wall, "contrast_par": c_par,
+        "contrast_const": c_const, "curr_p2": pd, "want_p2": want_pd,
+        "launches": launches}))
+    return launches
+
+
+def prepfold_cands(tmp, fn):
+    """Phase 10 (e): ``prepfold --cands`` on phase 7's sifted list with
+    phase 7's fold flags: each archive the bytes of ``cli.foldbatch`` run
+    with the argv prepfold builds. Returns the --cands run's launches."""
+    import torch
+
+    from pypulsar_tpu_torch.cli import foldbatch, prepfold
+
+    sifted = os.path.join(tmp, "fold.accelcands")
+    argv = [fn, "--cands", sifted, "-n", str(FOLD_NBINS), "--npart",
+            str(FOLD_NPART), "--device", "cuda"]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = prepfold.main(argv + ["-o", os.path.join(tmp, "pcands.pfd")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if rc != 0:
+        fail(f"prepfold --cands exited {rc}")
+    fargv = prepfold.batch_argv(prepfold.build_parser().parse_args(
+        argv + ["-o", os.path.join(tmp, "fcands.pfd")]))
+    if foldbatch.main(fargv) != 0:
+        fail("foldbatch with prepfold's argv exited non-zero")
+    made = sorted(glob.glob(os.path.join(tmp, "pcands_*.pfd")))
+    if not made:
+        fail("prepfold --cands wrote no archive")
+    for p in made:
+        twin = os.path.join(tmp, "fcands_" + os.path.basename(p)[
+            len("pcands_"):])
+        with open(p, "rb") as a, open(twin, "rb") as b:
+            if a.read() != b.read():
+                fail(f"prepfold --cands: {os.path.basename(p)} differs from "
+                     f"foldbatch's archive")
+    print("prepfold --cands: " + json.dumps({
+        "archives": len(made), "wall_s": wall, "foldbatch_argv": fargv[1:],
+        "launches": launches}))
+    return launches
+
+
+def prepfold_phase(tmp, fn, info, device, report):
+    """Phase 10: (a) the channel kernel, (b) the archive folds at the
+    benchmark's size, (c) prepfold on phase 4's file, (d) --par, (e)
+    --cands. Returns the launches of each driven path."""
+    import torch
+
+    data, bins = chan_block(device)
+    check_fold_chan(device, report, data, bins)
+    archive = archive_fold(device, data, bins)
+    del data, bins
+    torch.cuda.empty_cache()
+    return {"archive_fold": archive,
+            "prepfold": prepfold_path(tmp, fn, info),
+            "prepfold_par": prepfold_par(tmp),
+            "prepfold_cands": prepfold_cands(tmp, fn)}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -2243,6 +2832,7 @@ def main() -> int:
         decimated = decimated_regime(tmp, fn, info)
         spectral_ch = spectral_chain(tmp, info, device, chain)
         ddplan = ddplan_path(tmp, fn)
+        prep = prepfold_phase(tmp, fn, info, device, report)
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -2250,15 +2840,17 @@ def main() -> int:
              "survey_chain": chain["launches"],
              "sweep_tree": engines["tree"], "sweep_fourier": engines["fourier"],
              "spectral_stage": spectral, "spectral_decimated": decimated,
-             "spectral_chain": spectral_ch, "ddplan": ddplan}
+             "spectral_chain": spectral_ch, "ddplan": ddplan, **prep}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}
         # the first path that drives the kernel: the 1024-trial sweep for
         # the dedispersion kernels, the tree engine's sweep for its levels
-        # and snap, the --datbase fold for the fold (whose array form no
-        # driven path calls: its launches stay 0)
+        # and snap, the --datbase fold for the candidate fold (whose array
+        # form no driven path calls: its launches stay 0), prepfold for
+        # the channel fold
         first = (fold_dats if k["name"].startswith("fold_parts")
+                 else prep["prepfold"] if k["name"] == "fold_chan"
                  else engines["tree"] if k["name"].startswith(
                      "gather_sum/tree") else launches)
         k["launches"] = first[k["name"]]

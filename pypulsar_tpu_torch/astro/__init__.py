@@ -1,0 +1,1 @@
+"""astro layer of the PyTorch/CUDA port (mirrors pypulsar_tpu/astro)."""

@@ -30,6 +30,10 @@ def p_to_f(p, pd, pdd=None):
     return f, fd, fdd
 
 
+# identical algebra both directions (prepfold's --par header periods)
+f_to_p = p_to_f
+
+
 def delay_from_DM(DM, freq_emitted):
     """Dispersion delay in seconds at frequency ``freq_emitted`` (MHz);
     zero (not inf) for non-positive frequencies."""

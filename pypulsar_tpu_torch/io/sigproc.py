@@ -1,7 +1,8 @@
 """SIGPROC filterbank header codec (read and write).
 
-Copy of the header half of ``pypulsar_tpu/io/sigproc.py``: length-prefixed
-keyword strings followed by typed little-endian values, with located
+Copy of the header half of ``pypulsar_tpu/io/sigproc.py`` and its
+telescope id table: length-prefixed keyword strings followed by typed
+little-endian values, with located
 :class:`~pypulsar_tpu_torch.io.errors.DataFormatError` on malformed or
 truncated headers and a sanity check of the geometry fields.
 """
@@ -42,6 +43,28 @@ HEADER_TYPES: Dict[str, str] = {
     "ibeam": "i",
     "signed": "b",
 }
+
+# SIGPROC telescope id table (public convention); prepfold names a .fil's
+# telescope with it
+ids_to_telescope = {
+    0: "Fake",
+    1: "Arecibo",
+    2: "Ooty",
+    3: "Nancay",
+    4: "Parkes",
+    5: "Jodrell",
+    6: "GBT",
+    7: "GMRT",
+    8: "Effelsberg",
+    9: "ATA",
+    10: "SRT",
+    11: "LOFAR",
+    12: "VLA",
+    20: "CHIME",
+    21: "FAST",
+    64: "MeerKAT",
+}
+telescope_to_ids = {v: k for k, v in ids_to_telescope.items()}
 
 # a real header holds ~25 keywords; garbage must end with a clean error
 MAX_HEADER_KEYS = 512

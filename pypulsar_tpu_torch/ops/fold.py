@@ -1,4 +1,8 @@
-"""Batched candidate fold: K candidates fold one shared series into
+"""The fold kernels: K candidates fold one shared series
+(``csrc/fold_parts.cu``), and a block of channels folds at one shared bin
+sequence (``csrc/fold_chan.cu``, :func:`fold_chan`, at the end).
+
+Batched candidate fold: K candidates fold one shared series into
 sub-integration profiles.
 
     profs[k, i, b]  = sum of series[i*P + t], t < P, where bin(k, i*P + t) == b
@@ -283,3 +287,133 @@ def fold_parts_poly(series: torch.Tensor, coeffs, dt: float, nbins: int,
 
 
 fold_parts_poly.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the channel fold: a [C, T] block at one shared bin sequence
+# ---------------------------------------------------------------------------
+
+_CHAN_SEGS = 4  # csrc/fold_chan.cu: time segments a block walks a channel in
+_CHAN_TILE = 32  # channels a block takes at most
+#: the largest nbins the channel kernel takes: one segment of one channel
+#: (nbins floats, a padding row of nbins floats, nbins int32 counts)
+MAX_CHAN_NBINS = _MAX_SMEM // 12
+
+
+def _chan_smem(nbins: int, nseg: int, ct: int) -> int:
+    return 4 * nbins * (nseg * ct + 1 + nseg)
+
+
+def chan_layout(nbins: int):
+    """(nseg, ct) of a channel-kernel block at ``nbins``: nseg time
+    segments (4, or 2 or 1 for wide profiles; a function of nbins alone,
+    which fixes the order of additions) x ct channels (at most 32, as
+    shared memory allows). ValueError past :data:`MAX_CHAN_NBINS`."""
+    for nseg in (_CHAN_SEGS, 2, 1):
+        if _chan_smem(nbins, nseg, 1) <= _MAX_SMEM:
+            ct = 1
+            while ct < _CHAN_TILE and _chan_smem(nbins, nseg, ct + 1) \
+                    <= _MAX_SMEM:
+                ct += 1
+            return nseg, ct
+    raise ValueError(f"nbins={nbins} exceeds the channel fold kernel's "
+                     f"largest, {MAX_CHAN_NBINS} (one segment's histograms "
+                     f"of 12 bytes a bin in {_MAX_SMEM} bytes of shared "
+                     f"memory)")
+
+
+def _check_chan(data, bin_idx, nbins: int, npart: int) -> None:
+    if data.dim() != 2 or data.dtype != torch.float32:
+        raise ValueError(f"data must be 2-D float32 [C, T]; got "
+                         f"{tuple(data.shape)} {data.dtype}")
+    if bin_idx.dim() != 1 or bin_idx.dtype != torch.int32:
+        raise ValueError(f"bin_idx must be 1-D int32; got "
+                         f"{tuple(bin_idx.shape)} {bin_idx.dtype}")
+    if bin_idx.shape[0] != data.shape[1]:
+        raise ValueError(f"{bin_idx.shape[0]} bin indices for "
+                         f"{data.shape[1]} samples")
+    if data.device != bin_idx.device:
+        raise ValueError(f"data on {data.device}, bin_idx on "
+                         f"{bin_idx.device}")
+    if nbins < 1 or npart < 1:
+        raise ValueError(f"nbins={nbins} and npart={npart} must be >= 1")
+    part_len = data.shape[1] // npart
+    if part_len >= 1 << 24:
+        raise ValueError(
+            f"part_len={part_len} >= 2^24: f32 one-hot counts would lose "
+            f"exactness; use more partitions")
+
+
+def _torch_fold_chan(data, bin_idx, nbins: int, npart: int):
+    """Plain PyTorch version (any device): the reference's formulation,
+    per partition ``data_part @ one_hot(bins_part)`` in float32 (TF32 is
+    not used for a float32 product unless the caller enables it), blocked
+    at ``_FOLD_BLOCK`` samples as the reference's seams; an index outside
+    ``[0, nbins)`` gives an all-zero row; counts are the one-hot's column
+    sums, exact in float32 below 2^24."""
+    C = data.shape[0]
+    P = data.shape[1] // npart
+    dev = data.device
+    cols = torch.arange(nbins, dtype=torch.int32, device=dev)
+    profs = torch.zeros((npart, C, nbins), dtype=torch.float32, device=dev)
+    counts = torch.zeros((npart, nbins), dtype=torch.int32, device=dev)
+    for i in range(npart):
+        acc_p = torch.zeros((C, nbins), dtype=torch.float32, device=dev)
+        acc_c = torch.zeros(nbins, dtype=torch.float32, device=dev)
+        for t0 in range(i * P, (i + 1) * P, _FOLD_BLOCK):
+            t1 = min(t0 + _FOLD_BLOCK, (i + 1) * P)
+            onehot = (bin_idx[t0:t1, None] == cols).to(torch.float32)
+            acc_p = acc_p + data[:, t0:t1] @ onehot
+            acc_c = acc_c + onehot.sum(dim=0)
+        profs[i] = acc_p
+        counts[i] = acc_c.to(torch.int32)
+    return profs, counts
+
+
+def _cuda_fold_chan(data, bin_idx, nbins: int, npart: int):
+    if data.stride(1) != 1:
+        data = data.contiguous()
+    bin_idx = bin_idx.contiguous()
+    C, T = data.shape
+    nseg, ct = chan_layout(nbins)
+    lib = _build.load("fold_chan")
+    dev = data.device
+    profs = torch.empty((npart, C, nbins), dtype=torch.float32, device=dev)
+    counts = torch.empty((npart, nbins), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = lib.fold_chan_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(data.data_ptr(), data.stride(0), bin_idx.data_ptr(),
+                    profs.data_ptr(), counts.data_ptr(), C, T, npart, nbins,
+                    nseg, ct, stream), "fold_chan")
+    fold_chan.launches += 1
+    return profs, counts
+
+
+def fold_chan(data: torch.Tensor, bin_idx: torch.Tensor, nbins: int,
+              npart: int):
+    """(profs[npart, C, nbins] float32, counts[npart, nbins] int32) of
+    ``data[C, T]`` float32 folded at the shared ``bin_idx[T]`` (int32, same
+    device), cut into ``npart`` partitions of ``P = T // npart`` samples
+    (the tail is dropped): ``profs[i, c, b]`` sums ``data[c, i*P + t]`` over
+    the ``t < P`` with ``bin_idx[i*P + t] == b`` and ``counts[i, b]``
+    counts them; an index outside ``[0, nbins)`` adds to nothing. Raises
+    ValueError on other types, shapes or devices, for ``P >= 2^24``, and
+    (on the card) past :data:`MAX_CHAN_NBINS`. A CPU tensor runs the plain
+    PyTorch version; a CUDA tensor launches ``csrc/fold_chan.cu`` (counted
+    in ``fold_chan.launches``), whose order of additions for a channel
+    depends only on ``(P, nbins)`` and the bins: a channel has the same
+    bits folded alone as inside any block. Rows may be a strided view."""
+    _check_chan(data, bin_idx, nbins, npart)
+    if data.device.type == "cpu":
+        return _torch_fold_chan(data, bin_idx, nbins, npart)
+    if data.device.type == "cuda":
+        return _cuda_fold_chan(data, bin_idx, nbins, npart)
+    raise ValueError(f"no fold for device {data.device}")
+
+
+fold_chan.launches = 0

@@ -17,8 +17,21 @@ Contracts:
   its plain fold equals the array form's plain fold fed those bins, bit
   for bit, and so the reference's within the fold tolerance.
 
-The CUDA kernel itself runs on the card only; ``chip_smoke.py`` holds it
-against the plain version tested here.
+The channel fold (``ops.fold.fold_chan``, the counterpart of the
+reference's ``_onehot_fold_2d``) and the engine functions over it:
+- ``fold_bins`` (2-D and 1-D), ``fold_parts`` and ``fold_chan``'s plain
+  version against the JAX functions and ``fold_numpy``: counts equal,
+  profiles rtol 1e-5 / atol 1e-3, also across the ``_FOLD_BLOCK`` seam;
+- ``fold_stats`` against the JAX function and ``fold_stats_numpy`` at
+  ``tests/test_timing.py``'s tolerances (rtol 1e-4 for the folds, 2e-4
+  for the moments and the rotated profiles, atol 1e-2);
+- ``fold_snr_stats``: SNR within 1e-4 relative of JAX's, the same best
+  trial;
+- ``fold_timeseries`` and ``fold_spectra`` at a constant period and from
+  polycos, against JAX's.
+
+The CUDA kernels themselves run on the card only; ``chip_smoke.py`` holds
+them against the plain versions tested here.
 """
 
 import numpy as np
@@ -345,3 +358,235 @@ def test_refine_chi2_bits_do_not_depend_on_the_batch():
     halves = torch.cat([engine.refine_chi2(profs[:2], off),
                         engine.refine_chi2(profs[2:], off)])
     assert torch.equal(halves, whole)
+
+
+# ---------------------------------------------------------------------------
+# the channel fold (fold_chan) and the engine functions over it
+# ---------------------------------------------------------------------------
+
+def _block(C, T, seed, period=0.0517, dt=1e-3):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((C, T)).astype(np.float32)
+    ph = (np.arange(T) * dt / period) % 1.0
+    x += (3.0 * np.exp(-0.5 * ((ph - 0.4) / 0.03) ** 2)).astype(np.float32)
+    return x
+
+
+def _const_bins(T, nbins, period=0.0517, dt=1e-3):
+    return engine.phase_to_bins(np.arange(T) * (dt / period), nbins)
+
+
+@pytest.mark.parametrize("C,T,nbins,npart", [
+    (32, 1 << 14, 64, 8),           # prepfold's geometry, cut to size
+    (7, 30001, 50, 7),              # T off npart, odd part_len, 50 bins
+    (1, 1 << 12, 128, 1),           # one channel, one partition
+    (3, (1 << 17) + 1000, 32, 1),   # a partition past the 2^17 seam
+    (5, 2 * ((1 << 17) + 9), 16, 2),  # two partitions past the seam
+])
+def test_plain_chan_fold_matches_reference(C, T, nbins, npart):
+    data = _block(C, T, seed=C + T)
+    bins = _const_bins(T, nbins)
+    got_p, got_c = engine.fold_parts(data, bins, nbins, npart, device="cpu")
+    want_p, want_c = jax_engine.fold_parts(data, bins, nbins, npart)
+    assert got_p.shape == (npart, C, nbins) and got_p.dtype == torch.float32
+    assert got_c.shape == (npart, nbins) and got_c.dtype == torch.int32
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=1e-5,
+                               atol=1e-3)
+    P = T // npart
+    for i in range(npart):
+        sl = slice(i * P, (i + 1) * P)
+        twin_p, twin_c = engine.fold_numpy(data[:, sl], bins[sl], nbins)
+        np.testing.assert_array_equal(got_c[i].numpy(), twin_c)
+        np.testing.assert_allclose(got_p[i].numpy(), twin_p, rtol=1e-5,
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("shape", [(9, 5000), (5000,), (2, (1 << 17) + 77)])
+def test_fold_bins_matches_reference(shape):
+    T, nbins = shape[-1], 40
+    data = _block(1, T, seed=T)[0] if len(shape) == 1 else _block(*shape, 4)
+    bins = _const_bins(T, nbins, period=0.0731)
+    bins[::97] = nbins  # padding-style indices add to nothing
+    bins[5::101] = -3
+    got_p, got_c = engine.fold_bins(data, bins, nbins, device="cpu")
+    want_p, want_c = jax_engine.fold_bins(data, bins, nbins)
+    assert tuple(got_p.shape) == np.shape(want_p)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=1e-5,
+                               atol=1e-3)
+    ok = (bins >= 0) & (bins < nbins)
+    twin_p, twin_c = engine.fold_numpy(data[..., ok], bins[ok], nbins)
+    np.testing.assert_array_equal(got_c.numpy(), twin_c)
+    np.testing.assert_allclose(got_p.numpy(), twin_p, rtol=1e-5, atol=1e-3)
+
+
+def test_fold_bins_long_series_adds_its_chunks(monkeypatch):
+    """Past ``_BINS_CHUNK`` samples fold_bins adds one kernel call per
+    chunk (the kernel takes under 2^24 samples a partition; the
+    reference's fold_bins has no limit); a 1-D series is row 0 of the
+    [1, T] block."""
+    monkeypatch.setattr(engine, "_BINS_CHUNK", 1000)
+    data = _block(3, 4321, seed=2)
+    bins = _const_bins(4321, 16)
+    got_p, got_c = engine.fold_bins(data, bins, 16, device="cpu")
+    twin_p, twin_c = engine.fold_numpy(data, bins, 16)
+    np.testing.assert_array_equal(got_c.numpy(), twin_c)
+    np.testing.assert_allclose(got_p.numpy(), twin_p, rtol=1e-5, atol=1e-3)
+    one_p, one_c = engine.fold_bins(data[1], bins, 16, device="cpu")
+    np.testing.assert_array_equal(one_c.numpy(), twin_c)
+    np.testing.assert_allclose(one_p.numpy(), twin_p[1], rtol=1e-5,
+                               atol=1e-3)
+
+
+def test_plain_chan_fold_ignores_bins_out_of_range():
+    data = torch.stack([torch.arange(1.0, 13.0), -torch.arange(1.0, 13.0)])
+    bins = torch.tensor([0, 1, -1, 4, 3, 2, 1, 0, 4, 9, 2, 3],
+                        dtype=torch.int32)
+    p, c = fold.fold_chan(data, bins, 4, 2)
+    assert p[:, 0].tolist() == [[1.0, 2.0, 6.0, 5.0], [8.0, 7.0, 11.0, 12.0]]
+    assert torch.equal(p[:, 1], -p[:, 0])
+    assert c.tolist() == [[1, 1, 1, 1], [1, 1, 1, 1]]
+    # no channels: the counts are still the bins'
+    p0, c0 = fold.fold_chan(data[:0], bins, 4, 2)
+    assert p0.shape == (2, 0, 4) and torch.equal(c0, c)
+
+
+def test_chan_wrapper_refuses_what_it_does_not_take():
+    d = torch.zeros((3, 64))
+    b = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="float32"):
+        fold.fold_chan(d.double(), b, 8, 2)
+    with pytest.raises(ValueError, match="2-D"):
+        fold.fold_chan(d[0], b, 8, 2)
+    with pytest.raises(ValueError, match="int32"):
+        fold.fold_chan(d, b.long(), 8, 2)
+    with pytest.raises(ValueError, match="samples"):
+        fold.fold_chan(d[:, :63], b, 8, 2)
+    with pytest.raises(ValueError, match=">= 1"):
+        fold.fold_chan(d, b, 8, 0)
+    big = torch.zeros((1, 1)).expand(2, 1 << 24)
+    big_b = torch.zeros(1, dtype=torch.int32).expand(1 << 24)
+    with pytest.raises(ValueError, match="2\\^24"):
+        fold.fold_chan(big, big_b, 8, 1)
+    with pytest.raises(ValueError, match="2\\^24"):
+        engine.fold_parts(big, big_b, 8, 1)
+
+
+def test_chan_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    n0 = fold.fold_chan.launches
+    p, c = fold.fold_chan(torch.ones((2, 8)), torch.zeros(8, dtype=torch.int32),
+                          4, 2)
+    assert p[:, :, 0].tolist() == [[4.0, 4.0]] * 2
+    assert c[:, 0].tolist() == [4, 4]
+    assert fold.fold_chan.launches == n0
+
+
+def test_chan_kernel_layout_follows_shared_memory():
+    """nbins alone sets the block's time segments (so the order of a
+    channel's additions); the channels a block takes only tile; the
+    largest nbins is refused one past it before any launch."""
+    assert fold.chan_layout(64) == (4, 32)
+    assert fold.chan_layout(128) == (4, 32)
+    assert fold.chan_layout(1024) == (4, 12)
+    assert fold.chan_layout(8000)[0] == 2
+    assert fold.chan_layout(fold.MAX_CHAN_NBINS) == (1, 1)
+    for nbins in (1, 64, 128, 1024, 8000, fold.MAX_CHAN_NBINS):
+        nseg, ct = fold.chan_layout(nbins)
+        assert fold._chan_smem(nbins, nseg, ct) <= fold._MAX_SMEM
+    with pytest.raises(ValueError, match="largest"):
+        fold.chan_layout(fold.MAX_CHAN_NBINS + 1)
+
+
+def test_fold_stats_matches_reference_and_numpy_twin():
+    rng = np.random.RandomState(3)
+    C, T, nbins, npart = 8, 4096, 16, 8
+    data = rng.randn(C, T).astype(np.float32)
+    bins = rng.randint(0, nbins, T).astype(np.int32)
+    _, off = engine.bestprof_offsets(npart, T * 1e-3, 0.05, ntrial=9)
+    got = [x.numpy().astype(np.float64)
+           for x in engine.fold_stats(data, bins, nbins, npart, off,
+                                      device="cpu")]
+    ref = [np.asarray(x, np.float64)
+           for x in jax_engine.fold_stats(data, bins, nbins, npart, off)]
+    twin = list(engine.fold_stats_numpy(data, bins, nbins, npart, off))
+    jtwin = jax_engine.fold_stats_numpy(data, bins, nbins, npart, off)
+    for g, r, w, jw, tol in zip(got, ref, twin, jtwin,
+                                (1e-4,) * 3 + (2e-4,) * 3):
+        assert np.shape(g) == np.shape(r)
+        np.testing.assert_allclose(g, r, rtol=tol, atol=1e-2)
+        np.testing.assert_allclose(g, w, rtol=tol, atol=1e-2)
+        np.testing.assert_array_equal(w, jw)  # the twins are one function
+    np.testing.assert_array_equal(got[2], ref[2])  # counts exact
+    dps, off2 = engine.bestprof_offsets(npart, 4.096, 0.05, ntrial=9)
+    rdps, roff = jax_engine.bestprof_offsets(npart, 4.096, 0.05, ntrial=9)
+    np.testing.assert_array_equal(dps, rdps)
+    np.testing.assert_array_equal(off2, roff)
+
+
+def test_fold_snr_stats_matches_reference():
+    """An injected pulsar folded 2e-5 off its period: the SNR within 1e-4
+    relative of JAX's, the same chi2-max trial, and the refined period
+    within the reference test's bound."""
+    rng = np.random.RandomState(4)
+    C, T, nbins, npart, dt = 8, 100_000, 64, 25, 1e-3
+    p_true = 0.512
+    p_fold = p_true * (1 + 2.0e-5)
+    t = np.arange(T) * dt
+    data = rng.randn(C, T).astype(np.float32)
+    data += 0.6 * (np.abs(((t / p_true) % 1.0) - 0.5) < 0.02)[None, :].astype(
+        np.float32)
+    bins = engine.phase_to_bins(t / p_fold, nbins)
+    got = engine.fold_snr_stats(data, bins, nbins, npart, dt, p_fold,
+                                device="cpu")
+    want = jax_engine.fold_snr_stats(data, bins, nbins, npart, dt, p_fold)
+    assert got["snr"] > 10.0
+    assert abs(got["snr"] - want["snr"]) <= 1e-4 * abs(want["snr"])
+    assert int(np.argmax(got["chi2"])) == int(np.argmax(want["chi2"]))
+    assert got["best_period"] == want["best_period"]
+    np.testing.assert_array_equal(got["dp_trials"], want["dp_trials"])
+    np.testing.assert_array_equal(got["counts"], want["counts"])
+    np.testing.assert_allclose(got["profile"], want["profile"], rtol=1e-4,
+                               atol=1e-2)
+    assert got["part_profs"].shape == (npart, nbins)
+    assert got["chan_profs"].shape == (C, nbins)
+    dgrid = got["dp_trials"][1] - got["dp_trials"][0]
+    assert abs(got["best_period"] - p_true) <= (p_fold - p_true) * 0.3 + dgrid
+
+
+def test_phase_models_and_high_level_folds_match_reference(tmp_path):
+    from pypulsar_tpu.fold import polycos as jax_polycos
+    from pypulsar_tpu_torch.fold import polycos
+
+    n, dt = 5 * 4096 + 17, 1e-3
+    for period, start in ((0.0517, 0.0), (0.3, 0.25)):
+        np.testing.assert_array_equal(
+            engine.phases_constant_period(n, dt, period, start),
+            jax_engine.phases_constant_period(n, dt, period, start))
+    par = str(tmp_path / "s.par")
+    with open(par, "w") as f:
+        f.write("PSRJ J0000+0000\nF0 19.37\nF1 -6e-3\nPEPOCH 55000\n")
+    pcs = polycos.create_polycos_from_spindown(par, 55000.0, 55000.002,
+                                               span=1)
+    jpcs = jax_polycos.create_polycos_from_spindown(par, 55000.0,
+                                                    55000.002, span=1)
+    ph = engine.phases_from_polycos(pcs, 55000.0001, n, dt)
+    np.testing.assert_array_equal(
+        ph, jax_engine.phases_from_polycos(jpcs, 55000.0001, n, dt))
+    ts = _block(1, n, seed=9, period=1.0 / 19.37)[0]
+    spec = _block(4, n, seed=10, period=1.0 / 19.37)
+    for kw in (dict(period=1.0 / 19.37), dict(period=0.0517,
+                                             normalize=True)):
+        for fn, x in (("fold_timeseries", ts), ("fold_spectra", spec)):
+            got_p, got_c = getattr(engine, fn)(x, dt, 32, device="cpu", **kw)
+            want_p, want_c = getattr(jax_engine, fn)(x, dt, 32, **kw)
+            np.testing.assert_array_equal(got_c, want_c)
+            np.testing.assert_allclose(got_p, want_p, rtol=1e-5, atol=1e-3)
+    got_p, got_c = engine.fold_timeseries(ts, dt, 32, polycos=pcs,
+                                          mjdstart=55000.0001, device="cpu")
+    want_p, want_c = jax_engine.fold_timeseries(ts, dt, 32, polycos=jpcs,
+                                                mjdstart=55000.0001)
+    np.testing.assert_array_equal(got_c, want_c)
+    np.testing.assert_allclose(got_p, want_p, rtol=1e-5, atol=1e-3)
+    with pytest.raises(ValueError, match="need period"):
+        engine.fold_timeseries(ts, dt, 32, device="cpu")

@@ -171,3 +171,58 @@ def test_kernel_wrappers_dispatch_on_tensor_device():
     boxcar_stats(out, (1, 2), 16)
     assert (dict(shifted_gather_sum.launches), boxcar_stats.launches) == \
         (n0, m0)
+
+
+def test_prepfold_and_fold_engine_default_to_the_card(tmp_path):
+    """prepfold and the engine's channel folds run on the card unless
+    asked for the CPU: without one they raise and write nothing."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default path would run")
+    from pypulsar_tpu_torch.cli import prepfold
+    from pypulsar_tpu_torch.fold import engine
+    from pypulsar_tpu_torch.io.synth import write_synthetic_fil
+
+    fil = str(tmp_path / "p.fil")
+    write_synthetic_fil(fil, nchan=16, nsamp=4096, period_samples=256)
+    out = str(tmp_path / "p.pfd")
+    argv = [fil, "-p", "0.016384", "--nsub", "4", "--npart", "4", "-o", out]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prepfold.main(argv)
+    assert not os.path.exists(out)
+    data = np.ones((2, 64), np.float32)
+    bins = np.zeros(64, np.int32)
+    calls = [lambda: engine.fold_bins(data, bins, 4),
+             lambda: engine.fold_parts(data, bins, 4, 2),
+             lambda: engine.fold_stats(data, bins, 4, 2,
+                                       np.zeros((3, 2), np.float32)),
+             lambda: engine.fold_snr_stats(data, bins, 4, 2, 1e-3, 0.1),
+             lambda: engine.fold_timeseries(data[0], 1e-3, 4, period=0.1),
+             lambda: engine.fold_spectra(data, 1e-3, 4, period=0.1)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asked explicitly, the CPU runs
+    assert prepfold.main(argv + ["--device", "cpu"]) == 0
+    assert os.path.exists(out)
+
+
+def test_fold_chan_dispatches_on_tensor_device():
+    """A CPU tensor takes the channel fold's plain version and counts no
+    launch; fold_bins of CPU tensors runs where they lie."""
+    import torch
+
+    from pypulsar_tpu_torch.fold import engine
+    from pypulsar_tpu_torch.ops.fold import fold_chan
+
+    n0 = fold_chan.launches
+    data = torch.ones((3, 16))
+    bins = torch.arange(16, dtype=torch.int32) % 4
+    profs, counts = fold_chan(data, bins, 4, 2)
+    assert torch.equal(profs, torch.full((2, 3, 4), 2.0))
+    assert torch.equal(counts, torch.full((2, 4), 2, dtype=torch.int32))
+    prof, cnt = engine.fold_bins(data, bins, 4)  # default device: ignored
+    assert prof.device.type == "cpu" and torch.equal(prof,
+                                                     torch.full((3, 4), 4.0))
+    assert fold_chan.launches == n0
