@@ -177,12 +177,42 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    constant-period fold's, ``curr_p2`` within 10% of ``-f1 / f0^2``. (e)
    ``prepfold --cands`` on phase 7's sifted list with phase 7's fold
    flags: each archive the bytes of ``cli.foldbatch`` run with the argv
-   prepfold builds.
+   prepfold builds. The timing rows of prepfold's blocks carry the
+   library time of one ``torch.bmm`` with the one-hot at that block.
+
+11. the batch broker's lane and the multi-series fold kernel (the
+   series-index forms of ``ops/csrc/fold_parts.cu``). (a) Both forms at a
+   lane's size: G = 4 series (phase 6's DM 70, 54, 62 and 85 ``.dat``
+   files, 2^20 samples, sample times 1, 2, 1 and 0.5 x 64 us), K = 128
+   candidates (32 a series, interleaved; f2 = 0 on two series, pdot and
+   f2 != 0 on the others), 64 bins, 32 partitions, and at an odd T
+   (100003, so rows sit off 16-byte boundaries): the polynomial form bit
+   for bit the array form fed numpy's bins; each against its plain
+   version (counts exact, profiles rtol 1e-5 / atol 1e-3); every row the
+   bits (max abs difference 0) of ``fold_parts_poly`` / ``fold_parts_batch``
+   of its own series alone; the fused batch, its halves and each row
+   alone the same bits; a series index of G refused. Timed as phase 2,
+   beside the bound, the plain version and one ``index_add_`` after a
+   gather of the rows. (b) ``survey.lane.run_lane`` over 2 observations
+   at the chain's size, phase 8's streamed ``SurveyConfig(lodm=54)``: A
+   is phase 8's RFI copy (held to phase 8's artifacts), B a second
+   ``io/synth.py`` file from another seed with its own pulsar (DM 62,
+   period 2048 samples; held to its own serial ``run_observation``).
+   Every ``.mask``, ``.cands``, ``.dat``, ``.inf``, ``.cand``,
+   ``.txtcand``, ``.accelcands`` and ``.pfd`` byte-equal to the serial
+   run's and ``_snr.json`` equal apart from the archives' directory;
+   both pulsars folded to SNR > 10; the broker's dispatches fewer than
+   its submissions with at least 2 units coalesced, both the accel and
+   the fold stage fused at least once, no unit rerun and no failed
+   dispatch; the lane launched both gather-sum stages, boxcar and the
+   multi-series fold. The lane's wall beside the sum of the serial
+   walls, and its peak device memory. Then the same lane at the broker's
+   default window (100 ms): the same bytes, its wall and fusions printed.
 
 Then one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
-and ``prepfold_cands`` among them), the card line, and the last line ``{"ok": true, "device":
-{...}}``.
+and ``prepfold_cands`` and phase 11's ``lane`` among them), the card line,
+and the last line ``{"ok": true, "device": {...}}``.
 """
 
 import collections
@@ -552,6 +582,8 @@ def launch_counts() -> dict:
     from pypulsar_tpu_torch.ops.fold import (
         fold_chan,
         fold_parts_batch,
+        fold_parts_multi,
+        fold_parts_multi_poly,
         fold_parts_poly,
     )
     from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
@@ -563,6 +595,8 @@ def launch_counts() -> dict:
             "boxcar_stats": boxcar_stats.launches,
             "fold_parts_batch": fold_parts_batch.launches,
             "fold_parts_poly": fold_parts_poly.launches,
+            "fold_parts_multi": fold_parts_multi.launches,
+            "fold_parts_multi_poly": fold_parts_multi_poly.launches,
             "fold_chan": fold_chan.launches}
 
 
@@ -580,15 +614,16 @@ def reset_launch_counts() -> None:
     from pypulsar_tpu_torch.ops.fold import (
         fold_chan,
         fold_parts_batch,
+        fold_parts_multi,
+        fold_parts_multi_poly,
         fold_parts_poly,
     )
     from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
 
     shifted_gather_sum.launches.clear()
-    boxcar_stats.launches = 0
-    fold_parts_batch.launches = 0
-    fold_parts_poly.launches = 0
-    fold_chan.launches = 0
+    for wrapper in (boxcar_stats, fold_parts_batch, fold_parts_poly,
+                    fold_parts_multi, fold_parts_multi_poly, fold_chan):
+        wrapper.launches = 0
 
 
 def write_obs(tmp):
@@ -2370,12 +2405,21 @@ def check_fold_chan(device, report, data, bins):
         alone_in_block(label, sd, sb, snb, 1, sp, range(sc))
         nbytes = 4.0 * sc * st + 4.0 * st + 4.0 * sc * snb + 4.0 * snb
         bms, by = bound(nbytes, float(sc) * st)
+        # the library yardstick at this block: one torch.bmm with the
+        # one-hot (built beforehand, as at the benchmark's size; one
+        # partition, so a batch of one)
+        s_onehot = (sb[:, None] == torch.arange(
+            snb, device=device, dtype=torch.int32)).to(torch.float32)[None]
+        s_lib_err = float((torch.bmm(sd[None], s_onehot) - sp).abs().max())
         shapes[label] = dict(
             ms=cuda_time_ms(lambda: fold.fold_chan(sd, sb, snb, 1)),
             plain_ms=cuda_time_ms(lambda: fold._torch_fold_chan(
                 sd, sb, snb, 1), reps=3),
-            bound_ms=bms, bound_by=by, max_abs_err=serr)
-        del sd, sb, sp
+            bound_ms=bms, bound_by=by, max_abs_err=serr,
+            library_ms=cuda_time_ms(lambda: torch.bmm(sd[None], s_onehot)),
+            library_call="torch.bmm with the one-hot",
+            library_max_abs_diff=s_lib_err)
+        del sd, sb, sp, s_onehot
     done = []
     # (what, data, bins, nbins, npart): padding and negative indices; one
     # bin; the largest nbins; T not a multiple of npart; partitions past
@@ -2791,6 +2835,376 @@ def prepfold_phase(tmp, fn, info, device, report):
             "prepfold_cands": prepfold_cands(tmp, fn)}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the batch broker's lane and the multi-series fold kernel
+# ---------------------------------------------------------------------------
+
+# a lane of 4 observations' series (phase 6's DM 70, 54, 62 and 85 .dat
+# files), 32 candidates each, each series at its own sample time
+MULTI_DMS, MULTI_DT_SCALE = (70.0, 54.0, 62.0, 85.0), (1.0, 2.0, 1.0, 0.5)
+MULTI_ODD_T = 100003  # an odd series length: rows off a 16-byte boundary
+# observation B of the lane: its own pulsar, the geometry of the phase-4
+# file (a period that divides 2^20, so both files keep 2^20 samples)
+LANE_B_DM, LANE_B_PERIOD, LANE_B_SEED = 62.0, 2048, SEED + 13
+# the lane's broker window: the streamed sweep stage has ONE accel batch an
+# observation (32 trials), so the first leader waits for its mate's; a
+# leader closes at once when its mate is aboard or gone
+LANE_WAIT_MS = 5000.0
+
+
+def compare_multi(what, stack, sidx, coeffs, dts, bins, nbins, npart):
+    """Both series-index forms at once: (a) the polynomial form bit for bit
+    the array form fed numpy's bins; (b) each against its plain version
+    (counts exact, profiles rtol 1e-5 / atol 1e-3); (c) row k the bits of
+    the single-series form (``fold_parts_poly`` / ``fold_parts_batch``) of
+    its own series alone. Returns (poly profiles, max abs err of the
+    polynomial form, of the array form)."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.ops import fold
+
+    dev = stack.device
+    got_p, got_c = fold.fold_parts_multi_poly(stack, sidx, coeffs, dts,
+                                              nbins, npart)
+    arr_p, arr_c = fold.fold_parts_multi(stack, sidx, bins, nbins, npart)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_p, arr_p) and torch.equal(got_c, arr_c)):
+        fail(f"fold_parts_multi_poly {what}: not the bits of the array form "
+             f"fed numpy's bins")
+    errs = []
+    for name, (gp, gc), (wp, wc) in (
+            ("fold_parts_multi_poly", (got_p, got_c),
+             fold._torch_fold_parts_multi_poly(
+                 stack, sidx, torch.from_numpy(coeffs).to(dev), dts, nbins,
+                 npart)),
+            ("fold_parts_multi", (arr_p, arr_c),
+             fold._torch_fold_parts_multi(stack, sidx, bins, nbins, npart))):
+        if not torch.equal(gc, wc):
+            fail(f"{name} {what}: counts differ from the plain version")
+        err = float((gp - wp).abs().max())
+        if not torch.allclose(gp, wp, rtol=1e-5, atol=1e-3):
+            fail(f"{name} {what}: profiles differ from the plain version "
+                 f"(max abs err {err:.3g})")
+        errs.append(err)
+    for g in range(stack.shape[0]):
+        rows = np.nonzero(sidx == g)[0]
+        rt = torch.from_numpy(rows).to(dev)
+        sp, sc = fold.fold_parts_poly(stack[g], coeffs[rows], dts[g], nbins,
+                                      npart)
+        ap, ac = fold.fold_parts_batch(stack[g], bins[rt], nbins, npart)
+        if not (torch.equal(got_p[rt], sp) and torch.equal(got_c[rt], sc)
+                and torch.equal(arr_p[rt], ap) and torch.equal(arr_c[rt], ac)):
+            fail(f"fold_parts_multi {what}: a row of series {g} is not the "
+                 f"bits of the single-series form of that series alone")
+    return got_p, errs[0], errs[1]
+
+
+def check_fold_multi(device, report, stage, dt):
+    """Phase 11 (a): both series-index forms of the fold kernel at a lane's
+    size (G = 4 series of 2^20, K = 128, 32 a series, interleaved, 64
+    bins, 32 partitions; f2 = 0 on two series, pdot and f2 != 0 on the
+    others; a sample time per series) and at an odd T, against their plain
+    versions and row by row against the single-series forms; the fused
+    batch split in halves and each row alone the same bits; an index
+    outside [0, G) refused; each form timed beside its bound, its plain
+    version and one index_add_ after a gather of the rows."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.ops import fold
+
+    stack_np = np.stack([np.fromfile(f"{stage}_DM{dm:.2f}.dat",
+                                     dtype=np.float32) for dm in MULTI_DMS])
+    G, T = stack_np.shape
+    nbins, npart = FOLD_NBINS, FOLD_NPART
+    dts = dt * np.asarray(MULTI_DT_SCALE)
+    rng = np.random.default_rng(SEED + 12)
+    periods = np.sort(np.append(np.geomspace(1.5e-3, 2.0, 31),
+                                4096 * 64e-6))
+    per = len(periods)
+    table = []
+    for g in range(G):
+        p = rng.permutation(periods)
+        if g % 2 == 0:
+            table.append(fold_coeffs(p))
+        else:
+            table.append(fold_coeffs(
+                p, rng.choice([-1.0, 1.0], per) * 10.0
+                ** rng.uniform(-12, -9, per),
+                rng.choice([-1.0, 1.0], per) * 10.0
+                ** rng.uniform(-20, -16, per)))
+    order = rng.permutation(G * per)  # a series' candidates apart
+    sidx = np.repeat(np.arange(G), per)[order].astype(np.int32)
+    coeffs = np.ascontiguousarray(np.concatenate(table)[order])
+    K = len(sidx)
+    bins_np = np.empty((K, T), np.int32)
+    for g in range(G):
+        rows = np.nonzero(sidx == g)[0]
+        bins_np[rows] = fold_bins(T, dts[g], coeffs[rows], nbins)
+    stack = torch.from_numpy(stack_np).to(device)
+    bins = torch.from_numpy(bins_np).to(device)
+    del bins_np
+    profs, perr, aerr = compare_multi("lane size", stack, sidx, coeffs, dts,
+                                      bins, nbins, npart)
+    if not batch_invariant(lambda lo, hi: fold.fold_parts_multi_poly(
+            stack, sidx[lo:hi], coeffs[lo:hi], dts, nbins, npart)[0], K):
+        fail("fold_parts_multi_poly: a row changes with its split")
+    odd = stack[:, :MULTI_ODD_T].contiguous()
+    _, operr, oaerr = compare_multi(
+        f"T {MULTI_ODD_T}", odd, sidx, coeffs, dts,
+        bins[:, :MULTI_ODD_T].contiguous(), nbins, npart)
+    try:
+        fold.fold_parts_multi_poly(stack, np.array([G], np.int32),
+                                   coeffs[:1], dts, nbins, npart)
+    except ValueError:
+        pass
+    else:
+        fail(f"fold_parts_multi_poly took a series index of {G} for a "
+             f"{G}-series stack")
+    P = T // npart
+    # the library yardstick: one index_add_ of the same sums into a flat
+    # [K * npart * nbins] buffer from precomputed flat indices, after a
+    # gather of each candidate's row (profiles only, float atomics)
+    sidx_dev = torch.from_numpy(sidx).to(device)
+    rows_l = sidx_dev.long()
+    t = torch.arange(npart * P, device=device)
+    flat = ((torch.arange(K, device=device)[:, None] * npart + t // P)
+            * nbins + bins[:, :npart * P].long()).reshape(-1)
+    buf = torch.zeros(K * npart * nbins, device=device)
+
+    def library():
+        buf.index_add_(0, flat, stack[rows_l, :npart * P].reshape(-1))
+
+    library_ms = cuda_time_ms(library)
+    buf.zero_()
+    library()
+    lib_err = float((buf.reshape(K, npart, nbins) - profs).abs().max())
+    del flat, buf, t
+    c_dev = torch.from_numpy(coeffs).to(device)
+    d_dev = torch.from_numpy(dts).to(device)
+    out_bytes = 8.0 * K * npart * nbins
+    forms = {}
+    for name, call, wrapper, plain, nbytes, nops, rate, lib in (
+            ("fold_parts_multi",
+             lambda: fold._cuda_fold_parts_multi(stack, sidx_dev, bins,
+                                                 nbins, npart),
+             lambda: fold.fold_parts_multi(stack, sidx, bins, nbins, npart),
+             lambda: fold._torch_fold_parts_multi(stack, sidx, bins, nbins,
+                                                  npart),
+             4.0 * K * T + 4.0 * G * T + 4.0 * K + out_bytes,
+             float(K) * npart * P, FP32_OPS_PER_S, library_ms),
+            ("fold_parts_multi_poly",
+             lambda: fold._cuda_fold_parts_multi_poly(
+                 stack, sidx_dev, c_dev, d_dev, nbins, npart),
+             lambda: fold.fold_parts_multi_poly(stack, sidx, coeffs, dts,
+                                                nbins, npart),
+             lambda: fold._torch_fold_parts_multi_poly(
+                 stack, sidx, c_dev, dts, nbins, npart),
+             4.0 * G * T + 4.0 * K + 24.0 * K + 8.0 * G + out_bytes,
+             fold_flops(coeffs, npart * P), FP64_OPS_PER_S, None)):
+        bms, by = bound(nbytes, nops, rate)
+        forms[name] = dict(
+            ms=cuda_time_ms(call), single_call_ms=single_call_ms(call),
+            wrapper_ms=cuda_time_ms(wrapper),
+            plain_ms=cuda_time_ms(plain, reps=3), bound_ms=bms, bound_by=by,
+            nbytes=nbytes, nops=nops, library_ms=lib)
+    shape = (f"stack [{G}, {T}] (dts {MULTI_DT_SCALE} x {dt:g} s), K {K} "
+             f"({per} a series, interleaved), nbins {nbins}, npart {npart}")
+    for name, e, extra in (
+            ("fold_parts_multi", aerr, f"bin_idx [{K}, {T}] int32"),
+            ("fold_parts_multi_poly", perr,
+             f"coeffs [{K}, 3] float64, f2 != 0 on 2 series")):
+        f = forms[name]
+        report.append(dict(
+            name=name, route="cuda",
+            source="pypulsar_tpu_torch/ops/csrc/fold_parts.cu",
+            replaces="pypulsar_tpu/fold/engine.py:410",
+            shape=f"{shape}, {extra}", max_abs_err=e, ms=f["ms"],
+            single_call_ms=f["single_call_ms"], wrapper_ms=f["wrapper_ms"],
+            plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+            bound_by=f["bound_by"], library_ms=f["library_ms"],
+            library_call=("index_add_ after a gather of the rows"
+                          if f["library_ms"] is not None else None)))
+        print(f"{name}: {shape}, {extra}: kernel {f['ms']:.4f} ms (single "
+              f"calls {f['single_call_ms']:.4f} ms), wrapper "
+              f"{f['wrapper_ms']:.4f} ms, plain {f['plain_ms']:.3f} ms, "
+              f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}: "
+              f"{f['nbytes'] / 1e9:.4f} GB, {f['nops'] / 1e9:.4f} G ops), "
+              f"share {f['bound_ms'] / f['ms']:.3f}, max abs err {e:.3g}, "
+              f"counts exact")
+    print(f"fold multi forms: polynomial == array fed numpy's bins, each row "
+          f"== its series' single-series fold (max abs diff 0), whole == "
+          f"halves == alone; T {MULTI_ODD_T}: max abs err vs plain "
+          f"{operr:.3g} / {oaerr:.3g}; index_add_ after a gather "
+          f"{library_ms:.4f} ms (max abs diff {lib_err:.3g}); series index "
+          f"{G} refused")
+    del stack, bins, odd, profs, c_dev, d_dev, sidx_dev, rows_l
+    torch.cuda.empty_cache()
+
+
+def lane_hits(outbase, psr, dm):
+    """Rows of an observation's fold summary within 2 DM of ``dm`` at the
+    period ``psr`` or a harmonic that fold to SNR > 10 in its
+    ``_snr.json``."""
+    with open(outbase + "_foldbatch.json") as f:
+        results = json.load(f)["results"]
+    with open(outbase + "_snr.json") as f:
+        snr = {row["name"]: row["snr"] for row in json.load(f)}
+    return [dict(name=r["name"], dm=r["dm"], period=r["period"],
+                 snr=snr.get(r["name"])) for r in results
+            if harmonic_of(r["period"], psr) is not None
+            and abs(r["dm"] - dm) <= 2.0 and (snr.get(r["name"]) or 0) > 10]
+
+
+def snr_rows(path):
+    """An ``_snr.json``'s rows with each archive path cut to its name."""
+    with open(path) as f:
+        rows = json.load(f)
+    for r in rows:
+        r["pfd"] = os.path.basename(r["pfd"])
+    return rows
+
+
+LANE_PATTERNS = ("_rfifind.mask", ".cands", "_DM*.dat", "_DM*.inf",
+                 "_DM*_ACCEL_200.cand", "_DM*_ACCEL_200.txtcand",
+                 ".accelcands", "_cand*.pfd")
+
+
+def lane_phase(tmp, info, device, chain):
+    """Phase 11 (b): a lane of 2 observations (``survey.lane.run_lane``)
+    at the chain's size, phase 8's streamed configuration: A the RFI copy
+    (held to phase 8's chain), B a second synthetic file with its own
+    pulsar (held to its own serial ``run_observation``); then the same
+    lane at the broker's default window (100 ms), held to the same bytes,
+    its walls and fusions printed beside the checked lane's. Returns the
+    checked lane's launches."""
+    import torch
+
+    from pypulsar_tpu_torch.io.synth import write_synthetic_fil
+    from pypulsar_tpu_torch.parallel import accelpipe, broker, foldpipe
+    from pypulsar_tpu_torch.survey import dag, lane
+    from pypulsar_tpu_torch.survey.state import Observation
+
+    fn_b = os.path.join(tmp, "psrb.fil")
+    info_b = write_synthetic_fil(
+        fn_b, nchan=info["nchan"], tsamp=info["tsamp"], nsamp=info["nsamp"],
+        fch1=1500.0, bw=300.0, dm=LANE_B_DM, period_samples=LANE_B_PERIOD,
+        width=8, nbits=8, seed=LANE_B_SEED)
+    if info_b["nsamp"] != info["nsamp"]:
+        fail(f"observation B has {info_b['nsamp']} samples, not "
+             f"{info['nsamp']}: not the lane's geometry")
+    cfg = dag.SurveyConfig(lodm=float(STAGE_LODM))
+    os.makedirs(os.path.join(tmp, "chain_b"))
+    serial_b = Observation("psrb", fn_b, os.path.join(tmp, "chain_b", "psrb"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walls_b = dag.run_observation(serial_b, cfg, device=device)
+    torch.cuda.synchronize()
+    serial_b_s = time.perf_counter() - t0
+    serial_s = sum(chain["walls"].values()) + serial_b_s
+    psr = {"rfi": (info["period_samples"] * info["tsamp"], 70.0),
+           "psrb": (LANE_B_PERIOD * info["tsamp"], LANE_B_DM)}
+    runs = {}
+    # the checked lane at LANE_WAIT_MS, then the reference's default
+    # window (held to the same bytes; its fusions printed, not required)
+    for label, wait_ms in (("lane", LANE_WAIT_MS),
+                           ("lane_default_window", broker.WAIT_MS)):
+        os.makedirs(os.path.join(tmp, label))
+        pairs = [(Observation("rfi", chain["rfi"],
+                              os.path.join(tmp, label, "rfi")),
+                  chain["outbase"]),
+                 (Observation("psrb", fn_b, os.path.join(tmp, label, "psrb")),
+                  serial_b.outbase)]
+        fused = collections.Counter()
+        real = {}
+        for mod, attr in ((accelpipe, "_broker_concat_rows"),
+                          (foldpipe, "_broker_concat_fold")):
+            real[attr] = getattr(mod, attr)
+
+            def counted(units, device, attr=attr):  # counts fused dispatches
+                fused[attr] += 1
+                return real[attr](units, device)
+
+            setattr(mod, attr, counted)
+        broker.reset()
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = lane.run_lane([o for o, _ in pairs], cfg, device=device,
+                                wait_ms=wait_ms)
+            torch.cuda.synchronize()
+        finally:
+            accelpipe._broker_concat_rows = real["_broker_concat_rows"]
+            foldpipe._broker_concat_fold = real["_broker_concat_fold"]
+        lane_s = time.perf_counter() - t0
+        launches = launch_counts()
+        stats = broker.get_broker().stats()
+        broker.reset()
+        equal = collections.Counter()
+        hits = {}
+        for obs, serial in pairs:
+            for pattern in LANE_PATTERNS:
+                paths = sorted(glob.glob(serial + pattern))
+                got = len(glob.glob(obs.outbase + pattern))
+                if not paths or got != len(paths):
+                    fail(f"{label} {obs.name}: {len(paths)} serial files of "
+                         f"{pattern}, {got} from the lane")
+                equal[pattern] += same_bytes(paths, serial, obs.outbase)
+            if snr_rows(serial + "_snr.json") != snr_rows(
+                    obs.outbase + "_snr.json"):
+                fail(f"{label} {obs.name}: _snr.json differs from the "
+                     f"serial run's")
+            hits[obs.name] = lane_hits(obs.outbase, *psr[obs.name])
+            if not hits[obs.name]:
+                fail(f"{label} {obs.name}: no candidate at its pulsar's DM "
+                     f"and period or a harmonic folds to SNR > 10")
+        if stats["unit_retries"] or stats["fused_faults"]:
+            fail(f"a fused dispatch of the {label} failed: {stats}")
+        runs[label] = dict(
+            wait_ms=wait_ms, lane_wall_s=lane_s,
+            lane_over_serial=lane_s / serial_s,
+            lane_stage_wall_s=res["walls"],
+            peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+            broker=stats, fused_dispatches_by_stage={
+                "accel": fused["_broker_concat_rows"],
+                "fold": fused["_broker_concat_fold"]},
+            files_equal_serial=dict(equal),
+            pulsars={k: max(h, key=lambda r: r["snr"])
+                     for k, h in hits.items()},
+            launches=launches)
+    checked = runs["lane"]
+    stats, launches = checked["broker"], checked["launches"]
+    if not (stats["dispatches"] < stats["submissions"]
+            and stats["coalesced_units"] >= 2):
+        fail(f"the lane's broker fused nothing: {stats}")
+    need = ("gather_sum/stage1", "gather_sum/stage2", "boxcar_stats",
+            "fold_parts_multi_poly")
+    if min(launches[k] for k in need) < 1:
+        fail(f"the lane did not launch every kernel of its path (the sweep's "
+             f"and the multi-series fold): {launches}")
+    if min(checked["fused_dispatches_by_stage"].values()) < 1:
+        fail(f"the lane did not fuse both stages' dispatches: "
+             f"{checked['fused_dispatches_by_stage']}")
+    print("lane: " + json.dumps({
+        "observations": 2,
+        "serial_wall_s": {"rfi (phase 8)": sum(chain["walls"].values()),
+                          "psrb": serial_b_s},
+        "serial_sum_s": serial_s,
+        "serial_stage_wall_s": {"rfi (phase 8)": chain["walls"],
+                                "psrb": walls_b}, **runs}))
+    return launches
+
+
+def lane_and_multi_phase(tmp, info, device, report, chain):
+    """Phase 11: (a) the multi-series fold kernel, (b) the lane."""
+    check_fold_multi(device, report, os.path.join(tmp, "stage"),
+                     info["tsamp"])
+    return lane_phase(tmp, info, device, chain)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -2833,6 +3247,8 @@ def main() -> int:
         spectral_ch = spectral_chain(tmp, info, device, chain)
         ddplan = ddplan_path(tmp, fn)
         prep = prepfold_phase(tmp, fn, info, device, report)
+        lane_launches = lane_and_multi_phase(tmp, info, device, report,
+                                             chain)
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -2840,7 +3256,8 @@ def main() -> int:
              "survey_chain": chain["launches"],
              "sweep_tree": engines["tree"], "sweep_fourier": engines["fourier"],
              "spectral_stage": spectral, "spectral_decimated": decimated,
-             "spectral_chain": spectral_ch, "ddplan": ddplan, **prep}
+             "spectral_chain": spectral_ch, "ddplan": ddplan, **prep,
+             "lane": lane_launches}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}
@@ -2848,8 +3265,10 @@ def main() -> int:
         # the dedispersion kernels, the tree engine's sweep for its levels
         # and snap, the --datbase fold for the candidate fold (whose array
         # form no driven path calls: its launches stay 0), prepfold for
-        # the channel fold
-        first = (fold_dats if k["name"].startswith("fold_parts")
+        # the channel fold, the lane for the multi-series fold (its array
+        # form, too, stays 0)
+        first = (lane_launches if k["name"].startswith("fold_parts_multi")
+                 else fold_dats if k["name"].startswith("fold_parts")
                  else prep["prepfold"] if k["name"] == "fold_chan"
                  else engines["tree"] if k["name"].startswith(
                      "gather_sum/tree") else launches)

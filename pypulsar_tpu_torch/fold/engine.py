@@ -28,9 +28,11 @@ Port of ``pypulsar_tpu/fold/engine.py``:
 
 The device functions take tensors (run where they lie) or numpy arrays,
 moved to ``device=`` (default ``"cuda"``, which raises without a card).
-The multi-series fold serves the batch broker and waits for it (ROADMAP.md
-Queue 1 S12); the reference's compile-plane warmer (Queue 1 item 16) and
-telemetry (S5) are not ported.
+:func:`fold_parts_multi` and :func:`fold_parts_multi_poly` are their
+series-index forms (candidate k folds its own row of a ``[G, T]`` stack),
+the batch broker's fused fold (``parallel/broker.py``). The reference's
+compile-plane warmer (Queue 1 item 16) and telemetry (S5) are not
+ported.
 """
 
 from __future__ import annotations
@@ -53,12 +55,14 @@ from pypulsar_tpu_torch.fold.profile_snr import (
 from pypulsar_tpu_torch.ops.fold import (
     fold_chan,
     fold_parts_batch,
+    fold_parts_multi,
+    fold_parts_multi_poly,
     fold_parts_poly,
 )
 
 __all__ = ["bestprof_offsets", "drift_offsets", "drift_to_p_pd",
            "fold_bins", "fold_numpy", "fold_parts", "fold_parts_batch",
-           "fold_parts_poly", "fold_snr_stats", "fold_spectra",
+           "fold_parts_multi", "fold_parts_multi_poly", "fold_parts_poly", "fold_snr_stats", "fold_spectra",
            "fold_stats", "fold_stats_numpy", "fold_timeseries",
            "phase_coeffs", "phase_to_bins", "phases_constant_period",
            "phases_from_polycos", "refine_chi2", "refine_drift_grid"]

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import warnings
 from fractions import Fraction
 from typing import Dict, List, Optional, Tuple
@@ -349,6 +350,10 @@ def _run_stage_batch(spec_pad, bank_meta, tfs, idxs, segw: int, Z: int,
 
 _BANK_CACHE: Dict[tuple, tuple] = {}
 _BANK_CACHE_BYTES = [0]
+# the cache is shared by every search in the process, and a batch lane
+# searches from several threads: its pops, inserts and byte count change
+# together under this lock
+_BANK_CACHE_LOCK = threading.Lock()
 
 
 def _build_ratio_bank(rho_num: int, rho_den: int, zs: tuple, ws: tuple,
@@ -387,19 +392,26 @@ def _cached_ratio_bank(rho_num, rho_den, zs, ws, segw, min_halfwidth,
     clear-all: a coarse-to-fine search holds two grids' banks per
     configuration."""
     key = (rho_num, rho_den, zs, ws, segw, min_halfwidth)
-    hit = _BANK_CACHE.pop(key, None)
-    if hit is not None:
-        _BANK_CACHE[key] = hit  # move-to-end: eviction is LRU, not FIFO
-        return hit
+    with _BANK_CACHE_LOCK:
+        hit = _BANK_CACHE.pop(key, None)
+        if hit is not None:
+            _BANK_CACHE[key] = hit  # move-to-end: eviction is LRU, not FIFO
+            return hit
+    # built outside the lock (two threads may build one bank; the second
+    # insert replaces the first, and the byte count follows)
     bank = _build_ratio_bank(rho_num, rho_den, zs, ws, segw, min_halfwidth)
     size = bank[0].nbytes + bank[3].nbytes
     if size > limit:
         return bank  # uncacheable; evicting everything for it helps nobody
-    while _BANK_CACHE and _BANK_CACHE_BYTES[0] + size > limit:
-        old = _BANK_CACHE.pop(next(iter(_BANK_CACHE)))
-        _BANK_CACHE_BYTES[0] -= old[0].nbytes + old[3].nbytes
-    _BANK_CACHE[key] = bank
-    _BANK_CACHE_BYTES[0] += size
+    with _BANK_CACHE_LOCK:
+        old = _BANK_CACHE.pop(key, None)
+        if old is not None:
+            _BANK_CACHE_BYTES[0] -= old[0].nbytes + old[3].nbytes
+        while _BANK_CACHE and _BANK_CACHE_BYTES[0] + size > limit:
+            old = _BANK_CACHE.pop(next(iter(_BANK_CACHE)))
+            _BANK_CACHE_BYTES[0] -= old[0].nbytes + old[3].nbytes
+        _BANK_CACHE[key] = bank
+        _BANK_CACHE_BYTES[0] += size
     return bank
 
 

@@ -32,6 +32,7 @@ KERNELS = ("gather_sum", "boxcar_stats", "fold_parts", "fold_chan")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -102,6 +103,18 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             _loaded[name] = lib
         return lib
+
+
+def count_launch(wrapper, key=None) -> None:
+    """Add one to a kernel wrapper's launch count, ``wrapper.launches``
+    (an int, or the entry ``key`` of a Counter), under a lock: a batch
+    lane launches kernels from several threads, and ``+=`` on an
+    attribute is no atomic step."""
+    with _count_lock:
+        if key is None:
+            wrapper.launches += 1
+        else:
+            wrapper.launches[key] += 1
 
 
 def check(err: int, what: str) -> None:

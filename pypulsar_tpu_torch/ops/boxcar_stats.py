@@ -90,7 +90,7 @@ def _cuda_boxcar_stats(ts, widths: Tuple[int, ...], stat_len: int):
                     seg_s.data_ptr(), seg_ss.data_ptr(), seg_mb.data_ptr(),
                     seg_ab.data_ptr(), s.data_ptr(), ss.data_ptr(),
                     mb.data_ptr(), ab.data_ptr(), stream), "boxcar_stats")
-    boxcar_stats.launches += 1
+    _build.count_launch(boxcar_stats)
     if order != list(range(W)):  # back to the caller's width order
         back = torch.tensor([order.index(k) for k in range(W)], device=dev)
         mb, ab = mb[:, back], ab[:, back]

@@ -4,8 +4,12 @@
 //     profs[k, i, b]  = sum of series[i*P + t] over t < P with bin(k, i*P + t) == b
 //     counts[k, i, b] = number of such t
 //
-// with P = part_len = T / npart (the tail past npart*P is dropped). One
-// accumulation body serves two sources of a sample's bin:
+// with P = part_len = T / npart (the tail past npart*P is dropped). The
+// series-index forms (fold_multi_launch, fold_multi_poly_launch) fold K
+// candidates against G series of one length instead: candidate k folds its
+// own row stack[series_idx[k]] (each series with its own sample time dts[g]
+// in the polynomial form). One accumulation body serves two sources of a
+// sample's bin:
 //
 // - the array form (fold_parts_launch): bin(k, i) = bins[k, i], int32; an
 //   index outside [0, nbins) adds to nothing, as the reference's one_hot
@@ -28,7 +32,10 @@
 // float32 contraction with a [K, P, nbins] 0/1 matrix so that the TPU's
 // matrix unit did the work, fed [K, T] int32 bins that the host built in
 // float64 (pypulsar_tpu/parallel/foldpipe.py:348-379). There is no
-// pallas_call: the one-hot einsum ran on the MXU.
+// pallas_call: the one-hot einsum ran on the MXU. The series-index forms
+// replace `_onehot_fold_1d_multi` inside `_fold_parts_multi_impl`
+// (pypulsar_tpu/fold/engine.py:410-472), the batch broker's fused fold of
+// several observations' candidates (einsum 'kt,ktb->kb' on the MXU).
 //
 // Bound on this card, at the survey's size (K = 32, T = 2^20, npart 32,
 // nbins 64):
@@ -43,6 +50,10 @@
 //   slower still, so this is a floor); its bytes (the series and the
 //   outputs, 4.7 MB) take 0.0014 ms. The float32 additions run on another
 //   pipe.
+// - series-index forms at a lane's size (G = 4 series of 2^20, K = 128,
+//   npart 32, nbins 64): the array form moves the bins (K*T*4), the stack
+//   (G*T*4), series_idx and the outputs, 555.7 MB, 0.166 ms; the
+//   polynomial form K*T*7 = 940 M float64 instructions, 0.055 ms.
 //
 // Design:
 // - One block per (candidate, partition), blockIdx.x = k * npart + i.
@@ -76,6 +87,14 @@
 //   alone or in a batch of any size, and at any alignment of its rows; fed
 //   the polynomial form's own bins, the array form gives its bits exactly.
 //   Counts are int32 and exact.
+// - The series-index forms differ only in where a block's series starts,
+//   stack + series_idx[k] * T (and, in the polynomial form, its dt): row k
+//   of a fused launch is bit for bit the single-series form's fold of that
+//   row alone, the batch broker's fusion contract. A row offset is 16-byte
+//   aligned only when T % 4 == 0; the body tests the series' alignment at
+//   each stretch and the bins row's once, and takes the scalar loads where
+//   either is off, in the same order of additions. The wrapper refuses a
+//   series_idx outside [0, G).
 // - Shared memory holds nt copies of nbins floats and nbins ints: the
 //   wrapper takes nt = min(128, 232448 / (8 nbins)) threads, so nbins 64
 //   runs 128-thread blocks in 64 KB (three blocks per SM), and the largest
@@ -296,10 +315,12 @@ __device__ __forceinline__ void fold_part(const float* __restrict__ s, Src& src,
   }
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
-fold_array_kernel(const float* __restrict__ series, const int* __restrict__ bins,
-                  float* __restrict__ profs, int* __restrict__ counts, int64_t T,
-                  int npart, int64_t part_len, int nbins) {
+// Block k * npart + i of an array form: `series` is candidate k's series.
+__device__ __forceinline__ void array_block(const float* __restrict__ series,
+                                            const int* __restrict__ bins,
+                                            float* __restrict__ profs,
+                                            int* __restrict__ counts, int64_t T,
+                                            int npart, int64_t part_len, int nbins) {
   const int64_t k = blockIdx.x / npart;
   const int64_t part = blockIdx.x % npart;
   const int* row = bins + k * T + part * part_len;
@@ -308,10 +329,13 @@ fold_array_kernel(const float* __restrict__ series, const int* __restrict__ bins
             (k * npart + part) * nbins);
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
-fold_poly_kernel(const float* __restrict__ series, const double* __restrict__ coeffs,
-                 double dt, float* __restrict__ profs, int* __restrict__ counts,
-                 int npart, int64_t part_len, int nbins) {
+// Block k * npart + i of a polynomial form: `series` is candidate k's
+// series, `dt` its sample time.
+__device__ __forceinline__ void poly_block(const float* __restrict__ series,
+                                           const double* __restrict__ coeffs, double dt,
+                                           float* __restrict__ profs,
+                                           int* __restrict__ counts, int npart,
+                                           int64_t part_len, int nbins) {
   const int64_t k = blockIdx.x / npart;
   const int64_t part = blockIdx.x % npart;
   const double f0 = coeffs[3 * k], h1 = coeffs[3 * k + 1], f2 = coeffs[3 * k + 2];
@@ -325,6 +349,38 @@ fold_poly_kernel(const float* __restrict__ series, const double* __restrict__ co
     PolyBins<false> src{f0, h1, f2, dt, (double)nbins, nbins, base, 0.0, 0.0, 0, 0};
     fold_part(s, src, part_len, nbins, profs, counts, out);
   }
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+fold_array_kernel(const float* __restrict__ series, const int* __restrict__ bins,
+                  float* __restrict__ profs, int* __restrict__ counts, int64_t T,
+                  int npart, int64_t part_len, int nbins) {
+  array_block(series, bins, profs, counts, T, npart, part_len, nbins);
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+fold_multi_array_kernel(const float* __restrict__ stack, const int* __restrict__ series_idx,
+                        const int* __restrict__ bins, float* __restrict__ profs,
+                        int* __restrict__ counts, int64_t T, int npart, int64_t part_len,
+                        int nbins) {
+  const int64_t g = series_idx[blockIdx.x / npart];
+  array_block(stack + g * T, bins, profs, counts, T, npart, part_len, nbins);
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+fold_poly_kernel(const float* __restrict__ series, const double* __restrict__ coeffs,
+                 double dt, float* __restrict__ profs, int* __restrict__ counts,
+                 int npart, int64_t part_len, int nbins) {
+  poly_block(series, coeffs, dt, profs, counts, npart, part_len, nbins);
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+fold_multi_poly_kernel(const float* __restrict__ stack, const int* __restrict__ series_idx,
+                       const double* __restrict__ coeffs, const double* __restrict__ dts,
+                       float* __restrict__ profs, int* __restrict__ counts, int64_t T,
+                       int npart, int64_t part_len, int nbins) {
+  const int64_t g = series_idx[blockIdx.x / npart];
+  poly_block(stack + g * T, coeffs, dts[g], profs, counts, npart, part_len, nbins);
 }
 
 template <class Kernel>
@@ -369,5 +425,38 @@ extern "C" int fold_poly_launch(const float* series, const double* coeffs, doubl
   if (err) return err;
   fold_poly_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
       series, coeffs, dt, profs, counts, npart, T / npart, nbins);
+  return (int)cudaGetLastError();
+}
+
+// Series-index array form on `stream`: stack[G, T] float32, series_idx[K]
+// int32 in [0, G) (checked by the caller), bins[K, T] int32 -> profs and
+// counts as above, candidate k folding stack[series_idx[k]].
+extern "C" int fold_multi_launch(const float* stack, const int* series_idx, const int* bins,
+                                 float* profs, int* counts, int64_t K, int64_t T, int npart,
+                                 int nbins, int threads, void* stream) {
+  if (K == 0 || npart == 0 || nbins == 0) return 0;
+  size_t smem;
+  int64_t blocks;
+  const int err = prepare(fold_multi_array_kernel, K, npart, nbins, threads, &smem, &blocks);
+  if (err) return err;
+  fold_multi_array_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+      stack, series_idx, bins, profs, counts, T, npart, T / npart, nbins);
+  return (int)cudaGetLastError();
+}
+
+// Series-index polynomial form on `stream`: stack[G, T] float32,
+// series_idx[K] int32 in [0, G), coeffs[K, 3] float64, dts[G] float64 (the
+// sample time of each series) -> profs and counts as above.
+extern "C" int fold_multi_poly_launch(const float* stack, const int* series_idx,
+                                      const double* coeffs, const double* dts, float* profs,
+                                      int* counts, int64_t K, int64_t T, int npart, int nbins,
+                                      int threads, void* stream) {
+  if (K == 0 || npart == 0 || nbins == 0) return 0;
+  size_t smem;
+  int64_t blocks;
+  const int err = prepare(fold_multi_poly_kernel, K, npart, nbins, threads, &smem, &blocks);
+  if (err) return err;
+  fold_multi_poly_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+      stack, series_idx, coeffs, dts, profs, counts, T, npart, T / npart, nbins);
   return (int)cudaGetLastError();
 }

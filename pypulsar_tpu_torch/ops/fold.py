@@ -21,6 +21,14 @@ with ``P = T // npart`` (the tail is dropped). Two forms, one kernel body
   ``phase_to_bins``: the same bins, bit for bit, with no ``[K, T]`` array
   built or moved.
 
+Their series-index forms, :func:`fold_parts_multi` (bins) and
+:func:`fold_parts_multi_poly` (phase polynomials, a sample time per
+series), fold K candidates against G series of one length: candidate k
+folds its own row ``stack[series_idx[k]]``, the port of
+``fold_parts_multi`` (``_onehot_fold_1d_multi``) of the reference, the
+batch broker's fused fold (``parallel/broker.py``). Row k has the bits of
+the single-series form fed that row alone, on the CPU and on the card.
+
 A CPU tensor takes the plain PyTorch version: the bins by float64 torch
 steps in that order (:func:`poly_bins`), and the reference's formulation
 of the fold, a float32 contraction with a 0/1 selection matrix per
@@ -64,9 +72,13 @@ def _check_series(series, nbins: int, npart: int) -> None:
     if series.dim() != 1 or series.dtype != torch.float32:
         raise ValueError(f"series must be 1-D float32; got "
                          f"{tuple(series.shape)} {series.dtype}")
+    _check_parts(series.shape[0], nbins, npart)
+
+
+def _check_parts(T: int, nbins: int, npart: int) -> None:
     if nbins < 1 or npart < 1:
         raise ValueError(f"nbins={nbins} and npart={npart} must be >= 1")
-    part_len = series.shape[0] // npart
+    part_len = T // npart
     if part_len >= 1 << 24:
         raise ValueError(
             f"part_len={part_len} >= 2^24: f32 one-hot counts would lose "
@@ -75,12 +87,18 @@ def _check_series(series, nbins: int, npart: int) -> None:
 
 def _check(series, bin_idx, nbins: int, npart: int) -> None:
     _check_series(series, nbins, npart)
+    _check_bins(series, bin_idx)
+
+
+def _check_bins(series, bin_idx) -> None:
+    """``bin_idx`` int32 ``[K, T]`` on the device of ``series`` (``[T]``,
+    or a ``[G, T]`` stack)."""
     if bin_idx.dim() != 2 or bin_idx.dtype != torch.int32:
         raise ValueError(f"bin_idx must be 2-D int32; got "
                          f"{tuple(bin_idx.shape)} {bin_idx.dtype}")
-    if bin_idx.shape[1] != series.shape[0]:
+    if bin_idx.shape[1] != series.shape[-1]:
         raise ValueError(f"bin_idx rows of {bin_idx.shape[1]} samples for a "
-                         f"{series.shape[0]}-sample series")
+                         f"{series.shape[-1]}-sample series")
     if series.device != bin_idx.device:
         raise ValueError(f"series on {series.device}, bin_idx on "
                          f"{bin_idx.device}")
@@ -139,7 +157,7 @@ def _cuda_fold_parts_batch(series, bin_idx, nbins: int, npart: int):
     _build.check(fn(series.data_ptr(), bin_idx.data_ptr(), profs.data_ptr(),
                     counts.data_ptr(), K, T, npart, nbins, threads, stream),
                  "fold_parts")
-    fold_parts_batch.launches += 1
+    _build.count_launch(fold_parts_batch)
     return profs, counts
 
 
@@ -201,6 +219,13 @@ def _host_coeffs(coeffs) -> np.ndarray:
     return c
 
 
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``: pinned and asynchronous, since a
+    pageable copy would wait for the stream's queued work."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def poly_bins(coeffs: torch.Tensor, dt: float, n: int, nbins: int
               ) -> torch.Tensor:
     """Plain PyTorch bins ``[K, n]`` int32 of samples ``0..n-1``, on
@@ -248,7 +273,7 @@ def _cuda_fold_parts_poly(series, coeffs, dt: float, nbins: int, npart: int):
                     profs.data_ptr(), counts.data_ptr(), K,
                     series.shape[0], npart, nbins, threads, stream),
                  "fold_poly")
-    fold_parts_poly.launches += 1
+    _build.count_launch(fold_parts_poly)
     return profs, counts
 
 
@@ -275,18 +300,188 @@ def fold_parts_poly(series: torch.Tensor, coeffs, dt: float, nbins: int,
     if not (math.isfinite(dt) and dt > 0.0):
         raise ValueError(f"dt must be a positive finite float; got {dt!r}")
     check_coeffs(c, dt, npart * (series.shape[0] // npart), nbins)
-    c = torch.from_numpy(np.ascontiguousarray(c))
     if series.device.type == "cpu":
-        return _torch_fold_parts_poly(series, c, dt, nbins, npart)
+        return _torch_fold_parts_poly(
+            series, torch.from_numpy(np.ascontiguousarray(c)), dt, nbins,
+            npart)
     if series.device.type == "cuda":
-        # pinned and asynchronous: a pageable copy would wait for the
-        # stream's queued work
-        c = c.pin_memory().to(series.device, non_blocking=True)
-        return _cuda_fold_parts_poly(series, c, dt, nbins, npart)
+        return _cuda_fold_parts_poly(series, _to_device(c, series.device),
+                                     dt, nbins, npart)
     raise ValueError(f"no fold for device {series.device}")
 
 
 fold_parts_poly.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the series-index forms: candidate k folds its own row of a [G, T] stack
+# ---------------------------------------------------------------------------
+
+def _check_stack(stack, nbins: int, npart: int) -> None:
+    if stack.dim() != 2 or stack.dtype != torch.float32:
+        raise ValueError(f"stack must be 2-D float32 [G, T]; got "
+                         f"{tuple(stack.shape)} {stack.dtype}")
+    _check_parts(stack.shape[1], nbins, npart)
+
+
+def _host_series_idx(series_idx, G: int, K: int) -> np.ndarray:
+    """``series_idx[K]`` as a host int32 array: a numpy array or a CPU
+    tensor of integers in ``[0, G)``; ValueError otherwise (the kernel
+    reads ``stack + series_idx[k] * T`` unchecked)."""
+    if isinstance(series_idx, torch.Tensor):
+        if series_idx.device.type != "cpu":
+            raise ValueError(f"series_idx on {series_idx.device}: pass it as "
+                             f"a host array (numpy or a CPU tensor)")
+        series_idx = series_idx.numpy()
+    idx = np.asarray(series_idx)
+    if idx.shape != (K,) or not np.issubdtype(idx.dtype, np.integer):
+        raise ValueError(f"series_idx must be [{K}] integers; got "
+                         f"{idx.shape} {idx.dtype}")
+    if K and (idx.min() < 0 or idx.max() >= G):
+        raise ValueError(f"series_idx outside [0, {G}): "
+                         f"{int(idx.min())}..{int(idx.max())}")
+    return idx.astype(np.int32)
+
+
+def _torch_fold_parts_multi(stack, idx, bin_idx, nbins: int, npart: int):
+    """Plain PyTorch version of :func:`fold_parts_multi`: per candidate,
+    its row of the stack, then the array form's plain fold of that row
+    alone (the bits of :func:`fold_parts_batch` fed the row)."""
+    K = bin_idx.shape[0]
+    dev = stack.device
+    profs = torch.empty((K, npart, nbins), dtype=torch.float32, device=dev)
+    counts = torch.empty((K, npart, nbins), dtype=torch.int32, device=dev)
+    for k in range(K):
+        p, c = _torch_fold_parts_batch(stack[int(idx[k])], bin_idx[k:k + 1],
+                                       nbins, npart)
+        profs[k], counts[k] = p[0], c[0]
+    return profs, counts
+
+
+def _cuda_fold_parts_multi(stack, idx_dev, bin_idx, nbins: int, npart: int):
+    stack = stack.contiguous()
+    bin_idx = bin_idx.contiguous()
+    K, T = bin_idx.shape
+    lib, threads, profs, counts, stream = _launch_setup(stack, nbins, npart, K)
+    fn = lib.fold_multi_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64,
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(stack.data_ptr(), idx_dev.data_ptr(), bin_idx.data_ptr(),
+                    profs.data_ptr(), counts.data_ptr(), K, T, npart, nbins,
+                    threads, stream), "fold_multi")
+    _build.count_launch(fold_parts_multi)
+    return profs, counts
+
+
+def fold_parts_multi(stack: torch.Tensor, series_idx, bin_idx: torch.Tensor,
+                     nbins: int, npart: int):
+    """(profs[K, npart, nbins] float32, counts[K, npart, nbins] int32) of
+    candidate k folding ``stack[series_idx[k]]`` (``stack[G, T]`` float32)
+    at its bins ``bin_idx[k]`` (int32 ``[K, T]``, the stack's device);
+    ``series_idx`` is a host array (numpy or a CPU tensor) of ``[K]``
+    integers in ``[0, G)``. Row k has the bits of :func:`fold_parts_batch`
+    of ``stack[series_idx[k]]`` and ``bin_idx[k:k + 1]``. Raises
+    ValueError as :func:`fold_parts_batch` does, and on an index outside
+    ``[0, G)``. A CPU tensor runs the plain PyTorch version; a CUDA tensor
+    launches ``csrc/fold_parts.cu`` (counted in
+    ``fold_parts_multi.launches``)."""
+    _check_stack(stack, nbins, npart)
+    _check_bins(stack, bin_idx)
+    idx = _host_series_idx(series_idx, stack.shape[0], bin_idx.shape[0])
+    if stack.device.type == "cpu":
+        return _torch_fold_parts_multi(stack, idx, bin_idx, nbins, npart)
+    if stack.device.type == "cuda":
+        return _cuda_fold_parts_multi(stack, _to_device(idx, stack.device),
+                                      bin_idx, nbins, npart)
+    raise ValueError(f"no fold for device {stack.device}")
+
+
+fold_parts_multi.launches = 0
+
+
+def _host_dts(dts, G: int) -> np.ndarray:
+    """``dts[G]`` as a host float64 array: a sequence, a numpy array or a
+    CPU tensor of positive finite sample times; ValueError otherwise."""
+    if isinstance(dts, torch.Tensor):
+        if dts.device.type != "cpu":
+            raise ValueError(f"dts on {dts.device}: pass it as a host array")
+        dts = dts.numpy()
+    d = np.asarray(dts, dtype=np.float64)
+    if d.shape != (G,) or not (np.isfinite(d).all() and (d > 0).all()):
+        raise ValueError(f"dts must be {G} positive finite floats (a sample "
+                         f"time per series); got {d.shape} {d!r}")
+    return d
+
+
+def _torch_fold_parts_multi_poly(stack, idx, coeffs, dts, nbins: int,
+                                 npart: int):
+    """Plain PyTorch version of :func:`fold_parts_multi_poly`: per
+    candidate, its row of the stack and its series' sample time, then the
+    polynomial form's plain fold of that row alone."""
+    K = coeffs.shape[0]
+    dev = stack.device
+    profs = torch.empty((K, npart, nbins), dtype=torch.float32, device=dev)
+    counts = torch.empty((K, npart, nbins), dtype=torch.int32, device=dev)
+    for k in range(K):
+        g = int(idx[k])
+        p, c = _torch_fold_parts_poly(stack[g], coeffs[k:k + 1],
+                                      float(dts[g]), nbins, npart)
+        profs[k], counts[k] = p[0], c[0]
+    return profs, counts
+
+
+def _cuda_fold_parts_multi_poly(stack, idx_dev, coeffs, dts, nbins: int,
+                                npart: int):
+    stack = stack.contiguous()
+    K = coeffs.shape[0]
+    lib, threads, profs, counts, stream = _launch_setup(stack, nbins, npart, K)
+    fn = lib.fold_multi_poly_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int64,
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(stack.data_ptr(), idx_dev.data_ptr(), coeffs.data_ptr(),
+                    dts.data_ptr(), profs.data_ptr(), counts.data_ptr(), K,
+                    stack.shape[1], npart, nbins, threads, stream),
+                 "fold_multi_poly")
+    _build.count_launch(fold_parts_multi_poly)
+    return profs, counts
+
+
+def fold_parts_multi_poly(stack: torch.Tensor, series_idx, coeffs, dts,
+                          nbins: int, npart: int):
+    """(profs[K, npart, nbins] float32, counts[K, npart, nbins] int32) of
+    candidate k folding ``stack[series_idx[k]]`` (``stack[G, T]`` float32)
+    at the bins of its phase polynomial ``coeffs[k] = (f0, f1 / 2.0, f2)``
+    and its series' sample time ``dts[series_idx[k]]``: row k has the
+    bits of :func:`fold_parts_poly` of that row, ``coeffs[k:k + 1]`` and
+    that dt. ``series_idx`` (``[K]`` integers in ``[0, G)``), ``coeffs``
+    (``[K, 3]`` float64) and ``dts`` (``[G]`` positive floats) are host
+    arrays (numpy or CPU tensors), checked on the host as
+    :func:`fold_parts_poly` checks its table, then moved to the stack's
+    device. A CPU stack runs the plain PyTorch version; a CUDA stack
+    launches ``csrc/fold_parts.cu`` (counted in
+    ``fold_parts_multi_poly.launches``)."""
+    _check_stack(stack, nbins, npart)
+    c = _host_coeffs(coeffs)
+    idx = _host_series_idx(series_idx, stack.shape[0], c.shape[0])
+    d = _host_dts(dts, stack.shape[0])
+    check_coeffs(c, d[idx], npart * (stack.shape[1] // npart), nbins)
+    if stack.device.type == "cpu":
+        return _torch_fold_parts_multi_poly(
+            stack, idx, torch.from_numpy(np.ascontiguousarray(c)), d, nbins,
+            npart)
+    if stack.device.type == "cuda":
+        dev = stack.device
+        return _cuda_fold_parts_multi_poly(
+            stack, _to_device(idx, dev), _to_device(c, dev),
+            _to_device(d, dev), nbins, npart)
+    raise ValueError(f"no fold for device {stack.device}")
+
+
+fold_parts_multi_poly.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +585,7 @@ def _cuda_fold_chan(data, bin_idx, nbins: int, npart: int):
     _build.check(fn(data.data_ptr(), data.stride(0), bin_idx.data_ptr(),
                     profs.data_ptr(), counts.data_ptr(), C, T, npart, nbins,
                     nseg, ct, stream), "fold_chan")
-    fold_chan.launches += 1
+    _build.count_launch(fold_chan)
     return profs, counts
 
 

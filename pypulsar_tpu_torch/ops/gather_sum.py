@@ -231,7 +231,7 @@ def _cuda_gather_sum(data, tables: GatherTables, out_len: int, out=None):
                     tables.shifts.data_ptr(), tables.out_rows.data_ptr(),
                     out.data_ptr(), L, B, J, K, out_len, out.stride(0), jb, e,
                     threads, win_len, smem, stream), "gather_sum")
-    shifted_gather_sum.launches[tables.stage] += 1
+    _build.count_launch(shifted_gather_sum, tables.stage)
     return out
 
 

@@ -45,6 +45,7 @@ the telemetry counters (S5); :meth:`TreePlan.adds_per_sample` and
 from __future__ import annotations
 
 import hashlib
+import threading
 from collections import OrderedDict
 from typing import List, Tuple
 
@@ -219,6 +220,9 @@ def _build_plan(s1: np.ndarray, s2: np.ndarray) -> TreePlan:
 
 
 _PLAN_CACHE: "OrderedDict[bytes, TreePlan]" = OrderedDict()
+# shared by every sweep in the process; a batch lane sweeps from several
+# threads
+_PLAN_CACHE_LOCK = threading.Lock()
 
 
 def _digest(s1: np.ndarray, s2: np.ndarray) -> bytes:
@@ -235,12 +239,14 @@ def plan_from_bins(stage1_bins, stage2_bins) -> TreePlan:
     s1 = np.asarray(stage1_bins)
     s2 = np.asarray(stage2_bins)
     key = _digest(s1, s2)
-    plan = _PLAN_CACHE.pop(key, None)
+    with _PLAN_CACHE_LOCK:
+        plan = _PLAN_CACHE.pop(key, None)
     if plan is None:
-        plan = _build_plan(s1, s2)
-    _PLAN_CACHE[key] = plan  # (re)insert as the most recent
-    while len(_PLAN_CACHE) > PLAN_CACHE_SIZE:
-        _PLAN_CACHE.popitem(last=False)
+        plan = _build_plan(s1, s2)  # outside the lock: seconds at scale
+    with _PLAN_CACHE_LOCK:
+        _PLAN_CACHE[key] = plan  # (re)insert as the most recent
+        while len(_PLAN_CACHE) > PLAN_CACHE_SIZE:
+            _PLAN_CACHE.popitem(last=False)
     return plan
 
 

@@ -25,10 +25,17 @@ Port of ``pypulsar_tpu/parallel/accelpipe.py`` on one device:
   gathers of it, and no series crosses to the host (``series_host_bytes``
   in the summary is 0). It writes no ``.dat`` tee.
 
-A batch that runs out of device memory halves and retries (per-spectrum
-results do not depend on the batch); any other failure raises. The
-``.cand`` files are written in trial order, ``.txtcand`` first and
-``.cand`` last, both atomically.
+Each search batch is a unit of the batch broker
+(:mod:`~pypulsar_tpu_torch.parallel.broker`): alone (no batch lane) it
+dispatches at once as it would unbrokered; inside a lane
+(:func:`pypulsar_tpu_torch.survey.lane.run_lane`) same-key batches of the
+lane's observations fuse into one search on the spectrum axis, demuxed
+per observation (each spectrum's transforms are calls of their own, so its
+candidates do not depend on its batch, and the ``.cand`` bytes do not
+change). A batch that runs out of device memory halves and retries
+(per-spectrum results do not depend on the batch); any other failure
+raises. The ``.cand`` files are written in trial order, ``.txtcand``
+first and ``.cand`` last, both atomically.
 
 Resume: ``skip_existing`` skips trials whose ``.cand``/``.txtcand`` pair
 validates (:func:`~pypulsar_tpu_torch.resilience.journal.candfile_complete`);
@@ -58,6 +65,7 @@ from pypulsar_tpu_torch.fourier.kernels import (
     prep_spectra_batch,
 )
 from pypulsar_tpu_torch.io.prestocand import write_rzwcands
+from pypulsar_tpu_torch.parallel import broker as broker_mod
 from pypulsar_tpu_torch.parallel.prefetch import prefetch
 from pypulsar_tpu_torch.parallel.specfuse import (
     SPECFUSE_HBM_BYTES,
@@ -125,6 +133,31 @@ def write_candfiles(candfn: str, txtfn: str, cands, T: float,
     atomic_write_text(txtfn, "".join(lines))
     write_rzwcands(candfn, [c.as_fourierprops() for c in cands])
     return candfn
+
+
+def _broker_concat_rows(payloads, device):
+    """Fuse same-key search batches ``(spectra[n, F], ready event)`` on the
+    spectrum axis, on the device, after every member's spectra are
+    ready."""
+    broker_mod.wait_ready([ev for _, ev in payloads], device)
+    return torch.cat([sp for sp, _ in payloads]), None
+
+
+def _accel_dispatch(payload, n: int, T_sec: float, config,
+                    hbm_budget_bytes: float, bank_cache_bytes: float,
+                    device):
+    """One candidate list per spectrum of a search batch (one unit or a
+    fused batch of units), halving the batch on a device OOM."""
+    spectra = payload[0]
+
+    def run(lo, hi):
+        return accel_search_batch(
+            spectra[lo:hi], T_sec, config,
+            hbm_budget_bytes=hbm_budget_bytes,
+            bank_cache_bytes=bank_cache_bytes, device=device)
+
+    parts = halving_dispatch(run, n, what="accel.batch")
+    return [c for _, _, cands in parts for c in cands]
 
 
 def stream_series(reader, dms, downsamp: int = 1, nsub: int = 64,
@@ -274,6 +307,15 @@ def sweep_accel_stream(
     series_host_bytes = 0
     regime = None
 
+    # every search batch submits to the batch broker: alone it dispatches
+    # at once; inside a batch lane, same-key batches of the lane's
+    # observations fuse on the spectrum axis. A fused batch stops growing
+    # at one full-budget dispatch (~24 bytes a sample a spectrum)
+    bk = broker_mod.get_broker()
+    bk_party = ("accel", broker_mod.device_scope(device))
+    bk_tag = os.path.basename(outbase) or outbase
+    bk_budget = max(unit, int(hbm_budget_bytes) // (24 * max(T, 1)))
+
     for d0 in range(0, D, slice_dms):
         d1 = min(d0 + slice_dms, D)
         sl_todo = [i for i in todo if d0 <= i < d1]
@@ -317,14 +359,20 @@ def sweep_accel_stream(
         else:  # inline, single-threaded
             source = (prep(g) for g in groups())
         for idxs, spectra in source:
-            def run(lo, hi, spectra=spectra):
-                return accel_search_batch(
-                    spectra[lo:hi], T_sec, config,
-                    hbm_budget_bytes=hbm_budget_bytes,
-                    bank_cache_bytes=bank_cache_bytes, device=device)
-
-            parts = halving_dispatch(run, len(idxs), what="accel.batch")
-            all_cands = [c for _, _, cands in parts for c in cands]
+            key = broker_mod.dispatch_key(
+                "accel", ("spectra", tuple(spectra.shape[1:]),
+                          str(spectra.dtype), int(T), repr(float(T_sec))),
+                (repr(config), float(hbm_budget_bytes),
+                 float(bank_cache_bytes)), device)
+            all_cands = bk.submit(
+                key, bk_party, (spectra, broker_mod.ready_event(device)),
+                len(idxs), tag=bk_tag,
+                concat=lambda units: _broker_concat_rows(units, device),
+                dispatch=lambda unit, n, T_sec=T_sec: _accel_dispatch(
+                    unit, n, T_sec, config, hbm_budget_bytes,
+                    bank_cache_bytes, device),
+                demux=lambda out, lo, hi: out[lo:hi],
+                budget_rows=bk_budget)
             for i, cands in zip(idxs, all_cands):
                 write_candfiles(names[i][0], names[i][1], cands, T_sec,
                                 max_cands)

@@ -23,7 +23,15 @@ Port of ``pypulsar_tpu/parallel/foldpipe.py`` on one device:
   device folds the current one (:func:`~pypulsar_tpu_torch.parallel.prefetch.prefetch`);
 - every ``.pfd`` lands through tmp + ``os.replace``.
 
-A device fold that runs out of memory halves its candidate axis
+Each DM group's device fold is a unit of the batch broker
+(:mod:`~pypulsar_tpu_torch.parallel.broker`): alone (no batch lane) it
+dispatches at once as it would unbrokered; inside a lane
+(:func:`pypulsar_tpu_torch.survey.lane.run_lane`) same-geometry groups of
+the lane's observations fuse into one multi-series fold
+(:func:`~pypulsar_tpu_torch.fold.engine.fold_parts_multi_poly`, row k the
+bits of the single-series fold of its own series), demuxed per
+observation, so the archives keep their bytes. A device fold that runs
+out of memory halves its candidate axis
 (:func:`~pypulsar_tpu_torch.resilience.retry.halving_dispatch`): per-
 candidate folds are independent and the kernel's order of additions does
 not depend on the batch, so the halves give the same archive bytes. Any
@@ -40,10 +48,11 @@ Left out of the reference, each with its reason:
   nothing per shape;
 - the NumPy-twin fallback on a device failure: a fold on another path
   than the one asked for is no result of that path;
-- the batch broker (ROADMAP.md Queue 1 S12), the auto-tuning consult and
-  the environment knobs (a plain module constant here,
-  :data:`STREAM_RAM_BYTES`), ``--journal`` with its fingerprint of the
-  series source (S1) and telemetry (S5).
+- the auto-tuning consult and the environment knobs (plain module
+  constants here, :data:`STREAM_RAM_BYTES` and
+  :data:`FOLD_STACK_BYTES`, which replaces the reference's
+  ``BINIDX_RAM_BYTES`` budget of fused ``[K, T]`` bins), ``--journal``
+  with its fingerprint of the series source (S1) and telemetry (S5).
 """
 
 from __future__ import annotations
@@ -51,12 +60,13 @@ from __future__ import annotations
 import os
 import sys
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.parallel import broker as broker_mod
 
 __all__ = [
     "FoldCandidate",
@@ -73,6 +83,11 @@ __all__ = [
 #: host bytes of the stream source's series buffer (one raw-file pass per
 #: slice of DMs past it)
 STREAM_RAM_BYTES = 12e9
+#: device bytes of a fused fold's series stack: a group joins an open
+#: broker batch while the batch's candidates, each charged one series of
+#: 4 * T bytes, stay within it (4 GB: 953 candidates at 2^20 samples);
+#: no archive depends on it
+FOLD_STACK_BYTES = 4e9
 
 
 @dataclass
@@ -281,6 +296,76 @@ def iter_groups_stream(groups, reader, downsamp: int = 1, nsub: int = 64,
 
 
 # ---------------------------------------------------------------------------
+# the broker's fold units
+# ---------------------------------------------------------------------------
+
+class _FoldUnit(NamedTuple):
+    """One DM group's device fold: its series on the device, the
+    members' ``[K, 3]`` float64 phase coefficients, the sample time, and
+    the event after which the series is ready (None off the card)."""
+
+    series: torch.Tensor
+    coeffs: np.ndarray
+    dt: float
+    ready: object
+
+
+class _FusedFold(NamedTuple):
+    """Several groups' folds as one multi-series fold: ``stack[G, T]``,
+    each candidate's series index and coefficients, each series' dt."""
+
+    stack: torch.Tensor
+    series_idx: np.ndarray
+    coeffs: np.ndarray
+    dts: np.ndarray
+
+
+def _broker_concat_fold(units: List[_FoldUnit], device) -> _FusedFold:
+    """Fuse fold units from several observations into the multi-series
+    form, stacked on the device after every unit's series is ready:
+    candidate k keeps the index of its own observation's series and
+    folds against it (``fold_parts_multi_poly``)."""
+    broker_mod.wait_ready([u.ready for u in units], device)
+    return _FusedFold(
+        torch.stack([u.series for u in units]),
+        np.concatenate([np.full(len(u.coeffs), g, np.int32)
+                        for g, u in enumerate(units)]),
+        np.concatenate([u.coeffs for u in units]),
+        np.array([u.dt for u in units], np.float64))
+
+
+def _fold_dispatch(unit, n: int, nbins: int, npart: int, refine: bool,
+                   offsets: torch.Tensor):
+    """(profs[n, npart, nbins], chi2[n, J] or None) on the host of one
+    unit or a fused batch of units: the fold (single- or multi-series
+    form of the fold kernel) and the refinement, halving the candidate
+    axis on a device OOM."""
+    from pypulsar_tpu_torch.fold.engine import (
+        fold_parts_multi_poly,
+        fold_parts_poly,
+        refine_chi2,
+    )
+    from pypulsar_tpu_torch.resilience.retry import halving_dispatch
+
+    def run(lo, hi):
+        if isinstance(unit, _FusedFold):
+            profs_dev, _ = fold_parts_multi_poly(
+                unit.stack, unit.series_idx[lo:hi], unit.coeffs[lo:hi],
+                unit.dts, nbins, npart)
+        else:
+            profs_dev, _ = fold_parts_poly(unit.series, unit.coeffs[lo:hi],
+                                           unit.dt, nbins, npart)
+        chi2 = (refine_chi2(profs_dev, offsets).cpu().numpy()
+                if refine else None)
+        return profs_dev.cpu().numpy(), chi2
+
+    parts = halving_dispatch(run, n, what="fold.batch")
+    profs = np.concatenate([p[2][0] for p in parts])
+    chi2 = np.concatenate([p[2][1] for p in parts]) if refine else None
+    return profs, chi2
+
+
+# ---------------------------------------------------------------------------
 # the pipeline
 # ---------------------------------------------------------------------------
 
@@ -348,13 +433,10 @@ def fold_pipeline(
     from pypulsar_tpu_torch.fold.engine import (
         drift_offsets,
         drift_to_p_pd,
-        fold_parts_poly,
-        refine_chi2,
         refine_drift_grid,
     )
     from pypulsar_tpu_torch.io.prestopfd import make_pfd
     from pypulsar_tpu_torch.parallel.prefetch import prefetch
-    from pypulsar_tpu_torch.resilience.retry import halving_dispatch
 
     device = resolve_device(device)
     if source == "stream" and reader is None:
@@ -400,6 +482,13 @@ def fold_pipeline(
     dl, dq = refine_drift_grid(ntrial_p, ntrial_pd, max_drift)
     offsets = torch.from_numpy(drift_offsets(dl, dq, npart)).to(device)
 
+    # every DM group submits its fold to the batch broker: alone it
+    # dispatches at once; inside a batch lane, same-key groups of the
+    # lane's observations fuse into one multi-series fold
+    bk = broker_mod.get_broker()
+    bk_party = ("fold", broker_mod.device_scope(device))
+    bk_tag = os.path.basename(outbase) or outbase
+
     if prefetch_depth > 0:
         prepped = prefetch(group_iter, depth=prefetch_depth, name="fold",
                            transform=lambda g: _prep_group(g, nbins, npart))
@@ -424,17 +513,20 @@ def fold_pipeline(
         part_len = T // npart
         T_sec = npart * part_len * dt
         series_dev = torch.from_numpy(np.ascontiguousarray(series)).to(device)
-
-        def run(lo, hi):
-            profs_dev, _ = fold_parts_poly(series_dev, coeffs[lo:hi], dt,
-                                           nbins, npart)
-            chi2 = (refine_chi2(profs_dev, offsets).cpu().numpy()
-                    if refine else None)
-            return profs_dev.cpu().numpy(), chi2
-
-        parts = halving_dispatch(run, K, what="fold.batch")
-        profs = np.concatenate([p[2][0] for p in parts])
-        chi2 = np.concatenate([p[2][1] for p in parts]) if refine else None
+        key = broker_mod.dispatch_key(
+            "fold", (int(T), int(nbins), int(npart), bool(refine),
+                     int(ntrial_p), int(ntrial_pd), repr(float(max_drift)),
+                     str(series_dev.dtype)), (), device)
+        profs, chi2 = bk.submit(
+            key, bk_party,
+            _FoldUnit(series_dev, coeffs, float(dt),
+                      broker_mod.ready_event(device)), K, tag=bk_tag,
+            concat=lambda units: _broker_concat_fold(units, device),
+            dispatch=lambda unit, n: _fold_dispatch(unit, n, nbins, npart,
+                                                    refine, offsets),
+            demux=lambda out, lo, hi: (out[0][lo:hi],
+                                       out[1][lo:hi] if refine else None),
+            budget_rows=max(K, int(FOLD_STACK_BYTES // (4 * max(T, 1)))))
         del series_dev
 
         for j, (gi, c) in enumerate(members):

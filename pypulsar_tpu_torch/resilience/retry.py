@@ -2,7 +2,8 @@
 transient-IO retry of a read.
 
 Port of ``is_oom_error``, ``halving_dispatch`` and ``retry_transient``
-from ``pypulsar_tpu/resilience/retry.py``, without telemetry, fault
+from ``pypulsar_tpu/resilience/retry.py`` (and of ``is_device_fault`` from
+``resilience/health.py``), without telemetry, fault
 injection or the mesh's slice multiple. The accel handoff's spectrum
 batches, the batched search's device chunks and the fold's candidate
 batches are independent per item, so halving a dispatch that ran out of
@@ -79,6 +80,22 @@ def is_oom_error(e: BaseException) -> bool:
     return ("RESOURCE_EXHAUSTED" in msg
             or "out of memory" in msg.lower()
             or "OutOfMemory" in type(e).__name__)
+
+
+def is_device_fault(e: BaseException) -> bool:
+    """True for a failure that indicts the card, not one batch: a CUDA
+    error other than an out-of-memory, such as a launch the card refused
+    (the RuntimeError of ``ops._build.check``) or a fault of an earlier
+    kernel that a later call reports (torch's "CUDA error" RuntimeError,
+    ``torch.AcceleratorError``). The port's counterpart of the reference's
+    ``health.is_device_fault``; False for an OOM (:func:`is_oom_error`), an
+    ordinary exception and a KeyboardInterrupt-class BaseException."""
+    if not isinstance(e, Exception) or is_oom_error(e):
+        return False
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(e, accel):
+        return True
+    return "CUDA error" in str(e)
 
 
 def halving_dispatch(run: Callable[[int, int], object], n: int,

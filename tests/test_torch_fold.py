@@ -30,6 +30,17 @@ reference's ``_onehot_fold_2d``) and the engine functions over it:
 - ``fold_timeseries`` and ``fold_spectra`` at a constant period and from
   polycos, against JAX's.
 
+The series-index forms (``ops.fold.fold_parts_multi`` and
+``fold_parts_multi_poly``, the counterparts of the reference's
+``fold_parts_multi``, ``_onehot_fold_1d_multi``):
+- plain ``fold_parts_multi`` against the JAX ``fold_parts_multi`` at the
+  reference's own cases (``tests/test_broker.py``: T = 100 and 2.5 x
+  ``_FOLD_BLOCK``): counts equal, profiles rtol 1e-5 / atol 1e-3; and
+  row k bit for bit the plain ``fold_parts_batch`` of its series alone;
+- plain ``fold_parts_multi_poly`` row k bit for bit the plain
+  ``fold_parts_poly`` of its series, coefficients and sample time alone;
+- both refuse a series index outside ``[0, G)``.
+
 The CUDA kernels themselves run on the card only; ``chip_smoke.py`` holds
 them against the plain versions tested here.
 """
@@ -590,3 +601,84 @@ def test_phase_models_and_high_level_folds_match_reference(tmp_path):
     np.testing.assert_allclose(got_p, want_p, rtol=1e-5, atol=1e-3)
     with pytest.raises(ValueError, match="need period"):
         engine.fold_timeseries(ts, dt, 32, device="cpu")
+
+
+@pytest.mark.parametrize("T", [100, None])
+def test_plain_multi_fold_matches_reference(T):
+    """The reference's own multi-series cases: G = 3 series, candidates
+    [2, 1, 3] per series, random bins, the short and the blocked path."""
+    if T is None:
+        T = int(jax_engine._FOLD_BLOCK * 2.5)
+    rng = np.random.default_rng(7)
+    nbins, npart = 16, 4
+    stack = rng.standard_normal((3, T)).astype(np.float32)
+    sidx = np.concatenate([np.full(k, g, np.int32)
+                           for g, k in enumerate([2, 1, 3])])
+    bins = rng.integers(0, nbins, size=(sidx.size, T)).astype(np.int32)
+    want_p, want_c = jax_engine.fold_parts_multi(stack, sidx, bins, nbins,
+                                                 npart)
+    got_p, got_c = fold.fold_parts_multi(torch.from_numpy(stack), sidx,
+                                         torch.from_numpy(bins), nbins, npart)
+    assert got_p.shape == (6, npart, nbins) and got_c.dtype == torch.int32
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p),
+                               rtol=1e-5, atol=1e-3)
+    for k, g in enumerate(sidx):
+        p, c = fold.fold_parts_batch(torch.from_numpy(stack[g]),
+                                     torch.from_numpy(bins[k:k + 1]), nbins,
+                                     npart)
+        assert torch.equal(got_p[k], p[0]) and torch.equal(got_c[k], c[0])
+
+
+@pytest.mark.parametrize("T,npart", [(30001, 7), (1 << 14, 16)])
+def test_plain_multi_poly_rows_are_the_single_series_folds(T, npart):
+    """Row k of the polynomial series-index form: the bits of the plain
+    ``fold_parts_poly`` of its own series, coefficients and dt, with
+    series of other sample times in the stack and candidates of one
+    series apart in the batch."""
+    nbins = 64
+    dts = np.array([1e-3, 6.4e-5, 2.5e-4])
+    stack = np.stack([_series(T, seed=40 + g) for g in range(3)])
+    sidx = np.array([2, 0, 0, 1, 2, 1, 0], np.int64)
+    coeffs = _battery(T, 1e-3, seed=5)[[3, 17, 40, 57, 58, 60, 61]]
+    got_p, got_c = fold.fold_parts_multi_poly(
+        torch.from_numpy(stack), sidx, coeffs, dts, nbins, npart)
+    for k, g in enumerate(sidx):
+        p, c = fold.fold_parts_poly(torch.from_numpy(stack[g]),
+                                    coeffs[k:k + 1], dts[g], nbins, npart)
+        assert torch.equal(got_p[k], p[0]) and torch.equal(got_c[k], c[0])
+
+
+def test_multi_wrappers_refuse_what_they_do_not_take():
+    stack = torch.zeros((2, 64))
+    bins = torch.zeros((3, 64), dtype=torch.int32)
+    coeffs = np.array([[10.0, 0.0, 0.0]] * 3)
+    for bad in ([0, 1, 2], [-1, 0, 0], [0, 1]):
+        with pytest.raises(ValueError, match="series_idx"):
+            fold.fold_parts_multi(stack, bad, bins, 8, 2)
+        with pytest.raises(ValueError, match="series_idx"):
+            fold.fold_parts_multi_poly(stack, bad, coeffs, [1e-3, 1e-3], 8,
+                                       2)
+    with pytest.raises(ValueError, match="host array"):
+        fold.fold_parts_multi(stack, torch.zeros(3, dtype=torch.int32,
+                                                 device="meta"), bins, 8, 2)
+    with pytest.raises(ValueError, match="float32"):
+        fold.fold_parts_multi(stack.double(), [0, 0, 1], bins, 8, 2)
+    with pytest.raises(ValueError, match="samples"):
+        fold.fold_parts_multi(stack[:, :63], [0, 0, 1], bins, 8, 2)
+    with pytest.raises(ValueError, match="dts"):
+        fold.fold_parts_multi_poly(stack, [0, 0, 1], coeffs, [1e-3], 8, 2)
+    with pytest.raises(ValueError, match="dts"):
+        fold.fold_parts_multi_poly(stack, [0, 0, 1], coeffs, [1e-3, 0.0], 8,
+                                   2)
+    with pytest.raises(ValueError, match="2\\^62"):
+        fold.fold_parts_multi_poly(stack, [0, 0, 1], coeffs * 1e30,
+                                   [1e-3, 1e-3], 8, 2)
+    n0 = (fold.fold_parts_multi.launches, fold.fold_parts_multi_poly.launches)
+    p, c = fold.fold_parts_multi(torch.ones((2, 8)), [1], torch.zeros(
+        (1, 8), dtype=torch.int32), 4, 2)
+    assert p[0, :, 0].tolist() == [4.0, 4.0]
+    fold.fold_parts_multi_poly(torch.ones((2, 8)), [1], coeffs[:1],
+                               [1e-3, 1e-3], 4, 2)
+    assert (fold.fold_parts_multi.launches,
+            fold.fold_parts_multi_poly.launches) == n0

@@ -44,6 +44,10 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
     assert int(lines[0]) >= 30  # every module was imported
+    # the batch broker and the lane among them
+    assert {"pypulsar_tpu_torch.parallel.broker",
+            "pypulsar_tpu_torch.survey.lane",
+            "pypulsar_tpu_torch.ops.fold"} <= set(lines[1:])
     loaded = [m for m in lines[1:] if _forbidden(m)]
     assert loaded == []
 
