@@ -37,8 +37,9 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    of stage 1, of stage 2, boxcar) must have been launched by that run;
 5. the acceleration search on the card against the port on the CPU, on
    8 seeded series of 2^15 samples (tones, drifting tones, a weak tone,
-   noise): the normalized spectra within 2e-5 of the largest magnitude,
-   the candidates under the matched-candidate contract (dr, dz, dsig) =
+   noise): the card's normalized spectra within 2e-5 of the largest
+   magnitude of a float64 transform's and the same bits twice (their
+   difference from the CPU's printed), the candidates under the matched-candidate contract (dr, dz, dsig) =
    (0.5, 1.0, 0.5) above sigma_min + 0.5, and the card's candidates the
    same bits searched as one batch of 8 or two of 4; then a probe
    (printed, not a check) of whether cuFFT keeps a spectrum's bits when
@@ -286,6 +287,31 @@ def single_call_ms(fn, reps: int = REPS, warmup: int = 1) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(fn, reps: int = REPS) -> float:
+    """Device ms per call of ``fn()``: CUDA events around ``reps`` replays
+    of a CUDA graph of one call, so no host work (Python, argument checks,
+    allocation) stands between the launches. Where a call's host work
+    outlasts its kernels, ``cuda_time_ms`` measures the host; this does
+    not."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -719,8 +745,31 @@ def unmatched(a, b, floor, dr=0.5, dz=1.0, dsig=0.5):
         and abs(c.sigma - o.sigma) < dsig for o in b)]
 
 
+def prep_reference(series):
+    """``prep_spectra_batch``'s spectra from a float64 transform: numpy's
+    rfft of each mean-subtracted series, rounded to complex64 and
+    dereddened on the CPU. It tells which of the card and the CPU strayed
+    when the two disagree."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.fourier import kernels
+
+    s64 = np.asarray(series, dtype=np.float64)
+    fft = np.fft.rfft(s64 - s64.mean(axis=1, keepdims=True), axis=1)
+    return kernels.deredden(torch.from_numpy(fft.astype(np.complex64)))
+
+
 def check_small_accel(device):
-    """Prep and search on the card against the port on the CPU."""
+    """Prep and search on the card against the port on the CPU.
+
+    The card's spectra are held to 2e-5 of the largest magnitude against
+    :func:`prep_reference` (a float64 transform) and must repeat bit for
+    bit. Their difference from the CPU port's spectra is printed: a
+    float32 transform on the host is no oracle for the card's, as it has
+    strayed past 2e-5 in rare runs on other hosts while the card's did
+    not repeat that. The searches on the two are held to the
+    matched-candidate contract."""
     import numpy as np
     import torch
 
@@ -741,12 +790,33 @@ def check_small_accel(device):
     cfg = accel.AccelSearchConfig(zmax=20.0, dz=2.0, numharm=4,
                                   sigma_min=3.0, seg_width=1 << 12)
     card = kernels.prep_spectra_batch(series, device=device)
+    again = kernels.prep_spectra_batch(series, device=device)
     cpu = kernels.prep_spectra_batch(series, device="cpu")
-    prep_err = float((card.cpu() - cpu).abs().max()
-                     / cpu[:, 1:].abs().max())
+    ref = prep_reference(series)
+    diff = (card.cpu() - cpu).abs()
+    prep_err = float(diff.max() / cpu[:, 1:].abs().max())
+    scale = float(ref[:, 1:].abs().max())
+    card_ref = float((card.cpu() - ref).abs().max()) / scale
+    cpu_ref = float((cpu - ref).abs().max()) / scale
+    same_bits = bool(torch.equal(again, card))
+    where = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+    said = (f"against the float64 transform: card {card_ref:.3g}, CPU "
+            f"{cpu_ref:.3g}; largest card-CPU difference at spectrum "
+            f"{where[0]}, bin {where[1]}; a second prep on the card "
+            f"{'has the same bits' if same_bits else 'differs'}")
+    if not card_ref < 2e-5:
+        fail(f"small accel: the card's spectra differ from the float64 "
+             f"transform by {card_ref:.3g} of the largest magnitude "
+             f"(card vs CPU {prep_err:.3g}; {said})")
+    if not same_bits:
+        fail(f"small accel: two preps of the same series on the card "
+             f"differ ({said})")
     if not prep_err < 2e-5:
-        fail(f"small accel: card and CPU spectra differ by {prep_err:.3g} "
-             f"of the largest magnitude")
+        # the card holds against float64, so the CPU's float32 transform
+        # strayed: the CPU port's prep is tested on the CPU, not here
+        print(f"chip_smoke: note: small accel: card and CPU spectra differ "
+              f"by {prep_err:.3g} of the largest magnitude ({said})",
+              file=sys.stderr)
     got = accel.accel_search_batch(card, T, cfg, device=device)
     want = accel.accel_search_batch(cpu, T, cfg, device="cpu")
     bound = cfg.sigma_min + 0.5
@@ -770,7 +840,7 @@ def check_small_accel(device):
              "of 8 and two batches of 4")
     print(f"small accel (8 x 2^15 samples, zmax 20, 4 harmonics, card vs "
           f"CPU): spectra max abs diff {prep_err:.3g} of the largest "
-          f"magnitude; candidates {sum(map(len, got))} card / "
+          f"magnitude, {said}; candidates {sum(map(len, got))} card / "
           f"{sum(map(len, want))} CPU, every one above {bound} matched; "
           f"{detecting}/8 spectra detect; batch of 8 and 2 x 4 on the card: "
           f"identical candidates")
@@ -2320,15 +2390,18 @@ CHAN_P_FOLD = CHAN_P_TRUE * (1 + 2.0e-5)
 
 def compare_chan(what, d, b, nbins, npart):
     """The channel kernel against its plain version on the card: counts
-    exact, profiles rtol 1e-5 / atol 1e-3; returns (profiles, counts, max
-    abs err)."""
+    exact, profiles rtol 1e-5 / atol 1e-3, and a second call the same bits;
+    returns (profiles, counts, max abs err)."""
     import torch
 
     from pypulsar_tpu_torch.ops import fold
 
     got_p, got_c = fold.fold_chan(d, b, nbins, npart)
+    again_p, again_c = fold.fold_chan(d, b, nbins, npart)
     want_p, want_c = fold._torch_fold_chan(d, b, nbins, npart)
     torch.cuda.synchronize()
+    if not (torch.equal(got_p, again_p) and torch.equal(got_c, again_c)):
+        fail(f"fold_chan {what}: two calls gave different bits")
     if not torch.equal(got_c, want_c):
         fail(f"fold_chan {what}: counts differ from the plain version")
     err = float((got_p - want_p).abs().max()) if got_p.numel() else 0.0
@@ -2402,7 +2475,8 @@ def check_fold_chan(device, report, data, bins):
         sb = torch.from_numpy(rng.integers(0, snb, st, dtype=np.int32)).to(
             device)
         sp, _, serr = compare_chan(label, sd, sb, snb, 1)
-        alone_in_block(label, sd, sb, snb, 1, sp, range(sc))
+        alone_in_block(label, sd, sb, snb, 1, sp, range(sc) if sc <= 32
+                       else (0, 1, 7, 8, 9, 31, 32, sc // 2, sc - 2, sc - 1))
         nbytes = 4.0 * sc * st + 4.0 * st + 4.0 * sc * snb + 4.0 * snb
         bms, by = bound(nbytes, float(sc) * st)
         # the library yardstick at this block: one torch.bmm with the
@@ -2413,10 +2487,16 @@ def check_fold_chan(device, report, data, bins):
         s_lib_err = float((torch.bmm(sd[None], s_onehot) - sp).abs().max())
         shapes[label] = dict(
             ms=cuda_time_ms(lambda: fold.fold_chan(sd, sb, snb, 1)),
+            single_call_ms=single_call_ms(lambda: fold.fold_chan(sd, sb, snb,
+                                                                 1)),
+            graph_ms=graph_ms(lambda: fold.fold_chan(sd, sb, snb, 1)),
+            layout=fold.chan_plan(st, snb, sc, 1)._asdict(),
             plain_ms=cuda_time_ms(lambda: fold._torch_fold_chan(
                 sd, sb, snb, 1), reps=3),
             bound_ms=bms, bound_by=by, max_abs_err=serr,
             library_ms=cuda_time_ms(lambda: torch.bmm(sd[None], s_onehot)),
+            library_graph_ms=graph_ms(lambda: torch.bmm(sd[None],
+                                                        s_onehot)),
             library_call="torch.bmm with the one-hot",
             library_max_abs_diff=s_lib_err)
         del sd, sb, sp, s_onehot
@@ -2444,12 +2524,22 @@ def check_fold_chan(device, report, data, bins):
         ("37 channels (off the 32-channel tile)", base[:, :65536],
          wild[:65536], 50, 4),
         ("views at +1 float", base[:, 1:50001], wild[1:50001], 64, 5),
+        # a partition shorter than one segment; a partition off a multiple
+        # of the segment; one channel at prepfold's partition
+        ("partitions of 100 samples (under one segment)", base[:, :300],
+         wild[:300], 64, 3),
+        ("a partition of 5003 samples (off the segment)", base[:, :5003],
+         wild[:5003], 64, 1),
+        ("C = 1 at prepfold's partition of 32768", base[:1, :32768],
+         wild[:32768].remainder(64).to(torch.int32), 64, 1),
     ]
     for what, ed, eb, enb, enp in cases:
         ep, _, e_err = compare_chan(what, ed, eb, enb, enp)
         alone_in_block(what, ed, eb, enb, enp, ep, range(ed.shape[0]))
-        done.append(f"{what}: {fold.chan_layout(enb)} (segments, channels) "
-                    f"a block, max abs err {e_err:.3g}")
+        plan = fold.chan_plan(ed.shape[1] // enp, enb, ed.shape[0], enp)
+        done.append(f"{what}: {plan.nseg} segments of {plan.seg_len} x "
+                    f"{plan.nsub} sub-stretches, {plan.ct} channels a block, "
+                    f"max abs err {e_err:.3g}")
     try:
         fold.fold_chan(base[:2, :1000], wild[:1000], fold.MAX_CHAN_NBINS + 1,
                        1)
@@ -2469,11 +2559,25 @@ def check_fold_chan(device, report, data, bins):
                  f"the C = 1 fold and of row {c} of the 2-D fold")
     done.append("1-D fold_bins == C = 1 == row of the 2-D fold, bit for bit")
     del base, wild, two_p
+    # one fold_bins chunk of a few channels: thousands of segments merged
+    n8 = engine._BINS_CHUNK
+    d8 = torch.randn((3, n8), generator=gen, device=device)
+    b8 = torch.from_numpy(rng.integers(-1, 65, n8, dtype=np.int32)).to(device)
+    p8, c8, e8 = compare_chan(f"one fold_bins chunk [3, {n8}]", d8, b8, 64, 1)
+    alone_in_block("one fold_bins chunk", d8, b8, 64, 1, p8, range(3))
+    f8_p, f8_c = engine.fold_bins(d8, b8, 64)
+    if not (torch.equal(f8_p, p8[0]) and torch.equal(f8_c, c8[0])):
+        fail("fold_bins at one chunk is not the bits of the channel fold")
+    plan = fold.chan_plan(n8, 64, 3, 1)
+    done.append(f"one fold_bins chunk [3, {n8}]: {plan.nseg} segments merged, "
+                f"max abs err {e8:.3g}, fold_bins the same bits")
+    del d8, b8, p8
     # the kernel timed on the resident block, beside its plain version and
     # the library calls
     ms = cuda_time_ms(lambda: fold.fold_chan(data, bins, nbins, npart))
     single_ms = single_call_ms(lambda: fold.fold_chan(data, bins, nbins,
                                                       npart))
+    replay_ms = graph_ms(lambda: fold.fold_chan(data, bins, nbins, npart))
     plain_ms = cuda_time_ms(lambda: fold._torch_fold_chan(
         data, bins, nbins, npart), reps=3)
     cols = torch.arange(nbins, device=device, dtype=torch.int32)
@@ -2498,26 +2602,32 @@ def check_fold_chan(device, report, data, bins):
     nbytes = 4.0 * C * T + 4.0 * T + 4.0 * npart * C * nbins \
         + 4.0 * npart * nbins
     bms, by = bound(nbytes, float(C) * npart * P)
-    nseg, ct = fold.chan_layout(nbins)
+    plan = fold.chan_plan(P, nbins, C, npart)
     report.append(dict(
         name="fold_chan", route="cuda",
         source="pypulsar_tpu_torch/ops/csrc/fold_chan.cu",
         replaces="pypulsar_tpu/fold/engine.py:76",
         shape=f"data [{C}, {T}] float32 (resident), bin_idx [{T}] int32, "
               f"nbins {nbins}, npart {npart} -> [{npart}, {C}, {nbins}]; "
-              f"{nseg} segments x {ct} channels a block",
-        max_abs_err=err, ms=ms, single_call_ms=single_ms, plain_ms=plain_ms,
+              f"{plan.nseg} segments of {plan.seg_len} x {plan.nsub} "
+              f"sub-stretches, {plan.ct} channels a block",
+        layout=plan._asdict(),
+        max_abs_err=err, ms=ms, single_call_ms=single_ms, graph_ms=replay_ms,
+        plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=library[0],
         library_call=library[1], library_ms_by_call={
             "torch.bmm": bmm_ms, "index_add_": index_add_ms},
         ms_by_shape=shapes))
     print(f"fold_chan: [{C}x{T}] -> [{npart}x{C}x{nbins}]: kernel {ms:.4f} "
-          f"ms (single calls {single_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+          f"ms (single calls {single_ms:.4f} ms, graph replays {replay_ms:.4f} "
+          f"ms), "
+          f"plain {plain_ms:.3f} ms, "
           f"bound {bms:.4f} ms ({by}: {nbytes / 1e9:.4f} GB), share "
           f"{bms / ms:.3f}; library {library[1]} {library[0]:.4f} ms "
           f"(bmm {bmm_ms:.4f} ms, max abs diff {bmm_err:.3g}; index_add_ "
           f"{index_add_ms:.4f} ms, max abs diff {ia_err:.3g}); max abs err "
-          f"{err:.3g}, counts exact; 8 channels alone == in the block; "
+          f"{err:.3g}, counts exact, two calls the same bits; 8 channels "
+          f"alone == in the block; layout {json.dumps(plan._asdict())}; "
           + json.dumps(shapes) + "; " + "; ".join(done))
     return profs, counts
 

@@ -43,7 +43,9 @@ batch, and both forms the same bits from the same bins.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -488,33 +490,102 @@ fold_parts_multi_poly.launches = 0
 # the channel fold: a [C, T] block at one shared bin sequence
 # ---------------------------------------------------------------------------
 
-_CHAN_SEGS = 4  # csrc/fold_chan.cu: time segments a block walks a channel in
+# csrc/fold_chan.cu's constants: samples of a row in one stage of the
+# load ring, floats between two rows of a stage, and stages of the ring
+_CHAN_W = 16
+_CHAN_RW = _CHAN_W + 4
+_CHAN_NSTAGE = 4
 _CHAN_TILE = 32  # channels a block takes at most
-#: the largest nbins the channel kernel takes: one segment of one channel
-#: (nbins floats, a padding row of nbins floats, nbins int32 counts)
-MAX_CHAN_NBINS = _MAX_SMEM // 12
+# a segment holds up to 32 samples a profile bin (at least 1024), a
+# multiple of 4 stages of a row
+_CHAN_SEG_BINS, _CHAN_SEG_MIN, _CHAN_SEG_ROUND = 32, 1024, 4 * _CHAN_W
+_CHAN_NSUB8_BINS = 64  # up to this many bins, 8 sub-stretches a segment
 
 
-def _chan_smem(nbins: int, nseg: int, ct: int) -> int:
-    return 4 * nbins * (nseg * ct + 1 + nseg)
+def _chan_smem(nbins: int, nsub: int, ct: int) -> int:
+    """Shared-memory bytes of a channel-kernel block: the load ring, the
+    [bin][thread] float histograms (an odd row of ``nt | 1``), the
+    [bin][sub-stretch] counts and one unread count a thread."""
+    nt = nsub * ct
+    return 4 * (_CHAN_NSTAGE * (nt + nsub) * _CHAN_RW + nbins * (nt | 1)
+                + nbins * nsub + nt)
 
 
-def chan_layout(nbins: int):
-    """(nseg, ct) of a channel-kernel block at ``nbins``: nseg time
-    segments (4, or 2 or 1 for wide profiles; a function of nbins alone,
-    which fixes the order of additions) x ct channels (at most 32, as
-    shared memory allows). ValueError past :data:`MAX_CHAN_NBINS`."""
-    for nseg in (_CHAN_SEGS, 2, 1):
-        if _chan_smem(nbins, nseg, 1) <= _MAX_SMEM:
-            ct = 1
-            while ct < _CHAN_TILE and _chan_smem(nbins, nseg, ct + 1) \
-                    <= _MAX_SMEM:
-                ct += 1
-            return nseg, ct
-    raise ValueError(f"nbins={nbins} exceeds the channel fold kernel's "
-                     f"largest, {MAX_CHAN_NBINS} (one segment's histograms "
-                     f"of 12 bytes a bin in {_MAX_SMEM} bytes of shared "
-                     f"memory)")
+#: the largest nbins the channel kernel takes: one thread's histogram and
+#: counts (8 bytes a bin) beside a one-row ring in a block's shared memory
+MAX_CHAN_NBINS = (_MAX_SMEM - _chan_smem(0, 1, 1)) // 8
+
+
+def chan_segments(part_len: int, nbins: int):
+    """(seg_len, nseg, nsub): how the channel kernel cuts each partition
+    of ``part_len`` samples, from ``(part_len, nbins)`` alone. These fix
+    the order of a channel's additions, so nothing else enters them: not
+    the channel count, the channel tile, the grid or the SM count.
+
+    A segment (a block's share of one partition) is balanced over the
+    partition at up to ``max(32 * nbins, 1024)`` samples, a multiple of
+    64; the last may be shorter, none is empty, and the ``nseg`` segments
+    cover ``[0, part_len)``. ``nsub`` threads split a segment into
+    sub-stretches of ``seg_len // nsub`` samples: 8 up to 64 bins, where
+    a thread's stretch would otherwise be a long chain of dependent adds
+    (prepfold folds a [32, P] block a call at its default 64 bins, too
+    few threads to hide it), else 4, or 2 or 1 where wide profiles leave
+    shared memory for fewer histograms. ValueError past
+    :data:`MAX_CHAN_NBINS`."""
+    for nsub in (8 if nbins <= _CHAN_NSUB8_BINS else 4, 2, 1):
+        if _chan_smem(nbins, nsub, 1) <= _MAX_SMEM:
+            break
+    else:
+        raise ValueError(f"nbins={nbins} exceeds the channel fold kernel's "
+                         f"largest, {MAX_CHAN_NBINS} (one thread's histogram "
+                         f"and counts of 8 bytes a bin in {_MAX_SMEM} bytes "
+                         f"of shared memory)")
+    r = _CHAN_SEG_ROUND
+    if part_len <= 0:
+        return r, 1, nsub
+    most = -(-max(_CHAN_SEG_BINS * nbins, _CHAN_SEG_MIN) // r) * r
+    nseg = -(-part_len // most)
+    seg_len = -(-(-(-part_len // nseg)) // r) * r
+    return seg_len, -(-part_len // seg_len), nsub
+
+
+class ChanPlan(NamedTuple):
+    """A channel-kernel launch: the segments of :func:`chan_segments`
+    (which fix the order of additions), a thread's samples, the channels a
+    block takes, its threads and shared-memory bytes, and the bytes of the
+    segments' partials (0 for one segment)."""
+
+    seg_len: int
+    nseg: int
+    nsub: int
+    sub_len: int
+    ct: int
+    threads: int
+    smem: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=256)
+def chan_plan(part_len: int, nbins: int, C: int, npart: int,
+              sms: int = 132) -> ChanPlan:
+    """The channel kernel's launch at ``(part_len, nbins)`` for ``C``
+    channels and ``npart`` partitions on a card of ``sms`` SMs: the
+    segments of :func:`chan_segments` (which alone fix the bits) and a
+    channel tile ``ct``, the most (up to 32) that shared memory allows,
+    halved while the grid (``ceil(C / ct) * npart * nseg`` blocks) is
+    under two blocks an SM. The tile changes no bit. The scratch holds
+    ``[npart, nseg, C, nbins]`` float32 partials and ``[npart, nseg,
+    nbins]`` int32 counts when ``nseg > 1``."""
+    seg_len, nseg, nsub = chan_segments(part_len, nbins)
+    ct = 1
+    while (ct < min(_CHAN_TILE, max(C, 1), _MAX_THREADS // nsub)
+           and _chan_smem(nbins, nsub, ct + 1) <= _MAX_SMEM):
+        ct += 1
+    while ct > 1 and -(-C // ct) * npart * nseg < 2 * sms:
+        ct = (ct + 1) // 2
+    scratch = 4 * npart * nseg * (C + 1) * nbins if nseg > 1 else 0
+    return ChanPlan(seg_len, nseg, nsub, seg_len // nsub, ct, nsub * ct,
+                    _chan_smem(nbins, nsub, ct), scratch)
 
 
 def _check_chan(data, bin_idx, nbins: int, npart: int) -> None:
@@ -565,26 +636,49 @@ def _torch_fold_chan(data, bin_idx, nbins: int, npart: int):
     return profs, counts
 
 
+_sm_counts = {}
+
+
+def _chan_launch_fn():
+    """The channel kernel's launch function, its argument types set."""
+    fn = _build.load("fold_chan").fold_chan_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64] \
+            + [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int64, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _cuda_fold_chan(data, bin_idx, nbins: int, npart: int):
     if data.stride(1) != 1:
         data = data.contiguous()
     bin_idx = bin_idx.contiguous()
     C, T = data.shape
-    nseg, ct = chan_layout(nbins)
-    lib = _build.load("fold_chan")
     dev = data.device
+    sms = _sm_counts.get(dev)
+    if sms is None:
+        sms = _sm_counts[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    plan = chan_plan(T // npart, nbins, C, npart, sms)
+    fn = _chan_launch_fn()
     profs = torch.empty((npart, C, nbins), dtype=torch.float32, device=dev)
     counts = torch.empty((npart, nbins), dtype=torch.int32, device=dev)
+    part = pcounts = None
+    if plan.nseg > 1:
+        # one allocation: [npart, nseg, C, nbins] float32 partials, then
+        # [npart, nseg, nbins] int32 counts
+        scratch = torch.empty(plan.scratch // 4, dtype=torch.float32,
+                              device=dev)
+        part = scratch.data_ptr()
+        pcounts = part + 4 * npart * plan.nseg * C * nbins
     stream = torch.cuda.current_stream(dev).cuda_stream
-    fn = lib.fold_chan_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     _build.check(fn(data.data_ptr(), data.stride(0), bin_idx.data_ptr(),
-                    profs.data_ptr(), counts.data_ptr(), C, T, npart, nbins,
-                    nseg, ct, stream), "fold_chan")
+                    profs.data_ptr(), counts.data_ptr(), part, pcounts,
+                    C, T, npart, nbins, plan.seg_len, plan.nseg, plan.nsub,
+                    plan.ct, plan.smem, stream), "fold_chan")
     _build.count_launch(fold_chan)
     return profs, counts
 
@@ -600,9 +694,11 @@ def fold_chan(data: torch.Tensor, bin_idx: torch.Tensor, nbins: int,
     ValueError on other types, shapes or devices, for ``P >= 2^24``, and
     (on the card) past :data:`MAX_CHAN_NBINS`. A CPU tensor runs the plain
     PyTorch version; a CUDA tensor launches ``csrc/fold_chan.cu`` (counted
-    in ``fold_chan.launches``), whose order of additions for a channel
-    depends only on ``(P, nbins)`` and the bins: a channel has the same
-    bits folded alone as inside any block. Rows may be a strided view."""
+    once a call in ``fold_chan.launches``: the walk over the segments of
+    :func:`chan_plan` and, for several segments, their merge), whose order
+    of additions for a channel depends only on ``(P, nbins)`` and the
+    bins: a channel has the same bits folded alone as inside any block.
+    Rows may be a strided view."""
     _check_chan(data, bin_idx, nbins, npart)
     if data.device.type == "cpu":
         return _torch_fold_chan(data, bin_idx, nbins, npart)

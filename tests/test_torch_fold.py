@@ -493,20 +493,105 @@ def test_chan_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert fold.fold_chan.launches == n0
 
 
+_CHAN_PARTS = (0, 1, 7, 100, 1023, 1025, 2049, 14286, 16384, 32768,
+               100003, 196611, 1 << 23)
+_CHAN_NBINS = (1, 50, 64, 128, 1024, 8000, 12000)
+
+
+@pytest.mark.parametrize("nbins", _CHAN_NBINS)
+@pytest.mark.parametrize("P", _CHAN_PARTS)
+def test_chan_segments_follow_part_len_and_nbins_only(P, nbins):
+    """The part of the channel kernel's plan that fixes the order of a
+    channel's additions is chan_segments(P, nbins): no channel count,
+    partition count or SM count changes it, only the channel tile."""
+    want = fold.chan_segments(P, nbins)
+    tiles = set()
+    for C in (0, 1, 3, 32, 37, 1024):
+        for npart in (1, 7, 64):
+            for sms in (1, 132, 1000):
+                plan = fold.chan_plan(P, nbins, C, npart, sms)
+                assert (plan.seg_len, plan.nseg, plan.nsub) == want
+                assert plan.sub_len * plan.nsub == plan.seg_len
+                tiles.add(plan.ct)
+    assert tiles <= set(range(1, 33))
+
+
+@pytest.mark.parametrize("nbins", _CHAN_NBINS)
+@pytest.mark.parametrize("P", _CHAN_PARTS)
+def test_chan_segments_tile_the_partition(P, nbins):
+    """The segments cover [0, P) with no gap and no overlap and none is
+    empty, also for P under one segment and off a multiple of 8; each is
+    at most max(32 * nbins, 1024) samples rounded up to 64, a multiple of
+    64, and its sub-stretches tile it."""
+    seg_len, nseg, nsub = fold.chan_segments(P, nbins)
+    assert seg_len % 64 == 0 and seg_len % nsub == 0 and nseg >= 1
+    assert seg_len <= -(-max(32 * nbins, 1024) // 64) * 64
+    covered = np.zeros(P, dtype=np.uint8)
+    for q in range(nseg):
+        lo, hi = q * seg_len, min((q + 1) * seg_len, P)
+        assert hi > lo or P == 0
+        covered[lo:hi] += 1
+        sub = seg_len // nsub
+        stretches = [(lo + r * sub, min(lo + (r + 1) * sub, hi))
+                     for r in range(nsub)]
+        assert sum(max(b - a, 0) for a, b in stretches) == hi - lo
+    assert (covered == 1).all()
+    if 0 < P <= max(32 * nbins, 1024):
+        assert nseg == 1
+
+
+@pytest.mark.parametrize("C", [1, 3, 32, 1024])
+@pytest.mark.parametrize("nbins", [1, 64, 128, 1024, 6385, 6386, 11558,
+                                   11559, 19370, fold.MAX_CHAN_NBINS])
+def test_chan_plan_fits_shared_memory(nbins, C):
+    """Shared memory (ring, histograms and counts) stays within the
+    232,448 bytes of a Hopper block at every nbins up to the largest, with
+    at most 128 threads; wide profiles take fewer sub-stretches."""
+    plan = fold.chan_plan(1 << 16, nbins, C, 4)
+    assert plan.smem == fold._chan_smem(nbins, plan.nsub, plan.ct)
+    assert plan.smem <= 232448 and plan.threads == plan.nsub * plan.ct
+    assert 1 <= plan.threads <= 128 and plan.ct <= min(C, 32)
+    assert plan.nsub == (8 if nbins <= 64 else 4 if nbins <= 6385
+                         else 2 if nbins <= 11558 else 1)
+
+
+@pytest.mark.parametrize("P,nbins,C,npart", [
+    (16384, 128, 1024, 64),   # the JAX fold benchmark's resident block
+    (32768, 64, 32, 1),       # prepfold's default block
+    (16384, 128, 1024, 1),    # prepfold --nsub 1024 -n 128 --npart 64
+    (1 << 23, 64, 3, 1),      # one fold_bins chunk of a few channels
+    (500, 64, 5, 3),          # one segment: no scratch
+])
+def test_chan_plan_scratch_and_grid(P, nbins, C, npart):
+    """Scratch is [npart, nseg, C, nbins] float32 partials and [npart,
+    nseg, nbins] int32 counts when a partition has several segments, none
+    for one; the tile is the most that fits unless the grid would be
+    under two blocks an SM, so one partition of prepfold's block spreads
+    over the card."""
+    plan = fold.chan_plan(P, nbins, C, npart, sms=132)
+    want = 4 * npart * plan.nseg * (C + 1) * nbins if plan.nseg > 1 else 0
+    assert plan.scratch == want
+    blocks = -(-C // plan.ct) * npart * plan.nseg
+    assert blocks >= 2 * 132 or plan.ct == 1
+    if (P, nbins, C, npart) == (32768, 64, 32, 1):
+        assert plan.nseg == 16 and blocks >= 132
+
+
 def test_chan_kernel_layout_follows_shared_memory():
-    """nbins alone sets the block's time segments (so the order of a
-    channel's additions); the channels a block takes only tile; the
-    largest nbins is refused one past it before any launch."""
-    assert fold.chan_layout(64) == (4, 32)
-    assert fold.chan_layout(128) == (4, 32)
-    assert fold.chan_layout(1024) == (4, 12)
-    assert fold.chan_layout(8000)[0] == 2
-    assert fold.chan_layout(fold.MAX_CHAN_NBINS) == (1, 1)
-    for nbins in (1, 64, 128, 1024, 8000, fold.MAX_CHAN_NBINS):
-        nseg, ct = fold.chan_layout(nbins)
-        assert fold._chan_smem(nbins, nseg, ct) <= fold._MAX_SMEM
+    """nbins alone sets how many threads split a segment (8 up to 64 bins,
+    then 4, 2 and 1 as the histograms fill shared memory); the channels a
+    block takes only tile; the largest nbins (no smaller than the first
+    channel kernel's 19370) is refused one past it before any launch."""
+    assert fold.MAX_CHAN_NBINS >= 19370
+    nsubs = [fold.chan_plan(1 << 16, nbins, 1024, 1).nsub
+             for nbins in (1, 64, 65, 128, 1024, 8000, fold.MAX_CHAN_NBINS)]
+    assert nsubs == [8, 8, 4, 4, 4, 2, 1]
+    plan = fold.chan_plan(100, fold.MAX_CHAN_NBINS, 2, 1)
+    assert (plan.ct, plan.threads) == (1, 1) and plan.smem <= 232448
     with pytest.raises(ValueError, match="largest"):
-        fold.chan_layout(fold.MAX_CHAN_NBINS + 1)
+        fold.chan_segments(100, fold.MAX_CHAN_NBINS + 1)
+    with pytest.raises(ValueError, match="largest"):
+        fold.chan_plan(100, fold.MAX_CHAN_NBINS + 1, 2, 1)
 
 
 def test_fold_stats_matches_reference_and_numpy_twin():
