@@ -91,7 +91,9 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    refined period within one grid step of the true one. Then one more
    ``--datbase`` fold under ``torch.profiler``: the fold kernel's,
    ``refine_chi2``'s and the copies' device time, the host prep's wall
-   time and the idle share.
+   time and the idle share, and the fold kernel's launches counted twice,
+   by the profiler (kernels matched by their whole name) and by the
+   wrappers' counters over the same run, beside each call's candidates.
 
 8. the survey's whole chain (``survey.dag.run_observation``: mask ->
    sweep ``--mask --journal`` -> sift -> fold -> snr) with the survey's
@@ -210,10 +212,35 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    walls, and its peak device memory. Then the same lane at the broker's
    default window (100 ms): the same bytes, its wall and fusions printed.
 
+12. PSRFITS, float32 ``.fil`` and multi-file input. (a) PSRFITS copies
+   of phase 4's file at 8 and 4 bits (the top nibble), subints of 2048
+   spectra, seeded per-channel scales and offsets drifting up to 1% from
+   subint to subint, 3 channels of weight 0; on every block the sweeps
+   below read (the DDplan's steps of the 8-bit copy, the flat sweep of
+   the 4-bit copy) the card's ingest (stored subints unpacked and scaled
+   there) must have the bits of the plain version on the CPU. (b)
+   ``cli.sweep --ddplan --lodm 0 --hidm 500`` on the 8-bit copy
+   (``BASELINE.json`` configs[2]): best candidate within one step's dDM
+   of 70, every kernel of the sweep launched. (c) The flat 1024-trial
+   sweep of the 4-bit copy: best within 1 of DM 70, the same kernels.
+   (d) ``run_observation`` (``SurveyConfig(lodm=54)``) on an 8-bit
+   PSRFITS copy of phase 8's RFI file with phase 8's gates (the tone and
+   the interval zapped, < 1% of other cells flagged, a DM-70 harmonic of
+   3.8147 Hz with |z| <= 2 and sigma > 10, a ``.pfd`` of SNR > 10, the
+   polynomial fold launched). (e) A float32 ``.fil`` of the first 2^18
+   samples with 12 non-finite cells, swept over 1024 trials: the scrub
+   must count exactly the cells its blocks hold (a cell in two blocks'
+   overlap counts twice), the pulsar found. (f) ``cli.rfifind`` of the
+   file split in two ``.fil`` on an interval boundary: the ``.mask`` the
+   bytes of the whole file's. One ``path NAME:`` line each: wall, bytes
+   shipped to the card, peak device memory, the card.
+
 Then one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
-and ``prepfold_cands`` and phase 11's ``lane`` among them), the card line,
-and the last line ``{"ok": true, "device": {...}}``.
+and ``prepfold_cands``, phase 11's ``lane`` and phase 12's
+``psrfits_ddplan``, ``psrfits_flat4``, ``psrfits_chain``, ``float32_fil``
+and ``mask_split`` among them), the card line, and the last line
+``{"ok": true, "device": {...}}``.
 """
 
 import collections
@@ -1599,19 +1626,42 @@ def fold_stage(tmp, fn, info, device, report):
     return l_dats, l_stream
 
 
+# the fold kernels' names in the profiler (demangled, parameters cut);
+# matched whole: a substring would also match a kernel whose name holds
+# another's
+FOLD_KERNEL_NAMES = ("fold_poly_kernel", "fold_array_kernel")
+
+
+def kernel_name(key: str) -> str:
+    """The bare function name of a profiler kernel key: without its
+    return type, namespaces, template arguments and parameter list
+    (``void (anonymous namespace)::fold_poly_kernel(float const*, ...)``
+    -> ``fold_poly_kernel``)."""
+    key = key.replace("(anonymous namespace)::", "")
+    key = key.split("(", 1)[0].split("<", 1)[0].strip()
+    return key.rsplit(" ", 1)[-1].rsplit("::", 1)[-1]
+
+
 def profile_fold(argv):
     """One more ``--datbase`` fold under torch.profiler: device time of the
     fold kernel, of ``refine_chi2``'s ops and of copies, the host prep's
-    wall time (on the prefetch worker) and the device's idle share."""
+    wall time (on the prefetch worker) and the device's idle share. The
+    fold kernel's launches are counted twice, by the profiler (kernels
+    whose name is one of ``FOLD_KERNEL_NAMES``) and by the wrappers'
+    counters over the same run, beside the candidates of each wrapper
+    call."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from pypulsar_tpu_torch.cli import foldbatch
     from pypulsar_tpu_torch.fold import engine
+    from pypulsar_tpu_torch.ops import fold as ops_fold
     from pypulsar_tpu_torch.parallel import foldpipe
 
     real_prep, real_refine = foldpipe._prep_group, engine.refine_chi2
+    real_poly = ops_fold.fold_parts_poly
     prep_s = [0.0]
+    calls = []
 
     def prep(*a, **kw):
         t0 = time.perf_counter()
@@ -1623,7 +1673,15 @@ def profile_fold(argv):
         with record_function("refine_chi2"):
             return real_refine(*a, **kw)
 
+    def poly(series, coeffs, *a, **kw):
+        calls.append(int(len(coeffs)))
+        return real_poly(series, coeffs, *a, **kw)
+
     foldpipe._prep_group, engine.refine_chi2 = prep, refine
+    engine_poly = getattr(engine, "fold_parts_poly", None)
+    if engine_poly is not None:
+        engine.fold_parts_poly = poly
+    reset_launch_counts()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1634,6 +1692,11 @@ def profile_fold(argv):
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         foldpipe._prep_group, engine.refine_chi2 = real_prep, real_refine
+        if engine_poly is not None:
+            engine.fold_parts_poly = engine_poly
+    counted = launch_counts()
+    counter_launches = counted["fold_parts_poly"] + counted[
+        "fold_parts_batch"]
     kernel_ms = copy_ms = fold_ms = refine_ms = 0.0
     h2d_ms, fold_n = 0.0, 0
     top, by_op = [], collections.Counter()
@@ -1648,7 +1711,7 @@ def profile_fold(argv):
             else:
                 kernel_ms += ms
                 top.append((ev.key[:70], round(ms, 3), ev.count))
-            if "fold_poly_kernel" in ev.key or "fold_array_kernel" in ev.key:
+            if kernel_name(ev.key) in FOLD_KERNEL_NAMES:
                 fold_ms += ms
                 fold_n += ev.count
         elif ev.key == "refine_chi2":
@@ -1659,7 +1722,10 @@ def profile_fold(argv):
     print("fold profile: " + json.dumps({
         "wall_ms": wall_ms, "kernel_ms": kernel_ms, "copy_ms": copy_ms,
         "h2d_ms": h2d_ms, "fold_kernel_ms": fold_ms,
-        "fold_launches": fold_n, "refine_chi2_ms": refine_ms,
+        "fold_launches_profiled": fold_n,
+        "fold_launches_counted": counter_launches,
+        "fold_calls_candidates": calls,
+        "refine_chi2_ms": refine_ms,
         "host_prep_s": prep_s[0],
         "idle_share": 1.0 - kernel_ms / wall_ms,
         "by_op_ms": dict(by_op.most_common(8)), "top_kernels": top[:8]}))
@@ -3315,6 +3381,377 @@ def lane_and_multi_phase(tmp, info, device, report, chain):
     return lane_phase(tmp, info, device, chain)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: PSRFITS, float32 .fil and multi-file input
+# ---------------------------------------------------------------------------
+
+FITS_NSBLK = 2048  # spectra a subint
+FITS_ZERO_WEIGHT = (3, 400, 777)  # stored (ascending) channels of weight 0
+FITS_HIDM = 500.0  # BASELINE.json configs[2]: a DDplan of DM 0-500
+NAN_CELLS = 12  # non-finite cells in the float32 file
+
+
+def write_fits_copy(fn, out, nbits, seed, weights=True):
+    """A PSRFITS copy of the SIGPROC file ``fn`` (8-bit samples; at 4 bits
+    their top nibble) in subints of ``FITS_NSBLK`` spectra, with seeded
+    per-channel scales (0.5-2) and offsets (-20..20) drifting by up to 1%
+    from subint to subint, and (``weights``) channels ``FITS_ZERO_WEIGHT``
+    of weight 0. Returns its path and the write's seconds."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.io.psrfits import write_psrfits
+
+    t0 = time.perf_counter()
+    with FilterbankFile(fn) as r:
+        hdr, C, T = r.header_size, r.nchans, r.nspec
+        freqs = np.asarray(r.frequencies)
+        tsamp, tstart = float(r.tsamp), float(r.tstart)
+    tc = np.memmap(fn, dtype=np.uint8, mode="r", offset=hdr, shape=(T, C))
+    data = tc.T if nbits == 8 else (tc >> 4).T
+    rng = np.random.default_rng(seed)
+    nsub = -(-T // FITS_NSBLK)
+    drift = rng.uniform(0.99, 1.01, (nsub, C))
+    scales = (rng.uniform(0.5, 2.0, C)[None, :] * drift).astype(np.float32)
+    offsets = rng.uniform(-20.0, 20.0, C).astype(np.float32)
+    wts = np.ones(C, np.float32)
+    if weights:
+        wts[list(FITS_ZERO_WEIGHT)] = 0.0
+    write_psrfits(out, data, freqs, tsamp, nsamp_per_subint=FITS_NSBLK,
+                  nbits=nbits, start_mjd=tstart, scales=scales,
+                  offsets=offsets, weights=wts)
+    del data, tc
+    return out, time.perf_counter() - t0
+
+
+def check_card_ingest(fits, geometries, device):
+    """Every block the sweeps read of ``fits`` (``(payload, overlap)`` raw
+    geometries), decoded on the card and by the plain version on the
+    CPU: each must have the same bits. Returns the blocks compared."""
+    import torch
+
+    from pypulsar_tpu_torch.io.psrfits import PsrfitsFile
+    from pypulsar_tpu_torch.parallel import staged
+
+    n = 0
+    with PsrfitsFile(fits) as pf:
+        src = staged.ReaderSource(pf)
+        for payload, overlap in geometries:
+            for (p1, card), (p2, cpu) in zip(
+                    src.chan_major_blocks(payload, overlap, device),
+                    src.chan_major_blocks(payload, overlap, "cpu")):
+                if p1 != p2 or card.shape != cpu.shape or not torch.equal(
+                        card.cpu().view(torch.int32), cpu.view(torch.int32)):
+                    fail(f"{fits}: the card's block at {p1} is not the CPU "
+                         f"ingest's bits")
+                n += 1
+                del card, cpu
+    return n
+
+
+def sweep_geometries(fits, steps, nsub=64):
+    """The raw (payload, overlap) of each pass a sweep makes over the
+    file: ``steps`` is a list of (dms, downsamp), the CLI's automatic
+    group size and default chunk."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.io.psrfits import PsrfitsFile
+    from pypulsar_tpu_torch.parallel import staged, sweep
+
+    out = []
+    with PsrfitsFile(fits) as pf:
+        src = staged.ReaderSource(pf)
+        for dms, factor in steps:
+            plan, payload, _ = staged.step_geometry(
+                src, np.asarray(dms, np.float64), factor, nsub, 0,
+                sweep.DEFAULT_WIDTHS, None)
+            out.append((payload * factor, plan.min_overlap * factor))
+    return out
+
+
+class PathMeter:
+    """Wall, bytes shipped to the card and peak device memory of one
+    driven path, and its kernel launches (counts set to 0 on entry)."""
+
+    def __init__(self, name, card):
+        self.name, self.card = name, card
+
+    def __enter__(self):
+        import torch
+
+        from pypulsar_tpu_torch.parallel.prefetch import ship_ahead
+
+        reset_launch_counts()
+        ship_ahead.bytes = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from pypulsar_tpu_torch.parallel.prefetch import ship_ahead
+
+        torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self.t0
+        self.launches = launch_counts()
+        self.shipped = ship_ahead.bytes
+        self.peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        return False
+
+    def line(self, **extra):
+        print(f"path {self.name}: " + json.dumps({
+            "wall_s": self.wall_s, "bytes_shipped": self.shipped,
+            "peak_device_gb": self.peak_gb, "card": self.card,
+            **extra, "launches": self.launches}))
+
+
+def best_cand(out):
+    with open(out + ".cands") as f:
+        rows = [ln.split() for ln in f.read().splitlines()[1:]]
+    if not rows:
+        fail(f"{out}.cands holds no candidate")
+    best = max(rows, key=lambda r: float(r[1]))
+    return float(best[0]), float(best[1]), len(rows)
+
+
+def psrfits_sweeps(tmp, fn, card):
+    """Phase 12 (a-c): PSRFITS copies of the phase-4 file at 8 and 4 bits,
+    their card ingest held to the CPU's on every block the sweeps read,
+    the DDplan sweep of DM 0-500 (configs[2]) on the 8-bit copy and the
+    flat 1024-trial sweep on the 4-bit copy."""
+    import argparse
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.io.psrfits import PsrfitsFile
+
+    fits8, w8 = write_fits_copy(fn, os.path.join(tmp, "obs8.fits"), 8,
+                                SEED + 12)
+    fits4, w4 = write_fits_copy(fn, os.path.join(tmp, "obs4.fits"), 4,
+                                SEED + 13)
+    with PsrfitsFile(fits8) as pf:
+        plan = cli.make_ddplan(pf, argparse.Namespace(
+            lodm=0.0, hidm=FITS_HIDM, plan_numsub=0, resolution=0.0))
+    flat_dms = 0.5 * np.arange(1024)
+    t0 = time.perf_counter()
+    n8 = check_card_ingest(fits8, sweep_geometries(
+        fits8, [(s.DMs, int(s.downsamp)) for s in plan.DDsteps]), "cuda")
+    n4 = check_card_ingest(fits4, sweep_geometries(fits4, [(flat_dms, 1)]),
+                           "cuda")
+    ingest_s = time.perf_counter() - t0
+    print(f"psrfits ingest: wrote the 8-bit copy in {w8:.1f} s "
+          f"({os.path.getsize(fits8) / 1e9:.3f} GB) and the 4-bit copy in "
+          f"{w4:.1f} s ({os.path.getsize(fits4) / 1e9:.3f} GB); the card's "
+          f"blocks the CPU ingest's bits: {n8} blocks of the DDplan's "
+          f"steps (8-bit), {n4} of the flat sweep (4-bit), in "
+          f"{ingest_s:.1f} s")
+    out8 = os.path.join(tmp, "fits_ddplan")
+    with PathMeter("psrfits_ddplan", card) as m8:
+        rc = cli.main([fits8, "--ddplan", "--lodm", "0", "--hidm",
+                       str(FITS_HIDM), "--nsub", "64", "-o", out8,
+                       "--device", "cuda"])
+    if rc != 0:
+        fail(f"sweep --ddplan on the 8-bit PSRFITS copy exited {rc}")
+    dm, snr, rows = best_cand(out8)
+    step = next(s for s in plan.DDsteps if s.loDM <= dm < s.hiDM)
+    if abs(dm - 70.0) > step.dDM:
+        fail(f"the PSRFITS DDplan's best candidate is at DM {dm}")
+    if min(m8.launches[k] for k in SWEEP_KERNELS) < 1:
+        fail(f"the PSRFITS DDplan missed a kernel: {m8.launches}")
+    m8.line(input="8-bit PSRFITS", trials=int(sum(
+        s.numDMs for s in plan.DDsteps)), steps=len(plan.DDsteps),
+        best={"dm": dm, "snr": snr}, cands=rows,
+        file_bytes=os.path.getsize(fits8))
+    out4 = os.path.join(tmp, "fits_flat4")
+    with PathMeter("psrfits_flat4", card) as m4:
+        rc = cli.main([fits4, "--lodm", "0", "--dmstep", "0.5", "--numdms",
+                       "1024", "--nsub", "64", "-o", out4, "--device",
+                       "cuda"])
+    if rc != 0:
+        fail(f"the flat sweep of the 4-bit PSRFITS copy exited {rc}")
+    dm, snr, rows = best_cand(out4)
+    if abs(dm - 70.0) > 1.0:
+        fail(f"the 4-bit PSRFITS sweep's best candidate is at DM {dm}")
+    if min(m4.launches[k] for k in SWEEP_KERNELS) < 1:
+        fail(f"the 4-bit PSRFITS sweep missed a kernel: {m4.launches}")
+    m4.line(input="4-bit PSRFITS", trials=1024, best={"dm": dm, "snr": snr},
+            cands=rows, file_bytes=os.path.getsize(fits4),
+            dm_trials_per_s=1024 / m4.wall_s)
+    for p in (fits8, fits4):
+        os.remove(p)
+    return m8.launches, m4.launches
+
+
+def psrfits_chain(tmp, chain, info, card):
+    """Phase 12 (d): ``run_observation`` on a PSRFITS copy of phase 8's
+    RFI file, with phase 8's gates."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.io.rfimask import RfifindMask
+    from pypulsar_tpu_torch.survey import dag
+    from pypulsar_tpu_torch.survey.state import Observation
+
+    fits, write_s = write_fits_copy(chain["rfi"], os.path.join(
+        tmp, "rfi.fits"), 8, SEED + 14, weights=False)
+    os.makedirs(os.path.join(tmp, "fitschain"))
+    obs = Observation("rfi_fits", fits, os.path.join(tmp, "fitschain",
+                                                     "rfi"))
+    cfg = dag.SurveyConfig(lodm=float(STAGE_LODM))
+    with PathMeter("psrfits_chain", card) as m:
+        walls = dag.run_observation(obs, cfg, device="cuda")
+    need = SWEEP_KERNELS + ("fold_parts_poly",)
+    if min(m.launches[k] for k in need) < 1:
+        fail(f"the PSRFITS chain did not launch every kernel: {m.launches}")
+    C = info["nchan"]
+    tone = sorted(C - 1 - c for c in TONE_CHANS)
+    mask = RfifindMask(obs.outbase + "_rfifind.mask")
+    if not (set(tone) <= set(mask.mask_zap_chans.tolist())
+            and RFI_INTERVAL in mask.mask_zap_ints.tolist()):
+        fail(f"the PSRFITS chain's mask zaps channels "
+             f"{mask.mask_zap_chans.tolist()} and intervals "
+             f"{mask.mask_zap_ints.tolist()}")
+    rest = np.delete(np.delete(mask._zap_table, tone, axis=1),
+                     [RFI_INTERVAL], axis=0)
+    if rest.mean() >= 0.01:
+        fail(f"the PSRFITS chain's mask flags {rest.mean():.2%} of the "
+             f"cells without RFI")
+    accel = accel_hits(obs.outbase + "_DM70.00_ACCEL_200.cand", info)
+    if not accel:
+        fail("the PSRFITS chain's DM-70 search holds no harmonic of the "
+             "pulsar with |z| <= 2 and sigma > 10")
+    with open(obs.outbase + "_foldbatch.json") as f:
+        results = json.load(f)["results"]
+    with open(obs.outbase + "_snr.json") as f:
+        snr = {row["name"]: row["snr"] for row in json.load(f)}
+    psr = info["period_samples"] * info["tsamp"]
+    hits = [dict(name=r["name"], dm=r["dm"], period=r["period"],
+                 snr=snr.get(r["name"])) for r in results
+            if harmonic_of(r["period"], psr) is not None
+            and abs(r["dm"] - 70.0) <= 2.0 and (snr.get(r["name"]) or 0) > 10]
+    if not hits:
+        fail("no PSRFITS chain candidate within 2 DM of 70 at the pulsar's "
+             "period or a harmonic folds to SNR > 10")
+    m.line(input="8-bit PSRFITS copy of the RFI file", write_s=write_s,
+           stage_wall_s=walls, mask_coverage=float(mask._zap_table.mean()),
+           other_cells_flagged=float(rest.mean()), accel=accel[0],
+           pulsar=max(hits, key=lambda h: h["snr"]),
+           streamed_chain_stage_wall_s=chain["walls"])
+    os.remove(fits)
+    return m.launches
+
+
+def float32_fil_sweep(tmp, fn, card):
+    """Phase 12 (e): a float32 ``.fil`` of the phase-4 file's first 2^18
+    samples with ``NAN_CELLS`` non-finite cells, swept over 1024 trials:
+    the scrub counts exactly the cells its blocks hold, and the pulsar is
+    found. The counts are the ones the sweep returns
+    (``StagedSweepResult.quality``)."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.io.filterbank import (
+        FilterbankFile,
+        write_filterbank,
+    )
+    from pypulsar_tpu_torch.parallel import staged, sweep
+
+    T = 1 << 18
+    with FilterbankFile(fn) as r:
+        hdr = dict(r.header, nbits=32, nsamples=T)
+        data = r.get_samples(0, T)
+    rng = np.random.default_rng(SEED + 15)
+    ts = rng.integers(0, T, NAN_CELLS)
+    cs = rng.integers(0, data.shape[1], NAN_CELLS)
+    data[ts, cs] = np.where(np.arange(NAN_CELLS) % 3 == 2, np.inf, np.nan)
+    f32 = os.path.join(tmp, "obs32.fil")
+    write_filterbank(f32, hdr, data)
+    del data
+    dms = 0.5 * np.arange(1024)
+    # the blocks the sweep reads: each cell counts once a block holding it
+    with FilterbankFile(f32) as r:
+        plan, payload, _ = staged.step_geometry(
+            staged.ReaderSource(r), dms, 1, 64, 0, sweep.DEFAULT_WIDTHS,
+            None)
+    starts = np.arange(0, T, payload)
+    expect = int(sum(((ts >= p) & (ts < p + payload + plan.min_overlap)).sum()
+                     for p in starts))
+    with PathMeter("float32_fil", card) as m:
+        with FilterbankFile(f32) as r:
+            res = staged.sweep_flat(r, dms, nsub=64, group_size=0,
+                                    device="cuda")
+    seen = res.quality
+    if seen is None:
+        fail("the float32 .fil sweep was not scrubbed")
+    if seen.nonfinite_cells != expect:
+        fail(f"the scrub counted {seen.nonfinite_cells} non-finite cells, "
+             f"the blocks hold {expect}")
+    top = res.best(1)[0]
+    dm, snr, rows = top["dm"], top["snr"], len(res.above_threshold(6.0))
+    if abs(dm - 70.0) > 1.0:
+        fail(f"the float32 .fil sweep's best candidate is at DM {dm}")
+    if min(m.launches[k] for k in SWEEP_KERNELS) < 1:
+        fail(f"the float32 .fil sweep missed a kernel: {m.launches}")
+    m.line(input="float32 .fil, 2^18 samples", scrub=seen.to_dict(),
+           nonfinite_expected=expect, blocks=len(starts),
+           best={"dm": dm, "snr": snr}, cands=rows)
+    os.remove(f32)
+    return m.launches
+
+
+def split_mask(tmp, fn, info, card):
+    """Phase 12 (f): the mask of the phase-4 file split into two ``.fil``
+    files on an interval boundary (one ``FilterbankObs``) must have the
+    bytes of the whole file's mask."""
+    from pypulsar_tpu_torch.cli import rfifind as cli
+    from pypulsar_tpu_torch.io import sigproc
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+
+    pts = int(round(MASK_TIME / info["tsamp"]))
+    cut = 32 * pts
+    parts = []
+    with FilterbankFile(fn) as r:
+        for i, (a, b) in enumerate(((0, cut), (cut, r.nspec))):
+            p = os.path.join(tmp, f"split{i}.fil")
+            hdr = dict(r.header, nsamples=b - a,
+                       tstart=r.tstart + a * r.tsamp / 86400.0)
+            with open(p, "wb") as f:
+                f.write(sigproc.pack_header(hdr))
+                r._read_raw_block(a, b - a).tofile(f)
+            parts.append(p)
+    whole = os.path.join(tmp, "whole")
+    t0 = time.perf_counter()
+    if cli.main([fn, "-o", whole, "-t", str(MASK_TIME), "--device",
+                 "cuda"]) != 0:
+        fail("the whole file's mask failed")
+    whole_s = time.perf_counter() - t0
+    split = os.path.join(tmp, "split")
+    with PathMeter("mask_split", card) as m:
+        rc = cli.main([parts[1], parts[0], "-o", split, "-t",
+                       str(MASK_TIME), "--device", "cuda"])
+    if rc != 0:
+        fail("the two-file mask failed")
+    with open(whole + "_rfifind.mask", "rb") as a, \
+            open(split + "_rfifind.mask", "rb") as b:
+        if a.read() != b.read():
+            fail("the two-file mask differs from the whole file's")
+    m.line(input=f"2 .fil files split at sample {cut}", whole_file_s=whole_s,
+           mask="the whole file's bytes")
+    for p in parts:
+        os.remove(p)
+    return m.launches
+
+
+def psrfits_phase(tmp, fn, info, chain, card):
+    """Phase 12: returns the launches of each new driven path."""
+    ddplan8, flat4 = psrfits_sweeps(tmp, fn, card)
+    return {"psrfits_ddplan": ddplan8, "psrfits_flat4": flat4,
+            "psrfits_chain": psrfits_chain(tmp, chain, info, card),
+            "float32_fil": float32_fil_sweep(tmp, fn, card),
+            "mask_split": split_mask(tmp, fn, info, card)}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -3359,6 +3796,7 @@ def main() -> int:
         prep = prepfold_phase(tmp, fn, info, device, report)
         lane_launches = lane_and_multi_phase(tmp, info, device, report,
                                              chain)
+        fits_paths = psrfits_phase(tmp, fn, info, chain, card)
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -3367,7 +3805,7 @@ def main() -> int:
              "sweep_tree": engines["tree"], "sweep_fourier": engines["fourier"],
              "spectral_stage": spectral, "spectral_decimated": decimated,
              "spectral_chain": spectral_ch, "ddplan": ddplan, **prep,
-             "lane": lane_launches}
+             "lane": lane_launches, **fits_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}

@@ -10,9 +10,10 @@ Series sources (exactly one):
 
 - ``--datbase BASE``: per-DM ``{BASE}_DM{dm:.2f}.dat`` files (the sweep
   stage's ``--write-dats`` artifacts);
-- a raw ``.fil`` positional: one streamed pass dedisperses every
-  candidate DM through the sweep's chunk kernels (``--mask`` applies the
-  sweep's rfifind mask to it);
+- a raw ``.fil`` or PSRFITS positional (opened by
+  :func:`~pypulsar_tpu_torch.cli.open_reader`): one streamed pass
+  dedisperses every candidate DM through the sweep's chunk kernels
+  (``--mask`` applies the sweep's rfifind mask to it);
 - a single ``.dat`` positional: every candidate folds that one series
   (its ``.inf`` DM replaces the candidates' own).
 
@@ -48,8 +49,8 @@ def build_parser():
         description="Fold an entire candidate list into PRESTO-format "
                     ".pfd archives in one batched pass on the GPU")
     p.add_argument("infile", nargs="?", default=None,
-                   help=".fil to stream, or a single .dat series (omit "
-                        "with --datbase)")
+                   help=".fil or .fits to stream, or a single .dat series "
+                        "(omit with --datbase)")
     p.add_argument("--cands", required=True, metavar="FILE",
                    help="candidate list: a sifted .accelcands file or a "
                         "'period_s dm [pdot]' table")
@@ -160,11 +161,11 @@ def main(argv=None) -> int:
             cands, outbase, source="dats",
             dat_for_dm=lambda dm: args.infile, **kwargs)
     else:
-        from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+        from pypulsar_tpu_torch.cli import open_reader
         from pypulsar_tpu_torch.io.rfimask import RfifindMask
 
         rfimask = RfifindMask(args.maskfile) if args.maskfile else None
-        with FilterbankFile(args.infile) as reader:
+        with open_reader(args.infile) as reader:
             summary = fold_pipeline(
                 cands, outbase, source="stream", reader=reader,
                 downsamp=args.downsamp, nsub=args.nsub,

@@ -7,19 +7,23 @@ Port of ``pypulsar_tpu/cli/rfifind.py``: block statistics on the card
 ``{outbase}_rfifind.mask`` in the reference's binary layout plus
 ``{outbase}_rfifind.stats.npz``. Flag names follow PRESTO's rfifind
 (-time/-timesig/-freqsig/-chanfrac/-intfrac/-zapchan/-zapints/-o) in
-argparse form. SIGPROC input only.
+argparse form.
 
-Run as ``python -m pypulsar_tpu_torch.cli.rfifind FILE.fil -o OUTBASE
-[-t SECONDS]``.
+The input is a SIGPROC ``.fil``, a PSRFITS file (by its ``.fits``/``.sf``
+name or its header, as the JAX package's CLI opens it), or several
+``.fil`` files of one observation, read as one
+:class:`~pypulsar_tpu_torch.io.fbobs.FilterbankObs` (the multi-file
+reader the JAX package's ``ops.rfifind.rfifind`` takes); all three by
+:func:`~pypulsar_tpu_torch.cli.open_reader`.
+
+Run as ``python -m pypulsar_tpu_torch.cli.rfifind FILE [FILE ...] -o
+OUTBASE [-t SECONDS]``.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-
-#: the input the port does not read yet, with the ROADMAP.md item
-NOT_PORTED_INPUT = "Queue 1 S7 (PSRFITS and multi-file input)"
 
 
 def parse_int_list(text: str):
@@ -40,12 +44,11 @@ def parse_int_list(text: str):
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="rfifind",
-        description="Generate an rfifind-compatible RFI mask from a SIGPROC "
-                    "filterbank file on the GPU")
+        description="Generate an rfifind-compatible RFI mask from a "
+                    "filterbank or PSRFITS file on the GPU")
     parser.add_argument("infile", nargs="+",
-                        help="input .fil file (one; PSRFITS and multi-file "
-                             "input are not ported yet: ROADMAP.md "
-                             + NOT_PORTED_INPUT + ")")
+                        help="input .fil or .fits file, or several .fil "
+                             "files of one observation")
     parser.add_argument("-o", "--outbase", required=True,
                         help="output basename (writes "
                              "<outbase>_rfifind.mask + .stats.npz)")
@@ -78,32 +81,14 @@ def build_parser():
     return parser
 
 
-def _is_psrfits(fn: str) -> bool:
-    """A FITS file by its name or its first card (``SIMPLE  =``)."""
-    if fn.endswith((".fits", ".sf")):
-        return True
-    try:
-        with open(fn, "rb") as f:
-            return f.read(9) == b"SIMPLE  ="
-    except OSError:
-        return False
-
-
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if len(args.infile) > 1:
-        parser.error(f"multi-file input is not ported yet (ROADMAP.md "
-                     f"{NOT_PORTED_INPUT})")
-    infile = args.infile[0]
-    if _is_psrfits(infile):
-        parser.error(f"PSRFITS input is not ported yet (ROADMAP.md "
-                     f"{NOT_PORTED_INPUT})")
 
-    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.cli import open_reader
     from pypulsar_tpu_torch.ops.rfifind import rfifind
 
-    with FilterbankFile(infile) as reader:
+    with open_reader(args.infile) as reader:
         stats, flags, maskfn = rfifind(
             reader, time=args.time, time_sigma=args.timesig,
             freq_sigma=args.freqsig, chanfrac=args.chanfrac,

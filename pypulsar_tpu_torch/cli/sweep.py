@@ -1,7 +1,8 @@
-"""Flat DM sweep of a SIGPROC filterbank from the command line: the
-survey's sweep stage.
+"""DM sweep of a SIGPROC filterbank or a PSRFITS file from the command
+line: the survey's sweep stage.
 
-Port of the flat single-file mode of ``pypulsar_tpu/cli/sweep.py``: sweep
+Port of the single-file mode of ``pypulsar_tpu/cli/sweep.py``, its
+input opened by :func:`~pypulsar_tpu_torch.cli.open_reader`: sweep
 ``--numdms`` trials from ``--lodm`` in steps of ``--dmstep`` on the card
 (``--device cuda``, the default) and write the single-pulse candidate
 list ``{outbase}.cands`` in the reference's format::
@@ -31,7 +32,10 @@ the same journal and flags skips every unit whose artifacts still
 validate (size and sha256). ``--accel-skip-existing`` skips trials whose
 ``.cand`` pair already validates.
 
-Run as ``python -m pypulsar_tpu_torch.cli.sweep FILE.fil --numdms N ...``.
+Several input files are refused: in the JAX package they are the mesh's
+batch axis, which comes with ROADMAP.md Queue 1 item 14.
+
+Run as ``python -m pypulsar_tpu_torch.cli.sweep FILE --numdms N ...``.
 """
 
 from __future__ import annotations
@@ -57,8 +61,6 @@ NOT_PORTED = {
     "no_accel_device_prep": ("--no-accel-device-prep",
                              "Queue 1 S9 (host prep of the accel search)"),
 }
-
-
 def write_cands(path, cands) -> None:
     """Write candidate rows atomically (tmp + os.replace); rows with a
     non-finite DM, SNR or time are dropped at the gate."""
@@ -77,9 +79,12 @@ def write_cands(path, cands) -> None:
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="sweep",
-        description="Flat DM-trial sweep of a .fil file on the GPU, with "
-                    "the streamed acceleration search")
-    ap.add_argument("infile", help="SIGPROC .fil input (8/4/2/1/16-bit)")
+        description="DM-trial sweep of a .fil or PSRFITS file on the GPU, "
+                    "with the streamed acceleration search")
+    ap.add_argument("infile", nargs="+",
+                    help="SIGPROC .fil (1-16 bit or float32) or PSRFITS "
+                         "input; one file (several are not ported yet: "
+                         "ROADMAP.md Queue 1 item 14)")
     ap.add_argument("-o", "--outbase", default=None,
                     help="output basename (default: input sans extension)")
     ap.add_argument("--lodm", type=float, default=0.0, help="lowest trial DM")
@@ -200,7 +205,7 @@ def _journal_fingerprint(args, dms, widths, outbase, rfimask) -> str:
                        args.accel_numharm, int(bool(args.accel_search)),
                        0, args.accel_max_cands, 1,
                        int(bool(args.spectral))]).tobytes())
-    h.update((args.infile + "|" + (args.maskfile or "")
+    h.update((args.infile[0] + "|" + (args.maskfile or "")
               + "|" + outbase + "|engine=" + resolve_engine(args.engine)
               ).encode())
     h.update(mask_tag(rfimask).encode())
@@ -228,6 +233,10 @@ def _check_args(ap, args) -> None:
     for dest, (flag, item) in NOT_PORTED.items():
         if getattr(args, dest):
             ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
+    if len(args.infile) > 1:
+        # the JAX package's multi-file batch axis
+        ap.error("several input files are not ported yet (ROADMAP.md "
+                 "Queue 1 item 14 (multi-GPU))")
     if args.engine in ENGINES_NOT_PORTED:
         ap.error(f"--engine {args.engine} is not ported yet (ROADMAP.md "
                  f"{ENGINES_NOT_PORTED[args.engine]})")
@@ -281,16 +290,17 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     _check_args(ap, args)
 
-    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.cli import open_reader
     from pypulsar_tpu_torch.io.rfimask import RfifindMask
     from pypulsar_tpu_torch.parallel.staged import sweep_ddplan, sweep_flat
     from pypulsar_tpu_torch.resilience.journal import RunJournal
 
     widths = tuple(int(w) for w in args.widths.split(","))
-    outbase = args.outbase or os.path.splitext(args.infile)[0]
+    infile = args.infile[0]
+    outbase = args.outbase or os.path.splitext(infile)[0]
     rfimask = RfifindMask(args.maskfile) if args.maskfile else None
     if args.ddplan:
-        with FilterbankFile(args.infile) as reader:
+        with open_reader(infile) as reader:
             plan = make_ddplan(reader, args)
             print(f"# DDplan: {len(plan.DDsteps)} steps, "
                   f"{sum(s.numDMs for s in plan.DDsteps)} total DM trials"
@@ -311,7 +321,7 @@ def main(argv=None) -> int:
             tool="sweep-accel")
         journal_done = journal.completed()
     try:
-        with FilterbankFile(args.infile) as reader:
+        with open_reader(infile) as reader:
             if "sweep:cands" in journal_done and not args.accel_only:
                 print(f"# journal: {outbase}.cands validated complete; "
                       f"skipping the single-pulse sweep pass")

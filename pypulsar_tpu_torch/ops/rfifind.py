@@ -12,9 +12,11 @@
    scale (:func:`clip_stats`), and the reduction to the mask products
    (:func:`mask_products`): whole channels or intervals past ``chanfrac``
    / ``intfrac`` of flagged blocks, the rest as per-interval lists.
-3. :func:`rfifind` drives both over a SIGPROC file (its raw blocks ship
-   to the card in the file's native dtype and are decoded there by
-   :func:`~pypulsar_tpu_torch.parallel.staged.ingest_tc`) and writes ``{outbase}_rfifind.mask`` in the reference's binary layout
+3. :func:`rfifind` drives both over a SIGPROC file, a PSRFITS file or a
+   multi-file observation (the sweep's block source: raw blocks ship to
+   the card in their stored form and are decoded there,
+   :class:`~pypulsar_tpu_torch.parallel.staged.ReaderSource`) and writes
+   ``{outbase}_rfifind.mask`` in the reference's binary layout
    (:mod:`pypulsar_tpu_torch.io.rfimask`) and ``.stats.npz``.
 
 The mean and the variance add up in float64 on the device and are
@@ -247,10 +249,11 @@ def mask_products(
 
 
 def _iter_file_blocks(reader, samples_per_read: int, device):
-    """[nchan, n] float32 low-frequency-first blocks of a SIGPROC reader on
+    """[nchan, n] float32 low-frequency-first blocks of a reader on
     ``device``: the sweep's block source (raw blocks shipped ahead,
-    decoded on the device, high-frequency-first) with its rows flipped
-    to the mask's ascending order."""
+    decoded on the device, high-frequency-first; never scrubbed, as the
+    JAX package's mask stage is not) with its rows flipped to the mask's
+    ascending order."""
     from pypulsar_tpu_torch.parallel.staged import ReaderSource
 
     for _, block in ReaderSource(reader).chan_major_blocks(
@@ -275,7 +278,10 @@ def rfifind(
     """Mask generation end to end on ``device``.
 
     ``reader`` is a SIGPROC :class:`~pypulsar_tpu_torch.io.filterbank.
-    FilterbankFile` (dt, channels and MJD from its header). Returns
+    FilterbankFile`, a :class:`~pypulsar_tpu_torch.io.psrfits.PsrfitsFile`
+    or a :class:`~pypulsar_tpu_torch.io.fbobs.FilterbankObs` (dt and
+    channels from its header; the MJD from the SIGPROC ``tstart``, the
+    PSRFITS ``specinfo.start_MJD`` or the first member's start). Returns
     ``(RfiStats, flags, maskfn-or-None)``, in mask channel order (channel
     0 = lowest frequency); ``outbase`` writes
     ``{outbase}_rfifind.mask`` and ``{outbase}_rfifind.stats.npz``.
@@ -284,12 +290,16 @@ def rfifind(
     2). A trailing partial interval of half an interval or more is padded
     by repeating its last sample; a shorter one is dropped."""
     device = resolve_device(device)
-    dt = float(reader.tsamp)
-    nchan = int(reader.nchans)
+    dt = float(getattr(reader, "dt", None) or reader.tsamp)
+    nchan = int(getattr(reader, "nchans", None) or getattr(reader, "nchan"))
     f = np.asarray(reader.frequencies, dtype=float)
     lofreq = float(f.min())
     df = float(abs(f[1] - f[0])) if len(f) > 1 else 0.0
     mjd = float(getattr(reader, "tstart", 0.0) or 0.0)
+    if not mjd and hasattr(reader, "specinfo"):  # PSRFITS
+        mjd = float(np.atleast_1d(reader.specinfo.start_MJD)[0])
+    if not mjd and hasattr(reader, "startmjds"):  # several files
+        mjd = float(np.atleast_1d(reader.startmjds)[0])
 
     pts = max(int(round(time / dt)), 2)
     means, stds, maxpows = [], [], []

@@ -76,27 +76,48 @@ def _as_tensor(block: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(block)
 
 
+_count_lock = threading.Lock()
+
+
+def _count_shipped(nbytes: int) -> None:
+    with _count_lock:
+        ship_ahead.bytes += nbytes
+
+
 def ship_ahead(raw_blocks: Iterable, device: torch.device, depth: int = 2):
-    """(pos, device tensor) for each (pos, host block), shipped ahead."""
+    """(pos, device tensor) for each (pos, host block), shipped ahead. A
+    block may be a tuple of arrays (a PSRFITS block and its scales); it
+    arrives as the tuple of their tensors. ``ship_ahead.bytes`` counts
+    the bytes copied to a CUDA device (set it to 0 to start again)."""
     device = torch.device(device)
     if device.type != "cuda":
         for pos, block in prefetch(raw_blocks, depth, name="read"):
-            yield pos, _as_tensor(block).to(device)
+            if isinstance(block, tuple):
+                yield pos, tuple(_as_tensor(b).to(device) for b in block)
+            else:
+                yield pos, _as_tensor(block).to(device)
         return
     side = torch.cuda.Stream(device)
 
     def ship(item):
         pos, block = item
-        host = _as_tensor(block).pin_memory()
+        parts = block if isinstance(block, tuple) else (block,)
+        hosts = [_as_tensor(b).pin_memory() for b in parts]
         with torch.cuda.stream(side):
-            dev = host.to(device, non_blocking=True)
+            devs = [h.to(device, non_blocking=True) for h in hosts]
             ready = torch.cuda.Event()
             ready.record(side)
-        return pos, dev, ready, host
+        _count_shipped(sum(h.numel() * h.element_size() for h in hosts))
+        dev = tuple(devs) if isinstance(block, tuple) else devs[0]
+        return pos, dev, ready, hosts
 
     current = torch.cuda.current_stream(device)
-    for pos, dev, ready, host in prefetch(raw_blocks, depth, ship, "ship"):
+    for pos, dev, ready, hosts in prefetch(raw_blocks, depth, ship, "ship"):
         current.wait_event(ready)
-        dev.record_stream(current)
-        del host  # the pinned buffer is the allocator's once the copy is done
+        for d in (dev if isinstance(dev, tuple) else (dev,)):
+            d.record_stream(current)
+        del hosts  # the pinned buffers are the allocator's once copied
         yield pos, dev
+
+
+ship_ahead.bytes = 0

@@ -1,10 +1,13 @@
-"""Streamed flat sweep of a filterbank file.
+"""Streamed sweep of a SIGPROC filterbank, a PSRFITS file or a multi-file
+observation.
 
 Port of the flat path of ``pypulsar_tpu/parallel/staged.py``: raw blocks
 in the file's native dtype ship ahead to the device
 (:func:`~pypulsar_tpu_torch.parallel.prefetch.ship_ahead`), are unpacked,
 transposed to [chan, time], widened to float32 and band-flipped there
-(:func:`ingest_tc`), optionally masked with an rfifind mask
+(:func:`ingest_tc`; PSRFITS subints are also scaled there,
+:func:`ingest_psrfits`), scrubbed of non-finite values when float-typed
+(``resilience/dataguard.py``), optionally masked with an rfifind mask
 (:class:`MaskedSource`, at the full sample rate), optionally downsampled,
 and fed to :func:`~pypulsar_tpu_torch.parallel.sweep.sweep_stream`.
 
@@ -43,6 +46,11 @@ from pypulsar_tpu_torch.parallel.sweep import (
     resolve_engine,
     sweep_stream,
 )
+from pypulsar_tpu_torch.resilience.dataguard import (
+    GuardedSource,
+    StreamQuality,
+    guard_source,
+)
 
 
 @dataclasses.dataclass
@@ -73,9 +81,12 @@ class StepResult:
 
 @dataclasses.dataclass
 class StagedSweepResult:
-    """The steps' results plus global candidate selection."""
+    """The steps' results plus global candidate selection. ``quality`` is
+    the scrub's account of the stream (summed over the steps' passes),
+    None when the source was not scrubbed (integer samples)."""
 
     steps: List[StepResult]
+    quality: Optional[StreamQuality] = None
 
     @property
     def n_trials(self) -> int:
@@ -115,6 +126,17 @@ def band_orientation(freqs) -> Tuple[np.ndarray, bool]:
     return (freqs[::-1].copy() if flip else freqs), flip
 
 
+def unpack_rows(packed: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Packed [rows, n] uint8 of ``nbits`` < 8 samples -> [rows, n*8//nbits]
+    samples, the low bits of each byte first (the lower channel in SIGPROC
+    and PSRFITS rows alike)."""
+    spb = 8 // nbits
+    mask = (1 << nbits) - 1
+    parts = [(packed >> (nbits * i)) & mask for i in range(spb)]
+    return torch.stack(parts, dim=-1).reshape(packed.shape[0],
+                                              packed.shape[1] * spb)
+
+
 def ingest_tc(raw_tc: torch.Tensor, flip: bool, nbits: int = 8):
     """[time, chan] native-dtype block -> [chan, time] float32, optionally
     band-flipped, on the block's device. ``nbits`` < 8 means ``raw_tc`` is
@@ -122,40 +144,107 @@ def ingest_tc(raw_tc: torch.Tensor, flip: bool, nbits: int = 8):
     unpacked here; 16-bit samples arrive as int16 and are widened as
     unsigned. Integer to float32 is exact."""
     if nbits < 8:
-        spb = 8 // nbits
-        mask = (1 << nbits) - 1
-        parts = [(raw_tc >> (nbits * i)) & mask for i in range(spb)]
-        raw_tc = torch.stack(parts, dim=-1).reshape(raw_tc.shape[0],
-                                                    raw_tc.shape[1] * spb)
+        raw_tc = unpack_rows(raw_tc, nbits)
     elif raw_tc.dtype == torch.int16:
         raw_tc = raw_tc.to(torch.int32) & 0xFFFF
     d = raw_tc.t().to(torch.float32, memory_format=torch.contiguous_format)
     return torch.flip(d, dims=(0,)) if flip else d
 
 
+def ingest_psrfits(data: torch.Tensor, scales: torch.Tensor,
+                   offsets: torch.Tensor, weights: torch.Tensor, skip: int,
+                   n: int, nbits: int, nchan: int, npol: int = 1,
+                   poln: int = 0, flip: bool = True) -> torch.Tensor:
+    """Stored PSRFITS subints -> [chan, n] float32 on their device.
+
+    ``data`` [nsub, row] is what
+    :meth:`~pypulsar_tpu_torch.io.psrfits.PsrfitsFile.raw_subints` reads:
+    packed bytes below 8 bits (low bits first), uint8, int16 or float32;
+    ``scales``/``offsets`` [nsub, npol*nchan] and ``weights`` [nsub,
+    nchan] float32 rows of each subint. The samples are unpacked, scaled
+    per channel and subint as ``(data*scales + offsets)*weights`` with
+    each step rounded to float32 on its own (separate elementwise ops, no
+    fused multiply-add: the JAX package's numpy sums, bit for bit),
+    polarisation ``poln`` kept, trimmed to samples [skip, skip + n) of
+    the subints' concatenation, transposed and, with ``flip``,
+    band-flipped."""
+    nsub = data.shape[0]
+    if nbits < 8:
+        data = unpack_rows(data, nbits)
+    x = data.to(torch.float32).reshape(nsub, -1, npol, nchan)[:, :, poln]
+    if npol > 1:
+        # DAT_SCL/DAT_OFFS hold npol consecutive nchan blocks
+        scales = scales[:, poln * nchan:(poln + 1) * nchan]
+        offsets = offsets[:, poln * nchan:(poln + 1) * nchan]
+    x = x * scales[:, None, :]
+    x.add_(offsets[:, None, :])
+    x.mul_(weights[:, None, :])
+    x = x.reshape(-1, nchan)[skip:skip + n]
+    if flip:
+        x = torch.flip(x, dims=(1,))
+    return x.t().contiguous()
+
+
+def _raw_blocks(read, payload: int, overlap: int, total: int):
+    """(pos, read(pos, n)) stepping by ``payload``, each ``n = payload +
+    overlap`` samples long except at the tail."""
+    pos = 0
+    while pos < total:
+        yield pos, read(pos, min(payload + overlap, total - pos))
+        pos += payload
+
+
 class ReaderSource:
-    """High-frequency-first block source over a
-    :class:`~pypulsar_tpu_torch.io.filterbank.FilterbankFile`."""
+    """High-frequency-first block source over a file reader: a SIGPROC
+    :class:`~pypulsar_tpu_torch.io.filterbank.FilterbankFile` (1-16 bit
+    and float32), a :class:`~pypulsar_tpu_torch.io.psrfits.PsrfitsFile`
+    or a :class:`~pypulsar_tpu_torch.io.fbobs.FilterbankObs`. Each ships
+    its blocks in their stored form and decodes them on the device:
+    :func:`ingest_tc` for filterbanks, :func:`ingest_psrfits` for
+    PSRFITS (the bytes of the subints a block spans, with their scales,
+    offsets and weights)."""
 
     def __init__(self, reader):
         self.reader = reader
         self.frequencies, self._flip = band_orientation(reader.frequencies)
         self.tsamp = float(reader.tsamp)
-        self.nsamples = int(reader.nspec)
-        self.nbits = int(reader.nbits)
+        for attr in ("number_of_samples", "nspec", "nsamples"):
+            n = getattr(reader, attr, None)
+            if n is not None:
+                self.nsamples = int(n)
+                break
+        else:
+            raise ValueError(f"cannot determine sample count of {reader!r}")
 
     def chan_major_blocks(self, payload: int, overlap: int, device):
         """(pos, [chan, time] float32 block on ``device``) stepping by
         ``payload``, each with ``overlap`` samples of lookahead."""
-        if self.nbits == 32:
-            # float payloads have no native-dtype ingest to save wire bytes
-            raise NotImplementedError(
-                "float32 .fil input is not ported yet (ROADMAP.md Queue 1 "
-                "S7)")
-        raw = self.reader.iter_blocks(payload, overlap, raw=True)
-        nbits = min(self.nbits, 8)
+        r = self.reader
+        if hasattr(r, "raw_subints"):
+            yield from self._psrfits_blocks(payload, overlap, device)
+            return
+        if hasattr(r, "get_raw_interval"):  # several files
+            nbits = r.fbs[0].nbits
+            raw = _raw_blocks(lambda pos, n: r.get_raw_interval(pos, pos + n),
+                              payload, overlap, self.nsamples)
+        else:
+            nbits = int(r.nbits)
+            raw = r.iter_blocks(payload, overlap, raw=True)
         for pos, dev in ship_ahead(raw, device):
-            yield pos, ingest_tc(dev, self._flip, nbits)
+            yield pos, ingest_tc(dev, self._flip, min(nbits, 8))
+
+    def _psrfits_blocks(self, payload: int, overlap: int, device):
+        r = self.reader
+        nsblk = int(r.nsamp_per_subint)
+        # raw rows are stored low-frequency-first unless need_flipband;
+        # the table above is high-frequency-first unless _flip
+        flip = (not r.specinfo.need_flipband) != self._flip
+        raw = _raw_blocks(r.raw_subints, payload, overlap, self.nsamples)
+        for pos, arrays in ship_ahead(raw, device):
+            n = min(payload + overlap, self.nsamples - pos)
+            yield pos, ingest_psrfits(
+                *arrays, pos % nsblk, n, int(r.nbits), int(r.nchan),
+                int(r.npoln), int(r.specinfo.default_poln), flip)
 
 
 class MaskedSource:
@@ -219,9 +308,21 @@ def mask_tag(rfimask) -> str:
 
 
 def make_source(reader, rfimask, device):
-    """The block source of ``reader``, masked when ``rfimask`` is given."""
-    src = ReaderSource(reader)
+    """The block source of ``reader``: scrubbed of non-finite values when
+    its blocks are float-typed
+    (:func:`~pypulsar_tpu_torch.resilience.dataguard.guard_source`), then
+    masked when ``rfimask`` is given. The scrub sits inside the mask: the
+    fill's channel medians must never see a NaN."""
+    src = guard_source(ReaderSource(reader))
     return src if rfimask is None else MaskedSource(src, rfimask, device)
+
+
+def stream_quality(src) -> Optional[StreamQuality]:
+    """The scrub's account of a :func:`make_source` source, None when it
+    is not scrubbed."""
+    if isinstance(src, MaskedSource):
+        src = src._src
+    return src.stats if isinstance(src, GuardedSource) else None
 
 
 def downsampled_blocks(src, factor: int, payload_ds: int, overlap_ds: int,
@@ -420,11 +521,12 @@ def sweep_flat(source, dms, downsamp: int = 1, nsub: int = 64,
     median-mid80 mask fill per raw block."""
     resolve_engine(engine)
     device = resolve_device(device)
-    step = run_step(make_source(source, rfimask, device),
-                    np.asarray(dms, dtype=np.float64),
+    src = make_source(source, rfimask, device)
+    step = run_step(src, np.asarray(dms, dtype=np.float64),
                     int(downsamp), nsub, group_size, tuple(widths),
                     chunk_payload, device, verbose=verbose, engine=engine)
-    return StagedSweepResult(steps=[] if step is None else [step])
+    return StagedSweepResult(steps=[] if step is None else [step],
+                             quality=stream_quality(src))
 
 
 def sweep_ddplan(source, ddplan, nsub: int = 64, group_size: int = 32,
@@ -451,4 +553,4 @@ def sweep_ddplan(source, ddplan, nsub: int = 64, group_size: int = 32,
         if sr is None:
             break
         steps.append(sr)
-    return StagedSweepResult(steps=steps)
+    return StagedSweepResult(steps=steps, quality=stream_quality(src))

@@ -1,12 +1,122 @@
-"""Output gates of the candidate tables (copies of ``finite_rows`` and
-``finite_cands`` from ``pypulsar_tpu/resilience/dataguard.py``, without
-telemetry): a non-finite value never reaches a published row."""
+"""Data-integrity layer: a copy of the stream scrub and the output gates
+of ``pypulsar_tpu/resilience/dataguard.py``, without telemetry, its
+environment switch and fault injection (ROADMAP.md Queue 1 S5).
+
+- **Stream scrub** (:func:`guard_source` / :class:`GuardedSource`): every
+  block of a float-typed source (float32 ``.fil``, 32-bit PSRFITS, a
+  multi-file observation) passes one ``isfinite`` pass on its device;
+  non-finite cells are zero-filled (rfifind-mask semantics: flagged data
+  contribute nothing) and counted. The counts stay device tensors while
+  the stream runs and are read once when it ends, into the source's
+  :class:`StreamQuality`, which the sweep returns
+  (``StagedSweepResult.quality``). Integer
+  sources (uint filterbanks, PSRFITS of 8 bits and fewer, whose
+  ``nbits`` says so) pass through unwrapped.
+- **Finite-output gates** (:func:`finite_rows` / :func:`finite_cands`):
+  a non-finite value never reaches a published row.
+"""
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import dataclasses
+from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class StreamQuality:
+    """Running account of what the scrub saw and did on a stream."""
+
+    cells: int = 0
+    nonfinite_cells: int = 0
+    zero_cells: int = 0
+    chunks: int = 0
+
+    def fraction_bad(self) -> float:
+        return self.nonfinite_cells / self.cells if self.cells else 0.0
+
+    def to_dict(self) -> Dict:
+        return {"cells": self.cells,
+                "nonfinite_cells": self.nonfinite_cells,
+                "zero_cells": self.zero_cells,
+                "chunks": self.chunks,
+                "fraction_bad": round(self.fraction_bad(), 6)}
+
+    def add(self, other: "StreamQuality") -> None:
+        self.cells += other.cells
+        self.nonfinite_cells += other.nonfinite_cells
+        self.zero_cells += other.zero_cells
+        self.chunks += other.chunks
+
+
+def scrub_block(block: torch.Tensor):
+    """(clean block, non-finite count, zero count) of a float block on its
+    device, the counts as 0-d device tensors."""
+    finite = torch.isfinite(block)
+    clean = torch.where(finite, block, torch.zeros((), dtype=block.dtype,
+                                                   device=block.device))
+    return clean, (~finite).sum(), (clean == 0).sum()
+
+
+class GuardedSource:
+    """A staged block source (``frequencies``/``tsamp``/``nsamples``/
+    ``chan_major_blocks``) with the scrub applied to every block.
+
+    Sits INSIDE any rfifind mask wrapper: the mask fill computes channel
+    medians, and a NaN reaching that reduction would poison the whole
+    channel. One host read of the counts when the stream ends."""
+
+    def __init__(self, src):
+        self._src = src
+        self.frequencies = src.frequencies
+        self.tsamp = src.tsamp
+        self.nsamples = src.nsamples
+        self.stats = StreamQuality()
+
+    def chan_major_blocks(self, payload: int, overlap: int, device):
+        n_bad = n_zero = None
+        seen = StreamQuality()
+        try:
+            for pos, block in self._src.chan_major_blocks(payload, overlap,
+                                                          device):
+                seen.chunks += 1
+                seen.cells += int(block.numel())
+                block, bad, zero = scrub_block(block)
+                n_bad = bad if n_bad is None else n_bad + bad
+                n_zero = zero if n_zero is None else n_zero + zero
+                yield pos, block
+        finally:
+            seen.nonfinite_cells = 0 if n_bad is None else int(n_bad)
+            seen.zero_cells = 0 if n_zero is None else int(n_zero)
+            self.stats.add(seen)
+            if seen.nonfinite_cells:
+                print(f"# dataguard: scrubbed {seen.nonfinite_cells} "
+                      f"non-finite cell(s) of {seen.cells} to zero")
+
+
+def _source_is_float(src) -> bool:
+    """True when the source's blocks are float-typed (can carry non-finite
+    values): a reader without ``nbits`` (a multi-file observation) or one
+    of 32 bits (float32 ``.fil``, 32-bit PSRFITS). A PSRFITS file of 8
+    bits or fewer is scaled to float32 but cannot hold a NaN in its
+    samples, and is not scrubbed, as in the JAX package."""
+    r = getattr(src, "reader", None)
+    if r is None:
+        return True
+    nbits = getattr(r, "nbits", None)
+    if nbits is None:
+        return True
+    return int(nbits) >= 32
+
+
+def guard_source(src):
+    """Wrap a staged block source with :class:`GuardedSource` when it can
+    carry non-finite values; otherwise return it as it is."""
+    if isinstance(src, GuardedSource) or not _source_is_float(src):
+        return src
+    return GuardedSource(src)
 
 
 def _finite(v) -> bool:

@@ -2,7 +2,7 @@
 fold -> snr over the port's entry points) against the JAX package's
 ``survey/dag.py`` on the CPU, on ``tests/test_survey.py``'s toy geometry
 (``OBS``, ``CFG_KW``; its ``_pulsar_fil`` pulsar, written in 8 bits with
-interference added, since the port reads no float32 ``.fil`` yet).
+interference added).
 
 Contracts, artifact by artifact (ROADMAP.md): ``.mask``, ``.cands``,
 ``.dat``, ``.accelcands`` and ``.pfd`` bytes equal; ``_snr.json`` equal

@@ -136,6 +136,58 @@ def test_engine_spectral_and_ddplan_entry_points_default_to_the_card(
     assert not list(tmp_path.glob("o*"))
 
 
+def test_psrfits_and_multi_file_entry_points_default_to_the_card(tmp_path):
+    """The sweep, the mask stage and the fold's stream source on a PSRFITS
+    file and on several .fil files raise without a card and write
+    nothing; asked for the CPU, they run."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default path would run")
+    from pypulsar_tpu_torch.cli import foldbatch, rfifind, sweep
+    from pypulsar_tpu_torch.io import psrfits
+    from pypulsar_tpu_torch.io.fbobs import FilterbankObs
+    from pypulsar_tpu_torch.io.filterbank import write_filterbank
+    from pypulsar_tpu_torch.ops import rfifind as ops_rfifind
+    from pypulsar_tpu_torch.parallel import staged
+
+    rng = np.random.default_rng(1)
+    data = rng.integers(0, 200, (16, 4096)).astype(np.float32)
+    freqs = 1500.0 - np.arange(16)
+    fits = str(tmp_path / "a.fits")
+    psrfits.write_psrfits(fits, data, freqs, 1e-3, nsamp_per_subint=256)
+    fils = []
+    for i in range(2):
+        fils.append(str(tmp_path / f"p{i}.fil"))
+        write_filterbank(fils[-1], dict(nchans=16, tsamp=1e-3, fch1=1500.0,
+                                        foff=-1.0, nbits=8,
+                                        tstart=58000.0 + i * 2.048 / 86400),
+                         data[:, i * 2048:(i + 1) * 2048].T)
+    cands = str(tmp_path / "c.txt")
+    with open(cands, "w") as f:
+        f.write("0.05 10.0\n")
+    out = str(tmp_path / "o")
+    calls = [
+        lambda: sweep.main([fits, "--numdms", "4", "-o", out, "-s", "4"]),
+        lambda: rfifind.main([fits, "-o", out]),
+        lambda: rfifind.main([*fils, "-o", out]),
+        lambda: foldbatch.main(["--cands", cands, fits, "-o", out, "-s",
+                                "4", "-n", "16", "--npart", "4"]),
+        lambda: ops_rfifind.rfifind(psrfits.PsrfitsFile(fits)),
+        lambda: ops_rfifind.rfifind(FilterbankObs(fils)),
+        lambda: staged.sweep_flat(psrfits.PsrfitsFile(fits), [0.0, 5.0],
+                                  nsub=4),
+        lambda: staged.sweep_flat(FilterbankObs(fils), [0.0, 5.0], nsub=4)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not list(tmp_path.glob("o*"))
+    # asked explicitly, the CPU runs
+    assert sweep.main([fits, "--numdms", "4", "-o", out, "-s", "4",
+                       "--device", "cpu"]) == 0
+    assert rfifind.main([*fils, "-o", out, "--device", "cpu"]) == 0
+
+
 @pytest.mark.parametrize("where", ["checkout", "alone"])
 def test_chip_smoke_prints_no_result_off_the_card(tmp_path, where):
     """Without a card, or copied away from the package, chip_smoke.py

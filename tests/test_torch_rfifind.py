@@ -272,33 +272,3 @@ def test_rfifind_defaults_to_the_card(tmp_path):
     assert cli.build_parser().get_default("device") == "cuda"
     _card_default(tmp_path, [fil, "-o", str(tmp_path / "a")])
     assert not os.path.exists(str(tmp_path / "a_rfifind.mask"))
-
-
-@pytest.mark.parametrize("kind", ["psrfits-name", "psrfits-card",
-                                  "multi-file"])
-def test_left_out_inputs_fail_naming_the_roadmap(tmp_path, capsys, kind):
-    data, _ = make_rfi_data(1, C=16, nint=4, pts=256, offset=100.0,
-                            scale=8.0)
-    fil = eight_bit_fil(str(tmp_path / "a.fil"), data)
-    if kind == "psrfits-name":
-        inputs = [str(tmp_path / "a.fits")]
-        open(inputs[0], "wb").close()
-    elif kind == "psrfits-card":
-        inputs = [str(tmp_path / "b.dat")]
-        with open(inputs[0], "wb") as f:
-            f.write(b"SIMPLE  =                    T" + b" " * 50)
-    else:
-        inputs = [fil, fil]
-    with pytest.raises(SystemExit) as e:
-        cli.main([*inputs, "-o", str(tmp_path / "x"), "--device", "cpu"])
-    assert e.value.code == 2
-    assert "ROADMAP.md Queue 1 S7" in capsys.readouterr().err
-
-
-def test_float32_fil_fails_naming_the_roadmap(tmp_path):
-    hdr = dict(nchans=8, tsamp=1e-3, fch1=1500.0, foff=-1.0, nbits=32)
-    fil = str(tmp_path / "f.fil")
-    write_filterbank(fil, hdr, np.ones((1000, 8), np.float32))
-    with pytest.raises(NotImplementedError, match="Queue 1 S7"):
-        cli.main([fil, "-o", str(tmp_path / "f"), "-t", "0.2",
-                  "--device", "cpu"])
