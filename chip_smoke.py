@@ -234,13 +234,39 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    file split in two ``.fil`` on an interval boundary: the ``.mask`` the
    bytes of the whole file's. One ``path NAME:`` line each: wall, bytes
    shipped to the card, peak device memory, the card.
+13. The ``Spectra`` surface, ``BASELINE.json`` configs[0] and [1]. (a)
+   A 10-s, 256-channel 8-bit file (156,250 samples of 64 us, the pulsar
+   at DM 70 every 3,125 samples, a 0/255 tone on 4 channels) masked by
+   ``cli.rfifind`` (the tone's channels must be zapped), then
+   ``cli.waterfaller -T 0 -t 10 --dm 70 --downsamp 4 --width-bins 4``
+   with ``-s 32 --mask`` and without, on the card, writing ``.npz``
+   (the card's machine has no matplotlib). For both: the CLI's image the
+   bits of ``get_data`` + ``prepare_data`` on the card; the card's read
+   and mask bit for bit the CPU's, then each op on the card's input on
+   both devices (subband, downsample rtol 1e-5 / atol 1e-5; the
+   dedispersed, trimmed cells bit for bit; scale and smooth rtol 1e-4 /
+   atol 1e-5), the whole chain rtol 1e-4 / atol 1e-4, and the summed
+   series peaking within 24 samples of the pulse. (b) The first 60 s of
+   phase 4's file (937,500 samples, 0.96 GB): ``cli.zero_dm_filter`` on
+   the card (GB/s read + written), its header the input's and its first
+   2^18 samples the bytes of the CPU port's but for float64-proven ties;
+   ``cli.sweep --write-dats`` at DM 70 on the output; ``cli.spectrogram
+   -t 1`` of the ``.dat``: the CLI's spectra ``get_spectra``'s, card
+   against CPU within rtol 2e-4 of each bin plus 2e-4 of its block's
+   mean power, and in every block the bins of the first 32 harmonics of
+   3.8147 Hz at least 4x what as many noise bins hold; ``detrend_blocks``
+   of the ``.dat`` in 1-s blocks (cells 6 sigma out omitted), card
+   against CPU within 1e-4 of each block's largest |y|, the kept cells
+   averaging 0. One ``path NAME:`` line each.
 
 Then one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
-and ``prepfold_cands``, phase 11's ``lane`` and phase 12's
+and ``prepfold_cands``, phase 11's ``lane``, phase 12's
 ``psrfits_ddplan``, ``psrfits_flat4``, ``psrfits_chain``, ``float32_fil``
-and ``mask_split`` among them), the card line, and the last line
-``{"ok": true, "device": {...}}``.
+and ``mask_split`` and phase 13's ``waterfaller_nsub_mask``,
+``waterfaller_plain``, ``zero_dm_filter``, ``zero_dm_sweep``,
+``spectrogram`` and ``detrend_blocks`` among them), the card line, and
+the last line ``{"ok": true, "device": {...}}``.
 """
 
 import collections
@@ -1768,12 +1794,13 @@ def write_rfi_copy(tmp, fn, info):
     return out, sorted(C - 1 - c for c in TONE_CHANS), RFI_INTERVAL
 
 
-def write_head(tmp, fn, n):
-    """A file of the first ``n`` samples of ``fn`` (all, if fewer)."""
+def write_head(tmp, fn, n, name="rfi_head.fil"):
+    """A file ``name`` of the first ``n`` samples of ``fn`` (all, if
+    fewer)."""
     from pypulsar_tpu_torch.io import sigproc
     from pypulsar_tpu_torch.io.filterbank import FilterbankFile
 
-    out = os.path.join(tmp, "rfi_head.fil")
+    out = os.path.join(tmp, name)
     with FilterbankFile(fn) as r:
         n = min(n, r.nspec)
         hdr = dict(r.header, nsamples=n)
@@ -3751,6 +3778,303 @@ def psrfits_phase(tmp, fn, info, chain, card):
             "float32_fil": float32_fil_sweep(tmp, fn, card),
             "mask_split": split_mask(tmp, fn, info, card)}
 
+# ---------------------------------------------------------------------------
+# phase 13: the Spectra surface (BASELINE.json configs[0] and [1])
+# ---------------------------------------------------------------------------
+
+# configs[0]: 10 s at 64 us of 256 channels, 50 pulses
+WF_NCHAN, WF_NSAMP, WF_PERIOD = 256, 156250, 3125
+ZDM_SECONDS = 60.0  # configs[1]: a 60-s file
+ZDM_CHECK = 1 << 18  # samples whose bytes are held to the CPU port's
+PSR_HZ = 1.0 / (4096 * 64e-6)  # the main file's pulsar: 3.8147 Hz
+SPEC_HARMONICS, SPEC_MIN_RATIO = 32, 4.0
+
+
+def close_enough(what, got, want, rtol, atol):
+    """Max abs difference of two tensors, failing outside
+    ``|got - want| <= atol + rtol * |want|``."""
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    if got.shape != want.shape:
+        fail(f"{what}: shapes {tuple(got.shape)} and {tuple(want.shape)}")
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        fail(f"{what}: card and CPU differ by up to "
+             f"{(got - want).abs().max().item()} (rtol {rtol}, atol {atol})")
+    return (got - want).abs().max().item()
+
+
+def same_bits(what, got, want):
+    import torch
+
+    if not torch.equal(got.cpu(), want.cpu()):
+        fail(f"{what}: card and CPU bits differ")
+    return 0.0
+
+
+def compare_waterfall(fn, nsub, mask, device):
+    """``get_data`` + ``prepare_data`` of the waterfaller on the card
+    against the CPU: the read and masked chunk bit for bit, then each op
+    of the fixed order on the card's input on both devices (subband,
+    downsample rtol 1e-5 / atol 1e-5; the dedispersed, trimmed cells are
+    gathers, bit for bit; scale and smooth rtol 1e-4 / atol 1e-5), and
+    the whole chain within rtol 1e-4 / atol 1e-4. Returns the max abs
+    errors, the pulse's sample and the card's image."""
+    from pypulsar_tpu_torch.cli import waterfaller
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+
+    with FilterbankFile(fn) as f:
+        dur = waterfaller.read_duration(f, 10.0, 70.0)
+        card = waterfaller.get_data(f, 0.0, duration=dur, mask=mask,
+                                    device=device)
+        host = waterfaller.get_data(f, 0.0, duration=dur, mask=mask,
+                                    device="cpu")
+    errs = {"get_data": same_bits("waterfaller get_data", card.data,
+                                  host.data)}
+    full_card = waterfaller.prepare_data(card, 4, 4, 70.0, nsub, 70.0)
+    full_host = waterfaller.prepare_data(host, 4, 4, 70.0, nsub, 70.0)
+    steps = [("subband", lambda d: d.subband(nsub or d.numchans, 70.0,
+                                             padval="mean"), 1e-5, 1e-5),
+             ("dedisperse", lambda d: d.dedisperse(70.0, padval="mean",
+                                                   trim=True), None, None),
+             ("downsample", lambda d: d.downsample(4), 1e-5, 1e-5),
+             ("scaled", lambda d: d.scaled(False), 1e-4, 1e-5),
+             ("smooth", lambda d: d.smooth(4, padval="mean"), 1e-4, 1e-5)]
+    x = card
+    for name, op, rtol, atol in steps:
+        c, h = op(x), op(x.to("cpu"))
+        errs[name] = (same_bits(f"waterfaller {name}", c.data, h.data)
+                      if rtol is None else
+                      close_enough(f"waterfaller {name}", c.data, h.data,
+                                   rtol, atol))
+        x = c
+    errs["chain"] = close_enough("waterfaller chain", full_card.data,
+                                 full_host.data, 1e-4, 1e-4)
+    ts = full_card.data.sum(dim=0).cpu()
+    peak = int(ts.argmax()) * 4
+    off = min(peak % WF_PERIOD, WF_PERIOD - peak % WF_PERIOD)
+    if off > 24:  # pulse of 8 samples, bins of 4, a 4-bin smooth
+        fail(f"the waterfall's summed series peaks at sample {peak}, "
+             f"{off} from the pulse")
+    return {"max_abs_err": errs, "peak_sample": peak,
+            "shape": list(full_card.data.shape),
+            "image": full_card.to_numpy()}
+
+
+def waterfaller_phase(tmp, card, device):
+    """Phase 13 (a), configs[0]: ``cli.waterfaller`` on a 10-s
+    256-channel 8-bit file with ``-s 32 --mask`` and without."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import rfifind, waterfaller
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.io.rfimask import RfifindMask
+    from pypulsar_tpu_torch.io.synth import write_synthetic_fil
+
+    fn = os.path.join(tmp, "wf.fil")
+    info = write_synthetic_fil(fn, nchan=WF_NCHAN, tsamp=64e-6, nsamp=WF_NSAMP,
+                               dm=70.0, period_samples=WF_PERIOD,
+                               seed=SEED + 20)
+    if info["nsamp"] != WF_NSAMP:
+        fail(f"the configs[0] file holds {info['nsamp']} samples")
+    # RFI for the mask to find: a square wave (period 16 samples, 0 and
+    # 255) on 4 file channels mid-band
+    tone = slice(WF_NCHAN // 2, WF_NCHAN // 2 + 4)
+    with FilterbankFile(fn) as r:
+        hdr_bytes = r.header_size
+    data = np.memmap(fn, dtype=np.uint8, mode="r+", offset=hdr_bytes,
+                     shape=(WF_NSAMP, WF_NCHAN))
+    data[:, tone] = np.where((np.arange(WF_NSAMP) // 8) % 2 == 0, 0,
+                             255).astype(np.uint8)[:, None]
+    data.flush()
+    del data
+    base = os.path.join(tmp, "wf")
+    if rfifind.main([fn, "-o", base, "-t", "1.0", "--device", device]) != 0:
+        fail("the configs[0] mask failed")
+    mask = base + "_rfifind.mask"
+    zapped = RfifindMask(mask).get_chan_mask(0, WF_NSAMP)  # file order
+    if not zapped[tone].all():
+        fail("the configs[0] mask left the tone's channels unzapped")
+    launches = {}
+    for name, extra, nsub, mfile in (
+            ("waterfaller_nsub_mask", ["-s", "32", "--mask", mask], 32, mask),
+            ("waterfaller_plain", [], None, None)):
+        npz = os.path.join(tmp, name + ".npz")
+        opts = ["-T", "0", "-t", "10", "--dm", "70", "--downsamp", "4",
+                "--width-bins", "4", *extra]
+        argv = [fn, *opts, "-o", npz, "--device", device]
+        with PathMeter(name, card) as m:
+            rc = waterfaller.main(argv)
+        if rc != 0:
+            fail(f"{name}: the waterfaller exited {rc}")
+        checks = compare_waterfall(fn, nsub, mfile, device)
+        with np.load(npz) as z:
+            if not np.array_equal(z["data"], checks.pop("image")):
+                fail(f"{name}: the CLI's image is not the bits of "
+                     f"get_data + prepare_data on the card")
+        m.line(config="BASELINE.json configs[0]",
+               input=f"{WF_NCHAN} chans x {WF_NSAMP} samples, 8-bit, DM 70",
+               mask_zapped_fraction=float(zapped.mean()),
+               argv=" ".join(opts).replace(mask, "MASK"), **checks)
+        launches[name] = m.launches
+    os.remove(fn)
+    return launches
+
+
+def spectral_line_ratio(spectra, freqs):
+    """Per block: the power of the bins nearest the first
+    ``SPEC_HARMONICS`` harmonics of the pulsar, over what as many noise
+    bins hold (the block's median power without DC, over ln 2)."""
+    import numpy as np
+
+    df = freqs[1]
+    bins = np.rint(PSR_HZ * np.arange(1, SPEC_HARMONICS + 1) / df).astype(
+        int)
+    noise = np.median(spectra[:, 1:], axis=1) / np.log(2.0)
+    return spectra[:, bins].sum(axis=1) / (SPEC_HARMONICS * noise)
+
+
+def zero_dm_phase(tmp, fn, card, device):
+    """Phase 13 (b), configs[1]: ``cli.zero_dm_filter`` on a 60-s head of
+    the main file, then ``cli.sweep --write-dats`` at DM 70 on its output,
+    ``cli.spectrogram -t 1`` and ``detrend_blocks`` of the ``.dat``, each
+    on the card against the CPU."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import spectrogram, zero_dm_filter
+    from pypulsar_tpu_torch.cli import sweep as sweep_cli
+    from pypulsar_tpu_torch.io.datfile import Datfile
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.utils.detrend import detrend_blocks
+
+    with FilterbankFile(fn) as r:
+        tsamp = float(r.tsamp)
+    head = write_head(tmp, fn, int(round(ZDM_SECONDS / tsamp)),
+                      "zdm_head.fil")
+    out = os.path.join(tmp, "zdm.fil")
+    launches = {}
+    with FilterbankFile(head) as r:
+        nsamp, nchan, hdr = r.nspec, r.nchans, r.header_size
+    nbytes = os.path.getsize(head)
+    with PathMeter("zero_dm_filter", card) as m:
+        rc = zero_dm_filter.main([head, "-o", out, "--device", device])
+    if rc != 0:
+        fail(f"zero_dm_filter exited {rc}")
+    # the first ZDM_CHECK samples against the CPU port
+    check = min(ZDM_CHECK, nsamp)
+    small = write_head(tmp, head, check, "zdm_small.fil")
+    small_out = os.path.join(tmp, "zdm_small_cpu.fil")
+    zero_dm_filter.zero_dm_file(small, small_out, device="cpu")
+    with open(head, "rb") as a:
+        in_hdr = a.read(hdr)
+    with open(small_out, "rb") as b:
+        b.seek(hdr)
+        want = np.frombuffer(b.read(), np.uint8)
+    with open(out, "rb") as a:
+        out_hdr = a.read(hdr)
+        got = np.frombuffer(a.read(check * nchan), np.uint8)
+    if out_hdr != in_hdr or os.path.getsize(out) != nbytes:
+        fail("zero_dm_filter: the output's header or length is not the "
+             "input's")
+    if got.size != want.size:
+        fail("zero_dm_filter: the CPU's output has another length")
+    with FilterbankFile(small) as r:
+        block = r._read_raw_block(0, check).reshape(check, nchan)
+    got, want = got.reshape(block.shape), want.reshape(block.shape)
+    bad = zero_dm_filter.unproven_differences(block, got, want)
+    if bad.size:
+        fail(f"zero_dm_filter: {len(bad)} bytes differ from the CPU's "
+             f"without a float64 tie, first at (t, c) = {bad[0].tolist()}")
+    m.line(config="BASELINE.json configs[1]",
+           input=f"{nchan} chans x {nsamp} samples, 8-bit "
+                 f"({nbytes / 1e9:.3f} GB)",
+           gb_per_s=2 * nbytes / m.wall_s / 1e9,
+           gb_per_s_counts="bytes read + bytes written",
+           cpu_check_samples=check,
+           differing_bytes=int((got != want).sum()),
+           unproven_bytes=0)
+    launches["zero_dm_filter"] = m.launches
+    for p in (head, small, small_out):
+        os.remove(p)
+
+    base = os.path.join(tmp, "zdm")
+    with PathMeter("zero_dm_sweep", card) as m:
+        rc = sweep_cli.main([out, "--lodm", "70", "--numdms", "1", "--nsub",
+                             "64", "--write-dats", "-o", base, "--device",
+                             device])
+    if rc != 0:
+        fail(f"the sweep of the filtered file exited {rc}")
+    dm, snr, _ = best_cand(base)
+    if abs(dm - 70.0) > 1e-6:
+        fail(f"the filtered file's sweep reports DM {dm}")
+    m.line(config="BASELINE.json configs[1]", best={"dm": dm, "snr": snr})
+    launches["zero_dm_sweep"] = m.launches
+    os.remove(out)
+
+    dat = base + "_DM70.00.dat"
+    npz = base + "_spectrogram.npz"
+    with PathMeter("spectrogram", card) as m:
+        rc = spectrogram.main([dat, "-t", "1", "-o", npz, "--device",
+                               device])
+    if rc != 0:
+        fail(f"spectrogram exited {rc}")
+    with Datfile(dat) as d:
+        spec_card, _, freqs = spectrogram.get_spectra(d, 1.0, device=device)
+        spec_cpu, _, _ = spectrogram.get_spectra(d, 1.0, device="cpu")
+        series = d.read_all()
+    with np.load(npz) as z:
+        if not np.array_equal(z["spectra"], spec_card):
+            fail("spectrogram: the CLI's spectra are not get_spectra's")
+    # rtol 2e-4 of each bin plus 2e-4 of its block's mean power: an FFT's
+    # rounding scales with the block's norm, not with one bin's power
+    tol = 2e-4 * (np.abs(spec_cpu)
+                  + spec_cpu.mean(axis=1, keepdims=True))
+    if not (np.abs(spec_card - spec_cpu) <= tol).all():
+        fail("spectrogram: the card's spectra differ from the CPU's by up "
+             f"to {np.abs(spec_card - spec_cpu).max()}")
+    ratio = spectral_line_ratio(spec_card, freqs)
+    if ratio.min() < SPEC_MIN_RATIO:
+        fail(f"spectrogram: the {PSR_HZ:.4f} Hz line stands only "
+             f"{ratio.min():.2f}x over the noise in block "
+             f"{int(ratio.argmin())}")
+    m.line(config="BASELINE.json configs[1]", blocks=int(spec_card.shape[0]),
+           bins=int(spec_card.shape[1]),
+           max_rel_err=float((np.abs(spec_card - spec_cpu)
+                              / (spec_cpu + spec_cpu.mean(
+                                  axis=1, keepdims=True))).max()),
+           line_hz=PSR_HZ, line_ratio_min=float(ratio.min()),
+           line_ratio_median=float(np.median(ratio)))
+    launches["spectrogram"] = m.launches
+
+    L = int(round(1.0 / tsamp))
+    nblk = series.size // L
+    y = series[:nblk * L].reshape(nblk, L)
+    x = np.tile(np.arange(L, dtype=np.float32), (nblk, 1))
+    med = np.median(y, axis=1, keepdims=True)
+    omit = np.abs(y - med) > 6 * y.std(axis=1, keepdims=True)
+    with PathMeter("detrend_blocks", card) as m:
+        got = detrend_blocks(y, x, omit, order=1, device=device)
+    want = detrend_blocks(y, x, omit, order=1, device="cpu")
+    scale = np.abs(y).max(axis=1, keepdims=True)
+    err = np.abs(got - want) / scale
+    if not np.isfinite(got).all() or err.max() > 1e-4:
+        fail(f"detrend_blocks: card and CPU differ by {err.max()} of a "
+             f"block's largest |y|")
+    kept_mean = np.abs(np.where(omit, 0.0, got).sum(axis=1)
+                       / (~omit).sum(axis=1))
+    if (kept_mean > 1e-3 * y.std(axis=1)).any():
+        fail("detrend_blocks: a block's kept cells do not average to 0")
+    m.line(config="BASELINE.json configs[1]", blocks=nblk, block_len=L,
+           omitted=int(omit.sum()), max_err_of_block_max=float(err.max()))
+    launches["detrend_blocks"] = m.launches
+    return launches
+
+
+def spectra_phase(tmp, fn, card, device="cuda"):
+    """Phase 13: returns the launches of each new driven path."""
+    return {**waterfaller_phase(tmp, card, device),
+            **zero_dm_phase(tmp, fn, card, device)}
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
@@ -3797,6 +4121,7 @@ def main() -> int:
         lane_launches = lane_and_multi_phase(tmp, info, device, report,
                                              chain)
         fits_paths = psrfits_phase(tmp, fn, info, chain, card)
+        spectra_paths = spectra_phase(tmp, fn, card)
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -3805,7 +4130,7 @@ def main() -> int:
              "sweep_tree": engines["tree"], "sweep_fourier": engines["fourier"],
              "spectral_stage": spectral, "spectral_decimated": decimated,
              "spectral_chain": spectral_ch, "ddplan": ddplan, **prep,
-             "lane": lane_launches, **fits_paths}
+             "lane": lane_launches, **fits_paths, **spectra_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}

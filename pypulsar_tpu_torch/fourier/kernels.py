@@ -2,8 +2,9 @@
 
 Port of the series half of ``pypulsar_tpu/fourier/kernels.py``
 (``DereddenSchedule``, ``deredden_schedule``, ``_masked_block_stat``,
-``_deredden_body``, ``prep_spectra_batch`` and ``deredden``) as plain
-PyTorch on complex64 tensors. ``deredden`` (PRESTO-style red-noise
+``_deredden_body``, ``prep_spectra_batch`` and ``deredden``), and the block
+power spectra of the spectrogram (``spectrogram``), as plain PyTorch on
+complex64 tensors. ``deredden`` (PRESTO-style red-noise
 normalization) looks sequential, but its log-growing block schedule
 depends only on the length, not on the data: the host precomputes the
 block boundaries (:func:`deredden_schedule`), and the device takes one
@@ -193,3 +194,14 @@ def deredden(fft: torch.Tensor, powers=None, initialbuflen=6, maxbuflen=200,
     return _deredden_body(fft, powers,
                           *_schedule_tensors(schedule, fft.device),
                           schedule.maxlen)
+
+
+def spectrogram(timeseries: torch.Tensor, samp_per_block: int) -> torch.Tensor:
+    """Power spectra of consecutive blocks of ``samp_per_block`` samples
+    on the series' device (the reference's bin/spectrogram.py:17-37):
+    the whole blocks as one batched rfft, then ``|.|^2``. Returns
+    ``[numspec, samp_per_block // 2 + 1]``."""
+    numspec = timeseries.shape[0] // samp_per_block
+    blocks = timeseries[:numspec * samp_per_block].reshape(numspec,
+                                                           samp_per_block)
+    return torch.fft.rfft(blocks, dim=1).abs() ** 2

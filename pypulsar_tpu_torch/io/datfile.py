@@ -6,9 +6,13 @@ needs: :class:`Datfile` opens the pair, cross-checks the sidecar against
 the bytes on disk (a garbage sidecar raises :class:`DataFormatError`; a
 ``.dat`` shorter than its sidecar says is salvaged to the whole samples
 on disk, reported in ``salvage``), applies the GBT/Spigot frequency and
-epoch corrections on load, and :meth:`Datfile.read_all` returns the whole
-series. The per-rotation reads (``read_Tseconds``, ``pulses``) and the
-baseline spline wait for ``prepfold``'s port (ROADMAP.md Queue 1 item 16).
+epoch corrections on load, and reads the series sequentially with two
+clocks: the *actual* time and MJD advance by the whole samples read, the
+*desired* ones by the seconds asked for, so that repeated
+``read_Tseconds(period)`` calls do not drift by cumulative rounding
+(``rewind``, ``read_Nsamples``, ``read_Tseconds``, ``read_to``,
+``seek_to``, ``read_all``). The per-rotation iterator (``pulses``) and
+the baseline spline are not ported (ROADMAP.md Queue 1 item S16).
 """
 
 from __future__ import annotations
@@ -16,8 +20,11 @@ from __future__ import annotations
 import os
 import warnings
 
+from typing import Optional
+
 import numpy as np
 
+from pypulsar_tpu_torch.core.psrmath import SECPERDAY
 from pypulsar_tpu_torch.io.errors import DataFormatError
 from pypulsar_tpu_torch.io.infodata import InfoData
 
@@ -46,6 +53,7 @@ class Datfile:
             self.datfile.close()
             raise
         correct_infdata(self.infdata)
+        self.rewind()
 
     def _validate_and_salvage(self) -> None:
         """Cross-check the .inf metadata against the byte stream: a
@@ -79,11 +87,72 @@ class Datfile:
                    if partial_tail else ""))
             inf.N = int(min(actual, N))
 
+    def __read(self, N: int) -> Optional[np.ndarray]:
+        N = int(N)
+        if self.currsample + N > self.infdata.N:
+            return None
+        self.currsample += N
+        if hasattr(self.infdata, "epoch"):
+            self.currmjd_actual += self.infdata.dt * N / SECPERDAY
+        self.currtime_actual += self.infdata.dt * N
+        return np.fromfile(self.datfile, dtype=self.dtype, count=N)
+
+    def __update_desired_time(self, T: float):
+        self.currtime_desired += T
+        if hasattr(self.infdata, "epoch"):
+            self.currmjd_desired += T / SECPERDAY
+
+    def read_Nsamples(self, N: int) -> Optional[np.ndarray]:
+        """The next N samples (None, reading nothing, past the end)."""
+        data = self.__read(N)
+        if data is not None:
+            self.__update_desired_time(N * self.infdata.dt)
+        return data
+
+    def read_Tseconds(self, T: float) -> Optional[np.ndarray]:
+        """The samples up to the desired clock plus T seconds, rounded to
+        the nearest sample."""
+        endsample = np.round((self.currtime_desired + T) / self.infdata.dt)
+        data = self.__read(int(endsample - self.currsample))
+        if data is not None:
+            self.__update_desired_time(T)
+        return data
+
+    def read_to(self, N: int) -> Optional[np.ndarray]:
+        """The samples up to sample N (-1: to the end)."""
+        if N == -1:
+            return self.read_Nsamples(self.inf.N - self.currsample)
+        return self.read_Nsamples(N - self.currsample)
+
     def read_all(self) -> np.ndarray:
         """The whole series (``inf.N`` samples) from the start."""
+        self.rewind()
+        return self.__read(self.infdata.N)
+
+    def seek_to(self, T: float) -> int:
+        """Move both clocks to T seconds from the start; returns the
+        sample now current."""
+        self.rewind()
+        num = int(np.round((self.currtime_desired + T) / self.infdata.dt)
+                  - self.currsample)
+        self.datfile.seek(self.datfile.tell() + num * self.bytes_per_sample)
+        self.currsample = num
+        if hasattr(self.infdata, "epoch"):
+            self.currmjd_actual = (self.infdata.epoch
+                                   + self.infdata.dt * num / SECPERDAY)
+            self.currmjd_desired = self.infdata.epoch + T / SECPERDAY
+        self.currtime_actual = self.infdata.dt * num
+        self.currtime_desired = T
+        return num
+
+    def rewind(self):
         self.datfile.seek(0)
-        return np.fromfile(self.datfile, dtype=self.dtype,
-                           count=self.infdata.N)
+        self.currsample = 0
+        self.currtime_actual = 0.0
+        self.currtime_desired = 0.0
+        if hasattr(self.infdata, "epoch"):
+            self.currmjd_actual = self.infdata.epoch
+            self.currmjd_desired = self.infdata.epoch
 
     def close(self):
         self.datfile.close()

@@ -5,18 +5,19 @@ A copy of ``pypulsar_tpu/io/fbobs.py`` over the port's
 sorted by start MJD, a cumulative sample index maps an observation sample
 to its file, and sample intervals are read across file boundaries.
 :meth:`FilterbankObs.get_raw_interval` reads the same interval in the
-files' native dtype, for an ingest on the card. The JAX package's
-``Spectra`` loaders (``get_spectra``, ``iter_blocks``) are not ported
-(ROADMAP.md Queue 1 item 15).
+files' native dtype, for an ingest on the card, and the ``Spectra``
+loaders :meth:`FilterbankObs.get_spectra` and
+:meth:`FilterbankObs.iter_blocks` ship that interval to the device, where
+it is widened and transposed.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+from pypulsar_tpu_torch.io.filterbank import FilterbankFile, raw_spectra
 
 __all__ = ["FilterbankObs", "fbobs"]
 
@@ -108,6 +109,36 @@ class FilterbankObs:
             startsamp, endsamp,
             lambda fb, lo, n: fb._read_raw_block(lo, n).reshape(n, row),
             np.empty((0, row), dtype=fb0.dtype))
+
+    def get_spectra(self, startsamp: int, N: int, device="cuda"):
+        """The loader boundary: the [chan, time] float32
+        :class:`~pypulsar_tpu_torch.core.spectra.Spectra` of samples
+        ``[startsamp, startsamp + N)`` (clipped to the observation) on
+        ``device``, channels in file order."""
+        return raw_spectra(self.get_raw_interval(startsamp, startsamp + N),
+                           self.fbs[0].nbits, self.frequencies, self.tsamp,
+                           startsamp, device)
+
+    def iter_blocks(self, block_len: int, overlap: int = 0, start: int = 0,
+                    end: Optional[int] = None, device="cuda",
+                    ) -> Iterator[Tuple[int, object]]:
+        """``(start_sample, Spectra)`` blocks of ``block_len`` samples
+        stepping by ``block_len - overlap`` (the last ``overlap`` samples
+        of a block are read again at the start of the next)."""
+        if end is None:
+            end = self.number_of_samples
+        step = block_len - overlap
+        if step <= 0:
+            raise ValueError("block_len must exceed overlap")
+        pos = start
+        while pos < end:
+            yield pos, self.get_spectra(pos, min(block_len, end - pos),
+                                        device)
+            pos += step
+            if pos + overlap >= end:
+                # the rest was this block's tail: a further block would
+                # hold only samples read again
+                break
 
 
 # Reference-compatible alias (the original class name is lowercase `fbobs`).

@@ -1,9 +1,11 @@
 """SIGPROC filterbank reader and writer.
 
-Port of ``pypulsar_tpu/io/filterbank.py`` without its ``Spectra`` wrapper
-and native prefetcher: blocks are read with numpy, and the streamed sweep
-ships them ahead from a daemon thread
-(:mod:`pypulsar_tpu_torch.parallel.prefetch`).
+Port of ``pypulsar_tpu/io/filterbank.py`` without its native prefetcher:
+blocks are read with numpy, and the streamed sweep ships them ahead from
+a daemon thread (:mod:`pypulsar_tpu_torch.parallel.prefetch`).
+:meth:`FilterbankFile.get_spectra` is the loader of a ``Spectra``: the
+block travels in the file's own dtype and is widened and transposed on
+the device.
 
 Sub-byte files (4/2/1 bits) pack ``8 // nbits`` channels per byte, low
 bits = lower channel index. Raw blocks stay packed, so a 4-bit file moves
@@ -113,6 +115,16 @@ class FilterbankFile:
             data = unpack_subbyte(data, self.nbits)
         return data.reshape(int(N), self.nchans).astype(np.float32)
 
+    def get_spectra(self, startsamp: int, N: int, device="cuda"):
+        """The loader boundary: the [chan, time] float32
+        :class:`~pypulsar_tpu_torch.core.spectra.Spectra` of N samples
+        from ``startsamp`` on ``device``, channels in file order (the
+        bits of ``get_samples(startsamp, N).T``)."""
+        row = self.bytes_per_spectrum if self.nbits < 8 else self.nchans
+        raw = self._read_raw_block(startsamp, N).reshape(int(N), row)
+        return raw_spectra(raw, self.nbits, self.frequencies,
+                           float(self.tsamp), int(startsamp), device)
+
     def iter_blocks(self, block_size: int, overlap: int = 0, start: int = 0,
                     end: Optional[int] = None, raw: bool = False,
                     ) -> Iterator[Tuple[int, np.ndarray]]:
@@ -137,6 +149,21 @@ class FilterbankFile:
                 block = self.get_samples(pos, n)
             yield pos, block
             pos += block_size
+
+
+def raw_spectra(raw: np.ndarray, nbits: int, freqs, tsamp: float,
+                startsamp: int, device="cuda"):
+    """The :class:`~pypulsar_tpu_torch.core.spectra.Spectra` on
+    ``device`` of a [time, ...] block in its stored dtype (packed below 8
+    bits): shipped as it is, then widened and transposed there
+    (:func:`~pypulsar_tpu_torch.parallel.staged.ingest_tc`)."""
+    from pypulsar_tpu_torch.core.device import resolve_device
+    from pypulsar_tpu_torch.core.spectra import Spectra
+    from pypulsar_tpu_torch.parallel.prefetch import ship
+    from pypulsar_tpu_torch.parallel.staged import ingest_tc
+
+    data = ingest_tc(ship(raw, resolve_device(device)), False, min(nbits, 8))
+    return Spectra(freqs, tsamp, data, starttime=tsamp * startsamp, dm=0.0)
 
 
 DEFAULT_HEADER = {

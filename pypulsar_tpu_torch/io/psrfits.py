@@ -8,14 +8,13 @@ to without astropy; BINTABLE data stay memmapped):
   :func:`DATEOBS_to_MJD` and :class:`SpectraInfo`, whose header checks
   raise the located :class:`~pypulsar_tpu_torch.io.errors.DataFormatError`;
 - :class:`PsrfitsFile`: ``read_subint`` applies ``(data*scales +
-  offsets)*weights`` per channel on the host with numpy, and
-  ``get_spectra(startsamp, N)`` returns the ``[chan, time]`` float32
-  array that the JAX package's ``Spectra.data`` holds, flipped to
-  high-frequency-first unless the file already is. The streamed sweep
-  does not use it: :meth:`PsrfitsFile.raw_subints` hands the stored
-  subint bytes with their scales, offsets and weights to
+  offsets)*weights`` per channel on the host with numpy;
+  :meth:`PsrfitsFile.raw_subints` hands the stored subint bytes with
+  their scales, offsets and weights to
   :func:`pypulsar_tpu_torch.parallel.staged.ingest_psrfits`, which does
-  the same sums on the block's device;
+  the same sums on the block's device, for the streamed sweep and for
+  ``get_spectra(startsamp, N, device)``, the loader of a ``Spectra``
+  flipped to high-frequency-first unless the file already is;
 - :func:`write_psrfits`, the JAX package's writer, quantizing a few
   subints at a time so a long file needs no float32 copy of the whole
   array, and taking per-subint scales, offsets and weights as well as
@@ -401,8 +400,8 @@ _STORED_DTYPE = {1: np.uint8, 2: np.uint8, 4: np.uint8, 8: np.uint8,
 
 class PsrfitsFile:
     """Random-access search-mode PSRFITS reader: ``read_subint``,
-    ``get_weights/scales/offsets``, ``get_spectra(startsamp, N)`` and,
-    for the card, ``raw_subints``."""
+    ``get_weights/scales/offsets``, ``raw_subints`` (the stored form, for
+    the card) and ``get_spectra(startsamp, N, device)``."""
 
     def __init__(self, psrfitsfn: str):
         if not os.path.isfile(psrfitsfn):
@@ -511,26 +510,30 @@ class PsrfitsFile:
                 self.filename,
                 f"malformed {what} ({type(e).__name__}: {e})") from e
 
-    def get_spectra(self, startsamp: int, N: int) -> np.ndarray:
-        """[chan, time] float32 block of exactly N samples spanning
-        subints, high-frequency-first unless the file is already inverted:
-        the JAX package's ``get_spectra(startsamp, N).data``."""
-        startsamp, N = int(startsamp), int(N)
-        self._check_range(startsamp, N)
-        return self._located("SUBINT payload", self._get_spectra,
-                             startsamp, N)
+    def get_spectra(self, startsamp: int, N: int, device="cuda"):
+        """The loader boundary: the [chan, time] float32
+        :class:`~pypulsar_tpu_torch.core.spectra.Spectra` of exactly N
+        samples spanning subints on ``device``, high-frequency-first
+        unless the file is already inverted. The stored subints travel as
+        they are and are unpacked, scaled and flipped on the device
+        (:func:`~pypulsar_tpu_torch.parallel.staged.ingest_psrfits`): the
+        bits of the JAX package's ``get_spectra(startsamp, N).data``."""
+        from pypulsar_tpu_torch.core.device import resolve_device
+        from pypulsar_tpu_torch.core.spectra import Spectra
+        from pypulsar_tpu_torch.parallel.prefetch import ship
+        from pypulsar_tpu_torch.parallel.staged import ingest_psrfits
 
-    def _get_spectra(self, startsamp: int, N: int) -> np.ndarray:
-        startsub = startsamp // self.nsamp_per_subint
-        skip = startsamp - startsub * self.nsamp_per_subint
-        endsub = (startsamp + N - 1) // self.nsamp_per_subint
-        blocks = [self.read_subint(isub) for isub in range(startsub, endsub + 1)]
-        data = np.concatenate(blocks) if len(blocks) > 1 else blocks[0]
-        data = data.T[:, skip : skip + N]
-        if not self.specinfo.need_flipband:
-            # the file stores low->high; deliver high-frequency first
-            data = data[::-1, :]
-        return np.ascontiguousarray(data, dtype=np.float32)
+        startsamp, N = int(startsamp), int(N)
+        device = resolve_device(device)
+        arrays = ship(self.raw_subints(startsamp, N), device)
+        data = self._located(
+            "SUBINT payload", ingest_psrfits, *arrays,
+            startsamp % self.nsamp_per_subint, N, int(self.nbits),
+            int(self.nchan), int(self.npoln),
+            int(self.specinfo.default_poln), not self.specinfo.need_flipband)
+        return Spectra(self.freqs, self.tsamp, data,
+                       starttime=self.tsamp * startsamp,
+                       dm=self.specinfo.chan_dm)
 
     def raw_subints(self, startsamp: int, N: int) -> Tuple[np.ndarray, ...]:
         """The stored form of the subints holding samples [startsamp,

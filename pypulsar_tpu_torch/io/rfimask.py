@@ -12,7 +12,8 @@ The binary layout is PRESTO's rfifind mask format:
 
 Channel indices are low-frequency-first (mask channel 0 is the lowest
 frequency, whatever the file's order on disk); the sweep flips them to
-its high-frequency-first rows when it uploads the zap table.
+its high-frequency-first rows when it uploads the zap table, and
+:meth:`RfifindMask.get_chan_mask` flips a sample mask for a ``Spectra``.
 """
 
 from __future__ import annotations
@@ -101,6 +102,14 @@ class RfifindMask:
         sampnums = np.arange(startsamp, startsamp + N)
         blocknums = np.minimum(sampnums // self.ptsperint, self.nint - 1)
         return self._zap_table[blocknums].T
+
+    def get_chan_mask(self, startsamp: int, N: int,
+                      hifreq_first: bool = True) -> np.ndarray:
+        """:meth:`get_sample_mask`, flipped to high-frequency-first rows
+        when ``hifreq_first`` (the channel order of a ``Spectra`` read
+        from a descending band)."""
+        m = self.get_sample_mask(startsamp, N)
+        return m[::-1] if hifreq_first else m
 
 
 def write_mask(

@@ -67,7 +67,7 @@ def prefetch(items: Iterable, depth: int = 2,
                 t.join(timeout=0.1)
 
 
-def _as_tensor(block: np.ndarray) -> torch.Tensor:
+def host_tensor(block: np.ndarray) -> torch.Tensor:
     """Host tensor over a native-dtype block (uint16 travels as int16 and
     is widened on the device)."""
     block = np.ascontiguousarray(block)
@@ -77,6 +77,19 @@ def _as_tensor(block: np.ndarray) -> torch.Tensor:
 
 
 _count_lock = threading.Lock()
+
+
+def ship(block, device: torch.device):
+    """One host block (or a tuple of arrays) on ``device`` now, its bytes
+    counted in ``ship_ahead.bytes`` when the device is a CUDA one: the
+    single-block form of :func:`ship_ahead`, for random-access reads."""
+    device = torch.device(device)
+    parts = block if isinstance(block, tuple) else (block,)
+    hosts = [host_tensor(b) for b in parts]
+    if device.type == "cuda":
+        _count_shipped(sum(h.numel() * h.element_size() for h in hosts))
+    devs = tuple(h.to(device) for h in hosts)
+    return devs if isinstance(block, tuple) else devs[0]
 
 
 def _count_shipped(nbytes: int) -> None:
@@ -92,17 +105,14 @@ def ship_ahead(raw_blocks: Iterable, device: torch.device, depth: int = 2):
     device = torch.device(device)
     if device.type != "cuda":
         for pos, block in prefetch(raw_blocks, depth, name="read"):
-            if isinstance(block, tuple):
-                yield pos, tuple(_as_tensor(b).to(device) for b in block)
-            else:
-                yield pos, _as_tensor(block).to(device)
+            yield pos, ship(block, device)
         return
     side = torch.cuda.Stream(device)
 
-    def ship(item):
+    def ship_pinned(item):
         pos, block = item
         parts = block if isinstance(block, tuple) else (block,)
-        hosts = [_as_tensor(b).pin_memory() for b in parts]
+        hosts = [host_tensor(b).pin_memory() for b in parts]
         with torch.cuda.stream(side):
             devs = [h.to(device, non_blocking=True) for h in hosts]
             ready = torch.cuda.Event()
@@ -112,7 +122,7 @@ def ship_ahead(raw_blocks: Iterable, device: torch.device, depth: int = 2):
         return pos, dev, ready, hosts
 
     current = torch.cuda.current_stream(device)
-    for pos, dev, ready, hosts in prefetch(raw_blocks, depth, ship, "ship"):
+    for pos, dev, ready, hosts in prefetch(raw_blocks, depth, ship_pinned, "ship"):
         current.wait_event(ready)
         for d in (dev if isinstance(dev, tuple) else (dev,)):
             d.record_stream(current)

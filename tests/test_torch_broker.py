@@ -352,14 +352,19 @@ def test_is_device_fault():
 
 def test_many_threads_many_parties_every_row_home():
     """More submitters than cores, a tiny switch interval: every unit
-    gets its own rows, and the counters add up."""
+    gets its own rows, and the counters add up. Every thread registers
+    its party before any submits: a lone party dispatches at once by
+    contract, so threads that the scheduler happens to run one after
+    another would never meet."""
     bk = broker_mod.BatchBroker(wait_ms=20)
     calls, concat, dispatch, demux = _np_hooks()
     n_threads, n_units = 16, 20
     bad = []
+    aboard = threading.Barrier(n_threads, timeout=60)
 
     def worker(i):
         with bk.party(PARTY):
+            aboard.wait()
             for u in range(n_units):
                 x = np.full(1 + (i + u) % 3, 1000.0 * i + u)
                 out = bk.submit(KEY, PARTY, x, len(x), tag=str(i),

@@ -80,7 +80,7 @@ def test_no_source_of_the_port_imports_jax():
     assert offenders == []
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     import torch
 
     if torch.cuda.is_available():
@@ -98,6 +98,63 @@ def test_entry_points_default_to_the_card():
     # asked explicitly, the CPU runs
     res = sweep_spectra(data, freqs, 1e-3, [0.0, 5.0], nsub=4, device="cpu")
     assert res.snr.shape == (2, 6)
+    _spectra_entry_points_default_to_the_card(tmp_path)
+
+
+def _spectra_entry_points_default_to_the_card(tmp_path):
+    """The Spectra loaders, detrend_blocks and the waterfaller,
+    zero_dm_filter, spectrogram and freq_time CLIs raise without a card
+    and write nothing; asked for the CPU, they run."""
+    from pypulsar_tpu_torch.cli import (
+        freq_time,
+        spectrogram,
+        waterfaller,
+        zero_dm_filter,
+    )
+    from pypulsar_tpu_torch.io import psrfits
+    from pypulsar_tpu_torch.io.datfile import Datfile
+    from pypulsar_tpu_torch.io.fbobs import FilterbankObs
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.io.synth import write_synthetic_fil
+    from pypulsar_tpu_torch.parallel.staged import make_dat_inf
+    from pypulsar_tpu_torch.utils.detrend import detrend_blocks
+
+    fil = str(tmp_path / "s.fil")
+    write_synthetic_fil(fil, nchan=16, nsamp=4096, period_samples=256)
+    fits = str(tmp_path / "s.fits")
+    psrfits.write_psrfits(fits, np.ones((16, 512)), 1500.0 - np.arange(16),
+                          1e-3, nsamp_per_subint=128)
+    dat = str(tmp_path / "s.dat")
+    np.arange(4096, dtype=np.float32).tofile(dat)
+    with FilterbankFile(fil) as r:
+        make_dat_inf(dat[:-4], r, 0.0, 4096, float(r.tsamp),
+                     r.frequencies).to_file(dat[:-4] + ".inf")
+    out = str(tmp_path / "o")
+    calls = [
+        lambda: waterfaller.main([fil, "-T", "0", "-t", "0.1", "-o",
+                                  out + ".png"]),
+        lambda: zero_dm_filter.main([fil, "-o", out + ".fil"]),
+        lambda: spectrogram.main([dat, "-t", "0.05", "-o", out + ".png"]),
+        lambda: freq_time.main([fil, "-o", out + ".png"]),
+        lambda: FilterbankFile(fil).get_spectra(0, 100),
+        lambda: psrfits.PsrfitsFile(fits).get_spectra(0, 100),
+        lambda: FilterbankObs([fil]).get_spectra(0, 100),
+        lambda: detrend_blocks(np.ones((1, 8)), np.ones((1, 8)),
+                               np.zeros((1, 8), bool))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not list(tmp_path.glob("o*"))
+    # asked explicitly, the CPU runs
+    assert waterfaller.main([fil, "-T", "0", "-t", "0.1", "-o", out + ".png",
+                             "--device", "cpu"]) == 0
+    assert zero_dm_filter.main([fil, "-o", out + ".fil", "--device",
+                                "cpu"]) == 0
+    assert spectrogram.main([dat, "-t", "0.05", "-o", out + "s.png",
+                             "--device", "cpu"]) == 0
+    assert freq_time.main([fil, "-o", out + "f.png", "--device", "cpu"]) == 0
+    with Datfile(dat) as d:
+        assert d.read_Nsamples(4096).size == 4096
 
 
 def test_engine_spectral_and_ddplan_entry_points_default_to_the_card(

@@ -272,15 +272,19 @@ def test_get_spectra_bit_equal_reference(tmp_path, nbits, descending):
         jf = jax_psrfits.PsrfitsFile(fn)
         assert pf.specinfo.need_flipband == descending
         for s, n in WINDOWS:
-            got = pf.get_spectra(s, n)
+            spec = pf.get_spectra(s, n, device="cpu")
+            got = spec.data.numpy()
             assert got.shape == (C, n) and got.dtype == np.float32
-            np.testing.assert_array_equal(bits(got),
-                                          bits(jf.get_spectra(s, n).data))
+            want = jf.get_spectra(s, n)
+            np.testing.assert_array_equal(bits(got), bits(want.data))
+            np.testing.assert_array_equal(spec.freqs.numpy(), pf.freqs)
+            assert (spec.dt, spec.starttime, spec.dm) == (
+                want.dt, want.starttime, want.dm)
             # either stored order delivers the same high-first block
-            np.testing.assert_array_equal(bits(got),
-                                          bits(tw.get_spectra(s, n)))
+            np.testing.assert_array_equal(
+                bits(got), bits(tw.get_spectra(s, n, device="cpu").data))
         with pytest.raises(ValueError):
-            pf.get_spectra(0, pf.nspec + 1)
+            pf.get_spectra(0, pf.nspec + 1, device="cpu")
         jf.close()
 
 
@@ -334,8 +338,9 @@ def test_two_polarisations_keep_the_default_one(tmp_path, monkeypatch,
     jf = jax_psrfits.PsrfitsFile(fn)
     with psrfits.PsrfitsFile(fn) as pf:
         assert pf.npoln == 2 and pf.specinfo.default_poln == int(poln)
-        np.testing.assert_array_equal(bits(pf.get_spectra(100, 400)),
-                                      bits(jf.get_spectra(100, 400).data))
+        np.testing.assert_array_equal(
+            bits(pf.get_spectra(100, 400, device="cpu").data),
+            bits(jf.get_spectra(100, 400).data))
         for pos, block in staged.ReaderSource(pf).chan_major_blocks(
                 250, 50, "cpu"):
             n = min(300, pf.nspec - pos)
@@ -370,7 +375,7 @@ def test_malformed_files_raise_data_format_error(tmp_path, kind):
         jax_psrfits.PsrfitsFile(fn).get_spectra(0, 1000)
     with pytest.raises(DataFormatError):
         with psrfits.PsrfitsFile(fn) as pf:
-            pf.get_spectra(0, 1000)
+            pf.get_spectra(0, 1000, device="cpu")
 
 
 def test_short_data_rows_raise_data_format_error(tmp_path, monkeypatch):
@@ -387,7 +392,7 @@ def test_short_data_rows_raise_data_format_error(tmp_path, monkeypatch):
         jax_psrfits.PsrfitsFile(fn).get_spectra(0, 100)
     with psrfits.PsrfitsFile(fn) as pf:
         with pytest.raises(DataFormatError, match="SUBINT payload"):
-            pf.get_spectra(0, 100)
+            pf.get_spectra(0, 100, device="cpu")
         with pytest.raises(DataFormatError, match="SUBINT payload"):
             pf.raw_subints(0, 100)
 
