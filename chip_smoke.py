@@ -258,6 +258,35 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    of the ``.dat`` in 1-s blocks (cells 6 sigma out omitted), card
    against CPU within 1e-4 of each block's largest |y|, the kept cells
    averaging 0. One ``path NAME:`` line each.
+14. The standalone acceleration search at ``BASELINE.json`` configs[4]'s
+   length. Four 1-hour ``.dat`` files (56,250,000 samples of 64 us, 225
+   MB each, numpy from a seed in chunks): three carry 8 harmonics of an
+   11.1 Hz signal drifting 20 bins over the hour at three amplitudes,
+   one is noise. Each run at ``-z 200 --dz 2 -n 8``: (a)
+   ``cli.accelsearch --batch 4`` (device prep) on the four: in each
+   signal file a candidate at a harmonic within 1 bin, the fundamental's
+   drift within 2 bins, sigma > 10, and the noise file's best sigma
+   under 8; the first series' card prep against a float64 transform
+   (2e-5 of the largest magnitude) and the CPU's (printed, with the
+   spectrum, bin and each side's value beside float64's when past
+   2e-5); (b) ``--batch 2 --no-device-prep`` on two, held to (a) under
+   the matched-candidate contract; (c) ``--batch 1`` (host prep) on one,
+   its ``.cand`` and ``.txtcand`` the bytes of (b)'s; (d)
+   ``cli.plot_accelcands --no-plot -o accelcands.npz`` over the four
+   ``.inf`` files. (e) At 2^20 samples, on the card and on the CPU and
+   held to each other under the contract: ``.fft`` input, ``--zapfile``
+   (one harmonic blanked), ``--coarse-dz 4`` (``-z 20 -n 4``) and the
+   jerk search ``-z 10 -n 2 -w 40 --dw 20``. (f) Phase 6's sweep stage
+   with ``--no-accel-device-prep``: the DM-70 harmonic found, every
+   trial's candidates held to phase 6's under the contract, both
+   gather-sum stages and boxcar launched. (g) ``cli.dissect`` (constant
+   period, and ``--use-parfile`` with ``--toas``), ``cli.sum_profs`` and
+   ``cli.pulses_to_toa`` on phase 6's DM-70 ``.dat``: the ``--use-parfile``
+   TOAs' phases within 0.05 of the pulse's (plus the DM delay to
+   mid-band) and spread under 0.05 (the JAX package's test bound), and
+   pulses_to_toa's TOAs spread under 0.05. The serial-fallback counter
+   must be 0 after every run. One ``path NAME:`` line each; the cut:
+   4096 DM trials -> 7 spectra of 1 h.
 
 Then one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
@@ -813,16 +842,64 @@ def prep_reference(series):
     return kernels.deredden(torch.from_numpy(fft.astype(np.complex64)))
 
 
-def check_small_accel(device):
-    """Prep and search on the card against the port on the CPU.
+def check_prep_against_float64(series, device, what):
+    """The card's normalized spectra of ``series[B, n]``, held to 2e-5 of
+    the largest magnitude against :func:`prep_reference` (a float64
+    transform) and required to repeat bit for bit; their difference from
+    the CPU port's is printed, and where it passes 2e-5 a note names the
+    spectrum and bin and gives each side's value beside float64's (a
+    float32 transform on the host is no oracle for the card's: it has
+    strayed past 2e-5 in rare runs on other hosts). Returns (card
+    spectra, CPU spectra, a summary)."""
+    import numpy as np
+    import torch
 
-    The card's spectra are held to 2e-5 of the largest magnitude against
-    :func:`prep_reference` (a float64 transform) and must repeat bit for
-    bit. Their difference from the CPU port's spectra is printed: a
-    float32 transform on the host is no oracle for the card's, as it has
-    strayed past 2e-5 in rare runs on other hosts while the card's did
-    not repeat that. The searches on the two are held to the
-    matched-candidate contract."""
+    from pypulsar_tpu_torch.fourier import kernels
+
+    card = kernels.prep_spectra_batch(series, device=device)
+    again = kernels.prep_spectra_batch(series, device=device)
+    cpu = kernels.prep_spectra_batch(series, device="cpu")
+    ref = prep_reference(series)
+    card_h = card.cpu()
+    diff = (card_h - cpu).abs()
+    prep_err = float(diff.max() / cpu[:, 1:].abs().max())
+    scale = float(ref[:, 1:].abs().max())
+    card_ref = float((card_h - ref).abs().max()) / scale
+    cpu_ref = float((cpu - ref).abs().max()) / scale
+    same_bits = bool(torch.equal(again, card))
+    del again
+    where = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+    said = (f"spectra max abs diff card vs CPU {prep_err:.3g} of the "
+            f"largest magnitude; against the float64 transform: card "
+            f"{card_ref:.3g}, CPU {cpu_ref:.3g}; largest card-CPU "
+            f"difference at spectrum {where[0]}, bin {where[1]}; a second "
+            f"prep on the card "
+            f"{'has the same bits' if same_bits else 'differs'}")
+    if not card_ref < 2e-5:
+        fail(f"{what}: the card's spectra differ from the float64 "
+             f"transform by {card_ref:.3g} of the largest magnitude "
+             f"({said})")
+    if not same_bits:
+        fail(f"{what}: two preps of the same series on the card differ "
+             f"({said})")
+    if not prep_err < 2e-5:
+        # the card holds against float64, so the CPU's float32 transform
+        # strayed: the CPU port's prep is tested on the CPU, not here
+        i, k = where
+        print(f"chip_smoke: note: {what}: card and CPU spectra differ by "
+              f"{prep_err:.3g} of the largest magnitude ({said}); at "
+              f"spectrum {i}, bin {k}: card {complex(card_h[i, k])}, CPU "
+              f"{complex(cpu[i, k])}, float64 {complex(ref[i, k])} "
+              f"(card - float64 {abs(complex(card_h[i, k] - ref[i, k])):.3g}"
+              f", CPU - float64 {abs(complex(cpu[i, k] - ref[i, k])):.3g})",
+              file=sys.stderr)
+    return card, cpu, said
+
+
+def check_small_accel(device):
+    """Prep and search on the card against the port on the CPU: the prep
+    by :func:`check_prep_against_float64`, the searches on the two held
+    to the matched-candidate contract."""
     import numpy as np
     import torch
 
@@ -842,34 +919,8 @@ def check_small_accel(device):
     series = np.stack(rows)
     cfg = accel.AccelSearchConfig(zmax=20.0, dz=2.0, numharm=4,
                                   sigma_min=3.0, seg_width=1 << 12)
-    card = kernels.prep_spectra_batch(series, device=device)
-    again = kernels.prep_spectra_batch(series, device=device)
-    cpu = kernels.prep_spectra_batch(series, device="cpu")
-    ref = prep_reference(series)
-    diff = (card.cpu() - cpu).abs()
-    prep_err = float(diff.max() / cpu[:, 1:].abs().max())
-    scale = float(ref[:, 1:].abs().max())
-    card_ref = float((card.cpu() - ref).abs().max()) / scale
-    cpu_ref = float((cpu - ref).abs().max()) / scale
-    same_bits = bool(torch.equal(again, card))
-    where = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
-    said = (f"against the float64 transform: card {card_ref:.3g}, CPU "
-            f"{cpu_ref:.3g}; largest card-CPU difference at spectrum "
-            f"{where[0]}, bin {where[1]}; a second prep on the card "
-            f"{'has the same bits' if same_bits else 'differs'}")
-    if not card_ref < 2e-5:
-        fail(f"small accel: the card's spectra differ from the float64 "
-             f"transform by {card_ref:.3g} of the largest magnitude "
-             f"(card vs CPU {prep_err:.3g}; {said})")
-    if not same_bits:
-        fail(f"small accel: two preps of the same series on the card "
-             f"differ ({said})")
-    if not prep_err < 2e-5:
-        # the card holds against float64, so the CPU's float32 transform
-        # strayed: the CPU port's prep is tested on the CPU, not here
-        print(f"chip_smoke: note: small accel: card and CPU spectra differ "
-              f"by {prep_err:.3g} of the largest magnitude ({said})",
-              file=sys.stderr)
+    card, cpu, said = check_prep_against_float64(series, device,
+                                                 "small accel")
     got = accel.accel_search_batch(card, T, cfg, device=device)
     want = accel.accel_search_batch(cpu, T, cfg, device="cpu")
     bound = cfg.sigma_min + 0.5
@@ -892,8 +943,7 @@ def check_small_accel(device):
         fail("small accel: the card's candidates differ between one batch "
              "of 8 and two batches of 4")
     print(f"small accel (8 x 2^15 samples, zmax 20, 4 harmonics, card vs "
-          f"CPU): spectra max abs diff {prep_err:.3g} of the largest "
-          f"magnitude, {said}; candidates {sum(map(len, got))} card / "
+          f"CPU): {said}; candidates {sum(map(len, got))} card / "
           f"{sum(map(len, want))} CPU, every one above {bound} matched; "
           f"{detecting}/8 spectra detect; batch of 8 and 2 x 4 on the card: "
           f"identical candidates")
@@ -4076,6 +4126,476 @@ def spectra_phase(tmp, fn, card, device="cuda"):
             **zero_dm_phase(tmp, fn, card, device)}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the standalone accel search at BASELINE.json configs[4]'s 1 h
+# ---------------------------------------------------------------------------
+
+HOUR_N, HOUR_DT = 56_250_000, 64e-6  # 1 h of 64-us samples
+HOUR_F0, HOUR_Z = 11.1, 20.0  # fundamental (Hz) at t = 0, its drift in bins
+HOUR_NHARM = 8
+# per-harmonic amplitude (noise sigma 1) of each file; the last is noise
+HOUR_AMPS = (0.004, 0.002, 0.0014, 0.0)
+HOUR_CHUNK = 1 << 22
+ACCEL_FLAGS = ["-z", "200", "--dz", "2", "-n", "8"]
+ACCEL_SUFFIX = "_ACCEL_200.cand"  # of zmax 200, here and in the stage
+ACCEL_SIGMA_MIN = 2.0  # the CLI's default -s
+
+
+def write_hour_dat(base, amp, seed, n=None, dt=HOUR_DT, z0=None):
+    """One ``.dat``/``.inf`` pair of ``n`` samples (default ``HOUR_N``):
+    unit float32 noise plus ``amp`` times the first 8 harmonics of a
+    signal whose frequency starts at ``HOUR_F0`` and drifts ``z0`` bins
+    (default ``HOUR_Z``) over the series, written in chunks (host memory
+    stays at one chunk)."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.io.infodata import InfoData
+
+    n = HOUR_N if n is None else n
+    z0 = HOUR_Z if z0 is None else z0
+    T = n * dt
+    fdot = z0 / T ** 2
+    rng = np.random.default_rng(seed)
+    with open(base + ".dat", "wb") as f:
+        for i0 in range(0, n, HOUR_CHUNK):
+            m = min(HOUR_CHUNK, n - i0)
+            block = rng.standard_normal(m, dtype=np.float32)
+            if amp:
+                t = (i0 + np.arange(m)) * dt
+                c1 = np.cos(2 * np.pi * np.mod(HOUR_F0 * t
+                                               + 0.5 * fdot * t * t, 1.0))
+                prev, cur, total = np.ones_like(c1), c1, c1.copy()
+                for _ in range(2, HOUR_NHARM + 1):  # cos(h x) by recurrence
+                    prev, cur = cur, 2.0 * c1 * cur - prev
+                    total += cur
+                block += (amp * total).astype(np.float32)
+            block.tofile(f)
+    inf = InfoData()
+    inf.basenm = os.path.basename(base)
+    inf.telescope = "Fake"
+    inf.object = "HOUR"
+    inf.epoch = 60000.0
+    inf.N = n
+    inf.dt = dt
+    inf.DM = 0.0
+    inf.numchan = 1
+    inf.lofreq = 1400.0
+    inf.BW = 100.0
+    inf.chan_width = 100.0
+    inf.bary = 1
+    inf.to_file(base + ".inf")
+
+
+def link_inputs(dirname, bases, exts=(".dat", ".inf")):
+    """Symlinks of the inputs in a directory of their own (a multi-file
+    run writes each output beside its input)."""
+    os.makedirs(dirname, exist_ok=True)
+    out = []
+    for b in bases:
+        for ext in exts:
+            os.symlink(b + ext, os.path.join(dirname,
+                                              os.path.basename(b) + ext))
+        out.append(os.path.join(dirname, os.path.basename(b)))
+    return out
+
+
+def signal_hit(cands, T, z0=None, min_sigma=10.0):
+    """The best candidate at harmonic k of the drifting signal: within 1
+    bin of k times its mean-frequency bin, the drift divided by k within
+    2 bins of the fundamental's (``z0``, default ``HOUR_Z``), sigma above
+    ``min_sigma``."""
+    z0 = HOUR_Z if z0 is None else z0
+    r0 = HOUR_F0 * T + 0.5 * z0
+    for c in cands:
+        k = round(c.r / r0)
+        if k >= 1 and abs(c.r - k * r0) < 1.0 and abs(c.z / k - z0) <= 2.0 \
+                and c.sig > min_sigma:
+            return {"r": c.r, "z": c.z, "sigma": c.sig, "harmonic": k}
+    return None
+
+
+def contract_misses(a, b, max_cands=200, margin=0.5):
+    """Candidates of either table above the contract's floor with no
+    partner in the other within (dr, dz, dsig) = (0.5, 1.0, 0.5). The
+    floor is sigma_min + margin, raised to a full table's last sigma +
+    margin (a capped table's tail is not a detection)."""
+    floor = ACCEL_SIGMA_MIN
+    for t in (a, b):
+        if len(t) >= max_cands:
+            floor = max(floor, min(c.sig for c in t))
+    floor += margin
+
+    def miss(x, pool):
+        return [c for c in x if c.sig > floor and not any(
+            abs(c.r - o.r) < 0.5 and abs(c.z - o.z) < 1.0
+            and abs(c.sig - o.sig) < 0.5 for o in pool)]
+
+    return miss(a, b) + miss(b, a)
+
+
+def hour_runs(tmp, card, device):
+    """Phase 14 (a)-(d): the 1-hour files through the card's search."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import accelsearch as acli
+    from pypulsar_tpu_torch.cli import plot_accelcands
+    from pypulsar_tpu_torch.fourier import accelsearch, kernels
+    from pypulsar_tpu_torch.io.prestocand import read_rzwcands
+
+    print("cut: 4096 DM trials -> 7 spectra of 1 h (BASELINE.json "
+          "configs[4]: 4 searched with device prep, 2 with host prep, 1 "
+          "serially)")
+    hdir = os.path.join(tmp, "hour")
+    os.makedirs(hdir)
+    t0 = time.perf_counter()
+    bases = []
+    for i, amp in enumerate(HOUR_AMPS):
+        bases.append(os.path.join(hdir, f"hour{i}"))
+        write_hour_dat(bases[-1], amp, SEED + 40 + i)
+    print(f"wrote {len(bases)} x {HOUR_N} samples "
+          f"({4 * HOUR_N / 1e6:.0f} MB each) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    T = HOUR_N * HOUR_DT
+    # F2: one 1-hour series' card prep against float64 and the CPU's
+    series = np.fromfile(bases[0] + ".dat", dtype=np.float32)[None]
+    said = check_prep_against_float64(series, device, "1-h prep")[2]
+    print(f"1-h prep (one series, card vs CPU vs float64): {said}")
+    del series
+
+    launches = {}
+    runs = {
+        "accel_hour_batch4": ("a", bases, ["--batch", "4"]),
+        "accel_hour_hostprep": ("b", bases[:2], ["--batch", "2",
+                                                 "--no-device-prep"]),
+        "accel_hour_serial": ("c", bases[:1], ["--batch", "1"]),
+    }
+    tables = {}
+    for name, (tag, src, flags) in runs.items():
+        ins = link_inputs(os.path.join(tmp, "hour_" + tag), src)
+        argv = [b + ".dat" for b in ins] + ACCEL_FLAGS + flags
+        argv += ["--device", str(device)]
+        acli.COUNTERS.clear()
+        with PathMeter(name, card) as m, \
+                Timed(kernels, "prep_spectra_batch") as prep, \
+                Timed(accelsearch, "accel_search_batch") as srch:
+            rc = acli.main(argv)
+        if rc != 0:
+            fail(f"{name}: cli.accelsearch exited {rc}")
+        counters = dict(acli.COUNTERS)
+        if counters.get("accel.serial_fallbacks", 0):
+            fail(f"{name}: {counters['accel.serial_fallbacks']} batches fell "
+                 f"back to the serial path")
+        tables[tag] = {os.path.basename(b): read_rzwcands(b + ACCEL_SUFFIX)
+                       for b in ins}
+        hits = {}
+        for i, b in enumerate(ins):
+            key = os.path.basename(b)
+            cands = tables[tag][key]
+            if HOUR_AMPS[int(key[4:])]:
+                hits[key] = signal_hit(cands, T)
+                if hits[key] is None:
+                    fail(f"{name}: no harmonic of the signal with its drift "
+                         f"and sigma > 10 in {key}: {cands[:3]}")
+            else:
+                best = max((c.sig for c in cands), default=0.0)
+                hits[key] = {"noise_best_sigma": best}
+                if best >= 8.0:
+                    fail(f"{name}: the noise file's best candidate has "
+                         f"sigma {best}")
+        m.line(config="BASELINE.json configs[4]", argv=" ".join(
+            ACCEL_FLAGS + flags), files=len(ins), samples=HOUR_N,
+               spectra_per_s=len(ins) / m.wall_s,
+               prep_s=prep.seconds, prep_calls=prep.calls,
+               search_s=srch.seconds, search_calls=srch.calls,
+               prep_chunk=counters.get("accel.prep_cap", 0),
+               bytes_read=counters.get("accel.bytes_read", 0),
+               serial_fallbacks=counters.get("accel.serial_fallbacks", 0),
+               hits=hits)
+        launches[name] = m.launches
+    # (b) under the contract against (a); (c) the bytes of (b)
+    for key, cands in tables["b"].items():
+        bad = contract_misses(tables["a"][key], cands)
+        if bad:
+            fail(f"1-h host prep vs device prep of {key} breaks the "
+                 f"matched-candidate contract: {bad[:3]}")
+    hb, hc = os.path.join(tmp, "hour_b"), os.path.join(tmp, "hour_c")
+    same_bytes(glob.glob(os.path.join(hc, "hour0_ACCEL_*")), hc, hb)
+    # (d) the clustering of the four tables, without matplotlib
+    npz = os.path.join(tmp, "hour_a", "accelcands.npz")
+    infs = [os.path.join(tmp, "hour_a", f"hour{i}.inf")
+            for i in range(len(HOUR_AMPS))]
+    t0 = time.perf_counter()
+    if plot_accelcands.main(infs + ["--accel-suffix", ACCEL_SUFFIX,
+                                    "--no-plot", "-o", npz]) != 0:
+        fail("plot_accelcands failed")
+    wall = time.perf_counter() - t0
+    with np.load(npz) as z:
+        freqs, filenums = z["freqs"], z["filenums"]
+        nzap = len(z["zap_fcent"])
+    f_mid = HOUR_F0 + 0.5 * HOUR_Z / T
+    near = [int(n) for f, n in zip(freqs, filenums)
+            if abs(f / f_mid - round(f / f_mid)) * T < 1.0
+            and round(f / f_mid) >= 1]
+    if set(near) < {1, 2, 3}:
+        fail(f"plot_accelcands: the signal's harmonics are not in files "
+             f"1-3: {sorted(set(near))}")
+    print("path plot_accelcands: " + json.dumps({
+        "wall_s": wall, "candidates": int(len(freqs)),
+        "files_with_signal": sorted(set(near)), "zap_rows": nzap,
+        "card": card}))
+    return launches
+
+
+def fft_and_options(tmp, card, device):
+    """Phase 14 (e): ``.fft`` input, --zapfile, --coarse-dz and the jerk
+    search at 2^20 samples, the card held to the CPU port."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import accelsearch as acli
+    from pypulsar_tpu_torch.fourier.prestofft import write_fft
+    from pypulsar_tpu_torch.io.infodata import InfoData
+    from pypulsar_tpu_torch.io.prestocand import read_rzwcands
+
+    n, z0 = 1 << 20, 4.0  # 4 bins of drift: 16 at the 4th harmonic
+    d = os.path.join(tmp, "opts")
+    os.makedirs(d)
+    base = os.path.join(d, "short")
+    write_hour_dat(base, 0.02, SEED + 50, n=n, z0=z0)
+    inf = InfoData(base + ".inf")
+    ts = np.fromfile(base + ".dat", dtype=np.float32)
+    write_fft(base + ".fft", np.fft.rfft(ts).astype(np.complex64), inf)
+    T = n * HOUR_DT
+    f_mid = HOUR_F0 + 0.5 * z0 / T
+    zap = os.path.join(d, "zap.txt")
+    with open(zap, "w") as f:
+        f.write(f"{3 * f_mid:.6f} 0.5\n")
+    small = ["-z", "20", "--dz", "2", "-n", "4"]
+    cases = {
+        "fft_input": (base + ".fft", small, ""),
+        "zapfile": (base + ".dat", small + ["--zapfile", zap], ""),
+        "coarse": (base + ".dat", small + ["--coarse-dz", "4"], ""),
+        "jerk": (base + ".dat", ["-z", "10", "--dz", "2", "-n", "2", "-w",
+                                 "40", "--dw", "20"], "_JERK_40"),
+    }
+    launches, numbers = {}, {}
+    for name, (inp, flags, jerk) in cases.items():
+        zmax = flags[flags.index("-z") + 1]
+        out = {}
+        for dev in (str(device), "cpu"):
+            ob = os.path.join(d, f"{name}_{dev}")
+            acli.COUNTERS.clear()
+            with PathMeter("accel_" + name, card) as m:
+                rc = acli.main([inp, *flags, "-o", ob, "--device", dev])
+            if rc != 0 or acli.COUNTERS["accel.serial_fallbacks"]:
+                fail(f"accel {name} on {dev}: exit {rc}, "
+                     f"{acli.COUNTERS['accel.serial_fallbacks']} fallbacks")
+            out[dev] = read_rzwcands(f"{ob}_ACCEL_{zmax}{jerk}.cand")
+            numbers[f"{name}_{dev}_s"] = m.wall_s
+            if dev != "cpu":
+                launches["accel_" + name] = m.launches
+        bad = contract_misses(out[str(device)], out["cpu"])
+        if bad:
+            fail(f"accel {name}: card vs CPU breaks the matched-candidate "
+                 f"contract: {bad[:3]}")
+        hit = signal_hit(out[str(device)], T, z0=z0, min_sigma=6.0)
+        if hit is None:
+            fail(f"accel {name}: the signal was not found: "
+                 f"{out[str(device)][:3]}")
+        # the best sigma at the third harmonic's bin: the zaplist blanks it
+        third = max((c.sig for c in out[str(device)]
+                     if abs(c.r - 3 * f_mid * T) < 2.0), default=0.0)
+        numbers[name] = {"card": len(out[str(device)]),
+                         "cpu": len(out["cpu"]), "hit": hit,
+                         "third_harmonic_best_sigma": third}
+    if not numbers["zapfile"]["third_harmonic_best_sigma"] < \
+            numbers["fft_input"]["third_harmonic_best_sigma"]:
+        fail(f"accel zapfile: the blanked third harmonic is as strong as "
+             f"unblanked: {numbers['zapfile']} / {numbers['fft_input']}")
+    print("path accel_options_2^20: " + json.dumps({**numbers,
+                                                     "card": card}))
+    return launches
+
+
+def hostprep_stage(tmp, fn, info, card):
+    """Phase 14 (f): phase 6's sweep stage with the host prep."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.io.prestocand import read_rzwcands
+
+    out = os.path.join(tmp, "hoststage")
+    argv = stage_argv(fn, out, STAGE_LODM, STAGE_DMS,
+                      ["--no-accel-device-prep"])
+    with PathMeter("accel_hostprep_stage", card) as m:
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"the host-prep sweep stage exited {rc}")
+    for k in SWEEP_KERNELS:
+        if m.launches[k] < 1:
+            fail(f"the host-prep sweep stage launched no {k}: "
+                 f"{m.launches}")
+    stage = os.path.join(tmp, "stage")
+    for dm in STAGE_LODM + np.arange(STAGE_DMS):
+        suffix = f"_DM{dm:.2f}{ACCEL_SUFFIX}"
+        bad = contract_misses(read_rzwcands(stage + suffix),
+                              read_rzwcands(out + suffix))
+        if bad:
+            fail(f"host-prep stage DM {dm}: breaks the matched-candidate "
+                 f"contract against phase 6: {bad[:3]}")
+    hits = accel_hits(f"{out}_DM70.00{ACCEL_SUFFIX}", info)
+    if not hits:
+        fail("the host-prep stage's DM-70 table holds no harmonic with "
+             "|z| <= 2 and sigma > 10")
+    m.line(trials=STAGE_DMS, trials_per_s=STAGE_DMS / m.wall_s,
+           dm70_best=hits[:3])
+    return {"accel_hostprep_stage": m.launches}
+
+
+def run_quiet(main, argv):
+    """(exit code, stdout) of an in-process CLI."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def toa_phases(text, epoch, period):
+    """Rotational phases, from ``epoch``, of the Princeton TOAs in
+    ``text``."""
+    import numpy as np
+
+    day = f"{int(epoch)}."
+    mjds = [float(p) for ln in text.splitlines() for p in ln.split()
+            if p.startswith(day) and len(p.split(".")[1]) >= 10]
+    return ((np.array(mjds) - epoch) * 86400.0 / period) % 1.0
+
+
+def check_toas(what, text, epoch, period, want_phase=None, min_toas=4):
+    """The JAX package's TOA bound (tests/test_cli_pulses.py:123): the
+    phases spread under 0.05 and, given ``want_phase``, their median
+    within 0.05 of it (circular distances)."""
+    import numpy as np
+
+    ph = toa_phases(text, epoch, period)
+    if len(ph) < min_toas:
+        fail(f"{what}: {len(ph)} TOAs, not >= {min_toas}")
+    off = (ph - (ph[0] if want_phase is None else want_phase) + 0.5) \
+        % 1.0 - 0.5
+    spread = float(np.ptp(off))
+    med = float(np.median(off))
+    if not (spread < 0.05 and (want_phase is None or abs(med) < 0.05)):
+        fail(f"{what}: TOA phases {ph[:6]} spread {spread:.4f}, median "
+             f"{med:.4f} from the pulse's {want_phase:.4f}")
+    return {"toas": int(len(ph)), "phase_spread": spread,
+            "median_offset": med}
+
+
+def pulse_tools(tmp, info, card):
+    """Phase 14 (g): dissect, sum_profs and pulses_to_toa on phase 6's
+    DM-70 ``.dat`` (its ``.inf`` marked barycentred: synthetic data)."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import dissect, pulses_to_toa, sum_profs
+    from pypulsar_tpu_torch.fold.pulse import read_pulse_from_file
+    from pypulsar_tpu_torch.fold.toa import presto_freq_offsets
+    from pypulsar_tpu_torch.io.infodata import InfoData
+    from pypulsar_tpu_torch.io.parfile import write_par
+
+    d = os.path.join(tmp, "pulses")
+    os.makedirs(d)
+    dat = os.path.join(d, "psr.dat")
+    shutil.copy(os.path.join(tmp, "stage_DM70.00.dat"), dat)
+    inf = InfoData(os.path.join(tmp, "stage_DM70.00.inf"))
+    inf.bary = 1
+    inf.basenm = "psr"
+    inf.to_file(os.path.join(d, "psr.inf"))
+    P = info["period_samples"] * info["tsamp"]
+    par = os.path.join(d, "psr.par")
+    write_par(par, dict(PSR="J0000+0070", F0=1.0 / P, F1=0.0,
+                        PEPOCH=inf.epoch, DM=70.0))
+    nb = 256
+    ph = np.arange(nb) / nb
+    template = os.path.join(d, "template.txt")
+    np.savetxt(template, np.column_stack(
+        [np.arange(nb), np.exp(-0.5 * ((ph - 0.5) / 0.004) ** 2)]))
+    # the pulse's phase from the epoch: its 8 samples start each period,
+    # and the TOAs are referenced to mid-band (PRESTO's get_TOAs)
+    _, dmdelay = presto_freq_offsets(inf.lofreq, inf.BW, inf.chan_width,
+                                     inf.DM)
+    want = ((info["width"] / 2.0) * info["tsamp"] + dmdelay) / P % 1.0
+    cwd = os.getcwd()
+    os.chdir(d)
+    numbers = {}
+    try:
+        t0 = time.perf_counter()
+        rc, text = run_quiet(dissect.main, [
+            dat, "-p", repr(P), "-s", "0.5", "-r", "0.45:0.55", "-t", "5",
+            "-o", "constant.npz"])
+        numbers["dissect_constant_s"] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"dissect (constant period) exited {rc}")
+        searched = int(text.split("pulses searched:")[1].split()[0])
+        good = int(text.split("good pulses found:")[1].split()[0])
+        if searched < info["nsamp"] // info["period_samples"] - 2 \
+                or good < 0.9 * searched:
+            fail(f"dissect: {good} good pulses of {searched}")
+        profs = sorted(glob.glob("psr.prof*"),
+                       key=lambda f: int(f.rsplit("prof", 1)[1]))
+        with np.load("constant.npz") as z:
+            if len(z["joydiv_numbers"]) != good:
+                fail("dissect: the .npz lacks the joy-division profiles")
+        numbers.update(pulses_searched=searched, good_pulses=good)
+        t0 = time.perf_counter()
+        rc, text = run_quiet(dissect.main, [
+            dat, "--use-parfile", par, "-t", "5", "--toas", "--template",
+            template, "--min-pulses", "8", "--no-text-files",
+            "--no-pulse-plots", "--no-joydiv-plot"])
+        numbers["dissect_par_s"] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"dissect --use-parfile exited {rc}")
+        numbers["dissect_par"] = check_toas("dissect --use-parfile", text,
+                                            inf.epoch, P, want)
+        t0 = time.perf_counter()
+        rc, _ = run_quiet(sum_profs.main, profs[:16] + ["--scale", "-o",
+                                                        "summed"])
+        numbers["sum_profs_s"] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"sum_profs exited {rc}")
+        summed = read_pulse_from_file("summed.summedprof")
+        peak = int(np.argmax(summed.profile)) / summed.N
+        if not 0.45 < peak < 0.55 or summed.profile.max() < 10:
+            fail(f"sum_profs: the summed profile peaks at phase {peak} "
+                 f"at {summed.profile.max()} sigma")
+        numbers["summed_peak_sigma"] = float(summed.profile.max())
+        t0 = time.perf_counter()
+        rc, text = run_quiet(pulses_to_toa.main, profs[:64] + [
+            "--template", template, "--min-pulses", "8"])
+        numbers["pulses_to_toa_s"] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"pulses_to_toa exited {rc}")
+        # without an ephemeris the reference's TOA is referenced to the
+        # template's peak, not the pulse's phase: only their spread is held
+        numbers["pulses_to_toa"] = check_toas("pulses_to_toa", text,
+                                              inf.epoch, P)
+    finally:
+        os.chdir(cwd)
+    print("path pulse_tools: " + json.dumps({**numbers,
+                                             "pulse_phase": want,
+                                             "card": card}))
+
+
+def accel_hour_phase(tmp, fn, info, card, device="cuda"):
+    """Phase 14: returns the launches of each new driven path."""
+    launches = hour_runs(tmp, card, device)
+    launches.update(fft_and_options(tmp, card, device))
+    launches.update(hostprep_stage(tmp, fn, info, card))
+    pulse_tools(tmp, info, card)
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -4122,6 +4642,7 @@ def main() -> int:
                                              chain)
         fits_paths = psrfits_phase(tmp, fn, info, chain, card)
         spectra_paths = spectra_phase(tmp, fn, card)
+        hour_paths = accel_hour_phase(tmp, fn, info, card)
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -4130,7 +4651,8 @@ def main() -> int:
              "sweep_tree": engines["tree"], "sweep_fourier": engines["fourier"],
              "spectral_stage": spectral, "spectral_decimated": decimated,
              "spectral_chain": spectral_ch, "ddplan": ddplan, **prep,
-             "lane": lane_launches, **fits_paths, **spectra_paths}
+             "lane": lane_launches, **fits_paths, **spectra_paths,
+             **hour_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}

@@ -21,7 +21,9 @@ rfifind mask to every pass (median-mid80 fill per raw block).
 ``--engine`` picks the chunk formulation (``gather``, the default;
 ``tree``, shared merge levels; ``fourier``, phase multiply-reduce).
 ``--spectral`` fuses the accel handoff on the device (no series crosses
-to the host; no ``.dat`` tee). ``--ddplan --hidm H`` sweeps a DDplan2b
+to the host; no ``.dat`` tee). ``--no-accel-device-prep`` preps the
+handoff's spectra on the host (float64 numpy rfft) instead of the
+device. ``--ddplan --hidm H`` sweeps a DDplan2b
 staged plan of ``--lodm`` .. ``H`` instead of a flat grid, each step at
 its own downsampling (single-pulse pass only).
 
@@ -58,8 +60,6 @@ NOT_PORTED = {
     "all_events": ("--all-events", "Queue 1 S8 (per-chunk events)"),
     "checkpoint": ("--checkpoint", "Queue 1 S1 (checkpoint/resume)"),
     "resume": ("--resume", "Queue 1 S1 (checkpoint/resume)"),
-    "no_accel_device_prep": ("--no-accel-device-prep",
-                             "Queue 1 S9 (host prep of the accel search)"),
 }
 def write_cands(path, cands) -> None:
     """Write candidate rows atomically (tmp + os.replace); rows with a
@@ -158,6 +158,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--accel-skip-existing", action="store_true",
                     help="accel: skip trials whose .cand/.txtcand pair "
                          "already validates")
+    ap.add_argument("--accel-device-prep", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="accel: rfft + deredden each batch on the device "
+                         "(default); --no-accel-device-prep preps on the "
+                         "host (float64 numpy rfft, deredden on the "
+                         "device), the bytes cli.accelsearch's host prep "
+                         "gives the .dat files")
     ap.add_argument("--spectral", action="store_true",
                     help="with --accel-search: fuse the handoff on the "
                          "device (the series never cross to the host; no "
@@ -178,8 +185,6 @@ def _parser() -> argparse.ArgumentParser:
                     help=not_ported + NOT_PORTED["checkpoint"][1])
     ap.add_argument("--resume", action="store_true",
                     help=not_ported + NOT_PORTED["resume"][1])
-    ap.add_argument("--no-accel-device-prep", action="store_true",
-                    help=not_ported + NOT_PORTED["no_accel_device_prep"][1])
     return ap
 
 
@@ -188,11 +193,12 @@ def _journal_fingerprint(args, dms, widths, outbase, rfimask) -> str:
     mask's path and its zap table included: a journal written under other
     flags, or under another mask at the same path (the survey's mask
     stage rewrites ``{outbase}_rfifind.mask`` on every run), starts over.
-    The resolved chunk engine and ``--spectral`` are hashed too: the
-    engines agree only within tolerance, so a resume must not mix their
-    artifacts (the reference hashes ``--spectral`` but not the engine).
-    Flags the port does not take are hashed at the values it runs (device
-    prep on, no per-chunk events), as the reference hashes them."""
+    The resolved chunk engine, ``--spectral`` and the accel prep kind are
+    hashed too: the engines, and the two preps, agree only within
+    tolerance, so a resume must not mix their artifacts (the reference
+    hashes ``--spectral`` and the prep but not the engine). Flags the
+    port does not take are hashed at the values it runs (no per-chunk
+    events), as the reference hashes them."""
     from pypulsar_tpu_torch.parallel.staged import mask_tag
     from pypulsar_tpu_torch.parallel.sweep import resolve_engine
 
@@ -203,7 +209,8 @@ def _journal_fingerprint(args, dms, widths, outbase, rfimask) -> str:
                          args.accel_sigma]).tobytes())
     h.update(np.int64([args.downsamp, args.nsub, args.group_size,
                        args.accel_numharm, int(bool(args.accel_search)),
-                       0, args.accel_max_cands, 1,
+                       0, args.accel_max_cands,
+                       int(bool(args.accel_device_prep)),
                        int(bool(args.spectral))]).tobytes())
     h.update((args.infile[0] + "|" + (args.maskfile or "")
               + "|" + outbase + "|engine=" + resolve_engine(args.engine)
@@ -268,6 +275,9 @@ def _check_args(ap, args) -> None:
         if args.write_dats:
             ap.error("--spectral has no time series to tee: drop "
                      "--write-dats or use the streamed handoff")
+        if not args.accel_device_prep:
+            ap.error("--spectral is the device prep: drop "
+                     "--no-accel-device-prep or use the streamed handoff")
 
 
 def make_ddplan(reader, args):
@@ -354,7 +364,9 @@ def main(argv=None) -> int:
                     max_cands=args.accel_max_cands,
                     prefetch_depth=args.accel_prefetch, rfimask=rfimask,
                     skip_existing=args.accel_skip_existing, journal=journal,
-                    spectral=args.spectral, device=args.device, verbose=True)
+                    spectral=args.spectral,
+                    device_prep=args.accel_device_prep,
+                    device=args.device, verbose=True)
                 print(f"# accel handoff: {summary['n_searched']} trials "
                       f"searched, {summary['n_skipped']} skipped, in "
                       f"{summary['n_slices']} DM slice(s), "

@@ -11,8 +11,11 @@ clocks: the *actual* time and MJD advance by the whole samples read, the
 *desired* ones by the seconds asked for, so that repeated
 ``read_Tseconds(period)`` calls do not drift by cumulative rounding
 (``rewind``, ``read_Nsamples``, ``read_Tseconds``, ``read_to``,
-``seek_to``, ``read_all``). The per-rotation iterator (``pulses``) and
-the baseline spline are not ported (ROADMAP.md Queue 1 item S16).
+``seek_to``, ``read_all``); ``pulses`` cuts it into one
+:class:`~pypulsar_tpu_torch.fold.pulse.Pulse` a rotation (the front end
+of ``cli.dissect``), ``get_baseline_spline`` and ``write_debaselined``
+fit and remove a blockwise-median baseline, and :func:`write_dat` writes
+a ``.dat``/``.inf`` pair. Host numpy and scipy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from __future__ import annotations
 import os
 import warnings
 
-from typing import Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
@@ -154,6 +157,77 @@ class Datfile:
             self.currmjd_actual = self.infdata.epoch
             self.currmjd_desired = self.infdata.epoch
 
+    def get_baseline_spline(self, span: float = 1.0):
+        """Blockwise-median baseline spline (reference datfile.py:105-131)."""
+        import scipy.interpolate as interp
+
+        self.rewind()
+        istart = 0
+        xx, meds = [], []
+        block = self.read_Tseconds(span)
+        while block is not None and len(block):
+            iend = istart + len(block)
+            xx.append(0.5 * (istart + iend))
+            meds.append(np.median(block))
+            istart = iend
+            block = self.read_Tseconds(span)
+        return interp.InterpolatedUnivariateSpline(xx, meds, bbox=(0, istart))
+
+    def write_debaselined(self, span: float = 1.0) -> str:
+        """Write a baseline-subtracted copy (reference datfile.py:133-168)."""
+        outbase = f"{self.basefn}.debaseline"
+        spline = self.get_baseline_spline(span)
+        data = self.read_all()
+        nout = int(len(data) - span / 2.0 / self.inf.dt)
+        data = data[:nout]
+        baseline = spline(np.arange(nout))
+        (data - baseline).astype(np.float32).tofile(outbase + ".dat")
+        inf = InfoData(self.inffn)
+        inf.basenm = outbase
+        inf.N = nout
+        inf.notes.append(
+            f"    Baseline removed blockwise (block duration {span:g} s)"
+        )
+        inf.to_file(outbase + ".inf")
+        return outbase + ".dat"
+
+    def pulses(self, period_at_mjd: Callable[[float], float], time_to_skip: float = 0.0) -> Iterator:
+        """Yield one Pulse per rotation, with the period re-evaluated from
+        ``period_at_mjd`` at each pulse start (reference datfile.py:231-275,
+        the folding front-end of bin/dissect.py)."""
+        from pypulsar_tpu_torch.fold.pulse import Pulse
+
+        if not hasattr(self.infdata, "epoch"):
+            raise NotImplementedError("Cannot fold without an MJD epoch in .inf")
+        self.rewind()
+        if time_to_skip > 0.0:
+            self.read_Tseconds(time_to_skip)
+        pulse_number = 1
+        current_time = self.currtime_actual
+        current_mjd = self.currmjd_actual
+        current_period = period_at_mjd(current_mjd)
+        current_pulse = self.read_Tseconds(current_period)
+        while current_pulse is not None:
+            yield Pulse(
+                number=pulse_number,
+                mjd=current_mjd,
+                time=current_time,
+                duration=current_period,
+                profile=current_pulse,
+                origfn=self.datfn,
+                dt=self.infdata.dt,
+                dm=getattr(self.infdata, "DM", 0.0),
+                telescope=getattr(self.infdata, "telescope", None),
+                lofreq=getattr(self.infdata, "lofreq", None),
+                chan_width=getattr(self.infdata, "chan_width", None),
+                bw=getattr(self.infdata, "BW", None),
+            )
+            pulse_number += 1
+            current_time = self.currtime_actual
+            current_mjd = self.currmjd_actual
+            current_period = period_at_mjd(current_mjd)
+            current_pulse = self.read_Tseconds(current_period)
+
     def close(self):
         self.datfile.close()
 
@@ -162,6 +236,19 @@ class Datfile:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def write_dat(basefn: str, data: np.ndarray, inf: InfoData):
+    """Write a .dat/.inf pair (the artifact boundary the pipeline checkpoints
+    at; SURVEY.md §5 'Checkpoint / resume'). Both writes are atomic
+    (tmp + os.replace): a .dat on its published name is always complete."""
+    data = np.asarray(data, dtype=np.float32)
+    tmp = basefn + ".dat.tmp"
+    data.tofile(tmp)
+    os.replace(tmp, basefn + ".dat")
+    inf.basenm = os.path.basename(basefn)
+    inf.N = len(data)
+    inf.to_file(basefn + ".inf")
 
 
 def correct_infdata(inf: InfoData):

@@ -61,6 +61,7 @@ from pypulsar_tpu_torch.fourier.accelsearch import (
     accel_search_batch,
 )
 from pypulsar_tpu_torch.fourier.kernels import (
+    deredden,
     deredden_schedule,
     prep_spectra_batch,
 )
@@ -133,6 +134,17 @@ def write_candfiles(candfn: str, txtfn: str, cands, T: float,
     atomic_write_text(txtfn, "".join(lines))
     write_rzwcands(candfn, [c.as_fourierprops() for c in cands])
     return candfn
+
+
+def _host_prep_rows(rows: np.ndarray, schedule, device) -> torch.Tensor:
+    """The host prep of ``cli.accelsearch`` applied to series rows in RAM:
+    numpy's float64 rfft of each row, rounded to complex64, dereddened on
+    ``device``; ``[B, n // 2 + 1]`` complex64 there, each row the bytes
+    ``prepare_one`` gives the row's ``.dat``."""
+    return torch.stack([
+        deredden(torch.from_numpy(np.fft.rfft(r).astype(np.complex64)
+                                  ).to(device), schedule=schedule)
+        for r in rows])
 
 
 def _broker_concat_rows(payloads, device):
@@ -222,6 +234,7 @@ def sweep_accel_stream(
     spectral: bool = False,
     specfuse_hbm_bytes: float = SPECFUSE_HBM_BYTES,
     specfuse_mode: str = "stitch",
+    device_prep: bool = True,
     device="cuda",
     verbose: bool = False,
 ) -> dict:
@@ -232,14 +245,18 @@ def sweep_accel_stream(
     ``group_size`` <= 0 picks the group once over the whole grid.
     ``rfimask`` masks the raw blocks; ``skip_existing`` and ``journal``
     resume (module docstring). ``spectral`` fuses the handoff on the
-    device (module docstring; ``specfuse_mode`` "stitch" or "decimate").
-    Returns a summary dict: trials searched and skipped, DM slices,
+    device (module docstring; ``specfuse_mode`` "stitch" or "decimate"),
+    and needs ``device_prep``; ``device_prep=False`` preps each batch on
+    the host (:func:`_host_prep_rows`). Returns a summary dict: trials searched and skipped, DM slices,
     spectra per prep batch, the series bytes copied to the host and the
     spectral regime (None when streamed)."""
     if spectral and write_dats:
         raise ValueError("spectral fusion has no time series to tee: "
                          "write_dats needs the streamed (non-spectral) "
                          "handoff")
+    if spectral and not device_prep:
+        raise ValueError("spectral fusion IS device prep: host prep "
+                         "(device_prep=False) contradicts spectral=True")
     resolve_engine(engine)
     device = resolve_device(device)
     batch = max(1, int(batch))
@@ -297,9 +314,10 @@ def sweep_accel_stream(
     # device-prep residency: series + spectrum + rfft workspace is ~24
     # bytes per sample per spectrum, and the pipeline holds the batch that
     # searches, the queued ones and the one the worker holds; fused
-    # spectra are prepped already, and a batch is a gather of their rows
+    # spectra are prepped already, and a batch is a gather of their rows;
+    # a host-prepped batch holds only its spectra on the device
     inflight = prefetch_depth + 2 if prefetch_depth > 0 else 1
-    unit = batch if spectral else min(
+    unit = batch if spectral or not device_prep else min(
         batch, max(1, (int(hbm_budget_bytes) // inflight)
                    // (24 * max(T, 1))))
     schedule = deredden_schedule(T // 2 + 1)
@@ -344,13 +362,16 @@ def sweep_accel_stream(
 
         def prep(idxs, series=series, fused=fused, d0=d0):
             """Worker-side half: the batch's rows to the device, rfft and
-            deredden, while the previous batch searches; under spectral
-            fusion a gather of the slice's resident spectra."""
+            deredden (or the host prep), while the previous batch
+            searches; under spectral fusion a gather of the slice's
+            resident spectra."""
             loc = [i - d0 for i in idxs]
             if fused is not None:
                 sp = fused["spectra"]
                 return idxs, sp[torch.tensor(loc, device=sp.device)]
             rows = np.ascontiguousarray(series[loc])
+            if not device_prep:
+                return idxs, _host_prep_rows(rows, schedule, device)
             return idxs, prep_spectra_batch(rows, schedule, device=device)
 
         if prefetch_depth > 0:

@@ -188,7 +188,7 @@ def test_plain_write_dats_uses_the_streamed_writer(runs):
     (["--mesh", "2"], "Queue 1 item 14"),
     (["--engine", "scan"], "Queue 1 item 13"),
     (["--resume"], "Queue 1 S1"),
-    (["--no-accel-device-prep"], "Queue 1 S9"),
+    (["--all-events"], "Queue 1 S8"),
 ])
 def test_left_out_flags_fail_naming_the_roadmap(runs, capsys, flags, item):
     tag = str(runs["dir"] / "left_out")

@@ -245,6 +245,56 @@ def test_psrfits_and_multi_file_entry_points_default_to_the_card(tmp_path):
     assert rfifind.main([*fils, "-o", out, "--device", "cpu"]) == 0
 
 
+def test_accel_cli_and_host_prep_sweep_default_to_the_card(tmp_path):
+    """cli.accelsearch (serial and batched, .dat and .fft), PrestoFFT and
+    the sweep's host-prep handoff raise without a card and write
+    nothing; asked for the CPU, they run."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default path would run")
+    from pypulsar_tpu_torch.cli import accelsearch, sweep
+    from pypulsar_tpu_torch.fourier.prestofft import PrestoFFT, write_fft
+    from pypulsar_tpu_torch.io.datfile import write_dat
+    from pypulsar_tpu_torch.io.infodata import InfoData
+    from pypulsar_tpu_torch.io.synth import write_synthetic_fil
+
+    inf = InfoData()
+    inf.epoch, inf.dt, inf.N, inf.telescope = 55000.0, 1e-3, 4096, "Fake"
+    ts = np.random.default_rng(2).standard_normal(4096).astype(np.float32)
+    dat = str(tmp_path / "s.dat")
+    write_dat(dat[:-4], ts, inf)
+    fft = str(tmp_path / "s.fft")
+    write_fft(fft, np.fft.rfft(ts).astype(np.complex64), inf)
+    fil = str(tmp_path / "f.fil")
+    write_synthetic_fil(fil, nchan=16, tsamp=1e-3, nsamp=4096, fch1=1500.0,
+                        bw=16.0, dm=5.0, period_samples=64, width=2,
+                        seed=1)
+    out = str(tmp_path / "o")
+    flags = ["-z", "4", "-n", "1"]
+    calls = [
+        lambda: accelsearch.main([dat, *flags, "-o", out]),
+        lambda: accelsearch.main([fft, *flags, "-o", out]),
+        lambda: accelsearch.main([dat, dat, *flags, "--batch", "2"]),
+        lambda: PrestoFFT(fft),
+        lambda: sweep.main([fil, "--numdms", "2", "-s", "4", "-o", out,
+                            "--accel-search", "--accel-only",
+                            "--no-accel-device-prep", "--accel-zmax",
+                            "4"])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not list(tmp_path.glob("o*"))
+    assert not list(tmp_path.glob("s_ACCEL*"))
+    # asked explicitly, the CPU runs
+    assert accelsearch.main([dat, *flags, "-o", out, "--device",
+                             "cpu"]) == 0
+    assert sweep.main([fil, "--numdms", "2", "-s", "4", "-o", out,
+                       "--accel-search", "--accel-only",
+                       "--no-accel-device-prep", "--accel-zmax", "4",
+                       "--device", "cpu"]) == 0
+
+
 @pytest.mark.parametrize("where", ["checkout", "alone"])
 def test_chip_smoke_prints_no_result_off_the_card(tmp_path, where):
     """Without a card, or copied away from the package, chip_smoke.py
