@@ -287,6 +287,32 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    pulses_to_toa's TOAs spread under 0.05. The serial-fallback counter
    must be 0 after every run. One ``path NAME:`` line each; the cut:
    4096 DM trials -> 7 spectra of 1 h.
+15. Kill and resume, and the per-chunk single-pulse events. Each kill is
+   a child run of the CLI (``KILL_RUNNER``, by ``python -c``) that
+   SIGKILLs itself at a set point; each resume runs in this process with
+   the counts set to 0. (a) ``cli.sweep --all-events`` over phase 4's
+   1024 trials (64 chunks of 16384): uninterrupted with ``--checkpoint
+   --checkpoint-every 4`` (each save timed), killed right after its 3rd
+   save, then ``--resume``: the checkpoint's cursor after 12 chunks, the
+   resumed ``.cands``, ``.events`` and ``.pulses`` the uninterrupted
+   bytes, no chunk before the cursor accumulated, each sweep kernel
+   launched for the 52 chunks after it only (the uninterrupted launches
+   a chunk), the bytes shipped those chunks' blocks (at most one overlap
+   more), and the events of DM 70's trial group (8 trials) held to the
+   CPU port's per-chunk peaks on the same blocks (matched by DM, width
+   and chunk; SNR within 2e-6 relative plus half the print's last digit;
+   a differing sample must hold the same integer window sum). (b)
+   ``--ddplan --lodm 0 --hidm 512 --chunk 65536``: uninterrupted; with
+   ``--checkpoint --checkpoint-every 1`` killed right after step 0's done
+   marker, then with ``--resume`` killed after step 1's first save, then
+   resumed: the uninterrupted ``.cands`` bytes, step 0 not swept (no
+   launch), step 1's launches only after its cursor, every later step's
+   the uninterrupted ones, no checkpoint or marker left. (c)
+   ``cli.foldbatch --journal`` on phase 7's sifted list (``--datbase``,
+   batch 32) killed at its 3rd fold group, then run again: the
+   polynomial fold launched once for each group left, every archive the
+   bytes of phase 7's, every summary row's refined values phase 7's; a
+   third run launches no fold. One ``path NAME:`` line each.
 
 Then one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
@@ -294,8 +320,10 @@ and ``prepfold_cands``, phase 11's ``lane``, phase 12's
 ``psrfits_ddplan``, ``psrfits_flat4``, ``psrfits_chain``, ``float32_fil``
 and ``mask_split`` and phase 13's ``waterfaller_nsub_mask``,
 ``waterfaller_plain``, ``zero_dm_filter``, ``zero_dm_sweep``,
-``spectrogram`` and ``detrend_blocks`` among them), the card line, and
-the last line ``{"ok": true, "device": {...}}``.
+``spectrogram`` and ``detrend_blocks``, and phase 15's
+``checkpoint_resume``, ``ddplan_resume`` and ``fold_resume`` among
+them), the card line, and the last line ``{"ok": true, "device":
+{...}}``.
 """
 
 import collections
@@ -4596,6 +4624,445 @@ def accel_hour_phase(tmp, fn, info, card, device="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: kill and resume (the sweep, a DDplan, the fold) and the
+# per-chunk single-pulse events
+# ---------------------------------------------------------------------------
+
+EVENTS_CHUNK = 16384  # --all-events' default --chunk
+EVENTS_THRESHOLD = 6.0  # the sweep's default --threshold
+EVENTS_EVERY = 4  # --checkpoint-every of the killed sweep
+EVENTS_KILL_AT = 3  # the killed sweep dies right after this save
+EVENTS_WINDOW = (136, 144)  # the trial group of DM 70 (group size 8)
+DDPLAN_CHUNK = 1 << 16  # several chunks in every DDplan step
+FOLD_KILL_AFTER = 2  # fold groups the killed foldbatch completes
+# A child run of a CLI that SIGKILLs itself at a set point, so that each
+# kill is deterministic; nothing in the package changes for it. Modes:
+# "save N:PATH" dies right after the N-th checkpoint save to PATH, "marker
+# SUFFIX" right after a DDplan step's done marker ending in SUFFIX is
+# written, "fold N" at the fold dispatch after N groups.
+KILL_RUNNER = r"""
+import os, signal, sys
+from pypulsar_tpu_torch.cli import foldbatch, sweep as sweep_cli
+from pypulsar_tpu_torch.parallel import foldpipe, staged, sweep
+
+mode, arg, tool, argv = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4:]
+
+
+def die():
+    sys.stdout.flush()
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+if mode == "save":
+    n, path = arg.split(":", 1)
+    real_save, saves = sweep.SweepCheckpoint.save, [0]
+
+    def save(self, *a, **kw):
+        real_save(self, *a, **kw)
+        if self.path == path:
+            saves[0] += 1
+            if saves[0] >= int(n):
+                die()
+
+    sweep.SweepCheckpoint.save = save
+elif mode == "marker":
+    real_marker = staged._save_step_result
+
+    def marker(path, *a):
+        real_marker(path, *a)
+        if path.endswith(arg):
+            die()
+
+    staged._save_step_result = marker
+elif mode == "fold":
+    real_dispatch, groups = foldpipe._fold_dispatch, [0]
+
+    def dispatch(*a, **kw):
+        groups[0] += 1
+        if groups[0] > int(arg):
+            die()
+        return real_dispatch(*a, **kw)
+
+    foldpipe._fold_dispatch = dispatch
+main = {"sweep": sweep_cli.main, "foldbatch": foldbatch.main}[tool]
+sys.exit(main(argv))
+"""
+
+
+def killed_run(mode, arg, tool, argv, timeout=600):
+    """``tool`` in a child that kills itself at the set point; fails unless
+    it died by that kill. Returns its wall seconds."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", KILL_RUNNER, mode, arg,
+                           tool, *argv], cwd=HERE, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != -signal.SIGKILL:
+        fail(f"the killed {tool} run ({mode} {arg}) exited "
+             f"{proc.returncode}, not by its kill: {proc.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def same_files(a_base, b_base, exts):
+    for ext in exts:
+        with open(a_base + ext, "rb") as a, open(b_base + ext, "rb") as b:
+            if a.read() != b.read():
+                fail(f"{b_base}{ext}: not the bytes of {a_base}{ext}")
+
+
+def ckpt_state(path):
+    """(cursor, chunks of peaks held, bytes) of a checkpoint file."""
+    import numpy as np
+
+    with np.load(path) as z:
+        peaks = int(z["chunk_mb"].shape[0]) if "chunk_mb" in z else 0
+        return int(z["cursor"]), peaks, os.path.getsize(path)
+
+
+def post_cursor_launches(full, resumed, n_chunks, k):
+    """Every sweep kernel of the resumed run launched exactly for the
+    ``n_chunks - k`` chunks after the cursor, at the uninterrupted run's
+    launches a chunk."""
+    for name in SWEEP_KERNELS:
+        if full[name] % n_chunks or full[name] == 0:
+            fail(f"{name}: {full[name]} launches over {n_chunks} chunks")
+        want = full[name] // n_chunks * (n_chunks - k)
+        if resumed[name] != want:
+            fail(f"{name}: the resumed run launched {resumed[name]}, the "
+                 f"{n_chunks - k} chunks after the cursor need {want}")
+
+
+def event_rows(path, lo_dm, hi_dm):
+    """{(dm, width, chunk): (snr, sample)} of an ``.events`` file's rows in
+    [lo_dm, hi_dm]."""
+    rows = {}
+    with open(path) as f:
+        for ln in f.read().splitlines()[1:]:
+            p = ln.split()
+            dm = float(p[0])
+            if lo_dm <= dm <= hi_dm:
+                key = (round(dm, 4), int(p[4]), int(p[3]) // EVENTS_CHUNK)
+                rows[key] = (float(p[1]), int(p[3]))
+    return rows
+
+
+def hold_events_to_cpu(fn, path, full_plan, overlap):
+    """The card's ``.events`` rows of DM 70's trial group against the CPU
+    port's per-chunk peaks of that group (its plan's group is the card
+    plan's, so the shifts are the same; the CPU stream has the card's
+    blocks, so the baseline is the same): matched by (DM, width, chunk),
+    SNR within 2e-6 relative plus half the print's last digit, the same
+    sample or one holding the same integer window sum (a tie); a row
+    only one side holds lies within that bound of the threshold."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.parallel import staged, sweep
+
+    lo, hi = EVENTS_WINDOW
+    g = lo // full_plan.group_size
+    dms = full_plan.dms[lo:hi]
+    with FilterbankFile(fn) as r:
+        src = staged.ReaderSource(r)
+        plan = sweep.make_sweep_plan(dms, src.frequencies, src.tsamp,
+                                     nsub=full_plan.nsub,
+                                     group_size=full_plan.group_size)
+        if not (np.array_equal(plan.stage1_bins[0], full_plan.stage1_bins[g])
+                and np.array_equal(plan.stage2_bins[0],
+                                   full_plan.stage2_bins[g])):
+            fail("the CPU window's shifts are not the card plan's")
+        t0 = time.perf_counter()
+        cpu = sweep.sweep_stream(
+            plan, src.chan_major_blocks(EVENTS_CHUNK, overlap,
+                                        torch.device("cpu")),
+            EVENTS_CHUNK, device="cpu", keep_chunk_peaks=True)
+        cpu_s = time.perf_counter() - t0
+        hdr, C, T = r.header_size, r.nchans, r.nspec
+    want = {(round(e["dm"], 4), e["width"], e["sample"] // EVENTS_CHUNK):
+            (e["snr"], e["sample"]) for e in cpu.events(EVENTS_THRESHOLD)}
+    got = event_rows(path, float(dms[0]), float(dms[-1]))
+    if not want:
+        fail("the CPU port found no event in DM 70's trial group")
+    raw = np.memmap(fn, dtype=np.uint8, mode="r", offset=hdr, shape=(T, C))
+    per = C // plan.nsub
+    bound = 2e-6 * EVENTS_THRESHOLD + 5e-4 + 1e-9
+    for key in set(got) ^ set(want):
+        snr = (got.get(key) or want.get(key))[0]
+        if abs(snr - EVENTS_THRESHOLD) > bound:
+            fail(f"event {key} (SNR {snr}) on one side only")
+    ties = max_err = 0
+    for key in set(got) & set(want):
+        (a, sa), (b, sb) = got[key], want[key]
+        max_err = max(max_err, abs(a - b))
+        if abs(a - b) > 2e-6 * abs(b) + 5e-4 + 1e-9:
+            fail(f"event {key}: card SNR {a}, CPU {b}")
+        if sa != sb:
+            ti = int(np.argmin(np.abs(dms - key[0])))
+            tot = plan.stage1_bins[0] + np.repeat(plan.stage2_bins[0, ti],
+                                                  per)
+            sums = [sum(int(raw[s + tot[c]:s + tot[c] + key[1], c].sum(
+                dtype=np.int64)) for c in range(C)) for s in (sa, sb)]
+            if sums[0] != sums[1]:
+                fail(f"event {key}: samples {sa} and {sb} hold window sums "
+                     f"{sums}")
+            ties += 1
+    return dict(rows_card=len(got), rows_cpu=len(want),
+                matched=len(set(got) & set(want)), proven_ties=ties,
+                max_abs_snr_diff=max_err, cpu_sweep_s=cpu_s)
+
+
+def resume_sweep(tmp, fn, info, card):
+    """Phase 15 (a): ``cli.sweep --all-events`` over phase 4's 1024
+    trials, uninterrupted (``--checkpoint``, its saves timed), killed right
+    after its third save, then ``--resume``: the resumed ``.cands``,
+    ``.events`` and ``.pulses`` the uninterrupted bytes, the sweep kernels
+    launched for the chunks after the cursor only, the bytes shipped those
+    chunks' blocks, the events of DM 70's group held to the CPU port's."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.parallel import staged, sweep
+
+    flags = [fn, "--lodm", "0", "--dmstep", "0.5", "--numdms", "1024",
+             "--nsub", "64", "--all-events", "--device", "cuda"]
+    T = info["nsamp"]
+    with FilterbankFile(fn) as r:
+        plan, payload, _ = staged.step_geometry(
+            staged.ReaderSource(r), 0.5 * np.arange(1024), 1, 64, 0,
+            sweep.DEFAULT_WIDTHS, EVENTS_CHUNK)
+    if payload != EVENTS_CHUNK:
+        fail(f"the events sweep's payload is {payload}")
+    n_chunks = -(-T // payload)
+    full = os.path.join(tmp, "ev_full")
+    saves = []
+    real_save = sweep.SweepCheckpoint.save
+
+    def timed_save(self, *a, **kw):
+        t0 = time.perf_counter()
+        real_save(self, *a, **kw)
+        saves.append((time.perf_counter() - t0, os.path.getsize(self.path)))
+
+    sweep.SweepCheckpoint.save = timed_save
+    try:
+        with PathMeter("events_uninterrupted", card) as pm_full:
+            rc = cli.main(flags + ["-o", full, "--checkpoint",
+                                   full + ".ckpt", "--checkpoint-every",
+                                   str(EVENTS_EVERY)])
+    finally:
+        sweep.SweepCheckpoint.save = real_save
+    if rc != 0 or os.path.exists(full + ".ckpt"):
+        fail(f"the uninterrupted events sweep exited {rc} or left its "
+             f"checkpoint")
+    if len(saves) != n_chunks // EVENTS_EVERY:
+        fail(f"{len(saves)} checkpoint saves over {n_chunks} chunks")
+    pm_full.line(chunks=n_chunks, checkpoint_saves=len(saves),
+                 save_s_mean=sum(s for s, _ in saves) / len(saves),
+                 save_s_max=max(s for s, _ in saves),
+                 checkpoint_bytes_last=saves[-1][1])
+    ck, res = os.path.join(tmp, "ev.ckpt"), os.path.join(tmp, "ev_res")
+    argv = flags + ["-o", res, "--checkpoint", ck, "--checkpoint-every",
+                    str(EVENTS_EVERY)]
+    kill_s = killed_run("save", f"{EVENTS_KILL_AT}:{ck}", "sweep", argv)
+    cursor, peaks, ck_bytes = ckpt_state(ck)
+    k = EVENTS_KILL_AT * EVENTS_EVERY
+    if cursor != k * payload or peaks != k:
+        fail(f"the killed sweep's checkpoint holds cursor {cursor} and "
+             f"{peaks} chunks of peaks, not {k * payload} and {k}")
+    if os.path.exists(res + ".cands"):
+        fail("the killed sweep published its .cands")
+    starts = []
+    real_update = sweep._Accum.update
+
+    def update(self, start, *a):
+        starts.append(start)
+        return real_update(self, start, *a)
+
+    sweep._Accum.update = update
+    try:
+        with PathMeter("checkpoint_resume", card) as pm:
+            rc = cli.main(argv + ["--resume"])
+    finally:
+        sweep._Accum.update = real_update
+    if rc != 0 or os.path.exists(ck):
+        fail(f"the resumed sweep exited {rc} or left its checkpoint")
+    if min(starts) != cursor or len(starts) != n_chunks - k:
+        fail(f"the resumed sweep accumulated {len(starts)} chunks from "
+             f"{min(starts)}; the cursor is {cursor}")
+    same_files(full, res, (".cands", ".events", ".pulses"))
+    post_cursor_launches(pm_full.launches, pm.launches, n_chunks, k)
+    C = info["nchan"]  # one byte a sample
+    blocks = sum(min(payload + plan.min_overlap, T - pos) * C
+                 for pos in range(cursor, T, payload))
+    if not blocks <= pm.shipped <= blocks + plan.min_overlap * C:
+        fail(f"the resumed sweep shipped {pm.shipped} bytes; the blocks "
+             f"after the cursor hold {blocks}")
+    held = hold_events_to_cpu(fn, res + ".events", plan, plan.min_overlap)
+    pm.line(uninterrupted_wall_s=pm_full.wall_s, killed_run_wall_s=kill_s,
+            cursor=cursor, chunks=n_chunks, chunks_resumed=n_chunks - k,
+            checkpoint_bytes=ck_bytes, post_cursor_block_bytes=blocks,
+            uninterrupted_bytes_shipped=pm_full.shipped,
+            events_vs_cpu=held)
+    return pm.launches
+
+
+class StepCounter:
+    """Each ``staged.run_step`` call of one run: its downsampling and the
+    kernel launches inside it."""
+
+    def __enter__(self):
+        from pypulsar_tpu_torch.parallel import staged
+
+        self.staged, self.real, self.steps = staged, staged.run_step, []
+
+        def counted(*a, **kw):
+            before = collections.Counter(launch_counts())
+            out = self.real(*a, **kw)
+            self.steps.append((int(a[2]), dict(
+                collections.Counter(launch_counts()) - before)))
+            return out
+
+        staged.run_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.staged.run_step = self.real
+
+
+def resume_ddplan(tmp, fn, card):
+    """Phase 15 (b): ``cli.sweep --ddplan --lodm 0 --hidm 512 --chunk
+    65536`` uninterrupted; with ``--checkpoint`` killed right after step
+    0's done marker, then with ``--resume`` killed after step 1's first
+    save, then resumed: the uninterrupted ``.cands`` bytes, no launch for
+    step 0, step 1's launches only after its cursor, the markers gone."""
+    import argparse
+
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.parallel import staged, sweep
+
+    flags = [fn, "--ddplan", "--lodm", "0", "--hidm", "512", "--nsub", "64",
+             "--chunk", str(DDPLAN_CHUNK), "--device", "cuda"]
+    with FilterbankFile(fn) as r:
+        ddplan = cli.make_ddplan(r, argparse.Namespace(
+            lodm=0.0, hidm=512.0, plan_numsub=0, resolution=0.0))
+        step1 = ddplan.DDsteps[1]
+        _, payload1, n_ds1 = staged.step_geometry(
+            staged.ReaderSource(r), np.asarray(step1.DMs, np.float64),
+            int(step1.downsamp), 64, 0, sweep.DEFAULT_WIDTHS, DDPLAN_CHUNK)
+    n1 = -(-n_ds1 // payload1)
+    full = os.path.join(tmp, "dd_full")
+    with StepCounter() as full_steps, PathMeter("ddplan_uninterrupted",
+                                                card) as pm_full:
+        rc = cli.main(flags + ["-o", full])
+    if rc != 0 or len(full_steps.steps) != len(ddplan.DDsteps):
+        fail(f"the uninterrupted DDplan exited {rc} over "
+             f"{len(full_steps.steps)} steps")
+    pm_full.line(steps=len(ddplan.DDsteps))
+    ck, res = os.path.join(tmp, "dd.ckpt"), os.path.join(tmp, "dd_res")
+    argv = flags + ["-o", res, "--checkpoint", ck, "--checkpoint-every", "1"]
+    kill1_s = killed_run("marker", ".step0.done.npz", "sweep", argv)
+    if not os.path.exists(ck + ".step0.done.npz"):
+        fail("the killed DDplan left no step-0 marker")
+    kill2_s = killed_run("save", f"1:{ck}.step1.npz", "sweep",
+                         argv + ["--resume"])
+    cursor, _, _ = ckpt_state(ck + ".step1.npz")
+    k1 = cursor // payload1
+    if cursor % payload1 or not 0 < k1 < n1:
+        fail(f"step 1's checkpoint cursor {cursor} is not inside the step "
+             f"({n1} chunks of {payload1})")
+    with StepCounter() as steps, PathMeter("ddplan_resume", card) as pm:
+        rc = cli.main(argv + ["--resume"])
+    if rc != 0:
+        fail(f"the resumed DDplan exited {rc}")
+    same_files(full, res, (".cands",))
+    if [d for d, _ in steps.steps] != [d for d, _ in full_steps.steps[1:]]:
+        fail(f"the resumed DDplan swept steps {steps.steps}: step 0 comes "
+             f"from its marker")
+    post_cursor_launches(full_steps.steps[1][1], steps.steps[0][1], n1, k1)
+    for (_, a), (_, b) in zip(steps.steps[1:], full_steps.steps[2:]):
+        if a != b:
+            fail(f"a resumed step launched {a}, uninterrupted {b}")
+    if any(os.path.exists(f"{ck}.step{i}{ext}")
+           for i in range(len(ddplan.DDsteps))
+           for ext in (".npz", ".done.npz")):
+        fail("the resumed DDplan left a checkpoint or marker")
+    pm.line(uninterrupted_wall_s=pm_full.wall_s, killed_runs_wall_s=[
+        kill1_s, kill2_s], step1_cursor=cursor, step1_chunks=n1,
+        step1_chunks_resumed=n1 - k1,
+        per_step_launches=[la for _, la in steps.steps])
+    return pm.launches
+
+
+def resume_fold(tmp, card):
+    """Phase 15 (c): ``cli.foldbatch --journal`` on phase 7's sifted list
+    (``--datbase``, batch 32) killed at its third fold group, then run
+    again: the polynomial fold launched once for each group left, every
+    archive the bytes of phase 7's, every summary row's refined values
+    phase 7's (the first groups' taken from the journal's notes); a third
+    run folds nothing."""
+    from pypulsar_tpu_torch.cli import foldbatch
+
+    stage, sifted = os.path.join(tmp, "stage"), os.path.join(
+        tmp, "fold.accelcands")
+    ref = os.path.join(tmp, "fold_dats")
+    with open(ref + "_foldbatch.json") as f:
+        ref_rows = {r["name"]: r for r in json.load(f)["results"]}
+    counts = collections.Counter(r["dm"] for r in ref_rows.values())
+    n_groups = sum(-(-n // 32) for n in counts.values())
+    if n_groups <= FOLD_KILL_AFTER:
+        fail(f"phase 7's list has {n_groups} fold groups")
+    out, jnl = os.path.join(tmp, "fold_res"), os.path.join(tmp,
+                                                           "fold_res.jsonl")
+    argv = ["--cands", sifted, "-n", str(FOLD_NBINS), "--npart",
+            str(FOLD_NPART), "--device", "cuda", "--datbase", stage,
+            "--batch", "32", "-o", out, "--journal", jnl]
+    kill_s = killed_run("fold", str(FOLD_KILL_AFTER), "foldbatch", argv)
+    with PathMeter("fold_resume", card) as pm:
+        rc = foldbatch.main(argv)
+    if rc != 0:
+        fail(f"the resumed foldbatch exited {rc}")
+    with open(out + "_foldbatch.json") as f:
+        summary = json.load(f)
+    if pm.launches["fold_parts_poly"] != n_groups - FOLD_KILL_AFTER:
+        fail(f"the resumed fold launched {pm.launches['fold_parts_poly']} "
+             f"folds for {n_groups - FOLD_KILL_AFTER} groups left")
+    if summary["n_folded"] + summary["n_skipped"] != len(ref_rows) or \
+            not summary["n_skipped"]:
+        fail(f"the resumed fold folded {summary['n_folded']} and skipped "
+             f"{summary['n_skipped']} of {len(ref_rows)}")
+    for r in summary["results"]:
+        want = ref_rows[r["name"]]
+        for key in ("best_period", "best_pdot", "chi2_best"):
+            if r.get(key) != want[key]:
+                fail(f"{r['name']}: {key} {r.get(key)}, phase 7 {want[key]}")
+        with open(r["pfd"], "rb") as a, open(want["pfd"], "rb") as b:
+            if a.read() != b.read():
+                fail(f"{r['pfd']}: not the bytes of {want['pfd']}")
+    with PathMeter("fold_rerun", card) as again:
+        rc = foldbatch.main(argv)
+    if rc != 0 or again.launches["fold_parts_poly"]:
+        fail(f"a rerun of a complete journal exited {rc}, launching "
+             f"{again.launches['fold_parts_poly']} folds")
+    pm.line(killed_run_wall_s=kill_s, groups=n_groups,
+            groups_refolded=n_groups - FOLD_KILL_AFTER,
+            skipped=summary["n_skipped"], folded=summary["n_folded"],
+            rerun_wall_s=again.wall_s)
+    return pm.launches
+
+
+def resume_phase(tmp, fn, info, card):
+    """Phase 15: returns the launches of each resumed path."""
+    return {"checkpoint_resume": resume_sweep(tmp, fn, info, card),
+            "ddplan_resume": resume_ddplan(tmp, fn, card),
+            "fold_resume": resume_fold(tmp, card)}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -4643,6 +5110,7 @@ def main() -> int:
         fits_paths = psrfits_phase(tmp, fn, info, chain, card)
         spectra_paths = spectra_phase(tmp, fn, card)
         hour_paths = accel_hour_phase(tmp, fn, info, card)
+        resume_paths = resume_phase(tmp, fn, info, card)
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -4652,7 +5120,7 @@ def main() -> int:
              "spectral_stage": spectral, "spectral_decimated": decimated,
              "spectral_chain": spectral_ch, "ddplan": ddplan, **prep,
              "lane": lane_launches, **fits_paths, **spectra_paths,
-             **hour_paths}
+             **hour_paths, **resume_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}

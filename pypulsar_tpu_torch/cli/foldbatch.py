@@ -19,7 +19,10 @@ Series sources (exactly one):
 
 ``--cands`` takes the sifted ``.accelcands`` grammar or a plain
 ``period_s dm [pdot]`` table. A summary JSON (refined p/pdot per
-candidate) is written atomically beside the archives. ``--device``
+candidate) is written atomically beside the archives. ``--journal
+PATH.jsonl`` keeps a work-unit journal of the archives: a rerun folds only
+the candidates whose archive does not validate (size and sha256), and its
+summary takes the others' refined (p, pdot) from the journal. ``--device``
 defaults to ``cuda`` and refuses to run without a card; ``--device cpu``
 runs the fold kernel's plain PyTorch version.
 
@@ -37,7 +40,6 @@ import sys
 #: flags of the reference's fold stage that the port does not take yet,
 #: with the ROADMAP.md item that brings each
 NOT_PORTED = {
-    "journal": ("--journal", "Queue 1 S1 (checkpoint/resume)"),
     "telemetry": ("--telemetry", "Queue 1 S5 (telemetry)"),
     "fault_inject": ("--fault-inject", "Queue 1 S5 (telemetry)"),
 }
@@ -99,9 +101,11 @@ def build_parser():
                    help="stream source: rfifind .mask applied per raw "
                         "block, as the sweep stage applied it (.dat "
                         "series were masked when written)")
+    p.add_argument("--journal", default=None, metavar="PATH.jsonl",
+                   help="work-unit journal: a rerun folds only the "
+                        "candidates whose archives do not validate "
+                        "(size and sha256)")
     not_ported = "not ported yet: ROADMAP.md "
-    p.add_argument("--journal", default=None,
-                   help=not_ported + NOT_PORTED["journal"][1])
     p.add_argument("--telemetry", default=None,
                    help=not_ported + NOT_PORTED["telemetry"][1])
     p.add_argument("--fault-inject", default=None,
@@ -143,11 +147,11 @@ def main(argv=None) -> int:
         refine=args.refine, ntrial_p=args.ntrial_p,
         ntrial_pd=args.ntrial_pd, max_drift=args.max_drift,
         prefetch_depth=args.prefetch, skip_existing=args.skip_existing,
-        device=args.device, verbose=True)
+        journal_path=args.journal, device=args.device, verbose=True)
     if args.datbase is not None:
         base = args.datbase
         summary = fold_pipeline(
-            cands, outbase, source="dats",
+            cands, outbase, source="dats", source_id=base,
             dat_for_dm=lambda dm: f"{base}_DM{dm:.2f}.dat", **kwargs)
     elif args.infile.endswith(".dat"):
         # one series for the whole list, at the DM of its .inf sidecar
@@ -158,7 +162,7 @@ def main(argv=None) -> int:
         cands = [FoldCandidate(c.period, inf_dm, c.pdot, c.name)
                  for c in cands]
         summary = fold_pipeline(
-            cands, outbase, source="dats",
+            cands, outbase, source="dats", source_id=args.infile,
             dat_for_dm=lambda dm: args.infile, **kwargs)
     else:
         from pypulsar_tpu_torch.cli import open_reader

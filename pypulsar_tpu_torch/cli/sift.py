@@ -14,6 +14,12 @@ the list is written in PRESTO's text grammar
 ``.cand`` inputs (:func:`pypulsar_tpu_torch.parallel.foldpipe.fold_pipeline`)
 on ``--device`` (default ``cuda``).
 
+``--journal PATH.jsonl`` (with ``-o``) records the written list as the
+unit ``sift:{name}`` of a work-unit journal whose fingerprint hashes the
+inputs' content (each ``.cand``'s size and sha256) and the options: a
+rerun whose list still validates skips the sift (and, with ``--fold``,
+still folds, skipping complete archives); a changed input sifts again.
+
 Run as ``python -m pypulsar_tpu_torch.cli.sift *_ACCEL_*.cand -o X.accelcands``.
 """
 
@@ -36,7 +42,6 @@ _DM_RE = re.compile(r"DM(\d+(?:\.\d+)?)")
 #: flags of the reference's sift stage that the port does not take yet,
 #: with the ROADMAP.md item that brings each
 NOT_PORTED = {
-    "journal": ("--journal", "Queue 1 S1 (checkpoint/resume)"),
     "known_sources": ("--known-sources",
                       "Queue 1 S13 (the candidate store's known-source "
                       "matcher)"),
@@ -174,9 +179,11 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="with --fold: torch device (default cuda; cpu runs "
                         "the fold kernel's plain PyTorch version)")
+    p.add_argument("--journal", default=None, metavar="PATH.jsonl",
+                   help="record the written .accelcands in this work-unit "
+                        "journal (with -o): a rerun whose output validates "
+                        "skips the sift")
     not_ported = "not ported yet: ROADMAP.md "
-    p.add_argument("--journal", default=None,
-                   help=not_ported + NOT_PORTED["journal"][1])
     p.add_argument("--known-sources", default=None,
                    help=not_ported + NOT_PORTED["known_sources"][1])
     return p
@@ -191,6 +198,27 @@ def main(argv=None) -> int:
     if args.fold and not args.outfile:
         ap.error("--fold requires -o/--outfile: the fold reads the written "
                  ".accelcands, so reruns fold identical candidates")
+    journal = unit = None
+    if args.journal:
+        if not args.outfile:
+            ap.error("--journal requires -o/--outfile (stdout cannot be "
+                     "validated on resume)")
+        from pypulsar_tpu_torch.resilience.journal import RunJournal
+
+        # tool="sift": pointed at another stage's journal, this raises
+        # instead of truncating that manifest
+        journal = RunJournal(args.journal, _journal_fingerprint(args),
+                             tool="sift")
+        unit = f"sift:{os.path.basename(args.outfile)}"
+        if unit in journal.completed():
+            print(f"# journal: {args.outfile} validated complete, "
+                  f"skipping", file=sys.stderr)
+            journal.close()
+            if args.fold:
+                # the unit covers the sift's list only: a run killed
+                # during --fold folds on resume
+                return _fold_sifted(args, collect(args.candfiles))
+            return 0
     files = collect(args.candfiles)
     cands = sift(files, min_sigma=args.min_sigma, min_hits=args.min_hits)
     if args.min_dm is not None:
@@ -199,9 +227,36 @@ def main(argv=None) -> int:
     if args.outfile:
         print(f"# {len(cands)} sifted candidates -> {args.outfile}",
               file=sys.stderr)
+    if journal is not None:
+        journal.done(unit, [args.outfile])
+        journal.close()
     if args.fold and cands:
         return _fold_sifted(args, files)
     return 0
+
+
+def _journal_fingerprint(args) -> str:
+    """Hash of the inputs' content (size and sha256 of each ``.cand``, by
+    sorted name), the sift's options and the output path: a re-searched
+    trial whose ``.cand`` changed sifts again instead of skipping against
+    the stale list."""
+    import hashlib
+
+    from pypulsar_tpu_torch.resilience.journal import file_digest
+
+    h = hashlib.sha256()
+    for fn in sorted(args.candfiles):
+        h.update(fn.encode() + b"\0")
+        try:
+            size, digest = file_digest(fn)
+            h.update(np.int64([size]).tobytes() + digest.encode())
+        except OSError:
+            h.update(b"missing")
+    h.update(np.float64([args.min_sigma, args.min_dm
+                         if args.min_dm is not None else -1.0]).tobytes())
+    h.update(np.int64([args.min_hits]).tobytes())
+    h.update(args.outfile.encode())
+    return h.hexdigest()
 
 
 def _fold_sifted(args, files) -> int:

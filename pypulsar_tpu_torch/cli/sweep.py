@@ -27,12 +27,28 @@ device. ``--ddplan --hidm H`` sweeps a DDplan2b
 staged plan of ``--lodm`` .. ``H`` instead of a flat grid, each step at
 its own downsampling (single-pulse pass only).
 
+``--all-events`` (flat mode) keeps every chunk's peak of every trial and
+width and writes those at or above ``--threshold`` to
+``{outbase}.events`` (the ``.cands`` columns), and their friends-of-
+friends groups to ``{outbase}.pulses`` (plus ``n_hits``, ``dm_lo`` and
+``dm_hi``), grouped within ``--group-time-tol`` seconds (default 4x the
+widest boxcar) and ``--group-dm-tol`` (default 3x ``--dmstep``, at least
+1). One event per chunk: ``--chunk`` defaults to 16384 with this flag.
+
+``--checkpoint PATH`` checkpoints the sweep pass every
+``--checkpoint-every`` chunks (default 16; a DDplan checkpoints each step
+to ``PATH.step{i}.npz`` and marks finished steps with
+``PATH.step{i}.done.npz``); ``--resume`` goes on from those files, and
+without it they are removed first. A resumed run's artifacts have the
+uninterrupted run's bytes.
+
 ``--journal PATH.jsonl`` keeps a work-unit journal of the chain: the
-``.cands`` are published and journalled (``sweep:cands``) before the
-accel pass, each trial's ``.cand`` pair once written, and a rerun with
-the same journal and flags skips every unit whose artifacts still
-validate (size and sha256). ``--accel-skip-existing`` skips trials whose
-``.cand`` pair already validates.
+``.cands`` (with ``--all-events`` also the ``.events`` and ``.pulses``)
+are published and journalled (``sweep:cands``) before the accel pass,
+each trial's ``.cand`` pair once written, and a rerun with the same
+journal and flags skips every unit whose artifacts still validate (size
+and sha256). ``--accel-skip-existing`` skips trials whose ``.cand`` pair
+already validates.
 
 Several input files are refused: in the JAX package they are the mesh's
 batch axis, which comes with ROADMAP.md Queue 1 item 14.
@@ -57,22 +73,29 @@ from pypulsar_tpu_torch.resilience.journal import atomic_write_text
 #: with the ROADMAP.md item that brings each
 NOT_PORTED = {
     "mesh": ("--mesh", "Queue 1 item 14 (multi-GPU)"),
-    "all_events": ("--all-events", "Queue 1 S8 (per-chunk events)"),
-    "checkpoint": ("--checkpoint", "Queue 1 S1 (checkpoint/resume)"),
-    "resume": ("--resume", "Queue 1 S1 (checkpoint/resume)"),
 }
-def write_cands(path, cands) -> None:
-    """Write candidate rows atomically (tmp + os.replace); rows with a
-    non-finite DM, SNR or time are dropped at the gate."""
+#: the .pulses columns after the .cands' six: (header, key, format)
+PULSE_COLS = (("n_hits", "n_hits", "%-7d"), ("dm_lo", "dm_lo", "%-8.3f"),
+              ("dm_hi", "dm_hi", "%-8.3f"))
+
+
+def write_cands(path, cands, extra_cols=()) -> None:
+    """Write candidate, event or pulse rows atomically (tmp +
+    os.replace); ``extra_cols`` appends (header, key, format) columns
+    after the six shared ones. Rows with a non-finite DM, SNR or time are
+    dropped at the gate."""
     cands = finite_rows(cands, ("dm", "snr", "time_sec"),
                         what=os.path.basename(path))
     lines = ["# DM      SNR      time_s       sample    width_bins  "
-             "downsamp\n"]
+             "downsamp" + "".join("  " + h for h, _, _ in extra_cols)
+             + "\n"]
     for c in cands:
         lines.append(
             f"{c['dm']:<9.4f} {c['snr']:<8.3f} {c['time_sec']:<12.6f} "
             f"{c['sample']:<9d} {c['width_bins']:<11d} "
-            f"{c['downsamp']:<8d}\n")
+            f"{c['downsamp']:<8d}"
+            + "".join("  " + fmt % c[k] for _, k, fmt in extra_cols)
+            + "\n")
     atomic_write_text(path, "".join(lines))
 
 
@@ -176,15 +199,28 @@ def _parser() -> argparse.ArgumentParser:
                     help="work-unit journal of the sweep->accel chain; a "
                          "rerun with the same journal skips the units "
                          "whose artifacts still validate")
+    ap.add_argument("--all-events", action="store_true",
+                    help="flat mode: keep each chunk's peak of every trial "
+                         "and width; write those >= --threshold to "
+                         "{outbase}.events and their groups to "
+                         "{outbase}.pulses (--chunk defaults to 16384)")
+    ap.add_argument("--group-time-tol", type=float, default=None,
+                    help="event grouping's time tolerance in seconds "
+                         "(default 4x the widest boxcar)")
+    ap.add_argument("--group-dm-tol", type=float, default=None,
+                    help="event grouping's DM tolerance (default 3x "
+                         "--dmstep, at least 1)")
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="checkpoint the sweep pass to PATH (a DDplan: "
+                         "PATH.step{i}.npz and .done.npz markers)")
+    ap.add_argument("--checkpoint-every", type=int, default=16,
+                    help="chunks between checkpoint writes (default 16)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the --checkpoint files (without it "
+                         "they are removed first)")
     not_ported = "not ported yet: ROADMAP.md "
     ap.add_argument("--mesh", type=int, default=0,
                     help=not_ported + NOT_PORTED["mesh"][1])
-    ap.add_argument("--all-events", action="store_true",
-                    help=not_ported + NOT_PORTED["all_events"][1])
-    ap.add_argument("--checkpoint", default=None,
-                    help=not_ported + NOT_PORTED["checkpoint"][1])
-    ap.add_argument("--resume", action="store_true",
-                    help=not_ported + NOT_PORTED["resume"][1])
     return ap
 
 
@@ -197,8 +233,7 @@ def _journal_fingerprint(args, dms, widths, outbase, rfimask) -> str:
     hashed too: the engines, and the two preps, agree only within
     tolerance, so a resume must not mix their artifacts (the reference
     hashes ``--spectral`` and the prep but not the engine). Flags the
-    port does not take are hashed at the values it runs (no per-chunk
-    events), as the reference hashes them."""
+    ``--all-events`` is hashed, as the reference hashes it."""
     from pypulsar_tpu_torch.parallel.staged import mask_tag
     from pypulsar_tpu_torch.parallel.sweep import resolve_engine
 
@@ -209,7 +244,7 @@ def _journal_fingerprint(args, dms, widths, outbase, rfimask) -> str:
                          args.accel_sigma]).tobytes())
     h.update(np.int64([args.downsamp, args.nsub, args.group_size,
                        args.accel_numharm, int(bool(args.accel_search)),
-                       0, args.accel_max_cands,
+                       int(bool(args.all_events)), args.accel_max_cands,
                        int(bool(args.accel_device_prep)),
                        int(bool(args.spectral))]).tobytes())
     h.update((args.infile[0] + "|" + (args.maskfile or "")
@@ -219,13 +254,67 @@ def _journal_fingerprint(args, dms, widths, outbase, rfimask) -> str:
     return h.hexdigest()
 
 
+def _remove_stale_checkpoints(base) -> None:
+    """Remove exactly the checkpoint files a run rooted at ``base`` could
+    have written (never a glob: a prefix could match a user's files)."""
+    stale = [base, base + ".tmp.npz"]
+    for i in range(256):
+        stale += [f"{base}.step{i}.npz", f"{base}.step{i}.npz.tmp.npz",
+                  f"{base}.step{i}.done.npz",
+                  f"{base}.step{i}.done.npz.tmp.npz"]
+    for fn in stale:
+        if os.path.exists(fn):
+            os.remove(fn)
+
+
+def _remove_stale_output_tmps(outbase, dms, args) -> None:
+    """Remove the tmp debris a killed run's atomic writers can leave: the
+    exact per-trial names only (the ``.dat``/``.inf`` and ``.cand``/
+    ``.txtcand`` staging files)."""
+    from pypulsar_tpu_torch.parallel.accelpipe import accel_out_names
+
+    for dm in dms:
+        base = f"{outbase}_DM{dm:.2f}"
+        candfn, txtfn = accel_out_names(base, args.accel_zmax, 0.0)
+        for fn in (base + ".dat.tmp", base + ".inf.tmp", candfn + ".tmp",
+                   txtfn + ".tmp"):
+            if os.path.exists(fn):
+                os.remove(fn)
+
+
+def _emit_events(staged, outbase, args) -> None:
+    """Write ``{outbase}.events`` (every per-chunk event >= the
+    threshold) and ``{outbase}.pulses`` (their friends-of-friends
+    groups)."""
+    from pypulsar_tpu_torch.parallel.events import group_events
+
+    events = staged.events(args.threshold)
+    write_cands(outbase + ".events", events)
+    # one pulse spans adjacent trials (DM) and boxcar widths (time)
+    dm_tol = (args.group_dm_tol if args.group_dm_tol is not None
+              else max(3.0 * args.dmstep, 1.0))
+    time_tol = (args.group_time_tol if args.group_time_tol is not None
+                else 4.0 * max(e["width_sec"] for e in events)
+                if events else 0.02)
+    pulses = group_events(events, time_tol=time_tol, dm_tol=dm_tol)
+    write_cands(outbase + ".pulses", pulses, extra_cols=PULSE_COLS)
+    print(f"# {len(events)} above-threshold events -> {outbase}.events; "
+          f"{len(pulses)} grouped pulses -> {outbase}.pulses "
+          f"(time_tol={time_tol:.4g}s, dm_tol={dm_tol:.4g})")
+
+
 def _emit_sweep_artifacts(staged, outbase, args, journal) -> None:
-    """Write the single-pulse ``.cands``, record it in the journal
+    """Write the single-pulse ``.cands`` (and with ``--all-events`` the
+    ``.events`` and ``.pulses``), record them in the journal
     (``sweep:cands``) and print the summary."""
     hits = staged.above_threshold(args.threshold)
     write_cands(outbase + ".cands", hits)
+    outputs = [outbase + ".cands"]
+    if args.all_events:
+        _emit_events(staged, outbase, args)
+        outputs += [outbase + ".events", outbase + ".pulses"]
     if journal is not None:
-        journal.done("sweep:cands", [outbase + ".cands"])
+        journal.done("sweep:cands", outputs)
     print(f"# {staged.n_trials} DM trials swept; {len(hits)} detections "
           f">= {args.threshold} sigma -> {outbase}.cands")
     for c in staged.best(args.topk):
@@ -249,7 +338,11 @@ def _check_args(ap, args) -> None:
                  f"{ENGINES_NOT_PORTED[args.engine]})")
     if args.downsamp < 1:
         ap.error("--downsamp must be >= 1")
+    if args.resume and not args.checkpoint:
+        ap.error("--resume requires --checkpoint PATH")
     if args.ddplan:
+        if args.all_events:
+            ap.error("--all-events is a flat-mode option")
         if args.write_dats:
             ap.error("--write-dats is a flat-mode option (DDplan steps use "
                      "varying time resolutions)")
@@ -266,6 +359,10 @@ def _check_args(ap, args) -> None:
             ap.error("--ddplan requires --hidm")
     elif args.numdms is None:
         ap.error("flat mode requires --numdms (or use --ddplan)")
+    if args.all_events and args.chunk is None:
+        # one event per chunk: a whole-file chunk would leave one event a
+        # trial and width
+        args.chunk = 16384
     if args.accel_only and not args.accel_search:
         ap.error("--accel-only requires --accel-search")
     if args.spectral:
@@ -309,6 +406,8 @@ def main(argv=None) -> int:
     infile = args.infile[0]
     outbase = args.outbase or os.path.splitext(infile)[0]
     rfimask = RfifindMask(args.maskfile) if args.maskfile else None
+    if args.checkpoint and not args.resume:
+        _remove_stale_checkpoints(args.checkpoint)
     if args.ddplan:
         with open_reader(infile) as reader:
             plan = make_ddplan(reader, args)
@@ -318,7 +417,9 @@ def main(argv=None) -> int:
             staged = sweep_ddplan(
                 reader, plan, nsub=args.nsub, group_size=args.group_size,
                 widths=widths, chunk_payload=args.chunk, verbose=True,
-                engine=args.engine, rfimask=rfimask, device=args.device)
+                engine=args.engine, rfimask=rfimask, device=args.device,
+                checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every)
         _emit_sweep_artifacts(staged, outbase, args, None)
         return 0
     dms = args.lodm + args.dmstep * np.arange(args.numdms)
@@ -330,6 +431,7 @@ def main(argv=None) -> int:
                                                rfimask),
             tool="sweep-accel")
         journal_done = journal.completed()
+    _remove_stale_output_tmps(outbase, dms, args)
     try:
         with open_reader(infile) as reader:
             if "sweep:cands" in journal_done and not args.accel_only:
@@ -340,7 +442,10 @@ def main(argv=None) -> int:
                     reader, dms, downsamp=args.downsamp, nsub=args.nsub,
                     group_size=args.group_size, widths=widths,
                     chunk_payload=args.chunk, verbose=True,
-                    engine=args.engine, rfimask=rfimask, device=args.device)
+                    engine=args.engine, rfimask=rfimask, device=args.device,
+                    checkpoint_path=args.checkpoint,
+                    checkpoint_every=args.checkpoint_every,
+                    keep_chunk_peaks=args.all_events)
                 # published (and journalled) before the accel stage: a
                 # kill during the accel pass must not force a re-sweep
                 _emit_sweep_artifacts(staged, outbase, args, journal)

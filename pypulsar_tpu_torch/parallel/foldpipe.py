@@ -21,7 +21,17 @@ Port of ``pypulsar_tpu/parallel/foldpipe.py`` on one device:
 - the host prep (per-partition data moments, the ``[K, 3]`` table of
   phase coefficients) of the next group runs on a worker thread while the
   device folds the current one (:func:`~pypulsar_tpu_torch.parallel.prefetch.prefetch`);
-- every ``.pfd`` lands through tmp + ``os.replace``.
+- every ``.pfd`` lands through tmp + ``os.replace``;
+- ``journal_path`` keeps a work-unit journal
+  (:class:`~pypulsar_tpu_torch.resilience.journal.RunJournal`, tool
+  ``foldbatch``) whose fingerprint hashes the candidates, the fold and
+  refinement geometry, ``outbase`` and the series source (``stream:``
+  with the file, downsampling, subbands, group size, engine and mask
+  tag, or ``dats:`` with the caller's source id): each archive is the
+  unit ``fold:<name>``, recorded after a ``fold_result`` note with its
+  refined (p, pdot), so a rerun folds only the candidates whose archives
+  do not validate (size and sha256) and its summary takes the skipped
+  candidates' refined values from the notes.
 
 Each DM group's device fold is a unit of the batch broker
 (:mod:`~pypulsar_tpu_torch.parallel.broker`): alone (no batch lane) it
@@ -51,12 +61,13 @@ Left out of the reference, each with its reason:
 - the auto-tuning consult and the environment knobs (plain module
   constants here, :data:`STREAM_RAM_BYTES` and
   :data:`FOLD_STACK_BYTES`, which replaces the reference's
-  ``BINIDX_RAM_BYTES`` budget of fused ``[K, T]`` bins), ``--journal``
-  with its fingerprint of the series source (S1) and telemetry (S5).
+  ``BINIDX_RAM_BYTES`` budget of fused ``[K, T]`` bins), telemetry and
+  the fault injector's kill points (S5).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 from dataclasses import dataclass
@@ -369,6 +380,37 @@ def _fold_dispatch(unit, n: int, nbins: int, npart: int, refine: bool,
 # the pipeline
 # ---------------------------------------------------------------------------
 
+def _run_fingerprint(cands: Sequence[FoldCandidate], nbins: int, npart: int,
+                     refine: bool, ntrial_p: int, ntrial_pd: int,
+                     max_drift: float, outbase: str, source_tag: str) -> str:
+    """Journal fingerprint of everything the archives depend on: a rerun
+    under another candidate list, fold geometry, refinement grid, outbase
+    or series source starts over."""
+    h = hashlib.sha256()
+    for c in cands:
+        h.update(np.float64([c.period, c.pdot, c.dm]).tobytes())
+        h.update(c.name.encode() + b"\0")
+    h.update(np.int64([nbins, npart, int(refine), ntrial_p,
+                       ntrial_pd]).tobytes())
+    h.update(np.float64([max_drift]).tobytes())
+    h.update(outbase.encode() + b"\0" + source_tag.encode())
+    return h.hexdigest()
+
+
+def _source_tag(source: str, reader, source_id: str, downsamp: int,
+                nsub: int, group_size: int, engine: str, rfimask) -> str:
+    """The series source of a fold run: the stream's file, geometry,
+    engine and mask, or the ``.dat`` set's id."""
+    if source == "stream":
+        from pypulsar_tpu_torch.parallel.staged import mask_tag
+        from pypulsar_tpu_torch.parallel.sweep import resolve_engine
+
+        return (f"stream:{getattr(reader, 'filename', '?')}:ds{downsamp}"
+                f":ns{nsub}:gs{group_size}:engine={resolve_engine(engine)}"
+                f":mask{mask_tag(rfimask)}")
+    return f"dats:{source_id}"
+
+
 def _prep_group(group, nbins: int, npart: int):
     """Host half of a group: per-partition moments of the shared series
     and every member's phase coefficients, ``[K, 3]`` float64 (the device
@@ -404,6 +446,7 @@ def fold_pipeline(
     *,
     source: str = "dats",
     dat_for_dm=None,
+    source_id: str = "",
     reader=None,
     nbins: int = 64,
     npart: int = 32,
@@ -414,6 +457,7 @@ def fold_pipeline(
     max_drift: float = 2.0,
     prefetch_depth: int = 1,
     skip_existing: bool = False,
+    journal_path: Optional[str] = None,
     downsamp: int = 1,
     nsub: int = 64,
     group_size: int = 0,
@@ -427,9 +471,11 @@ def fold_pipeline(
     device fold per DM group, on ``device``. ``source`` picks the series:
     ``"dats"`` (``dat_for_dm(dm) -> path``) or ``"stream"`` (one pass
     over ``reader`` by the chunk ``engine``, masked by ``rfimask`` when
-    given). ``skip_existing``
-    skips candidates whose archive already parses complete. Returns a summary dict: per-candidate rows
-    (archive path, refined p/pdot, chi2) and counts."""
+    given). ``skip_existing`` skips candidates whose archive already
+    parses complete; ``journal_path`` keeps the run's work-unit journal
+    (module docstring), ``source_id`` naming the ``.dat`` set in its
+    fingerprint. Returns a summary dict: per-candidate rows (archive path,
+    refined p/pdot, chi2) and counts."""
     from pypulsar_tpu_torch.fold.engine import (
         drift_offsets,
         drift_to_p_pd,
@@ -445,124 +491,163 @@ def fold_pipeline(
         raise ValueError("source='dats' needs dat_for_dm")
     cands = _named(cands)
     names = [pfd_out_name(outbase, c) for c in cands]
-    todo = [i for i in range(len(cands))
-            if not (skip_existing and pfd_complete(names[i], npart, nbins))]
-    todo_set = set(todo)
-    n_skipped = len(cands) - len(todo)
-    for i in todo:
-        try:  # stale tmp debris of a killed writer
-            os.remove(names[i] + ".tmp")
-        except OSError:
-            pass
-    if n_skipped and verbose:
-        print(f"# {n_skipped}/{len(cands)} candidates already have "
-              f"validated archives, skipping")
-    # "numpy_fallbacks" keeps the reference's summary schema: the port has
-    # no fallback, so it stays 0
-    summary = {"n_folded": 0, "n_skipped": n_skipped, "n_failed": 0,
-               "numpy_fallbacks": 0,
-               "results": [{"name": cands[i].name, "pfd": names[i],
-                            "dm": cands[i].dm, "period": cands[i].period,
-                            "pdot": cands[i].pdot, "skipped": True}
-                           for i in range(len(cands)) if i not in todo_set],
-               "pfd_paths": list(names)}
-    if not todo:
+    units = [f"fold:{c.name}" for c in cands]
+    journal = None
+    journal_done = set()
+    prior = {}
+    if journal_path:
+        from pypulsar_tpu_torch.resilience.journal import RunJournal
+
+        journal = RunJournal(journal_path, _run_fingerprint(
+            cands, nbins, npart, refine, ntrial_p, ntrial_pd, max_drift,
+            outbase, _source_tag(source, reader, source_id, downsamp, nsub,
+                                 group_size, engine, rfimask)),
+            tool="foldbatch")
+        journal_done = journal.completed()
+        # refined (p, pdot) live only here: the archive keeps the fold's
+        # period, so a skipped candidate's summary row takes them back
+        prior = {n.get("name"): {k: v for k, v in n.items()
+                                 if k not in ("type", "event")}
+                 for n in journal.notes("fold_result")}
+    # the journal closes however the loop exits
+    try:
+        def cand_done(i: int) -> bool:
+            if units[i] in journal_done:
+                return True
+            return skip_existing and pfd_complete(names[i], npart, nbins)
+
+        todo = [i for i in range(len(cands)) if not cand_done(i)]
+        todo_set = set(todo)
+        n_skipped = len(cands) - len(todo)
+        for i in todo:
+            try:  # stale tmp debris of a killed writer
+                os.remove(names[i] + ".tmp")
+            except OSError:
+                pass
+        if n_skipped and verbose:
+            print(f"# {n_skipped}/{len(cands)} candidates already have "
+                  f"validated archives, skipping")
+        # "numpy_fallbacks" keeps the reference's summary schema: the port has
+        # no fallback, so it stays 0
+        skipped = [{"name": cands[i].name, "pfd": names[i],
+                    "dm": cands[i].dm, "period": cands[i].period,
+                    "pdot": cands[i].pdot, **prior.get(cands[i].name, {}),
+                    "skipped": True}
+                   for i in range(len(cands)) if i not in todo_set]
+        summary = {"n_folded": 0, "n_skipped": n_skipped, "n_failed": 0,
+                   "numpy_fallbacks": 0, "results": skipped,
+                   "pfd_paths": list(names)}
+        if not todo:
+            return summary
+
+        groups = _group_by_dm([(i, cands[i]) for i in todo], batch)
+        if source == "stream":
+            group_iter = iter_groups_stream(
+                groups, reader, downsamp=downsamp, nsub=nsub,
+                group_size=group_size, chunk_payload=chunk_payload,
+                all_dms={c.dm for c in cands}, rfimask=rfimask, engine=engine,
+                device=device, verbose=verbose)
+        else:
+            group_iter = iter_groups_dats(groups, dat_for_dm)
+
+        dl, dq = refine_drift_grid(ntrial_p, ntrial_pd, max_drift)
+        offsets = torch.from_numpy(drift_offsets(dl, dq, npart)).to(device)
+
+        # every DM group submits its fold to the batch broker: alone it
+        # dispatches at once; inside a batch lane, same-key groups of the
+        # lane's observations fuse into one multi-series fold
+        bk = broker_mod.get_broker()
+        bk_party = ("fold", broker_mod.device_scope(device))
+        bk_tag = os.path.basename(outbase) or outbase
+
+        if prefetch_depth > 0:
+            prepped = prefetch(
+                group_iter, depth=prefetch_depth, name="fold",
+                transform=lambda g: _prep_group(g, nbins, npart))
+        else:  # inline, single-threaded (same values)
+            prepped = (_prep_group(g, nbins, npart) for g in group_iter)
+
+        for group, pmean, pvar, coeffs, prep_err in prepped:
+            dm, series, dt, meta, members = group
+            K = len(members)
+            if prep_err is not None:
+                summary["n_failed"] += K
+                print(f"# fold group DM{dm:.2f} prep FAILED "
+                      f"({type(prep_err).__name__}: {prep_err}); "
+                      f"{K} candidates not folded")
+                summary["results"].extend(
+                    {"name": c.name, "pfd": names[gi], "dm": c.dm,
+                     "period": c.period, "pdot": c.pdot, "failed": True,
+                     "error": f"{type(prep_err).__name__}: {prep_err}"}
+                    for gi, c in members)
+                continue
+            T = len(series)
+            part_len = T // npart
+            T_sec = npart * part_len * dt
+            series_dev = torch.from_numpy(
+                np.ascontiguousarray(series)).to(device)
+            key = broker_mod.dispatch_key(
+                "fold", (int(T), int(nbins), int(npart), bool(refine),
+                         int(ntrial_p), int(ntrial_pd), repr(float(max_drift)),
+                         str(series_dev.dtype)), (), device)
+            profs, chi2 = bk.submit(
+                key, bk_party,
+                _FoldUnit(series_dev, coeffs, float(dt),
+                          broker_mod.ready_event(device)), K, tag=bk_tag,
+                concat=lambda units: _broker_concat_fold(units, device),
+                dispatch=lambda unit, n: _fold_dispatch(unit, n, nbins, npart,
+                                                        refine, offsets),
+                demux=lambda out, lo, hi: (out[0][lo:hi],
+                                           out[1][lo:hi] if refine else None),
+                budget_rows=max(K, int(FOLD_STACK_BYTES // (4 * max(T, 1)))))
+            del series_dev
+
+            for j, (gi, c) in enumerate(members):
+                res = {"name": c.name, "pfd": names[gi], "dm": c.dm,
+                       "period": c.period, "pdot": c.pdot}
+                if refine:
+                    jbest = int(np.argmax(chi2[j]))
+                    bp, bpd = drift_to_p_pd(dl[jbest], dq[jbest], c.period,
+                                            c.pdot, T_sec)
+                    j0 = int(np.argmin(np.abs(dl) + np.abs(dq)))
+                    res.update(best_period=float(bp), best_pdot=float(bpd),
+                               chi2_best=float(chi2[j, jbest]),
+                               chi2_nominal=float(chi2[j, j0]))
+                # float64 first, then the moments (the reference's order)
+                pj64 = np.asarray(profs[j], np.float64)
+                stats = np.zeros((npart, 1, 7))
+                stats[:, 0, 0] = part_len
+                stats[:, 0, 1] = pmean
+                stats[:, 0, 2] = pvar
+                stats[:, 0, 3] = nbins
+                stats[:, 0, 4] = pj64.mean(axis=1)
+                stats[:, 0, 5] = pj64.var(axis=1)
+                stats[:, 0, 6] = 1.0
+                pfd = make_pfd(
+                    pj64[:, None, :], dt=dt,
+                    lofreq=meta["lofreq"], chan_wid=meta["chan_wid"],
+                    numchan=meta["numchan"], fold_p1=c.period, bestdm=c.dm,
+                    stats=stats, tepoch=meta["tepoch"], candnm=c.name,
+                    telescope=meta["telescope"], filenm=meta["filenm"])
+                pfd.topo_p1, pfd.topo_p2, pfd.topo_p3 = c.period, c.pdot, 0.0
+                pfd.curr_p1, pfd.curr_p2, pfd.curr_p3 = c.period, c.pdot, 0.0
+                pfd.write(names[gi] + ".tmp")
+                os.replace(names[gi] + ".tmp", names[gi])
+                if journal is not None:
+                    # the note before the done record: a kill between them
+                    # refolds the candidate rather than skip it without its
+                    # refined values (a repeated note is harmless: last wins)
+                    journal.note(event="fold_result", **res)
+                    journal.done(units[gi], [names[gi]])
+                summary["n_folded"] += 1
+                summary["results"].append(res)
+            if verbose:
+                print(f"# folded {K} candidates at DM{dm:.2f} "
+                      f"({summary['n_folded']}/{len(todo)})")
+        if journal is not None:
+            journal.note(event="foldbatch_done", n_folded=summary["n_folded"],
+                         n_skipped=n_skipped, n_failed=summary["n_failed"])
         return summary
-
-    groups = _group_by_dm([(i, cands[i]) for i in todo], batch)
-    if source == "stream":
-        group_iter = iter_groups_stream(
-            groups, reader, downsamp=downsamp, nsub=nsub,
-            group_size=group_size, chunk_payload=chunk_payload,
-            all_dms={c.dm for c in cands}, rfimask=rfimask, engine=engine,
-            device=device, verbose=verbose)
-    else:
-        group_iter = iter_groups_dats(groups, dat_for_dm)
-
-    dl, dq = refine_drift_grid(ntrial_p, ntrial_pd, max_drift)
-    offsets = torch.from_numpy(drift_offsets(dl, dq, npart)).to(device)
-
-    # every DM group submits its fold to the batch broker: alone it
-    # dispatches at once; inside a batch lane, same-key groups of the
-    # lane's observations fuse into one multi-series fold
-    bk = broker_mod.get_broker()
-    bk_party = ("fold", broker_mod.device_scope(device))
-    bk_tag = os.path.basename(outbase) or outbase
-
-    if prefetch_depth > 0:
-        prepped = prefetch(group_iter, depth=prefetch_depth, name="fold",
-                           transform=lambda g: _prep_group(g, nbins, npart))
-    else:  # inline, single-threaded (same values)
-        prepped = (_prep_group(g, nbins, npart) for g in group_iter)
-
-    for group, pmean, pvar, coeffs, prep_err in prepped:
-        dm, series, dt, meta, members = group
-        K = len(members)
-        if prep_err is not None:
-            summary["n_failed"] += K
-            print(f"# fold group DM{dm:.2f} prep FAILED "
-                  f"({type(prep_err).__name__}: {prep_err}); "
-                  f"{K} candidates not folded")
-            summary["results"].extend(
-                {"name": c.name, "pfd": names[gi], "dm": c.dm,
-                 "period": c.period, "pdot": c.pdot, "failed": True,
-                 "error": f"{type(prep_err).__name__}: {prep_err}"}
-                for gi, c in members)
-            continue
-        T = len(series)
-        part_len = T // npart
-        T_sec = npart * part_len * dt
-        series_dev = torch.from_numpy(np.ascontiguousarray(series)).to(device)
-        key = broker_mod.dispatch_key(
-            "fold", (int(T), int(nbins), int(npart), bool(refine),
-                     int(ntrial_p), int(ntrial_pd), repr(float(max_drift)),
-                     str(series_dev.dtype)), (), device)
-        profs, chi2 = bk.submit(
-            key, bk_party,
-            _FoldUnit(series_dev, coeffs, float(dt),
-                      broker_mod.ready_event(device)), K, tag=bk_tag,
-            concat=lambda units: _broker_concat_fold(units, device),
-            dispatch=lambda unit, n: _fold_dispatch(unit, n, nbins, npart,
-                                                    refine, offsets),
-            demux=lambda out, lo, hi: (out[0][lo:hi],
-                                       out[1][lo:hi] if refine else None),
-            budget_rows=max(K, int(FOLD_STACK_BYTES // (4 * max(T, 1)))))
-        del series_dev
-
-        for j, (gi, c) in enumerate(members):
-            res = {"name": c.name, "pfd": names[gi], "dm": c.dm,
-                   "period": c.period, "pdot": c.pdot}
-            if refine:
-                jbest = int(np.argmax(chi2[j]))
-                bp, bpd = drift_to_p_pd(dl[jbest], dq[jbest], c.period,
-                                        c.pdot, T_sec)
-                j0 = int(np.argmin(np.abs(dl) + np.abs(dq)))
-                res.update(best_period=float(bp), best_pdot=float(bpd),
-                           chi2_best=float(chi2[j, jbest]),
-                           chi2_nominal=float(chi2[j, j0]))
-            # float64 first, then the moments (the reference's order)
-            pj64 = np.asarray(profs[j], np.float64)
-            stats = np.zeros((npart, 1, 7))
-            stats[:, 0, 0] = part_len
-            stats[:, 0, 1] = pmean
-            stats[:, 0, 2] = pvar
-            stats[:, 0, 3] = nbins
-            stats[:, 0, 4] = pj64.mean(axis=1)
-            stats[:, 0, 5] = pj64.var(axis=1)
-            stats[:, 0, 6] = 1.0
-            pfd = make_pfd(
-                pj64[:, None, :], dt=dt,
-                lofreq=meta["lofreq"], chan_wid=meta["chan_wid"],
-                numchan=meta["numchan"], fold_p1=c.period, bestdm=c.dm,
-                stats=stats, tepoch=meta["tepoch"], candnm=c.name,
-                telescope=meta["telescope"], filenm=meta["filenm"])
-            pfd.topo_p1, pfd.topo_p2, pfd.topo_p3 = c.period, c.pdot, 0.0
-            pfd.curr_p1, pfd.curr_p2, pfd.curr_p3 = c.period, c.pdot, 0.0
-            pfd.write(names[gi] + ".tmp")
-            os.replace(names[gi] + ".tmp", names[gi])
-            summary["n_folded"] += 1
-            summary["results"].append(res)
-        if verbose:
-            print(f"# folded {K} candidates at DM{dm:.2f} "
-                  f"({summary['n_folded']}/{len(todo)})")
-    return summary
+    finally:
+        if journal is not None:
+            journal.close()

@@ -19,10 +19,18 @@ host, where the sweep->accel handoff
 tees them to the ``.dat`` files) reads them, and spectral fusion
 (``parallel/specfuse.py``) keeps them on the device. :func:`sweep_ddplan`
 runs a DDplan's steps, each at its own downsampling.
+
+Kill and resume: ``checkpoint_path`` on :func:`sweep_flat` and
+:func:`sweep_ddplan` checkpoints each pass
+(:class:`~pypulsar_tpu_torch.parallel.sweep.SweepCheckpoint`); a resumed
+pass re-roots its block source at the cursor (:func:`reroot_source`:
+every reader seeks), and a DDplan step that finished leaves a done marker
+from which a resumed plan loads it without sweeping.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import os
@@ -37,8 +45,10 @@ from pypulsar_tpu_torch.io.infodata import InfoData
 from pypulsar_tpu_torch.ops.masking import masked
 from pypulsar_tpu_torch.parallel.prefetch import ship_ahead
 from pypulsar_tpu_torch.parallel.sweep import (
+    DEFAULT_CHUNK_FFT_LEN,
     DEFAULT_WIDTHS,
     ChunkEngine,
+    SweepCheckpoint,
     SweepResult,
     choose_group_size,
     default_chunk_payload,
@@ -118,6 +128,20 @@ class StagedSweepResult:
         out.sort(key=lambda c: (c["dm"], c["time_sec"]))
         return out
 
+    def events(self, snr: float) -> List[dict]:
+        """Every per-chunk peak at or above ``snr`` across the steps, in
+        physical units, sorted by (dm, time) (the sweep must have kept its
+        chunk peaks)."""
+        out = []
+        for s in self.steps:
+            for e in s.result.events(snr):
+                out.append(dict(
+                    dm=e["dm"], snr=e["snr"], width_bins=e["width"],
+                    width_sec=e["width"] * s.dt, sample=e["sample"],
+                    time_sec=e["sample"] * s.dt, downsamp=s.downsamp))
+        out.sort(key=lambda c: (c["dm"], c["time_sec"]))
+        return out
+
 
 def band_orientation(freqs) -> Tuple[np.ndarray, bool]:
     """(high-frequency-first channel table, whether it was flipped)."""
@@ -185,11 +209,14 @@ def ingest_psrfits(data: torch.Tensor, scales: torch.Tensor,
     return x.t().contiguous()
 
 
-def _raw_blocks(read, payload: int, overlap: int, total: int):
-    """(pos, read(pos, n)) stepping by ``payload``, each ``n = payload +
-    overlap`` samples long except at the tail."""
-    pos = 0
-    while pos < total:
+def _raw_blocks(read, payload: int, overlap: int, total: int,
+                start: int = 0, end: Optional[int] = None):
+    """(pos, read(pos, n)) stepping by ``payload`` from ``start`` while
+    ``pos < end`` (default ``total``), each ``n = payload + overlap``
+    samples long except at the file's tail."""
+    end = total if end is None else end
+    pos = start
+    while pos < end:
         yield pos, read(pos, min(payload + overlap, total - pos))
         pos += payload
 
@@ -202,23 +229,40 @@ class ReaderSource:
     its blocks in their stored form and decodes them on the device:
     :func:`ingest_tc` for filterbanks, :func:`ingest_psrfits` for
     PSRFITS (the bytes of the subints a block spans, with their scales,
-    offsets and weights)."""
+    offsets and weights).
 
-    def __init__(self, reader):
+    ``start``/``end`` bound the blocks' starts to a window of the file
+    (every reader seeks there); a block still reads its overlap past
+    ``end``, up to the file's tail. Positions stay those of the file. An
+    interior window (``end`` before the tail) must be a whole number of
+    payloads, or the seam samples would count in two windows."""
+
+    def __init__(self, reader, start: int = 0, end: Optional[int] = None):
         self.reader = reader
         self.frequencies, self._flip = band_orientation(reader.frequencies)
         self.tsamp = float(reader.tsamp)
         for attr in ("number_of_samples", "nspec", "nsamples"):
             n = getattr(reader, attr, None)
             if n is not None:
-                self.nsamples = int(n)
+                self.total = int(n)
                 break
         else:
             raise ValueError(f"cannot determine sample count of {reader!r}")
+        self.start = int(start)
+        self.end = self.total if end is None else min(int(end), self.total)
+        if not 0 <= self.start <= self.end:
+            raise ValueError(f"bad window [{start}, {end}) of {self.total}")
+        self.nsamples = self.end - self.start
 
     def chan_major_blocks(self, payload: int, overlap: int, device):
         """(pos, [chan, time] float32 block on ``device``) stepping by
-        ``payload``, each with ``overlap`` samples of lookahead."""
+        ``payload`` over the window, each with ``overlap`` samples of
+        lookahead."""
+        if self.end < self.total and (self.end - self.start) % payload:
+            raise ValueError(
+                f"windowed source [{self.start}, {self.end}) is not a whole "
+                f"multiple of payload={payload}; seam samples would be "
+                f"counted in two windows")
         r = self.reader
         if hasattr(r, "raw_subints"):
             yield from self._psrfits_blocks(payload, overlap, device)
@@ -226,11 +270,16 @@ class ReaderSource:
         if hasattr(r, "get_raw_interval"):  # several files
             nbits = r.fbs[0].nbits
             raw = _raw_blocks(lambda pos, n: r.get_raw_interval(pos, pos + n),
-                              payload, overlap, self.nsamples)
+                              payload, overlap, self.total, self.start,
+                              self.end)
         else:
             nbits = int(r.nbits)
-            raw = r.iter_blocks(payload, overlap, raw=True)
+            raw = r.iter_blocks(payload, overlap, start=self.start,
+                                end=min(self.end + overlap, self.total),
+                                raw=True)
         for pos, dev in ship_ahead(raw, device):
+            if pos >= self.end:  # an overlap-only tail past the window
+                break
             yield pos, ingest_tc(dev, self._flip, min(nbits, 8))
 
     def _psrfits_blocks(self, payload: int, overlap: int, device):
@@ -239,9 +288,10 @@ class ReaderSource:
         # raw rows are stored low-frequency-first unless need_flipband;
         # the table above is high-frequency-first unless _flip
         flip = (not r.specinfo.need_flipband) != self._flip
-        raw = _raw_blocks(r.raw_subints, payload, overlap, self.nsamples)
+        raw = _raw_blocks(r.raw_subints, payload, overlap, self.total,
+                          self.start, self.end)
         for pos, arrays in ship_ahead(raw, device):
-            n = min(payload + overlap, self.nsamples - pos)
+            n = min(payload + overlap, self.total - pos)
             yield pos, ingest_psrfits(
                 *arrays, pos % nsblk, n, int(r.nbits), int(r.nchan),
                 int(r.npoln), int(r.specinfo.default_poln), flip)
@@ -317,6 +367,29 @@ def make_source(reader, rfimask, device):
     return src if rfimask is None else MaskedSource(src, rfimask, device)
 
 
+def reroot_source(src, start_raw: int):
+    """``src`` with its blocks starting at raw sample ``start_raw`` (the
+    same end), or None when it cannot seek: through the mask and the
+    scrub to the :class:`ReaderSource`; the scrub's rebuilt wrapper
+    shares the original's ``stats``, so a resumed stream's account goes
+    on with the original tally."""
+    if isinstance(src, MaskedSource):
+        inner = reroot_source(src._src, start_raw)
+        if inner is None:
+            return None
+        out = copy.copy(src)  # the same zap table on the device
+        out._src = inner
+        return out
+    if isinstance(src, GuardedSource):
+        inner = reroot_source(src._src, start_raw)
+        return None if inner is None else GuardedSource(inner,
+                                                        stats=src.stats)
+    if isinstance(src, ReaderSource):
+        return ReaderSource(src.reader, start_raw,
+                            src.end if src.end < src.total else None)
+    return None
+
+
 def stream_quality(src) -> Optional[StreamQuality]:
     """The scrub's account of a :func:`make_source` source, None when it
     is not scrubbed."""
@@ -366,10 +439,14 @@ def step_geometry(src, dms, factor: int, nsub: int, group_size: int,
 def run_step(src, dms, factor: int, nsub: int, group_size: int,
              widths: Tuple[int, ...], chunk_payload: Optional[int],
              device, verbose: bool = False, engine: str = "auto",
-             label: str = "") -> Optional[StepResult]:
+             label: str = "", checkpoint: Optional[SweepCheckpoint] = None,
+             keep_chunk_peaks: bool = False,
+             ckpt_extra: str = "") -> Optional[StepResult]:
     """Sweep ``dms`` over ``src`` downsampled by ``factor`` with the chunk
     ``engine``. ``group_size`` <= 0 picks the largest group within the
-    smearing bound."""
+    smearing bound. ``checkpoint`` checkpoints the pass and resumes it,
+    the source re-rooted at the cursor; ``ckpt_extra`` joins its
+    fingerprint (the mask tag)."""
     dt_eff = src.tsamp * factor
     if src.nsamples // factor == 0:
         return None
@@ -379,10 +456,20 @@ def run_step(src, dms, factor: int, nsub: int, group_size: int,
         print(f"# {label}downsamp={factor} dt={dt_eff:.3e}s "
               f"DMs {dms[0]:.2f}..{dms[-1]:.2f} ({len(dms)} trials, "
               f"group {plan.group_size}) payload={payload}")
+
+    def block_factory(cursor_ds: int):
+        # the cursor sits on a payload boundary, so the re-rooted blocks
+        # are the ones the original stream would have given from there
+        seeked = reroot_source(src, cursor_ds * factor)
+        return downsampled_blocks(src if seeked is None else seeked, factor,
+                                  payload, plan.min_overlap, device)
+
     res = sweep_stream(
         plan, downsampled_blocks(src, factor, payload, plan.min_overlap,
                                  device),
-        payload, engine=engine, device=device)
+        payload, engine=engine, device=device, checkpoint=checkpoint,
+        keep_chunk_peaks=keep_chunk_peaks, block_factory=block_factory,
+        checkpoint_context=ckpt_extra)
     if verbose and res.engine_info.get("engine") == "tree":
         info = res.engine_info
         print(f"# {label}tree: {info['merge_levels']} merge levels, "
@@ -512,19 +599,28 @@ def make_dat_inf(basenm: str, reader, dm: float, N: int, dt: float,
 def sweep_flat(source, dms, downsamp: int = 1, nsub: int = 64,
                group_size: int = 32, widths: Sequence[int] = DEFAULT_WIDTHS,
                chunk_payload: Optional[int] = None, verbose: bool = False,
-               engine: str = "auto", rfimask=None,
-               device="cuda") -> StagedSweepResult:
+               engine: str = "auto", rfimask=None, device="cuda",
+               checkpoint_path: Optional[str] = None,
+               checkpoint_every: int = 16,
+               keep_chunk_peaks: bool = False) -> StagedSweepResult:
     """Single-step sweep of an explicit DM grid over a filterbank reader,
     streamed in chunks of ``chunk_payload`` (default: 2^18 samples less
     the overlap) on ``device``. ``rfimask`` (an
     :class:`~pypulsar_tpu_torch.io.rfimask.RfifindMask`) applies the
-    median-mid80 mask fill per raw block."""
+    median-mid80 mask fill per raw block. ``checkpoint_path`` checkpoints
+    the pass every ``checkpoint_every`` chunks and resumes from it;
+    ``keep_chunk_peaks`` keeps each chunk's peaks
+    (:meth:`StagedSweepResult.events`)."""
     resolve_engine(engine)
     device = resolve_device(device)
     src = make_source(source, rfimask, device)
+    ckpt = (SweepCheckpoint(checkpoint_path, every=checkpoint_every)
+            if checkpoint_path else None)
     step = run_step(src, np.asarray(dms, dtype=np.float64),
                     int(downsamp), nsub, group_size, tuple(widths),
-                    chunk_payload, device, verbose=verbose, engine=engine)
+                    chunk_payload, device, verbose=verbose, engine=engine,
+                    checkpoint=ckpt, keep_chunk_peaks=keep_chunk_peaks,
+                    ckpt_extra=mask_tag(rfimask))
     return StagedSweepResult(steps=[] if step is None else [step],
                              quality=stream_quality(src))
 
@@ -532,25 +628,124 @@ def sweep_flat(source, dms, downsamp: int = 1, nsub: int = 64,
 def sweep_ddplan(source, ddplan, nsub: int = 64, group_size: int = 32,
                  widths: Sequence[int] = DEFAULT_WIDTHS,
                  chunk_payload: Optional[int] = None, verbose: bool = False,
-                 engine: str = "auto", rfimask=None,
-                 device="cuda") -> StagedSweepResult:
+                 engine: str = "auto", rfimask=None, device="cuda",
+                 checkpoint_path: Optional[str] = None,
+                 checkpoint_every: int = 16) -> StagedSweepResult:
     """Sweep every step of ``ddplan`` (a
     :class:`~pypulsar_tpu_torch.plan.ddplan.DDplan`) over the reader
     ``source``: step i sweeps ``step.DMs`` at ``step.downsamp`` times the
     sampling time, one pass over the file each, through the chunk
-    ``engine``; ``chunk_payload`` is in downsampled samples. The
-    reference's ``checkpoint_path`` is not ported (ROADMAP.md Queue 1
-    S1)."""
-    resolve_engine(engine)
+    ``engine``; ``chunk_payload`` is in downsampled samples.
+
+    ``checkpoint_path`` is a base path: step i checkpoints its pass to
+    ``{path}.step{i}.npz`` and, once done, writes its result to
+    ``{path}.step{i}.done.npz``. A resumed plan loads each finished step
+    from its marker (when the marker's fingerprint, the input's probe
+    included, matches), resumes the interrupted step from its cursor and
+    removes the markers when the whole plan has finished."""
+    engine = resolve_engine(engine)
     device = resolve_device(device)
     src = make_source(source, rfimask, device)
+    mtag = mask_tag(rfimask)
+    context = f"engine={engine}{mtag}"
+    probe = _source_probe(src) if checkpoint_path else b""
     steps: List[StepResult] = []
+    done_fns: List[str] = []
     for si, step in enumerate(ddplan.DDsteps):
-        sr = run_step(src, np.asarray(step.DMs, dtype=np.float64),
-                      int(step.downsamp), nsub, group_size, tuple(widths),
-                      chunk_payload, device, verbose=verbose, engine=engine,
-                      label=f"step {si}: ")
+        dms = np.asarray(step.DMs, dtype=np.float64)
+        ckpt = done_fn = None
+        if checkpoint_path:
+            done_fn = f"{checkpoint_path}.step{si}.done.npz"
+            fp = _step_fingerprint(src, dms, int(step.downsamp), nsub,
+                                   group_size, tuple(widths), chunk_payload,
+                                   context, probe)
+            sr = _load_step_result(done_fn, fp)
+            if sr is not None:
+                if verbose:
+                    print(f"# step {si}: resumed from {done_fn}")
+                steps.append(sr)
+                done_fns.append(done_fn)
+                continue
+            ckpt = SweepCheckpoint(f"{checkpoint_path}.step{si}.npz",
+                                   every=checkpoint_every)
+        sr = run_step(src, dms, int(step.downsamp), nsub, group_size,
+                      tuple(widths), chunk_payload, device, verbose=verbose,
+                      engine=engine, label=f"step {si}: ", checkpoint=ckpt,
+                      ckpt_extra=mtag)
         if sr is None:
             break
+        if done_fn:
+            _save_step_result(done_fn, sr, fp)
+            done_fns.append(done_fn)
         steps.append(sr)
+    for fn in done_fns:  # the whole plan has finished
+        if os.path.exists(fn):
+            os.remove(fn)
     return StagedSweepResult(steps=steps, quality=stream_quality(src))
+
+
+def _source_probe(src) -> bytes:
+    """The first 1024 samples of every channel of the file, decoded on
+    the CPU: a marker of another input of the same geometry is not
+    resumed. Read under the scrub and the mask, whose accounts it would
+    otherwise join."""
+    while isinstance(src, (MaskedSource, GuardedSource)):
+        src = src._src
+    blocks = src.chan_major_blocks(min(1024, src.nsamples), 0,
+                                   torch.device("cpu"))
+    try:
+        _, block = next(blocks)
+        return block.numpy().tobytes()
+    except Exception:  # noqa: BLE001 - the probe is best-effort
+        return b""
+    finally:
+        blocks.close()
+
+
+def _step_fingerprint(src, dms, factor: int, nsub: int, group_size: int,
+                      widths, chunk_payload: Optional[int], context: str,
+                      probe: bytes) -> str:
+    """Hash of everything a step's result depends on: its DMs, the band,
+    sample time and length, the downsampling, plan geometry, payload (the
+    default as the negated :data:`DEFAULT_CHUNK_FFT_LEN`), widths, the
+    engine and mask (``context``) and the input's ``probe``."""
+    h = hashlib.sha256()
+    for part in (np.asarray(dms, dtype=np.float64).tobytes(),
+                 np.asarray(src.frequencies, dtype=np.float64).tobytes(),
+                 np.float64([src.tsamp]).tobytes(),
+                 np.int64([src.nsamples, factor, nsub, group_size,
+                           -DEFAULT_CHUNK_FFT_LEN if chunk_payload is None
+                           else chunk_payload]).tobytes(),
+                 np.int64(widths).tobytes(), context.encode(), probe):
+        h.update(part)
+    return h.hexdigest()
+
+
+def _save_step_result(path: str, sr: StepResult, fingerprint: str) -> None:
+    """A finished step's result, written atomically."""
+    res = sr.result
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, fingerprint=fingerprint, downsamp=sr.downsamp, dt=sr.dt,
+             dms=res.dms, widths=np.asarray(res.widths, dtype=np.int64),
+             snr=res.snr, peak_sample=res.peak_sample, mean=res.mean,
+             std=res.std)
+    os.replace(tmp, path)
+
+
+def _load_step_result(path: str, fingerprint: str) -> Optional[StepResult]:
+    """The step result of a marker with this fingerprint, else None (a
+    missing, foreign or corrupt marker: the step is swept again)."""
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            if str(z["fingerprint"]) != fingerprint:
+                return None
+            res = SweepResult(
+                dms=z["dms"], widths=tuple(int(w) for w in z["widths"]),
+                snr=z["snr"], peak_sample=z["peak_sample"], mean=z["mean"],
+                std=z["std"])
+            return StepResult(downsamp=int(z["downsamp"]), dt=float(z["dt"]),
+                              result=res)
+    except Exception:  # noqa: BLE001 - a corrupt marker: sweep the step
+        return None

@@ -33,11 +33,21 @@ subtracted before dedispersion; dedispersion and per-chunk statistics run
 in float32 on the device; the cross-chunk moments, the cross-chunk max
 (strict >: the earlier chunk keeps a tie) and the SNR formula run on the
 host in float64.
+
+Kill and resume (:class:`SweepCheckpoint`): every ``every`` drained chunks
+the host accumulator, the cursor (first payload sample not accumulated)
+and the baseline are written atomically; a resumed stream accumulates the
+remaining chunks in the same order, so its result has the uninterrupted
+run's bits. With ``keep_chunk_peaks`` each chunk's window maxima are kept
+too (:meth:`SweepResult.events`, the per-chunk single-pulse events), and
+checkpointed with the rest.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -364,6 +374,29 @@ class SweepResult:
     std: np.ndarray
     #: the engine that ran and its structural numbers (ChunkEngine.info)
     engine_info: dict = dataclasses.field(default_factory=dict)
+    #: with keep_chunk_peaks: each chunk's peak SNRs and global starts,
+    #: [n_chunks, D, W]
+    chunk_snr: Optional[np.ndarray] = None
+    chunk_sample: Optional[np.ndarray] = None
+
+    def events(self, threshold: float) -> List[dict]:
+        """Every per-chunk peak at or above ``threshold`` SNR, one
+        (dm, width, snr, sample) record per (chunk, trial, width) cell,
+        sorted by (dm, sample). Needs the sweep run with
+        ``keep_chunk_peaks``; raises otherwise."""
+        if self.chunk_snr is None:
+            raise ValueError(
+                "per-chunk peaks were not recorded: run the sweep with "
+                "keep_chunk_peaks=True (cli: --all-events)")
+        out = []
+        for ci in range(self.chunk_snr.shape[0]):
+            for di, wi in np.argwhere(self.chunk_snr[ci] >= threshold):
+                out.append(dict(dm=float(self.dms[di]),
+                                width=int(self.widths[wi]),
+                                snr=float(self.chunk_snr[ci, di, wi]),
+                                sample=int(self.chunk_sample[ci, di, wi])))
+        out.sort(key=lambda e: (e["dm"], e["sample"]))
+        return out
 
     def best(self, k: int = 10):
         """Top-k (dm, width, snr, sample) candidates over all trials."""
@@ -378,8 +411,9 @@ class SweepResult:
 
 class AccumParts(NamedTuple):
     """Raw accumulator state: host-f64 moment sums over ``n`` payload
-    samples, f32 window-sum maxima ``mb`` at global starts ``ab``, and
-    the baseline sum that restores original units."""
+    samples, f32 window-sum maxima ``mb`` at global starts ``ab``, the
+    baseline sum that restores original units and, with
+    ``keep_chunk_peaks``, each chunk's real-trial ``mb`` and ``ab``."""
 
     n: int
     s: np.ndarray
@@ -387,17 +421,27 @@ class AccumParts(NamedTuple):
     mb: np.ndarray
     ab: np.ndarray
     baseline_sum: float
+    chunk_mb: tuple = ()
+    chunk_ab: tuple = ()
 
 
 class _Accum:
-    """Host float64 accumulation of per-chunk statistics, in stream order."""
+    """Host float64 accumulation of per-chunk statistics, in stream order.
+    With ``keep_chunk_peaks`` each chunk's window maxima and global starts
+    of the ``n_real`` real trials are kept as well (float32 and int64,
+    ``n_chunks * n_real * W * 12`` bytes)."""
 
-    def __init__(self, D: int, W: int):
+    def __init__(self, D: int, W: int, keep_chunk_peaks: bool = False,
+                 n_real: Optional[int] = None):
         self.n = 0
         self.s = np.zeros(D)
         self.ss = np.zeros(D)
         self.mb = np.full((D, W), -np.inf)
         self.ab = np.zeros((D, W), dtype=np.int64)
+        self.keep_chunk_peaks = keep_chunk_peaks
+        self.n_real = D if n_real is None else n_real
+        self.chunk_mb: list = []
+        self.chunk_ab: list = []
 
     def update(self, start, stat_len, s, ss, mb, ab):
         self.n += stat_len
@@ -405,15 +449,138 @@ class _Accum:
         self.ss += np.asarray(ss, dtype=np.float64)
         mb = np.asarray(mb)
         ab = np.asarray(ab, dtype=np.int64) + start
+        if self.keep_chunk_peaks:
+            self.chunk_mb.append(mb[:self.n_real].astype(np.float32))
+            self.chunk_ab.append(ab[:self.n_real].copy())
         better = mb > self.mb  # the incumbent keeps a tie
         self.mb = np.where(better, mb, self.mb)
         self.ab = np.where(better, ab, self.ab)
 
 
+def _repad_rows(a, pad: int) -> np.ndarray:
+    """The trial axis extended by ``pad`` copies of the last real row:
+    what padded trials (the last real DM repeated) accumulate."""
+    a = np.asarray(a)
+    if pad <= 0:
+        return a
+    return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)], axis=0)
+
+
+class SweepCheckpoint:
+    """In-sweep checkpoint of a long stream (the reference's).
+
+    Every ``every`` drained chunks, the host accumulator (:class:`_Accum`,
+    its real trials' rows), the cursor (the first payload sample not yet
+    accumulated) and the per-channel baseline are written to ``path``
+    through ``{path}.tmp.npz`` and ``os.replace``. A resume accumulates the
+    remaining chunks in stream order, as the uninterrupted run does, so
+    its result has the same bits. A checkpoint of other parameters (its
+    fingerprint differs) or one that cannot be read starts the sweep from
+    scratch. The file is removed when the sweep finishes."""
+
+    def __init__(self, path: str, every: int = 16):
+        self.path = path
+        self.every = max(1, int(every))
+        self._drained = 0
+
+    @staticmethod
+    def _fingerprint(plan: SweepPlan, chunk_payload: int,
+                     context: str = "") -> str:
+        """Hash of the plan's real trials, band, sample time, geometry and
+        widths, the payload and ``context`` (the resolved engine and the
+        mask tag: engines agree only within tolerance, so a checkpoint
+        resumes only the configuration that wrote it)."""
+        h = hashlib.sha256()
+        nr = plan.n_real_trials
+        for part in (plan.dms[:nr].tobytes(), plan.freqs.tobytes(),
+                     np.float64(plan.dt).tobytes(),
+                     np.int64([plan.nsub, plan.group_size,
+                               plan.n_real_trials, chunk_payload]).tobytes(),
+                     np.int64(plan.widths).tobytes(),
+                     context.encode()):
+            h.update(part)
+        return h.hexdigest()
+
+    def load(self, plan: SweepPlan, chunk_payload: int, context: str = "",
+             keep_chunk_peaks: bool = False):
+        """(acc, cursor, baseline) of a matching checkpoint, else None.
+        ``keep_chunk_peaks`` must be what the checkpoint was written with:
+        a resume without the per-chunk record would drop events."""
+        if not os.path.exists(self.path):
+            return None
+        try:
+            with np.load(self.path, allow_pickle=False) as z:
+                if str(z["fingerprint"]) != self._fingerprint(
+                        plan, chunk_payload, context):
+                    return None
+                if ("chunk_mb" in z) != keep_chunk_peaks:
+                    return None
+                acc = _Accum(plan.n_trials, len(plan.widths),
+                             keep_chunk_peaks=keep_chunk_peaks,
+                             n_real=plan.n_real_trials)
+                acc.n = int(z["n"])
+                # real rows are stored; padded trials repeat the last one
+                pad = plan.n_trials - plan.n_real_trials
+                acc.s = _repad_rows(z["s"], pad)
+                acc.ss = _repad_rows(z["ss"], pad)
+                acc.mb = _repad_rows(z["mb"], pad)
+                acc.ab = _repad_rows(z["ab"], pad)
+                if keep_chunk_peaks:
+                    acc.chunk_mb = list(z["chunk_mb"])
+                    acc.chunk_ab = list(z["chunk_ab"])
+                return acc, int(z["cursor"]), z["baseline"]
+        except Exception:  # noqa: BLE001 - a corrupt checkpoint restarts
+            return None
+
+    def save(self, plan: SweepPlan, chunk_payload: int, acc: _Accum,
+             cursor: int, baseline, context: str = "") -> None:
+        """Write the state atomically (``.tmp.npz``: ``np.savez`` must not
+        append a suffix of its own)."""
+        tmp = self.path + ".tmp.npz"
+        extra = {}
+        if acc.keep_chunk_peaks:
+            # the keys exist before the first chunk, so that load() tells
+            # a checkpoint with peaks from one without
+            W = acc.mb.shape[1]
+            extra["chunk_mb"] = (np.stack(acc.chunk_mb) if acc.chunk_mb
+                                 else np.zeros((0, acc.n_real, W),
+                                               np.float32))
+            extra["chunk_ab"] = (np.stack(acc.chunk_ab) if acc.chunk_ab
+                                 else np.zeros((0, acc.n_real, W), np.int64))
+        nr = plan.n_real_trials
+        np.savez(tmp,
+                 fingerprint=self._fingerprint(plan, chunk_payload, context),
+                 n=acc.n, s=acc.s[:nr], ss=acc.ss[:nr], mb=acc.mb[:nr],
+                 ab=acc.ab[:nr], cursor=cursor,
+                 baseline=np.asarray(baseline, dtype=np.float32), **extra)
+        os.replace(tmp, self.path)
+
+    def on_drained(self, plan: SweepPlan, chunk_payload: int, acc: _Accum,
+                   cursor: int, baseline, context: str = "",
+                   n: int = 1) -> None:
+        """Count ``n`` newly drained chunks and save when the count
+        crosses a multiple of ``every``. The caller passes the state after
+        the whole drain: ``acc`` then holds every chunk before ``cursor``
+        and no other."""
+        fire = (self._drained + n) // self.every > self._drained // self.every
+        self._drained += n
+        if fire:
+            self.save(plan, chunk_payload, acc, cursor, baseline, context)
+
+    def finish(self) -> None:
+        """The sweep is complete: remove the checkpoint."""
+        if os.path.exists(self.path):
+            os.remove(self.path)
+
+
 def finalize_sweep(plan: SweepPlan, n: int, s, ss, mb, ab,
-                   baseline_sum: float = 0.0) -> SweepResult:
+                   baseline_sum: float = 0.0, chunk_mb=None,
+                   chunk_ab=None) -> SweepResult:
     """Host float64 SNR over the accumulated moments and window maxima;
-    ``baseline_sum`` restores the reported mean to original units."""
+    ``baseline_sum`` restores the reported mean to original units.
+    ``chunk_mb``/``chunk_ab`` (per-chunk real-trial [n_real, W] maxima and
+    starts) give the per-chunk SNRs, with the whole series' mean and std
+    (the reference's rule)."""
     s = np.asarray(s, dtype=np.float64)
     ss = np.asarray(ss, dtype=np.float64)
     mb = np.asarray(mb, dtype=np.float64)
@@ -425,9 +592,18 @@ def finalize_sweep(plan: SweepPlan, n: int, s, ss, mb, ab,
     denom = np.sqrt(ws)[None, :] * np.where(std > 0, std, 1.0)[:, None]
     snr = (mb - ws[None, :] * mean[:, None]) / denom
     nr = plan.n_real_trials
+    chunk_snr = chunk_sample = None
+    if chunk_mb:
+        chunk_snr = np.stack([
+            ((np.asarray(m, dtype=np.float64)[:nr]
+              - ws[None, :] * mean[:nr, None]) / denom[:nr])
+            .astype(np.float32) for m in chunk_mb])
+        chunk_sample = np.stack([np.asarray(a, dtype=np.int64)[:nr]
+                                 for a in chunk_ab])
     return SweepResult(dms=plan.dms[:nr], widths=plan.widths, snr=snr[:nr],
                        peak_sample=ab[:nr], mean=mean[:nr] + baseline_sum,
-                       std=std[:nr])
+                       std=std[:nr], chunk_snr=chunk_snr,
+                       chunk_sample=chunk_sample)
 
 
 def block_mean(data):
@@ -440,7 +616,10 @@ def block_mean(data):
 
 
 def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
-                 engine: str = "auto", device="cuda", finalize: bool = True):
+                 engine: str = "auto", device="cuda", finalize: bool = True,
+                 checkpoint: Optional[SweepCheckpoint] = None,
+                 keep_chunk_peaks: bool = False, block_factory=None,
+                 checkpoint_context: str = ""):
     """Run the sweep over a stream of (startsamp, block[chan, time])
     chunks, each ``chunk_payload`` samples plus an overlap of at least
     ``plan.min_overlap`` (only the last may be shorter). Blocks may be
@@ -452,23 +631,58 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
     :data:`MAX_PENDING` chunks run ahead on the device before their
     statistics are read back and accumulated on the host. With
     ``finalize=False`` the raw :class:`AccumParts` come back instead of
-    the :class:`SweepResult`."""
+    the :class:`SweepResult`.
+
+    ``checkpoint`` (a :class:`SweepCheckpoint`) resumes from a matching
+    checkpoint and saves the state as chunks drain; ``checkpoint_context``
+    joins its fingerprint (state the plan cannot see, such as the mask
+    applied by the block source). On a resume the checkpoint's baseline
+    is used (unless ``baseline`` is given), chunks before the cursor are
+    skipped and, when ``block_factory(cursor)`` is given, the stream is
+    rebuilt from the cursor instead of replayed. ``keep_chunk_peaks``
+    keeps each chunk's maxima (:meth:`SweepResult.events`)."""
     device = resolve_device(device)
+    engine = resolve_engine(engine)
     W = max(plan.widths)
     out_len = chunk_payload + W
     L1 = out_len + plan.max_shift2
     need = L1 + plan.max_shift1
-    acc = _Accum(plan.n_trials, len(plan.widths))
+    acc = _Accum(plan.n_trials, len(plan.widths),
+                 keep_chunk_peaks=keep_chunk_peaks,
+                 n_real=plan.n_real_trials)
+    cursor = 0  # first payload sample not yet accumulated
+    ckpt_context = f"engine={engine}{checkpoint_context}"
+    if checkpoint is not None:
+        state = checkpoint.load(plan, chunk_payload, ckpt_context,
+                                keep_chunk_peaks=keep_chunk_peaks)
+        if state is not None:
+            acc, cursor, saved_baseline = state
+            if baseline is None:
+                baseline = saved_baseline  # a bit-identical resume needs it
+            if cursor > 0 and block_factory is not None:
+                blocks = block_factory(cursor)
     eng = ChunkEngine(engine, plan.stage1_bins, plan.stage2_bins, plan.nsub,
                       out_len, plan.max_shift2, need, device)
     pending: list = []  # (start, stat_len, host outputs, copy-done event)
+    host_baseline = None
 
     def drain(limit: int) -> None:
+        nonlocal cursor, host_baseline
+        n = 0
         while len(pending) > limit:
             start, stat_len, host, ready = pending.pop(0)
             if ready is not None:
                 ready.synchronize()
             acc.update(start, stat_len, *(t.numpy() for t in host))
+            cursor = start + stat_len
+            n += 1
+        if checkpoint is not None and n:
+            if host_baseline is None:
+                host_baseline = baseline.cpu().numpy()
+            # saved only here, after a whole drain: acc holds every chunk
+            # before the cursor and no other
+            checkpoint.on_drained(plan, chunk_payload, acc, cursor,
+                                  host_baseline, ckpt_context, n=n)
 
     def process(start: int, data, L: int) -> None:
         if L < need:  # end of data: zero tail
@@ -491,6 +705,8 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
     # hold one block back: a short block is legal only at end of data
     prev = None
     for start, block in blocks:
+        if start < cursor:  # accumulated before the checkpoint
+            continue
         data = torch.as_tensor(block, dtype=torch.float32, device=device)
         if baseline is None:
             baseline = block_mean(data)
@@ -509,11 +725,15 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
     if prev is not None:
         process(*prev)
     drain(0)
+    if checkpoint is not None:
+        checkpoint.finish()
     B = (float(baseline.double().sum().item())
          if baseline is not None else 0.0)
     if not finalize:
-        return AccumParts(acc.n, acc.s, acc.ss, acc.mb, acc.ab, B)
-    res = finalize_sweep(plan, acc.n, acc.s, acc.ss, acc.mb, acc.ab, B)
+        return AccumParts(acc.n, acc.s, acc.ss, acc.mb, acc.ab, B,
+                          tuple(acc.chunk_mb), tuple(acc.chunk_ab))
+    res = finalize_sweep(plan, acc.n, acc.s, acc.ss, acc.mb, acc.ab, B,
+                         chunk_mb=acc.chunk_mb, chunk_ab=acc.chunk_ab)
     res.engine_info = eng.info()
     return res
 

@@ -19,7 +19,7 @@ environment switch and fault injection (ROADMAP.md Queue 1 S5).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -66,14 +66,16 @@ class GuardedSource:
 
     Sits INSIDE any rfifind mask wrapper: the mask fill computes channel
     medians, and a NaN reaching that reduction would poison the whole
-    channel. One host read of the counts when the stream ends."""
+    channel. One host read of the counts when the stream ends. ``stats``
+    shares another wrapper's account (a stream re-rooted at a resume
+    cursor goes on with its tally)."""
 
-    def __init__(self, src):
+    def __init__(self, src, stats: Optional[StreamQuality] = None):
         self._src = src
         self.frequencies = src.frequencies
         self.tsamp = src.tsamp
         self.nsamples = src.nsamples
-        self.stats = StreamQuality()
+        self.stats = StreamQuality() if stats is None else stats
 
     def chan_major_blocks(self, payload: int, overlap: int, device):
         n_bad = n_zero = None

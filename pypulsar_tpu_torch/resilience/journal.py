@@ -17,11 +17,15 @@ of ``pypulsar_tpu/resilience/journal.py``).
 - :func:`candfile_complete` is the ``.cand`` integrity check that sift
   and ``--accel-skip-existing`` use.
 
+:meth:`RunJournal.notes` reads back the free-form records: the fold's
+journal keeps each candidate's refined (p, pdot) there, which a resumed
+run's summary takes for the candidates it skips.
+
 Left out of the reference's journal: the multi-host append discipline
-(``shared=``), extra attributes on a record, unvalidated reads,
-``inode``, ``notes`` and ``is_fresh``, whose callers (the survey fleet,
-the candidate store, the fold's journal) are not ported (ROADMAP.md
-Queue 1 S1 and item 16), and the telemetry of invalid units (S5).
+(``shared=``), extra attributes on a record, unvalidated reads, ``inode``
+and ``is_fresh``, whose callers (the survey fleet, the candidate store)
+are not ported (ROADMAP.md Queue 1 item 16), and the telemetry of
+invalid units (S5).
 """
 
 from __future__ import annotations
@@ -264,6 +268,15 @@ class RunJournal:
         """A free-form record (run milestones; :meth:`completed` ignores
         it)."""
         self._append({"type": "note", **attrs})
+
+    def notes(self, event: Optional[str] = None) -> List[dict]:
+        """The note records of this journal, those whose ``event`` is
+        ``event`` when it is given: small per-unit results (such as a
+        fold's refined period) that must outlive a kill."""
+        out = [r for r in self._records if r.get("type") == "note"]
+        if event is not None:
+            out = [r for r in out if r.get("event") == event]
+        return out
 
     def close(self) -> None:
         if self._fh is not None:

@@ -184,11 +184,8 @@ def test_plain_write_dats_uses_the_streamed_writer(runs):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--checkpoint", "c.npz"], "Queue 1 S1"),
     (["--mesh", "2"], "Queue 1 item 14"),
     (["--engine", "scan"], "Queue 1 item 13"),
-    (["--resume"], "Queue 1 S1"),
-    (["--all-events"], "Queue 1 S8"),
 ])
 def test_left_out_flags_fail_naming_the_roadmap(runs, capsys, flags, item):
     tag = str(runs["dir"] / "left_out")

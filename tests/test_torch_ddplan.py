@@ -135,4 +135,4 @@ def test_all_events_is_refused_naming_the_roadmap(fil, tmp_path, capsys):
         cli.main([fil, "-o", str(tmp_path / "x"), "--ddplan", "--hidm",
                   "300", "--all-events", "--device", "cpu"])
     assert exc.value.code == 2
-    assert "ROADMAP.md Queue 1 S8" in capsys.readouterr().err
+    assert "--all-events is a flat-mode option" in capsys.readouterr().err

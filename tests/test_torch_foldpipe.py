@@ -331,8 +331,91 @@ def test_sift_fold_folds_what_foldbatch_folds(obs, tmp_path):
         os.remove(fn[:-5] + ".txtcand")
 
 
+class Killed(Exception):
+    """The kill of a fold run under test."""
+
+
+def _summary(out):
+    with open(out + "_foldbatch.json") as f:
+        return json.load(f)
+
+
+def test_foldbatch_journal_resumes_a_killed_run(obs, dats_runs, tmp_path,
+                                                monkeypatch):
+    """``foldbatch --journal`` killed at its third DM group: the rerun
+    folds only the groups left, its summary takes the first groups'
+    refined (p, pdot) from the journal's notes, and every archive has the
+    bytes of the unjournalled run. The journal's header is the JAX
+    package's (the same fingerprint of candidates, geometry and the
+    ``.dat`` set)."""
+    out, jnl = str(tmp_path / "j"), str(tmp_path / "fold.jsonl")
+    flags = ["--datbase", obs["base"], "--batch", "8", "--journal", jnl]
+    real = foldpipe._fold_dispatch
+    calls = []
+
+    def dispatch(unit, n, *a):
+        calls.append(n)
+        if len(calls) == 3:
+            raise Killed()
+        return real(unit, n, *a)
+
+    with monkeypatch.context() as m:
+        m.setattr(foldpipe, "_fold_dispatch", dispatch)
+        with pytest.raises(Killed):
+            _port(obs, out, *flags)
+        done = calls[:2]
+        calls.clear()
+        assert _port(obs, out, *flags) == 0
+    assert sum(done) + sum(calls) == len(CANDS) and len(calls) == 2
+    summary = _summary(out)
+    assert (summary["n_folded"], summary["n_skipped"]) == (sum(calls),
+                                                           sum(done))
+    plain = str(tmp_path / "plain")
+    assert _port(obs, plain, "--datbase", obs["base"], "--batch", "8") == 0
+    want = {r["name"]: r for r in _summary(plain)["results"]}
+    for r in summary["results"]:
+        for k in ("best_period", "best_pdot", "chi2_best", "chi2_nominal"):
+            assert r[k] == want[r["name"]][k], (r["name"], k)
+    assert _bytes_by_name(out) == _bytes_by_name(dats_runs[0])
+    header = json.loads(open(jnl).readline())
+    ref_out = str(tmp_path / "jax")
+    ref_jnl = str(tmp_path / "jax.jsonl")
+    assert jax_foldbatch.main(["--cands", obs["cands"], "-o", out, *FOLD,
+                               "--datbase", obs["base"], "--batch", "8",
+                               "--journal", ref_jnl, "--summary",
+                               ref_out + ".json"]) == 0
+    assert header["tool"] == "foldbatch"
+    assert header["fingerprint"] == json.loads(
+        open(ref_jnl).readline())["fingerprint"]
+
+
+def test_foldbatch_journal_refolds_only_what_fails_validation(obs, dats_runs,
+                                                              tmp_path):
+    """A rerun with every archive valid folds nothing; a truncated
+    archive is refolded to its bytes; another series source (``--datbase``
+    elsewhere) starts the journal over."""
+    out, jnl = str(tmp_path / "v"), str(tmp_path / "fold.jsonl")
+    flags = ["--datbase", obs["base"], "--journal", jnl]
+    assert _port(obs, out, *flags) == 0
+    assert _port(obs, out, *flags) == 0
+    assert _summary(out)["n_folded"] == 0
+    victim = _archives(out)[2]
+    with open(victim, "r+b") as f:
+        f.truncate(os.path.getsize(victim) - 100)
+    assert _port(obs, out, *flags) == 0
+    assert (_summary(out)["n_folded"], _summary(out)["n_skipped"]) == (
+        1, len(CANDS) - 1)
+    assert _bytes_by_name(out) == _bytes_by_name(dats_runs[0])
+    other = str(tmp_path / "copy")
+    for dm in DMS:
+        for ext in (".dat", ".inf"):
+            shutil.copy(f"{obs['base']}_DM{dm:.2f}{ext}",
+                        f"{other}_DM{dm:.2f}{ext}")
+    assert _port(obs, out, "--datbase", other, "--journal", jnl) == 0
+    assert _summary(out)["n_folded"] == len(CANDS)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--journal", "j.jsonl"], "S1"),
     (["--telemetry", "t.jsonl"], "S5"),
     (["--fault-inject", "oom:fold.batch_dispatch:1"], "S5"),
 ])

@@ -274,3 +274,26 @@ def test_fingerprint_keys_on_the_mask_content_at_one_path(obs, tmp_path):
         prints.append(cli._journal_fingerprint(
             args, [0.0, 10.0], (1, 2), "o", RfifindMask(path)))
     assert prints[0] == prints[1] != prints[2]
+
+
+def test_notes_read_back_as_the_reference_reads_them(tmp_path):
+    """``RunJournal.notes`` (all of them, or one event's) gives the JAX
+    package's records for the same journal, a torn last line ignored."""
+    from pypulsar_tpu.resilience.journal import RunJournal as JaxJournal
+
+    path = str(tmp_path / "n.jsonl")
+    out = str(tmp_path / "a.txt")
+    _write(out, "x")
+    with RunJournal(path, "fp", tool="foldbatch") as j:
+        j.note(event="fold_result", name="c0", best_period=0.5)
+        j.done("fold:c0", [out])
+        j.note(event="foldbatch_done", n_folded=1)
+        j.note(event="fold_result", name="c1", best_period=0.25)
+    with open(path, "a") as f:
+        f.write('{"type": "note", "event": "fold_res')
+    ours = RunJournal(path, "fp", tool="foldbatch")
+    theirs = JaxJournal(path, "fp", tool="foldbatch")
+    for event in (None, "fold_result", "foldbatch_done", "absent"):
+        assert ours.notes(event) == theirs.notes(event)
+    assert [n["name"] for n in ours.notes("fold_result")] == ["c0", "c1"]
+    assert RunJournal(path, "other", tool="foldbatch").notes() == []

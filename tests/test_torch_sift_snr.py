@@ -31,7 +31,7 @@ from pypulsar_tpu_torch.cli import pfd_snr, sift
 from pypulsar_tpu_torch.core import psrmath
 from pypulsar_tpu_torch.fold import profile_snr
 from pypulsar_tpu_torch.fourier.accelsearch import AccelCandidate
-from pypulsar_tpu_torch.io import accelcands, datfile, prestopfd
+from pypulsar_tpu_torch.io import accelcands, datfile, prestocand, prestopfd
 from pypulsar_tpu_torch.io.errors import DataFormatError
 from pypulsar_tpu_torch.parallel.accelpipe import write_candfiles
 from pypulsar_tpu_torch.parallel.staged import make_dat_inf
@@ -146,7 +146,6 @@ def test_candfile_complete_matches_reference(trials, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--journal", "j.jsonl"], "S1"),
     (["--known-sources", "cat.txt"], "S13"),
 ])
 def test_sift_left_out_flags_exit_2(trials, tmp_path, capsys, flags, item):
@@ -155,6 +154,77 @@ def test_sift_left_out_flags_exit_2(trials, tmp_path, capsys, flags, item):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and item in err
+
+
+def _journal_header(path):
+    with open(path) as f:
+        return json.loads(f.readline())
+
+
+def _copy_trials(trials, dest):
+    """The fixture's trial files copied to ``dest`` (a test may rewrite
+    them); returns the copied ``.cand`` paths."""
+    import shutil
+
+    out = []
+    for fn in trials:
+        base = fn.split("_ACCEL_")[0]
+        for src in (fn, fn[:-5] + ".txtcand", base + ".inf"):
+            shutil.copy(src, str(dest / os.path.basename(src)))
+        out.append(str(dest / os.path.basename(fn)))
+    return out
+
+
+def test_sift_journal_skips_validated_reruns(trials, tmp_path, capsys):
+    """``sift --journal``: the list of the unjournalled sift, a journal
+    whose header is the JAX package's (the same content fingerprint), a
+    rerun that skips, a rerun after a ``.cand`` changed that sifts again,
+    and one after the list was truncated that writes it again."""
+    cands = _copy_trials(trials, tmp_path)
+    flags = ["-s", "4", "--min-hits", "2"]
+    out, jnl = str(tmp_path / "j.accelcands"), str(tmp_path / "sift.jsonl")
+    plain = str(tmp_path / "plain.accelcands")
+    assert sift.main(cands + ["-o", plain, *flags]) == 0
+    assert sift.main(cands + ["-o", out, *flags, "--journal", jnl]) == 0
+    with open(out, "rb") as a, open(plain, "rb") as b:
+        first = a.read()
+        assert first == b.read()
+    ref_out, ref_jnl = out + ".jax", str(tmp_path / "jax.jsonl")
+    os.rename(out, ref_out)
+    assert jax_sift.main(cands + ["-o", out, *flags, "--journal",
+                                  ref_jnl]) == 0
+    os.replace(ref_out, out)
+    header = _journal_header(jnl)
+    assert header["tool"] == "sift"
+    assert header["fingerprint"] == _journal_header(ref_jnl)["fingerprint"]
+    capsys.readouterr()
+    assert sift.main(cands + ["-o", out, *flags, "--journal", jnl]) == 0
+    assert "validated complete, skipping" in capsys.readouterr().err
+    # a re-searched trial: its .cand changes, the sift runs again
+    dm40 = [fn for fn in cands if "DM40.00" in fn][0]
+    recs = prestocand.read_rzwcands(dm40)
+    write_candfiles(dm40, dm40[:-5] + ".txtcand", [
+        AccelCandidate(c.r, c.z, c.pow, c.sig * 0.5, 4, rerr=c.rerr,
+                       zerr=c.zerr) for c in recs], T)
+    assert sift.main(cands + ["-o", out, *flags, "--journal", jnl]) == 0
+    assert "validated complete" not in capsys.readouterr().err
+    with open(out, "rb") as f:
+        resifted = f.read()
+    assert resifted != first
+    with open(out, "r+b") as f:
+        f.truncate(len(resifted) // 2)
+    assert sift.main(cands + ["-o", out, *flags, "--journal", jnl]) == 0
+    assert "validated complete" not in capsys.readouterr().err
+    with open(out, "rb") as f:
+        assert f.read() == resifted
+
+
+def test_sift_journal_needs_an_outfile(trials, tmp_path, capsys):
+    for main in (sift.main, jax_sift.main):
+        with pytest.raises(SystemExit) as e:
+            main(trials + ["--journal", str(tmp_path / "j.jsonl")])
+        assert e.value.code == 2
+        assert "--journal requires -o" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
