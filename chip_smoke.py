@@ -313,6 +313,34 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    polynomial fold launched once for each group left, every archive the
    bytes of phase 7's, every summary row's refined values phase 7's; a
    third run launches no fold. One ``path NAME:`` line each.
+16. Telemetry and fault injection, reusing phase 6's, 7's, 8's and 10's
+   outputs as the un-traced, un-faulted baselines. (a) Phase 6's sweep
+   stage run again untraced, with ``--telemetry`` twice and untraced
+   again, back to back: the same kernel launches, and every ``.dat``,
+   ``.cand``, ``.txtcand`` and the ``.cands`` the bytes of phase 6's; the trace opens with a
+   version-1 meta record and ends with an end record, its ``h2d.bytes``
+   equal the bytes the ship copied, its session-end device record's
+   ``peak_bytes_in_use`` equals ``torch.cuda.max_memory_allocated()``;
+   printed: each wall (the overhead: the traced pair's mean over the
+   untraced pair's; and a bound on it, the host cost of a record timed
+   over 4000 records times the trace's records), the trace's bytes and
+   records, the seconds of
+   every span name, ``d2h.bytes``, the pending-depth maxima and
+   ``tlmsum``'s stage table. (b) The stage with ``--fault-inject
+   oom:accel.batch_dispatch:1``: fired once, one OOM backoff, no serial
+   fallback, phase 6's bytes. (c) ``foldbatch --telemetry --fault-inject
+   oom:fold.batch_dispatch:N`` on phase 7's list (N: the first DM group
+   of more than one candidate): fired once, one backoff, every archive
+   the bytes of phase 7's. (d) The stage with ``--journal --accel-batch
+   4 --fault-inject exit:accel.after_cand_write:3`` in a child, which
+   must exit 137 after its third table with the fault's event in its
+   trace; resumed here: phase 6's bytes, no boxcar launch (the
+   single-pulse pass skipped) and the series pass's launches as in phase
+   6. (e) ``prepfold --telemetry`` at phase 10's defaults (phase 10's
+   launches and ``.pfd`` bytes, one ``fold_bins`` span a launch) and
+   ``rfifind --telemetry`` on phase 8's RFI copy (the chain's ``.mask``
+   bytes, ``rfifind.intervals`` and ``rfifind_block_stats`` in its
+   trace). One ``path NAME:`` line each.
 
 Then one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
@@ -320,9 +348,10 @@ and ``prepfold_cands``, phase 11's ``lane``, phase 12's
 ``psrfits_ddplan``, ``psrfits_flat4``, ``psrfits_chain``, ``float32_fil``
 and ``mask_split`` and phase 13's ``waterfaller_nsub_mask``,
 ``waterfaller_plain``, ``zero_dm_filter``, ``zero_dm_sweep``,
-``spectrogram`` and ``detrend_blocks``, and phase 15's
-``checkpoint_resume``, ``ddplan_resume`` and ``fold_resume`` among
-them), the card line, and the last line ``{"ok": true, "device":
+``spectrogram`` and ``detrend_blocks``, phase 15's
+``checkpoint_resume``, ``ddplan_resume`` and ``fold_resume``, and phase
+16's ``telemetry_stage``, ``fault_accel_oom``, ``fault_fold_oom``,
+``fault_exit_resume`` and ``prepfold_traced`` among them), the card line, and the last line ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -5063,6 +5092,341 @@ def resume_phase(tmp, fn, info, card):
             "fold_resume": resume_fold(tmp, card)}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: telemetry and fault injection
+# ---------------------------------------------------------------------------
+
+#: the stage's files whose bytes a traced, faulted or resumed run must keep
+STAGE_OUTPUTS = ("_DM*.dat", "_DM*_ACCEL_200.cand",
+                 "_DM*_ACCEL_200.txtcand")
+
+
+def same_outputs(ref_base, base, patterns=STAGE_OUTPUTS, single=(".cands",)):
+    """Fail unless every file of ``ref_base`` under ``patterns`` (and each
+    ``single`` suffix) has its bytes under ``base``; returns the count."""
+    n = 0
+    for pat in patterns:
+        refs = sorted(glob.glob(ref_base + pat))
+        got = sorted(glob.glob(base + pat))
+        if not refs or len(got) != len(refs):
+            fail(f"{base}{pat}: {len(got)} files, {ref_base}{pat} has "
+                 f"{len(refs)}")
+        for r in refs:
+            same_files(r, base + r[len(ref_base):], ("",))
+            n += 1
+    for ext in single:
+        same_files(ref_base + ext, base + ext, ("",))
+        n += 1
+    return n
+
+
+def read_trace(path):
+    """(records, last counters record, span seconds by name summed over
+    every span record, aggregated or sink-only)."""
+    recs = [json.loads(ln) for ln in open(path) if ln.strip()]
+    counters = [r for r in recs if r["type"] == "counters"][-1]
+    spans = collections.defaultdict(float)
+    for r in recs:
+        if r["type"] == "span":
+            spans[r["name"]] += r["dur"]
+    return recs, counters, dict(spans)
+
+
+def tlmsum_text(paths):
+    """``tlmsum``'s text of the traces at ``paths``."""
+    import contextlib
+    import io
+
+    from pypulsar_tpu_torch.cli import tlmsum
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if tlmsum.main(list(paths)) != 0:
+            fail(f"tlmsum of {paths} failed")
+    return buf.getvalue()
+
+
+def telemetry_record_cost(path, n=2000):
+    """Host seconds a trace record costs: ``n`` spans, events and counter
+    bumps into a sink at ``path``, over the records they wrote."""
+    from pypulsar_tpu_torch.obs import telemetry
+
+    with telemetry.session(path):
+        t0 = time.perf_counter()
+        for i in range(n):
+            with telemetry.span("cost", i=i):
+                telemetry.counter("cost.n")
+            telemetry.event("cost.e", i=i)
+        took = time.perf_counter() - t0
+    return took / (2 * n)
+
+
+def traced_stage(tmp, fn, card):
+    """Phase 16 (a): phase 6's sweep stage run untraced, traced, traced
+    and untraced, back to back: the same launches and bytes (each the
+    bytes of phase 6's), each wall, the trace's size and its account of
+    the stage. Returns the first traced run's launches."""
+    import torch
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+
+    ref = os.path.join(tmp, "stage")
+    runs = {}
+    for label in ("untraced", "traced", "traced_2", "untraced_2"):
+        out = os.path.join(tmp, f"tlm_{label}")
+        trace = out + ".jsonl"
+        extra = ["--write-dats"] + (["--telemetry", trace]
+                                    if label.startswith("traced") else [])
+        with PathMeter("telemetry_stage" if label == "traced"
+                       else "stage_" + label, card) as pm:
+            rc = cli.main(stage_argv(fn, out, STAGE_LODM, STAGE_DMS, extra))
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            fail(f"the {label} sweep stage exited {rc}")
+        runs[label] = dict(pm=pm, out=out, trace=trace, peak=peak,
+                           files=same_outputs(ref, out))
+        if pm.launches != runs["untraced"]["pm"].launches:
+            fail(f"the {label} stage launched {pm.launches}, the untraced "
+                 f"{runs['untraced']['pm'].launches}")
+    u, t = runs["untraced"], runs["traced"]
+    walls = {k: v["pm"].wall_s for k, v in runs.items()}
+    traced_s = (walls["traced"] + walls["traced_2"]) / 2
+    untraced_s = (walls["untraced"] + walls["untraced_2"]) / 2
+    recs, counters, spans = read_trace(t["trace"])
+    c, g = counters["counters"], counters["gauges"]
+    if recs[0]["type"] != "meta" or recs[0].get("version") != 1 or \
+            recs[-1]["type"] != "end":
+        fail("the trace does not open with a version-1 meta record and "
+             "close with an end record")
+    if c.get("h2d.bytes", 0) != t["pm"].shipped:
+        fail(f"h2d.bytes {c.get('h2d.bytes')} is not the "
+             f"{t['pm'].shipped} bytes the ship copied")
+    if c.get("sweep.trials_completed") != STAGE_DMS or \
+            c.get("accel.spectra_searched") != STAGE_DMS:
+        fail(f"the trace's work counters are off: {c}")
+    for name in ("dispatch_sweep_chunk", "dedisperse_chunk",
+                 "accel_stage_batch", "accel_search", "accel_write",
+                 "accel_prep_device"):
+        if name not in spans:
+            fail(f"the trace holds no {name} span")
+    devices = [r for r in recs if r["type"] == "device"]
+    end = next(r for r in devices if r["tag"] == "session_end")["devices"]
+    if not end or end[0].get("peak_bytes_in_use") != t["peak"]:
+        fail(f"the session_end device record {end} does not hold "
+             f"max_memory_allocated() = {t['peak']}")
+    text = tlmsum_text([t["trace"]])
+    table = text.split("# stage breakdown:")[1].split("#\n")[0]
+    record_s = telemetry_record_cost(os.path.join(tmp, "tlm_cost.jsonl"))
+    print("tlmsum stage table of the traced stage:\n" + table.rstrip())
+    t["pm"].line(
+        walls_s=walls, overhead_fraction=traced_s / untraced_s - 1.0,
+        record_cost_us=record_s * 1e6,
+        records_cost_s=record_s * len(recs),
+        trace_bytes=os.path.getsize(t["trace"]), trace_records=len(recs),
+        span_seconds={k: spans[k] for k in sorted(spans)},
+        h2d_bytes=c.get("h2d.bytes"), d2h_bytes=c.get("d2h.bytes"),
+        d2h_pulls=c.get("d2h.pulls"),
+        series_bytes=STAGE_DMS * 4 * (1 << 20),
+        sweep_chunks=c.get("sweep.chunks"),
+        pending_depth_max=g.get("sweep.pending_depth", {}).get("max"),
+        ship_pending_depth_max=g.get("sweep.ship.pending_depth",
+                                     {}).get("max"),
+        peak_bytes_in_use=end[0]["peak_bytes_in_use"],
+        max_memory_allocated=t["peak"], untraced_peak=u["peak"],
+        files_equal=t["files"])
+    return t["pm"].launches
+
+
+def fault_accel_oom(tmp, fn, card):
+    """Phase 16 (b): the stage with ``oom:accel.batch_dispatch:1``: the
+    fault fired once, one OOM backoff, no serial fallback, and the bytes
+    of phase 6's tables."""
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.obs import telemetry
+    from pypulsar_tpu_torch.resilience import faultinject
+
+    out = os.path.join(tmp, "fault_oom")
+    faultinject.reset()
+    with PathMeter("fault_accel_oom", card) as pm, \
+            telemetry.session() as tlm:
+        rc = cli.main(stage_argv(fn, out, STAGE_LODM, STAGE_DMS, [
+            "--write-dats", "--fault-inject", "oom:accel.batch_dispatch:1"]))
+        c = tlm.counter_totals()
+    fired = faultinject.fired_counts()
+    faultinject.reset()
+    if rc != 0:
+        fail(f"the OOM-faulted stage exited {rc}")
+    if fired != {"oom": 1} or c.get("resilience.oom_backoffs") != 1:
+        fail(f"oom:accel.batch_dispatch:1 fired {fired}, "
+             f"{c.get('resilience.oom_backoffs')} backoffs")
+    if c.get("accel.serial_fallbacks", 0):
+        fail(f"the faulted stage fell back to serial searches: {c}")
+    n = same_outputs(os.path.join(tmp, "stage"), out)
+    pm.line(fired=fired, oom_backoffs=c["resilience.oom_backoffs"],
+            serial_fallbacks=c.get("accel.serial_fallbacks", 0),
+            files_equal=n)
+    return pm.launches
+
+
+def fault_fold_oom(tmp, card):
+    """Phase 16 (c): ``foldbatch --telemetry --fault-inject
+    oom:fold.batch_dispatch:N`` on phase 7's list, N the first DM group of
+    more than one candidate (a batch of one cannot halve): the fault
+    fired, one backoff, every archive the bytes of phase 7's."""
+    from pypulsar_tpu_torch.cli import foldbatch
+    from pypulsar_tpu_torch.parallel import foldpipe
+    from pypulsar_tpu_torch.resilience import faultinject
+
+    sifted = os.path.join(tmp, "fold.accelcands")
+    cands = foldpipe.load_candidates(sifted)
+    groups = foldpipe._group_by_dm(list(enumerate(cands)), 32)
+    multi = [i for i, (_, m) in enumerate(groups) if len(m) > 1]
+    if not multi:
+        fail("phase 7's list has no DM group of more than one candidate")
+    hit = multi[0] + 1
+    out, trace = os.path.join(tmp, "fault_fold"), os.path.join(
+        tmp, "fault_fold.jsonl")
+    spec = f"oom:fold.batch_dispatch:{hit}"
+    faultinject.reset()
+    with PathMeter("fault_fold_oom", card) as pm:
+        rc = foldbatch.main([
+            "--cands", sifted, "-n", str(FOLD_NBINS), "--npart",
+            str(FOLD_NPART), "--device", "cuda", "--datbase",
+            os.path.join(tmp, "stage"), "--batch", "32", "-o", out,
+            "--telemetry", trace, "--fault-inject", spec])
+    fired = faultinject.fired_counts()
+    faultinject.reset()
+    if rc != 0:
+        fail(f"the OOM-faulted fold exited {rc}")
+    _, counters, spans = read_trace(trace)
+    c = counters["counters"]
+    if fired != {"oom": 1} or c.get("resilience.oom_backoffs") != 1:
+        fail(f"{spec} fired {fired}, {c.get('resilience.oom_backoffs')} "
+             f"backoffs")
+    with open(os.path.join(tmp, "fold_dats_foldbatch.json")) as f:
+        ref = {r["name"]: r["pfd"] for r in json.load(f)["results"]}
+    with open(out + "_foldbatch.json") as f:
+        rows = json.load(f)["results"]
+    if len(rows) != len(ref) or c.get("fold.cands_folded") != len(ref):
+        fail(f"the faulted fold folded {c.get('fold.cands_folded')} of "
+             f"{len(ref)}")
+    for r in rows:
+        same_files(ref[r["name"]], r["pfd"], ("",))
+    pm.line(spec=spec, fired=fired,
+            oom_backoffs=c["resilience.oom_backoffs"], archives=len(rows),
+            group_dispatches=c.get("fold.group_dispatches"),
+            span_seconds={k: spans[k] for k in sorted(spans)})
+    return pm.launches
+
+
+def fault_exit_resume(tmp, fn, card, series_launches):
+    """Phase 16 (d): ``sweep --journal --fault-inject
+    exit:accel.after_cand_write:3`` in a child, which must die by the
+    fault's ``os._exit(137)`` after its third table (its trace holds the
+    fault's event), then the same command resumed here: the bytes of
+    phase 6's, the single-pulse pass skipped (no boxcar launch) and the
+    series pass launched as in phase 6."""
+    from pypulsar_tpu_torch.cli import sweep as cli
+
+    out, jnl = os.path.join(tmp, "fault_exit"), os.path.join(
+        tmp, "fault_exit_journal.jsonl")
+    trace = os.path.join(tmp, "fault_exit_child.jsonl")
+    argv = stage_argv(fn, out, STAGE_LODM, STAGE_DMS,
+                      ["--write-dats", "--accel-batch", "4",
+                       "--journal", jnl])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pypulsar_tpu_torch.cli.sweep", *argv,
+         "--telemetry", trace, "--fault-inject",
+         "exit:accel.after_cand_write:3"], cwd=HERE, capture_output=True,
+        text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 137:
+        fail(f"the child sweep exited {proc.returncode}, not by the exit "
+             f"fault: {proc.stderr[-3000:]}")
+    events = [json.loads(ln) for ln in open(trace) if ln.strip()]
+    fired = [e["attrs"] for e in events if e["type"] == "event"
+             and e["name"] == "resilience.fault_injected"]
+    if len(fired) != 1 or fired[0]["point"] != "accel.after_cand_write":
+        fail(f"the child's trace holds the fault events {fired}")
+    written = len(glob.glob(out + "_DM*_ACCEL_200.cand"))
+    if written != 3:
+        fail(f"the child wrote {written} tables before its exit, not 3")
+    with PathMeter("fault_exit_resume", card) as pm:
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"the resumed stage exited {rc}")
+    if pm.launches["boxcar_stats"] or any(
+            pm.launches[k] != series_launches[k]
+            for k in ("gather_sum/stage1", "gather_sum/stage2")):
+        fail(f"the resume launched {pm.launches}; the series pass "
+             f"launched {dict(series_launches)} in phase 6")
+    n = same_outputs(os.path.join(tmp, "stage"), out)
+    pm.line(child_wall_s=child_s, child_exit=proc.returncode,
+            tables_before_exit=written, files_equal=n)
+    return pm.launches
+
+
+def traced_fold_and_mask(tmp, fn, info, card, chain, prepfold_launches):
+    """Phase 16 (e): ``prepfold --telemetry`` at phase 10's defaults (the
+    launches and ``.pfd`` bytes of phase 10's default run, one
+    ``fold_bins`` span a partition) and ``rfifind --telemetry`` on phase
+    8's RFI copy (the ``.mask`` bytes of the chain's, ``rfifind.intervals``
+    and the block-statistics spans in the trace)."""
+    from pypulsar_tpu_torch.cli import prepfold, rfifind
+
+    period = info["period_samples"] * info["tsamp"]
+    out, trace = os.path.join(tmp, "tlm_prepfold.pfd"), os.path.join(
+        tmp, "tlm_prepfold.jsonl")
+    with PathMeter("prepfold_traced", card) as pf:
+        rc = prepfold.main([fn, "-p", repr(period), "--dm", "70", "-o", out,
+                            "--device", "cuda", "--telemetry", trace])
+    if rc != 0:
+        fail(f"the traced prepfold exited {rc}")
+    if pf.launches != prepfold_launches:
+        fail(f"the traced prepfold launched {pf.launches}, phase 10's "
+             f"{prepfold_launches}")
+    same_files(os.path.join(tmp, "prepfold_default.pfd"), out, ("",))
+    recs, counters, spans = read_trace(trace)
+    n_bins = sum(1 for r in recs if r["type"] == "span"
+                 and r["name"] == "fold_bins")
+    if n_bins != prepfold_launches["fold_chan"]:
+        fail(f"the prepfold trace holds {n_bins} fold_bins spans for "
+             f"{prepfold_launches['fold_chan']} fold launches")
+    pf.line(fold_bins_spans=n_bins,
+            fold_samples=counters["counters"].get("fold.samples"),
+            trace_bytes=os.path.getsize(trace),
+            span_seconds={k: spans[k] for k in sorted(spans)})
+    base, mtrace = os.path.join(tmp, "tlm_rfi"), os.path.join(
+        tmp, "tlm_rfi.jsonl")
+    with PathMeter("rfifind_traced", card) as pm:
+        rc = rfifind.main([chain["rfi"], "-o", base, "-t", "1.0",
+                           "--device", "cuda", "--telemetry", mtrace])
+    if rc != 0:
+        fail(f"the traced rfifind exited {rc}")
+    same_files(chain["outbase"] + "_rfifind.mask", base + "_rfifind.mask",
+               ("",))
+    recs, counters, spans = read_trace(mtrace)
+    nint = counters["counters"].get("rfifind.intervals", 0)
+    if not nint or "rfifind_block_stats" not in spans:
+        fail(f"the rfifind trace holds {nint} intervals, spans {spans}")
+    pm.line(intervals=nint, d2h_bytes=counters["counters"].get("d2h.bytes"),
+            span_seconds=spans)
+    return pf.launches
+
+
+def telemetry_phase(tmp, fn, info, card, series_launches, chain,
+                    prepfold_launches):
+    """Phase 16: returns the launches of each driven path."""
+    return {"telemetry_stage": traced_stage(tmp, fn, card),
+            "fault_accel_oom": fault_accel_oom(tmp, fn, card),
+            "fault_fold_oom": fault_fold_oom(tmp, card),
+            "fault_exit_resume": fault_exit_resume(tmp, fn, card,
+                                                   series_launches),
+            "prepfold_traced": traced_fold_and_mask(
+                tmp, fn, info, card, chain, prepfold_launches)}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -5111,6 +5475,8 @@ def main() -> int:
         spectra_paths = spectra_phase(tmp, fn, card)
         hour_paths = accel_hour_phase(tmp, fn, info, card)
         resume_paths = resume_phase(tmp, fn, info, card)
+        telemetry_paths = telemetry_phase(tmp, fn, info, card, stage_series,
+                                          chain, prep["prepfold"])
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -5120,7 +5486,7 @@ def main() -> int:
              "spectral_stage": spectral, "spectral_decimated": decimated,
              "spectral_chain": spectral_ch, "ddplan": ddplan, **prep,
              "lane": lane_launches, **fits_paths, **spectra_paths,
-             **hour_paths, **resume_paths}
+             **hour_paths, **resume_paths, **telemetry_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}

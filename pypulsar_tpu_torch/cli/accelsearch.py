@@ -42,7 +42,12 @@ them, always raises: a sticky CUDA error poisons every later call.
 ``--skip-existing`` skips inputs whose ``.cand``/``.txtcand`` pair
 validates. The output names and writers are the streamed sweep handoff's
 (:mod:`pypulsar_tpu_torch.parallel.accelpipe`), so the two paths cannot
-diverge. ``--telemetry`` and ``--fault-inject`` are not ported.
+diverge. ``--telemetry PATH.jsonl`` records the run's trace (the host
+preps as ``accel_prep_host`` spans, the device preps as
+``accel_prep_device``, each search as ``accel_search``, each write as
+``accel_write``; ``accel.serial_fallbacks`` counts as in ``COUNTERS``),
+and ``--fault-inject SPEC`` arms the fault injector, e.g.
+``oom:accel.stage_dispatch``.
 
 Run as ``python -m pypulsar_tpu_torch.cli.accelsearch FILE.dat [...]``.
 """
@@ -61,19 +66,14 @@ from pypulsar_tpu_torch.core.device import resolve_device
 from pypulsar_tpu_torch.fourier import accelsearch
 from pypulsar_tpu_torch.fourier import kernels
 from pypulsar_tpu_torch.io.infodata import InfoData
+from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.parallel.accelpipe import (
     ACCEL_BATCH,
     accel_out_names,
     write_candfiles,
 )
+from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience.retry import is_device_fault, is_oom_error
-
-#: flags of the reference's CLI that the port does not take yet, with the
-#: ROADMAP.md item that brings each
-NOT_PORTED = {
-    "telemetry": ("--telemetry", "Queue 1 S5 (telemetry)"),
-    "fault_inject": ("--fault-inject", "Queue 1 S5 (telemetry)"),
-}
 
 #: the CLI's counters: ``accel.serial_fallbacks`` (batches retried file by
 #: file), ``accel.bytes_read`` (input bytes read), ``accel.prep_cap`` (the
@@ -205,11 +205,9 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch ops)")
-    not_ported = "not ported yet: ROADMAP.md "
-    p.add_argument("--telemetry", default=None,
-                   help=not_ported + NOT_PORTED["telemetry"][1])
-    p.add_argument("--fault-inject", default=None,
-                   help=not_ported + NOT_PORTED["fault_inject"][1])
+    telemetry.add_telemetry_flag(
+        p, what="per-file spans, batch counters, device stats")
+    faultinject.add_fault_flag(p)
     return p
 
 
@@ -289,12 +287,15 @@ def write_results(infile, cands, T, args):
 def search_one(infile, cfg, args):
     """Search one input by the host prep; returns the written ``.cand``
     path (None when skipped)."""
-    prep = prepare_one(infile, args)
+    with telemetry.span("accel_prep_host", infile=infile):
+        prep = prepare_one(infile, args)
     if prep is None:
         return None
     norm, T = prep
-    cands = accelsearch.accel_search(norm, T, cfg, device=args.device)
-    return write_results(infile, cands, T, args)
+    with telemetry.span("accel_search", aggregate=False, batch=1):
+        cands = accelsearch.accel_search(norm, T, cfg, device=args.device)
+    with telemetry.span("accel_write"):
+        return write_results(infile, cands, T, args)
 
 
 def prep_cap(n: int) -> int:
@@ -306,9 +307,6 @@ def prep_cap(n: int) -> int:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    for dest, (flag, item) in NOT_PORTED.items():
-        if getattr(args, dest):
-            parser.error(f"{flag} is not ported yet (ROADMAP.md {item})")
     if args.outbase and len(args.infiles) > 1:
         parser.error("-o/--outbase only applies to a single input file")
     if args.device_prep and args.batch < 2:
@@ -323,7 +321,10 @@ def main(argv=None):
         wmax=args.wmax, dw=args.dw,
         coarse_dz=args.coarse_dz, coarse_power_frac=args.coarse_frac,
     )
-    return _run(args, cfg)
+    if args.fault_inject:
+        faultinject.configure(args.fault_inject)
+    with telemetry.session_from_flag(args.telemetry, tool="accelsearch"):
+        return _run(args, cfg)
 
 
 def _run(args, cfg):
@@ -344,19 +345,25 @@ def _run(args, cfg):
             """One candidate list per member of the pending group."""
             T = group[0][2]
             if group[0][3] == "norm":
-                return accelsearch.accel_search_batch(
-                    torch.stack([g[1] for g in group]), T, cfg,
-                    device=args.device)
+                with telemetry.span("accel_search", aggregate=False,
+                                    batch=len(group)):
+                    return accelsearch.accel_search_batch(
+                        torch.stack([g[1] for g in group]), T, cfg,
+                        device=args.device)
             cap = prep_cap(len(group[0][1]))
             COUNTERS["accel.prep_cap"] = max(COUNTERS["accel.prep_cap"],
                                              min(cap, len(group)))
             out = []
             for c0 in range(0, len(group), cap):
-                spectra = kernels.prep_spectra_batch(
-                    np.stack([g[1] for g in group[c0:c0 + cap]]),
-                    device=args.device)
-                out.extend(accelsearch.accel_search_batch(
-                    spectra, T, cfg, device=args.device))
+                n = len(group[c0:c0 + cap])
+                with telemetry.span("accel_prep_device", batch=n):
+                    spectra = kernels.prep_spectra_batch(
+                        np.stack([g[1] for g in group[c0:c0 + cap]]),
+                        device=args.device)
+                with telemetry.span("accel_search", aggregate=False,
+                                    batch=n):
+                    out.extend(accelsearch.accel_search_batch(
+                        spectra, T, cfg, device=args.device))
                 del spectra
             return out
 
@@ -389,6 +396,10 @@ def _run(args, cfg):
                     raise
                 # one poison spectrum must fail alone, not its whole group
                 COUNTERS["accel.serial_fallbacks"] += 1
+                telemetry.counter("accel.serial_fallbacks")
+                telemetry.event("accel.batch_serial_fallback",
+                                n=len(group), kind=group[0][3],
+                                error=type(e).__name__)
                 print(f"# batch of {len(group)} failed "
                       f"({type(e).__name__}: {e}); retrying serially",
                       file=sys.stderr)
@@ -397,7 +408,8 @@ def _run(args, cfg):
                 return
             for (fn, _, T, _), cands in zip(group, all_cands):
                 try:
-                    write_results(fn, cands, T, args)
+                    with telemetry.span("accel_write"):
+                        write_results(fn, cands, T, args)
                     done += 1
                 except Exception as e:  # noqa: BLE001 - policy in fail()
                     fail(fn, e)
@@ -420,8 +432,9 @@ def _run(args, cfg):
                     return p, "series"
 
                 try:
-                    prep, kind = retry_transient(attempt, retries=2,
-                                                 what="accel.read")
+                    with telemetry.span("accel_prep_host", infile=infile):
+                        prep, kind = retry_transient(attempt, retries=2,
+                                                     what="accel.read")
                 except Exception as e:  # noqa: BLE001 - consumer decides
                     yield infile, None, None, None, e
                     continue
@@ -434,7 +447,7 @@ def _run(args, cfg):
             from pypulsar_tpu_torch.parallel.prefetch import prefetch
 
             source = prefetch(prepped_inputs(), depth=args.prefetch,
-                              name="accel.prep")
+                              name="accel.prep", retries=2)
         else:
             source = prepped_inputs()
         for infile, payload, T, kind, err in source:

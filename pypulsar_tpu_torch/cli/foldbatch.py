@@ -24,7 +24,10 @@ PATH.jsonl`` keeps a work-unit journal of the archives: a rerun folds only
 the candidates whose archive does not validate (size and sha256), and its
 summary takes the others' refined (p, pdot) from the journal. ``--device``
 defaults to ``cuda`` and refuses to run without a card; ``--device cpu``
-runs the fold kernel's plain PyTorch version.
+runs the fold kernel's plain PyTorch version. ``--telemetry PATH.jsonl``
+records the run's trace and ``--fault-inject SPEC`` arms the fault
+injector (e.g. ``oom:fold.batch_dispatch`` or
+``kill:fold.after_pfd_write:2``).
 
 Run as ``python -m pypulsar_tpu_torch.cli.foldbatch --cands X.accelcands
 -o X --datbase X``.
@@ -37,12 +40,8 @@ import json
 import os
 import sys
 
-#: flags of the reference's fold stage that the port does not take yet,
-#: with the ROADMAP.md item that brings each
-NOT_PORTED = {
-    "telemetry": ("--telemetry", "Queue 1 S5 (telemetry)"),
-    "fault_inject": ("--fault-inject", "Queue 1 S5 (telemetry)"),
-}
+from pypulsar_tpu_torch.obs import telemetry
+from pypulsar_tpu_torch.resilience import faultinject
 
 
 def build_parser():
@@ -105,20 +104,15 @@ def build_parser():
                    help="work-unit journal: a rerun folds only the "
                         "candidates whose archives do not validate "
                         "(size and sha256)")
-    not_ported = "not ported yet: ROADMAP.md "
-    p.add_argument("--telemetry", default=None,
-                   help=not_ported + NOT_PORTED["telemetry"][1])
-    p.add_argument("--fault-inject", default=None,
-                   help=not_ported + NOT_PORTED["fault_inject"][1])
+    telemetry.add_telemetry_flag(
+        p, what="fold spans, group counters, device stats")
+    faultinject.add_fault_flag(p)
     return p
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for dest, (flag, item) in NOT_PORTED.items():
-        if getattr(args, dest):
-            parser.error(f"{flag} is not ported yet (ROADMAP.md {item})")
     if (args.infile is None) == (args.datbase is None):
         parser.error("give exactly one series source: a raw/.dat infile "
                      "OR --datbase")
@@ -128,7 +122,13 @@ def main(argv=None) -> int:
                      "(.dat/--datbase series were masked when written); "
                      "a silently ignored mask would fold a different "
                      "series than asked")
+    if args.fault_inject:
+        faultinject.configure(args.fault_inject)
+    with telemetry.session_from_flag(args.telemetry, tool="foldbatch"):
+        return _run(args)
 
+
+def _run(args) -> int:
     from pypulsar_tpu_torch.parallel.foldpipe import (
         FoldCandidate,
         fold_pipeline,

@@ -189,6 +189,9 @@ def _append_archive_row(args, pfd, pfdfn: str, rows: list) -> None:
         print("Mean flux density (mJy): %.4f" % result["smean"])
     if not np.isfinite(result["snr"]):
         # a pathological archive surfaces as an error row, never as a NaN
+        from pypulsar_tpu_torch.obs import telemetry
+
+        telemetry.counter("data.nonfinite_cands_dropped")
         rows.append(_null_row(pfd, pfdfn, "non-finite SNR"))
         return
     rows.append({

@@ -26,6 +26,8 @@ dispersion delays are left in (archives start at currdm = 0);
 ``--device`` defaults to ``cuda`` and refuses to run without a card;
 ``--device cpu`` runs the kernel's plain PyTorch version. ``--cands``
 folds a whole list through the port's ``cli.foldbatch``.
+``--telemetry PATH.jsonl`` records the run's trace (each block's fold is
+a ``fold_bins`` span; passed on to foldbatch with ``--cands``).
 
 Run as ``python -m pypulsar_tpu_torch.cli.prepfold OBS.fil -p 0.262144
 --dm 70``.
@@ -41,10 +43,7 @@ import numpy as np
 import torch
 
 from pypulsar_tpu_torch.core import psrmath
-
-#: flags of the reference's prepfold that the port does not take yet, with
-#: the ROADMAP.md item that brings each
-NOT_PORTED = {"telemetry": ("--telemetry", "Queue 1 S5 (telemetry)")}
+from pypulsar_tpu_torch.obs import telemetry
 
 
 def fold_partitions(blocks, dt, nbins, npart, nsub, phase_fn,
@@ -135,18 +134,13 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the fold "
                         "kernel's plain PyTorch version)")
-    p.add_argument("--telemetry", default=None,
-                   help="not ported yet: ROADMAP.md "
-                        + NOT_PORTED["telemetry"][1])
+    telemetry.add_telemetry_flag(p, what="fold spans, device stats")
     return p
 
 
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    for dest, (flag, item) in NOT_PORTED.items():
-        if getattr(args, dest):
-            parser.error(f"{flag} is not ported yet (ROADMAP.md {item})")
     if args.cands is not None:
         # batch mode delegates to the shared fold pipeline: same fold
         # geometry flags, one streamed pass for the whole list
@@ -172,7 +166,8 @@ def main(argv=None):
         parser.error("give exactly one of -p/--period or --par")
     if args.par is not None and (args.pd or args.pdd):
         parser.error("--pd/--pdd come from the parfile when --par is given")
-    return _run(args)
+    with telemetry.session_from_flag(args.telemetry, tool="prepfold"):
+        return _run(args)
 
 
 def batch_argv(args) -> list:
@@ -182,6 +177,8 @@ def batch_argv(args) -> list:
              "--device", args.device]
     if args.outfile:
         fargv += ["-o", os.path.splitext(args.outfile)[0]]
+    if args.telemetry:
+        fargv += ["--telemetry", args.telemetry]
     return fargv
 
 

@@ -17,13 +17,15 @@ reader the JAX package's ``ops.rfifind.rfifind`` takes); all three by
 :func:`~pypulsar_tpu_torch.cli.open_reader`.
 
 Run as ``python -m pypulsar_tpu_torch.cli.rfifind FILE [FILE ...] -o
-OUTBASE [-t SECONDS]``.
+OUTBASE [-t SECONDS] [--telemetry PATH.jsonl]``.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+from pypulsar_tpu_torch.obs import telemetry
 
 
 def parse_int_list(text: str):
@@ -78,6 +80,8 @@ def build_parser():
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "block statistics with PyTorch on the CPU)")
+    telemetry.add_telemetry_flag(
+        parser, what="block-stats spans, D2H counters, device stats")
     return parser
 
 
@@ -88,7 +92,8 @@ def main(argv=None):
     from pypulsar_tpu_torch.cli import open_reader
     from pypulsar_tpu_torch.ops.rfifind import rfifind
 
-    with open_reader(args.infile) as reader:
+    with open_reader(args.infile) as reader, \
+            telemetry.session_from_flag(args.telemetry, tool="rfifind"):
         stats, flags, maskfn = rfifind(
             reader, time=args.time, time_sigma=args.timesig,
             freq_sigma=args.freqsig, chanfrac=args.chanfrac,

@@ -36,6 +36,7 @@ import numpy as np
 from pypulsar_tpu_torch.io.accelcands import Candidate, write_candlist
 from pypulsar_tpu_torch.io.infodata import InfoData
 from pypulsar_tpu_torch.io.prestocand import FOURIERPROPS_DTYPE, read_rzwcands
+from pypulsar_tpu_torch.obs import telemetry
 
 _DM_RE = re.compile(r"DM(\d+(?:\.\d+)?)")
 
@@ -186,6 +187,8 @@ def build_parser():
     not_ported = "not ported yet: ROADMAP.md "
     p.add_argument("--known-sources", default=None,
                    help=not_ported + NOT_PORTED["known_sources"][1])
+    telemetry.add_telemetry_flag(
+        p, what="sift + (with --fold) foldpipe spans and counters")
     return p
 
 
@@ -195,6 +198,11 @@ def main(argv=None) -> int:
     for dest, (flag, item) in NOT_PORTED.items():
         if getattr(args, dest):
             ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
+    with telemetry.session_from_flag(args.telemetry, tool="sift"):
+        return _run(ap, args)
+
+
+def _run(ap, args) -> int:
     if args.fold and not args.outfile:
         ap.error("--fold requires -o/--outfile: the fold reads the written "
                  ".accelcands, so reruns fold identical candidates")

@@ -50,6 +50,12 @@ journal and flags skips every unit whose artifacts still validate (size
 and sha256). ``--accel-skip-existing`` skips trials whose ``.cand`` pair
 already validates.
 
+``--telemetry PATH.jsonl`` records the run's trace (per-chunk spans and
+events, byte counters, device snapshots; render it with ``python -m
+pypulsar_tpu_torch.cli.tlmsum PATH.jsonl``), and ``--fault-inject SPEC``
+arms the fault injector (``resilience/faultinject.py``), e.g.
+``oom:sweep.chunk_dispatch`` or ``kill:accel.after_cand_write:3``.
+
 Several input files are refused: in the JAX package they are the mesh's
 batch axis, which comes with ROADMAP.md Queue 1 item 14.
 
@@ -64,8 +70,10 @@ import os
 
 import numpy as np
 
+from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.parallel.sweep import ENGINES
 from pypulsar_tpu_torch.parallel.sweep import NOT_PORTED as ENGINES_NOT_PORTED
+from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience.dataguard import finite_rows
 from pypulsar_tpu_torch.resilience.journal import atomic_write_text
 
@@ -221,6 +229,9 @@ def _parser() -> argparse.ArgumentParser:
     not_ported = "not ported yet: ROADMAP.md "
     ap.add_argument("--mesh", type=int, default=0,
                     help=not_ported + NOT_PORTED["mesh"][1])
+    telemetry.add_telemetry_flag(
+        ap, what="per-chunk spans, H2D/D2H byte counters, device stats")
+    faultinject.add_fault_flag(ap)
     return ap
 
 
@@ -397,6 +408,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     _check_args(ap, args)
 
+    if args.fault_inject:
+        faultinject.configure(args.fault_inject)
+    with telemetry.session_from_flag(args.telemetry, tool="sweep"):
+        return _main_parsed(args)
+
+
+def _main_parsed(args) -> int:
     from pypulsar_tpu_torch.cli import open_reader
     from pypulsar_tpu_torch.io.rfimask import RfifindMask
     from pypulsar_tpu_torch.parallel.staged import sweep_ddplan, sweep_flat

@@ -31,8 +31,14 @@ moved to ``device=`` (default ``"cuda"``, which raises without a card).
 :func:`fold_parts_multi` and :func:`fold_parts_multi_poly` are their
 series-index forms (candidate k folds its own row of a ``[G, T]`` stack),
 the batch broker's fused fold (``parallel/broker.py``). The reference's
-compile-plane warmer (Queue 1 item 16) and telemetry (S5) are not
-ported.
+compile-plane warmer (Queue 1 item 16) is not ported.
+
+Telemetry (the reference's names): every fold counts its folded samples
+in ``fold.samples`` and is a span named after the reference's function
+(``fold_bins``, ``fold_parts``, ``fold_stats``, ``fold_parts_batch`` for
+both candidate forms, ``fold_parts_multi`` for both series-index forms,
+``fold_refine`` for :func:`refine_chi2`). The candidate forms here are
+those spans around the kernel wrappers of ``ops/fold.py``.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ import numpy as np
 import torch
 
 from pypulsar_tpu_torch.core import psrmath
-from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.core.device import count_d2h, resolve_device
 from pypulsar_tpu_torch.core.psrmath import SECPERDAY
 from pypulsar_tpu_torch.fold.profile_snr import (
     OnPulseError,
@@ -52,13 +58,9 @@ from pypulsar_tpu_torch.fold.profile_snr import (
     onpulse_auto,
     profile_std,
 )
-from pypulsar_tpu_torch.ops.fold import (
-    fold_chan,
-    fold_parts_batch,
-    fold_parts_multi,
-    fold_parts_multi_poly,
-    fold_parts_poly,
-)
+from pypulsar_tpu_torch.obs import telemetry
+from pypulsar_tpu_torch.ops import fold as _fold
+from pypulsar_tpu_torch.ops.fold import fold_chan
 
 __all__ = ["bestprof_offsets", "drift_offsets", "drift_to_p_pd",
            "fold_bins", "fold_numpy", "fold_parts", "fold_parts_batch",
@@ -83,6 +85,57 @@ def phase_coeffs(period: float, pdot: float) -> tuple:
     return f0, f1 / 2.0, f2
 
 
+def _count_samples(n: int) -> None:
+    if telemetry.is_active():
+        telemetry.counter("fold.samples", int(n))
+
+
+def fold_parts_batch(series: torch.Tensor, bin_idx: torch.Tensor,
+                     nbins: int, npart: int):
+    """:func:`pypulsar_tpu_torch.ops.fold.fold_parts_batch` under its
+    span and sample count."""
+    K = int(bin_idx.shape[0])
+    _count_samples(K * int(series.shape[-1]))
+    with telemetry.span("fold_parts_batch", nbins=nbins, npart=npart,
+                        n_cands=K):
+        return _fold.fold_parts_batch(series, bin_idx, nbins, npart)
+
+
+def fold_parts_poly(series: torch.Tensor, coeffs, dt: float, nbins: int,
+                    npart: int):
+    """:func:`pypulsar_tpu_torch.ops.fold.fold_parts_poly` under the
+    ``fold_parts_batch`` span and sample count."""
+    K = int(len(coeffs))
+    _count_samples(K * int(series.shape[-1]))
+    with telemetry.span("fold_parts_batch", nbins=nbins, npart=npart,
+                        n_cands=K):
+        return _fold.fold_parts_poly(series, coeffs, dt, nbins, npart)
+
+
+def fold_parts_multi(stack: torch.Tensor, series_idx, bin_idx: torch.Tensor,
+                     nbins: int, npart: int):
+    """:func:`pypulsar_tpu_torch.ops.fold.fold_parts_multi` under its
+    span and sample count."""
+    K = int(bin_idx.shape[0])
+    _count_samples(K * int(stack.shape[-1]))
+    with telemetry.span("fold_parts_multi", nbins=nbins, npart=npart,
+                        n_cands=K, n_series=int(stack.shape[0])):
+        return _fold.fold_parts_multi(stack, series_idx, bin_idx, nbins,
+                                      npart)
+
+
+def fold_parts_multi_poly(stack: torch.Tensor, series_idx, coeffs, dts,
+                          nbins: int, npart: int):
+    """:func:`pypulsar_tpu_torch.ops.fold.fold_parts_multi_poly` under
+    the ``fold_parts_multi`` span and sample count."""
+    K = int(len(coeffs))
+    _count_samples(K * int(stack.shape[-1]))
+    with telemetry.span("fold_parts_multi", nbins=nbins, npart=npart,
+                        n_cands=K, n_series=int(stack.shape[0])):
+        return _fold.fold_parts_multi_poly(stack, series_idx, coeffs, dts,
+                                           nbins, npart)
+
+
 def refine_chi2(part_profs: torch.Tensor, offsets: torch.Tensor
                 ) -> torch.Tensor:
     """chi2[K, J] of every candidate x drift trial: trial j rotates
@@ -96,6 +149,13 @@ def refine_chi2(part_profs: torch.Tensor, offsets: torch.Tensor
     round it (the reference forces HIGHEST precision for the same
     reason). Each candidate is its own set of calls, so its chi2 does not
     depend on the batch."""
+    with telemetry.span("fold_refine", n_cands=int(part_profs.shape[0]),
+                        n_trials=int(offsets.shape[0])):
+        return _refine_chi2(part_profs, offsets)
+
+
+def _refine_chi2(part_profs: torch.Tensor, offsets: torch.Tensor
+                 ) -> torch.Tensor:
     nbins = part_profs.shape[-1]
     k = torch.arange(nbins // 2 + 1, dtype=torch.float32,
                      device=part_profs.device)
@@ -175,14 +235,16 @@ def fold_bins(data, bin_idx, nbins: int, device="cuda"):
     bits of that row inside any block."""
     d = _on_device(data, torch.float32, device)
     b = _on_device(bin_idx, torch.int32, d.device)
-    rows = d[None] if d.dim() == 1 else d
-    prof = counts = None
-    for t0 in range(0, max(rows.shape[-1], 1), _BINS_CHUNK):
-        p, c = fold_chan(rows[:, t0:t0 + _BINS_CHUNK],
-                         b[t0:t0 + _BINS_CHUNK], nbins, 1)
-        prof = p[0] if prof is None else prof + p[0]
-        counts = c[0] if counts is None else counts + c[0]
-    return (prof[0] if d.dim() == 1 else prof), counts
+    _count_samples(d.numel())
+    with telemetry.span("fold_bins", nbins=nbins):
+        rows = d[None] if d.dim() == 1 else d
+        prof = counts = None
+        for t0 in range(0, max(rows.shape[-1], 1), _BINS_CHUNK):
+            p, c = fold_chan(rows[:, t0:t0 + _BINS_CHUNK],
+                             b[t0:t0 + _BINS_CHUNK], nbins, 1)
+            prof = p[0] if prof is None else prof + p[0]
+            counts = c[0] if counts is None else counts + c[0]
+        return (prof[0] if d.dim() == 1 else prof), counts
 
 
 def fold_numpy(data: np.ndarray, bin_idx: np.ndarray, nbins: int
@@ -206,8 +268,10 @@ def fold_parts(data, bin_idx, nbins: int, npart: int, device="cuda"):
     ``counts[npart, nbins]`` int32; the tail past ``npart * (T // npart)``
     is dropped; ValueError for ``T // npart >= 2^24``."""
     d = _on_device(data, torch.float32, device)
-    return fold_chan(d, _on_device(bin_idx, torch.int32, d.device), nbins,
-                     npart)
+    _count_samples(d.numel())
+    with telemetry.span("fold_parts", nbins=nbins, npart=npart):
+        return fold_chan(d, _on_device(bin_idx, torch.int32, d.device),
+                         nbins, npart)
 
 
 def archive_stats(profs: torch.Tensor, counts: torch.Tensor,
@@ -239,10 +303,12 @@ def fold_stats(data, bin_idx, nbins: int, npart: int, dp_offsets,
     kilobytes instead of the cube. ``dp_offsets[J, npart]`` float32
     cycles. Returns tensors on the data's device."""
     d = _on_device(data, torch.float32, device)
-    profs, counts = fold_chan(d, _on_device(bin_idx, torch.int32, d.device),
-                              nbins, npart)
-    return archive_stats(profs, counts, d, npart,
-                         _on_device(dp_offsets, torch.float32, d.device))
+    _count_samples(d.numel())
+    with telemetry.span("fold_stats", nbins=nbins, npart=npart):
+        profs, counts = fold_chan(
+            d, _on_device(bin_idx, torch.int32, d.device), nbins, npart)
+        return archive_stats(profs, counts, d, npart,
+                             _on_device(dp_offsets, torch.float32, d.device))
 
 
 def fold_stats_numpy(data, bin_idx, nbins: int, npart: int, dp_offsets):
@@ -300,9 +366,10 @@ def fold_snr_stats(data, bin_idx, nbins: int, npart: int, dt: float,
     part_len = T // npart
     T_sec = npart * part_len * dt
     dps, off = bestprof_offsets(npart, T_sec, period, ntrial=ntrial)
+    stats = fold_stats(data, bin_idx, nbins, npart, off, device=device)
+    count_d2h(*stats)
     part_profs, chan_profs, counts, dsum, dsumsq, dp_profs = (
-        x.cpu().numpy().astype(np.float64)
-        for x in fold_stats(data, bin_idx, nbins, npart, off, device=device))
+        x.cpu().numpy().astype(np.float64) for x in stats)
     n_used = C * npart * part_len
     data_var = dsumsq / n_used - (dsum / n_used) ** 2
     std = profile_std(max(data_var, 0.0), n_used, nbins, 1.0)

@@ -34,6 +34,14 @@ Gamma(H, 1), so significance follows from ``gammaincc(H, P)``.
 
 Where the reference reads a tuning knob the port takes a keyword with the
 knob's default: ``hbm_budget_bytes`` (5e9) and ``bank_cache_bytes`` (4e9).
+
+Telemetry: each stage chunk's dispatch is an ``accel_stage_batch`` span
+and counts in ``accel.stage_dispatches`` (its fault point,
+``accel.stage_dispatch``, sits inside the OOM halving); a finished batch
+counts its spectra in ``accel.spectra_searched`` and itself in
+``accel.batches``. :func:`accel_search` is a batch of one, so the
+reference's serial ``accel_stage`` span is an ``accel_stage_batch`` span
+here.
 """
 
 from __future__ import annotations
@@ -50,9 +58,11 @@ import torch
 import torch.nn.functional as F
 from scipy.special import gammaincc, gammainccinv, gammaln, log_ndtr, ndtri
 
-from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.core.device import count_d2h, resolve_device
 from pypulsar_tpu_torch.fourier.zresponse import template_bank_zw
+from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.ops.fourier_dedisperse import fourier_chunk_len
+from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience.retry import halving_dispatch
 
 __all__ = [
@@ -339,8 +349,9 @@ def _run_stage_batch(spec_pad, bank_meta, tfs, idxs, segw: int, Z: int,
         outs.append([torch.stack([d[i] for d in det], dim=1)
                      for i in range(4)])  # each [B, Wn, k, ...]
         del plane
-    return tuple(torch.stack([o[i] for o in outs]).cpu().numpy()
-                 for i in range(4))
+    recs = [torch.stack([o[i] for o in outs]) for i in range(4)]
+    count_d2h(*recs)
+    return tuple(r.cpu().numpy() for r in recs)
 
 
 # ---------------------------------------------------------------------------
@@ -642,10 +653,15 @@ def accel_search_batch(
             nc = min(chunk, B - c0)
 
             def dispatch(lo, hi, c0=c0):
-                return _run_stage_batch(
-                    spec_pad[c0 + lo:c0 + hi], bank_meta, tfs, idxs, segw,
-                    Zrows, Wn, cfg.topk, top_lo, top_hi, thresh_val,
-                    seg_ids)
+                faultinject.trip("accel.stage_dispatch")
+                telemetry.counter("accel.stage_dispatches")
+                with telemetry.span("accel_stage_batch", H=int(H),
+                                    batch=int(hi - lo),
+                                    n_seg=int(len(seg_ids))):
+                    return _run_stage_batch(
+                        spec_pad[c0 + lo:c0 + hi], bank_meta, tfs, idxs,
+                        segw, Zrows, Wn, cfg.topk, top_lo, top_hi,
+                        thresh_val, seg_ids)
 
             for lo, hi, outs in halving_dispatch(dispatch, nc,
                                                  what="accel.stage"):
@@ -687,8 +703,13 @@ def accel_search_batch(
                             (H, wi, r0, vals[pos, bl, wi], zi[pos, bl, wi],
                              ri[pos, bl, wi], neigh[pos, bl, wi], width))
 
-    return [_refine_hits(raw, zs, ws, cfg, numindep, thresh)
-            for raw in raw_per_b]
+    out = [_refine_hits(raw, zs, ws, cfg, numindep, thresh)
+           for raw in raw_per_b]
+    # counted on completion: a batch that raised must not count its
+    # spectra as searched
+    telemetry.counter("accel.spectra_searched", B)
+    telemetry.counter("accel.batches")
+    return out
 
 
 def accel_search(fft, T: float, config: AccelSearchConfig = AccelSearchConfig(),

@@ -17,7 +17,9 @@
    the card in their stored form and are decoded there,
    :class:`~pypulsar_tpu_torch.parallel.staged.ReaderSource`) and writes
    ``{outbase}_rfifind.mask`` in the reference's binary layout
-   (:mod:`pypulsar_tpu_torch.io.rfimask`) and ``.stats.npz``.
+   (:mod:`pypulsar_tpu_torch.io.rfimask`) and ``.stats.npz``. Each
+   block's statistics are an ``rfifind_block_stats`` span and count their
+   intervals in ``rfifind.intervals`` (the reference's telemetry).
 
 The mean and the variance add up in float64 on the device and are
 rounded to float32 once, so the card's statistics lie within a float32
@@ -36,8 +38,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.core.device import count_d2h, resolve_device
 from pypulsar_tpu_torch.io.rfimask import build_zap_table, write_mask
+from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.ops.fourier_dedisperse import fourier_chunk_len
 from pypulsar_tpu_torch.resilience.journal import atomic_open
 
@@ -316,10 +319,14 @@ def rfifind(
                 buf = torch.cat([buf, pad], dim=1)
                 nint += 1
         if nint:
-            m, s, p = block_stats(buf[:, : nint * pts], pts)
-            means.append(m.cpu().numpy())
-            stds.append(s.cpu().numpy())
-            maxpows.append(p.cpu().numpy())
+            telemetry.counter("rfifind.intervals", int(nint))
+            with telemetry.span("rfifind_block_stats", nint=int(nint)):
+                stats = block_stats(buf[:, : nint * pts], pts)
+                count_d2h(*stats)
+                m, s, p = (x.cpu().numpy() for x in stats)
+            means.append(m)
+            stds.append(s)
+            maxpows.append(p)
         carry = buf[:, nint * pts:]
 
     for b in _iter_file_blocks(reader, pts * ints_per_read, device):

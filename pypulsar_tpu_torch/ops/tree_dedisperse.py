@@ -37,9 +37,10 @@ columns on the right are the reference's per-level zero fill
 its rows only, so both stay zero. At 1024 channels x 1024 trials (14,343
 rows, a 2^18-sample chunk) the two buffers take ~31 GB.
 
-Left out: the ``'dm'``-mesh factories (ROADMAP.md Queue 1 item 14) and
-the telemetry counters (S5); :meth:`TreePlan.adds_per_sample` and
-:meth:`TreeState.nbytes` carry the structural numbers instead.
+Telemetry: every dispatch records the reference's structural counters
+(:func:`note_dispatch`: the ``tree.merge_levels`` gauge,
+``tree.adds_total`` and ``tree.bytes_on_device``). Left out: the
+``'dm'``-mesh factories (ROADMAP.md Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from pypulsar_tpu_torch.obs import telemetry
 
 from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
 from pypulsar_tpu_torch.ops.gather_sum import (
@@ -290,6 +293,19 @@ class TreeState:
                                out=dst[:plan.rows_per_level[li], :L])
             src = dst
         return shifted_gather_sum(src, snap, out_len)
+
+
+def note_dispatch(plan: TreePlan, chunk_len: int, n_samples: int) -> None:
+    """Host-side structural counters of one dispatch (the reference's):
+    merge depth, the shared-work adds performed for ``n_samples`` output
+    samples, and the bytes of a ``[R + 1, chunk_len]`` merge state."""
+    if not telemetry.is_active():
+        return
+    telemetry.gauge("tree.merge_levels", plan.n_levels)
+    telemetry.counter("tree.adds_total",
+                      plan.adds_per_sample * int(n_samples))
+    telemetry.counter("tree.bytes_on_device",
+                      4 * (plan.rows + 1) * int(chunk_len))
 
 
 def _check_data(data) -> None:

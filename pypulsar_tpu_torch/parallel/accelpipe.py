@@ -44,6 +44,16 @@ a :class:`~pypulsar_tpu_torch.resilience.journal.RunJournal`
 does) records each trial done once its pair is written, and a rerun
 skips the trials whose recorded artifacts still validate. Per-spectrum results do not depend on which trials share a
 batch, so a resumed run writes the bytes an uninterrupted one would.
+
+Telemetry (the reference's names): the series pass is an
+``accel_stream_sweep`` span, each batch's prep an ``accel_prep_device``,
+``accel_prep_host`` or ``accel_prep_fused`` span, its search an
+``accel_search`` span and each table pair an ``accel_write`` span;
+``accel.stream_batches`` counts the batches. Fault points:
+``accel.after_stream`` (after a slice's series pass),
+``accel.batch_dispatch`` (inside the OOM halving),
+``accel.before_cand_write``, ``accel.after_cand_write`` and
+``accel.after_journal``.
 """
 
 from __future__ import annotations
@@ -66,6 +76,7 @@ from pypulsar_tpu_torch.fourier.kernels import (
     prep_spectra_batch,
 )
 from pypulsar_tpu_torch.io.prestocand import write_rzwcands
+from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.parallel import broker as broker_mod
 from pypulsar_tpu_torch.parallel.prefetch import prefetch
 from pypulsar_tpu_torch.parallel.specfuse import (
@@ -83,6 +94,7 @@ from pypulsar_tpu_torch.parallel.staged import (
     write_dat_infs,
 )
 from pypulsar_tpu_torch.parallel.sweep import choose_group_size, resolve_engine
+from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience.dataguard import finite_cands
 from pypulsar_tpu_torch.resilience.journal import (
     RunJournal,
@@ -163,6 +175,7 @@ def _accel_dispatch(payload, n: int, T_sec: float, config,
     spectra = payload[0]
 
     def run(lo, hi):
+        faultinject.trip("accel.batch_dispatch")
         return accel_search_batch(
             spectra[lo:hi], T_sec, config,
             hbm_budget_bytes=hbm_budget_bytes,
@@ -197,14 +210,17 @@ def stream_series(reader, dms, downsamp: int = 1, nsub: int = 64,
     paths = None
     if dat_outbase is not None:
         paths = dat_truncate_paths(dat_outbase, dms)
-    for pos, rows in iter_dedispersed_chunks(
-            reader, dms, downsamp=factor, nsub=nsub, group_size=group_size,
-            chunk_payload=chunk_payload, rfimask=rfimask, engine=engine,
-            device=device, verbose=verbose):
-        if buf is not None:
-            buf[:, pos:pos + rows.shape[1]] = rows
-        if paths is not None:
-            dat_append_rows(paths, rows)
+    with telemetry.span("accel_stream_sweep", aggregate=False,
+                        n_trials=len(dms), n_samples=int(T)):
+        for pos, rows in iter_dedispersed_chunks(
+                reader, dms, downsamp=factor, nsub=nsub,
+                group_size=group_size, chunk_payload=chunk_payload,
+                rfimask=rfimask, engine=engine, device=device,
+                verbose=verbose):
+            if buf is not None:
+                buf[:, pos:pos + rows.shape[1]] = rows
+            if paths is not None:
+                dat_append_rows(paths, rows)
     if paths is not None:
         dat_finalize_paths(paths)
         write_dat_infs(dat_outbase, reader, dms, T, dt_eff)
@@ -354,6 +370,7 @@ def sweep_accel_stream(
                 dat_outbase=outbase if write_dats else None, rfimask=rfimask,
                 engine=engine, device=device, verbose=verbose)
             series_host_bytes += series.nbytes
+        faultinject.trip("accel.after_stream")
         T_sec = T * dt_eff
 
         def groups(sl_todo=sl_todo):
@@ -368,15 +385,19 @@ def sweep_accel_stream(
             loc = [i - d0 for i in idxs]
             if fused is not None:
                 sp = fused["spectra"]
-                return idxs, sp[torch.tensor(loc, device=sp.device)]
+                with telemetry.span("accel_prep_fused", batch=len(idxs)):
+                    return idxs, sp[torch.tensor(loc, device=sp.device)]
             rows = np.ascontiguousarray(series[loc])
-            if not device_prep:
-                return idxs, _host_prep_rows(rows, schedule, device)
-            return idxs, prep_spectra_batch(rows, schedule, device=device)
+            with telemetry.span("accel_prep_device" if device_prep
+                                else "accel_prep_host", batch=len(idxs)):
+                if not device_prep:
+                    return idxs, _host_prep_rows(rows, schedule, device)
+                return idxs, prep_spectra_batch(rows, schedule,
+                                                device=device)
 
         if prefetch_depth > 0:
             source = prefetch(groups(), depth=prefetch_depth,
-                              transform=prep, name="accel.pipe")
+                              transform=prep, name="accel.pipe", retries=2)
         else:  # inline, single-threaded
             source = (prep(g) for g in groups())
         for idxs, spectra in source:
@@ -385,21 +406,28 @@ def sweep_accel_stream(
                           str(spectra.dtype), int(T), repr(float(T_sec))),
                 (repr(config), float(hbm_budget_bytes),
                  float(bank_cache_bytes)), device)
-            all_cands = bk.submit(
-                key, bk_party, (spectra, broker_mod.ready_event(device)),
-                len(idxs), tag=bk_tag,
-                concat=lambda units: _broker_concat_rows(units, device),
-                dispatch=lambda unit, n, T_sec=T_sec: _accel_dispatch(
-                    unit, n, T_sec, config, hbm_budget_bytes,
-                    bank_cache_bytes, device),
-                demux=lambda out, lo, hi: out[lo:hi],
-                budget_rows=bk_budget)
+            with telemetry.span("accel_search", aggregate=False,
+                                batch=len(idxs)):
+                all_cands = bk.submit(
+                    key, bk_party, (spectra, broker_mod.ready_event(device)),
+                    len(idxs), tag=bk_tag,
+                    concat=lambda units: _broker_concat_rows(units, device),
+                    dispatch=lambda unit, n, T_sec=T_sec: _accel_dispatch(
+                        unit, n, T_sec, config, hbm_budget_bytes,
+                        bank_cache_bytes, device),
+                    demux=lambda out, lo, hi: out[lo:hi],
+                    budget_rows=bk_budget)
             for i, cands in zip(idxs, all_cands):
-                write_candfiles(names[i][0], names[i][1], cands, T_sec,
-                                max_cands)
+                faultinject.trip("accel.before_cand_write")
+                with telemetry.span("accel_write"):
+                    write_candfiles(names[i][0], names[i][1], cands, T_sec,
+                                    max_cands)
+                faultinject.trip("accel.after_cand_write")
                 if journal is not None:
                     journal.done(units[i], names[i])
+                    faultinject.trip("accel.after_journal")
                 n_searched += 1
+            telemetry.counter("accel.stream_batches")
             if verbose:
                 print(f"# searched trials {idxs[0]}..{idxs[-1]} "
                       f"({n_searched}/{len(todo)})")

@@ -50,10 +50,17 @@ Contracts, as the reference's:
 Where the reference reads a tuning knob the port takes a keyword with
 its default: ``wait_ms`` (``PYPULSAR_TPU_BROKER_WAIT_MS``, 100),
 ``slo_hold_s`` (``PYPULSAR_TPU_BROKER_SLO_HOLD_S``, 30) and the lane's
-width (``PYPULSAR_TPU_BROKER_LANE``, 4, :data:`LANE_WIDTH`). Left out of
-the reference (ROADMAP.md Queue 1 S12): the per-member fault gate and
-``FAULT_POINTS`` (the port has no fault injection) and every telemetry
-call (S5); the broker keeps plain counters instead (:meth:`BatchBroker.stats`).
+width (``PYPULSAR_TPU_BROKER_LANE``, 4, :data:`LANE_WIDTH`).
+
+Observability, as the reference's: every counter of
+:meth:`BatchBroker.stats` also goes to the telemetry counter
+``broker.<name>``; a leader's window is a ``broker.wait`` span; each
+dispatch is a ``broker.dispatch`` event (stage, members, rows, tags) with
+the ``broker.coalesce_factor`` gauge, and a failed one a
+``broker.fused_fault`` event. Fault points: ``broker.submit``,
+``broker.dispatch``, ``broker.unit_retry``, ``broker.demux`` and
+``broker.member.<tag>``, a per-member gate before fusing whose fault
+fails that member alone (counted in ``broker.member_faults``).
 """
 
 from __future__ import annotations
@@ -65,6 +72,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from pypulsar_tpu_torch.obs import telemetry
+from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience.retry import is_device_fault
 
 __all__ = [
@@ -194,6 +203,9 @@ class BatchBroker:
     def _count(self, **kw) -> None:
         with self._lock:
             self._counts.update(kw)
+        for k, v in kw.items():
+            if v:
+                telemetry.counter(f"broker.{k}", v)
 
     def stats(self) -> Dict[str, int]:
         """Every counter of :data:`COUNTERS`: ``submissions`` (units
@@ -244,8 +256,10 @@ class BatchBroker:
             return
         with self._cv:
             self._pressure_until = time.monotonic() + self.slo_hold_s
-            self._counts["pressure_events"] += 1
             self._cv.notify_all()
+        self._count(pressure_events=1)
+        telemetry.event("broker.pressure", source=source,
+                        hold_s=round(self.slo_hold_s, 3))
 
     def _window_s(self) -> float:
         # callers hold self._lock
@@ -269,9 +283,10 @@ class BatchBroker:
         the stage's, so the broker stays payload-agnostic. A unit that
         would take an open batch past ``budget_rows`` closes it and leads
         a fresh one."""
+        faultinject.trip("broker.submit")
+        self._count(submissions=1)
         me = _Member(payload, n_rows, tag)
         with self._cv:
-            self._counts["submissions"] += 1
             batch = self._open.get(key)
             leader = True
             if batch is not None and not batch.closed:
@@ -305,7 +320,8 @@ class BatchBroker:
 
     def _lead(self, batch: _Batch, me: _Member, concat, dispatch, demux):
         try:
-            with self._cv:
+            with telemetry.span("broker.wait", key=str(batch.key[0])), \
+                    self._cv:
                 deadline = time.monotonic() + self._window_s()
                 while not batch.closed:
                     # no registered party (a standalone CLI) dispatches at
@@ -323,7 +339,7 @@ class BatchBroker:
                 if self._open.get(batch.key) is batch:
                     del self._open[batch.key]
                 members = list(batch.members)
-            self._dispatch(members, concat, dispatch, demux)
+            self._dispatch(batch, members, concat, dispatch, demux)
         except BaseException as e:  # noqa: BLE001 - kill/interrupt path
             # the leader is dying: no follower may be left parked forever
             with self._cv:
@@ -338,30 +354,54 @@ class BatchBroker:
             raise me.error
         return me.result
 
-    def _dispatch(self, members: List[_Member], concat, dispatch,
-                  demux) -> None:
-        total = sum(m.n_rows for m in members)
+    def _dispatch(self, batch: _Batch, members: List[_Member], concat,
+                  dispatch, demux) -> None:
+        # per-member fault gate before fusing: a poisoned member fails
+        # alone and never rides the fused dispatch
+        live: List[_Member] = []
+        for m in members:
+            try:
+                faultinject.trip(f"broker.member.{m.tag}")
+            except Exception as e:  # noqa: BLE001 - member-scoped fault
+                telemetry.counter("broker.member_faults")
+                telemetry.event("broker.member_fault", tag=m.tag,
+                                error=type(e).__name__)
+                self._deliver(m, error=e)
+                continue
+            live.append(m)
+        if not live:
+            return
+        total = sum(m.n_rows for m in live)
         self._count(dispatches=1, fused_rows=total,
-                    coalesced_units=len(members) if len(members) > 1 else 0)
+                    coalesced_units=len(live) if len(live) > 1 else 0)
+        telemetry.gauge("broker.coalesce_factor", float(len(live)))
+        telemetry.event("broker.dispatch", stage=str(batch.key[0]),
+                        members=len(live), rows=total,
+                        tags=[m.tag for m in live])
         try:
-            fused = (members[0].payload if len(members) == 1
-                     else concat([m.payload for m in members]))
+            faultinject.trip("broker.dispatch")
+            fused = (live[0].payload if len(live) == 1
+                     else concat([m.payload for m in live]))
             out = dispatch(fused, total)
         except Exception as e:  # noqa: BLE001 - fused fault isolation
             self._count(fused_faults=1)
-            if len(members) == 1 or is_device_fault(e):
+            propagate = len(live) == 1 or is_device_fault(e)
+            telemetry.event("broker.fused_fault", members=len(live),
+                            error=type(e).__name__, propagated=propagate)
+            if propagate:
                 # a solo unit's own error, or a fault of the card, which
                 # is no member's: every member gets it (retrying units in
                 # place would hide a failing card behind per-unit reruns)
-                for m in members:
+                for m in live:
                     self._deliver(m, error=e)
                 return
             # the FUSED dispatch failed: every unit retries alone, exactly
             # the dispatch it would have run unbrokered, and only a unit
             # whose OWN dispatch fails sees an error
-            for m in members:
-                self._count(unit_retries=1)
+            for m in live:
                 try:
+                    faultinject.trip("broker.unit_retry")
+                    self._count(unit_retries=1)
                     res = demux(dispatch(m.payload, m.n_rows), 0, m.n_rows)
                 except Exception as e1:  # noqa: BLE001 - unit-scoped
                     self._deliver(m, error=e1)
@@ -369,8 +409,11 @@ class BatchBroker:
                     self._deliver(m, result=res)
             return
         lo = 0
-        for m in members:
+        for m in live:
             try:
+                # inside the per-member try: a demux fault fails ONE
+                # member's delivery, never its batchmates'
+                faultinject.trip("broker.demux")
                 res = demux(out, lo, lo + m.n_rows)
             except Exception as e:  # noqa: BLE001 - one member's slice
                 self._deliver(m, error=e)

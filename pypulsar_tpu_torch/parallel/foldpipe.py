@@ -61,8 +61,15 @@ Left out of the reference, each with its reason:
 - the auto-tuning consult and the environment knobs (plain module
   constants here, :data:`STREAM_RAM_BYTES` and
   :data:`FOLD_STACK_BYTES`, which replaces the reference's
-  ``BINIDX_RAM_BYTES`` budget of fused ``[K, T]`` bins), telemetry and
-  the fault injector's kill points (S5).
+  ``BINIDX_RAM_BYTES`` budget of fused ``[K, T]`` bins).
+
+Telemetry (the reference's names): a group's host prep is a
+``fold_prep`` span, its device fold a ``foldpipe_group`` span counted in
+``fold.group_dispatches``, each archive write a ``fold_write`` span
+counted in ``fold.cands_folded``, and a group whose prep failed a
+``fold.group_prep_failed`` event. Fault points: ``fold.batch_dispatch``
+(inside the OOM halving), and the kill points ``fold.before_pfd_write``,
+``fold.after_pfd_write`` and ``fold.after_journal``.
 """
 
 from __future__ import annotations
@@ -76,8 +83,10 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.core.device import count_d2h, resolve_device
+from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.parallel import broker as broker_mod
+from pypulsar_tpu_torch.resilience import faultinject
 
 __all__ = [
     "FoldCandidate",
@@ -359,6 +368,7 @@ def _fold_dispatch(unit, n: int, nbins: int, npart: int, refine: bool,
     from pypulsar_tpu_torch.resilience.retry import halving_dispatch
 
     def run(lo, hi):
+        faultinject.trip("fold.batch_dispatch")
         if isinstance(unit, _FusedFold):
             profs_dev, _ = fold_parts_multi_poly(
                 unit.stack, unit.series_idx[lo:hi], unit.coeffs[lo:hi],
@@ -366,9 +376,11 @@ def _fold_dispatch(unit, n: int, nbins: int, npart: int, refine: bool,
         else:
             profs_dev, _ = fold_parts_poly(unit.series, unit.coeffs[lo:hi],
                                            unit.dt, nbins, npart)
-        chi2 = (refine_chi2(profs_dev, offsets).cpu().numpy()
-                if refine else None)
-        return profs_dev.cpu().numpy(), chi2
+        outs = (profs_dev, refine_chi2(profs_dev, offsets)) if refine else (
+            profs_dev,)
+        count_d2h(*outs)
+        host = [x.cpu().numpy() for x in outs]
+        return host[0], (host[1] if refine else None)
 
     parts = halving_dispatch(run, n, what="fold.batch")
     profs = np.concatenate([p[2][0] for p in parts])
@@ -423,18 +435,20 @@ def _prep_group(group, nbins: int, npart: int):
     if isinstance(series, Exception):
         return group, None, None, None, series  # provider-side failure
     try:
-        T = len(series)
-        part_len = T // npart
-        if part_len < 1:
-            raise ValueError(f"npart={npart} exceeds the {T}-sample "
-                             f"series at DM {dm:g}")
-        used = np.asarray(series[: npart * part_len], np.float64)
-        parts = used.reshape(npart, part_len)
-        pmean = parts.mean(axis=1)
-        pvar = parts.var(axis=1)
-        coeffs = np.array([phase_coeffs(c.period, c.pdot)
-                           for _, c in members], np.float64).reshape(-1, 3)
-        check_coeffs(coeffs, dt, npart * part_len, nbins)
+        with telemetry.span("fold_prep", n_cands=len(members)):
+            T = len(series)
+            part_len = T // npart
+            if part_len < 1:
+                raise ValueError(f"npart={npart} exceeds the {T}-sample "
+                                 f"series at DM {dm:g}")
+            used = np.asarray(series[: npart * part_len], np.float64)
+            parts = used.reshape(npart, part_len)
+            pmean = parts.mean(axis=1)
+            pvar = parts.var(axis=1)
+            coeffs = np.array([phase_coeffs(c.period, c.pdot)
+                               for _, c in members],
+                              np.float64).reshape(-1, 3)
+            check_coeffs(coeffs, dt, npart * part_len, nbins)
     except Exception as e:  # noqa: BLE001 - consumer decides
         return group, None, None, None, e
     return group, pmean, pvar, coeffs, None
@@ -482,7 +496,10 @@ def fold_pipeline(
         refine_drift_grid,
     )
     from pypulsar_tpu_torch.io.prestopfd import make_pfd
-    from pypulsar_tpu_torch.parallel.prefetch import prefetch
+    from pypulsar_tpu_torch.parallel.prefetch import (
+        PREFETCH_TIMEOUT_S,
+        prefetch,
+    )
 
     device = resolve_device(device)
     if source == "stream" and reader is None:
@@ -561,9 +578,12 @@ def fold_pipeline(
         bk_tag = os.path.basename(outbase) or outbase
 
         if prefetch_depth > 0:
+            # the stream source's producer is a whole pass over the file:
+            # no per-item deadline
             prepped = prefetch(
                 group_iter, depth=prefetch_depth, name="fold",
-                transform=lambda g: _prep_group(g, nbins, npart))
+                transform=lambda g: _prep_group(g, nbins, npart),
+                timeout=0 if source == "stream" else PREFETCH_TIMEOUT_S)
         else:  # inline, single-threaded (same values)
             prepped = (_prep_group(g, nbins, npart) for g in group_iter)
 
@@ -572,6 +592,8 @@ def fold_pipeline(
             K = len(members)
             if prep_err is not None:
                 summary["n_failed"] += K
+                telemetry.event("fold.group_prep_failed", dm=dm, n=K,
+                                error=type(prep_err).__name__)
                 print(f"# fold group DM{dm:.2f} prep FAILED "
                       f"({type(prep_err).__name__}: {prep_err}); "
                       f"{K} candidates not folded")
@@ -590,16 +612,20 @@ def fold_pipeline(
                 "fold", (int(T), int(nbins), int(npart), bool(refine),
                          int(ntrial_p), int(ntrial_pd), repr(float(max_drift)),
                          str(series_dev.dtype)), (), device)
-            profs, chi2 = bk.submit(
-                key, bk_party,
-                _FoldUnit(series_dev, coeffs, float(dt),
-                          broker_mod.ready_event(device)), K, tag=bk_tag,
-                concat=lambda units: _broker_concat_fold(units, device),
-                dispatch=lambda unit, n: _fold_dispatch(unit, n, nbins, npart,
-                                                        refine, offsets),
-                demux=lambda out, lo, hi: (out[0][lo:hi],
-                                           out[1][lo:hi] if refine else None),
-                budget_rows=max(K, int(FOLD_STACK_BYTES // (4 * max(T, 1)))))
+            with telemetry.span("foldpipe_group", aggregate=False, dm=dm,
+                                n_cands=K):
+                telemetry.counter("fold.group_dispatches")
+                profs, chi2 = bk.submit(
+                    key, bk_party,
+                    _FoldUnit(series_dev, coeffs, float(dt),
+                              broker_mod.ready_event(device)), K, tag=bk_tag,
+                    concat=lambda units: _broker_concat_fold(units, device),
+                    dispatch=lambda unit, n: _fold_dispatch(
+                        unit, n, nbins, npart, refine, offsets),
+                    demux=lambda out, lo, hi: (
+                        out[0][lo:hi], out[1][lo:hi] if refine else None),
+                    budget_rows=max(K, int(FOLD_STACK_BYTES
+                                           // (4 * max(T, 1)))))
             del series_dev
 
             for j, (gi, c) in enumerate(members):
@@ -631,14 +657,19 @@ def fold_pipeline(
                     telescope=meta["telescope"], filenm=meta["filenm"])
                 pfd.topo_p1, pfd.topo_p2, pfd.topo_p3 = c.period, c.pdot, 0.0
                 pfd.curr_p1, pfd.curr_p2, pfd.curr_p3 = c.period, c.pdot, 0.0
-                pfd.write(names[gi] + ".tmp")
-                os.replace(names[gi] + ".tmp", names[gi])
+                faultinject.trip("fold.before_pfd_write")
+                with telemetry.span("fold_write"):
+                    pfd.write(names[gi] + ".tmp")
+                    os.replace(names[gi] + ".tmp", names[gi])
+                faultinject.trip("fold.after_pfd_write")
                 if journal is not None:
                     # the note before the done record: a kill between them
                     # refolds the candidate rather than skip it without its
                     # refined values (a repeated note is harmless: last wins)
                     journal.note(event="fold_result", **res)
                     journal.done(units[gi], [names[gi]])
+                    faultinject.trip("fold.after_journal")
+                telemetry.counter("fold.cands_folded")
                 summary["n_folded"] += 1
                 summary["results"].append(res)
             if verbose:

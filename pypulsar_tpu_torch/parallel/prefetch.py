@@ -9,7 +9,17 @@ block N+1 overlaps the kernels of block N.
 
 Contract (as the reference's): items arrive in order; an exception in the
 worker re-raises in the consumer at its next pull; a consumer that stops
-early signals the worker, which then stops producing.
+early signals the worker, which then stops producing. The transform
+retries a transient ``OSError`` (``retries``, through
+``resilience.retry.retry_transient``) with the fault point
+``{name}.produce`` inside the retry loop; the consumer waits at most
+``timeout`` seconds an item (:data:`PREFETCH_TIMEOUT_S`; <= 0 waits
+forever) and then raises ``TimeoutError`` after a
+``resilience.prefetch_timeout`` event. Under a telemetry session the
+queue fill goes to the ``{name}.pending_depth`` gauge, recorded by the
+worker before it parks (so max == depth + 1 means the producer kept
+fully ahead) and by the consumer after each pull; the bytes a ship
+copies to a CUDA device go to ``h2d.bytes``.
 """
 
 from __future__ import annotations
@@ -22,39 +32,74 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from pypulsar_tpu_torch.obs import telemetry
+from pypulsar_tpu_torch.resilience import faultinject
+from pypulsar_tpu_torch.resilience.retry import retry_transient
+
 _DONE = object()
 CLEANUP_DEADLINE_S = 5.0
+#: seconds a consumer waits for one item before declaring the producer
+#: wedged (the reference's ``PYPULSAR_TPU_PREFETCH_TIMEOUT`` default)
+PREFETCH_TIMEOUT_S = 900.0
+
+
+def _produce(xf: Callable, item, name: str, retries: int):
+    def attempt():
+        faultinject.trip(f"{name}.produce")
+        return xf(item)
+
+    return retry_transient(attempt, retries=retries, what=name)
 
 
 def prefetch(items: Iterable, depth: int = 2,
-             transform: Optional[Callable] = None, name: str = "prefetch"):
+             transform: Optional[Callable] = None, name: str = "prefetch",
+             retries: int = 0, timeout: float = PREFETCH_TIMEOUT_S):
     """Yield ``transform(item)`` for each item, produced ``depth`` ahead
-    on a daemon thread."""
+    on a daemon thread (module docstring for the contract)."""
     xf = transform if transform is not None else (lambda it: it)
+    gauge_name = f"{name}.pending_depth"
+    deadline = None if timeout <= 0 else timeout
     q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
     stop = threading.Event()
+    # the consumer's trace context, re-entered by the worker so its spans
+    # land on the stage's trace
+    trace_ctx = telemetry.current_context()
 
     def worker():
-        try:
-            for item in items:
-                if stop.is_set():
-                    return
-                q.put(xf(item))
-        except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
-            q.put(e)
-            return
-        q.put(_DONE)
+        with telemetry.adopt_context(trace_ctx):
+            try:
+                for item in items:
+                    if stop.is_set():
+                        return
+                    out = _produce(xf, item, name, retries)
+                    if telemetry.is_active():
+                        telemetry.gauge(gauge_name, q.qsize() + 1)
+                    q.put(out)
+            except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
+                q.put(e)
+                return
+            q.put(_DONE)
 
     t = threading.Thread(target=worker, name=f"pypulsar-torch-{name}",
                          daemon=True)
     t.start()
     try:
         while True:
-            item = q.get()
+            try:
+                item = q.get(timeout=deadline)
+            except queue.Empty:
+                telemetry.event("resilience.prefetch_timeout",
+                                pipeline=name, timeout_s=deadline)
+                raise TimeoutError(
+                    f"prefetch {name!r}: producer delivered nothing for "
+                    f"{deadline:.0f}s (worker "
+                    f"{'alive' if t.is_alive() else 'dead'})") from None
             if item is _DONE:
                 break
             if isinstance(item, BaseException):
                 raise item
+            if telemetry.is_active():
+                telemetry.gauge(gauge_name, q.qsize())
             yield item
     finally:
         # an abandoned consumer: signal the worker and free a parked put
@@ -77,6 +122,8 @@ def host_tensor(block: np.ndarray) -> torch.Tensor:
 
 
 _count_lock = threading.Lock()
+#: the ship-ahead's prefetch name (its gauge and fault point prefix)
+SHIP_NAME = "sweep.ship"
 
 
 def ship(block, device: torch.device):
@@ -95,17 +142,21 @@ def ship(block, device: torch.device):
 def _count_shipped(nbytes: int) -> None:
     with _count_lock:
         ship_ahead.bytes += nbytes
+    telemetry.counter("h2d.bytes", nbytes)
 
 
 def ship_ahead(raw_blocks: Iterable, device: torch.device, depth: int = 2):
     """(pos, device tensor) for each (pos, host block), shipped ahead. A
     block may be a tuple of arrays (a PSRFITS block and its scales); it
-    arrives as the tuple of their tensors. ``ship_ahead.bytes`` counts
-    the bytes copied to a CUDA device (set it to 0 to start again)."""
+    arrives as the tuple of their tensors. ``ship_ahead.bytes`` (and the
+    ``h2d.bytes`` counter) count the bytes copied to a CUDA device (set it
+    to 0 to start again). The worker's transform retries a transient read
+    error twice; its fault point is ``sweep.ship.produce``."""
     device = torch.device(device)
     if device.type != "cuda":
-        for pos, block in prefetch(raw_blocks, depth, name="read"):
-            yield pos, ship(block, device)
+        yield from prefetch(raw_blocks, depth,
+                            lambda it: (it[0], ship(it[1], device)),
+                            name=SHIP_NAME, retries=2)
         return
     side = torch.cuda.Stream(device)
 
@@ -122,7 +173,8 @@ def ship_ahead(raw_blocks: Iterable, device: torch.device, depth: int = 2):
         return pos, dev, ready, hosts
 
     current = torch.cuda.current_stream(device)
-    for pos, dev, ready, hosts in prefetch(raw_blocks, depth, ship_pinned, "ship"):
+    for pos, dev, ready, hosts in prefetch(raw_blocks, depth, ship_pinned,
+                                           name=SHIP_NAME, retries=2):
         current.wait_event(ready)
         for d in (dev if isinstance(dev, tuple) else (dev,)):
             d.record_stream(current)

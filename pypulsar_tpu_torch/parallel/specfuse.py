@@ -29,6 +29,16 @@ keyword arguments with the reference's defaults
 variables or a tuning cache; and ``mode="decimate"`` on a geometry that
 fails its gate raises, naming the gate, where the reference stitches
 silently. The mesh path waits for ROADMAP.md Queue 1 item 14.
+
+Telemetry (the reference's names): the slice is a ``specfuse_slice``
+span, each stitched chunk a ``specfuse_stitch`` span counted in
+``specfuse.chunks_stitched``, the decimated chunk a ``specfuse_spectra``
+span with ``specfuse.fft_pairs_elided``, the transform a
+``specfuse_prep`` span, and ``specfuse.bytes_on_device`` counts the
+series bytes the streamed path would have moved to the host and back.
+Each chunk's dispatch halves its trial groups on a device OOM (fault
+point ``specfuse.chunk_dispatch``); ``specfuse.after_stitch`` is a kill
+point between the chunks and the transform.
 """
 
 from __future__ import annotations
@@ -40,6 +50,9 @@ import torch
 import torch.nn.functional as F
 
 from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.obs import telemetry
+from pypulsar_tpu_torch.resilience import faultinject
+from pypulsar_tpu_torch.resilience.retry import halving_dispatch
 
 __all__ = [
     "MODES",
@@ -132,31 +145,60 @@ def fused_spectra_slice(reader, dms, schedule=None, downsamp: int = 1,
                 else f"stitched ({n_chunks} chunks)")
         print(f"# specfuse: {len(dms)} trials x {T} samples, {what}, "
               f"engine={engine}")
-    if mode == "decimate":
-        src = make_source(reader, rfimask, device)
-        _pos, block = next(iter(downsampled_blocks(
-            src, factor, payload, plan.min_overlap, device)))
-        if block.shape[1] < need:
-            block = F.pad(block, (0, need - block.shape[1]))
-        raw = sweep_chunk_spectra(block, plan.stage1_bins, plan.stage2_bins,
-                                  plan.nsub, n_fft, n_fft // T, T // 2 + 1, T)
-        del block
-        spectra = prep_spectra_batch(spectra=raw, schedule=schedule,
-                                     device=device)
-    else:
-        buf = torch.zeros((plan.n_trials, T), dtype=torch.float32,
-                          device=device)
-        for pos, valid, series in iter_device_chunks(
+    n_real = len(dms)
+    with telemetry.span("specfuse_slice", aggregate=False, n_trials=n_real,
+                        n_samples=int(T),
+                        regime="decimated" if mode == "decimate"
+                        else "stitched"):
+        if mode == "decimate":
+            src = make_source(reader, rfimask, device)
+            _pos, block = next(iter(downsampled_blocks(
+                src, factor, payload, plan.min_overlap, device)))
+            if block.shape[1] < need:
+                block = F.pad(block, (0, need - block.shape[1]))
+
+            def run(lo, hi):
+                faultinject.trip("specfuse.chunk_dispatch")
+                return sweep_chunk_spectra(
+                    block, plan.stage1_bins[lo:hi], plan.stage2_bins[lo:hi],
+                    plan.nsub, n_fft, n_fft // T, T // 2 + 1, T)
+
+            with telemetry.span("specfuse_spectra"):
+                # each group's spectra are its own: the halves of an
+                # OOM-halved dispatch concatenate to the whole one
+                parts = [r for _, _, r in halving_dispatch(
+                    run, plan.n_groups, what="specfuse.chunk")]
+                raw = parts[0] if len(parts) == 1 else torch.cat(parts)
+            del block
+            telemetry.counter("specfuse.fft_pairs_elided", n_real)
+            faultinject.trip("specfuse.after_stitch")
+            with telemetry.span("specfuse_prep"):
+                spectra = prep_spectra_batch(spectra=raw, schedule=schedule,
+                                             device=device)
+        else:
+            buf = torch.zeros((plan.n_trials, T), dtype=torch.float32,
+                              device=device)
+            chunks = iter_device_chunks(
                 reader, dms, downsamp=factor, nsub=nsub,
                 group_size=plan.group_size, chunk_payload=chunk_payload,
-                rfimask=rfimask, engine=engine, device=device):
-            # the valid windows partition the time axis: the scatter takes
-            # the place of the streamed path's copy to the host
-            buf[:, pos:pos + valid] = series[:, :valid]
-            if verbose:
-                print(f"# specfuse chunk at {pos}: {valid} samples x "
-                      f"{len(dms)} DMs stitched on the device")
-        spectra = prep_spectra_batch(buf, schedule, device=device)
-        del buf
-    return dict(spectra=spectra, n_real=len(dms), T=T, dt_eff=dt_eff,
+                rfimask=rfimask, engine=engine, device=device,
+                dispatch_point="specfuse.chunk_dispatch")
+            for pos, valid, series in chunks:
+                with telemetry.span("specfuse_stitch", valid=int(valid)):
+                    # the valid windows partition the time axis: the
+                    # scatter takes the place of the streamed path's copy
+                    # to the host
+                    buf[:, pos:pos + valid] = series[:, :valid]
+                telemetry.counter("specfuse.chunks_stitched")
+                if verbose:
+                    print(f"# specfuse chunk at {pos}: {valid} samples x "
+                          f"{n_real} DMs stitched on the device")
+            faultinject.trip("specfuse.after_stitch")
+            with telemetry.span("specfuse_prep"):
+                spectra = prep_spectra_batch(buf, schedule, device=device)
+            del buf
+        # the series bytes the streamed path would have moved over the
+        # host link (the pull and the prep's re-ship), kept on the device
+        telemetry.counter("specfuse.bytes_on_device", 8 * n_real * T)
+    return dict(spectra=spectra, n_real=n_real, T=T, dt_eff=dt_eff,
                 regime="decimated" if mode == "decimate" else "stitched")

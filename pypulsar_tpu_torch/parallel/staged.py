@@ -40,14 +40,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.core.device import count_d2h, resolve_device
 from pypulsar_tpu_torch.io.infodata import InfoData
+from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.ops.masking import masked
 from pypulsar_tpu_torch.parallel.prefetch import ship_ahead
 from pypulsar_tpu_torch.parallel.sweep import (
     DEFAULT_CHUNK_FFT_LEN,
     DEFAULT_WIDTHS,
     ChunkEngine,
+    GroupHalving,
     SweepCheckpoint,
     SweepResult,
     choose_group_size,
@@ -56,6 +58,7 @@ from pypulsar_tpu_torch.parallel.sweep import (
     resolve_engine,
     sweep_stream,
 )
+from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience.dataguard import (
     GuardedSource,
     StreamQuality,
@@ -464,12 +467,16 @@ def run_step(src, dms, factor: int, nsub: int, group_size: int,
         return downsampled_blocks(src if seeked is None else seeked, factor,
                                   payload, plan.min_overlap, device)
 
-    res = sweep_stream(
-        plan, downsampled_blocks(src, factor, payload, plan.min_overlap,
-                                 device),
-        payload, engine=engine, device=device, checkpoint=checkpoint,
-        keep_chunk_peaks=keep_chunk_peaks, block_factory=block_factory,
-        checkpoint_context=ckpt_extra)
+    # sink-only span (aggregate=False): it encloses the sweep loop's
+    # stages, which must stay non-overlapping in the flat table
+    with telemetry.span("sweep_step", aggregate=False, downsamp=factor,
+                        n_trials=len(dms), payload=int(payload)):
+        res = sweep_stream(
+            plan, downsampled_blocks(src, factor, payload, plan.min_overlap,
+                                     device),
+            payload, engine=engine, device=device, checkpoint=checkpoint,
+            keep_chunk_peaks=keep_chunk_peaks, block_factory=block_factory,
+            checkpoint_context=ckpt_extra)
     if verbose and res.engine_info.get("engine") == "tree":
         info = res.engine_info
         print(f"# {label}tree: {info['merge_levels']} merge levels, "
@@ -491,7 +498,8 @@ def dats_geometry(reader, dms, downsamp: int = 1, nsub: int = 64,
 def iter_device_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
                        group_size: int = 32,
                        chunk_payload: Optional[int] = None, rfimask=None,
-                       engine: str = "auto", device="cuda"):
+                       engine: str = "auto", device="cuda",
+                       dispatch_point: Optional[str] = None):
     """Stream the file once on ``device`` and yield ``(pos, valid,
     series)``: each chunk's ``[D, payload]`` dedispersed series of every
     (group-padded) trial on the device, by the chunk ``engine``, of which
@@ -500,7 +508,10 @@ def iter_device_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
     to the chunk's length. ``pos`` is the downsampled sample of the
     chunk's start. ``rfimask`` (an
     :class:`~pypulsar_tpu_torch.io.rfimask.RfifindMask`) fills the zapped
-    cells of each raw block before it is downsampled."""
+    cells of each raw block before it is downsampled. With
+    ``dispatch_point`` each chunk's dispatch trips that fault point and
+    halves its trial groups on a device OOM
+    (:class:`~pypulsar_tpu_torch.parallel.sweep.GroupHalving`)."""
     factor = max(1, int(downsamp))
     dms = np.asarray(dms, dtype=np.float64)
     device = resolve_device(device)
@@ -510,6 +521,9 @@ def iter_device_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
     need = payload + plan.min_overlap
     eng = ChunkEngine(engine, plan.stage1_bins, plan.stage2_bins, plan.nsub,
                       payload, plan.max_shift2, need, device)
+    if dispatch_point is not None:
+        eng = GroupHalving(eng, dispatch_point,
+                           dispatch_point.rsplit("_dispatch", 1)[0])
     for pos, block in downsampled_blocks(make_source(reader, rfimask, device),
                                          factor, payload, plan.min_overlap,
                                          device):
@@ -526,7 +540,10 @@ def iter_dedispersed_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
                             device="cuda", verbose: bool = False):
     """:func:`iter_device_chunks` handed to the host: ``(pos, rows[D,
     valid])`` float32 chunks of every real DM trial's series, the values a
-    ``.dat`` file holds."""
+    ``.dat`` file holds. Each chunk's pull is a ``dedisperse_chunk`` span
+    (the dedispersion's launches are queued before it, so the span's wall
+    is the wait for them and the copy) and counts in
+    ``dedisperse.chunks`` and ``d2h.bytes``."""
     D = len(dms)
     for pos, valid, series in iter_device_chunks(
             reader, dms, downsamp=downsamp, nsub=nsub, group_size=group_size,
@@ -534,9 +551,14 @@ def iter_dedispersed_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
             device=device):
         # the plan pads trial groups to the group size; only the real
         # trials leave this generator
-        host = series[:D, :valid].contiguous().cpu().numpy()
+        with telemetry.span("dedisperse_chunk", n_trials=D,
+                            valid=int(valid)):
+            rows = series[:D, :valid].contiguous()
+            count_d2h(rows)
+            host = rows.cpu().numpy()
         if verbose:
             print(f"# dats chunk at {pos}: {valid} samples x {D} DMs")
+        telemetry.counter("dedisperse.chunks")
         yield pos, host
 
 
@@ -555,7 +577,9 @@ def dat_truncate_paths(outbase: str, dms) -> List[str]:
 
 def dat_append_rows(paths: List[str], rows) -> None:
     """Append one chunk's [D, valid] float32 rows to the per-DM .dat
-    byte streams (to the ``.tmp`` staging names)."""
+    byte streams (to the ``.tmp`` staging names). The fault point
+    ``dats.append`` is a kill point mid-stream."""
+    faultinject.trip("dats.append")
     for p, row in zip(paths, rows):
         with open(p + ".tmp", "ab") as f:
             row.tofile(f)

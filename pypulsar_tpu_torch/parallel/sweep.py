@@ -41,6 +41,16 @@ remaining chunks in the same order, so its result has the uninterrupted
 run's bits. With ``keep_chunk_peaks`` each chunk's window maxima are kept
 too (:meth:`SweepResult.events`, the per-chunk single-pulse events), and
 checkpointed with the rest.
+
+Telemetry (``obs/telemetry.py``, the reference's names): per streamed
+chunk the ``sweep.chunks`` counter, the ``sweep.pending_depth`` gauge and
+a ``sweep.chunk`` event (``start``, ``stat_len``, ``pending``); the
+profiling stages ``block_source``, ``host_to_device``,
+``dispatch_sweep_chunk``, ``device_wait+accumulate`` and
+``checkpoint_save``; at the end ``sweep.trials_completed``,
+``sweep.payload_samples`` and a ``sweep_stream_end`` device snapshot. A
+chunk's dispatch is the fault point ``sweep.chunk_dispatch`` and halves
+its trial groups on a device OOM (``resilience.retry.halving_dispatch``).
 """
 
 from __future__ import annotations
@@ -55,7 +65,8 @@ import torch
 import torch.nn.functional as F
 
 from pypulsar_tpu_torch.core import psrmath
-from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.core.device import count_d2h, resolve_device
+from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.ops import fourier_dedisperse as fdd
 from pypulsar_tpu_torch.ops import tree_dedisperse as tdd
 from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
@@ -64,6 +75,9 @@ from pypulsar_tpu_torch.ops.gather_sum import (
     gather_tables,
     shifted_gather_sum,
 )
+from pypulsar_tpu_torch.resilience import faultinject
+from pypulsar_tpu_torch.resilience.retry import halving_dispatch
+from pypulsar_tpu_torch.utils import profiling
 
 DEFAULT_WIDTHS = (1, 2, 4, 8, 16, 32)
 DEFAULT_CHUNK_FFT_LEN = 1 << 18
@@ -288,6 +302,7 @@ class ChunkEngine:
         self.nsub, self.out_len, self.slack2 = nsub, out_len, slack2
         self.L1 = out_len + slack2
         self.need = need
+        self.device = device
         self.batches = self.tree = None
         if self.engine == "gather":
             self.batches = group_batches(self.stage1_bins, self.stage2_bins,
@@ -308,14 +323,18 @@ class ChunkEngine:
                        state_bytes=self.tree.nbytes)
         return out
 
+    def _tree_series(self, data):
+        # the tree reads no sample past need; its state has that width
+        return self.tree.series(data[:, :self.need], self.out_len)
+
     def series(self, data):
         """The ``[D, out_len]`` dedispersed series of chunk ``data``."""
         if self.engine == "gather":
             return dedisperse_batches(data, self.batches, self.out_len,
                                       self.L1)
         if self.engine == "tree":
-            # the tree reads no sample past need; its state has that width
-            return self.tree.series(data[:, :self.need], self.out_len)
+            tdd.note_dispatch(self.tree.plan, data.shape[1], self.out_len)
+            return self._tree_series(data)
         return fdd.dedisperse_series_fourier(
             data, self.stage1_bins, self.stage2_bins, self.nsub,
             self.out_len, fdd.fourier_chunk_len(data.shape[1]))
@@ -328,7 +347,8 @@ class ChunkEngine:
                               widths, stat_len)
             return tuple(torch.cat([p[i] for p in parts]) for i in range(4))
         if self.engine == "tree":
-            return boxcar_stats(self.series(data), widths, stat_len)
+            tdd.note_dispatch(self.tree.plan, data.shape[1], stat_len)
+            return boxcar_stats(self._tree_series(data), widths, stat_len)
         # the lut mode's stage-1 bound falls out of the chunk's shape, as
         # in the reference
         return fdd.sweep_chunk_fourier(
@@ -337,6 +357,53 @@ class ChunkEngine:
             fdd.fourier_chunk_len(data.shape[1]),
             max_shift1=max(int(data.shape[1]) - self.L1, 0),
             max_shift2=self.slack2)
+
+
+class GroupHalving:
+    """A :class:`ChunkEngine`'s chunk dispatch over its trial groups under
+    the OOM policy of ``resilience.retry.halving_dispatch``: a device OOM
+    halves the groups, each half running on an engine of its slice of
+    the shift tables (built on first use and kept). Each group's rows are
+    its own, so the halves concatenate to the whole dispatch's.
+    ``point`` names the fault point tripped before every dispatch."""
+
+    def __init__(self, eng: ChunkEngine, point: str, what: str):
+        self.eng, self.point, self.what = eng, point, what
+        self.n_groups = int(eng.stage1_bins.shape[0])
+        self._slices = {}
+
+    def _engine(self, lo: int, hi: int) -> ChunkEngine:
+        if (lo, hi) == (0, self.n_groups):
+            return self.eng
+        e = self._slices.get((lo, hi))
+        if e is None:
+            k = self.eng
+            e = self._slices[(lo, hi)] = ChunkEngine(
+                k.engine, k.stage1_bins[lo:hi], k.stage2_bins[lo:hi],
+                k.nsub, k.out_len, k.slack2, k.need, k.device)
+        return e
+
+    def _run(self, method: str, *args):
+        def one(lo, hi):
+            faultinject.trip(self.point)
+            return getattr(self._engine(lo, hi), method)(*args)
+
+        got = [r for _, _, r in halving_dispatch(one, self.n_groups,
+                                                 what=self.what)]
+        if len(got) == 1:
+            return got[0]
+        if isinstance(got[0], tuple):
+            return tuple(torch.cat([g[i] for g in got])
+                         for i in range(len(got[0])))
+        return torch.cat(got)
+
+    def stats(self, data, widths: Tuple[int, ...], stat_len: int):
+        """:meth:`ChunkEngine.stats` over every group."""
+        return self._run("stats", data, widths, stat_len)
+
+    def series(self, data):
+        """:meth:`ChunkEngine.series` over every group."""
+        return self._run("series", data)
 
 
 def sweep_chunk(data, stage1_bins, stage2_bins, nsub: int, out_len: int,
@@ -565,7 +632,10 @@ class SweepCheckpoint:
         fire = (self._drained + n) // self.every > self._drained // self.every
         self._drained += n
         if fire:
-            self.save(plan, chunk_payload, acc, cursor, baseline, context)
+            telemetry.counter("sweep.checkpoint_saves")
+            with profiling.stage("checkpoint_save"):
+                self.save(plan, chunk_payload, acc, cursor, baseline,
+                          context)
 
     def finish(self) -> None:
         """The sweep is complete: remove the checkpoint."""
@@ -669,13 +739,16 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
     def drain(limit: int) -> None:
         nonlocal cursor, host_baseline
         n = 0
-        while len(pending) > limit:
-            start, stat_len, host, ready = pending.pop(0)
-            if ready is not None:
-                ready.synchronize()
-            acc.update(start, stat_len, *(t.numpy() for t in host))
-            cursor = start + stat_len
-            n += 1
+        with profiling.stage("device_wait+accumulate"):
+            while len(pending) > limit:
+                start, stat_len, host, ready = pending.pop(0)
+                if ready is not None:
+                    ready.synchronize()
+                acc.update(start, stat_len, *(t.numpy() for t in host))
+                cursor = start + stat_len
+                n += 1
+        # outside the stage: checkpoint_save is a stage of its own, and
+        # nested stages would count its wall twice
         if checkpoint is not None and n:
             if host_baseline is None:
                 host_baseline = baseline.cpu().numpy()
@@ -684,19 +757,31 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
             checkpoint.on_drained(plan, chunk_payload, acc, cursor,
                                   host_baseline, ckpt_context, n=n)
 
+    halved = GroupHalving(eng, "sweep.chunk_dispatch", "sweep.chunk")
+
     def process(start: int, data, L: int) -> None:
         if L < need:  # end of data: zero tail
             data = F.pad(data, (0, need - L))
         stat_len = min(chunk_payload, L)
-        parts = eng.stats(data, plan.widths, stat_len)
-        # start the read-back right behind this chunk's kernels, so that
-        # reading it later does not wait for the chunks queued after it
-        host = [p.to("cpu", non_blocking=True) for p in parts]
-        ready = None
-        if device.type == "cuda":
-            ready = torch.cuda.Event()
-            ready.record()
-        pending.append((start, stat_len, host, ready))
+        with profiling.stage("dispatch_sweep_chunk"):
+            parts = halved.stats(data, plan.widths, stat_len)
+            # start the read-back right behind this chunk's kernels, so
+            # that reading it later does not wait for the chunks queued
+            # after it
+            count_d2h(*parts)
+            host = [p.to("cpu", non_blocking=True) for p in parts]
+            ready = None
+            if device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record()
+            pending.append((start, stat_len, host, ready))
+        if telemetry.is_active():
+            # one record per streamed chunk: position, payload and how
+            # far device work ran ahead of the host's accumulate
+            telemetry.counter("sweep.chunks")
+            telemetry.gauge("sweep.pending_depth", len(pending))
+            telemetry.event("sweep.chunk", start=int(start),
+                            stat_len=int(stat_len), pending=len(pending))
         drain(MAX_PENDING)
 
     if baseline is not None:
@@ -704,10 +789,25 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
                                    device=device).reshape(-1, 1)
     # hold one block back: a short block is legal only at end of data
     prev = None
-    for start, block in blocks:
+    # explicit iteration, so the time spent producing each block (the
+    # read and the ship in the source) is a stage of its own
+    block_iter = iter(blocks)
+    while True:
+        with profiling.stage("block_source"):
+            nxt = next(block_iter, None)
+        if nxt is None:
+            break
+        start, block = nxt
         if start < cursor:  # accumulated before the checkpoint
             continue
-        data = torch.as_tensor(block, dtype=torch.float32, device=device)
+        with profiling.stage("host_to_device"):
+            was_host = not (isinstance(block, torch.Tensor)
+                            and block.device.type == device.type)
+            data = torch.as_tensor(block, dtype=torch.float32,
+                                   device=device)
+            if was_host and device.type == "cuda" and telemetry.is_active():
+                telemetry.counter("h2d.bytes",
+                                  data.numel() * data.element_size())
         if baseline is None:
             baseline = block_mean(data)
         data = data - baseline
@@ -727,6 +827,10 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
     drain(0)
     if checkpoint is not None:
         checkpoint.finish()
+    if telemetry.is_active():
+        telemetry.counter("sweep.trials_completed", plan.n_real_trials)
+        telemetry.counter("sweep.payload_samples", int(acc.n))
+        telemetry.device_snapshot(tag="sweep_stream_end")
     B = (float(baseline.double().sum().item())
          if baseline is not None else 0.0)
     if not finalize:

@@ -1,6 +1,9 @@
 """Data-integrity layer: a copy of the stream scrub and the output gates
-of ``pypulsar_tpu/resilience/dataguard.py``, without telemetry, its
-environment switch and fault injection (ROADMAP.md Queue 1 S5).
+of ``pypulsar_tpu/resilience/dataguard.py``, without its environment
+switch. The scrub's counts go to the ``data.*`` telemetry counters, the
+gates' drops to ``data.nonfinite_cands_dropped``, and an armed DATA fault
+(``resilience/faultinject.py``) corrupts the block at the scrub's read
+point, ``data.block``.
 
 - **Stream scrub** (:func:`guard_source` / :class:`GuardedSource`): every
   block of a float-typed source (float32 ``.fil``, 32-bit PSRFITS, a
@@ -11,7 +14,8 @@ environment switch and fault injection (ROADMAP.md Queue 1 S5).
   :class:`StreamQuality`, which the sweep returns
   (``StagedSweepResult.quality``). Integer
   sources (uint filterbanks, PSRFITS of 8 bits and fewer, whose
-  ``nbits`` says so) pass through unwrapped.
+  ``nbits`` says so) pass through unwrapped, unless a DATA fault is
+  armed.
 - **Finite-output gates** (:func:`finite_rows` / :func:`finite_cands`):
   a non-finite value never reaches a published row.
 """
@@ -23,6 +27,9 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from pypulsar_tpu_torch.obs import telemetry
+from pypulsar_tpu_torch.resilience import faultinject
 
 
 @dataclasses.dataclass
@@ -68,7 +75,11 @@ class GuardedSource:
     medians, and a NaN reaching that reduction would poison the whole
     channel. One host read of the counts when the stream ends. ``stats``
     shares another wrapper's account (a stream re-rooted at a resume
-    cursor goes on with its tally)."""
+    cursor goes on with its tally). With a DATA fault armed each block
+    passes :func:`faultinject.trip_data` at :attr:`FAULT_POINT` on the
+    host first (a copy to the host and back, only then)."""
+
+    FAULT_POINT = "data.block"
 
     def __init__(self, src, stats: Optional[StreamQuality] = None):
         self._src = src
@@ -83,6 +94,13 @@ class GuardedSource:
         try:
             for pos, block in self._src.chan_major_blocks(payload, overlap,
                                                           device):
+                if faultinject.data_faults_armed():
+                    # C order: the corruption writes through a flat view,
+                    # as on the reference's host blocks
+                    host = np.ascontiguousarray(block.cpu().numpy())
+                    hit = faultinject.trip_data(self.FAULT_POINT, host)
+                    if hit is not host:
+                        block = torch.from_numpy(hit).to(block.device)
                 seen.chunks += 1
                 seen.cells += int(block.numel())
                 block, bad, zero = scrub_block(block)
@@ -93,7 +111,18 @@ class GuardedSource:
             seen.nonfinite_cells = 0 if n_bad is None else int(n_bad)
             seen.zero_cells = 0 if n_zero is None else int(n_zero)
             self.stats.add(seen)
+            if seen.chunks:
+                telemetry.counter("data.chunks", seen.chunks)
+                telemetry.counter("data.cells", seen.cells)
+            if seen.zero_cells:
+                telemetry.counter("data.zero_cells", seen.zero_cells)
             if seen.nonfinite_cells:
+                telemetry.counter("data.nonfinite_cells",
+                                  seen.nonfinite_cells)
+                telemetry.event(
+                    "data.nonfinite_scrubbed", cells=seen.nonfinite_cells,
+                    frac=round(seen.nonfinite_cells / max(seen.cells, 1),
+                               6))
                 print(f"# dataguard: scrubbed {seen.nonfinite_cells} "
                       f"non-finite cell(s) of {seen.cells} to zero")
 
@@ -115,8 +144,11 @@ def _source_is_float(src) -> bool:
 
 def guard_source(src):
     """Wrap a staged block source with :class:`GuardedSource` when it can
-    carry non-finite values; otherwise return it as it is."""
-    if isinstance(src, GuardedSource) or not _source_is_float(src):
+    carry non-finite values, or when a DATA fault is armed (the injection
+    needs somewhere to land); otherwise return it as it is."""
+    if isinstance(src, GuardedSource):
+        return src
+    if not (faultinject.data_faults_armed() or _source_is_float(src)):
         return src
     return GuardedSource(src)
 
@@ -134,6 +166,9 @@ def finite_rows(rows: Sequence[dict], keys: Sequence[str],
     good = [r for r in rows if all(_finite(r.get(k)) for k in keys)]
     dropped = len(rows) - len(good)
     if dropped:
+        telemetry.counter("data.nonfinite_cands_dropped", dropped)
+        telemetry.event("data.nonfinite_rows_dropped", what=what,
+                        dropped=dropped)
         print(f"# dataguard: dropped {dropped} non-finite {what} "
               f"row(s) at the output gate")
     return good
@@ -152,6 +187,9 @@ def finite_cands(cands, T: float, what: str = "accel") -> list:
                 good.append(c)
     dropped = len(cands) - len(good)
     if dropped:
+        telemetry.counter("data.nonfinite_cands_dropped", dropped)
+        telemetry.event("data.nonfinite_rows_dropped", what=what,
+                        dropped=dropped)
         print(f"# dataguard: dropped {dropped} non-finite {what} "
               f"candidate(s) at the output gate")
     return good

@@ -24,8 +24,9 @@ run's summary takes for the candidates it skips.
 Left out of the reference's journal: the multi-host append discipline
 (``shared=``), extra attributes on a record, unvalidated reads, ``inode``
 and ``is_fresh``, whose callers (the survey fleet, the candidate store)
-are not ported (ROADMAP.md Queue 1 item 16), and the telemetry of
-invalid units (S5).
+are not ported (ROADMAP.md Queue 1 item 16). An invalid unit is counted
+(``resilience.journal_invalid``, with an event naming the artifact and the
+reason), and so is each recorded unit (``resilience.journal_units``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ import hashlib
 import json
 import os
 from typing import Dict, Iterable, List, Optional, Set, Tuple
+
+from pypulsar_tpu_torch.obs import telemetry
 
 TMP_SUFFIX = ".tmp"
 JOURNAL_VERSION = 1
@@ -206,11 +209,22 @@ class RunJournal:
             for rec in self._records:
                 if rec.get("type") != "done" or "unit" not in rec:
                     continue
-                if all(self._validate_output(out) is None
-                       for out in rec.get("outputs", [])):
-                    done.add(rec["unit"])
+                unit = rec["unit"]
+                ok = True
+                for out in rec.get("outputs", []):
+                    reason = self._validate_output(out)
+                    if reason is not None:
+                        ok = False
+                        telemetry.counter("resilience.journal_invalid")
+                        telemetry.event("resilience.journal_invalid",
+                                        unit=unit,
+                                        path=out.get("path", "?"),
+                                        reason=reason)
+                        break
+                if ok:
+                    done.add(unit)
                 else:
-                    done.discard(rec["unit"])  # a later invalid entry wins
+                    done.discard(unit)  # a later invalid entry wins
             self._completed_cache = done
         return set(self._completed_cache)
 
@@ -263,6 +277,7 @@ class RunJournal:
         self._append({"type": "done", "unit": unit, "outputs": outs})
         if self._completed_cache is not None:
             self._completed_cache.add(unit)
+        telemetry.counter("resilience.journal_units")
 
     def note(self, **attrs) -> None:
         """A free-form record (run milestones; :meth:`completed` ignores

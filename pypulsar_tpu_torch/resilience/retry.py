@@ -3,8 +3,12 @@ transient-IO retry of a read.
 
 Port of ``is_oom_error``, ``halving_dispatch`` and ``retry_transient``
 from ``pypulsar_tpu/resilience/retry.py`` (and of ``is_device_fault`` from
-``resilience/health.py``), without telemetry, fault
-injection or the mesh's slice multiple. The accel handoff's spectrum
+``resilience/health.py``), without the mesh's slice multiple. Each retry
+and each halving is counted and recorded as a telemetry event
+(``resilience.worker_retries`` / ``resilience.worker_retry``,
+``resilience.oom_backoffs`` / ``resilience.oom_backoff``), and the
+injected faults of ``resilience/faultinject.py`` classify as the real
+ones do. The accel handoff's spectrum
 batches, the batched search's device chunks and the fold's candidate
 batches are independent per item, so halving a dispatch that ran out of
 device memory and running the halves gives the same results as the whole
@@ -18,6 +22,9 @@ import time
 from typing import Callable, List, Tuple
 
 import torch
+
+from pypulsar_tpu_torch.obs import telemetry
+from pypulsar_tpu_torch.resilience import faultinject
 
 # bounded backoff before re-dispatching after an OOM: the allocator (and
 # any neighbour briefly holding the memory) gets time to settle, without
@@ -51,8 +58,8 @@ def retry_transient(fn, *, retries: int = 2, backoff: float = 0.1,
     """Run ``fn()``, retrying an ``OSError`` up to ``retries`` times with
     jittered exponential backoff from ``backoff`` seconds (capped at
     :data:`RETRY_BACKOFF_MAX_S`); :data:`NON_TRANSIENT_OS_ERRORS` and the
-    last failure re-raise. Port of ``retry_transient`` without its
-    telemetry."""
+    last failure re-raise. Each retry emits a ``resilience.worker_retry``
+    event."""
     attempt = 0
     while True:
         try:
@@ -63,6 +70,10 @@ def retry_transient(fn, *, retries: int = 2, backoff: float = 0.1,
             attempt += 1
             delay = min(backoff * 2 ** (attempt - 1), RETRY_BACKOFF_MAX_S)
             delay *= 0.5 + 0.5 * random.random()
+            telemetry.counter("resilience.worker_retries")
+            telemetry.event("resilience.worker_retry", pipeline=what,
+                            attempt=attempt, error=type(e).__name__,
+                            delay_s=round(delay, 3))
             print(f"# {what}: transient {type(e).__name__} ({e}); "
                   f"retry {attempt}/{retries} in {delay:.2f}s")
             time.sleep(delay)
@@ -70,9 +81,10 @@ def retry_transient(fn, *, retries: int = 2, backoff: float = 0.1,
 
 def is_oom_error(e: BaseException) -> bool:
     """True for a device out-of-memory failure:
-    ``torch.cuda.OutOfMemoryError``, or an error whose message or type
-    says so. Never true for KeyboardInterrupt-class BaseExceptions."""
-    if isinstance(e, torch.cuda.OutOfMemoryError):
+    ``torch.cuda.OutOfMemoryError``, an injected OOM, or an error whose
+    message or type says so. Never true for KeyboardInterrupt-class
+    BaseExceptions."""
+    if isinstance(e, (torch.cuda.OutOfMemoryError, faultinject.InjectedOOM)):
         return True
     if not isinstance(e, Exception):
         return False
@@ -87,9 +99,12 @@ def is_device_fault(e: BaseException) -> bool:
     error other than an out-of-memory, such as a launch the card refused
     (the RuntimeError of ``ops._build.check``) or a fault of an earlier
     kernel that a later call reports (torch's "CUDA error" RuntimeError,
-    ``torch.AcceleratorError``). The port's counterpart of the reference's
-    ``health.is_device_fault``; False for an OOM (:func:`is_oom_error`), an
-    ordinary exception and a KeyboardInterrupt-class BaseException."""
+    ``torch.AcceleratorError``), or an injected device fault. The port's
+    counterpart of the reference's ``health.is_device_fault``; False for
+    an OOM (:func:`is_oom_error`), an ordinary exception and a
+    KeyboardInterrupt-class BaseException."""
+    if isinstance(e, faultinject.InjectedDeviceFault):
+        return True
     if not isinstance(e, Exception) or is_oom_error(e):
         return False
     accel = getattr(torch, "AcceleratorError", None)
@@ -121,9 +136,13 @@ def halving_dispatch(run: Callable[[int, int], object], n: int,
             if (not is_oom_error(e) or hi - lo <= 1
                     or halvings >= MAX_HALVINGS):
                 raise
+            err = e
         halvings += 1
         size = hi - lo
         half = size // 2
+        telemetry.counter("resilience.oom_backoffs")
+        telemetry.event("resilience.oom_backoff", what=what, size=size,
+                        new_size=half, error=type(err).__name__)
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
         delay = backoff_delay(halvings)

@@ -332,8 +332,11 @@ def test_skip_existing_skips_only_complete_pairs(files, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--telemetry", "t.jsonl"], "Queue 1 S5"),
-    (["--fault-inject", "oom:accel.batch_dispatch:1"], "Queue 1 S5"),
+    (["--fault-inject", "oops:accel.batch_dispatch:1"],
+     "unknown fault kind"),
+    (["--fault-inject", "oom"], "kind:point[:N]"),
+    (["--fault-inject", "netstall:fleet.heartbeat:3"],
+     "ROADMAP.md Queue 1 item 16"),
     (["--device-prep"], "--batch >= 2"),
     (["--device-prep", "--batch", "1"], "--batch >= 2"),
     (["EXTRA", "-o", "x"], "single input"),

@@ -10,8 +10,9 @@ one; a pressure report collapses the window; a departed party never stalls
 the leader; a failed fused dispatch retries each unit alone; a device
 fault (a CUDA error other than an OOM) reaches every member; different
 keys never fuse; a ``BaseException`` of the leader reaches every parked
-follower. The reference's member-fault isolation is left out with its
-fault injection (ROADMAP.md Queue 1 S12). Plus the port's own pieces: the
+follower. The reference's member-fault isolation, armed by the fault
+injector, is tested in ``tests/test_torch_faultinject.py``. Plus the
+port's own pieces: the
 counters, the device scope of a key, ``is_device_fault`` and the launch
 counters' lock under threads.
 """

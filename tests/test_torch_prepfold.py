@@ -196,14 +196,12 @@ def test_prepfold_cands_is_foldbatch(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["x.dat", "-p", "0.1", "--telemetry", "t.jsonl"], "Queue 1 S5"),
     (["x.dat", "-p", "0.1", "--par", "a.par"], "exactly one"),
     (["x.dat"], "exactly one"),
     (["x.dat", "--par", "a.par", "--pd", "1e-12"], "parfile"),
     (["x.dat", "--cands", "c.txt", "-p", "0.1"], "batch mode"),
     (["x.dat", "--cands", "c.txt", "--dm", "3"], "candidate list"),
     (["x.dat", "--cands", "c.txt", "--nsub", "4"], "ARCHIVE"),
-    (["x.dat", "--cands", "c.txt", "--telemetry", "t"], "Queue 1 S5"),
 ])
 def test_prepfold_refusals(argv, msg, capsys):
     with pytest.raises(SystemExit) as e:
