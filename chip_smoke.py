@@ -341,6 +341,37 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    ``rfifind --telemetry`` on phase 8's RFI copy (the chain's ``.mask``
    bytes, ``rfifind.intervals`` and ``rfifind_block_stats`` in its
    trace). One ``path NAME:`` line each.
+17. The sweep's last single-device formulations and the tool dispatcher,
+   reusing phase 4's result and phase 6's and 7's outputs. (a)
+   ``sweep.sweep_resident`` of phase 4's file held on the card ([1024,
+   2^20] float32) at phase 4's grid (1024 trials, 64 subbands, group 8)
+   in 4 chunks of 2^18, against ``sweep.sweep_spectra`` of the same
+   tensor at the same chunking, after a warm-up call of each, run
+   streamed, resident, resident, streamed: ``snr``, ``peak_sample``,
+   ``mean`` and ``std`` bit for bit,
+   the same launches (a whole number a chunk), the pulsar at DM 70;
+   printed: walls, DM-trials/s, peak GB.
+   (b) ``cli.sweep --engine scan`` on phase 4's grid: phase 4's rows and
+   ``.cands`` bit for bit (the CPU test found the scan's sum order the
+   gather kernel's) and its launches. (c) Phase 9's DDplan 0-512 with
+   ``host_downsample=True`` and with the default card sums, alternately:
+   every step's rows and launches and the ``.cands`` the same; host sums
+   on exactly the downsampled steps, each shipping 2 / downsamp of the
+   device path's bytes (within 5%), the downsamp-1 step the same bytes;
+   printed: each step's wall both ways. Then at ``--chunk 65536`` the
+   plan with card sums uninterrupted, and with host sums and
+   ``--checkpoint --checkpoint-every 1`` in a child killed right after
+   the downsamp-4 step's first save, resumed here: only that step swept,
+   from host blocks re-rooted at its cursor, the uninterrupted
+   ``.cands`` bytes, no checkpoint or marker left. (d) ``python -m
+   pypulsar_tpu_torch.cli``: ``sift --known-sources`` (a catalog naming
+   the pulsar, P 0.262144 s, DM 70) over phase 6's tables, ``pfd_snr
+   --tsys 30 --gain 10 --haslam-map`` (a map written by
+   ``skytemp.write_healpix_map``) and ``pfd_snr -m`` (a von Mises model)
+   over phase 7's archives within 2 DM of 70: each the bytes of the
+   tool's own ``main`` run here, the pulsar's rows (and only they)
+   vetoed from phase 7's list, finite SNRs and a mean flux; an unknown
+   tool exits 2 with a hint. One ``path NAME:`` line each.
 
 Then one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
@@ -351,11 +382,14 @@ and ``mask_split`` and phase 13's ``waterfaller_nsub_mask``,
 ``spectrogram`` and ``detrend_blocks``, phase 15's
 ``checkpoint_resume``, ``ddplan_resume`` and ``fold_resume``, and phase
 16's ``telemetry_stage``, ``fault_accel_oom``, ``fault_fold_oom``,
-``fault_exit_resume`` and ``prepfold_traced`` among them), the card line, and the last line ``{"ok": true, "device":
-{...}}``.
+``fault_exit_resume`` and ``prepfold_traced``, and phase 17's
+``sweep_resident``, ``sweep_scan``, ``ddplan_host_ds``,
+``ddplan_device_ds`` and ``ddplan_host_ds_resume`` among them), the card
+line, and the last line ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import functools
 import glob
 import hashlib
 import json
@@ -4714,6 +4748,12 @@ elif mode == "fold":
         return real_dispatch(*a, **kw)
 
     foldpipe._fold_dispatch = dispatch
+if tool == "sweep_host_ds":  # the sweep with host-summed blocks
+    import functools
+
+    staged.sweep_ddplan = functools.partial(staged.sweep_ddplan,
+                                            host_downsample=True)
+    tool = "sweep"
 main = {"sweep": sweep_cli.main, "foldbatch": foldbatch.main}[tool]
 sys.exit(main(argv))
 """
@@ -4940,18 +4980,36 @@ def resume_sweep(tmp, fn, info, card):
 
 class StepCounter:
     """Each ``staged.run_step`` call of one run: its downsampling and the
-    kernel launches inside it."""
+    kernel launches inside it (``steps``), and in ``details`` also
+    whether its blocks were summed on the host, its wall, the bytes it
+    shipped and its result."""
 
     def __enter__(self):
         from pypulsar_tpu_torch.parallel import staged
 
-        self.staged, self.real, self.steps = staged, staged.run_step, []
+        self.staged, self.real = staged, staged.run_step
+        self.steps, self.details = [], []
 
-        def counted(*a, **kw):
+        def counted(src, dms, factor, *a, **kw):
+            import torch
+
+            from pypulsar_tpu_torch.parallel.prefetch import ship_ahead
+
             before = collections.Counter(launch_counts())
-            out = self.real(*a, **kw)
-            self.steps.append((int(a[2]), dict(
-                collections.Counter(launch_counts()) - before)))
+            shipped = ship_ahead.bytes
+            host = staged.host_downsample_wins(src, factor,
+                                               kw.get("host_downsample"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real(src, dms, factor, *a, **kw)
+            torch.cuda.synchronize()
+            launches = dict(collections.Counter(launch_counts()) - before)
+            self.steps.append((int(factor), launches))
+            self.details.append(dict(
+                downsamp=int(factor), host_sums=host,
+                wall_s=time.perf_counter() - t0,
+                bytes_shipped=ship_ahead.bytes - shipped, launches=launches,
+                result=None if out is None else out.result))
             return out
 
         staged.run_step = counted
@@ -5427,6 +5485,345 @@ def telemetry_phase(tmp, fn, info, card, series_launches, chain,
                 tmp, fn, info, card, chain, prepfold_launches)}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the resident sweep, the scan engine, host downsampling and the
+# tool dispatcher
+# ---------------------------------------------------------------------------
+
+RESIDENT_CHUNK = 1 << 18  # four whole chunks of the 2^20-sample file
+RESIDENT_GROUP = 8  # the group phase 4's CLI picks for its grid
+# a catalog naming phase 4's pulsar, harmonics and subharmonics included
+KNOWN_PSR = "PSR_SMOKE 0.262144 70.0 0.002 2.0\n"
+SNR_MODEL = "# phase concentration amplitude\n0.5 60.0 1.0\n"
+
+
+def resident_sweep(fn, card):
+    """Phase 17 (a): ``sweep_resident`` of the phase-4 file held on the
+    card against ``sweep_spectra`` of the same tensor at the same
+    chunking, alternately after a warm-up call of each: the same bits,
+    the same launches (a whole number a chunk)."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.parallel import staged, sweep
+
+    with FilterbankFile(fn) as r:
+        src = staged.ReaderSource(r)
+        (_, data), = list(src.chan_major_blocks(src.nsamples, 0, "cuda"))
+        freqs, dt = src.frequencies, src.tsamp
+    dms = 0.5 * np.arange(1024)
+    kw = dict(nsub=64, group_size=RESIDENT_GROUP, chunk_payload=RESIDENT_CHUNK,
+              device="cuda")
+    n_chunks = data.shape[1] // RESIDENT_CHUNK
+    runs = {"resident": [], "streamed": []}
+    out = {}
+    for warm in (sweep.sweep_spectra, sweep.sweep_resident):  # allocations
+        warm(data, freqs, dt, dms, **kw)
+    for kind in ("streamed", "resident", "resident", "streamed"):
+        fn_ = sweep.sweep_resident if kind == "resident" else \
+            sweep.sweep_spectra
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn_(data, freqs, dt, dms, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[kind].append(dict(wall_s=wall, peak_device_gb=torch.cuda.max_memory_allocated()
+                               / 1e9, launches=sweep_launches()))
+        if kind in out:
+            for f in ("snr", "peak_sample", "mean"):
+                if not np.array_equal(getattr(res, f), getattr(out[kind], f)):
+                    fail(f"two {kind} sweeps differ in {f}")
+        out[kind] = res
+    for f in ("snr", "peak_sample", "mean", "std"):
+        if not np.array_equal(getattr(out["resident"], f),
+                              getattr(out["streamed"], f)):
+            fail(f"sweep_resident's {f} is not sweep_spectra's at the same "
+                 f"chunking")
+    la, lb = runs["resident"][0]["launches"], runs["streamed"][0]["launches"]
+    if la != lb or min(la.values()) < 1 or any(v % n_chunks
+                                               for v in la.values()):
+        fail(f"resident launches {la}, streamed {lb}: not the same whole "
+             f"number a chunk ({n_chunks} chunks)")
+    best = out["resident"].best(1)[0]
+    if abs(best["dm"] - 70.0) > 1.0:
+        fail(f"the resident sweep's best DM is {best['dm']}, not 70")
+    walls = [r["wall_s"] for r in runs["resident"]]
+    print("path sweep_resident: " + json.dumps({
+        "card": card, "trials": len(dms), "samples": int(data.shape[1]),
+        "chunks": n_chunks, "chunk": RESIDENT_CHUNK,
+        "resident_data_gb": data.numel() * 4 / 1e9,
+        "wall_s": walls, "dm_trials_per_s": [len(dms) / w for w in walls],
+        "streamed_wall_s": [r["wall_s"] for r in runs["streamed"]],
+        "peak_device_gb": runs["resident"][0]["peak_device_gb"],
+        "streamed_peak_device_gb": runs["streamed"][0]["peak_device_gb"],
+        "best": best, "launches": la}))
+    del data
+    torch.cuda.empty_cache()
+    return la
+
+
+def scan_engine(tmp, fn, card, gather_res, gather_launches):
+    """Phase 17 (b): ``cli.sweep --engine scan`` on phase 4's grid: the
+    gather engine's rows bit for bit (the CPU test holds the scan's sum
+    order to be the gather kernel's) and its launches."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.parallel import staged
+
+    out = os.path.join(tmp, "scan")
+    argv = [fn, "--lodm", "0", "--dmstep", "0.5", "--numdms", "1024",
+            "--nsub", "64", "-o", out, "--device", "cuda", "--engine",
+            "scan"]
+    with Timed(staged, "sweep_flat") as sp, PathMeter("sweep_scan",
+                                                      card) as pm:
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"sweep --engine scan exited {rc}")
+    res = sp.result.steps[0].result
+    if res.engine_info.get("engine") != "scan":
+        fail(f"the scan run ran {res.engine_info}")
+    for f in ("snr", "peak_sample", "mean", "std"):
+        if not np.array_equal(getattr(res, f), getattr(gather_res, f)):
+            fail(f"--engine scan's {f} is not the gather engine's")
+    if {k: pm.launches[k] for k in SWEEP_KERNELS} != dict(gather_launches):
+        fail(f"--engine scan launched {pm.launches}, gather "
+             f"{gather_launches}")
+    same_files(os.path.join(tmp, "obs"), out, (".cands",))
+    pm.line(dm_trials_per_s=len(res.dms) / pm.wall_s,
+            gather_launches=gather_launches)
+    return pm.launches
+
+
+def host_downsampled_ddplan(tmp, fn, card):
+    """Phase 17 (c): phase 9's DDplan 0-512 with ``host_downsample=True``
+    and with the default card sums, alternately; then killed inside its
+    host-summed downsamp-4 step and resumed."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.parallel import staged
+
+    flags = [fn, "--ddplan", "--lodm", "0", "--hidm", "512", "--nsub", "64",
+             "--device", "cuda"]
+    real_ddplan = staged.sweep_ddplan
+    host_sums = functools.partial(real_ddplan, host_downsample=True)
+    runs = {"host": [], "device": []}
+    for kind in ("host", "device", "device", "host"):
+        out = os.path.join(tmp, f"dd_{kind}")
+        if kind == "host":
+            staged.sweep_ddplan = host_sums
+        try:
+            with StepCounter() as sc, PathMeter(f"ddplan_{kind}",
+                                                card) as pm:
+                rc = cli.main(flags + ["-o", out])
+        finally:
+            staged.sweep_ddplan = real_ddplan
+        if rc != 0:
+            fail(f"the DDplan ({kind}) exited {rc}")
+        runs[kind].append((sc.details, pm))
+    a_steps, b_steps = runs["host"][0][0], runs["device"][0][0]
+    # 8-bit samples: every downsampled step is summed on the host, its
+    # uint16 sums shipping 2 / factor B a raw sample
+    if [s["host_sums"] for s in a_steps] != [s["downsamp"] > 1
+                                             for s in a_steps] or \
+            not any(s["host_sums"] for s in a_steps) or \
+            any(s["host_sums"] for s in b_steps):
+        fail(f"the DDplan's steps and host sums: "
+             f"{[(s['downsamp'], s['host_sums']) for s in a_steps]} / "
+             f"{[(s['downsamp'], s['host_sums']) for s in b_steps]}")
+    same_files(os.path.join(tmp, "dd_host"), os.path.join(tmp, "dd_device"),
+               (".cands",))
+    ratios = []
+    for a, b in zip(a_steps, b_steps):
+        for f in ("snr", "peak_sample", "mean", "std"):
+            if not np.array_equal(getattr(a["result"], f),
+                                  getattr(b["result"], f)):
+                fail(f"downsamp-{a['downsamp']} step: host sums change {f}")
+        if a["launches"] != b["launches"]:
+            fail(f"downsamp-{a['downsamp']} step launched {a['launches']} "
+                 f"with host sums, {b['launches']} without")
+        ratio = a["bytes_shipped"] / b["bytes_shipped"]
+        want = 2.0 / a["downsamp"] if a["host_sums"] else 1.0
+        if not (abs(ratio - want) <= 0.05 * want if a["host_sums"]
+                else ratio == 1.0):
+            fail(f"downsamp-{a['downsamp']} step shipped {ratio} of the "
+                 f"device path's bytes, not about {want}")
+        ratios.append(ratio)
+    resumed = resume_host_step(tmp, flags, card)
+    pa, pb = runs["host"][0][1], runs["device"][0][1]
+    pa.line(per_step=[{k: v for k, v in s.items() if k != "result"}
+                      for s in a_steps],
+            step_walls_s={kind: [[s["wall_s"] for s in steps]
+                                 for steps, _ in runs[kind]]
+                          for kind in runs},
+            walls_s={kind: [p.wall_s for _, p in runs[kind]]
+                     for kind in runs},
+            bytes_shipped_device_path=pb.shipped,
+            per_step_bytes_device_path=[s["bytes_shipped"] for s in b_steps],
+            bytes_ratio_by_step=ratios)
+    pb.line(per_step=[{k: v for k, v in s.items() if k != "result"}
+                      for s in b_steps])
+    return pa.launches, pb.launches, resumed
+
+
+def resume_host_step(tmp, flags, card):
+    """Phase 17 (c), the kill, at ``--chunk 65536`` (four chunks in the
+    downsamp-4 step): uninterrupted with the blocks summed on the card;
+    with host sums and ``--checkpoint --checkpoint-every 1`` in a child
+    killed right after the downsamp-4 step's first save, resumed here
+    with host sums: steps 0 and 1 from their markers, step 2 re-rooted at
+    its cursor on the host path, the uninterrupted ``.cands`` bytes."""
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.parallel import staged
+
+    flags = flags + ["--chunk", str(DDPLAN_CHUNK)]
+    full = os.path.join(tmp, "ddh_full")
+    rc = cli.main(flags + ["-o", full])
+    if rc != 0:
+        fail(f"the uninterrupted DDplan at --chunk {DDPLAN_CHUNK} exited "
+             f"{rc}")
+    ck, res = os.path.join(tmp, "ddh.ckpt"), os.path.join(tmp, "ddh_res")
+    argv = flags + ["-o", res, "--checkpoint", ck, "--checkpoint-every", "1"]
+    kill_s = killed_run("save", f"1:{ck}.step2.npz", "sweep_host_ds", argv)
+    cursor, _, _ = ckpt_state(ck + ".step2.npz")
+    starts = []
+    real = staged._host_downsampled_blocks
+
+    def recorded(src, factor, *a):
+        starts.append((factor, src.start))
+        return real(src, factor, *a)
+
+    real_ddplan = staged.sweep_ddplan
+    staged._host_downsampled_blocks = recorded
+    staged.sweep_ddplan = functools.partial(real_ddplan, host_downsample=True)
+    try:
+        with StepCounter() as sc, PathMeter("ddplan_host_ds_resume",
+                                            card) as pm:
+            rc = cli.main(argv + ["--resume"])
+    finally:
+        staged._host_downsampled_blocks = real
+        staged.sweep_ddplan = real_ddplan
+    if rc != 0:
+        fail(f"the resumed DDplan exited {rc}")
+    if [d for d, _ in sc.steps] != [4] or starts != [(4, 4 * cursor)] \
+            or cursor <= 0 or min(sc.steps[0][1].get(k, 0)
+                                  for k in SWEEP_KERNELS) < 1:
+        fail(f"the resume swept steps {sc.steps} from host blocks at "
+             f"{starts} (cursor {cursor})")
+    same_files(full, res, (".cands",))
+    if any(os.path.exists(f"{ck}.step{i}{ext}") for i in range(3)
+           for ext in (".npz", ".done.npz")):
+        fail("the resumed DDplan left a checkpoint or marker")
+    pm.line(killed_run_wall_s=kill_s, step2_cursor=cursor)
+    return pm.launches
+
+
+def dispatcher_tools(tmp, card):
+    """Phase 17 (d): ``python -m pypulsar_tpu_torch.cli`` runs ``sift
+    --known-sources`` over phase 6's tables and ``pfd_snr --tsys --gain
+    --haslam-map`` and ``-m`` over phase 7's archives: the outputs of the
+    tools' own ``main`` in this process, the pulsar vetoed; an unknown
+    tool exits 2."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.astro import healpix, skytemp
+    from pypulsar_tpu_torch.candstore.match import load_catalog, match_known
+    from pypulsar_tpu_torch.cli import pfd_snr, sift
+    from pypulsar_tpu_torch.io.accelcands import parse_candlist
+
+    d = os.path.join(tmp, "tools")
+    os.makedirs(d, exist_ok=True)
+    catalog = os.path.join(d, "known.txt")
+    with open(catalog, "w") as f:
+        f.write(KNOWN_PSR)
+    model = os.path.join(d, "psr.m")
+    with open(model, "w") as f:
+        f.write(SNR_MODEL)
+    skymap = os.path.join(d, "haslam.fits")
+    theta, _ = healpix.pix2ang(64, np.arange(healpix.npix(64)))
+    skytemp.write_healpix_map(skymap, 20.0 + 80.0 * np.exp(
+        -((theta - np.pi / 2) / 0.1) ** 2))
+    cands = sorted(glob.glob(os.path.join(tmp, "stage_DM*_ACCEL_200.cand")))
+    # phase 7's archives within 2 DM of the pulsar's
+    pfds = [p for p in sorted(glob.glob(os.path.join(tmp,
+                                                     "fold_dats_*.pfd")))
+            if abs(float(p.split("_DM")[1].split("_")[0]) - 70.0) <= 2.0]
+    if not pfds:
+        fail("phase 7 left no archive within 2 DM of 70")
+    runs = [("sift", cands + ["-s", "4", "--min-hits", "2",
+                              "--known-sources", catalog, "-o"],
+             "known.accelcands", sift.main),
+            ("pfd_snr", pfds + ["--tsys", "30", "--gain", "10",
+                                "--haslam-map", skymap, "--json"],
+             "sky.json", pfd_snr.main),
+            ("pfd_snr", pfds + ["-m", model, "--json"], "model.json",
+             pfd_snr.main)]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    walls = {}
+    for tool, args, name, main_ in runs:
+        by_cli = os.path.join(d, "cli_" + name)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pypulsar_tpu_torch.cli", tool, *args,
+             by_cli], cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=600)
+        walls[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"python -m pypulsar_tpu_torch.cli {tool} exited "
+                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        in_proc = os.path.join(d, "main_" + name)
+        if run_quiet(main_, args + [in_proc])[0] != 0:
+            fail(f"{tool}.main exited non-zero")
+        with open(by_cli, "rb") as a, open(in_proc, "rb") as b:
+            if a.read() != b.read():
+                fail(f"{tool} through the dispatcher wrote other bytes than "
+                     f"its main ({name})")
+    kept = parse_candlist(os.path.join(d, "cli_known.accelcands"))
+    before = parse_candlist(os.path.join(tmp, "fold.accelcands"))
+    known = load_catalog(catalog)
+    vetoed = [c for c in before if match_known(c.period, c.dm, known)]
+    if not vetoed or len(kept) != len(before) - len(vetoed) or any(
+            match_known(c.period, c.dm, known) for c in kept):
+        fail(f"--known-sources kept {len(kept)} of {len(before)}, "
+             f"{len(vetoed)} match the pulsar")
+    rows = {}
+    for name in ("sky.json", "model.json"):
+        with open(os.path.join(d, "cli_" + name)) as f:
+            rows[name] = json.load(f)
+        snrs = [r["snr"] for r in rows[name] if r["snr"] is not None]
+        if not snrs or not np.isfinite(snrs).all():
+            fail(f"pfd_snr {name}: no finite SNR")
+    if not any(r["smean_mjy"] for r in rows["sky.json"]):
+        fail("pfd_snr --tsys/--gain gave no mean flux")
+    bad = subprocess.run([sys.executable, "-m", "pypulsar_tpu_torch.cli",
+                          "swep"], cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=120)
+    if bad.returncode != 2 or "did you mean 'sweep'" not in bad.stderr:
+        fail(f"an unknown tool exited {bad.returncode}: {bad.stderr}")
+    print("path dispatcher_tools: " + json.dumps({
+        "card": card, "walls_s": walls, "sifted": len(before),
+        "vetoed": len(vetoed), "kept": len(kept),
+        "snr_rows": {k: len(v) for k, v in rows.items()},
+        "best_snr": {k: max(r["snr"] or 0.0 for r in v)
+                     for k, v in rows.items()},
+        "unknown_tool_rc": bad.returncode}))
+
+
+def resident_phase(tmp, fn, card, gather_res, gather_launches):
+    """Phase 17: returns the launches of each driven path."""
+    out = {"sweep_resident": resident_sweep(fn, card),
+           "sweep_scan": scan_engine(tmp, fn, card, gather_res,
+                                     gather_launches)}
+    (out["ddplan_host_ds"], out["ddplan_device_ds"],
+     out["ddplan_host_ds_resume"]) = host_downsampled_ddplan(tmp, fn, card)
+    dispatcher_tools(tmp, card)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -5477,6 +5874,7 @@ def main() -> int:
         resume_paths = resume_phase(tmp, fn, info, card)
         telemetry_paths = telemetry_phase(tmp, fn, info, card, stage_series,
                                           chain, prep["prepfold"])
+        resident_paths = resident_phase(tmp, fn, card, gather_res, launches)
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -5486,7 +5884,8 @@ def main() -> int:
              "spectral_stage": spectral, "spectral_decimated": decimated,
              "spectral_chain": spectral_ch, "ddplan": ddplan, **prep,
              "lane": lane_launches, **fits_paths, **spectra_paths,
-             **hour_paths, **resume_paths, **telemetry_paths}
+             **hour_paths, **resume_paths, **telemetry_paths,
+             **resident_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}

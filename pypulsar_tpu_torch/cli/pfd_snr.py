@@ -3,14 +3,21 @@ stage.
 
 Port of the batch path of ``pypulsar_tpu/cli/pfd_snr.py``: for every
 archive (file arguments may be quoted globs) the L&K eq. 7.1 SNR with an
-automatic on-pulse selection, or ``--on-pulse`` start and end phases, and
-with ``--sefd`` the mean flux density. ``--json PATH`` writes one summary
-row per archive; an unreadable archive or a failed analysis becomes an
-error row and exit code 1, a profile with no on-pulse region a null SNR
-row (a measurement, exit 0). Host numpy only.
+on-pulse selection from ``--on-pulse`` start and end phases, from a model
+profile (``-m`` von Mises components or ``-g`` Gaussians, aligned to the
+profile), or automatic; and the mean flux density from ``--sefd``, or from
+``--tsys/--gain`` plus the sky temperature at the archive's position
+(``--haslam-map`` a HEALPix map; without one the analytic approximation,
+with a warning). ``--json PATH`` writes one summary row per archive; an
+unreadable archive or a failed analysis becomes an error row and exit
+code 1, a profile with no on-pulse region a null SNR row (a measurement,
+exit 0). Host numpy only.
 
-``--tsys/--gain`` (the Haslam sky map), ``--model-file``,
-``--gaussian-file`` and ``--interactive`` are not ported yet and exit 2.
+``-g`` builds its model as the sum of the file's Gaussians plus its
+constant; the JAX package hands ``read_gaussfitfile``'s (components,
+constant) pair to the model selection as it is, which fails there.
+``-m`` beside ``-g``, and ``--haslam-map`` without ``--tsys/--gain``, exit
+2. ``--interactive`` (a matplotlib picker) is not ported yet and exits 2.
 
 Run as ``python -m pypulsar_tpu_torch.cli.pfd_snr 'X_*.pfd' --json X_snr.json``.
 """
@@ -22,24 +29,50 @@ import glob
 import json
 import os
 import sys
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from pypulsar_tpu_torch.astro import sextant, skytemp
 from pypulsar_tpu_torch.fold import profile_snr
 from pypulsar_tpu_torch.io.prestopfd import PfdFile
 
 #: flags of the reference's snr stage that the port does not take yet,
 #: with the ROADMAP.md item that brings each
 NOT_PORTED = {
-    "tsys": ("--tsys", "Queue 1 S15 (sky temperature from a Haslam map)"),
-    "gain": ("--gain", "Queue 1 S15 (sky temperature from a Haslam map)"),
-    "model_file": ("--model-file", "Queue 1 S14 (model on-pulse selection)"),
-    "gauss_file": ("--gaussian-file",
-                   "Queue 1 S14 (model on-pulse selection)"),
     "interactive": ("--interactive",
-                    "Queue 1 S14 (model on-pulse selection)"),
+                    "Queue 1 item 16 (utils/interactive, on matplotlib)"),
 }
+
+
+def parse_model_file(modelfn: str) -> List[Tuple[float, float, float]]:
+    """A paas ``.m`` component file: one von Mises component a line as
+    ``phase concentration amplitude`` (``#`` starts a comment)."""
+    comps = []
+    with open(modelfn) as f:
+        for line in f:
+            line = line.partition("#")[0].strip()
+            if not line:
+                continue
+            phs, conc, amp = [float(x) for x in line.split()[:3]]
+            comps.append((phs, conc, amp))
+    return comps
+
+
+def model_from_components(comps, proflen: int) -> np.ndarray:
+    """The sum of von Mises components over ``proflen`` bins."""
+    model = np.zeros(proflen)
+    for phs, conc, amp in comps:
+        model += amp * np.asarray(
+            profile_snr.vonmises_profile(proflen, phs, conc))
+    return model
+
+
+def model_from_gaussians(gaussfn: str, proflen: int) -> np.ndarray:
+    """The sum of a ``pygaussfit.py`` file's Gaussians plus its constant
+    over ``proflen`` bins."""
+    comps, const = profile_snr.read_gaussfitfile(gaussfn, proflen)
+    return comps.sum(axis=0) + const
 
 
 def build_parser():
@@ -54,6 +87,15 @@ def build_parser():
     parser.add_argument("--sefd", type=float, default=None,
                         help="SEFD in Jy (Tsys/Gain); sky temperature is "
                              "not added")
+    parser.add_argument("--tsys", type=float, default=None,
+                        help="System temperature in K (the sky temperature "
+                             "at the archive's position is added)")
+    parser.add_argument("--gain", type=float, default=None,
+                        help="Gain in K/Jy")
+    parser.add_argument("--haslam-map", default=None, metavar="PATH",
+                        help="with --tsys/--gain: the 408 MHz HEALPix sky "
+                             "map (FITS binary table, RING order); without "
+                             "it an analytic approximation, with a warning")
     parser.add_argument("--sep", type=float, default=None,
                         help="Offset of pulsar from beam centre in arcmin "
                              "(requires --fwhm)")
@@ -62,18 +104,15 @@ def build_parser():
     parser.add_argument("--json", default=None, metavar="PATH",
                         help="batch mode: write one JSON summary row per "
                              "archive (name, best DM, SNR, mean flux)")
-    not_ported = "not ported yet: ROADMAP.md "
-    parser.add_argument("--tsys", type=float, default=None,
-                        help=not_ported + NOT_PORTED["tsys"][1])
-    parser.add_argument("--gain", type=float, default=None,
-                        help=not_ported + NOT_PORTED["gain"][1])
     parser.add_argument("-m", "--model-file", default=None,
-                        help=not_ported + NOT_PORTED["model_file"][1])
+                        help="paas-created .m file of von Mises "
+                             "components")
     parser.add_argument("-g", "--gaussian-file", dest="gauss_file",
                         default=None,
-                        help=not_ported + NOT_PORTED["gauss_file"][1])
+                        help="pygaussfit-created Gaussians file")
     parser.add_argument("-i", "--interactive", action="store_true",
-                        help=not_ported + NOT_PORTED["interactive"][1])
+                        help="not ported yet: ROADMAP.md "
+                             + NOT_PORTED["interactive"][1])
     return parser
 
 
@@ -90,9 +129,24 @@ def airy_pattern(fwhm: float, x: float) -> float:
     return float((2 * special.j1(scaled_x) / scaled_x) ** 2)
 
 
-def effective_sefd(args) -> float:
-    """--sefd, reduced by the Airy factor for an off-centre pointing."""
-    sefd = args.sefd
+def effective_sefd(args, pfd) -> Optional[float]:
+    """--sefd, or (--tsys + the sky temperature at the archive's position
+    and centre frequency) / --gain; reduced by the Airy factor for an
+    off-centre pointing."""
+    sefd = None
+    if args.sefd is not None:
+        sefd = args.sefd
+    elif args.gain is not None and args.tsys is not None:
+        fctr = 0.5 * (pfd.hifreq + pfd.lofreq)
+        glon, glat = sextant.equatorial_to_galactic(
+            pfd.rastr, pfd.decstr, input="sexigesimal", output="deg")
+        glon = float(np.atleast_1d(glon)[0])
+        glat = float(np.atleast_1d(glat)[0])
+        print("Galactic Coords: l=%g deg, b=%g deg" % (glon, glat))
+        tsky = float(np.atleast_1d(skytemp.get_skytemp(
+            glon, glat, freq=fctr, mapfn=args.haslam_map))[0])
+        print("Sky temp at %g MHz: %g K" % (fctr, tsky))
+        sefd = (args.tsys + tsky) / args.gain
     if sefd is not None and args.fwhm is not None and args.sep is not None:
         factor = airy_pattern(args.fwhm, args.sep)
         print("Pulsar is off-centre")
@@ -122,6 +176,19 @@ def main(argv=None) -> int:
     for dest, (flag, item) in NOT_PORTED.items():
         if getattr(args, dest):
             ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
+    if args.sefd is not None and (args.tsys is not None
+                                  or args.gain is not None):
+        print("Gain and/or system temperature should not be provided if "
+              "SEFD is given.", file=sys.stderr)
+        return 1
+    if (args.tsys is None) != (args.gain is None):
+        print("Both gain and system temperature must be provided "
+              "together.", file=sys.stderr)
+        return 1
+    if args.haslam_map is not None and args.tsys is None:
+        ap.error("--haslam-map needs --tsys and --gain")
+    if args.model_file is not None and args.gauss_file is not None:
+        ap.error("-m/--model-file and -g/--gaussian-file exclude each other")
     args.files = expand_pfd_args(args.files)
     rows = []
     for pfdfn in args.files:
@@ -169,14 +236,19 @@ def _null_row(pfd, pfdfn: str, error: str) -> dict:
 
 def _append_archive_row(args, pfd, pfdfn: str, rows: list) -> None:
     """Analyse one archive into its summary row."""
-    sefd = effective_sefd(args)
-    regions = None
+    sefd = effective_sefd(args, pfd)
+    regions = model = None
     if args.on_pulse is not None:
         lo, hi = args.on_pulse
         regions = [(int(lo * pfd.proflen), int(hi * pfd.proflen))]
+    elif args.model_file is not None:
+        model = model_from_components(parse_model_file(args.model_file),
+                                      pfd.proflen)
+    elif args.gauss_file is not None:
+        model = model_from_gaussians(args.gauss_file, pfd.proflen)
     try:
-        result = profile_snr.pfd_snr(pfd, regions=regions, sefd=sefd,
-                                     verbose=True)
+        result = profile_snr.pfd_snr(pfd, regions=regions, model=model,
+                                     sefd=sefd, verbose=True)
     except profile_snr.OnPulseError as e:
         # a noise candidate legitimately has no on-pulse region
         if not args.json:

@@ -14,11 +14,17 @@ the list is written in PRESTO's text grammar
 ``.cand`` inputs (:func:`pypulsar_tpu_torch.parallel.foldpipe.fold_pipeline`)
 on ``--device`` (default ``cuda``).
 
+``--known-sources CATALOG`` drops every sifted candidate whose period
+(or a harmonic or subharmonic of it) and DM match a catalog source
+(:mod:`pypulsar_tpu_torch.candstore.match`; text lines ``name period_s dm
+[tol_p_frac] [tol_dm]`` or a JSON list), printing each veto on stderr.
+
 ``--journal PATH.jsonl`` (with ``-o``) records the written list as the
 unit ``sift:{name}`` of a work-unit journal whose fingerprint hashes the
-inputs' content (each ``.cand``'s size and sha256) and the options: a
-rerun whose list still validates skips the sift (and, with ``--fold``,
-still folds, skipping complete archives); a changed input sifts again.
+inputs' content (each ``.cand``'s size and sha256), the catalog's and
+the options: a rerun whose list still validates skips the sift (and,
+with ``--fold``, still folds, skipping complete archives); a changed
+input or catalog sifts again.
 
 Run as ``python -m pypulsar_tpu_torch.cli.sift *_ACCEL_*.cand -o X.accelcands``.
 """
@@ -33,20 +39,18 @@ from typing import Dict, List
 
 import numpy as np
 
+from pypulsar_tpu_torch.candstore.match import (
+    catalog_digest,
+    format_ratio,
+    load_catalog,
+    match_known,
+)
 from pypulsar_tpu_torch.io.accelcands import Candidate, write_candlist
 from pypulsar_tpu_torch.io.infodata import InfoData
 from pypulsar_tpu_torch.io.prestocand import FOURIERPROPS_DTYPE, read_rzwcands
 from pypulsar_tpu_torch.obs import telemetry
 
 _DM_RE = re.compile(r"DM(\d+(?:\.\d+)?)")
-
-#: flags of the reference's sift stage that the port does not take yet,
-#: with the ROADMAP.md item that brings each
-NOT_PORTED = {
-    "known_sources": ("--known-sources",
-                      "Queue 1 S13 (the candidate store's known-source "
-                      "matcher)"),
-}
 
 
 def infer_dm(path: str, inf) -> float:
@@ -184,9 +188,11 @@ def build_parser():
                    help="record the written .accelcands in this work-unit "
                         "journal (with -o): a rerun whose output validates "
                         "skips the sift")
-    not_ported = "not ported yet: ROADMAP.md "
-    p.add_argument("--known-sources", default=None,
-                   help=not_ported + NOT_PORTED["known_sources"][1])
+    p.add_argument("--known-sources", default=None, metavar="FILE",
+                   help="veto candidates matching this known-source "
+                        "catalog (text 'name period_s dm [tol_p_frac] "
+                        "[tol_dm]' lines or a JSON list), harmonics and "
+                        "subharmonics included")
     telemetry.add_telemetry_flag(
         p, what="sift + (with --fold) foldpipe spans and counters")
     return p
@@ -195,9 +201,6 @@ def build_parser():
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    for dest, (flag, item) in NOT_PORTED.items():
-        if getattr(args, dest):
-            ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
     with telemetry.session_from_flag(args.telemetry, tool="sift"):
         return _run(ap, args)
 
@@ -231,6 +234,8 @@ def _run(ap, args) -> int:
     cands = sift(files, min_sigma=args.min_sigma, min_hits=args.min_hits)
     if args.min_dm is not None:
         cands = [c for c in cands if c.dm >= args.min_dm]
+    if args.known_sources:
+        cands = _veto_known(cands, args.known_sources)
     write_candlist(cands, args.outfile)
     if args.outfile:
         print(f"# {len(cands)} sifted candidates -> {args.outfile}",
@@ -245,9 +250,9 @@ def _run(ap, args) -> int:
 
 def _journal_fingerprint(args) -> str:
     """Hash of the inputs' content (size and sha256 of each ``.cand``, by
-    sorted name), the sift's options and the output path: a re-searched
-    trial whose ``.cand`` changed sifts again instead of skipping against
-    the stale list."""
+    sorted name), the sift's options, the output path and the catalog's
+    digest: a re-searched trial whose ``.cand`` changed, or a changed
+    catalog, sifts again instead of skipping against the stale list."""
     import hashlib
 
     from pypulsar_tpu_torch.resilience.journal import file_digest
@@ -264,7 +269,29 @@ def _journal_fingerprint(args) -> str:
                          if args.min_dm is not None else -1.0]).tobytes())
     h.update(np.int64([args.min_hits]).tobytes())
     h.update(args.outfile.encode())
+    if args.known_sources:
+        h.update(catalog_digest(args.known_sources).encode())
     return h.hexdigest()
+
+
+def _veto_known(cands, catalog_path):
+    """--known-sources: the candidates that match no catalog source; each
+    veto is printed on stderr."""
+    catalog = load_catalog(catalog_path)
+    kept = []
+    for c in cands:
+        hit = match_known(c.period, c.dm, catalog)
+        if hit is None:
+            kept.append(c)
+        else:
+            src, ratio = hit
+            print(f"# known-source veto: {c.accelfile}:{c.candnum} "
+                  f"P={c.period:.6f}s DM={c.dm:.2f} matches {src.name} "
+                  f"({format_ratio(ratio)})", file=sys.stderr)
+    if len(kept) != len(cands):
+        print(f"# known-source veto dropped {len(cands) - len(kept)} "
+              f"of {len(cands)} candidates", file=sys.stderr)
+    return kept
 
 
 def _fold_sifted(args, files) -> int:

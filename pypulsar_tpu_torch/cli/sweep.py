@@ -19,7 +19,9 @@ series after the single-pulse pass. ``--mask FILE.mask`` applies an
 rfifind mask to every pass (median-mid80 fill per raw block).
 
 ``--engine`` picks the chunk formulation (``gather``, the default;
-``tree``, shared merge levels; ``fourier``, phase multiply-reduce).
+``scan``, the reference's sequential stage-1 sums, which are the gather
+kernel's own order, so its rows have the gather engine's bits; ``tree``,
+shared merge levels; ``fourier``, phase multiply-reduce).
 ``--spectral`` fuses the accel handoff on the device (no series crosses
 to the host; no ``.dat`` tee). ``--no-accel-device-prep`` preps the
 handoff's spectra on the host (float64 numpy rfft) instead of the
@@ -72,7 +74,6 @@ import numpy as np
 
 from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.parallel.sweep import ENGINES
-from pypulsar_tpu_torch.parallel.sweep import NOT_PORTED as ENGINES_NOT_PORTED
 from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience.dataguard import finite_rows
 from pypulsar_tpu_torch.resilience.journal import atomic_write_text
@@ -149,11 +150,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("-k", "--topk", type=int, default=10,
                     help="candidates to print")
     ap.add_argument("--engine", default="auto",
-                    choices=("auto",) + ENGINES + tuple(ENGINES_NOT_PORTED),
-                    help="chunk formulation: auto (gather), gather, tree "
-                         "(shared pairwise merge levels) or fourier (phase "
-                         "multiply-reduce between FFTs); scan is not "
-                         "ported yet")
+                    choices=("auto",) + ENGINES,
+                    help="chunk formulation: auto (gather), gather, scan "
+                         "(sequential stage-1 sums: the gather engine's "
+                         "bits), tree (shared pairwise merge levels) or "
+                         "fourier (phase multiply-reduce between FFTs)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
@@ -335,8 +336,8 @@ def _emit_sweep_artifacts(staged, outbase, args, journal) -> None:
 
 
 def _check_args(ap, args) -> None:
-    """The reference's refusals of flag combinations, and the flags and
-    engine the port does not take (exit 2 naming their ROADMAP.md item)."""
+    """The reference's refusals of flag combinations, and the flags the
+    port does not take (exit 2 naming their ROADMAP.md item)."""
     for dest, (flag, item) in NOT_PORTED.items():
         if getattr(args, dest):
             ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
@@ -344,9 +345,6 @@ def _check_args(ap, args) -> None:
         # the JAX package's multi-file batch axis
         ap.error("several input files are not ported yet (ROADMAP.md "
                  "Queue 1 item 14 (multi-GPU))")
-    if args.engine in ENGINES_NOT_PORTED:
-        ap.error(f"--engine {args.engine} is not ported yet (ROADMAP.md "
-                 f"{ENGINES_NOT_PORTED[args.engine]})")
     if args.downsamp < 1:
         ap.error("--downsamp must be >= 1")
     if args.resume and not args.checkpoint:

@@ -1,6 +1,7 @@
-"""Pulsar math the sweep and the fold need, on the host in float64 numpy.
+"""Pulsar math the sweep, the fold and the profile SNR need, on the host
+in float64 numpy.
 
-Copy of the dispersion and period helpers of
+Copy of the dispersion, period and profile helpers of
 ``pypulsar_tpu/core/psrmath.py`` (the port imports nothing of the JAX
 package). The sweep's integer shift tables are rounded from these delays
 and the fold's phase bins from these frequencies, so the formulas stay
@@ -58,3 +59,24 @@ def bin_delays(dm, freqs, dt, ref_freq=None):
         ref_freq = np.max(freqs)
     rel = delay_from_DM(dm, freqs) - delay_from_DM(dm, ref_freq)
     return np.round(rel / dt).astype(np.int64)
+
+
+def rotate(arr, bins):
+    """``arr`` rotated circularly to the LEFT by ``bins`` places (PRESTO's
+    ``psr_utils.rotate``)."""
+    arr = np.asarray(arr)
+    bins = int(bins) % len(arr)
+    if bins == 0:
+        return arr.copy()
+    return np.concatenate((arr[bins:], arr[:bins]))
+
+
+def gaussian_profile(N, phase, fwhm):
+    """Gaussian pulse profile of ``N`` bins peaking at ``phase`` (0-1),
+    integrated flux 1, wrapped around the turn."""
+    sigma = fwhm / 2.0 / np.sqrt(2.0 * np.log(2.0))
+    mean = phase % 1.0
+    phss = np.arange(N, dtype=np.float64) / N - mean
+    phss = (phss + 0.5) % 1.0 - 0.5  # wrap to [-0.5, 0.5)
+    return (np.exp(-0.5 * (phss / sigma) ** 2.0)
+            / (sigma * np.sqrt(2.0 * np.pi)) / N)

@@ -113,11 +113,13 @@ def prefetch(items: Iterable, depth: int = 2,
 
 
 def host_tensor(block: np.ndarray) -> torch.Tensor:
-    """Host tensor over a native-dtype block (uint16 travels as int16 and
-    is widened on the device)."""
+    """Host tensor over a native-dtype block (uint16 travels as int16,
+    uint32 as int32, and is widened on the device)."""
     block = np.ascontiguousarray(block)
     if block.dtype == np.uint16:
         block = block.view(np.int16)
+    elif block.dtype == np.uint32:
+        block = block.view(np.int32)
     return torch.from_numpy(block)
 
 

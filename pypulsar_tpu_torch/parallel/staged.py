@@ -11,6 +11,17 @@ transposed to [chan, time], widened to float32 and band-flipped there
 (:class:`MaskedSource`, at the full sample rate), optionally downsampled,
 and fed to :func:`~pypulsar_tpu_torch.parallel.sweep.sweep_stream`.
 
+Host downsampling (the reference's ``_host_downsampled_blocks``), opt-in
+through ``host_downsample=True`` (on :func:`run_step`, :func:`sweep_flat`,
+:func:`sweep_ddplan`, :func:`iter_device_chunks`): where a single integer
+SIGPROC file is downsampled (:func:`host_downsample_wins`), the prefetch
+worker sums the raw samples on the host (uint16, or uint32 for 16-bit
+samples and large factors) and ships the sums; integer sums are exact in
+either accumulator and in float32, so the blocks have the device path's
+bits. It is off by default: the sums halve the bytes shipped at factor 4
+on 8-bit data, but numpy's strided reduction on the worker takes longer
+than the card's co-add of the native samples (PERF.md).
+
 The series path (:func:`iter_device_chunks`) streams the same blocks
 through the dedispersion only, by any chunk engine;
 :func:`iter_dedispersed_chunks` hands every trial's series back to the
@@ -41,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from pypulsar_tpu_torch.core.device import count_d2h, resolve_device
+from pypulsar_tpu_torch.io.filterbank import FilterbankFile, unpack_subbyte
 from pypulsar_tpu_torch.io.infodata import InfoData
 from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.ops.masking import masked
@@ -168,12 +180,15 @@ def ingest_tc(raw_tc: torch.Tensor, flip: bool, nbits: int = 8):
     """[time, chan] native-dtype block -> [chan, time] float32, optionally
     band-flipped, on the block's device. ``nbits`` < 8 means ``raw_tc`` is
     packed [time, nchans*nbits//8] uint8 (low bits = lower channel) and is
-    unpacked here; 16-bit samples arrive as int16 and are widened as
-    unsigned. Integer to float32 is exact."""
+    unpacked here; 16-bit samples (and uint16 host sums) arrive as int16,
+    uint32 host sums as int32, and are widened as unsigned. Integer to
+    float32 is exact."""
     if nbits < 8:
         raw_tc = unpack_rows(raw_tc, nbits)
     elif raw_tc.dtype == torch.int16:
         raw_tc = raw_tc.to(torch.int32) & 0xFFFF
+    elif raw_tc.dtype == torch.int32:
+        raw_tc = raw_tc.to(torch.int64) & 0xFFFFFFFF
     d = raw_tc.t().to(torch.float32, memory_format=torch.contiguous_format)
     return torch.flip(d, dims=(0,)) if flip else d
 
@@ -401,12 +416,78 @@ def stream_quality(src) -> Optional[StreamQuality]:
     return src.stats if isinstance(src, GuardedSource) else None
 
 
+def host_downsample_wins(src, factor: int,
+                         host_downsample: bool = False) -> bool:
+    """Whether :func:`downsampled_blocks` sums ``factor`` samples on the
+    host and ships the sums (the reference's ``_host_downsample_wins``
+    with its override set): only when ``host_downsample`` asks for it,
+    and only for a :class:`ReaderSource` over one SIGPROC file of 16 bits
+    or fewer (integer sums are exact; a float file's would not keep the
+    device's order), 16-bit samples only up to factor 256; a masked or
+    scrubbed source stays at the full rate."""
+    if not host_downsample or factor <= 1 \
+            or not isinstance(src, ReaderSource):
+        return False
+    r = src.reader
+    if not isinstance(r, FilterbankFile):
+        return False
+    nbits = int(r.nbits)
+    return nbits <= 8 or (nbits <= 16 and factor <= 256)
+
+
+def host_ds_acc_dtype(nbits: int, factor: int):
+    """The accumulator of exact host bin sums: uint16 while ``factor``
+    samples of 8 bits or fewer fit (factor <= 257), uint32 otherwise and
+    for 16-bit samples."""
+    return np.uint16 if (nbits <= 8 and factor <= 257) else np.uint32
+
+
+def _host_downsampled_blocks(src: ReaderSource, factor: int,
+                             payload_ds: int, overlap_ds: int, device):
+    """Raw blocks read at ``factor`` times the downsampled geometry,
+    unpacked (below 8 bits) and summed over ``factor`` samples on the
+    prefetch worker, shipped as the integer sums and widened on
+    ``device`` (:func:`ingest_tc`)."""
+    reader = src.reader
+    nbits = int(reader.nbits)
+    acc_dtype = host_ds_acc_dtype(nbits, factor)
+    payload, overlap = payload_ds * factor, overlap_ds * factor
+    # the seam contract of ReaderSource.chan_major_blocks
+    if src.end < src.total and (src.end - src.start) % payload:
+        raise ValueError(
+            f"windowed source [{src.start}, {src.end}) is not a whole "
+            f"multiple of payload={payload}; seam samples would be counted "
+            f"in two windows")
+    raw = reader.iter_blocks(payload, overlap, start=src.start,
+                             end=min(src.end + overlap, src.total), raw=True)
+
+    def sums():
+        for pos, block in raw:
+            if pos >= src.end:  # an overlap-only tail past the window
+                break
+            if nbits < 8:
+                block = unpack_subbyte(block, nbits)
+            nbin = block.shape[0] // factor
+            if nbin == 0:
+                continue  # tail shorter than one output bin
+            yield pos, block[:nbin * factor].reshape(
+                nbin, factor, block.shape[1]).sum(axis=1, dtype=acc_dtype)
+
+    for pos, dev in ship_ahead(sums(), device):
+        yield pos // factor, ingest_tc(dev, src._flip, 8)
+
+
 def downsampled_blocks(src, factor: int, payload_ds: int, overlap_ds: int,
-                       device):
+                       device, host_downsample: bool = False):
     """Chan-major device blocks downsampled by ``factor`` (co-added in
-    float32 on the device; a partial trailing bin is dropped). Raw blocks
-    are read at ``factor`` times the downsampled geometry so bin edges
-    line up across chunks."""
+    float32 on the device, or summed on the host where
+    :func:`host_downsample_wins`; a partial trailing bin is dropped). Raw
+    blocks are read at ``factor`` times the downsampled geometry so bin
+    edges line up across chunks."""
+    if host_downsample_wins(src, factor, host_downsample):
+        yield from _host_downsampled_blocks(src, factor, payload_ds,
+                                            overlap_ds, device)
+        return
     for pos, data in src.chan_major_blocks(payload_ds * factor,
                                            overlap_ds * factor, device):
         if factor > 1:
@@ -443,13 +524,15 @@ def run_step(src, dms, factor: int, nsub: int, group_size: int,
              widths: Tuple[int, ...], chunk_payload: Optional[int],
              device, verbose: bool = False, engine: str = "auto",
              label: str = "", checkpoint: Optional[SweepCheckpoint] = None,
-             keep_chunk_peaks: bool = False,
-             ckpt_extra: str = "") -> Optional[StepResult]:
+             keep_chunk_peaks: bool = False, ckpt_extra: str = "",
+             host_downsample: bool = False
+             ) -> Optional[StepResult]:
     """Sweep ``dms`` over ``src`` downsampled by ``factor`` with the chunk
     ``engine``. ``group_size`` <= 0 picks the largest group within the
     smearing bound. ``checkpoint`` checkpoints the pass and resumes it,
     the source re-rooted at the cursor; ``ckpt_extra`` joins its
-    fingerprint (the mask tag)."""
+    fingerprint (the mask tag). ``host_downsample`` sums eligible
+    blocks on the host (:func:`host_downsample_wins`)."""
     dt_eff = src.tsamp * factor
     if src.nsamples // factor == 0:
         return None
@@ -465,7 +548,8 @@ def run_step(src, dms, factor: int, nsub: int, group_size: int,
         # are the ones the original stream would have given from there
         seeked = reroot_source(src, cursor_ds * factor)
         return downsampled_blocks(src if seeked is None else seeked, factor,
-                                  payload, plan.min_overlap, device)
+                                  payload, plan.min_overlap, device,
+                                  host_downsample)
 
     # sink-only span (aggregate=False): it encloses the sweep loop's
     # stages, which must stay non-overlapping in the flat table
@@ -473,7 +557,7 @@ def run_step(src, dms, factor: int, nsub: int, group_size: int,
                         n_trials=len(dms), payload=int(payload)):
         res = sweep_stream(
             plan, downsampled_blocks(src, factor, payload, plan.min_overlap,
-                                     device),
+                                     device, host_downsample),
             payload, engine=engine, device=device, checkpoint=checkpoint,
             keep_chunk_peaks=keep_chunk_peaks, block_factory=block_factory,
             checkpoint_context=ckpt_extra)
@@ -499,7 +583,8 @@ def iter_device_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
                        group_size: int = 32,
                        chunk_payload: Optional[int] = None, rfimask=None,
                        engine: str = "auto", device="cuda",
-                       dispatch_point: Optional[str] = None):
+                       dispatch_point: Optional[str] = None,
+                       host_downsample: bool = False):
     """Stream the file once on ``device`` and yield ``(pos, valid,
     series)``: each chunk's ``[D, payload]`` dedispersed series of every
     (group-padded) trial on the device, by the chunk ``engine``, of which
@@ -511,7 +596,9 @@ def iter_device_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
     cells of each raw block before it is downsampled. With
     ``dispatch_point`` each chunk's dispatch trips that fault point and
     halves its trial groups on a device OOM
-    (:class:`~pypulsar_tpu_torch.parallel.sweep.GroupHalving`)."""
+    (:class:`~pypulsar_tpu_torch.parallel.sweep.GroupHalving`).
+    ``host_downsample`` sums eligible blocks on the host
+    (:func:`host_downsample_wins`)."""
     factor = max(1, int(downsamp))
     dms = np.asarray(dms, dtype=np.float64)
     device = resolve_device(device)
@@ -526,7 +613,7 @@ def iter_device_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
                            dispatch_point.rsplit("_dispatch", 1)[0])
     for pos, block in downsampled_blocks(make_source(reader, rfimask, device),
                                          factor, payload, plan.min_overlap,
-                                         device):
+                                         device, host_downsample):
         L = int(block.shape[1])
         if L < need:  # tail: zero-pad to the chunk's length
             block = F.pad(block, (0, need - L))
@@ -626,7 +713,8 @@ def sweep_flat(source, dms, downsamp: int = 1, nsub: int = 64,
                engine: str = "auto", rfimask=None, device="cuda",
                checkpoint_path: Optional[str] = None,
                checkpoint_every: int = 16,
-               keep_chunk_peaks: bool = False) -> StagedSweepResult:
+               keep_chunk_peaks: bool = False,
+               host_downsample: bool = False) -> StagedSweepResult:
     """Single-step sweep of an explicit DM grid over a filterbank reader,
     streamed in chunks of ``chunk_payload`` (default: 2^18 samples less
     the overlap) on ``device``. ``rfimask`` (an
@@ -634,7 +722,8 @@ def sweep_flat(source, dms, downsamp: int = 1, nsub: int = 64,
     median-mid80 mask fill per raw block. ``checkpoint_path`` checkpoints
     the pass every ``checkpoint_every`` chunks and resumes from it;
     ``keep_chunk_peaks`` keeps each chunk's peaks
-    (:meth:`StagedSweepResult.events`)."""
+    (:meth:`StagedSweepResult.events`); ``host_downsample`` sums
+    eligible blocks on the host (:func:`host_downsample_wins`)."""
     resolve_engine(engine)
     device = resolve_device(device)
     src = make_source(source, rfimask, device)
@@ -644,7 +733,8 @@ def sweep_flat(source, dms, downsamp: int = 1, nsub: int = 64,
                     int(downsamp), nsub, group_size, tuple(widths),
                     chunk_payload, device, verbose=verbose, engine=engine,
                     checkpoint=ckpt, keep_chunk_peaks=keep_chunk_peaks,
-                    ckpt_extra=mask_tag(rfimask))
+                    ckpt_extra=mask_tag(rfimask),
+                    host_downsample=host_downsample)
     return StagedSweepResult(steps=[] if step is None else [step],
                              quality=stream_quality(src))
 
@@ -654,7 +744,9 @@ def sweep_ddplan(source, ddplan, nsub: int = 64, group_size: int = 32,
                  chunk_payload: Optional[int] = None, verbose: bool = False,
                  engine: str = "auto", rfimask=None, device="cuda",
                  checkpoint_path: Optional[str] = None,
-                 checkpoint_every: int = 16) -> StagedSweepResult:
+                 checkpoint_every: int = 16,
+                 host_downsample: bool = False
+                 ) -> StagedSweepResult:
     """Sweep every step of ``ddplan`` (a
     :class:`~pypulsar_tpu_torch.plan.ddplan.DDplan`) over the reader
     ``source``: step i sweeps ``step.DMs`` at ``step.downsamp`` times the
@@ -666,7 +758,10 @@ def sweep_ddplan(source, ddplan, nsub: int = 64, group_size: int = 32,
     ``{path}.step{i}.done.npz``. A resumed plan loads each finished step
     from its marker (when the marker's fingerprint, the input's probe
     included, matches), resumes the interrupted step from its cursor and
-    removes the markers when the whole plan has finished."""
+    removes the markers when the whole plan has finished.
+    ``host_downsample`` sums each step's eligible blocks on the host
+    (:func:`host_downsample_wins`; the results have the same bits either
+    way)."""
     engine = resolve_engine(engine)
     device = resolve_device(device)
     src = make_source(source, rfimask, device)
@@ -695,7 +790,7 @@ def sweep_ddplan(source, ddplan, nsub: int = 64, group_size: int = 32,
         sr = run_step(src, dms, int(step.downsamp), nsub, group_size,
                       tuple(widths), chunk_payload, device, verbose=verbose,
                       engine=engine, label=f"step {si}: ", checkpoint=ckpt,
-                      ckpt_extra=mtag)
+                      ckpt_extra=mtag, host_downsample=host_downsample)
         if sr is None:
             break
         if done_fn:

@@ -16,7 +16,15 @@ The ``gather`` engine (the reference's bit-parity formulation, and
 levels with the exact shifts) and ``engine="fourier"``
 (``ops/fourier_dedisperse.py``: phase multiply-reduce between FFTs) give
 the same statistics within 2e-6 relative SNR; :class:`ChunkEngine` runs
-any of the three over a stream of chunks. ``scan`` is not ported.
+any of them over a stream of chunks. ``engine="scan"`` is the
+reference's sequential formulation: stage 1 adds each subband's shifted
+channel rows one after another from row 0, which is the order in which
+the gather-sum kernel and its plain version add every output row, so the
+port runs it through the gather engine's launches and its statistics
+have the gather engine's bits.
+
+:func:`sweep_resident` is the reference's sweep of a device-resident
+``[C, T]`` array: :func:`sweep_spectra` of its whole chunks.
 
 Both ``gather`` stages are one :func:`~pypulsar_tpu_torch.ops.gather_sum.shifted_gather_sum`
 each over ALL trial groups of a chunk (the reference scans the groups
@@ -85,22 +93,17 @@ DEFAULT_CHUNK_FFT_LEN = 1 << 18
 SUBBAND_BUDGET_BYTES = 4 << 30
 #: chunks queued on the device ahead of the host's read-back
 MAX_PENDING = 2
-ENGINES = ("gather", "tree", "fourier")
-#: the reference's engine the port does not take, with its ROADMAP.md item
-NOT_PORTED = {"scan": "Queue 1 item 13"}
+ENGINES = ("gather", "scan", "tree", "fourier")
 
 
 def resolve_engine(engine: str = "auto") -> str:
-    """The chunk formulation: ``gather``, ``tree`` or ``fourier``;
-    ``auto`` is ``gather``, the reference's choice off a TPU."""
+    """The chunk formulation: ``gather``, ``scan``, ``tree`` or
+    ``fourier``; ``auto`` is ``gather``, the reference's choice off a
+    TPU."""
     if engine == "auto":
         return "gather"
     if engine in ENGINES:
         return engine
-    if engine in NOT_PORTED:
-        raise NotImplementedError(
-            f"sweep engine {engine!r} is not ported yet (ROADMAP.md "
-            f"{NOT_PORTED[engine]}); use one of {ENGINES}")
     raise ValueError(f"unknown sweep engine {engine!r}; expected one of "
                      f"{ENGINES + ('auto',)}")
 
@@ -304,7 +307,9 @@ class ChunkEngine:
         self.need = need
         self.device = device
         self.batches = self.tree = None
-        if self.engine == "gather":
+        # the scan's stage-1 sum order is the gather-sum kernel's: it runs
+        # the gather engine's launches
+        if self.engine in ("gather", "scan"):
             self.batches = group_batches(self.stage1_bins, self.stage2_bins,
                                          nsub, self.L1, device)
         elif self.engine == "tree":
@@ -329,7 +334,7 @@ class ChunkEngine:
 
     def series(self, data):
         """The ``[D, out_len]`` dedispersed series of chunk ``data``."""
-        if self.engine == "gather":
+        if self.batches is not None:
             return dedisperse_batches(data, self.batches, self.out_len,
                                       self.L1)
         if self.engine == "tree":
@@ -342,7 +347,7 @@ class ChunkEngine:
     def stats(self, data, widths: Tuple[int, ...], stat_len: int):
         """Per-trial (sum[D], sumsq[D], maxbox[D, W], argbox[D, W]) of
         chunk ``data`` on its device."""
-        if self.engine == "gather":
+        if self.batches is not None:
             parts = run_chunk(data, self.batches, self.out_len, self.L1,
                               widths, stat_len)
             return tuple(torch.cat([p[i] for p in parts]) for i in range(4))
@@ -875,3 +880,38 @@ def sweep_spectra(data, freqs, dt: float, dms, nsub: int = 64,
 
     return sweep_stream(plan, blocks(), chunk_payload, baseline=baseline,
                         engine=engine, device=device)
+
+
+def sweep_resident(data, freqs, dt: float, dms, nsub: int = 64,
+                   group_size: int = 32, widths=DEFAULT_WIDTHS,
+                   chunk_payload: Optional[int] = None, engine: str = "auto",
+                   device="cuda", mesh=None,
+                   pad_groups_to: Optional[int] = None) -> SweepResult:
+    """The whole sweep of ``data[chan, time]`` (numpy or tensor, channels
+    high-frequency-first), the reference's ``sweep_resident``: the time
+    axis is cut to whole chunks of ``chunk_payload`` samples (default:
+    one chunk of all of it) and what is kept is swept by
+    :func:`sweep_spectra` at that chunking, so its baseline is that of
+    the kept samples. A tensor already on ``device`` stays there; each
+    chunk's statistics come back behind its launch (:func:`sweep_stream`).
+
+    ``engine="tree"`` is refused (as in the reference: sweep it with
+    :func:`sweep_spectra`), and so are ``mesh`` and ``pad_groups_to``,
+    which come with ROADMAP.md Queue 1 item 14."""
+    if mesh is not None or pad_groups_to is not None:
+        raise NotImplementedError(
+            "sweep_resident's mesh and pad_groups_to are not ported yet "
+            "(ROADMAP.md Queue 1 item 14 (multi-GPU))")
+    if resolve_engine(engine) == "tree":
+        raise ValueError(
+            "sweep_resident does not take the tree engine (its host-built "
+            "merge plan); use sweep_spectra(..., engine='tree')")
+    T = int(data.shape[1])
+    payload = T if chunk_payload is None else min(int(chunk_payload), T)
+    n_chunks = max(T // payload, 1)
+    with telemetry.span("sweep_resident_run", n_chunks=n_chunks,
+                        payload=int(payload)):
+        return sweep_spectra(data[:, :n_chunks * payload], freqs, dt, dms,
+                             nsub=nsub, group_size=group_size, widths=widths,
+                             chunk_payload=payload, engine=engine,
+                             device=device)

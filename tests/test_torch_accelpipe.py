@@ -84,7 +84,12 @@ def runs(tmp_path_factory):
 
 
 def test_handoff_artifacts_match_reference(runs):
-    port, ref = runs["port"], runs["ref"]
+    _assert_stage_matches(runs["port"], runs["ref"])
+
+
+def _assert_stage_matches(port, ref):
+    """The port's stage outputs at ``port`` against the reference's at
+    ``ref`` under the module's contracts."""
     dats = sorted(glob.glob(ref + "_DM*.dat"))
     assert len(dats) == 8
     for fr in dats:
@@ -183,9 +188,25 @@ def test_plain_write_dats_uses_the_streamed_writer(runs):
         assert a.read() == b.read()
 
 
+def test_scan_engine_stage_matches_reference_scan(runs):
+    """``--engine scan`` (was refused, Queue 1 item 13): the stage's files
+    meet the JAX package's ``--engine scan`` stage under the module's
+    contracts, and are the bytes of the port's gather stage."""
+    port, ref = str(runs["dir"] / "scan"), str(runs["dir"] / "ref_scan")
+    assert cli.main([runs["fil"], "-o", port, *SWEEP, *ACCEL, "--write-dats",
+                     "--engine", "scan", "--device", "cpu"]) == 0
+    assert jax_cli.main([runs["fil"], "-o", ref, *SWEEP, *ACCEL,
+                         "--write-dats", "--engine", "scan"]) == 0
+    _assert_stage_matches(port, ref)
+    gather = runs["port"]
+    outs = _cand_files(gather) + sorted(glob.glob(gather + "_DM*.dat"))
+    for fg in outs + [gather + ".cands"]:
+        with open(fg, "rb") as a, open(port + _rel(fg, gather), "rb") as b:
+            assert a.read() == b.read(), fg
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "2"], "Queue 1 item 14"),
-    (["--engine", "scan"], "Queue 1 item 13"),
 ])
 def test_left_out_flags_fail_naming_the_roadmap(runs, capsys, flags, item):
     tag = str(runs["dir"] / "left_out")

@@ -145,15 +145,72 @@ def test_candfile_complete_matches_reference(trials, tmp_path):
     assert not journal.candfile_complete(empty)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--known-sources", "cat.txt"], "S13"),
-])
-def test_sift_left_out_flags_exit_2(trials, tmp_path, capsys, flags, item):
-    with pytest.raises(SystemExit) as e:
-        sift.main(trials + ["-o", str(tmp_path / "x.accelcands"), *flags])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
+def _pulsar_catalogs(d):
+    """Catalogs naming the DM-40 pulsar of the trials (P = T / 300.4): at
+    its period as text, at twice its period as JSON (the candidate is
+    then a harmonic)."""
+    p = T / 300.4
+    txt = os.path.join(d, "known.txt")
+    with open(txt, "w") as f:
+        f.write("# name period_s dm tol_p tol_dm\n")
+        f.write(f"PSRA {p!r} 40.0 0.005\nPSRB 0.5 300.0\n")
+    js = os.path.join(d, "known.json")
+    with open(js, "w") as f:
+        json.dump([{"name": "PSRH", "p_s": 2 * p, "dm": 41.0, "tol_p": 0.005,
+                    "tol_dm": 2.0}], f)
+    return {"text": txt, "json_harmonic": js}
+
+
+@pytest.mark.parametrize("kind", ["text", "json_harmonic"])
+@pytest.mark.parametrize("extra", [["-s", "4", "--min-hits", "2"],
+                                   ["-s", "3", "--min-hits", "1"]])
+def test_sift_known_sources_matches_reference(trials, tmp_path, capsys,
+                                              kind, extra):
+    """``--known-sources`` (was refused, Queue 1 S13): the port's list is
+    the bytes of the JAX package's, the vetoes it prints on stderr are
+    the JAX package's, and the pulsar the catalog names is gone."""
+    cat = _pulsar_catalogs(str(tmp_path))[kind]
+    port, ref = str(tmp_path / "port.accelcands"), str(tmp_path / "ref.accelcands")
+    plain = str(tmp_path / "plain.accelcands")
+    assert sift.main(trials + ["-o", plain, *extra]) == 0
+    capsys.readouterr()
+    assert sift.main(trials + ["-o", port, "--known-sources", cat,
+                               *extra]) == 0
+    port_err = capsys.readouterr().err
+    assert jax_sift.main(trials + ["-o", ref, "--known-sources", cat,
+                                   *extra]) == 0
+    ref_err = capsys.readouterr().err
+    with open(port, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+    vetoes = [ln for ln in port_err.splitlines() if "veto" in ln]
+    assert vetoes == [ln for ln in ref_err.splitlines() if "veto" in ln]
+    assert vetoes and "matches PSR" in vetoes[0]
+    before = accelcands.parse_candlist(plain)
+    after = accelcands.parse_candlist(port)
+    assert any(abs(c.r - 300.4) < 0.5 for c in before)
+    assert not any(abs(c.r - 300.4) < 0.5 for c in after)
+    assert len(after) == len(before) - (len(vetoes) - 1)
+
+
+def test_sift_journal_hashes_the_catalog(trials, tmp_path, capsys):
+    """The journal fingerprint with ``--known-sources`` is the JAX
+    package's; a changed catalog sifts again."""
+    cat = _pulsar_catalogs(str(tmp_path))["text"]
+    out = str(tmp_path / "x.accelcands")
+    jnl, ref_jnl = str(tmp_path / "j.jsonl"), str(tmp_path / "rj.jsonl")
+    flags = ["-s", "4", "--min-hits", "2", "--known-sources", cat]
+    assert sift.main(trials + ["-o", out, *flags, "--journal", jnl]) == 0
+    assert jax_sift.main(trials + ["-o", out, *flags, "--journal",
+                                   ref_jnl]) == 0
+    assert _journal_header(jnl)["fingerprint"] == \
+        _journal_header(ref_jnl)["fingerprint"]
+    capsys.readouterr()
+    assert sift.main(trials + ["-o", out, *flags, "--journal", jnl]) == 0
+    assert "validated complete, skipping" in capsys.readouterr().err
+    with open(cat, "a") as f:
+        f.write("PSRC 0.01 10.0\n")
+    assert sift.main(trials + ["-o", out, *flags, "--journal", jnl]) == 0
+    assert "validated complete" not in capsys.readouterr().err
 
 
 def _journal_header(path):
@@ -348,10 +405,7 @@ def test_pfd_snr_functions_match_reference(archives):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tsys", "30", "--gain", "2"], "S15"),
-    (["-m", "x.m"], "S14"),
-    (["-g", "x.gaussians"], "S14"),
-    (["-i"], "S14"),
+    (["-i"], "Queue 1 item 16"),
 ])
 def test_pfd_snr_left_out_flags_exit_2(archives, capsys, flags, item):
     _, paths = archives
@@ -360,6 +414,130 @@ def test_pfd_snr_left_out_flags_exit_2(archives, capsys, flags, item):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and item in err
+
+
+@pytest.fixture(scope="module")
+def placed(tmp_path_factory):
+    """Archives at sky positions (off the plane, on it), a paas model, a
+    Gaussians file and a HEALPix sky map."""
+    d = tmp_path_factory.mktemp("placed")
+    paths = []
+    for seed, amp, (ra, dec) in ((5, 3.0, ("05:34:31.94", "22:00:52.2")),
+                                 (6, 1.5, ("18:00:00.00", "-20:00:00.00")),
+                                 (7, 0.0, ("12:30:00.00", "45:00:00.00"))):
+        args, kw = _pfd_args(seed, amp)
+        p = prestopfd.make_pfd(*args, **kw)
+        p.rastr, p.decstr = ra, dec
+        fn = str(d / f"sky_cand{seed}.pfd")
+        p.write(fn)
+        paths.append(fn)
+    model = str(d / "comps.m")
+    with open(model, "w") as f:
+        f.write("# phase concentration amplitude\n0.4 400.0 1.0\n"
+                "0.45 50.0 0.2\n")
+    gauss = str(d / "g.gaussians")
+    with open(gauss, "w") as f:
+        f.write("const = 0.1 +/- 0\nphas1 = 0.40 +/- 0\n"
+                "ampl1 = 5.0 +/- 0\nfwhm1 = 0.04 +/- 0\n")
+    from pypulsar_tpu_torch.astro import healpix, skytemp
+
+    theta, _ = healpix.pix2ang(16, np.arange(healpix.npix(16)))
+    skymap = str(d / "haslam.fits")
+    skytemp.write_healpix_map(skymap, 15.0 + 60.0 * np.exp(
+        -((theta - np.pi / 2) / 0.15) ** 2))
+    return dict(paths=paths, model=model, gauss=gauss, skymap=skymap,
+                pattern=str(d / "sky_cand*.pfd"))
+
+
+def _json_rows(main, argv, out):
+    rc = main(argv + ["--json", out])
+    with open(out) as f:
+        return rc, json.load(f)
+
+
+@pytest.mark.parametrize("extra,skymap", [
+    (["--tsys", "30", "--gain", "2"], False),
+    (["--tsys", "30", "--gain", "2", "--fwhm", "3.0", "--sep", "1.2"], False),
+    (["--tsys", "25", "--gain", "10"], True),
+    (["-m", "MODEL"], False),
+    (["-m", "MODEL", "--sefd", "4.0"], False),
+])
+def test_pfd_snr_sky_and_model_options_match_reference(placed, tmp_path,
+                                                       monkeypatch, extra,
+                                                       skymap):
+    """``--tsys/--gain`` (Queue 1 S15; the map: ``--haslam-map`` here, the
+    reference's environment variable there; none: the approximation in
+    both) and ``-m`` (S14): rows equal to the JAX package's."""
+    extra = [placed["model"] if a == "MODEL" else a for a in extra]
+    ref_extra = list(extra)
+    monkeypatch.delenv("PYPULSAR_TPU_HASLAM", raising=False)
+    if skymap:
+        extra += ["--haslam-map", placed["skymap"]]
+        monkeypatch.setenv("PYPULSAR_TPU_HASLAM", placed["skymap"])
+    rc, got = _json_rows(pfd_snr.main, [placed["pattern"], *extra],
+                         str(tmp_path / "port.json"))
+    ref_rc, want = _json_rows(jax_pfd_snr.main, [placed["pattern"],
+                                                 *ref_extra],
+                              str(tmp_path / "ref.json"))
+    assert rc == ref_rc == 0
+    _same_rows(got, want)
+    assert got[0]["snr"] > 10
+    if "--gain" in extra or "--sefd" in extra:
+        assert got[0]["smean_mjy"] > 0
+
+
+def test_pfd_snr_gaussian_file_is_the_sum_of_its_gaussians(placed, tmp_path,
+                                                           monkeypatch):
+    """``-g`` (Queue 1 S14): the port's model is the sum of the file's
+    Gaussians plus its constant. The JAX CLI hands the (components,
+    constant) pair itself to the model selection, which fails on it; with
+    its reader returning the summed model, its rows are the port's."""
+    from pypulsar_tpu.fold import profile_snr as jax_psnr
+
+    argv = [placed["pattern"], "-g", placed["gauss"]]
+    rc, got = _json_rows(pfd_snr.main, argv, str(tmp_path / "port.json"))
+    assert rc == 0 and got[0]["snr"] > 10
+    ref_rc, broken = _json_rows(jax_pfd_snr.main, argv,
+                                str(tmp_path / "broken.json"))
+    assert ref_rc == 1
+    assert {r["error"] for r in broken} == {"failed: AttributeError"}
+    real = jax_psnr.read_gaussfitfile
+
+    def summed(fn, proflen):
+        comps, const = real(fn, proflen)
+        return comps.sum(axis=0) + const
+
+    monkeypatch.setattr(jax_psnr, "read_gaussfitfile", summed)
+    ref_rc, want = _json_rows(jax_pfd_snr.main, argv,
+                              str(tmp_path / "ref.json"))
+    assert ref_rc == 0
+    _same_rows(got, want)
+
+
+def test_pfd_snr_sefd_flag_conflicts_are_the_references(placed, capsys):
+    for flags in (["--sefd", "3", "--gain", "10"], ["--gain", "10"],
+                  ["--tsys", "30"]):
+        assert pfd_snr.main([placed["paths"][0], *flags]) == 1
+        got = capsys.readouterr().err
+        assert jax_pfd_snr.main([placed["paths"][0], *flags]) == 1
+        assert got == capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,words", [
+    (["-m", "MODEL", "-g", "GAUSS"], "exclude each other"),
+    (["--haslam-map", "MAP"], "needs --tsys and --gain"),
+    (["--sefd", "3", "--haslam-map", "MAP"], "needs --tsys and --gain"),
+])
+def test_pfd_snr_option_conflicts_exit_2(placed, capsys, flags, words):
+    """Options that would be dropped without a word exit 2: a model file
+    beside a Gaussians file, a sky map without --tsys/--gain."""
+    names = dict(MODEL=placed["model"], GAUSS=placed["gauss"],
+                 MAP=placed["skymap"])
+    with pytest.raises(SystemExit) as e:
+        pfd_snr.main([placed["paths"][0],
+                      *[names.get(a, a) for a in flags]])
+    assert e.value.code == 2
+    assert words in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------

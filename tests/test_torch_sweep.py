@@ -337,13 +337,149 @@ def test_accum_parts_finalize_to_the_streamed_result():
 
 
 def test_unported_engines_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
-        sweep.resolve_engine("scan")
+    """Every reference engine resolves now (``scan`` since its port); an
+    unknown name still raises."""
     with pytest.raises(ValueError):
         sweep.resolve_engine("nonsense")
     assert sweep.resolve_engine("auto") == "gather"
-    assert [sweep.resolve_engine(e) for e in ("gather", "tree", "fourier")] \
-        == ["gather", "tree", "fourier"]
+    assert [sweep.resolve_engine(e) for e in ("gather", "scan", "tree",
+                                               "fourier")] \
+        == ["gather", "scan", "tree", "fourier"]
+    assert set(sweep.ENGINES) == set(jax_sweep.ENGINES)
+
+
+def _pulsed(C=64, T=6000, dt=1e-3, seed=7):
+    rng = np.random.default_rng(seed)
+    freqs = (1500.0 - 2.0 * np.arange(C)).astype(np.float64)
+    data = rng.standard_normal((C, T)).astype(np.float32) + np.float32(96.0)
+    bins = np.round((4149.377593360996 * 80.0 * (freqs ** -2.0
+                                                 - freqs.max() ** -2.0))
+                    / dt).astype(int)
+    for c in range(C):
+        if 700 + bins[c] < T:
+            data[c, 700 + bins[c]] += 6.0
+    return freqs, dt, data
+
+
+def test_scan_engine_has_gather_bits_and_meets_reference_scan():
+    """The port's ``scan`` runs the gather engine's launches: one chunk's
+    statistics and series have the gather engine's bits, and meet the JAX
+    ``sweep_chunk(engine="scan")`` as the gather engine meets the JAX
+    gather (s/ss/mb rtol 1e-5, argbox equal; the JAX scan's stage 2 is
+    an XLA reduction of its own order)."""
+    rng = np.random.default_rng(15)
+    plan = sweep.make_sweep_plan(np.linspace(0, 400, 24), _freqs(), 5e-4,
+                                 nsub=16, group_size=8)
+    out_len, slack2, stat_len = 3000 + 32, plan.max_shift2, 3000
+    L = out_len + slack2 + plan.max_shift1
+    data = rng.standard_normal((64, L)).astype(np.float32)
+    args = (16, out_len, slack2, WIDTHS, stat_len)
+    t = torch.from_numpy(data)
+    scan = [a.numpy() for a in sweep.sweep_chunk(
+        t, plan.stage1_bins, plan.stage2_bins, *args, engine="scan")]
+    gather = [a.numpy() for a in sweep.sweep_chunk(
+        t, plan.stage1_bins, plan.stage2_bins, *args, engine="gather")]
+    for a, b in zip(scan, gather):
+        np.testing.assert_array_equal(a, b)
+    ref = [np.asarray(a) for a in jax_sweep.sweep_chunk(
+        jnp.asarray(data), jnp.asarray(plan.stage1_bins),
+        jnp.asarray(plan.stage2_bins), *args, engine="scan")]
+    for name, g, r in zip(("s", "ss", "mb"), scan[:3], ref[:3]):
+        np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-4, err_msg=name)
+    np.testing.assert_array_equal(scan[3], ref[3])
+    series = sweep.dedisperse_series_chunk(
+        t, plan.stage1_bins, plan.stage2_bins, 16, out_len, slack2,
+        engine="scan").numpy()
+    np.testing.assert_array_equal(series, sweep.dedisperse_series_chunk(
+        t, plan.stage1_bins, plan.stage2_bins, 16, out_len, slack2).numpy())
+    ref_series = np.asarray(jax_sweep.dedisperse_series_chunk(
+        jnp.asarray(data), jnp.asarray(plan.stage1_bins),
+        jnp.asarray(plan.stage2_bins), 16, out_len, slack2, engine="scan"))
+    np.testing.assert_allclose(series, ref_series, rtol=1e-5, atol=1e-4)
+
+
+def test_scan_sweep_matches_reference_scan():
+    """A whole ``scan`` sweep: the gather sweep's bits, and within the
+    reference's sweep tolerance of the JAX ``scan`` sweep with the same
+    peaks."""
+    freqs, dt, data = _pulsed()
+    dms = np.linspace(0.0, 160.0, 40)
+    kw = dict(nsub=16, group_size=8, chunk_payload=2000)
+    got = sweep.sweep_spectra(data, freqs, dt, dms, device="cpu",
+                              engine="scan", **kw)
+    gather = sweep.sweep_spectra(data, freqs, dt, dms, device="cpu", **kw)
+    np.testing.assert_array_equal(got.snr, gather.snr)
+    np.testing.assert_array_equal(got.peak_sample, gather.peak_sample)
+    assert got.engine_info == {"engine": "scan"}
+    ref = jax_sweep.sweep_spectra(Spectra(freqs, dt, data), dms,
+                                  engine="scan", **kw)
+    np.testing.assert_allclose(got.snr, ref.snr, rtol=5e-6, atol=1e-4)
+    np.testing.assert_array_equal(got.peak_sample, ref.peak_sample)
+    np.testing.assert_allclose(got.mean, ref.mean, rtol=1e-6)
+
+
+@pytest.mark.parametrize("engine", ["gather", "scan", "fourier"])
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_sweep_resident_bits_of_streamed(engine, as_tensor):
+    """The resident sweep of whole chunks has the streamed sweep's bits
+    at the same chunking (snr, peak_sample, mean, std), numpy or tensor
+    input, for every engine it takes."""
+    freqs, dt, data = _pulsed(T=6000)
+    src = torch.from_numpy(data) if as_tensor else data
+    dms = np.linspace(0.0, 160.0, 40)
+    kw = dict(nsub=16, group_size=8, chunk_payload=1500, engine=engine,
+              device="cpu")
+    streamed = sweep.sweep_spectra(src, freqs, dt, dms, **kw)
+    resident = sweep.sweep_resident(src, freqs, dt, dms, **kw)
+    for f in ("snr", "peak_sample", "mean", "std"):
+        np.testing.assert_array_equal(getattr(resident, f),
+                                      getattr(streamed, f), err_msg=f)
+    assert resident.engine_info == streamed.engine_info
+
+
+def test_sweep_resident_meets_reference_resident():
+    """Against the JAX ``sweep_resident`` (the time axis cut to whole
+    chunks in both): the sweep's tolerance, the same peaks; one chunk
+    when no payload is given."""
+    freqs, dt, data = _pulsed(T=6500)
+    dms = np.linspace(0.0, 160.0, 40)
+    for payload in (2000, None):
+        kw = dict(nsub=16, group_size=8, chunk_payload=payload)
+        got = sweep.sweep_resident(data, freqs, dt, dms, device="cpu", **kw)
+        ref = jax_sweep.sweep_resident(Spectra(freqs, dt, data), dms,
+                                       engine="gather", **kw)
+        np.testing.assert_allclose(got.snr, ref.snr, rtol=5e-6, atol=1e-4)
+        np.testing.assert_array_equal(got.peak_sample, ref.peak_sample)
+        np.testing.assert_allclose(got.mean, ref.mean, rtol=1e-6)
+        np.testing.assert_allclose(got.std, ref.std, rtol=1e-5)
+
+
+def test_sweep_resident_refusals_and_trace(tmp_path):
+    """The tree engine is refused as in the reference, the mesh and
+    padded groups name their ROADMAP item; a run records the reference's
+    span and counters."""
+    from pypulsar_tpu_torch.obs import telemetry
+
+    freqs, dt, data = _pulsed(C=32, T=3000)
+    dms = np.linspace(0.0, 60.0, 8)
+    kw = dict(nsub=8, group_size=4, chunk_payload=1000, device="cpu")
+    with pytest.raises(ValueError, match="tree"):
+        sweep.sweep_resident(data, freqs, dt, dms, engine="tree", **kw)
+    with pytest.raises(ValueError, match="tree"):
+        jax_sweep.sweep_resident(Spectra(freqs, dt, data), dms,
+                                 engine="tree", nsub=8, group_size=4,
+                                 chunk_payload=1000)
+    for extra in (dict(mesh=object()), dict(pad_groups_to=4)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+            sweep.sweep_resident(data, freqs, dt, dms, **kw, **extra)
+    with telemetry.session(str(tmp_path / "t.jsonl")) as tlm:
+        sweep.sweep_resident(data, freqs, dt, dms, **kw)
+        totals = tlm.counter_totals()
+        spans = set(tlm.stages)
+    assert totals["sweep.chunks"] == 3
+    assert totals["sweep.trials_completed"] == 8
+    assert totals["sweep.payload_samples"] == 3000
+    assert "sweep_resident_run" in spans
 
 
 def test_ingest_unpacks_like_reference_reader(tmp_path):
