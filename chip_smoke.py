@@ -372,6 +372,51 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    tool's own ``main`` run here, the pulsar's rows (and only they)
    vetoed from phase 7's list, finite SNRs and a mean flux; an unknown
    tool exits 2 with a hint. One ``path NAME:`` line each.
+18. The survey fleet: ``python -m pypulsar_tpu_torch.cli survey`` (its
+   dispatcher's ``main``, in this process) over three full-width files,
+   phase 8's RFI copy, phase 11's second file (DM 62, period 2048) and
+   phase 4's clean file, at ``SurveyConfig(lodm=54)``'s flags with
+   ``--devices 1 --max-host-workers 2``, the broker at its default
+   window. First the clean file's serial ``run_observation`` (phases 8
+   and 11 give the other two). (a) The fleet, traced
+   (``--telemetry-dir``): every artifact of each observation the bytes
+   of its serial chain (``_snr.json`` apart from the archives'
+   directory), each pulsar folded to SNR > 10, every manifest with its
+   five stages done and no quarantine, no device evicted
+   (``_fleet_health.json``), the candidate store holding a DM-70 row of
+   the pulsar (its period or a harmonic) at SNR > 10, which ``cands
+   --near`` lists, both gather-sum stages, boxcar and a fold form
+   launched; printed: the fleet's wall against the sum of the three
+   serial chains, each stage's wall from the trace, the device lane's
+   busy and idle time between its first and last device stage, the
+   broker's counters, peak device memory. (b) ``--resume`` of the
+   finished fleet: "0 stages run, 15 skipped", no launch, the archives'
+   bytes unchanged. (c) The fleet in a child with ``--fault-inject
+   exit:survey.stage_done.sweep:2`` (exit 137 right after the second
+   sweep's artifacts, before its manifest record), on the first two
+   files, then ``--resume`` here: exactly the stages the manifests did
+   not record run, every artifact the serial chains' bytes. (d)
+   ``--devices 2`` on the one card (two device stages in flight),
+   traced as (a) is: the same bytes; its wall beside (a)'s and its peak
+   memory. (e) A batch lane of the fleet: (a)'s first two observations
+   cut back to their sifts (the manifests lose the fold and snr
+   records, those artifacts are removed), then resumed through
+   ``FleetScheduler(..., resume=True)`` with the broker's window at
+   phase 11's ``LANE_WAIT_MS``: both folds queue at once, so the lease
+   runs them as one lane; gates: 4 stages run, 6 skipped, a lane, fused
+   dispatches, ``fold_parts_multi_poly`` launched, every artifact the
+   serial chains' bytes. (f) The flight
+   recorder's cost to an untraced run: phase 6's stage with the ring
+   off (``flightrec.configure(0)``) and on (the default ring), the same
+   bytes, the ring records the stage wrote, and one session-off span
+   and event with the ring off and on in alternating pairs. (g) A
+   strike and a watchdog interrupt on the card: the second observation
+   cut back to its sift and resumed with ``stall_s=3``, ``retries=2``
+   and ``FLEET_FAULTS`` armed (an OOM at the fold's start, then a hang
+   at the retry's second fold dispatch): one strike on card 0 (its
+   cache emptied), no eviction, one stall interrupt (the card
+   synchronized, the fold's outputs scrubbed), two retries, every
+   artifact the serial chain's bytes. One ``path NAME:`` line each.
 
 Then one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
@@ -384,8 +429,11 @@ and ``mask_split`` and phase 13's ``waterfaller_nsub_mask``,
 16's ``telemetry_stage``, ``fault_accel_oom``, ``fault_fold_oom``,
 ``fault_exit_resume`` and ``prepfold_traced``, and phase 17's
 ``sweep_resident``, ``sweep_scan``, ``ddplan_host_ds``,
-``ddplan_device_ds`` and ``ddplan_host_ds_resume`` among them), the card
-line, and the last line ``{"ok": true, "device": {...}}``.
+``ddplan_device_ds`` and ``ddplan_host_ds_resume``, and phase 18's
+``survey_fleet``, ``survey_fleet_resume``, ``survey_fleet_2leases``,
+``survey_fleet_lanes``, ``stage_ring_on`` and ``survey_fleet_faults``
+among them), the card line, and the last line ``{"ok": true, "device":
+{...}}``.
 """
 
 import collections
@@ -395,6 +443,7 @@ import hashlib
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -3419,9 +3468,10 @@ def lane_phase(tmp, info, device, chain):
     """Phase 11 (b): a lane of 2 observations (``survey.lane.run_lane``)
     at the chain's size, phase 8's streamed configuration: A the RFI copy
     (held to phase 8's chain), B a second synthetic file with its own
-    pulsar (held to its own serial ``run_observation``); then the same
-    lane at the broker's default window (100 ms), held to the same bytes,
-    its walls and fusions printed beside the checked lane's. Returns the
+    pulsar (held to its own serial ``run_observation``, whose outputs and
+    wall phase 18 reuses: ``chain["serial_b"]``); then the same lane at
+    the broker's default window (100 ms), held to the same bytes, its
+    walls and fusions printed beside the checked lane's. Returns the
     checked lane's launches."""
     import torch
 
@@ -3447,6 +3497,8 @@ def lane_phase(tmp, info, device, chain):
     torch.cuda.synchronize()
     serial_b_s = time.perf_counter() - t0
     serial_s = sum(chain["walls"].values()) + serial_b_s
+    chain["serial_b"] = dict(fn=fn_b, outbase=serial_b.outbase,
+                             wall_s=serial_b_s, walls=walls_b)
     psr = {"rfi": (info["period_samples"] * info["tsamp"], 70.0),
            "psrb": (LANE_B_PERIOD * info["tsamp"], LANE_B_DM)}
     runs = {}
@@ -5824,6 +5876,481 @@ def resident_phase(tmp, fn, card, gather_res, gather_launches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the survey fleet
+# ---------------------------------------------------------------------------
+
+FLEET_FLAGS = ["--lodm", str(STAGE_LODM), "--devices", "1",
+               "--max-host-workers", "2"]
+FLEET_STAGES = ("mask", "sweep", "sift", "fold", "snr")
+FLEET_DEVICE_STAGES = ("mask", "sweep", "fold")
+FLEET_KILL_AT = "exit:survey.stage_done.sweep:2"  # the 2nd sweep's done
+
+
+def fleet_spans(trace):
+    """``{obs: {stage: (t, dur)}}`` of a fleet trace's stage spans."""
+    out = collections.defaultdict(dict)
+    for rec in read_trace(trace)[0]:
+        name = rec.get("name", "")
+        if rec.get("type") == "span" and name.startswith("survey.stage."):
+            out[rec["attrs"]["obs"]][name[len("survey.stage."):]] = (
+                rec["t"], rec["dur"])
+    return dict(out)
+
+
+def device_lane_idle(spans):
+    """(busy s, idle s) of the device lane between its first start and
+    last end: the union of the device stages' spans, and the gaps."""
+    iv = sorted((t, t + d) for st in spans.values()
+                for name, (t, d) in st.items()
+                if name in FLEET_DEVICE_STAGES)
+    busy, cur = 0.0, None
+    for a, b in iv:
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    span = (iv[-1][1] - iv[0][0]) if iv else 0.0
+    return busy, span - busy
+
+
+def run_fleet(files, outdir, device, extra=(), tlm=None):
+    """``python -m pypulsar_tpu_torch.cli survey`` in this process (its
+    dispatcher's ``main``) with the counts and the broker at 0; returns
+    (stdout, wall s, launches, broker stats, peak GB)."""
+    import torch
+
+    from pypulsar_tpu_torch.cli import __main__ as dispatch
+    from pypulsar_tpu_torch.parallel import broker
+
+    argv = ["survey", *files, "-o", outdir, *FLEET_FLAGS, "--device",
+            str(device), *extra]
+    if tlm is not None:
+        argv += ["--telemetry-dir", tlm]
+    broker.reset()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, out = run_quiet(dispatch.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"survey {' '.join(extra)} exited {rc}: {out[-3000:]}")
+    stats = broker.get_broker().stats()
+    broker.reset()
+    return (out, wall, launch_counts(), stats,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def fleet_bytes(serials, outdir, label):
+    """Fail unless every artifact of each observation under ``outdir``
+    has the bytes of its serial chain (``_snr.json`` apart from the
+    archives' directory); returns the files compared."""
+    n = 0
+    for name, serial in serials.items():
+        base = os.path.join(outdir, name)
+        for pattern in LANE_PATTERNS:
+            paths = sorted(glob.glob(serial + pattern))
+            if not paths or len(glob.glob(base + pattern)) != len(paths):
+                fail(f"fleet {label} {name}: {len(paths)} serial files of "
+                     f"{pattern}, {len(glob.glob(base + pattern))} in the "
+                     f"fleet")
+            n += same_bytes(paths, serial, base)
+        if snr_rows(serial + "_snr.json") != snr_rows(base + "_snr.json"):
+            fail(f"fleet {label} {name}: _snr.json differs from the "
+                 f"serial chain's")
+        n += 1
+    return n
+
+
+def fleet_phase(tmp, fn, info, chain, card, device="cuda"):
+    """Phase 18: ``survey`` over three full-width observations on the
+    card (phase 8's RFI copy, phase 11's second file, phase 4's clean
+    file); returns the launches of the fleet, of the killed fleet's
+    resume and of the two-lease fleet."""
+    import torch
+
+    from pypulsar_tpu_torch.candstore import CandStore
+    from pypulsar_tpu_torch.cli import __main__ as dispatch
+    from pypulsar_tpu_torch.survey import dag
+    from pypulsar_tpu_torch.survey.state import (
+        Observation,
+        read_fleet_health,
+        status_rows,
+    )
+
+    cfg = dag.SurveyConfig(lodm=float(STAGE_LODM))
+    serial_b = chain["serial_b"]
+    # the third file's serial chain (phases 8 and 11 give the other two)
+    os.makedirs(os.path.join(tmp, "chain_obs"))
+    serial_obs = Observation("obs", fn, os.path.join(tmp, "chain_obs", "obs"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walls_obs = dag.run_observation(serial_obs, cfg, device=device)
+    torch.cuda.synchronize()
+    serial_walls = {"rfi": sum(chain["walls"].values()),
+                    "psrb": serial_b["wall_s"],
+                    "obs": time.perf_counter() - t0}
+    serials = {"rfi": chain["outbase"], "psrb": serial_b["outbase"],
+               "obs": serial_obs.outbase}
+    files = [chain["rfi"], serial_b["fn"], fn]
+    psr = info["period_samples"] * info["tsamp"]
+    pulsars = {"rfi": (psr, 70.0),
+               "psrb": (LANE_B_PERIOD * info["tsamp"], LANE_B_DM),
+               "obs": (psr, 70.0)}
+
+    # (a) the fleet
+    out_a = os.path.join(tmp, "fleet")
+    tlm = os.path.join(tmp, "fleet_tlm")
+    text, wall_a, launches, stats, peak_a = run_fleet(files, out_a, device,
+                                                      tlm=tlm)
+    need = ("gather_sum/stage1", "gather_sum/stage2", "boxcar_stats")
+    if min(launches[k] for k in need) < 1 or launches["fold_parts_poly"] \
+            + launches["fold_parts_multi_poly"] < 1:
+        fail(f"the fleet did not launch every kernel of its path: "
+             f"{launches}")
+    files_equal = fleet_bytes(serials, out_a, "(a)")
+    hits = {}
+    for name, (period, dm) in pulsars.items():
+        hits[name] = lane_hits(os.path.join(out_a, name), period, dm)
+        if not hits[name]:
+            fail(f"fleet {name}: no candidate at its pulsar's DM and period "
+                 f"or a harmonic folds to SNR > 10")
+    rows = status_rows(sorted(glob.glob(os.path.join(out_a,
+                                                     "*.survey.jsonl"))))
+    if sorted(r["obs"] for r in rows) != sorted(serials) or any(
+            r["done"] != list(FLEET_STAGES) or r["quarantine"]
+            for r in rows):
+        fail(f"the fleet's manifests do not show every stage done: {rows}")
+    health = read_fleet_health(out_a)
+    if health is not None and any(d.get("quarantined") for d in
+                                  health.get("devices", {}).values()):
+        fail(f"the fleet evicted a device: {health}")
+    stored = [r for r in CandStore(out_a).query()
+              if r.get("obs") in ("rfi", "obs")
+              and abs((r.get("dm") or 0.0) - 70.0) <= 2.0
+              and r.get("p_s") and harmonic_of(r["p_s"], psr) is not None
+              and (r.get("snr") or 0.0) > 10]
+    if not stored:
+        fail("the candidate store holds no DM-70 pulsar row of SNR > 10")
+    best = max(stored, key=lambda r: r["snr"])
+    rc, listed = run_quiet(dispatch.main, [
+        "cands", out_a, "--near", repr(best["p_s"]), repr(best["dm"]),
+        "--tol-p", "1e-6", "--tol-dm", "0.01"])
+    if rc != 0 or best["obs"] not in listed or "candidate(s)" not in listed:
+        fail(f"cands does not list the stored pulsar: {listed}")
+    spans = fleet_spans(os.path.join(tlm, "fleet.jsonl"))
+    busy, idle = device_lane_idle(spans)
+    serial_sum = sum(serial_walls.values())
+
+    # (b) a --resume of the finished fleet runs nothing
+    before = sha256s(sorted(glob.glob(os.path.join(out_a, "*_cand*.pfd"))))
+    text_b, wall_b, launches_b, _, _ = run_fleet(files, out_a, device,
+                                                 ["--resume"])
+    if "0 stages run, 15 skipped" not in text_b or any(launches_b.values()):
+        fail(f"the resume of the finished fleet ran work: {launches_b}; "
+             f"{text_b[-500:]}")
+    if sha256s(sorted(before)) != before:
+        fail("the resume of the finished fleet changed an archive")
+
+    # (c) a fleet of the first two files killed at the second sweep's
+    # boundary, then --resume
+    out_c = os.path.join(tmp, "fleet_kill")
+    files_c = files[:2]
+    serials_c = {k: serials[k] for k in ("rfi", "psrb")}
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pypulsar_tpu_torch.cli", "survey", *files_c,
+         "-o", out_c, *FLEET_FLAGS, "--device", str(device),
+         "--fault-inject", FLEET_KILL_AT],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    killed_s = time.perf_counter() - t0
+    if proc.returncode != 137:
+        fail(f"the killed fleet exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    recorded = {(r["obs"], st) for r in status_rows(sorted(glob.glob(
+        os.path.join(out_c, "*.survey.jsonl")))) for st in r["done"]}
+    n_stages_c = len(files_c) * len(FLEET_STAGES)
+    if not recorded or len(recorded) >= n_stages_c:
+        fail(f"the killed fleet recorded {sorted(recorded)}")
+    text_c, wall_c, launches_c, _, _ = run_fleet(files_c, out_c, device,
+                                                 ["--resume"])
+    want = (f"{n_stages_c - len(recorded)} stages run, {len(recorded)} "
+            f"skipped")
+    if want not in text_c:
+        fail(f"the resume ran other stages than the unfinished ones "
+             f"({want}): {text_c[-800:]}")
+    resumed_equal = fleet_bytes(serials_c, out_c, "(c)")
+
+    # (d) two device leases on the one card, traced as (a) is
+    out_d = os.path.join(tmp, "fleet_2leases")
+    _, wall_d, launches_d, stats_d, peak_d = run_fleet(
+        files, out_d, device, ["--devices", "2"],
+        tlm=os.path.join(tmp, "fleet_2leases_tlm"))
+    leases_equal = fleet_bytes(serials, out_d, "(d)")
+
+    # (e) a batch lane of the first two files' folds
+    lanes = lane_fleet(files_c, out_a, device, serials_c)
+    # (f) the flight recorder's cost to an untraced stage
+    ring = ring_cost(tmp, fn, card)
+    # (g) a strike and a watchdog interrupt on the card
+    faulted = fault_fleet(files[1:2], out_a, device,
+                          {"psrb": serials["psrb"]})
+
+    print("path survey_fleet: " + json.dumps({
+        "card": card, "observations": 3,
+        "fleet_wall_s": wall_a, "serial_walls_s": serial_walls,
+        "serial_sum_s": serial_sum, "fleet_over_serial": wall_a / serial_sum,
+        "serial_obs_stage_wall_s": walls_obs,
+        "fleet_stage_wall_s": {o: {k: d for k, (_, d) in st.items()}
+                               for o, st in spans.items()},
+        "device_lane_busy_s": busy, "device_lane_idle_s": idle,
+        "device_lane_idle_share": idle / max(busy + idle, 1e-9),
+        "broker": stats, "peak_device_gb": peak_a,
+        "files_equal_serial": files_equal,
+        "pulsars": {k: max(h, key=lambda r: r["snr"])
+                    for k, h in hits.items()},
+        "stored_pulsar": {k: best[k] for k in ("obs", "p_s", "dm", "snr")},
+        "fleet_health": health, "launches": launches}))
+    print("path survey_fleet_resume_done: " + json.dumps({
+        "card": card, "wall_s": wall_b, "launches": launches_b,
+        "said": text_b.strip().splitlines()[-1]}))
+    print("path survey_fleet_kill_resume: " + json.dumps({
+        "card": card, "killed_child_s": killed_s,
+        "recorded_at_kill": sorted(recorded), "resume_wall_s": wall_c,
+        "files_equal_serial": resumed_equal, "launches": launches_c,
+        "said": text_c.strip().splitlines()[-1]}))
+    print("path survey_fleet_2leases: " + json.dumps({
+        "card": card, "wall_s": wall_d, "over_one_lease": wall_d / wall_a,
+        "peak_device_gb": peak_d, "broker": stats_d,
+        "files_equal_serial": leases_equal, "launches": launches_d}))
+    print("path survey_fleet_lanes: " + json.dumps({"card": card, **lanes}))
+    print("path flightrec_cost: " + json.dumps({"card": card, **ring}))
+    print("path survey_fleet_faults: " + json.dumps({"card": card,
+                                                     **faulted}))
+    return {"survey_fleet": launches, "survey_fleet_resume": launches_c,
+            "survey_fleet_2leases": launches_d,
+            "survey_fleet_lanes": lanes["launches"],
+            "stage_ring_on": ring["launches"],
+            "survey_fleet_faults": faulted["launches"]}
+
+
+#: the stages (e) keeps done: the two observations' folds then queue at once
+LANE_FLEET_KEEP = ("mask", "sweep", "sift")
+
+
+def cut_back(obs, cfg, stages):
+    """Leave ``obs`` as a fleet that finished only ``stages``: the
+    manifest keeps every record but the other stages' done records, and
+    every artifact of the other stages is removed."""
+    from pypulsar_tpu_torch.survey import dag
+
+    keep = {path for spec in dag.build_dag(cfg) if spec.name in stages
+            for path in spec.outputs(obs, cfg)}
+    keep |= {obs.manifest, obs.outbase + ".chain.jsonl"}
+    for path in glob.glob(obs.outbase + "[._]*"):
+        if path not in keep:
+            os.remove(path)
+    units = {f"stage:{name}" for name in stages}
+    recs = [json.loads(ln) for ln in open(obs.manifest) if ln.strip()]
+    with open(obs.manifest, "w") as f:
+        for rec in recs:
+            if rec.get("type") != "done" or rec.get("unit") in units:
+                f.write(json.dumps(rec) + "\n")
+
+
+def lane_fleet(files, outdir, device, serials):
+    """Phase 18 (e): the observations of ``files`` in the fleet of
+    ``outdir`` cut back to their sifts, then resumed through
+    ``FleetScheduler`` with the broker's window at ``LANE_WAIT_MS``: both
+    folds queue at once and run as one lane; returns its numbers and
+    launches."""
+    import torch
+
+    from pypulsar_tpu_torch.cli import survey as survey_cli
+    from pypulsar_tpu_torch.obs import telemetry
+    from pypulsar_tpu_torch.parallel import broker
+    from pypulsar_tpu_torch.survey.scheduler import FleetScheduler
+
+    args = survey_cli.build_parser().parse_args(
+        [*files, "-o", outdir, *FLEET_FLAGS])
+    cfg = survey_cli._survey_config(args)
+    obs = survey_cli._observations(files, outdir)
+    for o in obs:
+        cut_back(o, cfg, LANE_FLEET_KEEP)
+    broker.reset()
+    broker.get_broker().wait_ms = float(LANE_WAIT_MS)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with telemetry.session() as tlm:
+        res = FleetScheduler(
+            obs, cfg, max_host_workers=args.max_host_workers,
+            devices=args.devices, resume=True, device=device).run()
+        decisions = tlm.event_counts.get("survey.lane_decision", 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    stats = broker.get_broker().stats()
+    broker.reset()
+    n_kept = len(obs) * len(LANE_FLEET_KEEP)
+    if not res.ok or len(res.skipped) != n_kept or \
+            len(res.ran) != len(obs) * len(FLEET_STAGES) - n_kept:
+        fail(f"the lane fleet ran {res.ran}, skipped {res.skipped}, "
+             f"quarantined {res.quarantined}")
+    if decisions < 1 or stats["coalesced_units"] < 2 or \
+            launches["fold_parts_multi_poly"] < 1 or \
+            stats["unit_retries"] or stats["fused_faults"]:
+        fail(f"the fleet's folds did not run as a fused lane: {decisions} "
+             f"lanes, {stats}, {launches}")
+    return dict(wall_s=wall, stages_run=len(res.ran),
+                stages_skipped=len(res.skipped), lanes=decisions,
+                wait_ms=LANE_WAIT_MS, broker=stats,
+                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+                files_equal_serial=fleet_bytes(serials, outdir, "(e)"),
+                launches=launches)
+
+
+#: (g)'s faults: an OOM that escapes the fold stage's start (a strike),
+#: then a hang at the retry's second fold dispatch (a stall)
+FLEET_FAULTS = "oom:survey.stage_start.fold:1,hang:fold.batch_dispatch:2"
+FLEET_STALL_S = 3.0
+
+
+def fault_fleet(files, outdir, device, serials):
+    """Phase 18 (g): the observation of ``files`` cut back to its sift,
+    resumed through ``FleetScheduler(..., stall_s=FLEET_STALL_S,
+    retries=2)`` with ``FLEET_FAULTS`` armed: the OOM strikes the card
+    (its cache emptied) and retries; the retry hangs inside a fold
+    dispatch, the watchdog interrupts it, the card is synchronized and
+    the fold's partial outputs scrubbed, and the second retry finishes;
+    returns its numbers and launches."""
+    import torch
+
+    from pypulsar_tpu_torch.cli import survey as survey_cli
+    from pypulsar_tpu_torch.obs import telemetry
+    from pypulsar_tpu_torch.resilience import faultinject
+    from pypulsar_tpu_torch.survey.scheduler import FleetScheduler
+    from pypulsar_tpu_torch.survey.state import read_fleet_health
+
+    args = survey_cli.build_parser().parse_args(
+        [*files, "-o", outdir, *FLEET_FLAGS])
+    cfg = survey_cli._survey_config(args)
+    obs = survey_cli._observations(files, outdir)
+    for o in obs:
+        cut_back(o, cfg, LANE_FLEET_KEEP)
+    reset_launch_counts()
+    hang_s = faultinject.HANG_S
+    faultinject.HANG_S = 20 * FLEET_STALL_S  # the watchdog ends the hang
+    faultinject.configure(FLEET_FAULTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with telemetry.session() as tlm:
+            res = FleetScheduler(
+                obs, cfg, max_host_workers=args.max_host_workers,
+                devices=args.devices, resume=True, retries=2,
+                stall_s=FLEET_STALL_S, device=device).run()
+            events = {k: tlm.event_counts.get(k, 0) for k in (
+                "mesh.device_strike", "survey.stage_stalled",
+                "survey.stage_retry")}
+        fired = faultinject.fired_counts()
+    finally:
+        faultinject.reset()
+        faultinject.HANG_S = hang_s
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    health = read_fleet_health(outdir) or {}
+    dev0 = health.get("devices", {}).get("0", {})
+    if not res.ok or res.retried != 2 or res.timeouts != 1 or \
+            res.evicted_devices or dev0.get("strikes") != 1 or \
+            dev0.get("quarantined"):
+        fail(f"the faulted fleet: ok {res.ok}, {res.retried} retries, "
+             f"{res.timeouts} interrupts, evicted {res.evicted_devices}, "
+             f"health {health}, events {events}, fired {fired}")
+    if launches["fold_parts_poly"] < 1:
+        fail(f"the faulted fleet's fold launched no fold kernel: {launches}")
+    return dict(wall_s=wall, stall_s=FLEET_STALL_S, faults=FLEET_FAULTS,
+                fired=fired, retried=res.retried, interrupts=res.timeouts,
+                events=events, device_health=dev0,
+                files_equal_serial=fleet_bytes(serials, outdir, "(g)"),
+                launches=launches)
+
+
+def ring_record_cost(n=2000):
+    """Host seconds of one session-off span or event (``n`` of each)."""
+    from pypulsar_tpu_torch.obs import telemetry
+
+    t0 = time.perf_counter()
+    for i in range(n):
+        with telemetry.span("cost", i=i):
+            pass
+        telemetry.event("cost.e", i=i)
+    return (time.perf_counter() - t0) / (2 * n)
+
+
+def ring_cost(tmp, fn, card):
+    """Phase 18 (f): phase 6's stage untraced with the flight recorder's
+    ring off and then on (the same bytes as phase 6's), the ring records
+    the stage wrote, and the host cost of a session-off record with the
+    ring off and on, in alternating pairs; returns the numbers and the
+    ring-on run's launches."""
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.obs import flightrec
+
+    real, written = flightrec.record, [0]
+
+    def counted(rec):
+        written[0] += 1
+        real(rec)
+
+    ref = os.path.join(tmp, "stage")
+    walls, records, launches = {}, {}, None
+    try:
+        for label, size in (("ring_off", 0), ("ring_on", None)):
+            flightrec.configure(size)
+            written[0] = 0
+            flightrec.record = counted
+            out = os.path.join(tmp, "stage_" + label)
+            with PathMeter("stage_" + label, card) as pm:
+                rc = cli.main(stage_argv(fn, out, STAGE_LODM, STAGE_DMS,
+                                         ["--write-dats"]))
+            flightrec.record = real
+            if rc != 0:
+                fail(f"the stage with the {label} exited {rc}")
+            same_outputs(ref, out)
+            walls[label], records[label] = pm.wall_s, written[0]
+            if launches is not None and pm.launches != launches:
+                fail(f"the ring changed the stage's launches: "
+                     f"{pm.launches}, {launches}")
+            launches = pm.launches
+        per_record = {"off": [], "on": []}
+        for _ in range(3):
+            for label, size in (("off", 0), ("on", None)):
+                flightrec.configure(size)
+                per_record[label].append(ring_record_cost())
+    finally:
+        flightrec.record = real
+        flightrec.configure(None)
+    extra_s = (statistics.median(per_record["on"])
+               - statistics.median(per_record["off"]))
+    return dict(stage_walls_s=walls, ring_records=records,
+                record_cost_us={k: [x * 1e6 for x in v]
+                                for k, v in per_record.items()},
+                ring_cost_s=extra_s * records["ring_on"],
+                ring_cost_fraction=extra_s * records["ring_on"]
+                / walls["ring_off"],
+                launches=launches)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -5875,6 +6402,7 @@ def main() -> int:
         telemetry_paths = telemetry_phase(tmp, fn, info, card, stage_series,
                                           chain, prep["prepfold"])
         resident_paths = resident_phase(tmp, fn, card, gather_res, launches)
+        fleet_paths = fleet_phase(tmp, fn, info, chain, card)
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -5885,7 +6413,7 @@ def main() -> int:
              "spectral_chain": spectral_ch, "ddplan": ddplan, **prep,
              "lane": lane_launches, **fits_paths, **spectra_paths,
              **hour_paths, **resume_paths, **telemetry_paths,
-             **resident_paths}
+             **resident_paths, **fleet_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}

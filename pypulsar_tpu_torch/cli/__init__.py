@@ -49,12 +49,11 @@ def save_arrays(outfile, **arrays) -> bool:
 
 
 def use_headless_backend_if_needed(outfile):
-    """Switch matplotlib to Agg when writing to a file or without a
-    display."""
-    import os
-
+    """Switch matplotlib to Agg when writing to a file (without a display
+    matplotlib's own backend resolution already falls back to Agg; the
+    port reads no environment variable)."""
     import matplotlib
-    if outfile or not os.environ.get("DISPLAY"):
+    if outfile:
         matplotlib.use("Agg", force=False)
 
 

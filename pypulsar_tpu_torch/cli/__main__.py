@@ -27,10 +27,10 @@ TOOLS = [
 #: the JAX package's tools the port does not have yet, with the ROADMAP.md
 #: item that brings each
 NOT_PORTED = {tool: "Queue 1 item 16" for tool in (
-    "survey", "pulse_energy_distribution", "autozap", "combinefil",
+    "pulse_energy_distribution", "autozap", "combinefil",
     "stitchdat", "mockspecfil2subbands", "demodulate", "pfdinfo",
     "gridding", "fitkepler", "shapiro", "pbdot", "massfunc", "pyppdot",
-    "pyplotres", "coordconv", "tlmtrace", "psrlint", "tune", "cands")}
+    "pyplotres", "coordconv", "psrlint", "tune")}
 
 
 def main(argv=None) -> int:

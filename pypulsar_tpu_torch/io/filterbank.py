@@ -38,7 +38,8 @@ class FilterbankFile:
 
     ``header`` dict (fields also readable as attributes), ``frequencies``
     per channel in file order (MHz), ``nspec`` whole samples on disk,
-    ``is_hifreq_first`` (foff < 0)."""
+    ``is_hifreq_first`` (foff < 0), ``salvage`` (None, or the read,
+    expected and missing samples of a truncated file)."""
 
     def __init__(self, filfn: str):
         self.filename = filfn
@@ -68,9 +69,24 @@ class FilterbankFile:
         self.bytes_per_spectrum = self.nchans * nbits // 8
         data_size = os.stat(filfn).st_size - self.header_size
         self.number_of_samples = data_size // self.bytes_per_spectrum
-        if data_size % self.bytes_per_spectrum:
+        # a truncated tail is salvaged: the whole-sample prefix is read
+        # and the missing span reported (``salvage``, which the survey's
+        # ingest report carries), as the reference's reader does
+        partial_tail = data_size % self.bytes_per_spectrum
+        expected = int(self.header.get("nsamples", 0) or 0)
+        missing = (max(expected - self.number_of_samples, 0)
+                   if expected > 0 else 0)
+        self.salvage = None
+        if partial_tail or missing:
+            self.salvage = {
+                "read_samples": int(self.number_of_samples),
+                "expected_samples": int(expected) or None,
+                "missing_samples": int(missing),
+                "partial_tail_bytes": int(partial_tail),
+            }
             warnings.warn(f"{filfn}: truncated tail; reading "
-                          f"{self.number_of_samples} whole samples")
+                          f"{self.number_of_samples} whole samples"
+                          + (f" of {expected} expected" if expected else ""))
         self.frequencies = self.fch1 + self.foff * np.arange(self.nchans)
         self.is_hifreq_first = self.foff < 0
 

@@ -28,9 +28,11 @@ records only what the host already holds (shapes, counts, byte sizes,
 host clocks): telemetry never synchronizes the device or pulls a value
 from it, so a traced run launches the same kernels as an untraced one.
 
-The reference's flight recorder (its ring of session-off spans) is not
-here (ROADMAP item 16): without a session a span is the shared null
-context and an event is dropped.
+The flight recorder (``obs/flightrec.py``) takes every record too, with
+or without a session: without one, a span is a ring-only span and an
+event a ring record, so a postmortem capsule explains a failure of an
+untraced run. ``flightrec.configure(0)`` turns the ring off, and then a
+session-off span is the shared null context and an event is dropped.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+from pypulsar_tpu_torch.obs import flightrec
+from pypulsar_tpu_torch.resilience.locks import TrackedLock
 
 __all__ = [
     "Telemetry",
@@ -241,7 +246,9 @@ class Telemetry:
     def __init__(self, path: Optional[str] = None,
                  meta: Optional[Dict[str, Any]] = None):
         self._t0 = time.perf_counter()
-        self._lock = threading.Lock()
+        # tracked, so the watchdog defers an interrupt while it is held;
+        # quiet: it sits under every telemetry call
+        self._lock = TrackedLock("obs.telemetry", quiet=True)
         self._tls = threading.local()
         # name -> [total_seconds, count] — the aggregate profiling.py kept
         self.stages: Dict[str, List] = {}
@@ -264,7 +271,7 @@ class Telemetry:
                 self._fh = open(path, "w")
             except OSError as e:
                 self._warn_sink(e)
-        if self._fh is not None:
+        if self._fh is not None or flightrec.enabled():
             rec = {"type": "meta", "version": SCHEMA_VERSION,
                    "t_unix": time.time(), "argv": list(sys.argv)}
             if meta:
@@ -287,7 +294,9 @@ class Telemetry:
                   f"records (run continues)", file=sys.stderr)
 
     def _emit(self, rec: Dict[str, Any]) -> None:
-        """One record out, to the JSONL sink when there is one."""
+        """One record out: the flight recorder's ring first, then the
+        JSONL sink when there is one."""
+        flightrec.record(rec)
         self._write(rec)
 
     def _write(self, rec: Dict[str, Any]) -> None:
@@ -331,7 +340,7 @@ class Telemetry:
             if h is None:
                 h = self.hists[name] = [0] * HIST_BUCKETS
             h[b] += 1
-        if self._fh is not None:
+        if self._fh is not None or flightrec.enabled():
             rec = {"type": "span", "name": name,
                    "t": round(t_start, 6), "dur": round(dur, 6)}
             if depth:
@@ -508,6 +517,8 @@ def span(name: str, *, aggregate: bool = True, **attrs):
     if _activity_hooks:
         _notify_activity()
     if _session is None:
+        if flightrec.enabled():
+            return _ring_span(name, attrs, aggregate)
         return _NULL_SPAN
     return _live_span(name, attrs, aggregate)
 
@@ -539,6 +550,35 @@ def _live_span(name: str, attrs, aggregate: bool = True):
         stack.pop()
         s._finish_span(name, t_start, dur, parent, depth, handle.attrs,
                        aggregate, ids=ids)
+
+
+@contextlib.contextmanager
+def _ring_span(name: str, attrs, aggregate: bool = True):
+    """Session-off span: no sink, no aggregates, one ring entry in the
+    flight recorder."""
+    handle = _Span(name, attrs)
+    ctx = current_context()
+    if ctx is not None:
+        handle.sid = new_span_id()
+    t_start = flightrec.now()
+    t0 = time.perf_counter()
+    try:
+        yield handle
+    finally:
+        dur = time.perf_counter() - t0
+        rec = {"type": "span", "name": name,
+               "t": round(t_start, 6), "dur": round(dur, 6)}
+        if not aggregate:
+            rec["noagg"] = True
+        if ctx is not None:
+            if ctx.trace_id:
+                rec["trace_id"] = ctx.trace_id
+            rec["span_id"] = handle.sid
+            if ctx.span_id:
+                rec["parent_id"] = ctx.span_id
+        if handle.attrs:
+            rec["attrs"] = handle.attrs
+        flightrec.record(rec)
 
 
 def record_span(name: str, seconds: float) -> None:
@@ -587,17 +627,25 @@ def gauge(name: str, value: float) -> None:
 
 def event(name: str, **attrs) -> None:
     """One-shot record (e.g. a serial-fallback, a per-chunk milestone):
-    counted in the session and appended to the sink with attributes;
-    dropped with no session."""
+    counted in the session and appended to the sink with attributes.
+    With no session it still lands in the flight recorder's ring."""
     if _activity_hooks:
         _notify_activity()
     s = _session
     ctx = current_context()
     if s is None:
+        if flightrec.enabled():
+            rec = {"type": "event", "name": name,
+                   "t": round(flightrec.now(), 6)}
+            if ctx is not None and ctx.trace_id:
+                rec["trace_id"] = ctx.trace_id
+            if attrs:
+                rec["attrs"] = attrs
+            flightrec.record(rec)
         return
     with s._lock:
         s.event_counts[name] = s.event_counts.get(name, 0) + 1
-    if s._fh is not None:
+    if s._fh is not None or flightrec.enabled():
         rec = {"type": "event", "name": name, "t": round(s._now(), 6)}
         if ctx is not None and ctx.trace_id:
             rec["trace_id"] = ctx.trace_id
@@ -663,7 +711,7 @@ def device_snapshot(tag: str = "snapshot"):
     for ent in devices:
         if "bytes_in_use" in ent:
             gauge(f"device{ent['id']}.bytes_in_use", ent["bytes_in_use"])
-    if s._fh is not None:
+    if s._fh is not None or flightrec.enabled():
         s._emit({"type": "device", "tag": tag, "t": round(s._now(), 6),
                  "devices": devices})
     return devices

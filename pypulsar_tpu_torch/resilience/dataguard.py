@@ -18,11 +18,16 @@ point, ``data.block``.
   armed.
 - **Finite-output gates** (:func:`finite_rows` / :func:`finite_cands`):
   a non-finite value never reaches a published row.
+- **Ingest validation** (:func:`validate_input`): the survey fleet's
+  cheap look at each input before any stage runs, a data-quality report
+  (the reference's ``validate_input``) or a :class:`DataFormatError`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -193,3 +198,67 @@ def finite_cands(cands, T: float, what: str = "accel") -> list:
         print(f"# dataguard: dropped {dropped} non-finite {what} "
               f"candidate(s) at the output gate")
     return good
+
+
+#: the fleet's default bar: an input with more than this fraction of its
+#: expected samples missing is data-quarantined (the reference's
+#: ``PYPULSAR_TPU_MAX_BAD_FRAC`` default)
+MAX_BAD_FRAC = 0.5
+
+
+def validate_input(path: str) -> Optional[Dict]:
+    """Cheap ingest-time validation of one observation input: a
+    data-quality report (``format``, ``nsamples``, ``nchan``, ``nbits``,
+    ``salvage``, ``bad_frac``, the fraction of expected samples missing)
+    for a SIGPROC or PSRFITS file, None for a missing or unrecognized
+    file (the stage reports it), and a
+    :class:`~pypulsar_tpu_torch.io.errors.DataFormatError` for a file
+    that claims a recognized format and breaks it."""
+    if not os.path.isfile(path):
+        return None
+    try:
+        with open(path, "rb") as f:
+            magic = f.read(16)
+    except OSError:
+        return None
+    if magic.startswith(b"SIMPLE"):
+        return _validate_psrfits(path)
+    if magic[4:16] == b"HEADER_START":
+        return _validate_filterbank(path)
+    return None
+
+
+def _validate_filterbank(path: str) -> Dict:
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the salvage is reported here
+        fb = FilterbankFile(path)
+    try:
+        salvage = fb.salvage
+        nsamp = int(fb.number_of_samples)
+        report = {"format": "filterbank", "nsamples": nsamp,
+                  "nchan": int(fb.nchans), "nbits": int(fb.nbits),
+                  "salvage": salvage}
+    finally:
+        fb.close()
+    bad = 0.0
+    if nsamp == 0:
+        bad = 1.0  # a header with no payload is all bad
+    elif salvage and salvage.get("expected_samples"):
+        bad = salvage["missing_samples"] / salvage["expected_samples"]
+    report["bad_frac"] = round(float(bad), 6)
+    return report
+
+
+def _validate_psrfits(path: str) -> Dict:
+    from pypulsar_tpu_torch.io.psrfits import PsrfitsFile
+
+    pf = PsrfitsFile(path)
+    try:
+        return {"format": "psrfits", "nsamples": int(pf.nspec),
+                "nchan": int(pf.nchan), "nbits": int(pf.nbits),
+                "salvage": None,
+                "bad_frac": 1.0 if int(pf.nspec) == 0 else 0.0}
+    finally:
+        pf.close()

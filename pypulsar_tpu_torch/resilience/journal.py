@@ -21,12 +21,16 @@ of ``pypulsar_tpu/resilience/journal.py``).
 journal keeps each candidate's refined (p, pdot) there, which a resumed
 run's summary takes for the candidates it skips.
 
-Left out of the reference's journal: the multi-host append discipline
-(``shared=``), extra attributes on a record, unvalidated reads, ``inode``
-and ``is_fresh``, whose callers (the survey fleet, the candidate store)
-are not ported (ROADMAP.md Queue 1 item 16). An invalid unit is counted
-(``resilience.journal_invalid``, with an event naming the artifact and the
-reason), and so is each recorded unit (``resilience.journal_units``).
+``shared=True`` is the append discipline of a journal several writers
+append to over its life (the survey fleet's manifests, the candidate
+store's segments and books): ``O_APPEND`` writes, each record framed by
+a leading newline, and malformed interior lines skipped. ``done`` takes
+extra attributes that ride on the record (the store's publish
+fingerprint), ``completed(validate=False)`` reads without re-hashing,
+``is_fresh`` says whether any usable record was loaded and ``inode``
+names the file the append handle writes. An invalid unit is counted
+(``resilience.journal_invalid``, with an event naming the artifact and
+the reason), and so is each recorded unit (``resilience.journal_units``).
 """
 
 from __future__ import annotations
@@ -130,12 +134,21 @@ class RunJournal:
     existing journal whose header fingerprint differs is restarted at the
     first write. ``tool`` guards the restart: a journal whose header was
     written by another tool is never restarted; opening it raises, so one
-    stage's CLI pointed at another stage's manifest cannot erase it."""
+    stage's CLI pointed at another stage's manifest cannot erase it.
 
-    def __init__(self, path: str, fingerprint: str = "", tool: str = "run"):
+    ``shared=True``: several writers append to the file over its life,
+    one at a time. Appends
+    go through an ``"a"``-mode handle, so each lands at the real end of
+    the file, and each record starts with a newline, so a predecessor's
+    torn tail becomes a skipped fragment; the loader skips malformed
+    interior lines instead of starting over."""
+
+    def __init__(self, path: str, fingerprint: str = "", tool: str = "run",
+                 shared: bool = False):
         self.path = path
         self.fingerprint = fingerprint
         self.tool = tool
+        self.shared = bool(shared)
         self._fh = None
         self._records: List[dict] = []
         self._keep_bytes = 0  # byte offset after the last valid line
@@ -174,9 +187,14 @@ class RunJournal:
                 rec = json.loads(stripped)
             except ValueError:
                 # only the last line may be torn; a malformed interior
-                # line means the file is not ours: start over
+                # line means the file is not ours: start over (a shared
+                # journal skips it: one killed writer's torn line
+                # must not erase every later writer's records)
                 if i == len(lines) - 1:
                     break
+                if self.shared and self._records:
+                    offset += nbytes
+                    continue
                 self._records = []
                 self._keep_bytes = 0
                 return
@@ -199,11 +217,20 @@ class RunJournal:
             self._records = []
             self._keep_bytes = 0
 
-    def completed(self) -> Set[str]:
+    def is_fresh(self) -> bool:
+        """True when no usable record was loaded: a new file, or a
+        restart after a fingerprint mismatch or corruption."""
+        return not self._records
+
+    def completed(self, validate: bool = True) -> Set[str]:
         """Unit ids recorded done whose artifacts (still) validate: every
         output exists with the recorded size and sha256. A unit whose
         artifacts fail is left out, so the caller redoes it. The
-        validated set is cached per instance."""
+        validated set is cached per instance; ``validate=False`` lists
+        the recorded units without reading an artifact."""
+        if not validate:
+            return {rec["unit"] for rec in self._records
+                    if rec.get("type") == "done" and "unit" in rec}
         if self._completed_cache is None:
             done: Set[str] = set()
             for rec in self._records:
@@ -253,6 +280,10 @@ class RunJournal:
             self._append({"type": "journal", "version": JOURNAL_VERSION,
                           "tool": self.tool,
                           "fingerprint": self.fingerprint})
+        elif self.shared:
+            # the real end of the file (another writer may have appended
+            # since the load); a torn tail is framed off, not truncated
+            self._fh = open(self.path, "a")
         else:
             # the same run: append, after truncating a torn trailing line
             self._fh = open(self.path, "r+")
@@ -262,19 +293,24 @@ class RunJournal:
 
     def _append(self, rec: dict) -> None:
         fh = self._open()
-        fh.write(json.dumps(rec) + "\n")
+        line = json.dumps(rec) + "\n"
+        if self.shared:
+            line = "\n" + line  # a predecessor's torn tail ends here
+        fh.write(line)
         fh.flush()
         os.fsync(fh.fileno())  # a recorded unit must survive the next kill
         self._records.append(rec)
 
-    def done(self, unit: str, outputs: Iterable[str]) -> None:
+    def done(self, unit: str, outputs: Iterable[str], **extra) -> None:
         """Record ``unit`` complete with the current size and sha256 of
-        each of its outputs (digested now, after their atomic writes)."""
+        each of its outputs (digested now, after their atomic writes);
+        ``extra`` attributes ride on the record."""
         outs: List[Dict] = []
         for path in outputs:
             size, digest = file_digest(path)
             outs.append({"path": path, "bytes": size, "sha256": digest})
-        self._append({"type": "done", "unit": unit, "outputs": outs})
+        self._append({"type": "done", "unit": unit, "outputs": outs,
+                      **extra})
         if self._completed_cache is not None:
             self._completed_cache.add(unit)
         telemetry.counter("resilience.journal_units")
@@ -292,6 +328,15 @@ class RunJournal:
         if event is not None:
             out = [r for r in out if r.get("event") == event]
         return out
+
+    def inode(self) -> Optional[Tuple[int, int]]:
+        """``(st_dev, st_ino)`` of the open append handle, or None when
+        nothing has been written: whether the records still live at
+        ``path`` after another writer renamed the file away."""
+        if self._fh is None:
+            return None
+        st = os.fstat(self._fh.fileno())
+        return (st.st_dev, st.st_ino)
 
     def close(self) -> None:
         if self._fh is not None:

@@ -36,12 +36,15 @@ BACKOFF_MAX_S = 2.0
 MAX_HALVINGS = 16
 
 
-def backoff_delay(attempt: int) -> float:
-    """Jittered bounded exponential backoff: ``BACKOFF_BASE_S *
-    2^(attempt-1)``, capped at ``BACKOFF_MAX_S``, scaled by a uniform
-    factor in [0.5, 1.0)."""
-    delay = min(BACKOFF_BASE_S * (2 ** (max(1, attempt) - 1)), BACKOFF_MAX_S)
-    return delay * (0.5 + 0.5 * random.random())
+def backoff_delay(attempt: int, base: float = BACKOFF_BASE_S,
+                  cap: float = BACKOFF_MAX_S, rng=None) -> float:
+    """Jittered bounded exponential backoff: ``base * 2^(attempt-1)``,
+    capped at ``cap``, scaled by a uniform factor in [0.5, 1.0) drawn
+    from ``rng`` (a seeded ``random.Random`` in tests; the process's
+    ``random`` otherwise). The jitter keeps failures that came together
+    from retrying in lockstep."""
+    delay = min(base * (2 ** (max(1, attempt) - 1)), cap)
+    return delay * (0.5 + 0.5 * (rng or random).random())
 
 
 #: cap on the transient-IO retry backoff: an NFS hiccup gets seconds to

@@ -21,11 +21,14 @@ stages it depends on, the argv of the CLI entry point the serial chain
 runs (``pypulsar_tpu_torch.cli.{tool}``, called in-process, so the
 artifacts are the tools' own) and its outputs, enumerated after the run.
 :func:`run_observation` runs the stages in topological order, as the
-reference's serial chain does; device-bound stages get ``--device``.
+reference's serial chain does; device-bound stages get ``--device``. The
+fleet scheduler (``survey/scheduler.py``) runs the same specs over many
+observations, with the stage deadlines its watchdog reads
+(``deadline_s``, ``deadline_per_mb``).
 
-Left out of the reference: the fleet scheduler, manifests and stage
-deadlines (host-only layers, ROADMAP.md Queue 1 item 16) and the gang
-form of the sweep (``--mesh``, item 14; the sweep CLI refuses the flag).
+Left out of the reference: the gang form of the sweep (``devices_max``,
+``gang_argv``: ``--mesh``, ROADMAP.md Queue 1 item 14; the sweep CLI
+refuses the flag).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ __all__ = [
     "SurveyConfig",
     "build_dag",
     "run_observation",
+    "stage_names",
 ]
 
 class StageExit(RuntimeError):
@@ -96,7 +100,13 @@ class SurveyConfig:
 class StageSpec:
     """One DAG node. ``run`` defaults to dispatching ``argv`` to the
     ``tool`` CLI's in-process ``main``; a stage with logic that is not a
-    plain CLI call (snr's empty-observation guard) overrides it."""
+    plain CLI call (snr's empty-observation guard) overrides it.
+
+    ``deadline_s`` / ``deadline_per_mb`` are the stage's wall-clock
+    budget for the fleet's watchdog: a flat bound, a bound per MB of the
+    observation's input, or their sum. None/None (the default) means no
+    deadline. Like placement, deadlines are policy, not science: they
+    are not part of the manifest's fingerprint."""
 
     name: str
     tool: str
@@ -106,6 +116,23 @@ class StageSpec:
     outputs: Callable[[Observation, SurveyConfig], List[str]]
     run: Optional[Callable[[Observation, SurveyConfig], int]] = field(
         default=None)
+    deadline_s: Optional[float] = None
+    deadline_per_mb: Optional[float] = None
+
+    def deadline_for(self, obs: Observation) -> Optional[float]:
+        """This stage's deadline for ``obs`` in seconds, or None when
+        the spec declares none; an unstatable input adds nothing (the
+        stage reports the missing file)."""
+        if self.deadline_s is None and self.deadline_per_mb is None:
+            return None
+        total = self.deadline_s or 0.0
+        if self.deadline_per_mb:
+            try:
+                mb = os.path.getsize(obs.infile) / 1e6
+            except OSError:
+                mb = 0.0
+            total += self.deadline_per_mb * mb
+        return total if total > 0 else None
 
     def execute(self, obs: Observation, cfg: SurveyConfig,
                 device="cuda") -> None:
@@ -273,6 +300,10 @@ def build_dag(cfg: SurveyConfig) -> List[StageSpec]:
                   _snr_argv, _snr_outputs, run=_snr_run),
     ]
     return stages
+
+
+def stage_names(stages) -> List[str]:
+    return [s.name for s in stages]
 
 
 def run_observation(obs: Observation, cfg: SurveyConfig,

@@ -18,9 +18,8 @@ keeps the bytes of the observation's serial
 :func:`~pypulsar_tpu_torch.survey.dag.run_observation`. Observations of
 another geometry run correctly beside them, unfused.
 
-Left out of the reference: the fleet scheduler itself (manifests, leases,
-retries, quarantine, the resource guard, multi-host), ROADMAP.md Queue 1
-item 16.
+The fleet scheduler (:mod:`~pypulsar_tpu_torch.survey.scheduler`) runs
+its batch lanes through the same party protocol, :func:`run_parties`.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,47 +41,69 @@ from pypulsar_tpu_torch.survey.dag import (
 )
 from pypulsar_tpu_torch.survey.state import Observation
 
-__all__ = ["BROKER_UNITS", "run_lane"]
+__all__ = ["BROKER_UNITS", "run_lane", "run_parties"]
 
 #: the stages whose device work submits to the broker, and the party kind
 #: each registers as (the reference's ``_BROKER_UNITS``)
 BROKER_UNITS = {"sweep": "accel", "fold": "fold"}
 
 
-def _run_concurrent(spec: StageSpec, lane: List[Observation],
-                    cfg: SurveyConfig, device: torch.device,
-                    walls: Dict[str, Dict[str, float]]) -> None:
-    """``spec`` for every observation of ``lane`` at once, one thread
-    each, every member a broker party before any of them starts."""
+def run_parties(kind: str, device: torch.device,
+                bodies: Sequence[Tuple[str, Callable[[], None]]]
+                ) -> List[Optional[BaseException]]:
+    """Run every ``(name, body)`` of ``bodies`` at once, one thread
+    each, with ``device`` the thread's current card (the kernels launch
+    on the calling thread's current device). Every body is a broker
+    party of ``(kind, device scope)`` before any of them starts, so the
+    first submitter's window knows how many batchmates to wait for; each
+    withdraws its party as its body ends, so a batchmate that is done
+    never stalls the others. Returns each body's exception, or None, in
+    order, once every thread has ended. The lane protocol of
+    :func:`run_lane` and of the fleet scheduler's batch lanes."""
     bk = broker_mod.get_broker()
-    party = (BROKER_UNITS[spec.name], broker_mod.device_scope(device))
-    for _ in lane:
+    party = (kind, broker_mod.device_scope(device))
+    for _ in bodies:
         bk._party_enter(party)
-    errors: Dict[str, BaseException] = {}
+    errors: List[Optional[BaseException]] = [None] * len(bodies)
 
-    def body(obs: Observation) -> None:
+    def run(i: int, body: Callable[[], None]) -> None:
         try:
-            t0 = time.perf_counter()
-            # the thread's current card is the lane's: the kernels launch
-            # on the current device of the calling thread
             with (torch.cuda.device(device) if device.type == "cuda"
                   else contextlib.nullcontext()):
-                spec.execute(obs, cfg, device=device)
-            walls[obs.name][spec.name] = time.perf_counter() - t0
-        except BaseException as e:  # noqa: BLE001 - re-raised by the lane
-            errors[obs.name] = e
+                body()
+        except BaseException as e:  # noqa: BLE001 - the caller's to judge
+            errors[i] = e
         finally:
             bk._party_exit(party)
 
-    threads = [threading.Thread(target=body, args=(obs,), daemon=True,
-                                name=f"lane-{obs.name}-{spec.name}")
-               for obs in lane]
+    threads = [threading.Thread(target=run, args=(i, body), daemon=True,
+                                name=f"lane-{name}")
+               for i, (name, body) in enumerate(bodies)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    for obs in lane:
-        e = errors.get(obs.name)
+    return errors
+
+
+def _run_concurrent(spec: StageSpec, lane: List[Observation],
+                    cfg: SurveyConfig, device: torch.device,
+                    walls: Dict[str, Dict[str, float]]) -> None:
+    """``spec`` for every observation of ``lane`` at once
+    (:func:`run_parties`); the first failure is raised, a device OOM as
+    an error that names the lane's peak memory."""
+
+    def body(obs: Observation) -> Callable[[], None]:
+        def run() -> None:
+            t0 = time.perf_counter()
+            spec.execute(obs, cfg, device=device)
+            walls[obs.name][spec.name] = time.perf_counter() - t0
+        return run
+
+    errors = run_parties(BROKER_UNITS[spec.name], device,
+                         [(f"{obs.name}-{spec.name}", body(obs))
+                          for obs in lane])
+    for obs, e in zip(lane, errors):
         if e is None:
             continue
         if is_oom_error(e) and device.type == "cuda":

@@ -28,7 +28,7 @@ PORTED = [t for t in dispatch.TOOLS if t not in dispatch.NOT_PORTED]
 def test_tool_list_is_the_references():
     assert dispatch.TOOLS == jax_dispatch.TOOLS
     assert set(dispatch.NOT_PORTED) <= set(dispatch.TOOLS)
-    assert len(PORTED) == 16
+    assert len(PORTED) == 19
     for tool in dispatch.TOOLS:
         has_module = os.path.exists(os.path.join(CLI_DIR, f"{tool}.py"))
         assert has_module == (tool in PORTED), tool

@@ -16,6 +16,24 @@ PKG = os.path.join(REPO, "pypulsar_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "pypulsar_tpu")
 
 
+#: the fleet runtime's modules (the survey fleet's slice)
+FLEET_MODULES = (
+    "pypulsar_tpu_torch.survey.scheduler",
+    "pypulsar_tpu_torch.survey.state",
+    "pypulsar_tpu_torch.survey.fleet",
+    "pypulsar_tpu_torch.resilience.health",
+    "pypulsar_tpu_torch.resilience.locks",
+    "pypulsar_tpu_torch.obs.flightrec",
+    "pypulsar_tpu_torch.obs.tracing",
+    "pypulsar_tpu_torch.candstore.records",
+    "pypulsar_tpu_torch.candstore.store",
+    "pypulsar_tpu_torch.candstore.sift",
+    "pypulsar_tpu_torch.cli.survey",
+    "pypulsar_tpu_torch.cli.cands",
+    "pypulsar_tpu_torch.cli.tlmtrace",
+)
+
+
 def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
@@ -44,10 +62,11 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
     assert int(lines[0]) >= 30  # every module was imported
-    # the batch broker and the lane among them
+    # the batch broker and the lane among them, and the fleet runtime
     assert {"pypulsar_tpu_torch.parallel.broker",
             "pypulsar_tpu_torch.survey.lane",
             "pypulsar_tpu_torch.ops.fold"} <= set(lines[1:])
+    assert set(FLEET_MODULES) <= set(lines[1:])
     loaded = [m for m in lines[1:] if _forbidden(m)]
     assert loaded == []
 
@@ -77,6 +96,35 @@ def test_no_source_of_the_port_imports_jax():
         elif isinstance(node, ast.ImportFrom) and node.module \
                 and _forbidden(node.module):
             offenders.append(("chip_smoke.py", node.module))
+    assert offenders == []
+
+
+def test_the_fleet_runtime_loads_no_jax():
+    code = ("import importlib, sys\n"
+            f"for n in {FLEET_MODULES!r}: importlib.import_module(n)\n"
+            "print('\\n'.join(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.splitlines()
+    assert set(FLEET_MODULES) <= set(loaded)
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_no_source_of_the_port_reads_os_environ():
+    """The port reads no environment variable through ``os.environ``:
+    every knob the reference reads from the environment is a keyword or
+    a flag here."""
+    offenders = []
+    for dirpath, _, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(dirpath, fn)
+                with open(path) as f:
+                    if "os.environ" in f.read():
+                        offenders.append(os.path.relpath(path, REPO))
     assert offenders == []
 
 

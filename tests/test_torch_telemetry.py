@@ -97,13 +97,19 @@ def _chunk_events(recs):
 
 
 def test_inactive_is_noop():
+    from pypulsar_tpu_torch.obs import flightrec
+
     assert not telemetry.is_active() and telemetry.current() is None
-    with telemetry.span("x", a=1) as sp:
-        assert sp is None
-    telemetry.counter("c", 5)
-    telemetry.gauge("g", 2.0)
-    telemetry.event("e", detail="ignored")
-    telemetry.record_span("x", 1.0)
+    flightrec.configure(0)  # the recorder off: the zero-overhead path
+    try:
+        with telemetry.span("x", a=1) as sp:
+            assert sp is None
+        telemetry.counter("c", 5)
+        telemetry.gauge("g", 2.0)
+        telemetry.event("e", detail="ignored")
+        telemetry.record_span("x", 1.0)
+    finally:
+        flightrec.configure(None)
     assert telemetry.device_snapshot() is None
     assert not telemetry.is_active()
 
