@@ -392,13 +392,14 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    broker's counters, peak device memory. (b) ``--resume`` of the
    finished fleet: "0 stages run, 15 skipped", no launch, the archives'
    bytes unchanged. (c) The fleet in a child with ``--fault-inject
-   exit:survey.stage_done.sweep:2`` (exit 137 right after the second
-   sweep's artifacts, before its manifest record), on the first two
-   files, then ``--resume`` here: exactly the stages the manifests did
-   not record run, every artifact the serial chains' bytes. (d)
-   ``--devices 2`` on the one card (two device stages in flight),
-   traced as (a) is: the same bytes; its wall beside (a)'s and its peak
-   memory. (e) A batch lane of the fleet: (a)'s first two observations
+   exit:survey.stage_done.sweep:1`` (exit 137 right after the sweep's
+   artifacts, before its manifest record), on the first file, then
+   ``--resume`` here: exactly the stages the manifest did not record
+   run, every artifact the serial chain's bytes. (d) ``--devices 2`` on
+   the one card (two device stages in flight) over the first two files,
+   traced as (a) is: the same bytes; its wall against their serial
+   chains and its peak memory. (c) and (d) ran on two and three files
+   before PR 18. (e) A batch lane of the fleet: (a)'s first two observations
    cut back to their sifts (the manifests lose the fold and snr
    records, those artifacts are removed), then resumed through
    ``FleetScheduler(..., resume=True)`` with the broker's window at
@@ -417,8 +418,46 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    cache emptied), no eviction, one stall interrupt (the card
    synchronized, the fold's outputs scrubbed), two retries, every
    artifact the serial chain's bytes. One ``path NAME:`` line each.
+19. The multi-host fleet, the streaming daemon and the handoff's serial
+   fallback, on phase 18's three files and serial chains. (a)
+   ``survey F1 F2 F3 --hosts 2 --host-lease 6`` with phase 18's flags,
+   traced: two host processes share the card; exit 0, every stage run
+   once (15 done records, each with a fencing token), every artifact the
+   serial chains' bytes, ``--status`` showing both hosts LEFT and an
+   owner for each observation, ``--resume`` with the same flags (two
+   hosts again, traced apart) running 0 stages and launching nothing on
+   either host, ``tlmtrace --check`` over both hosts' traces
+   passing; the wall against the serial sum. (b) Two hosts started here,
+   ``--host-id host0`` and ``host1`` on the first two files, building
+   the kernels into one fresh directory at once, started together (the
+   build lock: one compiles, the other waits): host0
+   armed with ``hang:survey.stage_start.fold:1`` (30 s, past the 6-s
+   lease) is SIGKILLed once its flushed trace shows the fault; host1
+   must log the adoption from the silent host, skip the three stages
+   host0 recorded, run the rest with the serial chains' bytes, and the
+   stitched trace must pass ``--check`` despite host0's torn tail; the
+   time from the kill to the adoption. (c) ``survey --daemon --watch W
+   --daemon-port 0 --status-port 0`` with two ``--tenant`` specs and
+   ``--daemon-idle-exit``: the RFI file copied into W (teamA), the
+   second file submitted on the socket (teamB), ``/status.json`` polled
+   until both are done, ``/metrics`` carrying the ``survey.*``
+   counters, ``/candidates`` near P 0.262144 s (or a harmonic) and DM 70
+   returning the pulsar; SIGTERM drains it (exit 0), the artifacts have
+   the serial bytes, and a restart on the directory replays the journal
+   and runs 0 stages. (d) Phase 6's 32-trial stage in-process at
+   ``--accel-batch 8`` with the second batch's dispatch raising a
+   ``ValueError`` once (a patch of this script's): one serial fallback,
+   every trial's ``.cand``/``.txtcand`` the bytes of phase 6's, the
+   failed batch's trials too (searched one by one on the card, each
+   prepped on the card as its batch was), and those also under the
+   matched-candidate contract against phase 6's.
+   The children's kernel launches are read from their traces
+   (``kernel_launches.*`` counters); every child trace and every
+   in-process phase before (d) must show no serial fallback. One
+   ``path NAME:`` line each.
 
-Then one JSON line of per-kernel numbers (each with its launches on every
+Then a line of each phase's wall (``phase walls s:``, the script's time
+budget), one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
 and ``prepfold_cands``, phase 11's ``lane``, phase 12's
 ``psrfits_ddplan``, ``psrfits_flat4``, ``psrfits_chain``, ``float32_fil``
@@ -431,8 +470,9 @@ and ``mask_split`` and phase 13's ``waterfaller_nsub_mask``,
 ``sweep_resident``, ``sweep_scan``, ``ddplan_host_ds``,
 ``ddplan_device_ds`` and ``ddplan_host_ds_resume``, and phase 18's
 ``survey_fleet``, ``survey_fleet_resume``, ``survey_fleet_2leases``,
-``survey_fleet_lanes``, ``stage_ring_on`` and ``survey_fleet_faults``
-among them), the card line, and the last line ``{"ok": true, "device":
+``survey_fleet_lanes``, ``stage_ring_on`` and ``survey_fleet_faults``,
+and phase 19's ``survey_hosts``, ``survey_adopt``, ``survey_daemon``
+and ``accel_serial_fallback`` among them), the card line, and the last line ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -4417,14 +4457,14 @@ def hour_runs(tmp, card, device):
         ins = link_inputs(os.path.join(tmp, "hour_" + tag), src)
         argv = [b + ".dat" for b in ins] + ACCEL_FLAGS + flags
         argv += ["--device", str(device)]
-        acli.COUNTERS.clear()
+        clear_accel_counters(name)
         with PathMeter(name, card) as m, \
                 Timed(kernels, "prep_spectra_batch") as prep, \
                 Timed(accelsearch, "accel_search_batch") as srch:
             rc = acli.main(argv)
         if rc != 0:
             fail(f"{name}: cli.accelsearch exited {rc}")
-        counters = dict(acli.COUNTERS)
+        counters = dict(accelsearch.COUNTERS)
         if counters.get("accel.serial_fallbacks", 0):
             fail(f"{name}: {counters['accel.serial_fallbacks']} batches fell "
                  f"back to the serial path")
@@ -4526,12 +4566,13 @@ def fft_and_options(tmp, card, device):
         out = {}
         for dev in (str(device), "cpu"):
             ob = os.path.join(d, f"{name}_{dev}")
-            acli.COUNTERS.clear()
+            clear_accel_counters(f"accel {name} on {dev}")
             with PathMeter("accel_" + name, card) as m:
                 rc = acli.main([inp, *flags, "-o", ob, "--device", dev])
-            if rc != 0 or acli.COUNTERS["accel.serial_fallbacks"]:
-                fail(f"accel {name} on {dev}: exit {rc}, "
-                     f"{acli.COUNTERS['accel.serial_fallbacks']} fallbacks")
+            fallbacks = accel_counters()["accel.serial_fallbacks"]
+            if rc != 0 or fallbacks:
+                fail(f"accel {name} on {dev}: exit {rc}, {fallbacks} "
+                     f"fallbacks")
             out[dev] = read_rzwcands(f"{ob}_ACCEL_{zmax}{jerk}.cand")
             numbers[f"{name}_{dev}_s"] = m.wall_s
             if dev != "cpu":
@@ -4728,6 +4769,25 @@ def pulse_tools(tmp, info, card):
     print("path pulse_tools: " + json.dumps({**numbers,
                                              "pulse_phase": want,
                                              "card": card}))
+
+
+def accel_counters():
+    """The accel search's process-wide counters, which the accel CLI and
+    the sweep's handoff both bump."""
+    from pypulsar_tpu_torch.fourier import accelsearch
+
+    return accelsearch.COUNTERS
+
+
+def clear_accel_counters(what):
+    """Clear the accel counters, failing first if a batch fell back to
+    serial searches since they were last cleared: every path run before
+    ``what`` is unfaulted."""
+    n = accel_counters()["accel.serial_fallbacks"]
+    if n:
+        fail(f"{n} accel batches fell back to serial searches on the "
+             f"unfaulted paths run before {what}")
+    accel_counters().clear()
 
 
 def accel_hour_phase(tmp, fn, info, card, device="cuda"):
@@ -5884,7 +5944,7 @@ FLEET_FLAGS = ["--lodm", str(STAGE_LODM), "--devices", "1",
                "--max-host-workers", "2"]
 FLEET_STAGES = ("mask", "sweep", "sift", "fold", "snr")
 FLEET_DEVICE_STAGES = ("mask", "sweep", "fold")
-FLEET_KILL_AT = "exit:survey.stage_done.sweep:2"  # the 2nd sweep's done
+FLEET_KILL_AT = "exit:survey.stage_done.sweep:1"  # the sweep's done
 
 
 def fleet_spans(trace):
@@ -5999,6 +6059,8 @@ def fleet_phase(tmp, fn, info, chain, card, device="cuda"):
     serials = {"rfi": chain["outbase"], "psrb": serial_b["outbase"],
                "obs": serial_obs.outbase}
     files = [chain["rfi"], serial_b["fn"], fn]
+    chain["fleet"] = dict(files=files, serials=serials,
+                          serial_walls=serial_walls)
     psr = info["period_samples"] * info["tsamp"]
     pulsars = {"rfi": (psr, 70.0),
                "psrb": (LANE_B_PERIOD * info["tsamp"], LANE_B_DM),
@@ -6058,11 +6120,11 @@ def fleet_phase(tmp, fn, info, chain, card, device="cuda"):
     if sha256s(sorted(before)) != before:
         fail("the resume of the finished fleet changed an archive")
 
-    # (c) a fleet of the first two files killed at the second sweep's
-    # boundary, then --resume
+    # (c) a fleet of the first file killed at its sweep's boundary, then
+    # --resume (one file since PR 18: the script's time)
     out_c = os.path.join(tmp, "fleet_kill")
-    files_c = files[:2]
-    serials_c = {k: serials[k] for k in ("rfi", "psrb")}
+    files_c = files[:1]
+    serials_c = {"rfi": serials["rfi"]}
     env = dict(os.environ, PYTHONPATH=HERE)
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -6088,15 +6150,17 @@ def fleet_phase(tmp, fn, info, chain, card, device="cuda"):
              f"({want}): {text_c[-800:]}")
     resumed_equal = fleet_bytes(serials_c, out_c, "(c)")
 
-    # (d) two device leases on the one card, traced as (a) is
+    # (d) two device leases on the one card over the first two files
+    # (three before PR 18: the script's time), traced as (a) is
     out_d = os.path.join(tmp, "fleet_2leases")
+    serials_d = {k: serials[k] for k in ("rfi", "psrb")}
     _, wall_d, launches_d, stats_d, peak_d = run_fleet(
-        files, out_d, device, ["--devices", "2"],
+        files[:2], out_d, device, ["--devices", "2"],
         tlm=os.path.join(tmp, "fleet_2leases_tlm"))
-    leases_equal = fleet_bytes(serials, out_d, "(d)")
+    leases_equal = fleet_bytes(serials_d, out_d, "(d)")
 
     # (e) a batch lane of the first two files' folds
-    lanes = lane_fleet(files_c, out_a, device, serials_c)
+    lanes = lane_fleet(files[:2], out_a, device, serials_d)
     # (f) the flight recorder's cost to an untraced stage
     ring = ring_cost(tmp, fn, card)
     # (g) a strike and a watchdog interrupt on the card
@@ -6127,7 +6191,8 @@ def fleet_phase(tmp, fn, info, chain, card, device="cuda"):
         "files_equal_serial": resumed_equal, "launches": launches_c,
         "said": text_c.strip().splitlines()[-1]}))
     print("path survey_fleet_2leases: " + json.dumps({
-        "card": card, "wall_s": wall_d, "over_one_lease": wall_d / wall_a,
+        "card": card, "observations": 2, "wall_s": wall_d,
+        "over_serial_sum": wall_d / sum(serial_walls[k] for k in serials_d),
         "peak_device_gb": peak_d, "broker": stats_d,
         "files_equal_serial": leases_equal, "launches": launches_d}))
     print("path survey_fleet_lanes: " + json.dumps({"card": card, **lanes}))
@@ -6351,6 +6416,531 @@ def ring_cost(tmp, fn, card):
                 launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the multi-host fleet, the streaming daemon, the serial fallback
+# ---------------------------------------------------------------------------
+
+HOST_LEASE_S = 6.0
+#: (c)'s tenants: teamA owns the watched directory, teamB the socket
+DAEMON_TENANTS = ("teamA:1", "teamB:0:0:4")
+DAEMON_IDLE_EXIT_S = 120.0  # a bound: (c) drains by SIGTERM well before
+#: the trace counter of a wrapper's launches -> the kernels line's name
+TRACE_KERNELS = {
+    "kernel_launches.shifted_gather_sum.stage1": "gather_sum/stage1",
+    "kernel_launches.shifted_gather_sum.stage2": "gather_sum/stage2",
+    "kernel_launches.shifted_gather_sum.tree_level": "gather_sum/tree_level",
+    "kernel_launches.shifted_gather_sum.tree_snap": "gather_sum/tree_snap",
+    "kernel_launches.boxcar_stats": "boxcar_stats",
+    "kernel_launches.fold_parts_batch": "fold_parts_batch",
+    "kernel_launches.fold_parts_poly": "fold_parts_poly",
+    "kernel_launches.fold_parts_multi": "fold_parts_multi",
+    "kernel_launches.fold_parts_multi_poly": "fold_parts_multi_poly",
+    "kernel_launches.fold_chan": "fold_chan",
+}
+#: a survey host in a child that first builds the fleet's kernels into
+#: a directory of its own choosing (argv: build dir, then survey's
+#: argv): two such hosts started at once build under the build lock
+HOST_RUNNER = r"""
+import sys
+from pypulsar_tpu_torch.ops import _build
+from pypulsar_tpu_torch.cli import survey
+
+_build.BUILD_DIR = sys.argv[1]
+print(f"# kernels ready in "
+      f"{_build.build_all(('gather_sum', 'boxcar_stats', 'fold_parts')):.1f} s",
+      flush=True)
+sys.exit(survey.main(sys.argv[2:]))
+"""
+
+
+def trace_totals(paths):
+    """(launches by kernel name, every counter) summed over the traces
+    at ``paths``: each trace's last counters record, partial or not (a
+    SIGKILLed host flushes its counters at event cadence)."""
+    from pypulsar_tpu_torch.obs.summarize import load_records, summarize
+
+    counters = collections.Counter()
+    for path in paths:
+        counters.update(summarize(load_records(path)).counters)
+    launches = {name: int(counters.get(key, 0))
+                for key, name in TRACE_KERNELS.items()}
+    return launches, dict(counters)
+
+
+def check_fleet_launches(what, launches):
+    need = ("gather_sum/stage1", "gather_sum/stage2", "boxcar_stats")
+    if min(launches[k] for k in need) < 1 or launches["fold_parts_poly"] \
+            + launches["fold_parts_multi_poly"] < 1:
+        fail(f"{what} did not launch every kernel of its path: {launches}")
+
+
+def no_fallbacks(what, counters):
+    if counters.get("accel.serial_fallbacks", 0):
+        fail(f"{what}: {counters['accel.serial_fallbacks']} accel batches "
+             f"fell back to serial searches on an unfaulted path")
+
+
+def done_records(outdir):
+    """Every manifest ``done`` record under ``outdir``, as (manifest
+    name, record)."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(outdir, "*.survey.jsonl"))):
+        for line in open(path):
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue  # a torn line a killed host left
+            if rec.get("type") == "done":
+                out.append((os.path.basename(path), rec))
+    return out
+
+
+def check_tlmtrace(what, tlm):
+    from pypulsar_tpu_torch.cli import tlmtrace
+
+    import contextlib
+    import io
+
+    paths = sorted(glob.glob(os.path.join(tlm, "*.jsonl")))
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, text = run_quiet(tlmtrace.main, ["--check", *paths])
+    if rc != 0:
+        fail(f"{what}: tlmtrace --check failed: {text[-800:]} "
+             f"{err.getvalue()[-800:]}")
+    return text.strip().splitlines()[-1] if text.strip() else "", \
+        err.getvalue()
+
+
+def survey_argv(files, outdir, extra=()):
+    return ["survey", *files, "-o", outdir, *FLEET_FLAGS,
+            "--device", "cuda", *extra]
+
+
+def hosts_fleet(tmp, fleet, card):
+    """Phase 19 (a): ``survey --hosts 2`` over the three files."""
+    from pypulsar_tpu_torch.cli import __main__ as dispatch
+    from pypulsar_tpu_torch.survey.fleet import read_plane_status
+    from pypulsar_tpu_torch.survey.state import status_rows
+
+    files, serials = fleet["files"], fleet["serials"]
+    out = os.path.join(tmp, "hosts")
+    tlm = os.path.join(tmp, "hosts_tlm")
+    argv = survey_argv(files, out, ["--hosts", "2", "--host-lease",
+                                    str(HOST_LEASE_S), "--telemetry-dir",
+                                    tlm])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pypulsar_tpu_torch.cli",
+                           *argv], cwd=HERE, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"survey --hosts 2 exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    done = done_records(out)
+    if len(done) != len(files) * len(FLEET_STAGES) or \
+            len({(m, r["unit"]) for m, r in done}) != len(done) or \
+            not all(isinstance(r.get("token"), int) for _, r in done):
+        fail(f"survey --hosts 2: {len(done)} done records (want "
+             f"{len(files) * len(FLEET_STAGES)}, each once with a token)")
+    files_equal = fleet_bytes(serials, out, "(19a)")
+    rows = status_rows(sorted(glob.glob(os.path.join(out,
+                                                     "*.survey.jsonl"))))
+    if any(r["done"] != list(FLEET_STAGES) for r in rows):
+        fail(f"survey --hosts 2: a manifest lacks a stage: {rows}")
+    view = read_plane_status(out)
+    owners = {o: c["host"] for o, c in view["claims"].items()}
+    if set(view["hosts"]) != {"host0", "host1"} or not all(
+            h.get("left") for h in view["hosts"].values()) or \
+            set(owners) != set(serials) or \
+            {c["state"] for c in view["claims"].values()} != {"done"}:
+        fail(f"survey --hosts 2: the plane does not show both hosts LEFT "
+             f"and every observation done: {view}")
+    rc, text = run_quiet(dispatch.main, ["survey", "--status", "-o", out])
+    lines = text.splitlines()
+    if rc != 0 or "host" not in lines[0] or text.count("LEFT") != 2 or \
+            not all(any(name in ln and owners[name] in ln for ln in lines)
+                    for name in serials):
+        fail(f"survey --status does not show both hosts LEFT and the "
+             f"owners: {text}")
+    paths = sorted(glob.glob(os.path.join(tlm, "fleet.host*.jsonl")))
+    launches, counters = trace_totals(paths)
+    check_fleet_launches("survey --hosts 2", launches)
+    no_fallbacks("survey --hosts 2", counters)
+    if counters.get("survey.stages_run") != len(files) * len(FLEET_STAGES):
+        fail(f"survey --hosts 2 ran {counters.get('survey.stages_run')} "
+             f"stages by its traces")
+    checked = check_tlmtrace("(19a)", tlm)
+    # --resume with the same flags (its traces apart, to read its
+    # launches): both hosts run 0 stages
+    tlm_r = os.path.join(tmp, "hosts_resume_tlm")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pypulsar_tpu_torch.cli", *survey_argv(
+            files, out, ["--hosts", "2", "--host-lease", str(HOST_LEASE_S),
+                         "--telemetry-dir", tlm_r, "--resume"])],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    resume_s = time.perf_counter() - t0
+    said = proc.stdout
+    resumed = [ln for ln in said.splitlines() if "stages run" in ln]
+    traces_r = sorted(glob.glob(os.path.join(tlm_r, "fleet.host*.jsonl")))
+    relaunches, recounters = trace_totals(traces_r)
+    if proc.returncode != 0 or len(traces_r) != 2 or not all(
+            any(f"[host{r}] " in ln and " 0 stages run" in ln
+                for ln in resumed) for r in range(2)) or \
+            recounters.get("survey.stages_run", 0) or \
+            any(relaunches.values()):
+        fail(f"the --resume of the two-host fleet ran work (exit "
+             f"{proc.returncode}, {recounters.get('survey.stages_run', 0)} "
+             f"stages, {relaunches}): {said[-2000:]} {proc.stderr[-2000:]}")
+    serial_sum = sum(fleet["serial_walls"].values())
+    spans = {}
+    for path in paths:
+        for o, st in fleet_spans(path).items():
+            spans.setdefault(o, {}).update(st)
+    busy, idle = device_lane_idle(spans)
+    print("path survey_hosts: " + json.dumps({
+        "card": card, "hosts": 2, "observations": len(files),
+        "wall_s": wall, "serial_sum_s": serial_sum,
+        "over_serial_sum": wall / serial_sum,
+        "stage_wall_s": {o: {k: d for k, (_, d) in st.items()}
+                         for o, st in spans.items()},
+        "device_stage_busy_s": busy, "device_stage_gaps_s": idle,
+        "owners": owners, "done_records": len(done),
+        "files_equal_serial": files_equal, "resume_wall_s": resume_s,
+        "resume_said": resumed,
+        "tlmtrace_check": checked[0], "launches": launches}))
+    return launches
+
+
+def child(argv, log):
+    """A child process of this checkout, its output to the file ``log``
+    (a pipe nobody drains would stall a talkative child)."""
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, *argv], cwd=HERE,
+                                stdout=f, stderr=subprocess.STDOUT)
+
+
+def host_child(builddir, argv, log):
+    return child(["-c", HOST_RUNNER, builddir, *argv], log)
+
+
+def read_log(log):
+    with open(log, errors="replace") as f:
+        return f.read()
+
+
+def trace_time(path, name):
+    """Unix time of the first event ``name`` in the trace at ``path``
+    (its meta's session start plus the event's offset), or None."""
+    t_unix = None
+    for line in open(path):
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue
+        if rec.get("type") == "meta":
+            t_unix = rec.get("t_unix")
+        elif rec.get("type") == "event" and rec.get("name") == name \
+                and t_unix is not None:
+            return float(t_unix) + float(rec["t"])
+    return None
+
+
+def adopt_fleet(tmp, fleet, card):
+    """Phase 19 (b): host0 SIGKILLed inside its fold's start, host1
+    adopting its observation; both build the kernels into one fresh
+    directory at once."""
+    import signal
+
+    files = fleet["files"][:2]
+    serials = {k: fleet["serials"][k] for k in ("rfi", "psrb")}
+    out = os.path.join(tmp, "adopt")
+    tlm = os.path.join(tmp, "adopt_tlm")
+    builddir = os.path.join(tmp, "adopt_kernels")
+    common = [*files, "-o", out, *FLEET_FLAGS, "--device", "cuda",
+              "--host-lease", str(HOST_LEASE_S), "--telemetry-dir", tlm]
+    t0 = time.perf_counter()
+    # started together: each builds the kernels first (one compiles, the
+    # other waits on the lock), then each claims one observation
+    logs = [os.path.join(tmp, f"adopt_host{r}.log") for r in range(2)]
+    victim = host_child(builddir, [
+        *common, "--host-id", "host0", "--fault-inject",
+        "hang:survey.stage_start.fold:1"], logs[0])
+    survivor = host_child(builddir, [*common, "--host-id", "host1"],
+                          logs[1])
+    vtrace = os.path.join(tlm, "fleet.host0.jsonl")
+    parked = False
+    deadline = time.monotonic() + 600
+    while time.monotonic() < deadline and victim.poll() is None:
+        try:
+            parked = "resilience.fault_injected" in open(vtrace).read()
+        except OSError:
+            parked = False
+        if parked:
+            break
+        time.sleep(0.1)
+    if not parked:
+        survivor.kill()
+        victim.kill()
+        fail(f"host0 never reached its armed hang: "
+             f"{read_log(logs[0])[-2000:]}")
+    os.kill(victim.pid, signal.SIGKILL)
+    t_kill = time.time()
+    victim.wait(timeout=60)
+    survivor.wait(timeout=900)
+    said = read_log(logs[1])
+    wall = time.perf_counter() - t0
+    if survivor.returncode != 0 or "from silent host 'host0'" not in said:
+        fail(f"host1 exited {survivor.returncode} without adopting host0's "
+             f"observation: {said[-3000:]}")
+    want = (f"{len(files) * len(FLEET_STAGES) - 3} stages run, 3 skipped")
+    if want not in said:
+        fail(f"host1 did not skip the three stages host0 recorded "
+             f"({want}): {said[-2000:]}")
+    t_adopt = trace_time(os.path.join(tlm, "fleet.host1.jsonl"),
+                         "survey.obs_adopted")
+    files_equal = fleet_bytes(serials, out, "(19b)")
+    launches, counters = trace_totals(
+        sorted(glob.glob(os.path.join(tlm, "fleet.host*.jsonl"))))
+    check_fleet_launches("the adopting fleet", launches)
+    no_fallbacks("the adopting fleet", counters)
+    checked = check_tlmtrace("(19b)", tlm)
+    libs = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(builddir, "lib*.so")))
+    if len(libs) < 3 or glob.glob(os.path.join(builddir, "*.tmp")):
+        fail(f"the hosts' concurrent build left {libs} and temporaries")
+    builds = [ln for log in logs for ln in read_log(log).splitlines()
+              if "kernels ready in" in ln]
+    print("path survey_adopt: " + json.dumps({
+        "card": card, "lease_s": HOST_LEASE_S, "wall_s": wall,
+        "builds": builds,
+        "kill_to_adoption_s": (t_adopt - t_kill) if t_adopt else None,
+        "adopted_line": [ln for ln in said.splitlines()
+                         if "ADOPTED" in ln],
+        "host1_said": [ln for ln in said.splitlines()
+                       if "stages run" in ln],
+        "files_equal_serial": files_equal, "kernels_built": libs,
+        "tlmtrace_check": checked[0],
+        "tolerated": checked[1].strip().splitlines()[:3],
+        "launches": launches}))
+    return launches
+
+
+def http_json(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.load(r)
+
+
+def http_text(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read().decode()
+
+
+def daemon_child(out, watch, tlm, log, extra=()):
+    return child(["-m", "pypulsar_tpu_torch.cli", "survey", "--daemon",
+                  "-o", out, *FLEET_FLAGS, "--device", "cuda",
+                  "--watch", f"{watch}:teamA", "--daemon-port", "0",
+                  "--status-port", "0", "--tenant", DAEMON_TENANTS[0],
+                  "--tenant", DAEMON_TENANTS[1], "--telemetry-dir", tlm,
+                  *extra], log)
+
+
+def daemon_ports(proc, log):
+    """The submit port and the status URL a daemon child printed."""
+    sub = status = None
+    deadline = time.monotonic() + 300
+    while (sub is None or status is None) and time.monotonic() < deadline \
+            and proc.poll() is None:
+        for line in read_log(log).splitlines():
+            if "daemon submissions on 127.0.0.1:" in line:
+                sub = int(line.rsplit(":", 1)[1])
+            if "live status at " in line:
+                status = line.split("live status at ", 1)[1].split(
+                    "/status.json")[0]
+        time.sleep(0.1)
+    if sub is None or status is None:
+        proc.kill()
+        fail(f"the daemon did not open its ports: {read_log(log)[-2000:]}")
+    return sub, status
+
+
+def daemon_fleet(tmp, fleet, info, card):
+    """Phase 19 (c): the streaming daemon with the live endpoint."""
+    import signal
+    import socket
+
+    files = fleet["files"][:2]
+    serials = {k: fleet["serials"][k] for k in ("rfi", "psrb")}
+    out = os.path.join(tmp, "daemon")
+    watch = os.path.join(tmp, "daemon_watch")
+    tlm = os.path.join(tmp, "daemon_tlm")
+    os.makedirs(watch)
+    log = os.path.join(tmp, "daemon.log")
+    t0 = time.perf_counter()
+    proc = daemon_child(out, watch, tlm, log, [
+        "--daemon-idle-exit", str(DAEMON_IDLE_EXIT_S)])
+    try:
+        sub, url = daemon_ports(proc, log)
+        t_up = time.perf_counter() - t0
+        shutil.copyfile(files[0], os.path.join(watch,
+                                               os.path.basename(files[0])))
+        with socket.create_connection(("127.0.0.1", sub), timeout=30) as c:
+            c.sendall(f"teamB {files[1]}\n".encode())
+            verdict = c.makefile().readline().strip()
+        if verdict.split()[0] not in ("accepted", "pending"):
+            fail(f"the daemon refused the socket submission: {verdict}")
+        snap, polls = None, 0
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            snap = http_json(url + "/status.json")
+            polls += 1
+            rows = snap.get("rows") or []
+            if len(rows) == 2 and all(r["state"] == "done" for r in rows):
+                break
+            if proc.poll() is not None:
+                fail(f"the daemon exited {proc.returncode} early")
+            time.sleep(0.5)
+        done_s = time.perf_counter() - t0
+        rows = snap.get("rows") or []
+        if len(rows) != 2 or any(r["state"] != "done" for r in rows):
+            fail(f"/status.json never showed both observations done: "
+                 f"{snap}")
+        metrics = http_text(url + "/metrics")
+        if 'pypulsar_counter{name="survey.stages_run"} 10' not in metrics:
+            fail(f"/metrics lacks the survey counters: {metrics[:2000]}")
+        # the store's publish follows the last stage's manifest record:
+        # poll until it lands
+        psr = info["period_samples"] * info["tsamp"]
+        found = []
+        deadline = time.monotonic() + 120
+        while not found and time.monotonic() < deadline:
+            for k in range(1, 5):
+                doc = http_json(f"{url}/candidates?p={psr / k!r}&dm=70"
+                                f"&tol_dm=3")
+                found += [r for r in doc["records"]
+                          if r.get("obs") == "rfi"
+                          and (r.get("snr") or 0.0) > 10
+                          and harmonic_of(r["p_s"], psr) is not None]
+            if not found:
+                time.sleep(0.5)
+        if not found:
+            doc = http_json(f"{url}/candidates?top=5")
+            fail(f"/candidates near the pulsar's period (or a harmonic) "
+                 f"and DM 70 returns no row of the RFI file's pulsar; the "
+                 f"store: {doc['store']}, its best rows {doc['records']}")
+        best = max(found, key=lambda r: r["snr"])
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    wall = time.perf_counter() - t0
+    said = read_log(log)
+    if proc.returncode != 0 or "daemon drained — 2 submitted, 2 accepted" \
+            not in said:
+        fail(f"the daemon's SIGTERM drain exited {proc.returncode}: "
+             f"{said[-2000:]}")
+    files_equal = fleet_bytes(serials, out, "(19c)")
+    launches, counters = trace_totals([os.path.join(tlm, "fleet.jsonl")])
+    check_fleet_launches("the daemon", launches)
+    no_fallbacks("the daemon", counters)
+    # a restart on the same directory: the journal replays, nothing runs
+    tlm2 = os.path.join(tmp, "daemon_tlm2")
+    log2 = os.path.join(tmp, "daemon_restart.log")
+    t1 = time.perf_counter()
+    again = daemon_child(out, watch, tlm2, log2,
+                         ["--daemon-idle-exit", "2"])
+    again.wait(timeout=600)
+    restart_s = time.perf_counter() - t1
+    text2 = read_log(log2)
+    relaunches, recounters = trace_totals([os.path.join(tlm2,
+                                                        "fleet.jsonl")])
+    if again.returncode != 0 or recounters.get("survey.stages_run", 0) or \
+            any(relaunches.values()) or \
+            "2 submitted, 2 accepted, 0 shed, 0 quarantined, 2 completed" \
+            not in text2:
+        fail(f"the restarted daemon ran work (exit {again.returncode}, "
+             f"{recounters.get('survey.stages_run', 0)} stages, "
+             f"{relaunches}): {text2[-2000:]}")
+    print("path survey_daemon: " + json.dumps({
+        "card": card, "tenants": list(DAEMON_TENANTS), "up_s": t_up,
+        "both_done_s": done_s, "wall_s": wall,
+        "serial_sum_s": sum(fleet["serial_walls"][k] for k in serials),
+        "status_polls": polls, "socket_verdict": verdict,
+        "metrics_lines": len(metrics.splitlines()),
+        "candidate": {k: best[k] for k in ("obs", "p_s", "dm", "snr")},
+        "tenants_books": (snap.get("tenants") or {}).get("tenants"),
+        "files_equal_serial": files_equal, "restart_s": restart_s,
+        "restart_said": [ln for ln in text2.splitlines()
+                         if "drained" in ln],
+        "launches": launches}))
+    return launches
+
+
+def accel_fallback(tmp, fn, card):
+    """Phase 19 (d): phase 6's stage at ``--accel-batch 8`` with the
+    second batch's dispatch failing once."""
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.io.prestocand import read_rzwcands
+    from pypulsar_tpu_torch.parallel import accelpipe
+
+    clear_accel_counters("phase 19 (d)")
+    out = os.path.join(tmp, "stage_fallback")
+    real, calls = accelpipe._accel_dispatch, []
+
+    def dispatch(*a):
+        calls.append(1)
+        if len(calls) == 2:
+            raise ValueError("chip_smoke: the second batch's dispatch fails")
+        return real(*a)
+
+    accelpipe._accel_dispatch = dispatch
+    try:
+        with PathMeter("accel_serial_fallback", card) as pm:
+            rc = cli.main(stage_argv(fn, out, STAGE_LODM, STAGE_DMS,
+                                     ["--accel-batch", "8"]))
+    finally:
+        accelpipe._accel_dispatch = real
+    fallbacks = accel_counters()["accel.serial_fallbacks"]
+    if rc != 0 or fallbacks != 1:
+        fail(f"the faulted stage exited {rc} with {fallbacks} fallbacks")
+    ref = os.path.join(tmp, "stage")
+    serial = range(8, 16)  # the second batch of 8
+    # every trial, the serial ones too (each prepped as its batch was),
+    # has phase 6's bytes; the serial ones also meet the contract
+    same, misses = 0, []
+    for i in range(STAGE_DMS):
+        tag = f"_DM{STAGE_LODM + i:.2f}"
+        a, b = ref + tag + ACCEL_SUFFIX, out + tag + ACCEL_SUFFIX
+        if i in serial:
+            misses += contract_misses(read_rzwcands(a), read_rzwcands(b))
+        same_files(a[:-5], b[:-5], (".cand", ".txtcand"))
+        same += 2
+    if misses:
+        fail(f"the serially searched trials break the matched-candidate "
+             f"contract against phase 6's: {misses[:5]}")
+    if min(pm.launches[k] for k in SWEEP_KERNELS) < 1:
+        fail(f"the faulted stage launched no sweep kernel: {pm.launches}")
+    pm.line(serial_fallbacks=fallbacks,
+            serial_trials=[STAGE_LODM + i for i in serial],
+            files_equal_phase6=same, contract_misses=0)
+    return pm.launches
+
+
+def plane_phase(tmp, fn, info, chain, card):
+    """Phase 19: (a)-(d); returns each path's launches."""
+    fleet = chain["fleet"]
+    return {"survey_hosts": hosts_fleet(tmp, fleet, card),
+            "survey_adopt": adopt_fleet(tmp, fleet, card),
+            "survey_daemon": daemon_fleet(tmp, fleet, info, card),
+            "accel_serial_fallback": accel_fallback(tmp, fn, card)}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -6365,9 +6955,17 @@ def main() -> int:
     from pypulsar_tpu_torch.ops import _build
 
     card = card_line()
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def mark(phase):  # the wall since the last mark, for the time budget
+        phase_s[phase] = time.perf_counter() - t_start - sum(
+            phase_s.values())
+
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     print(f"kernels built in {_build.build_all():.1f} s")
+    mark("1 build")
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     report = []
@@ -6378,31 +6976,48 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_small_accel(device)
     probe_batched_transforms(device)
+    mark("2 kernels, 5 accel")
     with tempfile.TemporaryDirectory() as tmp:
         check_small_sweep(tmp)
         fn, info = write_obs(tmp)
         check_stage_kernels(fn, device)
         launches, _, gather_res = main_path(tmp, fn, info)
+        mark("3 small sweep, 4 main path")
         stage_sp, stage_series, stage_s, stage_numbers = stage_path(
             tmp, fn, info)
+        mark("6 stage")
         fold_dats, fold_stream = fold_stage(tmp, fn, info, device, report)
+        mark("7 fold")
         chain = survey_chain(tmp, fn, info, device, stage_s)
+        mark("8 chain")
         engines = engine_paths(tmp, fn, info, device, report, gather_res)
         spectral = spectral_stage(tmp, fn, info, stage_s, stage_numbers)
         decimated = decimated_regime(tmp, fn, info)
         spectral_ch = spectral_chain(tmp, info, device, chain)
         ddplan = ddplan_path(tmp, fn)
+        mark("9 engines")
         prep = prepfold_phase(tmp, fn, info, device, report)
+        mark("10 prepfold")
         lane_launches = lane_and_multi_phase(tmp, info, device, report,
                                              chain)
+        mark("11 lane")
         fits_paths = psrfits_phase(tmp, fn, info, chain, card)
+        mark("12 inputs")
         spectra_paths = spectra_phase(tmp, fn, card)
+        mark("13 spectra")
         hour_paths = accel_hour_phase(tmp, fn, info, card)
+        mark("14 1-h search")
         resume_paths = resume_phase(tmp, fn, info, card)
+        mark("15 resume")
         telemetry_paths = telemetry_phase(tmp, fn, info, card, stage_series,
                                           chain, prep["prepfold"])
+        mark("16 telemetry")
         resident_paths = resident_phase(tmp, fn, card, gather_res, launches)
+        mark("17 resident")
         fleet_paths = fleet_phase(tmp, fn, info, chain, card)
+        mark("18 fleet")
+        plane_paths = plane_phase(tmp, fn, info, chain, card)
+        mark("19 hosts, daemon")
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -6413,7 +7028,7 @@ def main() -> int:
              "spectral_chain": spectral_ch, "ddplan": ddplan, **prep,
              "lane": lane_launches, **fits_paths, **spectra_paths,
              **hour_paths, **resume_paths, **telemetry_paths,
-             **resident_paths, **fleet_paths}
+             **resident_paths, **fleet_paths, **plane_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}
@@ -6429,6 +7044,7 @@ def main() -> int:
                  else engines["tree"] if k["name"].startswith(
                      "gather_sum/tree") else launches)
         k["launches"] = first[k["name"]]
+    print("phase walls s: " + json.dumps(phase_s))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from pypulsar_tpu_torch.resilience.journal import file_digest
 
@@ -192,7 +192,9 @@ def _nearest_cand(cands, p_s, dm):
 
 def publish_obs(outdir: str, obs_name: str, outbase: str, infile: str,
                 tenant: str = "default",
-                trace_id: Optional[str] = None, **store_kw) -> int:
+                trace_id: Optional[str] = None,
+                fence: Optional[Callable[[], None]] = None,
+                token: Optional[int] = None, **store_kw) -> int:
     """Normalize + publish one observation in one call (the scheduler's
     terminal-edge ingest); ``store_kw`` goes to :class:`CandStore`.
     Returns the number of records appended."""
@@ -200,5 +202,5 @@ def publish_obs(outdir: str, obs_name: str, outbase: str, infile: str,
 
     records, fingerprint = normalize_obs(
         obs_name, outbase, infile, tenant=tenant, trace_id=trace_id)
-    store = CandStore(outdir, **store_kw)
-    return store.publish(obs_name, records, fingerprint)
+    store = CandStore(outdir, fence=fence, **store_kw)
+    return store.publish(obs_name, records, fingerprint, token=token)

@@ -13,8 +13,12 @@ Layout::
 Write discipline is ``resilience.journal`` shared-append mode end to
 end: every segment append goes through an ``O_APPEND`` handle with
 leading-newline framing and an fsync, so a predecessor's kill -9 leaves
-at most one torn fragment that readers skip as a blank line.  The
-multi-host plane's fenced appends (ROADMAP.md S21) are not ported.
+at most one torn fragment that readers skip as a blank line.  Appends
+are *fenced* exactly like survey manifest writes: the caller passes the
+claim-bound fence callable and the store invokes it **before touching
+any file** and again before every append — a dead host's late publish
+raises :class:`~pypulsar_tpu_torch.survey.fleet.StaleLeaseError` without
+leaving a byte behind.
 
 Exactly-once semantics (the kill -9 + ``--resume`` contract): a publish
 is a batch of records for one observation stamped with the artifact
@@ -61,7 +65,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.resilience import faultinject
@@ -163,13 +167,22 @@ class CandStore:
     ``segment_bytes`` and ``compact_records`` are the rotation and
     auto-compaction bounds (:data:`DEFAULT_SEGMENT_BYTES`,
     :data:`DEFAULT_COMPACT_RECORDS`).
+
+    ``fence`` is the multi-host write guard: a zero-arg callable that
+    raises :class:`StaleLeaseError` when the caller's claim token is no
+    longer current.  It runs before the store touches ANY file and
+    again before every record append — the same per-append discipline
+    as :class:`~pypulsar_tpu_torch.survey.state.ObsManifest`.  Read paths
+    never fence (queries are safe from any host, live or dead).
     """
 
     def __init__(self, outdir: str,
                  segment_bytes: float = DEFAULT_SEGMENT_BYTES,
-                 compact_records: int = DEFAULT_COMPACT_RECORDS):
+                 compact_records: int = DEFAULT_COMPACT_RECORDS,
+                 fence: Optional[Callable[[], None]] = None):
         self.outdir = outdir
         self.dir = store_dir(outdir)
+        self.fence = fence
         self.segment_bytes = float(segment_bytes)
         self.compact_records = int(compact_records)
 
@@ -317,7 +330,7 @@ class CandStore:
     # -- write side ----------------------------------------------------------
 
     def publish(self, obs: str, records: Iterable[dict],
-                fingerprint: str) -> int:
+                fingerprint: str, token: Optional[int] = None) -> int:
         """Append one observation's normalized CandidateRecords.
 
         Idempotent on the (obs, fingerprint) pair: a resume that
@@ -325,6 +338,10 @@ class CandStore:
         (``candstore.dup_publishes``); changed artifacts re-publish and
         the old fingerprint's records go dead.  Returns the number of
         records appended (0 on the duplicate-skip path)."""
+        if self.fence is not None:
+            # stale writers are rejected BEFORE the store is touched —
+            # not even the directory is created under a lost claim
+            self.fence()
         records = list(records)
         if self.published().get(obs) == fingerprint:
             telemetry.counter("candstore.dup_publishes")
@@ -337,6 +354,8 @@ class CandStore:
             ino = None
             try:
                 for i, rec in enumerate(records):
+                    if self.fence is not None:
+                        self.fence()
                     faultinject.trip("candstore.append")
                     body = {k: v for k, v in rec.items()
                             if k not in ("uid", "obs", "pub_fp")}
@@ -362,11 +381,15 @@ class CandStore:
             raise RuntimeError(
                 f"candstore: segment kept retiring under publish of "
                 f"{obs!r}; giving up rather than booking lost records")
+        if self.fence is not None:
+            self.fence()
         self._ensure_journal(self.books_path)
         books = RunJournal(self.books_path, "", tool=TOOL, shared=True)
         try:
-            books.done(f"publish:{obs}", [], fingerprint=fingerprint,
-                       n=len(records))
+            extra = {"fingerprint": fingerprint, "n": len(records)}
+            if token is not None:
+                extra["token"] = token
+            books.done(f"publish:{obs}", [], **extra)
         finally:
             books.close()
         telemetry.counter("candstore.publishes")
@@ -536,6 +559,8 @@ class CandStore:
         snapshot replace lands — a kill anywhere in between leaves
         records readable (readers scan retired files), and duplicate
         copies collapse by uid on the next read."""
+        if self.fence is not None:
+            self.fence()
         if not os.path.isdir(self.dir):
             return False
         owner = self._take_compact_lock()
@@ -547,6 +572,8 @@ class CandStore:
             # current segments; publishers converge on fresh ones
             retired = self._retired_segments()
             for seg in self._segments():
+                if self.fence is not None:
+                    self.fence()
                 dest = f"{seg}{RETIRED_MARK}{os.getpid()}-" \
                        f"{next(_HDR_SEQ)}"
                 try:
@@ -563,6 +590,8 @@ class CandStore:
             recs = self._live(recs_in, seen)
             recs.sort(key=_sort_key)
             index = _build_index(recs)
+            if self.fence is not None:
+                self.fence()
             payload = json.dumps({
                 "type": "candstore.snapshot",
                 "version": SNAPSHOT_VERSION,

@@ -35,8 +35,9 @@ bytes are those of ``--batch 1`` for the same prep kind.
 Failures: with several inputs one file's failure is reported and the
 others are still searched (exit code 1); a batch that fails with an
 ordinary error (a data fault of one file) is retried file by file with
-host prep, and each such retry is counted in ``COUNTERS
-["accel.serial_fallbacks"]``. A CUDA error, an out-of-memory among
+host prep, and each such retry is counted in
+:data:`pypulsar_tpu_torch.fourier.accelsearch.COUNTERS`
+``["accel.serial_fallbacks"]``. A CUDA error, an out-of-memory among
 them, always raises: a sticky CUDA error poisons every later call.
 
 ``--skip-existing`` skips inputs whose ``.cand``/``.txtcand`` pair
@@ -45,9 +46,9 @@ validates. The output names and writers are the streamed sweep handoff's
 diverge. ``--telemetry PATH.jsonl`` records the run's trace (the host
 preps as ``accel_prep_host`` spans, the device preps as
 ``accel_prep_device``, each search as ``accel_search``, each write as
-``accel_write``; ``accel.serial_fallbacks`` counts as in ``COUNTERS``),
-and ``--fault-inject SPEC`` arms the fault injector, e.g.
-``oom:accel.stage_dispatch``.
+``accel_write``; ``accel.serial_fallbacks`` counts as in
+``accelsearch.COUNTERS``), and ``--fault-inject SPEC`` arms the fault
+injector, e.g. ``oom:accel.stage_dispatch``.
 
 Run as ``python -m pypulsar_tpu_torch.cli.accelsearch FILE.dat [...]``.
 """
@@ -55,7 +56,6 @@ Run as ``python -m pypulsar_tpu_torch.cli.accelsearch FILE.dat [...]``.
 from __future__ import annotations
 
 import argparse
-import collections
 import os
 import sys
 
@@ -75,11 +75,6 @@ from pypulsar_tpu_torch.parallel.accelpipe import (
 from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience.retry import is_device_fault, is_oom_error
 
-#: the CLI's counters: ``accel.serial_fallbacks`` (batches retried file by
-#: file), ``accel.bytes_read`` (input bytes read), ``accel.prep_cap`` (the
-#: most series one device prep took); ``.clear()`` resets them
-COUNTERS: collections.Counter = collections.Counter()
-
 #: bytes a sample of one series takes in the device prep
 PREP_BYTES_PER_SAMPLE = 24
 
@@ -98,7 +93,7 @@ def load_spectrum(fn: str, device="cuda"):
 
         with Datfile(fn) as dat:
             series = dat.read_all()
-        COUNTERS["accel.bytes_read"] += series.nbytes
+        accelsearch.COUNTERS["accel.bytes_read"] += series.nbytes
         fft = np.fft.rfft(series)
         n = len(series)
     elif ext == ".fft":
@@ -106,7 +101,7 @@ def load_spectrum(fn: str, device="cuda"):
 
         with PrestoFFT(fn, inffn=base + ".inf", device=device) as pf:
             fft = pf.fft
-        COUNTERS["accel.bytes_read"] += 8 * len(fft)
+        accelsearch.COUNTERS["accel.bytes_read"] += 8 * len(fft)
         n = int(inf.N)
     else:
         raise ValueError(f"expected a .dat or .fft file, got {fn!r}")
@@ -268,7 +263,7 @@ def prepare_one_series(infile, args):
     with Datfile(infile) as dat:
         series = np.asarray(dat.read_all(), dtype=np.float32)
         T = len(series) * float(dat.infdata.dt)
-    COUNTERS["accel.bytes_read"] += series.nbytes
+    accelsearch.COUNTERS["accel.bytes_read"] += series.nbytes
     print(f"# {infile}: {len(series) // 2 + 1} bins, T = {T:.1f} s "
           f"(device prep)", file=sys.stderr)
     return series, T
@@ -351,8 +346,8 @@ def _run(args, cfg):
                         torch.stack([g[1] for g in group]), T, cfg,
                         device=args.device)
             cap = prep_cap(len(group[0][1]))
-            COUNTERS["accel.prep_cap"] = max(COUNTERS["accel.prep_cap"],
-                                             min(cap, len(group)))
+            accelsearch.COUNTERS["accel.prep_cap"] = max(
+                accelsearch.COUNTERS["accel.prep_cap"], min(cap, len(group)))
             out = []
             for c0 in range(0, len(group), cap):
                 n = len(group[c0:c0 + cap])
@@ -395,7 +390,7 @@ def _run(args, cfg):
                 if is_device_fault(e) or is_oom_error(e):
                     raise
                 # one poison spectrum must fail alone, not its whole group
-                COUNTERS["accel.serial_fallbacks"] += 1
+                accelsearch.COUNTERS["accel.serial_fallbacks"] += 1
                 telemetry.counter("accel.serial_fallbacks")
                 telemetry.event("accel.batch_serial_fallback",
                                 n=len(group), kind=group[0][3],

@@ -1,5 +1,5 @@
 """Run the full search chain over a fleet of observations (``survey``; a
-port of ``pypulsar_tpu/cli/survey.py`` for one host).
+port of ``pypulsar_tpu/cli/survey.py``).
 
 The one-command form of the per-tool chain (rfifind -> sweep
 --accel-search -> sift -> foldbatch -> pfd_snr), orchestrated per
@@ -27,39 +27,57 @@ writes one trace plus one fleet trace (``fleet.jsonl``), summarizable
 together with ``tlmsum 'out/tlm/*.jsonl'`` and stitchable with
 ``tlmtrace``.
 
+Multi-host::
+
+    python -m pypulsar_tpu_torch.cli survey beam*.fil -o out/ --hosts 2
+    # or one process per machine against a shared out/:
+    python -m pypulsar_tpu_torch.cli survey beam*.fil -o out/ --host-id nodeA
+
+``--hosts M`` launches M host processes of this command against the
+shared ``--outdir``, child r with ``--host-id host{r}`` in its argv and
+nothing added to its environment (several children share one card);
+``--host-id`` joins a fleet as one named host. Observations are claimed
+through fsync'd, fencing-token'd lease files under ``out/_fleet/``, with
+no coordinator service (``survey/fleet.py``). A host that dies, or goes
+heartbeat-silent past ``--host-lease`` seconds, has its in-flight
+observations adopted by the survivors, resuming from their manifests as
+``--resume`` does; its late writes are rejected by the fencing token.
+``--status`` then adds a host-liveness block and an owner column.
+
+Streaming daemon (``survey/daemon.py``)::
+
+    python -m pypulsar_tpu_torch.cli survey --daemon -o out/ \
+        --watch incoming/:teamA --daemon-port 7070 \
+        --tenant teamA:2:0.5:4 --status-port 7071
+
+watches directories and takes ``<tenant> <path>`` lines on the loopback
+port, admits arrivals through per-tenant token buckets into a running
+fleet, sheds lowest-priority unaccepted work past ``--queue-bound``, and
+drains on SIGTERM. ``--status-port N`` serves ``/status.json``,
+``/metrics`` and ``/candidates`` on 127.0.0.1:N for the run
+(``obs/statusd.py``); ``survey --status --follow [--status-port N]``
+refreshes the table every ``--follow-interval`` seconds.
+
 Refused, each with exit 2 naming its ROADMAP.md item: ``--gang K`` for
-K > 1 (item 14; ``--gang auto`` is 1 here), ``--hosts``, ``--host-id``
-and ``--host-lease`` (S21, the multi-host plane), ``--daemon`` and its
-group, ``--status-port`` and ``--follow`` (S22), ``--fault-chaos``
-(item 16).
+K > 1 (item 14; ``--gang auto`` is 1 here) and ``--fault-chaos`` (item
+16).
 """
 
 from __future__ import annotations
 
 import argparse
 import glob
-import json
 import os
 import sys
 
 #: refused flags: argparse dest -> (flag, the ROADMAP.md item bringing it)
 NOT_PORTED = {
-    "hosts": ("--hosts", "S21 (the multi-host fleet plane)"),
-    "host_id": ("--host-id", "S21 (the multi-host fleet plane)"),
-    "host_lease": ("--host-lease", "S21 (the multi-host fleet plane)"),
-    "daemon": ("--daemon", "S22 (the streaming daemon)"),
-    "watch": ("--watch", "S22 (the streaming daemon)"),
-    "daemon_port": ("--daemon-port", "S22 (the streaming daemon)"),
-    "tenant": ("--tenant", "S22 (the streaming daemon)"),
-    "queue_bound": ("--queue-bound", "S22 (the streaming daemon)"),
-    "quiesce": ("--quiesce", "S22 (the streaming daemon)"),
-    "daemon_poll": ("--daemon-poll", "S22 (the streaming daemon)"),
-    "daemon_idle_exit": ("--daemon-idle-exit", "S22 (the streaming daemon)"),
-    "status_port": ("--status-port", "S22 (the live status endpoint)"),
-    "follow": ("--follow", "S22 (the live status endpoint)"),
     "fault_chaos": ("--fault-chaos", "Queue 1 item 16 (chaos mode)"),
 }
 GANG_ITEM = "Queue 1 item 14 (multi-GPU)"
+#: ``--status --follow``'s refresh period (the reference's
+#: ``PYPULSAR_TPU_OBS_FOLLOW_S`` default), seconds
+FOLLOW_S = 2.0
 
 
 def build_parser():
@@ -82,9 +100,19 @@ def build_parser():
                    help="print the fleet progress table read from the "
                         "manifests in --outdir and exit")
     p.add_argument("--follow", action="store_true",
-                   help=not_ported + NOT_PORTED["follow"][1])
+                   help="with --status: refresh the progress table every "
+                        "--follow-interval seconds until interrupted; "
+                        "with --status-port N it polls the live endpoint "
+                        "at 127.0.0.1:N instead of re-reading the files")
+    p.add_argument("--follow-interval", type=float, default=FOLLOW_S,
+                   metavar="S",
+                   help=f"--follow's refresh period (default {FOLLOW_S:g})")
     p.add_argument("--status-port", type=int, default=None, metavar="N",
-                   help=not_ported + NOT_PORTED["status_port"][1])
+                   help="serve the live --status snapshot as JSON at "
+                        "http://127.0.0.1:N/status.json, Prometheus "
+                        "metrics at /metrics and the candidate store at "
+                        "/candidates for the duration of the run (0 picks "
+                        "a free port; default off)")
     p.add_argument("--resume", action="store_true",
                    help="replan from the per-observation manifests: "
                         "stages whose recorded artifacts validate "
@@ -109,34 +137,70 @@ def build_parser():
                    help="bounded per-stage retries (jittered exponential "
                         "backoff) before the observation is quarantined "
                         "(default 1)")
-    g = p.add_argument_group("multi-host fleet (" + not_ported + "S21)")
+    g = p.add_argument_group(
+        "multi-host fleet (shared-directory coordination plane)")
     g.add_argument("--hosts", type=int, default=0, metavar="M",
-                   help=not_ported + NOT_PORTED["hosts"][1])
+                   help="launch M host processes of this command against "
+                        "the shared --outdir (observations claimed via "
+                        "fenced lease files under <outdir>/_fleet; a "
+                        "dead host's in-flight observations are adopted "
+                        "by survivors); child r runs with --host-id "
+                        "host<r>. 0 (default): single-process")
     g.add_argument("--host-id", default=None, metavar="NAME",
-                   help=not_ported + NOT_PORTED["host_id"][1])
+                   help="join the fleet under --outdir as ONE host named "
+                        "NAME (what --hosts children do; give it yourself "
+                        "to run one process per machine against a shared "
+                        "filesystem)")
     g.add_argument("--host-lease", type=float, default=None, metavar="S",
-                   help=not_ported + NOT_PORTED["host_lease"][1])
-    g = p.add_argument_group("streaming daemon (" + not_ported + "S22)")
+                   help="heartbeat-silence bound before a host is "
+                        "declared dead and its observations adoptable "
+                        "(default 10)")
+    g = p.add_argument_group(
+        "streaming daemon (multi-tenant admission + shedding)")
     g.add_argument("--daemon", action="store_true",
-                   help=not_ported + NOT_PORTED["daemon"][1])
+                   help="run as a long-lived ingest service: watch "
+                        "directories (--watch) and accept socket "
+                        "submissions (--daemon-port), admitting "
+                        "arrivals through per-tenant token-bucket "
+                        "quotas + the resource guard into the running "
+                        "fleet; past --queue-bound the daemon SHEDS "
+                        "lowest-priority unaccepted work (accepted "
+                        "work is manifested and survives kill+restart); "
+                        "SIGTERM drains cleanly")
     g.add_argument("--watch", action="append", default=[],
                    metavar="DIR[:TENANT]",
-                   help=not_ported + NOT_PORTED["watch"][1])
+                   help="watch DIR for arriving .fil/.sf/.raw files "
+                        "(ingested once size-stable for --quiesce "
+                        "seconds) billed to TENANT (default "
+                        "'default'); repeatable")
     g.add_argument("--daemon-port", type=int, default=None, metavar="N",
-                   help=not_ported + NOT_PORTED["daemon_port"][1])
+                   help="accept '<tenant> <path>' submissions on "
+                        "127.0.0.1:N, one verdict line back per "
+                        "request (0 picks a free port; default off)")
     g.add_argument("--tenant", action="append", default=[],
                    metavar="NAME[:PRIO[:RATE[:BURST]]]",
-                   help=not_ported + NOT_PORTED["tenant"][1])
+                   help="pin one tenant's admission contract: higher "
+                        "PRIO sheds last; RATE admissions/s refill a "
+                        "BURST-deep token bucket (RATE 0 = unmetered; "
+                        "unlisted tenants: unmetered, burst 8); "
+                        "repeatable")
     g.add_argument("--queue-bound", type=int, default=None, metavar="N",
-                   help=not_ported + NOT_PORTED["queue_bound"][1])
+                   help="bounded accept queue: past N pending "
+                        "(unaccepted) arrivals the daemon sheds lowest "
+                        "priority / thinnest quota first (default 64)")
     g.add_argument("--quiesce", type=float, default=None, metavar="S",
-                   help=not_ported + NOT_PORTED["quiesce"][1])
+                   help="watch-lane quiesce window: a file becomes an "
+                        "arrival only once its size is stable for S "
+                        "seconds (default 1)")
     g.add_argument("--daemon-poll", type=float, default=None,
                    metavar="S",
-                   help=not_ported + NOT_PORTED["daemon_poll"][1])
+                   help="service-loop tick: watch scan + admission "
+                        "pump + status mirror (default 0.5)")
     g.add_argument("--daemon-idle-exit", type=float, default=None,
                    metavar="S",
-                   help=not_ported + NOT_PORTED["daemon_idle_exit"][1])
+                   help="drain after S seconds with no arrivals and "
+                        "nothing in flight (default off = run until "
+                        "SIGTERM)")
     g = p.add_argument_group(
         "fleet health (deadlines, heartbeats, device strikes, admission)")
     g.add_argument("--stall-timeout", type=float, default=None,
@@ -221,40 +285,31 @@ def build_parser():
     return p
 
 
-def _postmortem_dir(outdir: str) -> str:
-    from pypulsar_tpu_torch.survey.fleet import plane_dir
+def _status_text(outdir: str, port=None):
+    """One rendered progress table (or None when no manifest exists):
+    read from a live ``--status-port`` endpoint when ``port`` is given,
+    else straight from the manifest, fleet-health, plane and tenant
+    files and the postmortem capsules."""
+    from pypulsar_tpu_torch.survey.state import format_status
 
-    return os.path.join(plane_dir(outdir), "postmortem")
+    if port:
+        import json
+        import urllib.request
 
-
-def capsules_by_obs(outdir: str):
-    """obs name -> sorted postmortem capsule paths (fleet-level dumps
-    under ``"fleet"``), each capsule's own ``obs`` field deciding (file
-    names sanitize the obs stem)."""
-    from pypulsar_tpu_torch.obs import flightrec
-
-    out = {}
-    for path in flightrec.capsule_paths(_postmortem_dir(outdir)):
-        obs = "fleet"
-        try:
-            with open(path) as f:
-                doc = json.load(f)
-            if isinstance(doc, dict) and doc.get("obs"):
-                obs = str(doc["obs"])
-        except (OSError, ValueError):
-            pass  # torn/foreign file: keep it visible under "fleet"
-        out.setdefault(obs, []).append(path)
-    return out
-
-
-def _status_text(outdir: str):
-    """The rendered progress table from the manifest, fleet-health and
-    plane files and the postmortem capsules, or None when no manifest
-    exists."""
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/status.json", timeout=5) as r:
+            snap = json.load(r)
+        if not snap.get("rows"):
+            return None
+        return format_status(snap["rows"], health=snap.get("health"),
+                             plane=snap.get("plane"),
+                             capsules=snap.get("capsules"),
+                             tenants=snap.get("tenants"))
+    from pypulsar_tpu_torch.obs.statusd import capsules_by_obs
+    from pypulsar_tpu_torch.survey.daemon import read_tenant_status
     from pypulsar_tpu_torch.survey.fleet import read_plane_status
     from pypulsar_tpu_torch.survey.state import (
         MANIFEST_SUFFIX,
-        format_status,
         read_fleet_health,
         status_rows,
     )
@@ -265,16 +320,72 @@ def _status_text(outdir: str):
     return format_status(status_rows(paths),
                          health=read_fleet_health(outdir),
                          plane=read_plane_status(outdir),
-                         capsules=capsules_by_obs(outdir))
+                         capsules=capsules_by_obs(outdir),
+                         tenants=read_tenant_status(outdir))
 
 
-def _status(outdir: str) -> int:
-    text = _status_text(outdir)
+def _status(outdir: str, follow: bool = False, port=None,
+            interval: float = FOLLOW_S) -> int:
+    text = _status_text(outdir, port=port)
     if text is None:
         print(f"# no survey manifests under {outdir!r}", file=sys.stderr)
         return 1
     print(text)
-    return 0
+    if not follow:
+        return 0
+    import time
+
+    try:
+        while True:
+            time.sleep(max(0.2, float(interval)))
+            text = _status_text(outdir, port=port)
+            # ANSI clear + home: a refreshing view, not a scrolling log
+            sys.stdout.write("\033[2J\033[H")
+            print(text if text is not None
+                  else f"# no survey manifests under {outdir!r}")
+            sys.stdout.flush()
+    except KeyboardInterrupt:
+        return 0
+
+
+#: how a ``--hosts`` child starts: this package's survey CLI, importable
+#: from the package's own root whatever the working directory
+_CHILD = ("import sys; sys.path.insert(0, {root!r}); "
+          "from pypulsar_tpu_torch.cli.survey import main; "
+          "sys.exit(main(sys.argv[1:]))")
+
+
+def _launch_hosts(args, argv) -> int:
+    """The ``--hosts M`` launcher: M child processes of this same
+    command (``--hosts`` stripped, ``--host-id host<r>`` appended), each
+    a full fleet host claiming observations through the shared plane.
+    Nothing is added to the children's environment: the plane is plain
+    files and needs no collective runtime."""
+    import subprocess
+
+    child_argv = []
+    skip = 0
+    for a in (argv if argv is not None else sys.argv[1:]):
+        if skip:
+            skip -= 1
+            continue
+        if a == "--hosts":
+            skip = 1
+            continue
+        if a.startswith("--hosts="):
+            continue
+        child_argv.append(a)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _CHILD.format(root=root), *child_argv,
+         "--host-id", f"host{rank}"]) for rank in range(args.hosts)]
+    rc = 0
+    for rank, proc in enumerate(procs):
+        code = proc.wait()
+        print(f"# survey: host{rank} (pid {proc.pid}) exited {code}")
+        rc = max(rc, abs(code))
+    return rc
 
 
 def _observations(infiles, outdir):
@@ -310,24 +421,50 @@ def main(argv=None):
     if refusal is not None:
         p.error(refusal)
     if args.status:
-        return _status(args.outdir)
-    if not args.infile:
-        p.error("give at least one observation (or --status)")
+        return _status(args.outdir, follow=args.follow,
+                       port=args.status_port,
+                       interval=args.follow_interval)
+    if not args.infile and not (args.daemon and (
+            args.watch or args.daemon_port is not None)):
+        p.error("give at least one observation (or --status, or "
+                "--daemon with --watch/--daemon-port)")
+    if args.hosts and args.hosts < 1:
+        p.error(f"--hosts must be >= 1, got {args.hosts}")
+    if args.hosts and args.host_id:
+        p.error("--hosts launches its own named hosts; give one or the "
+                "other")
+    if args.daemon and (args.hosts or args.host_id):
+        p.error("--daemon is a single-host service; run one daemon per "
+                "host, each with its own --outdir")
     gang = _parse_gang(args)
     if gang is None:
         return 2
+    if args.hosts:
+        os.makedirs(args.outdir, exist_ok=True)
+        return _launch_hosts(args, argv)
     from pypulsar_tpu_torch.obs import telemetry
     from pypulsar_tpu_torch.resilience import faultinject
 
     if args.fault_inject:
         faultinject.configure(args.fault_inject)
     os.makedirs(args.outdir, exist_ok=True)
+    host = args.host_id
     fleet_trace = args.telemetry
     if args.telemetry_dir:
         os.makedirs(args.telemetry_dir, exist_ok=True)
         if fleet_trace is None:
-            fleet_trace = os.path.join(args.telemetry_dir, "fleet.jsonl")
-    with telemetry.session_from_flag(fleet_trace, tool="survey"):
+            # per-host fleet traces: M hosts sharing one telemetry dir
+            # must not clobber each other's scheduler trace
+            name = f"fleet.{host}.jsonl" if host else "fleet.jsonl"
+            fleet_trace = os.path.join(args.telemetry_dir, name)
+    meta = {"tool": "survey"}
+    if host:
+        # the stitched timeline's lane key: tlmtrace maps each trace
+        # file to a process lane by its meta host
+        meta["host"] = host
+    with telemetry.session_from_flag(fleet_trace, **meta):
+        if args.daemon:
+            return _run_daemon(args, gang)
         return _run(args, gang)
 
 
@@ -377,6 +514,13 @@ def _run(args, gang: int) -> int:
     except ValueError as e:
         print(f"survey: {e}", file=sys.stderr)
         return 2
+    plane = None
+    host_id = args.host_id
+    if host_id is not None:
+        from pypulsar_tpu_torch.survey.fleet import FleetPlane
+
+        plane = FleetPlane(args.outdir, host_id=host_id,
+                           lease_s=args.host_lease)
     sched = FleetScheduler(
         obs, _survey_config(args), max_host_workers=args.max_host_workers,
         devices=args.devices, retries=args.retries, resume=args.resume,
@@ -384,13 +528,24 @@ def _run(args, gang: int) -> int:
         stall_s=args.stall_timeout, stage_deadline=args.stage_deadline,
         strike_limit=args.strike_limit, min_free_mb=args.min_free_mb,
         max_pending=args.max_pending, max_bad_frac=args.max_bad_frac,
-        verbose=True, device=args.device)
-    result = sched.run()
-    print(f"# survey: {len(obs)} observations x {len(sched.stages)} "
+        plane=plane, verbose=True, device=args.device)
+    server = _status_server(args)
+    try:
+        result = sched.run()
+    finally:
+        if server is not None:
+            server.close()
+    tag = f"[{host_id}] " if host_id else ""
+    print(f"# survey: {tag}{len(obs)} observations x {len(sched.stages)} "
           f"stages in {result.wall:.2f}s — {len(result.ran)} stages run, "
           f"{len(result.skipped)} skipped (validated), "
           f"{result.retried} retried, "
           f"{len(result.quarantined)} observations quarantined")
+    if plane is not None:
+        print(f"#   multi-host: {len(result.remote_done)} observations "
+              f"finished by other hosts, {len(result.adopted)} adopted "
+              f"here ({', '.join(result.adopted) or 'none'}), "
+              f"{len(result.ceded)} ceded to adopters")
     if result.timeouts:
         print(f"#   watchdog interrupts: {result.timeouts} "
               f"(deadline/stall; see survey.deadline_exceeded / "
@@ -404,6 +559,92 @@ def _run(args, gang: int) -> int:
                else "QUARANTINED")
         print(f"#   {tag} {name} at {q['stage']}: {q['error']}")
     return 0 if result.ok else 1
+
+
+def _status_server(args):
+    """The ``--status-port`` endpoint, started; None without the flag or
+    when the port cannot be bound (observability is a passenger: a taken
+    port must not stop the fleet)."""
+    if args.status_port is None:
+        return None
+    from pypulsar_tpu_torch.obs.statusd import StatusServer
+
+    try:
+        server = StatusServer(args.outdir, args.status_port).start()
+    except OSError as e:
+        print(f"# survey: --status-port {args.status_port} disabled "
+              f"({e})", file=sys.stderr)
+        return None
+    print(f"# survey: live status at {server.url}/status.json "
+          f"(+ Prometheus {server.url}/metrics, {server.url}/candidates)",
+          flush=True)
+    return server
+
+
+def _parse_watch(spec: str):
+    """``DIR[:TENANT]`` — a bare DIR bills the ``default`` tenant."""
+    d, sep, tenant = spec.rpartition(":")
+    if sep and d and tenant and os.sep not in tenant:
+        return d, tenant
+    return spec, "default"
+
+
+def _run_daemon(args, gang: int) -> int:
+    """The ``--daemon`` service: a SurveyDaemon around a service-mode
+    fleet, SIGTERM/SIGINT wired to a clean drain (the handler installed
+    from the main thread), positional infiles fed through the same
+    admission path as every other arrival."""
+    import signal
+
+    from pypulsar_tpu_torch.survey.daemon import (
+        SurveyDaemon,
+        parse_tenant_spec,
+    )
+
+    try:
+        tenants = [parse_tenant_spec(t) for t in args.tenant]
+    except ValueError as e:
+        print(f"survey: {e}", file=sys.stderr)
+        return 2
+    daemon = SurveyDaemon(
+        args.outdir, _survey_config(args),
+        tenants=tenants, watch=[_parse_watch(w) for w in args.watch],
+        initial=[("default", fn) for fn in args.infile],
+        port=args.daemon_port,
+        queue_bound=args.queue_bound, quiesce_s=args.quiesce,
+        poll_s=args.daemon_poll, idle_exit_s=args.daemon_idle_exit,
+        min_free_mb=args.min_free_mb, max_pending=args.max_pending,
+        verbose=True,
+        max_host_workers=args.max_host_workers, devices=args.devices,
+        retries=args.retries, telemetry_dir=args.telemetry_dir,
+        gang=gang, stall_s=args.stall_timeout,
+        stage_deadline=args.stage_deadline,
+        strike_limit=args.strike_limit, max_bad_frac=args.max_bad_frac,
+        device=args.device)
+    for signum in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(signum, lambda *_: daemon.request_drain())
+        except ValueError:
+            pass  # not the main thread (tests drive main() in a thread)
+    server = _status_server(args)
+    if daemon.port is not None:
+        print(f"# survey: daemon submissions on 127.0.0.1:{daemon.port}",
+              flush=True)
+    print("# survey: daemon up — SIGTERM drains (accepted work "
+          "finishes; the unaccepted queue is shed with recorded "
+          "reasons)", flush=True)
+    try:
+        result = daemon.run()
+    finally:
+        if server is not None:
+            server.close()
+    st = daemon.stats()
+    print(f"# survey: daemon drained — {st['submitted']} submitted, "
+          f"{st['accepted']} accepted, {st['shed']} shed, "
+          f"{st['quarantined']} quarantined, {st['completed']} completed")
+    if result is not None and not result.ok:
+        return 1
+    return 0
 
 
 if __name__ == "__main__":

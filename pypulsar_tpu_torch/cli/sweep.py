@@ -448,6 +448,7 @@ def _main_parsed(args) -> int:
             tool="sweep-accel")
         journal_done = journal.completed()
     _remove_stale_output_tmps(outbase, dms, args)
+    rc = 0
     try:
         with open_reader(infile) as reader:
             if "sweep:cands" in journal_done and not args.accel_only:
@@ -494,7 +495,17 @@ def _main_parsed(args) -> int:
                       f"{summary['unit']} spectra per prep batch, "
                       f"{summary['series_host_bytes']} series bytes to the "
                       f"host" + (f", {summary['regime']} spectral fusion"
-                                 if summary["regime"] else ""))
+                                 if summary["regime"] else "")
+                      + (f", {summary['serial_fallbacks']} serial "
+                         f"fallbacks" if summary["serial_fallbacks"]
+                         else "")
+                      + (f", {summary['n_failed']} FAILED"
+                         if summary["n_failed"] else ""))
+                if summary["n_failed"]:
+                    # a partially failed search must not exit 0 (the
+                    # survey's stage retries it: the journal reruns
+                    # only the failed trials)
+                    rc = 1
             elif args.write_dats:
                 from pypulsar_tpu_torch.parallel.accelpipe import (
                     stream_series,
@@ -510,7 +521,7 @@ def _main_parsed(args) -> int:
     finally:
         if journal is not None:
             journal.close()
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

@@ -46,6 +46,7 @@ here.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import threading
@@ -79,6 +80,14 @@ HARM_STAGES = (1, 2, 4, 8)
 ACCEL_HBM_BYTES = 5e9
 #: host bytes of cached template banks
 BANK_CACHE_BYTES = 4e9
+
+#: the accel search's process-wide counters, bumped by both of its
+#: drivers (``cli.accelsearch`` and the sweep's handoff,
+#: ``parallel.accelpipe``): ``accel.serial_fallbacks`` (failed batches
+#: searched one spectrum at a time), ``accel.bytes_read`` (the CLI's
+#: input bytes read), ``accel.prep_cap`` (the most series one device
+#: prep of the CLI took); ``.clear()`` resets them
+COUNTERS: collections.Counter = collections.Counter()
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/torch_kernels/``
 beside the package, at first use, and loaded with ``ctypes``. The library
 name carries a digest of the source and the flags, so an edited source
-builds anew and an unchanged one is reused.
+builds anew and an unchanged one is reused. Several processes may build
+into one directory at once (the host processes of a multi-host survey
+sharing a card): each source's build holds an exclusive ``flock`` on its
+own lock file, so one process compiles while the others wait and then
+find the library, and every library lands by an atomic rename.
 
 Nothing here runs at import, because the CPU tests import every module:
 the compiler is called only when a kernel is asked for on a CUDA tensor,
@@ -13,7 +17,9 @@ or by :func:`build_all`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -54,12 +60,27 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def _build_lock(name: str):
+    """Hold the exclusive lock on ``<BUILD_DIR>/<name>.lock``: one
+    process at a time builds a source (the lock is released when the
+    holder exits, however it exits)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd = os.open(os.path.join(BUILD_DIR, f"{name}.lock"),
+                 os.O_CREAT | os.O_RDWR, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
+
+
 def _start(name: str):
-    """Start ``nvcc`` for one source; None when its library exists."""
+    """Start ``nvcc`` for one source; None when its library exists. The
+    caller holds the source's build lock."""
     out = library_path(name)
     if os.path.exists(out):
         return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -77,16 +98,22 @@ def _finish(name: str, started) -> None:
 
 def build_all(names: Sequence[str] = KERNELS) -> float:
     """Compile every named kernel at once (one nvcc each, all started
-    together); return the wall seconds taken."""
+    together); return the wall seconds taken. The sources' build locks
+    are taken in sorted order, whatever order the caller names them in,
+    so two processes building overlapping sets cannot deadlock."""
     t0 = time.perf_counter()
-    started = {n: _start(n) for n in names}
+    names = sorted(set(names))
     errors = []
-    for n, st in started.items():
-        if st is not None:
-            try:
-                _finish(n, st)
-            except RuntimeError as e:
-                errors.append(str(e))
+    with contextlib.ExitStack() as locks:
+        for n in names:
+            locks.enter_context(_build_lock(n))
+        started = {n: _start(n) for n in names}
+        for n, st in started.items():
+            if st is not None:
+                try:
+                    _finish(n, st)
+                except RuntimeError as e:
+                    errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
@@ -97,9 +124,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            started = _start(name)
-            if started is not None:
-                _finish(name, started)
+            with _build_lock(name):
+                started = _start(name)
+                if started is not None:
+                    _finish(name, started)
             lib = ctypes.CDLL(library_path(name))
             _loaded[name] = lib
         return lib
@@ -109,12 +137,18 @@ def count_launch(wrapper, key=None) -> None:
     """Add one to a kernel wrapper's launch count, ``wrapper.launches``
     (an int, or the entry ``key`` of a Counter), under a lock: a batch
     lane launches kernels from several threads, and ``+=`` on an
-    attribute is no atomic step."""
+    attribute is no atomic step. The launch also counts in the active
+    telemetry session as ``kernel_launches.<wrapper>[.<key>]``, so a
+    process's trace carries its kernels' launches."""
     with _count_lock:
         if key is None:
             wrapper.launches += 1
         else:
             wrapper.launches[key] += 1
+    from pypulsar_tpu_torch.obs import telemetry
+
+    telemetry.counter(f"kernel_launches.{wrapper.__name__}"
+                      + (f".{key}" if key is not None else ""))
 
 
 def check(err: int, what: str) -> None:

@@ -33,9 +33,21 @@ lane's observations fuse into one search on the spectrum axis, demuxed
 per observation (each spectrum's transforms are calls of their own, so its
 candidates do not depend on its batch, and the ``.cand`` bytes do not
 change). A batch that runs out of device memory halves and retries
-(per-spectrum results do not depend on the batch); any other failure
-raises. The ``.cand`` files are written in trial order, ``.txtcand``
-first and ``.cand`` last, both atomically.
+(per-spectrum results do not depend on the batch). Any other failure of a
+batch's search takes the serial fallback: the batch's trials are
+searched one by one on the same device, each prepared as the batch was
+(the device prep or the host prep of its series, or its fused spectrum),
+so a trial's ``.cand`` bytes are those of the batched search; each trial
+fails alone — a failed trial writes no ``.cand``, so a journalled rerun
+retries it, and counts in the summary's ``n_failed``. The fallback counts
+``accel.serial_fallbacks`` (in
+:data:`pypulsar_tpu_torch.fourier.accelsearch.COUNTERS` and the telemetry
+session), emits
+``accel.batch_serial_fallback`` and runs in an ``accel_search`` span with
+``fallback=True``. A CUDA error (out-of-memory included), a watchdog or
+fleet interrupt and an injected fault still raise (:func:`_must_raise`).
+The ``.cand`` files are written in trial order, ``.txtcand`` first and
+``.cand`` last, both atomically.
 
 Resume: ``skip_existing`` skips trials whose ``.cand``/``.txtcand`` pair
 validates (:func:`~pypulsar_tpu_torch.resilience.journal.candfile_complete`);
@@ -65,6 +77,7 @@ import numpy as np
 import torch
 
 from pypulsar_tpu_torch.core.device import resolve_device
+from pypulsar_tpu_torch.fourier import accelsearch
 from pypulsar_tpu_torch.fourier.accelsearch import (
     ACCEL_HBM_BYTES,
     BANK_CACHE_BYTES,
@@ -94,14 +107,17 @@ from pypulsar_tpu_torch.parallel.staged import (
     write_dat_infs,
 )
 from pypulsar_tpu_torch.parallel.sweep import choose_group_size, resolve_engine
-from pypulsar_tpu_torch.resilience import faultinject
+from pypulsar_tpu_torch.resilience import faultinject, health
 from pypulsar_tpu_torch.resilience.dataguard import finite_cands
 from pypulsar_tpu_torch.resilience.journal import (
     RunJournal,
     atomic_write_text,
     candfile_complete,
 )
-from pypulsar_tpu_torch.resilience.retry import halving_dispatch
+from pypulsar_tpu_torch.resilience.retry import (
+    halving_dispatch,
+    is_oom_error,
+)
 
 __all__ = [
     "accel_out_names",
@@ -157,6 +173,15 @@ def _host_prep_rows(rows: np.ndarray, schedule, device) -> torch.Tensor:
         deredden(torch.from_numpy(np.fft.rfft(r).astype(np.complex64)
                                   ).to(device), schedule=schedule)
         for r in rows])
+
+
+def _must_raise(e: BaseException) -> bool:
+    """Failures the serial fallback must not absorb: what
+    :func:`~pypulsar_tpu_torch.resilience.health.no_degrade` claims (a
+    watchdog or fleet interrupt, a CUDA error, an injected fault) and a
+    device out-of-memory — the work stays on the card and escalates to
+    the stage's retry, never to a degraded path."""
+    return health.no_degrade(e) or is_oom_error(e)
 
 
 def _broker_concat_rows(payloads, device):
@@ -263,9 +288,10 @@ def sweep_accel_stream(
     resume (module docstring). ``spectral`` fuses the handoff on the
     device (module docstring; ``specfuse_mode`` "stitch" or "decimate"),
     and needs ``device_prep``; ``device_prep=False`` preps each batch on
-    the host (:func:`_host_prep_rows`). Returns a summary dict: trials searched and skipped, DM slices,
-    spectra per prep batch, the series bytes copied to the host and the
-    spectral regime (None when streamed)."""
+    the host (:func:`_host_prep_rows`). Returns a summary dict: trials
+    searched, skipped and failed, serial fallbacks, DM slices, spectra
+    per prep batch, the series bytes copied to the host and the spectral
+    regime (None when streamed)."""
     if spectral and write_dats:
         raise ValueError("spectral fusion has no time series to tee: "
                          "write_dats needs the streamed (non-spectral) "
@@ -290,8 +316,9 @@ def sweep_accel_stream(
         print(f"# {n_skipped}/{D} trials already have validated .cands, "
               f"skipping")
     if not todo and not write_dats:
-        return {"n_searched": 0, "n_skipped": n_skipped, "n_slices": 0,
-                "unit": 0, "series_host_bytes": 0, "regime": None}
+        return {"n_searched": 0, "n_skipped": n_skipped, "n_failed": 0,
+                "serial_fallbacks": 0, "n_slices": 0, "unit": 0,
+                "series_host_bytes": 0, "regime": None}
     src0 = ReaderSource(reader)
     factor = max(1, int(downsamp))
     if group_size <= 0:
@@ -337,7 +364,7 @@ def sweep_accel_stream(
         batch, max(1, (int(hbm_budget_bytes) // inflight)
                    // (24 * max(T, 1))))
     schedule = deredden_schedule(T // 2 + 1)
-    n_searched = 0
+    n_searched = n_failed = fallbacks = 0
     series_host_bytes = 0
     regime = None
 
@@ -400,24 +427,71 @@ def sweep_accel_stream(
                               transform=prep, name="accel.pipe", retries=2)
         else:  # inline, single-threaded
             source = (prep(g) for g in groups())
+
         for idxs, spectra in source:
             key = broker_mod.dispatch_key(
                 "accel", ("spectra", tuple(spectra.shape[1:]),
                           str(spectra.dtype), int(T), repr(float(T_sec))),
                 (repr(config), float(hbm_budget_bytes),
                  float(bank_cache_bytes)), device)
-            with telemetry.span("accel_search", aggregate=False,
-                                batch=len(idxs)):
-                all_cands = bk.submit(
-                    key, bk_party, (spectra, broker_mod.ready_event(device)),
-                    len(idxs), tag=bk_tag,
-                    concat=lambda units: _broker_concat_rows(units, device),
-                    dispatch=lambda unit, n, T_sec=T_sec: _accel_dispatch(
-                        unit, n, T_sec, config, hbm_budget_bytes,
-                        bank_cache_bytes, device),
-                    demux=lambda out, lo, hi: out[lo:hi],
-                    budget_rows=bk_budget)
+            try:
+                with telemetry.span("accel_search", aggregate=False,
+                                    batch=len(idxs)):
+                    all_cands = bk.submit(
+                        key, bk_party,
+                        (spectra, broker_mod.ready_event(device)),
+                        len(idxs), tag=bk_tag,
+                        concat=lambda units: _broker_concat_rows(units,
+                                                                 device),
+                        dispatch=lambda unit, n, T_sec=T_sec:
+                        _accel_dispatch(unit, n, T_sec, config,
+                                        hbm_budget_bytes,
+                                        bank_cache_bytes, device),
+                        demux=lambda out, lo, hi: out[lo:hi],
+                        budget_rows=bk_budget)
+            except Exception as e:  # noqa: BLE001 - classified below
+                if _must_raise(e):
+                    # a CUDA error (an OOM the halving could not absorb
+                    # included), an interrupt, an injected fault:
+                    # escalate to the stage's retry (lease reclaim,
+                    # device strike) instead of degrading
+                    raise
+                fallbacks += 1
+                accelsearch.COUNTERS["accel.serial_fallbacks"] += 1
+                telemetry.counter("accel.serial_fallbacks")
+                telemetry.event("accel.batch_serial_fallback",
+                                n=len(idxs),
+                                kind="spectral" if spectral else "stream",
+                                error=type(e).__name__)
+                print(f"# accel batch of {len(idxs)} failed "
+                      f"({type(e).__name__}: {e}); searching its trials "
+                      f"one by one")
+                all_cands = []
+                # still accel_search time: an unspanned fallback would
+                # make a degraded run look faster
+                with telemetry.span("accel_search", aggregate=False,
+                                    batch=len(idxs), fallback=True):
+                    for i in idxs:
+                        # one poison spectrum fails ALONE: no .cand is
+                        # written, so a journalled rerun retries it. Each
+                        # trial is prepared as its batch was, so its
+                        # bytes are the batched search's
+                        try:
+                            all_cands.append(accel_search_batch(
+                                prep([i])[1], T_sec, config,
+                                hbm_budget_bytes=hbm_budget_bytes,
+                                bank_cache_bytes=bank_cache_bytes,
+                                device=device)[0])
+                        except Exception as e1:  # noqa: BLE001
+                            if _must_raise(e1):
+                                raise
+                            all_cands.append(None)
+                            n_failed += 1
+                            print(f"# trial DM{dms[i]:.2f} FAILED "
+                                  f"serially ({type(e1).__name__}: {e1})")
             for i, cands in zip(idxs, all_cands):
+                if cands is None:
+                    continue
                 faultinject.trip("accel.before_cand_write")
                 with telemetry.span("accel_write"):
                     write_candfiles(names[i][0], names[i][1], cands, T_sec,
@@ -436,7 +510,8 @@ def sweep_accel_stream(
 
     if journal is not None:
         journal.note(event="accel_stream_done", n_searched=n_searched,
-                     n_skipped=n_skipped)
+                     n_skipped=n_skipped, n_failed=n_failed)
     return {"n_searched": n_searched, "n_skipped": n_skipped,
+            "n_failed": n_failed, "serial_fallbacks": fallbacks,
             "n_slices": n_slices, "unit": unit,
             "series_host_bytes": series_host_bytes, "regime": regime}

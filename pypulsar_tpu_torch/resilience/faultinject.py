@@ -21,7 +21,14 @@ is never executed is a recovery path that is broken. This module arms a
   :data:`HANG_S` seconds (the bound keeps an unwatched hang from wedging
   a run forever);
 - ``device`` — raise :class:`InjectedDeviceFault`, which
-  ``retry.is_device_fault`` classifies as a failure of the card.
+  ``retry.is_device_fault`` classifies as a failure of the card;
+- ``netstall`` — the coordination-plane sibling of ``hang``: the same
+  bounded stall, armed at the multi-host fleet's plane points
+  (``fleet.heartbeat``, ``fleet.claim``, ``fleet.fence``,
+  ``fleet.token``) to simulate a slow or partitioned shared filesystem.
+  A netstall parked in the heartbeat renewer past the host lease makes a
+  host adoptable while it still runs, the split-brain case the fencing
+  tokens exist for.
 
 The DATA kinds (``nanburst``, ``dropblock``, ``dcjump``, ``bitflip``,
 ``truncate``) are mutations, not exceptions: an armed data fault at a
@@ -40,9 +47,8 @@ each armed fault fires exactly once. Instrumented points call
 
 Every firing emits a ``resilience.fault_injected`` telemetry event, so a
 fault-injection run's trace shows both the failure and the recovery it
-provoked. The reference's chaos mode, its ``netstall`` kind and its
-environment channels are not ported (ROADMAP item 16): the port reads no
-environment variable.
+provoked. The reference's chaos mode and its environment channels are
+not ported (ROADMAP item 16): the port reads no environment variable.
 """
 
 from __future__ import annotations
@@ -74,7 +80,7 @@ __all__ = [
     "trip_data",
 ]
 
-KINDS = ("oom", "io", "kill", "exit", "hang", "device")
+KINDS = ("oom", "io", "kill", "exit", "hang", "device", "netstall")
 
 # DATA fault kinds: not exceptions but mutations of the block at a
 # read-time point (``trip_data``), exercising the dataguard scrub and the
@@ -82,12 +88,7 @@ KINDS = ("oom", "io", "kill", "exit", "hang", "device")
 # zeroes the block tail (mid-stream shapes are static).
 DATA_KINDS = ("nanburst", "dropblock", "dcjump", "bitflip", "truncate")
 
-#: kinds of the reference that the port leaves out, with the item that
-#: would bring them (a spec naming one is refused, never ignored)
-LEFT_OUT_KINDS = {"netstall": "ROADMAP.md Queue 1 item 16 (the "
-                              "multi-host fleet's coordination plane)"}
-
-#: bound of a ``hang``, seconds
+#: bound of a ``hang`` or ``netstall``, seconds
 HANG_S = 30.0
 
 
@@ -162,9 +163,6 @@ def parse_spec(spec: str) -> Dict[Tuple[str, str], int]:
         else:
             raise ValueError(f"bad fault spec entry {part!r}; expected "
                              f"kind:point[:N]")
-        if kind in LEFT_OUT_KINDS:
-            raise ValueError(f"fault kind {kind!r} is not ported yet: "
-                             f"{LEFT_OUT_KINDS[kind]}")
         if kind not in KINDS and kind not in DATA_KINDS:
             raise ValueError(f"unknown fault kind {kind!r}; expected one "
                              f"of {KINDS + DATA_KINDS}")
@@ -230,9 +228,11 @@ def add_fault_flag(parser):
     parser.add_argument(
         "--fault-inject", default=None, metavar="SPEC", type=_spec_arg,
         help="arm deterministic faults for resilience testing: "
-             "kind:point[:N],... with kinds oom|io|kill|exit|hang|device "
-             "(e.g. oom:accel.batch_dispatch:2 injects a device OOM on "
-             "the 2nd batched accel dispatch) or the DATA kinds "
+             "kind:point[:N],... with kinds "
+             "oom|io|kill|exit|hang|device|netstall (e.g. "
+             "oom:accel.batch_dispatch:2 injects a device OOM on the 2nd "
+             "batched accel dispatch; netstall:fleet.heartbeat:3 stalls "
+             "the multi-host plane's 3rd lease renewal) or the DATA kinds "
              "nanburst|dropblock|dcjump|bitflip|truncate, which corrupt "
              "the block at a read-time point (e.g. nanburst:data.block:2) "
              "instead of raising")
@@ -264,7 +264,9 @@ def _fire(kind: str, point: str, n: int) -> None:
         raise InjectedKill(point)
     if kind == "device":
         raise InjectedDeviceFault(point)
-    if kind == "hang":
+    if kind in ("hang", "netstall"):
+        # a netstall is a coordination stall by where it is armed, the
+        # same bounded sleep by what it does
         _hang(point)
         return
     os._exit(137)  # "exit": SIGKILL-equivalent, no cleanup at all

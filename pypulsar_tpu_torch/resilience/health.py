@@ -22,11 +22,12 @@ device strike accounting, resource admission (a port of
   scheduling, never the work in flight.
 
 The reference reads its defaults from environment variables
-(``PYPULSAR_TPU_DEVICE_STRIKES``, ``PYPULSAR_TPU_STALL_S``,
-``PYPULSAR_TPU_MIN_FREE_MB``, ``PYPULSAR_TPU_ADMIT_RESUME_MARGIN``);
-the port takes each as a keyword with the reference's default and reads
-no environment variable. The reference's ``HostHealth`` (strikes against
-the hosts of a multi-host fleet) waits for that plane, ROADMAP.md S21.
+(``PYPULSAR_TPU_DEVICE_STRIKES``, ``PYPULSAR_TPU_HOST_STRIKES``,
+``PYPULSAR_TPU_STALL_S``, ``PYPULSAR_TPU_MIN_FREE_MB``,
+``PYPULSAR_TPU_ADMIT_RESUME_MARGIN``); the port takes each as a keyword
+with the reference's default and reads no environment variable.
+:class:`HostHealth` is the multi-host fleet's strike account, one level
+above the devices'.
 :func:`is_device_fault` is ``resilience.retry``'s, re-exported: one
 definition of what indicts the card.
 """
@@ -48,6 +49,7 @@ __all__ = [
     "DeviceHealth",
     "HeartbeatEntry",
     "HeartbeatRegistry",
+    "HostHealth",
     "ResourceGuard",
     "StageDeadlineExceeded",
     "StageStalled",
@@ -61,6 +63,9 @@ __all__ = [
 
 #: strikes before a device is quarantined out of the lease pool
 DEFAULT_DEVICE_STRIKES = 3
+
+#: adoption/cede strikes before a host stops claiming new observations
+DEFAULT_HOST_STRIKES = 3
 
 #: admission-gate floor for free disk under the artifact root, in MB
 #: (0 disables the check)
@@ -324,10 +329,16 @@ def must_propagate(e: BaseException) -> bool:
       stage then recorded done);
     - a card-indicting fault (:func:`is_device_fault`) — degrading
       in-place hides the strike from the device-health accounting and
-      keeps dispatching to a card that should be quarantined.
+      keeps dispatching to a card that should be quarantined;
+    - ``survey.fleet.StaleLeaseError`` — the claim loop's interrupt of a
+      stage whose observation a survivor adopted: the stage must stop,
+      not search on.
 
     Ordinary failures still degrade locally, exactly as before."""
-    return isinstance(e, StageTimeout) or is_device_fault(e)
+    from pypulsar_tpu_torch.survey.fleet import StaleLeaseError
+
+    return (isinstance(e, (StageTimeout, StaleLeaseError))
+            or is_device_fault(e))
 
 
 def no_degrade(e: BaseException) -> bool:
@@ -417,6 +428,67 @@ class DeviceHealth:
             self._strikes.clear()
             self._quarantined.clear()
             self._last_error.clear()
+
+
+class HostHealth:
+    """Host-level strike accounting for the multi-host survey fleet: the
+    :class:`DeviceHealth` idea one level up. Ids are host-lease strings;
+    strikes are charged when a host's death is OBSERVED (an adoption: its
+    heartbeat went silent with observations in flight) or when a host
+    CEDES its own observation to a higher fencing token (it was stalled
+    long enough to be presumed dead). Past ``limit`` strikes (default
+    :data:`DEFAULT_HOST_STRIKES`) the host is quarantined: the claim loop
+    stops it taking NEW observations, and the verdict lands beside the
+    device verdicts in ``_fleet_health.json`` and ``survey --status``. A
+    quarantined host is never evicted: it drains its in-flight work and
+    idles, and the fencing tokens already make its stale writes
+    harmless."""
+
+    def __init__(self, limit: Optional[int] = None):
+        if limit is None:
+            limit = DEFAULT_HOST_STRIKES
+        self.limit = max(1, int(limit))
+        self._lock = locks.TrackedLock("health.hosts")
+        self._strikes: Dict[str, int] = {}
+        self._quarantined: set = set()
+        self._last_error: Dict[str, str] = {}
+
+    def strike(self, host: str, kind: str = "adopted",
+               error: str = "") -> bool:
+        """One strike against ``host``; True when this strike NEWLY
+        quarantines it."""
+        host = str(host)
+        with self._lock:
+            n = self._strikes.get(host, 0) + 1
+            self._strikes[host] = n
+            if error:
+                self._last_error[host] = error[:200]
+            newly = n >= self.limit and host not in self._quarantined
+            if newly:
+                self._quarantined.add(host)
+        telemetry.event("survey.host_strike", host=host, kind=kind,
+                        strikes=n)
+        if newly:
+            telemetry.event("survey.host_quarantined", host=host,
+                            strikes=n, kind=kind)
+        return newly
+
+    def is_quarantined(self, host: str) -> bool:
+        with self._lock:
+            return str(host) in self._quarantined
+
+    def strikes(self, host: str) -> int:
+        with self._lock:
+            return self._strikes.get(str(host), 0)
+
+    def snapshot(self) -> Dict[str, dict]:
+        """Per-host view for the fleet-health JSON / ``--status``."""
+        with self._lock:
+            ids = set(self._strikes) | self._quarantined
+            return {h: {"strikes": self._strikes.get(h, 0),
+                        "quarantined": h in self._quarantined,
+                        "last_error": self._last_error.get(h, "")}
+                    for h in sorted(ids)}
 
 
 # -- resource admission ------------------------------------------------------

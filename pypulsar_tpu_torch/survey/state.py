@@ -128,10 +128,18 @@ def fleet_fingerprint(obs: Observation, cfg, stage_names: Sequence[str]) -> str:
 class ObsManifest:
     """One observation's stage journal (see module docstring). Unit ids
     are ``stage:<name>``; free-form notes record the plan (for --status)
-    and quarantine verdicts. The multi-host plane's fencing tokens
-    (ROADMAP.md S21) are not ported."""
+    and quarantine verdicts.
 
-    def __init__(self, path: str, fingerprint: str):
+    Multi-host fleets open the manifest with a fencing ``token`` and a
+    ``fence`` callable: every append consults the fence FIRST (it raises
+    ``survey.fleet.StaleLeaseError`` when a survivor adopted the
+    observation, so a dead host's late write becomes a no-op), records
+    carry the token, and the underlying journal runs in its
+    shared/append-only discipline so successive owners append to one file
+    without stepping on each other's offsets."""
+
+    def __init__(self, path: str, fingerprint: str,
+                 token: Optional[int] = None, fence=None):
         # ALWAYS the shared/append-tolerant journal discipline, not just
         # under a plane: a single-host `--resume` must be able to read a
         # manifest a multi-host fleet wrote (interior torn line from a
@@ -141,15 +149,30 @@ class ObsManifest:
                                    shared=True)
         self._lock = TrackedLock("survey.manifest")
         self.path = path
+        self.token = token
+        self._fence = fence
         # captured BEFORE any write: a fresh manifest (new file, or a
         # restart after a parameter/input change) means the chain starts
         # over and stale artifacts must be scrubbed, not globbed up
         self.fresh = self._journal.is_fresh()
 
+    def _check_fence(self) -> None:
+        """The write gate: a stale fencing token is rejected BEFORE the
+        append touches the file (outside the manifest lock: the fence
+        reads the claim file and may raise)."""
+        if self._fence is not None:
+            self._fence()
+
+    def _stamp(self, rec: dict) -> dict:
+        if self.token is not None:
+            rec["token"] = self.token
+        return rec
+
     def plan(self, obs: Observation, stage_names: Sequence[str]) -> None:
         """Record the planned stage list once per fresh manifest — the
         denominator the --status table renders without re-deriving the
         DAG (a resumed manifest already carries it)."""
+        self._check_fence()
         with self._lock:
             if not self._journal.notes(event="plan"):
                 self._journal.note(event="plan", obs=obs.name,
@@ -163,24 +186,27 @@ class ObsManifest:
         return {u.split(":", 1)[1] for u in units if u.startswith("stage:")}
 
     def mark_done(self, stage: str, outputs: Iterable[str]) -> None:
+        self._check_fence()
         with self._lock:
-            self._journal.done(f"stage:{stage}", outputs)
+            self._journal.done(f"stage:{stage}", outputs, **self._stamp({}))
 
     def quarantine(self, stage: str, error: str,
                    reason: Optional[str] = None) -> None:
         """``reason="data"`` marks an INPUT verdict (ingest validation,
         --max-bad-frac) as distinct from a runtime quarantine — the
         operator's fix is a re-transfer, not a retry."""
+        self._check_fence()
         with self._lock:
             rec = {"event": "quarantine", "stage": stage, "error": error}
             if reason:
                 rec["reason"] = reason
-            self._journal.note(**rec)
+            self._journal.note(**self._stamp(rec))
 
     def note_data_quality(self, report: Dict) -> None:
         """Record the ingest data-quality report once per manifest (the
         denominators --status and the tlmsum roll-up render: fraction
         masked/missing, salvaged span, fault kinds seen)."""
+        self._check_fence()
         with self._lock:
             if not self._journal.notes(event="data_quality"):
                 self._journal.note(event="data_quality", **report)
@@ -191,6 +217,7 @@ class ObsManifest:
         kill+resume and cross-host adoption both continue the SAME
         trace, which is what lets tlmtrace stitch one causal story
         across M hosts' files."""
+        self._check_fence()
         with self._lock:
             for note in self._journal.notes(event="trace"):
                 tid = note.get("trace_id")
@@ -205,10 +232,11 @@ class ObsManifest:
         provoked it) so ``--status`` can show WHY a stage is retrying,
         not just that it is slow. Watchdog interrupts land here too —
         a deadline/stall verdict reads like any other stage error."""
+        self._check_fence()
         with self._lock:
             rec = {"event": "retry", "stage": stage,
                    "attempt": int(attempt), "error": error}
-            self._journal.note(**rec)
+            self._journal.note(**self._stamp(rec))
 
     def close(self) -> None:
         self._journal.close()

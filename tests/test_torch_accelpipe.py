@@ -12,7 +12,12 @@ Contracts:
   dsig) = (0.5, 1.0, 0.5) above ``sigma_min + 0.5``, and the injected
   pulsar recovered in its DM's table;
 - within the port, ``.cand`` bytes do not depend on the accel batch, the
-  prefetch depth or the RAM slicing.
+  prefetch depth or the RAM slicing;
+- the serial fallback: a batch whose search fails with an ordinary
+  exception is searched trial by trial on the same device (the other
+  batches' bytes unchanged, its own trials under the matched-candidate
+  contract against the JAX stage's), a poison trial fails alone with no
+  ``.cand``, and an injected fault or an out-of-memory still raises.
 """
 
 import glob
@@ -27,6 +32,7 @@ from pypulsar_tpu.io import infodata as jax_infodata
 from pypulsar_tpu.io import prestocand as jax_prestocand
 from pypulsar_tpu.parallel import accelpipe as jax_accelpipe
 from pypulsar_tpu_torch.cli import sweep as cli
+from pypulsar_tpu_torch.fourier import accelsearch
 from pypulsar_tpu_torch.fourier.accelsearch import (
     AccelCandidate,
     AccelSearchConfig,
@@ -34,7 +40,9 @@ from pypulsar_tpu_torch.fourier.accelsearch import (
 from pypulsar_tpu_torch.io import infodata, prestocand
 from pypulsar_tpu_torch.io.filterbank import FilterbankFile
 from pypulsar_tpu_torch.io.synth import write_synthetic_fil
+from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.parallel import accelpipe
+from pypulsar_tpu_torch.resilience import faultinject
 
 DT, NSAMP, PERIOD, DM = 5e-4, 1 << 14, 256, 40.0
 SIGMA = 3.0
@@ -288,3 +296,128 @@ def test_infodata_text_matches_reference(tmp_path):
         for k, v in fields.items():
             assert getattr(back, k) == v, k
         assert back.onoff == [(0, 16383)]
+
+
+# ---------------------------------------------------------------------------
+# the serial fallback of a failed batch
+# ---------------------------------------------------------------------------
+
+CFG = AccelSearchConfig(zmax=20.0, numharm=4, sigma_min=SIGMA)
+
+
+def _stream(runs, tag, **kw):
+    with FilterbankFile(runs["fil"]) as reader:
+        return accelpipe.sweep_accel_stream(
+            reader, 10.0 * np.arange(8), CFG, tag, batch=4, nsub=8,
+            group_size=4, device="cpu", **kw)
+
+
+def _fail_batch_once(monkeypatch, exc):
+    """Make the second batch's dispatch (trials 4-7, DM 40-70) fail once
+    with ``exc``."""
+    real = accelpipe._accel_dispatch
+    calls = []
+
+    def dispatch(*a):
+        calls.append(1)
+        if len(calls) == 2:
+            raise exc
+        return real(*a)
+
+    monkeypatch.setattr(accelpipe, "_accel_dispatch", dispatch)
+    return calls
+
+
+def _matched(fp, fr):
+    a = jax_prestocand.read_rzwcands(fr)
+    b = prestocand.read_rzwcands(fp)
+    for x, pool in ((a, b), (b, a)):
+        for c in x:
+            if not any(abs(c.r - o.r) < 0.5 and abs(c.z - o.z) < 1.0
+                       and abs(c.sig - o.sig) < 0.5 for o in pool):
+                assert c.sig <= SIGMA + 0.5, (fp, c)
+
+
+@pytest.mark.parametrize("mode", ["stream", "spectral", "host_prep"])
+def test_a_failed_batch_is_searched_serially(runs, monkeypatch, mode):
+    """Each trial of the failed batch is prepared as the batch was (the
+    device prep, the fused spectrum, the host prep) and searched alone:
+    every trial's bytes are the unfaulted run's, and the serial ones
+    also meet the matched-candidate contract against the JAX stage."""
+    kw = {"spectral": True} if mode == "spectral" else \
+        {"device_prep": False} if mode == "host_prep" else {}
+    ref = runs["port"]
+    if mode == "host_prep":  # the host prep's own bytes, unfaulted
+        ref = str(runs["dir"] / "fallback_host_ref")
+        _stream(runs, ref, **kw)
+    tag = str(runs["dir"] / f"fallback_{mode}")
+    fired = _fail_batch_once(monkeypatch, ValueError("poisoned batch"))
+    accelsearch.COUNTERS.clear()
+    with telemetry.session() as tlm:
+        summary = _stream(runs, tag, **kw)
+        counters = tlm.counter_totals()
+        events = dict(tlm.event_counts)
+    assert len(fired) == 2
+    assert summary["serial_fallbacks"] == 1 and summary["n_failed"] == 0
+    assert summary["n_searched"] == 8
+    assert accelsearch.COUNTERS["accel.serial_fallbacks"] == 1
+    assert counters["accel.serial_fallbacks"] == 1
+    assert events["accel.batch_serial_fallback"] == 1
+    want = _cand_files(ref)
+    assert len(want) == 8
+    for k, fw in enumerate(want):
+        fg = tag + _rel(fw, ref)
+        for a, b in ((fw, fg), (fw[:-5] + ".txtcand", fg[:-5] + ".txtcand")):
+            with open(a, "rb") as x, open(b, "rb") as y:
+                assert x.read() == y.read(), b
+        if k >= 4:  # searched serially: the JAX stage's candidates too
+            _matched(fg, runs["ref"] + _rel(fw, ref))
+
+
+def test_a_poison_trial_fails_alone(runs, monkeypatch):
+    """In the fallback, a trial whose own search fails writes no .cand
+    and counts in n_failed; the batch's other trials are written, and
+    the sweep CLI exits 1 on such a run."""
+    tag = str(runs["dir"] / "poison")
+    _fail_batch_once(monkeypatch, ValueError("poisoned batch"))
+    real = accelpipe.accel_search_batch
+    calls = []
+
+    def search(spectra, *a, **kw):
+        calls.append(spectra.shape[0])
+        if spectra.shape[0] == 1 and len(calls) == 3:  # the 2nd serial
+            raise ArithmeticError("poison spectrum")
+        return real(spectra, *a, **kw)
+
+    monkeypatch.setattr(accelpipe, "accel_search_batch", search)
+    summary = _stream(runs, tag)
+    assert summary["serial_fallbacks"] == 1
+    assert summary["n_failed"] == 1 and summary["n_searched"] == 7
+    assert not os.path.exists(f"{tag}_DM50.00_ACCEL_20.cand")
+    assert len(_cand_files(tag)) == 7
+
+
+@pytest.mark.parametrize("exc", [
+    faultinject.InjectedIOError("accel.batch_dispatch"),
+    faultinject.InjectedDeviceFault("accel.batch_dispatch"),
+    RuntimeError("CUDA out of memory. Tried to allocate 2.00 GiB"),
+    RuntimeError("CUDA error: an illegal memory access was encountered"),
+])
+def test_faults_and_oom_still_raise(runs, monkeypatch, exc):
+    tag = str(runs["dir"] / "raise")
+    _fail_batch_once(monkeypatch, exc)
+    accelsearch.COUNTERS.clear()
+    with pytest.raises(type(exc)):
+        _stream(runs, tag)
+    assert accelsearch.COUNTERS["accel.serial_fallbacks"] == 0
+
+
+def test_an_armed_dispatch_fault_raises_through_the_cli(runs):
+    tag = str(runs["dir"] / "armed")
+    faultinject.configure("io:accel.batch_dispatch:2")
+    try:
+        with pytest.raises(faultinject.InjectedIOError):
+            cli.main([runs["fil"], "-o", tag, *SWEEP, *ACCEL,
+                      "--accel-only", "--device", "cpu"])
+    finally:
+        faultinject.reset()

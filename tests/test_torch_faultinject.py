@@ -3,9 +3,9 @@ faultinject.py``) and the recovery paths it arms, on the CPU.
 
 Contracts (the JAX package's ``tests/test_resilience.py``,
 ``tests/test_dataguard.py`` and ``tests/test_broker.py``):
-- the spec grammar parses as the reference's; a malformed spec, an unknown
-  kind and the kinds left out (``netstall``, ROADMAP.md Queue 1 item 16)
-  raise, and exit 2 from a CLI; an armed fault fires once, at its Nth
+- the spec grammar parses as the reference's (``netstall``, the
+  multi-host plane's kind, included); a malformed spec and an unknown
+  kind raise, and exit 2 from a CLI; an armed fault fires once, at its Nth
   hit, and records a ``resilience.fault_injected`` event; an injected OOM
   classifies as a device OOM and an injected device fault as a fault of
   the card;
@@ -129,8 +129,8 @@ def test_spec_parsing_matches_reference():
                 "oom::1"):
         with pytest.raises(ValueError):
             faultinject.parse_spec(bad)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 16"):
-        faultinject.parse_spec("netstall:fleet.heartbeat:3")
+    netstall = "netstall:fleet.heartbeat:3"  # the multi-host plane's kind
+    assert faultinject.parse_spec(netstall) == jax_fi.parse_spec(netstall)
 
 
 def test_trip_fires_on_nth_hit_once():
@@ -203,7 +203,9 @@ def test_fault_flag_refuses_bad_specs(capsys):
     ap = faultinject.add_fault_flag(argparse.ArgumentParser())
     spec = "oom:fold.batch_dispatch:2"
     assert ap.parse_args(["--fault-inject", spec]).fault_inject == spec
-    for bad, msg in (("netstall:fleet.claim", "item 16"),
+    assert ap.parse_args(["--fault-inject", "netstall:fleet.claim"]
+                         ).fault_inject == "netstall:fleet.claim"
+    for bad, msg in (("netstall:fleet.claim:0", "must be >= 1"),
                      ("oops:fold.batch_dispatch", "unknown fault kind")):
         with pytest.raises(SystemExit) as e:
             ap.parse_args(["--fault-inject", bad])

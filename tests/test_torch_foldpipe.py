@@ -416,8 +416,7 @@ def test_foldbatch_journal_refolds_only_what_fails_validation(obs, dats_runs,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--fault-inject", "netstall:fleet.heartbeat:3"],
-     "ROADMAP.md Queue 1 item 16"),
+    (["--fault-inject", "netstall:fleet.heartbeat:0"], "must be >= 1"),
     (["--fault-inject", "oops:fold.batch_dispatch"], "unknown fault kind"),
     (["--fault-inject", "oom:fold.batch_dispatch:x"], "kind:point[:N]"),
 ])

@@ -1042,12 +1042,12 @@ def test_the_finished_observation_is_published_once(tmp_path):
 
 @pytest.mark.parametrize("flags, item", [
     (["--gang", "2"], "Queue 1 item 14"),
-    (["--hosts", "2"], "S21"),
-    (["--host-id", "h0"], "S21"),
-    (["--host-lease", "5"], "S21"),
-    (["--daemon"], "S22"),
-    (["--status-port", "0"], "S22"),
-    (["--status", "--follow"], "S22"),
+    (["--gang", "2", "--hosts", "2"], "Queue 1 item 14"),
+    (["--gang", "3", "--host-id", "h0"], "Queue 1 item 14"),
+    (["--gang", "2", "--host-lease", "5"], "Queue 1 item 14"),
+    (["--gang", "2", "--daemon"], "Queue 1 item 14"),
+    (["--fault-chaos", "3:0.01", "--status-port", "0"], "Queue 1 item 16"),
+    (["--status", "--follow", "--fault-chaos", "1:0.1"], "Queue 1 item 16"),
     (["--fault-chaos", "3:0.01"], "Queue 1 item 16"),
 ])
 def test_refused_flags_exit_2_naming_their_item(tmp_path, capsys, flags,
@@ -1065,8 +1065,9 @@ def test_refused_flags_exit_2_naming_their_item(tmp_path, capsys, flags,
 
 
 def test_refused_scheduler_keywords_raise_naming_their_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="S21"):
-        _sched([], stages=_stub_stages(), plane=object())
+    # a plane and service mode are taken (tests/test_torch_multihost.py,
+    # tests/test_torch_daemon.py); gang leases stay item 14's
+    assert _sched([], stages=_stub_stages(), service=True)._service
     with pytest.raises(NotImplementedError, match="item 14"):
         _sched([], stages=_stub_stages(), gang=2)
     assert _sched([], stages=_stub_stages(), gang="auto").run().ok
