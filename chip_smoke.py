@@ -56,7 +56,7 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    of the pulsar's 3.8147 Hz with |z| <= 2 and sigma > 10, the series
    pass must have launched both gather-sum stages (counted apart from
    the single-pulse pass), and the DM-70 ``.dat`` must equal the series
-   the handoff searched. Then the handoff once more, over 8 trials,
+   the handoff searched. Then the handoff once more, over 4 trials,
    under ``torch.profiler``: device time by op family and idle share;
 7. the survey's fold stage on phase 6's output, at the survey's settings.
    First both forms of the fold kernel on the DM-70 ``.dat`` (2^20
@@ -368,7 +368,7 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    the pulsar, P 0.262144 s, DM 70) over phase 6's tables, ``pfd_snr
    --tsys 30 --gain 10 --haslam-map`` (a map written by
    ``skytemp.write_healpix_map``) and ``pfd_snr -m`` (a von Mises model)
-   over phase 7's archives within 2 DM of 70: each the bytes of the
+   over phase 7's archives at DM 70: each the bytes of the
    tool's own ``main`` run here, the pulsar's rows (and only they)
    vetoed from phase 7's list, finite SNRs and a mean flux; an unknown
    tool exits 2 with a hint. One ``path NAME:`` line each.
@@ -419,10 +419,10 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    synchronized, the fold's outputs scrubbed), two retries, every
    artifact the serial chain's bytes. One ``path NAME:`` line each.
 19. The multi-host fleet, the streaming daemon and the handoff's serial
-   fallback, on phase 18's three files and serial chains. (a)
-   ``survey F1 F2 F3 --hosts 2 --host-lease 6`` with phase 18's flags,
+   fallback, on phase 18's files and serial chains. (a)
+   ``survey F1 F2 --hosts 2 --host-lease 6`` with phase 18's flags,
    traced: two host processes share the card; exit 0, every stage run
-   once (15 done records, each with a fencing token), every artifact the
+   once (10 done records, each with a fencing token), every artifact the
    serial chains' bytes, ``--status`` showing both hosts LEFT and an
    owner for each observation, ``--resume`` with the same flags (two
    hosts again, traced apart) running 0 stages and launching nothing on
@@ -456,6 +456,29 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    in-process phase before (d) must show no serial fallback. One
    ``path NAME:`` line each.
 
+20. Several logical devices on the one card (meshes whose devices name
+   it several times, and two processes sharing it), reusing phase 4's
+   result, phase 6's outputs and phase 18's serial chain. (a)
+   ``sweep.sweep_resident`` of phase 17's tensor (1024 trials, group 8,
+   chunks of 2^18) over a 'dm' mesh of k = 1, 2 and 4 positions with
+   ``pad_groups_to`` past the groups: ``snr``, ``peak_sample``, ``mean``
+   and ``std`` bit for bit the single-device rows; the whole tensor as
+   one chunk over a 2 x 2 'dm' x 'time' mesh (each time shard half the
+   series, its halo a card-to-card copy) against ``sweep_spectra`` at a
+   payload of half the series: peaks bit for bit, SNR within 2e-6
+   relative; the tree engine at k = 2 bit for bit the single-device tree.
+   (b) Phase 6's 32-trial stage as ``sweep --mesh 2`` in-process under
+   ``device_lease`` of the card twice: every ``.cand``, ``.txtcand``,
+   ``.dat`` and the ``.cands`` phase 6's bytes. (c) Two ranks on the card
+   over gloo, each a child ``sweep --time-shard --coordinator
+   127.0.0.1:PORT --num-processes 2 --process-id R`` of phase 4's grid on
+   phase 4's file: both ranks' rows against phase 4's (peaks bit for
+   bit, SNR within 2e-6); printed: each rank's wall and ``h2d.bytes``
+   beside phase 4's. (d) ``survey --devices 2 --gang 2`` over phase 18's
+   clean file: every artifact the serial chain's bytes, the sweep's
+   ``survey.gang_decision`` k = 2 in the trace. One ``path NAME:`` line
+   each.
+
 Then a line of each phase's wall (``phase walls s:``, the script's time
 budget), one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
@@ -472,11 +495,15 @@ and ``mask_split`` and phase 13's ``waterfaller_nsub_mask``,
 ``survey_fleet``, ``survey_fleet_resume``, ``survey_fleet_2leases``,
 ``survey_fleet_lanes``, ``stage_ring_on`` and ``survey_fleet_faults``,
 and phase 19's ``survey_hosts``, ``survey_adopt``, ``survey_daemon``
-and ``accel_serial_fallback`` among them), the card line, and the last line ``{"ok": true, "device":
+and ``accel_serial_fallback``, and phase 20's ``mesh_resident_k1``,
+``mesh_resident_k2``, ``mesh_resident_k4``, ``mesh_2d``,
+``mesh_tree_k2``, ``mesh_stage``, ``time_shard_r0``, ``time_shard_r1``
+and ``survey_gang`` among them), the card line, and the last line ``{"ok": true, "device":
 {...}}``.
 """
 
 import collections
+import concurrent.futures
 import functools
 import glob
 import hashlib
@@ -498,6 +525,8 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # multiplies, adds and conversions, one instruction each
 FP64_OPS_PER_S = 17e12
 SEED = 20261016
+#: phase 4's numbers that phase 20 reads (the bytes it shipped)
+PHASE4 = {}
 REPS = 10
 
 
@@ -937,10 +966,13 @@ def main_path(tmp, fn, info):
     from pypulsar_tpu_torch.cli import sweep as cli
     from pypulsar_tpu_torch.parallel import staged
 
+    from pypulsar_tpu_torch.parallel import prefetch
+
     out = os.path.join(tmp, "obs")
     argv = [fn, "--lodm", "0", "--dmstep", "0.5", "--numdms", "1024",
             "--nsub", "64", "-o", out, "--device", "cuda"]
     reset_launch_counts()
+    prefetch.ship_ahead.bytes = 0
     torch.cuda.synchronize()
     with Timed(staged, "sweep_flat") as sp:  # keeps the result for phase 9
         t0 = time.perf_counter()
@@ -948,6 +980,7 @@ def main_path(tmp, fn, info):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = sweep_launches()
+    PHASE4["h2d_bytes"] = int(prefetch.ship_ahead.bytes)
     if rc != 0:
         fail(f"sweep CLI exited {rc}")
     if min(launches.values()) < 1:
@@ -1404,13 +1437,13 @@ FAMILIES = (
 
 
 def profile_handoff(cli, fn, out):
-    """The handoff (``--accel-only``) over 8 trials from DM 66 under
+    """The handoff (``--accel-only``) over 4 trials from DM 68 under
     torch.profiler: device time by op family, and the device's idle
     share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    argv = stage_argv(fn, out, 66, 8, ["--accel-only"])
+    argv = stage_argv(fn, out, 68, 4, ["--accel-only"])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1440,7 +1473,7 @@ def profile_handoff(cli, fn, out):
     fam["dedispersion kernels (gather-sum)"] = ours
     top.sort(key=lambda r: -r[1])
     print("handoff profile: " + json.dumps({
-        "trials": 8, "wall_ms": wall_ms, "kernel_ms": kernel_ms,
+        "trials": 4, "wall_ms": wall_ms, "kernel_ms": kernel_ms,
         "copy_ms": copy_ms, "idle_share": 1.0 - kernel_ms / wall_ms,
         "by_family_ms": dict(fam),
         "other_ops_ms": dict(other.most_common(8)),
@@ -3788,10 +3821,13 @@ def psrfits_sweeps(tmp, fn, card):
     from pypulsar_tpu_torch.cli import sweep as cli
     from pypulsar_tpu_torch.io.psrfits import PsrfitsFile
 
-    fits8, w8 = write_fits_copy(fn, os.path.join(tmp, "obs8.fits"), 8,
-                                SEED + 12)
-    fits4, w4 = write_fits_copy(fn, os.path.join(tmp, "obs4.fits"), 4,
-                                SEED + 13)
+    # the two copies are independent: written in parallel threads
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        f8 = pool.submit(write_fits_copy, fn, os.path.join(tmp, "obs8.fits"),
+                         8, SEED + 12)
+        f4 = pool.submit(write_fits_copy, fn, os.path.join(tmp, "obs4.fits"),
+                         4, SEED + 13)
+        (fits8, w8), (fits4, w4) = f8.result(), f4.result()
     with PsrfitsFile(fits8) as pf:
         plan = cli.make_ddplan(pf, argparse.Namespace(
             lodm=0.0, hidm=FITS_HIDM, plan_numsub=0, resolution=0.0))
@@ -4431,12 +4467,13 @@ def hour_runs(tmp, card, device):
     hdir = os.path.join(tmp, "hour")
     os.makedirs(hdir)
     t0 = time.perf_counter()
-    bases = []
-    for i, amp in enumerate(HOUR_AMPS):
-        bases.append(os.path.join(hdir, f"hour{i}"))
-        write_hour_dat(bases[-1], amp, SEED + 40 + i)
+    bases = [os.path.join(hdir, f"hour{i}") for i in range(len(HOUR_AMPS))]
+    # the files are independent (a seed each): written in parallel threads
+    with concurrent.futures.ThreadPoolExecutor(len(bases)) as pool:
+        list(pool.map(write_hour_dat, bases, HOUR_AMPS,
+                      [SEED + 40 + i for i in range(len(bases))]))
     print(f"wrote {len(bases)} x {HOUR_N} samples "
-          f"({4 * HOUR_N / 1e6:.0f} MB each) in "
+          f"({4 * HOUR_N / 1e6:.0f} MB each) in parallel in "
           f"{time.perf_counter() - t0:.1f} s")
     T = HOUR_N * HOUR_DT
     # F2: one 1-hour series' card prep against float64 and the CPU's
@@ -5860,12 +5897,12 @@ def dispatcher_tools(tmp, card):
     skytemp.write_healpix_map(skymap, 20.0 + 80.0 * np.exp(
         -((theta - np.pi / 2) / 0.1) ** 2))
     cands = sorted(glob.glob(os.path.join(tmp, "stage_DM*_ACCEL_200.cand")))
-    # phase 7's archives within 2 DM of the pulsar's
+    # phase 7's archives at the pulsar's DM
     pfds = [p for p in sorted(glob.glob(os.path.join(tmp,
                                                      "fold_dats_*.pfd")))
-            if abs(float(p.split("_DM")[1].split("_")[0]) - 70.0) <= 2.0]
+            if abs(float(p.split("_DM")[1].split("_")[0]) - 70.0) <= 0.5]
     if not pfds:
-        fail("phase 7 left no archive within 2 DM of 70")
+        fail("phase 7 left no archive at DM 70")
     runs = [("sift", cands + ["-s", "4", "--min-hits", "2",
                               "--known-sources", catalog, "-o"],
              "known.accelcands", sift.main),
@@ -6518,12 +6555,13 @@ def survey_argv(files, outdir, extra=()):
 
 
 def hosts_fleet(tmp, fleet, card):
-    """Phase 19 (a): ``survey --hosts 2`` over the three files."""
+    """Phase 19 (a): ``survey --hosts 2`` over the first two files."""
     from pypulsar_tpu_torch.cli import __main__ as dispatch
     from pypulsar_tpu_torch.survey.fleet import read_plane_status
     from pypulsar_tpu_torch.survey.state import status_rows
 
-    files, serials = fleet["files"], fleet["serials"]
+    files = fleet["files"][:2]
+    serials = {k: fleet["serials"][k] for k in ("rfi", "psrb")}
     out = os.path.join(tmp, "hosts")
     tlm = os.path.join(tmp, "hosts_tlm")
     argv = survey_argv(files, out, ["--hosts", "2", "--host-lease",
@@ -6593,7 +6631,7 @@ def hosts_fleet(tmp, fleet, card):
         fail(f"the --resume of the two-host fleet ran work (exit "
              f"{proc.returncode}, {recounters.get('survey.stages_run', 0)} "
              f"stages, {relaunches}): {said[-2000:]} {proc.stderr[-2000:]}")
-    serial_sum = sum(fleet["serial_walls"].values())
+    serial_sum = sum(fleet["serial_walls"][k] for k in serials)
     spans = {}
     for path in paths:
         for o, st in fleet_spans(path).items():
@@ -6941,6 +6979,340 @@ def plane_phase(tmp, fn, info, chain, card):
             "accel_serial_fallback": accel_fallback(tmp, fn, card)}
 
 
+MESH_KS = (1, 2, 4)  # (a)'s 'dm' sizes, every position on the one card
+#: a rank of (c): the sweep CLI under a wrapper of the time-sharded sweep
+#: that keeps its result; writes the rank's numbers to argv[1] (JSON)
+#: and its rows to argv[1] + ".npz"; the rest of argv is the CLI's
+RANK_RUNNER = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+from pypulsar_tpu_torch.cli import sweep as cli
+from pypulsar_tpu_torch.ops.boxcar_stats import boxcar_stats
+from pypulsar_tpu_torch.ops.gather_sum import shifted_gather_sum
+from pypulsar_tpu_torch.parallel import distributed, prefetch
+
+out, go, coord, rank = sys.argv[1:5]
+argv = sys.argv[5:]
+# the card and the group are up before the signal: the timed run is the
+# sweep CLI's
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+cuda_s = time.perf_counter() - t0
+assert distributed.initialize(coord, 2, int(rank))
+init_s = time.perf_counter() - t0 - cuda_s
+while not os.path.exists(go):
+    time.sleep(0.05)
+real = distributed.time_sharded_sweep
+box = {}
+
+
+def wrapped(*a, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    box["res"] = real(*a, **kw)
+    torch.cuda.synchronize()
+    box["sweep_s"] = time.perf_counter() - t0
+    return box["res"]
+
+
+distributed.time_sharded_sweep = wrapped
+prefetch.ship_ahead.bytes = 0
+shifted_gather_sum.launches.clear()
+boxcar_stats.launches = 0
+t0 = time.perf_counter()
+rc = cli.main(argv + ["--process-id", rank])
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+distributed.shutdown()
+res = box["res"]
+np.savez(out + ".npz", snr=res.snr, peak=res.peak_sample)
+with open(out, "w") as f:
+    json.dump({"rc": rc, "wall_s": wall, "sweep_s": box["sweep_s"],
+               "cuda_init_s": cuda_s, "group_init_s": init_s,
+               "h2d_bytes": int(prefetch.ship_ahead.bytes),
+               "launches": {
+                   "gather_sum/stage1": shifted_gather_sum.launches["stage1"],
+                   "gather_sum/stage2": shifted_gather_sum.launches["stage2"],
+                   "boxcar_stats": boxcar_stats.launches}}, f)
+sys.exit(rc)
+"""
+RANK_TIMEOUT_S = 300
+
+
+def same_rows(what, got, ref):
+    """Fail unless ``got`` has ``ref``'s rows bit for bit."""
+    import numpy as np
+
+    for f in ("snr", "peak_sample", "mean", "std"):
+        if not np.array_equal(getattr(got, f), getattr(ref, f)):
+            fail(f"{what}: {f} differs from the single-device rows")
+
+
+def two_d_contract(what, snr, peak, ref):
+    """Fail unless the peaks are ``ref``'s bit for bit and the SNR within
+    2e-6 relative; returns the largest relative SNR difference."""
+    import numpy as np
+
+    if not np.array_equal(peak, ref.peak_sample):
+        fail(f"{what}: peak samples differ from the single-device sweep")
+    rel = float((np.abs(snr - ref.snr)
+                 / np.maximum(np.abs(ref.snr), 1.0)).max())
+    if rel > 2e-6:
+        fail(f"{what}: SNR {rel:.3e} relative from the single-device "
+             f"sweep, past 2e-6")
+    return rel
+
+
+def mesh_resident(fn, card):
+    """Phase 20 (a): ``sweep_resident`` of phase 17's tensor over 'dm'
+    meshes naming the card k times, a 2 x 2 'dm' x 'time' chunk, and the
+    tree engine at k = 2; returns the launches by path."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.parallel import staged, sweep
+    from pypulsar_tpu_torch.parallel.mesh import make_mesh
+
+    with FilterbankFile(fn) as r:
+        src = staged.ReaderSource(r)
+        (_, data), = list(src.chan_major_blocks(src.nsamples, 0, "cuda"))
+        freqs, dt = src.frequencies, src.tsamp
+    card0 = torch.device("cuda", torch.cuda.current_device())
+    dms = 0.5 * np.arange(1024)
+    kw = dict(nsub=64, group_size=RESIDENT_GROUP,
+              chunk_payload=RESIDENT_CHUNK, device="cuda")
+    groups = len(dms) // RESIDENT_GROUP
+    ref = sweep.sweep_resident(data, freqs, dt, dms, **kw)
+    launches, numbers = {}, {}
+
+    def timed(name, fn_, *a, **k):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn_(*a, **k)
+        torch.cuda.synchronize()
+        numbers[name] = dict(wall_s=time.perf_counter() - t0,
+                             peak_device_gb=torch.cuda.max_memory_allocated()
+                             / 1e9)
+        launches[name] = launch_counts()
+        return out
+
+    for k in MESH_KS:
+        m = make_mesh([k], ("dm",), devices=[card0] * k)
+        # padded past the groups: the padding's rows must not leak
+        got = timed(f"mesh_resident_k{k}", sweep.sweep_resident, data,
+                    freqs, dt, dms, mesh=m, pad_groups_to=groups + k, **kw)
+        same_rows(f"resident sweep on a {k}-position mesh", got, ref)
+        la = launches[f"mesh_resident_k{k}"]
+        if min(la[n] for n in SWEEP_KERNELS) < 1:
+            fail(f"the {k}-position resident sweep launched no kernel: {la}")
+    # 2 x 2: each time shard half the series, its halo by a card copy
+    T = int(data.shape[1])
+    lp = T // 2
+    plan = sweep.make_sweep_plan(dms, freqs, dt, nsub=64,
+                                 group_size=RESIDENT_GROUP,
+                                 pad_groups_to=groups)
+    ref2 = sweep.sweep_spectra(data, freqs, dt, dms, nsub=64,
+                               group_size=RESIDENT_GROUP, chunk_payload=lp,
+                               device="cuda")
+    m2 = make_mesh([2, 2], ("dm", "time"), devices=[card0] * 4)
+    base = data.mean(dim=1, keepdim=True)
+    fn2 = sweep.make_sharded_sweep_chunk_2d(m2, 64, lp, plan.min_overlap,
+                                            plan.max_shift2, plan.widths)
+    s, ss, mb, ab = timed("mesh_2d", fn2, data - base, plan.stage1_bins,
+                          plan.stage2_bins)
+    got2 = sweep.finalize_sweep(plan, T, s, ss, mb, ab,
+                                float(base.double().sum().item()))
+    rel2 = two_d_contract("the 2 x 2 mesh", got2.snr, got2.peak_sample,
+                          ref2)
+    if min(launches["mesh_2d"][n] for n in SWEEP_KERNELS) < 1:
+        fail(f"the 2 x 2 mesh launched no kernel: {launches['mesh_2d']}")
+    del ref2, base
+    torch.cuda.empty_cache()
+    # the tree engine, each position its own plan and state
+    tkw = dict(kw, engine="tree")
+    tref = timed("mesh_tree_k1", sweep.sweep_spectra, data, freqs, dt, dms,
+                 **tkw)
+    torch.cuda.empty_cache()
+    tgot = timed("mesh_tree_k2", sweep.sweep_spectra, data, freqs, dt, dms,
+                 mesh=make_mesh([2], ("dm",), devices=[card0] * 2), **tkw)
+    same_rows("the tree engine on a 2-position mesh", tgot, tref)
+    lt = launches["mesh_tree_k2"]
+    if min(lt["gather_sum/tree_level"], lt["gather_sum/tree_snap"],
+           lt["boxcar_stats"]) < 1:
+        fail(f"the sharded tree launched no tree kernel: {lt}")
+    del data
+    torch.cuda.empty_cache()
+    print("path mesh_resident: " + json.dumps({
+        "card": card, "trials": len(dms), "samples": T,
+        "chunk": RESIDENT_CHUNK, "ks": list(MESH_KS),
+        "2d_snr_max_rel": rel2, "tree_merge_levels":
+        tgot.engine_info.get("merge_levels"),
+        "tree_state_gb": {"k1": tref.engine_info.get("state_bytes", 0) / 1e9,
+                          "k2": tgot.engine_info.get("state_bytes", 0) / 1e9},
+        "runs": numbers, "launches": launches}))
+    return {k: v for k, v in launches.items() if k != "mesh_tree_k1"}
+
+
+def mesh_stage(tmp, fn):
+    """Phase 20 (b): phase 6's stage as ``sweep --mesh 2`` in-process
+    under a lease naming the card twice: every artifact phase 6's
+    bytes."""
+    import torch
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.parallel.mesh import device_lease
+
+    out = os.path.join(tmp, "stage_mesh")
+    argv = stage_argv(fn, out, STAGE_LODM, STAGE_DMS,
+                      ["--write-dats", "--mesh", "2"])
+    card0 = torch.device("cuda", torch.cuda.current_device())
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with device_lease([card0, card0]):
+        rc, text = run_quiet(cli.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if rc != 0:
+        fail(f"sweep --mesh 2 exited {rc}: {text[-2000:]}")
+    if min(launches[n] for n in SWEEP_KERNELS) < 1:
+        fail(f"sweep --mesh 2 launched no kernel: {launches}")
+    ref = os.path.join(tmp, "stage")
+    n = same_bytes(sorted(glob.glob(ref + "_DM*_ACCEL_200.*cand"))
+                   + sorted(glob.glob(ref + "_DM*.dat")), ref, out)
+    with open(ref + ".cands", "rb") as a, open(out + ".cands", "rb") as b:
+        if a.read() != b.read():
+            fail("sweep --mesh 2's .cands differ from phase 6's")
+    print("path mesh_stage: " + json.dumps({
+        "wall_s": wall, "files_equal": n + 1, "launches": launches}))
+    return launches
+
+
+def start_ranks(tmp, fn):
+    """Phase 20 (c)'s two ranks, started early: each brings up the card
+    and joins the gloo group, then waits for ``go`` to run ``sweep
+    --time-shard`` of phase 4's grid on phase 4's file."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    go = os.path.join(tmp, "ranks.go")
+    argv = [fn, "--lodm", "0", "--dmstep", "0.5", "--numdms", "1024",
+            "--nsub", "64", "-o", os.path.join(tmp, "ts"), "--device",
+            "cuda", "--time-shard", "--coordinator", coord,
+            "--num-processes", "2"]
+    procs, logs = [], []
+    for r in range(2):
+        logs.append(os.path.join(tmp, f"rank{r}.log"))
+        procs.append(child(["-c", RANK_RUNNER, os.path.join(
+            tmp, f"rank{r}.json"), go, coord, str(r), *argv], logs[r]))
+    return dict(procs=procs, logs=logs, go=go)
+
+
+def time_shard_ranks(tmp, ranks, gather_res):
+    """Phase 20 (c): the two ranks on the card over gloo, each sweeping
+    half the 67-s file's chunks (``sweep --time-shard``), run at the
+    signal; returns each rank's launches."""
+    import numpy as np
+
+    procs, logs = ranks["procs"], ranks["logs"]
+    out = os.path.join(tmp, "ts")
+    t0 = time.perf_counter()
+    with open(ranks["go"], "w"):
+        pass
+    try:
+        for p in procs:
+            p.wait(timeout=RANK_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    ranks, launches = [], {}
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            fail(f"time-shard rank {r} exited {p.returncode}: "
+                 f"{read_log(logs[r])[-3000:]}")
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            numbers = json.load(f)
+        with np.load(os.path.join(tmp, f"rank{r}.json.npz")) as z:
+            rel = two_d_contract(f"time-shard rank {r}", z["snr"],
+                                 z["peak"], gather_res)
+        if min(numbers["launches"].values()) < 1:
+            fail(f"time-shard rank {r} launched no kernel: {numbers}")
+        launches[f"time_shard_r{r}"] = numbers["launches"]
+        ranks.append(dict(numbers, snr_max_rel=rel))
+    if not os.path.exists(out + ".cands"):
+        fail("the time-sharded sweep wrote no .cands")
+    print("path time_shard_2ranks: " + json.dumps({
+        "wall_s": wall, "ranks": ranks,
+        "phase4_h2d_bytes": PHASE4.get("h2d_bytes"),
+        "h2d_fraction_of_phase4": [
+            r["h2d_bytes"] / PHASE4["h2d_bytes"] for r in ranks]
+        if PHASE4.get("h2d_bytes") else None}))
+    return launches
+
+
+def gang_fleet(tmp, chain, card, device="cuda"):
+    """Phase 20 (d): ``survey --devices 2 --gang 2`` over phase 18's
+    clean file on the card: the sweep a gang of two leases (``--mesh 2``
+    on the card twice), every artifact the serial chain's bytes, and a
+    ``survey.gang_decision`` of k = 2 in the trace."""
+    from pypulsar_tpu_torch.obs.summarize import load_records
+
+    fleet = chain["fleet"]
+    out = os.path.join(tmp, "gang_fleet")
+    tlm = os.path.join(tmp, "gang_tlm")
+    text, wall, launches, _, peak = run_fleet(
+        [fleet["files"][2]], out, device,
+        ["--devices", "2", "--gang", "2"], tlm=tlm)
+    if min(launches[n] for n in SWEEP_KERNELS) < 1 or \
+            launches["fold_parts_poly"] + launches["fold_parts_multi_poly"] \
+            < 1:
+        fail(f"the gang fleet did not launch every kernel: {launches}")
+    n = fleet_bytes({"obs": fleet["serials"]["obs"]}, out, "(gang)")
+    decisions = [rec["attrs"] for rec in load_records(
+        os.path.join(tlm, "fleet.jsonl"))
+        if rec.get("name") == "survey.gang_decision"]
+    gangs = [d for d in decisions if d.get("stage") == "sweep"]
+    if not gangs or any(d["k"] != 2 or len(set(d["chips"])) != 2
+                        for d in gangs):
+        fail(f"the sweep did not run as a gang of 2 leases: {decisions}")
+    print("path survey_gang: " + json.dumps({
+        "card": card, "wall_s": wall, "peak_device_gb": peak,
+        "files_equal": n, "gang_decisions": decisions,
+        "serial_wall_s": fleet["serial_walls"]["obs"],
+        "launches": launches}))
+    return launches
+
+
+def mesh_phase(tmp, fn, info, chain, card, gather_res):
+    """Phase 20: several logical devices on the one card."""
+    # the ranks' start (interpreters, the card, the group) overlaps (a)
+    # and (b); their timed sweep runs alone
+    ranks = start_ranks(tmp, fn)
+    try:
+        paths = mesh_resident(fn, card)
+        paths["mesh_stage"] = mesh_stage(tmp, fn)
+    except BaseException:
+        for p in ranks["procs"]:
+            p.kill()
+            p.wait()
+        raise
+    paths.update(time_shard_ranks(tmp, ranks, gather_res))
+    paths["survey_gang"] = gang_fleet(tmp, chain, card)
+    return paths
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -7018,6 +7390,8 @@ def main() -> int:
         mark("18 fleet")
         plane_paths = plane_phase(tmp, fn, info, chain, card)
         mark("19 hosts, daemon")
+        mesh_paths = mesh_phase(tmp, fn, info, chain, card, gather_res)
+        mark("20 meshes")
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -7028,7 +7402,8 @@ def main() -> int:
              "spectral_chain": spectral_ch, "ddplan": ddplan, **prep,
              "lane": lane_launches, **fits_paths, **spectra_paths,
              **hour_paths, **resume_paths, **telemetry_paths,
-             **resident_paths, **fleet_paths, **plane_paths}
+             **resident_paths, **fleet_paths, **plane_paths,
+             **mesh_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}

@@ -58,8 +58,15 @@ drains on SIGTERM. ``--status-port N`` serves ``/status.json``,
 (``obs/statusd.py``); ``survey --status --follow [--status-port N]``
 refreshes the table every ``--follow-interval`` seconds.
 
-Refused, each with exit 2 naming its ROADMAP.md item: ``--gang K`` for
-K > 1 (item 14; ``--gang auto`` is 1 here) and ``--fault-chaos`` (item
+``--gang K`` gives the sweep stage K device leases per execution (its
+``--mesh K``; the other stages keep one), shrunk to the healthy leases;
+``--gang auto`` (the default) widens it onto idle leases on distinct
+cards only when it owns enough of the measured device chain
+(``survey/scheduler.py``); leases that share a device (every lease on
+the CPU) are never ganged by it. A ganged sweep runs without a batch
+lane. The artifacts do not depend on the gang.
+
+Refused with exit 2 naming its ROADMAP.md item: ``--fault-chaos`` (item
 16).
 """
 
@@ -74,7 +81,6 @@ import sys
 NOT_PORTED = {
     "fault_chaos": ("--fault-chaos", "Queue 1 item 16 (chaos mode)"),
 }
-GANG_ITEM = "Queue 1 item 14 (multi-GPU)"
 #: ``--status --follow``'s refresh period (the reference's
 #: ``PYPULSAR_TPU_OBS_FOLLOW_S`` default), seconds
 FOLLOW_S = 2.0
@@ -130,9 +136,10 @@ def build_parser():
                         "runs on card i %% the card count, so more "
                         "leases than cards share a card")
     p.add_argument("--gang", default="auto", metavar="K|auto",
-                   help="cards per stage execution: 1 (and 'auto', the "
-                        "default) here; K > 1 is " + not_ported
-                        + GANG_ITEM)
+                   help="device leases per sweep execution (its --mesh "
+                        "K); 'auto' (the default) widens the sweep onto "
+                        "idle leases on distinct cards when it owns "
+                        "enough of the measured device chain")
     p.add_argument("--retries", type=int, default=1,
                    help="bounded per-stage retries (jittered exponential "
                         "backoff) before the observation is quarantined "
@@ -487,23 +494,20 @@ def _survey_config(args):
 
 
 def _parse_gang(args):
-    """The --gang flag's value (``auto`` is 1: one card per stage), or
-    None after a printed usage error: K > 1 is item 14's."""
+    """The --gang flag's value (``"auto"`` or an integer K >= 1), or None
+    after a printed usage error."""
     gang = args.gang
     if gang == "auto":
-        return 1
+        return gang
     try:
         gang = int(gang)
     except ValueError:
-        print(f"survey: --gang must be an integer or 'auto', got "
-              f"{gang!r}", file=sys.stderr)
+        gang = 0
+    if gang < 1:
+        print(f"survey: --gang must be an integer >= 1 or 'auto', got "
+              f"{args.gang!r}", file=sys.stderr)
         return None
-    if gang > 1:
-        print(f"survey: --gang {gang} is not ported yet (ROADMAP.md "
-              f"{GANG_ITEM}); run --gang 1 (one card per stage)",
-              file=sys.stderr)
-        return None
-    return max(1, gang)
+    return gang
 
 
 def _run(args, gang: int) -> int:

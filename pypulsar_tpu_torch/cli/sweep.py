@@ -58,8 +58,34 @@ pypulsar_tpu_torch.cli.tlmsum PATH.jsonl``), and ``--fault-inject SPEC``
 arms the fault injector (``resilience/faultinject.py``), e.g.
 ``oom:sweep.chunk_dispatch`` or ``kill:accel.after_cand_write:3``.
 
-Several input files are refused: in the JAX package they are the mesh's
-batch axis, which comes with ROADMAP.md Queue 1 item 14.
+Several cards and several processes (the reference's scale-out):
+
+- ``--mesh K`` shards the trial groups of the sweep pass and of the
+  ``--accel-search`` handoff over K devices of a ``'dm'`` mesh
+  (``parallel/mesh.py``): the thread's device lease when the survey
+  scheduler placed the run, else the cards from the current one. Every
+  artifact has the single-device bytes. A machine with one card runs a
+  mesh only under a lease that names it K times.
+- Several input files are the multi-file batch axis
+  (``parallel/distributed.multi_host_sweep``): each process sweeps its
+  round-robin share, writes ``{file}.cands`` beside each file (flat mode
+  honours ``--write-dats``) and rank 0 writes the merged table (every
+  process holds it) ``{outbase}_merged.cands`` (outbase default: the first file's, plus
+  ``_multi``); ``--checkpoint PATH`` checkpoints file ``i`` at
+  ``PATH.f{i}``.
+- ``--time-shard`` sweeps ONE file with its time axis split over the
+  processes (``parallel/distributed.time_sharded_sweep``, with
+  ``--ddplan`` ``time_sharded_ddplan``): each process streams its
+  whole-chunk window, the windows' accumulators merge in rank order and
+  rank 0 writes the ``.cands``; ``--write-dats`` has each rank write its
+  window's ``.w{rank}.dat`` segments, which rank 0 joins after a barrier;
+  ``--checkpoint PATH`` checkpoints rank ``r`` at ``PATH.r{r}`` (DDplan:
+  ``PATH.step{i}.r{r}``).
+- ``--coordinator HOST:PORT --num-processes P --process-id R`` joins the
+  ``torch.distributed`` group over gloo (only KB-sized summaries cross
+  processes, and gloo takes two ranks on one card); without them a run is
+  one process. ``--journal`` and ``--accel-search`` are refused with
+  these modes, as in the reference.
 
 Run as ``python -m pypulsar_tpu_torch.cli.sweep FILE --numdms N ...``.
 """
@@ -78,11 +104,6 @@ from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience.dataguard import finite_rows
 from pypulsar_tpu_torch.resilience.journal import atomic_write_text
 
-#: flags of the reference's sweep stage that the port does not take yet,
-#: with the ROADMAP.md item that brings each
-NOT_PORTED = {
-    "mesh": ("--mesh", "Queue 1 item 14 (multi-GPU)"),
-}
 #: the .pulses columns after the .cands' six: (header, key, format)
 PULSE_COLS = (("n_hits", "n_hits", "%-7d"), ("dm_lo", "dm_lo", "%-8.3f"),
               ("dm_hi", "dm_hi", "%-8.3f"))
@@ -115,8 +136,10 @@ def _parser() -> argparse.ArgumentParser:
                     "with the streamed acceleration search")
     ap.add_argument("infile", nargs="+",
                     help="SIGPROC .fil (1-16 bit or float32) or PSRFITS "
-                         "input; one file (several are not ported yet: "
-                         "ROADMAP.md Queue 1 item 14)")
+                         "input; several files are the multi-file batch "
+                         "axis (each process sweeps its round-robin "
+                         "share, with per-file .cands and one merged "
+                         "table)")
     ap.add_argument("-o", "--outbase", default=None,
                     help="output basename (default: input sans extension)")
     ap.add_argument("--lodm", type=float, default=0.0, help="lowest trial DM")
@@ -227,9 +250,25 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true",
                     help="resume from the --checkpoint files (without it "
                          "they are removed first)")
-    not_ported = "not ported yet: ROADMAP.md "
-    ap.add_argument("--mesh", type=int, default=0,
-                    help=not_ported + NOT_PORTED["mesh"][1])
+    ap.add_argument("--mesh", type=int, default=0, metavar="K",
+                    help="shard the DM trials of the sweep pass and the "
+                         "--accel-search handoff over K devices (the "
+                         "thread's device lease, else the cards from the "
+                         "current one); artifacts are the single-device "
+                         "bytes")
+    ap.add_argument("--time-shard", action="store_true",
+                    help="ONE file, its time axis split over the "
+                         "processes: each streams its whole-chunk window "
+                         "and the ~KB accumulators merge over gloo; rank "
+                         "0 writes the artifacts")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="torch.distributed rendezvous (gloo; rank 0 "
+                         "listens there); without it the run is one "
+                         "process")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="processes in the group (with --coordinator)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank (with --coordinator)")
     telemetry.add_telemetry_flag(
         ap, what="per-chunk spans, H2D/D2H byte counters, device stats")
     faultinject.add_fault_flag(ap)
@@ -336,15 +375,21 @@ def _emit_sweep_artifacts(staged, outbase, args, journal) -> None:
 
 
 def _check_args(ap, args) -> None:
-    """The reference's refusals of flag combinations, and the flags the
-    port does not take (exit 2 naming their ROADMAP.md item)."""
-    for dest, (flag, item) in NOT_PORTED.items():
-        if getattr(args, dest):
-            ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
-    if len(args.infile) > 1:
-        # the JAX package's multi-file batch axis
-        ap.error("several input files are not ported yet (ROADMAP.md "
-                 "Queue 1 item 14 (multi-GPU))")
+    """The reference's refusals of flag combinations."""
+    multi = len(args.infile) > 1 or args.num_processes not in (None, 1)
+    if args.mesh < 0:
+        ap.error("--mesh must be >= 0")
+    if args.time_shard and len(args.infile) > 1:
+        ap.error("--time-shard sweeps ONE file (file batching is the "
+                 "default multi-file mode)")
+    if args.accel_search and (args.time_shard or multi):
+        ap.error("--accel-search streams ONE file on this host")
+    if args.journal and (args.time_shard or multi):
+        ap.error("--journal is a flat single-file option (the journal "
+                 "manifests one sweep->accel chain; DDplan/multi-host "
+                 "runs have their own checkpoint machinery)")
+    if args.all_events and len(args.infile) > 1:
+        ap.error("--all-events is a single-file option")
     if args.downsamp < 1:
         ap.error("--downsamp must be >= 1")
     if args.resume and not args.checkpoint:
@@ -402,14 +447,225 @@ def make_ddplan(reader, args):
 
 
 def main(argv=None) -> int:
+    from pypulsar_tpu_torch.parallel import distributed as dist
+
     ap = _parser()
     args = ap.parse_args(argv)
     _check_args(ap, args)
 
     if args.fault_inject:
         faultinject.configure(args.fault_inject)
-    with telemetry.session_from_flag(args.telemetry, tool="sweep"):
-        return _main_parsed(args)
+    # a group this call joined is left at its end; one joined by the
+    # caller stays
+    joined = not dist.is_distributed() and dist.initialize(
+        args.coordinator, args.num_processes, args.process_id)
+    try:
+        with telemetry.session_from_flag(args.telemetry, tool="sweep"):
+            if args.time_shard:
+                return _main_timeshard(args)
+            if len(args.infile) > 1 or dist.is_distributed():
+                return _main_multi(args)
+            return _main_parsed(args)
+    finally:
+        if joined:
+            dist.shutdown()
+
+
+def _mesh(args):
+    """The ``--mesh K`` mesh (``parallel/mesh.gang_mesh``), or None."""
+    if not args.mesh:
+        return None
+    from pypulsar_tpu_torch.parallel.mesh import gang_mesh
+
+    return gang_mesh(args.mesh, args.device)
+
+
+def _main_multi(args) -> int:
+    """Several files (or several processes): this process sweeps its
+    round-robin share and writes each file's artifacts beside it; every
+    process gathers the merged table and rank 0 writes it."""
+    from pypulsar_tpu_torch.cli import open_reader
+    from pypulsar_tpu_torch.io.rfimask import RfifindMask
+    from pypulsar_tpu_torch.parallel import distributed as dist
+    from pypulsar_tpu_torch.parallel.accelpipe import stream_series
+    from pypulsar_tpu_torch.resilience.journal import atomic_write_text
+
+    files = list(args.infile)
+    widths = tuple(int(w) for w in args.widths.split(","))
+    rfimask = RfifindMask(args.maskfile) if args.maskfile else None
+    mesh = _mesh(args)
+    rank, count = dist.process_index(), dist.process_count()
+    ddplan = dms = None
+    if args.ddplan:
+        # every process runs the plan of the FIRST file's header
+        with open_reader(files[0]) as reader0:
+            ddplan = make_ddplan(reader0, args)
+        if rank == 0:
+            print(f"# DDplan: {len(ddplan.DDsteps)} steps, "
+                  f"{sum(s.numDMs for s in ddplan.DDsteps)} DM trials, "
+                  f"{len(files)} files over {count} processes")
+    else:
+        dms = args.lodm + args.dmstep * np.arange(args.numdms)
+    if args.checkpoint and not args.resume:
+        # only this process's share: another may already be writing its own
+        for fi in range(rank, len(files), count):
+            _remove_stale_checkpoints(f"{args.checkpoint}.f{fi}")
+
+    def per_file(fi, path, staged):
+        base = os.path.splitext(path)[0]
+        hits = staged.above_threshold(args.threshold)
+        write_cands(base + ".cands", hits)
+        if args.write_dats and not args.ddplan:
+            with open_reader(path) as reader:
+                stream_series(reader, dms, downsamp=args.downsamp,
+                              nsub=args.nsub, group_size=args.group_size,
+                              chunk_payload=args.chunk, dat_outbase=base,
+                              keep=False, rfimask=rfimask,
+                              engine=args.engine, device=args.device,
+                              mesh=mesh)
+        print(f"# [process {rank}] {path}: {staged.n_trials} trials, "
+              f"{len(hits)} detections >= {args.threshold} sigma -> "
+              f"{base}.cands")
+
+    merged = dist.multi_host_sweep(
+        files, dms, nsub=args.nsub, group_size=args.group_size,
+        chunk_payload=args.chunk, mesh=mesh, topk_per_file=args.topk,
+        ddplan=ddplan, downsamp=args.downsamp, widths=widths,
+        engine=args.engine, rfimask=rfimask, checkpoint_base=args.checkpoint,
+        checkpoint_every=args.checkpoint_every, per_file=per_file,
+        device=args.device)
+    outbase = args.outbase or (os.path.splitext(files[0])[0] + "_multi")
+    lines = ["# DM      SNR      sample    width_bins  downsamp  file\n"]
+    for m in merged:
+        lines.append(f"{m[1]:<9.4f} {m[2]:<8.3f} {int(m[4]):<9d} "
+                     f"{int(m[3]):<11d} {int(m[5]):<9d} "
+                     f"{files[int(m[0])]}\n")
+    if rank == 0:  # one writer: the processes share the output directory
+        atomic_write_text(outbase + "_merged.cands", "".join(lines))
+    print(f"# merged: {len(merged)} candidates over {len(files)} files "
+          f"({count} processes) -> {outbase}_merged.cands")
+    return 0
+
+
+def _write_dats_timeshard(outbase, reader, dms, args, rfimask, mesh) -> None:
+    """``--time-shard --write-dats``: this rank streams its whole-chunk
+    window through the series pass into ``{outbase}_DM*.w{rank}.dat``
+    segments; after a barrier rank 0 joins them in rank order (each
+    ``.dat`` written atomically, each segment removed as it is read) and
+    writes the ``.inf`` sidecars of the whole length. The processes share
+    a filesystem, as the merged ``.cands`` already assumes."""
+    import shutil
+
+    from pypulsar_tpu_torch.parallel import distributed as dist
+    from pypulsar_tpu_torch.parallel.staged import (
+        dat_append_rows,
+        dat_finalize_paths,
+        dats_geometry,
+        iter_dedispersed_chunks,
+        write_dat_infs,
+    )
+    from pypulsar_tpu_torch.resilience.journal import atomic_open
+
+    rank, count = dist.process_index(), dist.process_count()
+    _plan, payload, T = dats_geometry(
+        reader, dms, downsamp=args.downsamp, nsub=args.nsub,
+        group_size=args.group_size, chunk_payload=args.chunk)
+    s0, s1 = dist.time_shard_window(T, payload, rank, count)
+    segs = [f"{outbase}_DM{dm:.2f}.w{rank}.dat" for dm in dms]
+    if s0 < s1:
+        for p in segs:
+            open(p + ".tmp", "wb").close()
+        for _pos, rows in iter_dedispersed_chunks(
+                reader, dms, downsamp=args.downsamp, nsub=args.nsub,
+                group_size=args.group_size, chunk_payload=payload,
+                rfimask=rfimask, engine=args.engine, device=args.device,
+                mesh=mesh, window=(s0, s1)):
+            dat_append_rows(segs, rows)
+        dat_finalize_paths(segs)
+    dist.barrier("write_dats_segments")
+    if rank == 0:
+        for dm in dms:
+            base = f"{outbase}_DM{dm:.2f}"
+            with atomic_open(base + ".dat", "wb") as out:
+                for r in range(count):
+                    seg = f"{base}.w{r}.dat"
+                    if os.path.exists(seg):
+                        with open(seg, "rb") as f:
+                            shutil.copyfileobj(f, out, 1 << 24)
+                        os.remove(seg)
+        write_dat_infs(outbase, reader, dms, T,
+                       float(reader.tsamp) * max(1, args.downsamp))
+    dist.barrier("write_dats_joined")
+
+
+def _main_timeshard(args) -> int:
+    """ONE file, its time axis split over the processes: every process
+    computes the same result and rank 0 writes the artifacts."""
+    from pypulsar_tpu_torch.cli import open_reader
+    from pypulsar_tpu_torch.io.rfimask import RfifindMask
+    from pypulsar_tpu_torch.parallel import distributed as dist
+    from pypulsar_tpu_torch.parallel.staged import (
+        StagedSweepResult,
+        StepResult,
+    )
+
+    infile = args.infile[0]
+    outbase = args.outbase or os.path.splitext(infile)[0]
+    widths = tuple(int(w) for w in args.widths.split(","))
+    rfimask = RfifindMask(args.maskfile) if args.maskfile else None
+    mesh = _mesh(args)
+    rank, count = dist.process_index(), dist.process_count()
+    if args.checkpoint and not args.resume:
+        _remove_stale_checkpoints(f"{args.checkpoint}.r{rank}")
+        # the DDplan's per-step roots put the step before the rank
+        for i in range(256):
+            for fn in (f"{args.checkpoint}.step{i}.r{rank}",
+                       f"{args.checkpoint}.step{i}.r{rank}.tmp.npz"):
+                if os.path.exists(fn):
+                    os.remove(fn)
+    with open_reader(infile) as reader:
+        dt = float(reader.tsamp)
+        if args.ddplan:
+            plan = make_ddplan(reader, args)
+            if rank == 0:
+                print(f"# DDplan: {len(plan.DDsteps)} steps, "
+                      f"{sum(s.numDMs for s in plan.DDsteps)} total DM "
+                      f"trials, time-sharded over {count} processes")
+            staged = dist.time_sharded_ddplan(
+                reader, plan, nsub=args.nsub, group_size=args.group_size,
+                chunk_payload=args.chunk, mesh=mesh, widths=widths,
+                engine=args.engine, rfimask=rfimask,
+                checkpoint_base=args.checkpoint,
+                checkpoint_every=args.checkpoint_every, device=args.device)
+        else:
+            dms = args.lodm + args.dmstep * np.arange(args.numdms)
+            res = dist.time_sharded_sweep(
+                reader, dms, nsub=args.nsub, group_size=args.group_size,
+                chunk_payload=args.chunk, mesh=mesh, widths=widths,
+                engine=args.engine, rfimask=rfimask,
+                checkpoint_base=args.checkpoint,
+                checkpoint_every=args.checkpoint_every,
+                downsamp=args.downsamp, keep_chunk_peaks=args.all_events,
+                device=args.device)
+            staged = StagedSweepResult(steps=[StepResult(
+                downsamp=args.downsamp, dt=dt * args.downsamp,
+                result=res)])
+            if args.write_dats:
+                _write_dats_timeshard(outbase, reader, dms, args, rfimask,
+                                      mesh)
+    hits = staged.above_threshold(args.threshold)
+    if rank == 0:
+        write_cands(outbase + ".cands", hits)
+        if args.all_events:
+            _emit_events(staged, outbase, args)
+    print(f"# [process {rank}/{count}] time-sharded: {staged.n_trials} DM "
+          f"trials, {len(hits)} detections >= {args.threshold} sigma -> "
+          f"{outbase}.cands")
+    for c in staged.best(args.topk):
+        print(f"DM {c['dm']:8.3f}  SNR {c['snr']:7.2f}  t "
+              f"{c['time_sec']:10.4f}s  width {c['width_bins']:3d} "
+              f"bins ({c['width_sec']*1e3:.2f} ms)  ds {c['downsamp']}")
+    return 0
 
 
 def _main_parsed(args) -> int:
@@ -421,6 +677,7 @@ def _main_parsed(args) -> int:
     widths = tuple(int(w) for w in args.widths.split(","))
     infile = args.infile[0]
     outbase = args.outbase or os.path.splitext(infile)[0]
+    mesh = _mesh(args)
     rfimask = RfifindMask(args.maskfile) if args.maskfile else None
     if args.checkpoint and not args.resume:
         _remove_stale_checkpoints(args.checkpoint)
@@ -435,7 +692,7 @@ def _main_parsed(args) -> int:
                 widths=widths, chunk_payload=args.chunk, verbose=True,
                 engine=args.engine, rfimask=rfimask, device=args.device,
                 checkpoint_path=args.checkpoint,
-                checkpoint_every=args.checkpoint_every)
+                checkpoint_every=args.checkpoint_every, mesh=mesh)
         _emit_sweep_artifacts(staged, outbase, args, None)
         return 0
     dms = args.lodm + args.dmstep * np.arange(args.numdms)
@@ -462,7 +719,7 @@ def _main_parsed(args) -> int:
                     engine=args.engine, rfimask=rfimask, device=args.device,
                     checkpoint_path=args.checkpoint,
                     checkpoint_every=args.checkpoint_every,
-                    keep_chunk_peaks=args.all_events)
+                    keep_chunk_peaks=args.all_events, mesh=mesh)
                 # published (and journalled) before the accel stage: a
                 # kill during the accel pass must not force a re-sweep
                 _emit_sweep_artifacts(staged, outbase, args, journal)
@@ -488,7 +745,7 @@ def _main_parsed(args) -> int:
                     skip_existing=args.accel_skip_existing, journal=journal,
                     spectral=args.spectral,
                     device_prep=args.accel_device_prep,
-                    device=args.device, verbose=True)
+                    device=args.device, verbose=True, mesh=mesh)
                 print(f"# accel handoff: {summary['n_searched']} trials "
                       f"searched, {summary['n_skipped']} skipped, in "
                       f"{summary['n_slices']} DM slice(s), "
@@ -516,7 +773,7 @@ def _main_parsed(args) -> int:
                               chunk_payload=args.chunk, dat_outbase=outbase,
                               keep=False, rfimask=rfimask,
                               engine=args.engine, device=args.device,
-                              verbose=True)
+                              verbose=True, mesh=mesh)
                 print(f"# wrote {len(dms)} .dat/.inf series")
     finally:
         if journal is not None:

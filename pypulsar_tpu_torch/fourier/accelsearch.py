@@ -607,6 +607,7 @@ def accel_search_batch(
     hbm_budget_bytes: float = ACCEL_HBM_BYTES,
     bank_cache_bytes: float = BANK_CACHE_BYTES,
     device="cuda",
+    devices: Optional[Tuple] = None,
 ) -> List[List[AccelCandidate]]:
     """Search a batch of normalized spectra ``ffts[B, N]`` (complex numpy
     or tensor; bin k = frequency k/T, T the observation length in
@@ -625,8 +626,33 @@ def accel_search_batch(
     grid of the *highest* summed harmonic ``r_top = H*r_fund`` at half-bin
     resolution and adds subharmonics at ``r_top * b/H``; ``zmax`` bounds
     the drift of the top harmonic, and a stage-``H`` candidate's
-    fundamental drift resolution is ``dz/H``."""
+    fundamental drift resolution is ``dz/H``.
+
+    ``devices`` (a mesh's positions, which callers resolve through
+    ``parallel.mesh.lease_devices`` or take from their mesh, never
+    ``cuda:0..k-1`` directly) splits the batch into that many contiguous
+    slices, one per device (``B`` must be a multiple), each searched on
+    its own device with its own budget. A spectrum's candidates do not
+    depend on the slicing."""
     cfg = config
+    if devices is not None:
+        from pypulsar_tpu_torch.parallel.mesh import on_device
+
+        devices = tuple(devices)
+        f = torch.as_tensor(ffts)
+        B = int(f.shape[0])
+        if B % len(devices):
+            raise ValueError(f"batch {B} must be divisible by the "
+                             f"{len(devices)} devices")
+        per = B // len(devices)
+        out: List[List[AccelCandidate]] = []
+        for i, dev in enumerate(devices):
+            with on_device(dev):
+                out.extend(accel_search_batch(
+                    f[i * per:(i + 1) * per], T, config,
+                    hbm_budget_bytes=hbm_budget_bytes,
+                    bank_cache_bytes=bank_cache_bytes, device=dev))
+        return out
     device = resolve_device(device)
     f = torch.as_tensor(ffts).to(device=device, dtype=torch.complex64)
     if f.dim() != 2:

@@ -39,8 +39,17 @@ rows, a 2^18-sample chunk) the two buffers take ~31 GB.
 
 Telemetry: every dispatch records the reference's structural counters
 (:func:`note_dispatch`: the ``tree.merge_levels`` gauge,
-``tree.adds_total`` and ``tree.bytes_on_device``). Left out: the
-``'dm'``-mesh factories (ROADMAP.md Queue 1 item 14).
+``tree.adds_total`` and ``tree.bytes_on_device``).
+
+The ``'dm'``-mesh factories (:func:`make_sharded_tree_sweep_chunk`,
+:func:`make_sharded_tree_series_chunk`) are ``parallel.sweep``'s
+sharded factories with this engine: each mesh position's
+``ChunkEngine`` builds its own plan of its contiguous block of trial
+groups and its own state on its device (the reference's
+``_stack_shard_plans`` without the stacking, which only a single
+compiled program needs). A row is the sum of the same channel rows in
+the same tree order whichever trials share the plan, so the shards'
+rows are the unsharded engine's bits.
 """
 
 from __future__ import annotations
@@ -67,6 +76,8 @@ __all__ = [
     "TreePlan",
     "TreeState",
     "dedisperse_series_tree",
+    "make_sharded_tree_series_chunk",
+    "make_sharded_tree_sweep_chunk",
     "plan_from_bins",
     "sweep_chunk_tree",
 ]
@@ -333,3 +344,24 @@ def sweep_chunk_tree(data, stage1_bins, stage2_bins, out_len: int,
     return boxcar_stats(dedisperse_series_tree(data, stage1_bins,
                                                stage2_bins, out_len),
                         widths, stat_len)
+
+
+
+def make_sharded_tree_sweep_chunk(mesh, out_len: int,
+                                  widths: Tuple[int, ...], stat_len: int):
+    """``parallel.sweep.make_sharded_sweep_chunk`` with the tree engine:
+    ``fn(data, stage1_bins, stage2_bins)`` -> per-trial (sum, sumsq,
+    maxbox, argbox) in group order on the first position's device."""
+    from pypulsar_tpu_torch.parallel.sweep import make_sharded_sweep_chunk
+
+    return make_sharded_sweep_chunk(mesh, 0, out_len, 0, widths, stat_len,
+                                    engine="tree")
+
+
+def make_sharded_tree_series_chunk(mesh, out_len: int):
+    """``parallel.sweep.make_sharded_series_chunk`` with the tree engine:
+    ``fn(data, stage1_bins, stage2_bins)`` -> the ``[D, out_len]``
+    series in group order on the first position's device."""
+    from pypulsar_tpu_torch.parallel.sweep import make_sharded_series_chunk
+
+    return make_sharded_series_chunk(mesh, 0, out_len, 0, engine="tree")

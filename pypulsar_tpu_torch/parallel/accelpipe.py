@@ -66,6 +66,15 @@ Telemetry (the reference's names): the series pass is an
 ``accel.batch_dispatch`` (inside the OOM halving),
 ``accel.before_cand_write``, ``accel.after_cand_write`` and
 ``accel.after_journal``.
+
+Under a mesh (``mesh=``, a ``'dm'`` mesh of ``parallel/mesh.py``) one
+observation spans every mesh position: the series pass and spectral
+fusion shard the trial groups (their rows are the single-device rows'
+bits), and each search batch is padded to a multiple of the positions
+(the last spectrum repeated) and split over them
+(``accel_search_batch(devices=)``), the padding dropped from the result.
+A spectrum's candidates do not depend on its batch, so the ``.cand``
+bytes do not depend on the device count.
 """
 
 from __future__ import annotations
@@ -95,6 +104,7 @@ from pypulsar_tpu_torch.parallel.prefetch import prefetch
 from pypulsar_tpu_torch.parallel.specfuse import (
     SPECFUSE_HBM_BYTES,
     fused_spectra_slice,
+    fused_rows,
     spectral_trial_bytes,
 )
 from pypulsar_tpu_torch.parallel.staged import (
@@ -106,7 +116,11 @@ from pypulsar_tpu_torch.parallel.staged import (
     iter_dedispersed_chunks,
     write_dat_infs,
 )
-from pypulsar_tpu_torch.parallel.sweep import choose_group_size, resolve_engine
+from pypulsar_tpu_torch.parallel.sweep import (
+    choose_group_size,
+    mesh_home,
+    resolve_engine,
+)
 from pypulsar_tpu_torch.resilience import faultinject, health
 from pypulsar_tpu_torch.resilience.dataguard import finite_cands
 from pypulsar_tpu_torch.resilience.journal import (
@@ -194,27 +208,35 @@ def _broker_concat_rows(payloads, device):
 
 def _accel_dispatch(payload, n: int, T_sec: float, config,
                     hbm_budget_bytes: float, bank_cache_bytes: float,
-                    device):
+                    device, mesh_devs: Optional[tuple] = None):
     """One candidate list per spectrum of a search batch (one unit or a
-    fused batch of units), halving the batch on a device OOM."""
+    fused batch of units), halving the batch on a device OOM. With
+    ``mesh_devs`` the batch is padded to their multiple (the last
+    spectrum repeated), split over them, and the padding dropped."""
     spectra = payload[0]
+    k = len(mesh_devs) if mesh_devs else 1
+    npad = -(-n // k) * k
+    if npad > n:
+        spectra = torch.cat([spectra,
+                             spectra[-1:].expand(npad - n, -1)])
 
     def run(lo, hi):
         faultinject.trip("accel.batch_dispatch")
         return accel_search_batch(
             spectra[lo:hi], T_sec, config,
             hbm_budget_bytes=hbm_budget_bytes,
-            bank_cache_bytes=bank_cache_bytes, device=device)
+            bank_cache_bytes=bank_cache_bytes, device=device,
+            devices=mesh_devs)
 
-    parts = halving_dispatch(run, n, what="accel.batch")
-    return [c for _, _, cands in parts for c in cands]
+    parts = halving_dispatch(run, npad, what="accel.batch", min_size=k)
+    return [c for _, _, cands in parts for c in cands][:n]
 
 
 def stream_series(reader, dms, downsamp: int = 1, nsub: int = 64,
                   group_size: int = 32, chunk_payload: Optional[int] = None,
                   dat_outbase: Optional[str] = None, keep: bool = True,
                   rfimask=None, engine: str = "auto", device="cuda",
-                  verbose: bool = False
+                  verbose: bool = False, mesh=None
                   ) -> Tuple[Optional[np.ndarray], float]:
     """One pass over ``reader``: every DM trial's full dedispersed series
     as a host ``[D, T_ds]`` float32 buffer, and the effective sampling
@@ -224,7 +246,8 @@ def stream_series(reader, dms, downsamp: int = 1, nsub: int = 64,
     returns no buffer, so any file length needs one chunk of memory.
     ``rfimask`` fills the zapped cells of each raw block
     (:class:`~pypulsar_tpu_torch.parallel.staged.MaskedSource`); ``engine``
-    is the chunk engine of the dedispersion."""
+    is the chunk engine of the dedispersion; ``mesh`` shards its trial
+    groups (the rows, and so the tee, have the single-device bits)."""
     factor = max(1, int(downsamp))
     dms = np.asarray(dms, dtype=np.float64)
     dt_eff = ReaderSource(reader).tsamp * factor
@@ -235,13 +258,14 @@ def stream_series(reader, dms, downsamp: int = 1, nsub: int = 64,
     paths = None
     if dat_outbase is not None:
         paths = dat_truncate_paths(dat_outbase, dms)
+    attrs = {} if mesh is None else {"dev": mesh.axis_ids("dm")}
     with telemetry.span("accel_stream_sweep", aggregate=False,
-                        n_trials=len(dms), n_samples=int(T)):
+                        n_trials=len(dms), n_samples=int(T), **attrs):
         for pos, rows in iter_dedispersed_chunks(
                 reader, dms, downsamp=factor, nsub=nsub,
                 group_size=group_size, chunk_payload=chunk_payload,
                 rfimask=rfimask, engine=engine, device=device,
-                verbose=verbose):
+                verbose=verbose, mesh=mesh):
             if buf is not None:
                 buf[:, pos:pos + rows.shape[1]] = rows
             if paths is not None:
@@ -278,6 +302,7 @@ def sweep_accel_stream(
     device_prep: bool = True,
     device="cuda",
     verbose: bool = False,
+    mesh=None,
 ) -> dict:
     """Dedisperse ``dms`` over ``reader`` and accel-search every trial on
     ``device``, writing ``{outbase}_DM{dm:.2f}_ACCEL_{zmax}.cand/.txtcand``
@@ -291,7 +316,9 @@ def sweep_accel_stream(
     the host (:func:`_host_prep_rows`). Returns a summary dict: trials
     searched, skipped and failed, serial fallbacks, DM slices, spectra
     per prep batch, the series bytes copied to the host and the spectral
-    regime (None when streamed)."""
+    regime (None when streamed). ``mesh`` spans one observation over
+    its ``'dm'`` positions (module docstring; ``device`` is then its first
+    device)."""
     if spectral and write_dats:
         raise ValueError("spectral fusion has no time series to tee: "
                          "write_dats needs the streamed (non-spectral) "
@@ -300,7 +327,9 @@ def sweep_accel_stream(
         raise ValueError("spectral fusion IS device prep: host prep "
                          "(device_prep=False) contradicts spectral=True")
     resolve_engine(engine)
-    device = resolve_device(device)
+    device = mesh_home(mesh) if mesh is not None else resolve_device(device)
+    mesh_devs = (tuple(mesh.axis_devices("dm")) if mesh is not None
+                 else None)
     batch = max(1, int(batch))
     dms = np.asarray(dms, dtype=np.float64)
     D = len(dms)
@@ -388,14 +417,15 @@ def sweep_accel_stream(
                 reader, dms[d0:d1], schedule=schedule, downsamp=factor,
                 nsub=nsub, group_size=group_size, rfimask=rfimask,
                 engine=engine, chunk_payload=chunk_payload,
-                mode=specfuse_mode, device=device, verbose=verbose)
+                mode=specfuse_mode, device=device, verbose=verbose,
+                mesh=mesh)
             dt_eff, regime = fused["dt_eff"], fused["regime"]
         else:
             series, dt_eff = stream_series(
                 reader, dms[d0:d1], downsamp=factor, nsub=nsub,
                 group_size=group_size, chunk_payload=chunk_payload,
                 dat_outbase=outbase if write_dats else None, rfimask=rfimask,
-                engine=engine, device=device, verbose=verbose)
+                engine=engine, device=device, verbose=verbose, mesh=mesh)
             series_host_bytes += series.nbytes
         faultinject.trip("accel.after_stream")
         T_sec = T * dt_eff
@@ -411,9 +441,8 @@ def sweep_accel_stream(
             resident spectra."""
             loc = [i - d0 for i in idxs]
             if fused is not None:
-                sp = fused["spectra"]
                 with telemetry.span("accel_prep_fused", batch=len(idxs)):
-                    return idxs, sp[torch.tensor(loc, device=sp.device)]
+                    return idxs, fused_rows(fused, loc, device)
             rows = np.ascontiguousarray(series[loc])
             with telemetry.span("accel_prep_device" if device_prep
                                 else "accel_prep_host", batch=len(idxs)):
@@ -446,7 +475,8 @@ def sweep_accel_stream(
                         dispatch=lambda unit, n, T_sec=T_sec:
                         _accel_dispatch(unit, n, T_sec, config,
                                         hbm_budget_bytes,
-                                        bank_cache_bytes, device),
+                                        bank_cache_bytes, device,
+                                        mesh_devs),
                         demux=lambda out, lo, hi: out[lo:hi],
                         budget_rows=bk_budget)
             except Exception as e:  # noqa: BLE001 - classified below

@@ -136,12 +136,14 @@ def ship(block, device: torch.device):
     parts = block if isinstance(block, tuple) else (block,)
     hosts = [host_tensor(b) for b in parts]
     if device.type == "cuda":
-        _count_shipped(sum(h.numel() * h.element_size() for h in hosts))
+        count_shipped(sum(h.numel() * h.element_size() for h in hosts))
     devs = tuple(h.to(device) for h in hosts)
     return devs if isinstance(block, tuple) else devs[0]
 
 
-def _count_shipped(nbytes: int) -> None:
+def count_shipped(nbytes: int) -> None:
+    """Count ``nbytes`` copied to a CUDA device in ``ship_ahead.bytes``
+    and the ``h2d.bytes`` counter."""
     with _count_lock:
         ship_ahead.bytes += nbytes
     telemetry.counter("h2d.bytes", nbytes)
@@ -170,7 +172,7 @@ def ship_ahead(raw_blocks: Iterable, device: torch.device, depth: int = 2):
             devs = [h.to(device, non_blocking=True) for h in hosts]
             ready = torch.cuda.Event()
             ready.record(side)
-        _count_shipped(sum(h.numel() * h.element_size() for h in hosts))
+        count_shipped(sum(h.numel() * h.element_size() for h in hosts))
         dev = tuple(devs) if isinstance(block, tuple) else devs[0]
         return pos, dev, ready, hosts
 

@@ -28,7 +28,16 @@ keyword arguments with the reference's defaults
 (:data:`SPECFUSE_HBM_BYTES`, ``mode="stitch"``), not environment
 variables or a tuning cache; and ``mode="decimate"`` on a geometry that
 fails its gate raises, naming the gate, where the reference stitches
-silently. The mesh path waits for ROADMAP.md Queue 1 item 14.
+silently.
+
+With ``mesh=`` (a ``'dm'`` mesh, ``parallel/mesh.py``) the trial groups
+shard over the mesh positions, padded to their multiple, and spectra stay
+on the device that made them: each position stitches its own rows into
+its own buffer (the stitched regime) or computes its own groups'
+decimated spectra (:func:`_make_sharded_spectra_chunk`), and preps them
+there. ``spectra`` is then the list of the positions' blocks, in group
+order (:func:`fused_rows` gathers a batch's rows); each row has the
+single-device row's bits.
 
 Telemetry (the reference's names): the slice is a ``specfuse_slice``
 span, each stitched chunk a ``specfuse_stitch`` span counted in
@@ -58,6 +67,7 @@ __all__ = [
     "MODES",
     "SPECFUSE_HBM_BYTES",
     "decimate_gate",
+    "fused_rows",
     "fused_spectra_slice",
     "spectral_trial_bytes",
 ]
@@ -88,12 +98,62 @@ def decimate_gate(engine: str, n_chunks: int, T: int, n_fft: int):
     return None
 
 
+def fused_rows(fused: dict, loc, device) -> torch.Tensor:
+    """Rows ``loc`` of a fused slice's spectra on ``device``: a row
+    gather of the one tensor, or under a mesh of the position that holds
+    each row."""
+    sp = fused["spectra"]
+    if isinstance(sp, torch.Tensor):
+        return sp[torch.tensor(loc, device=sp.device)].to(device)
+    per = int(sp[0].shape[0])
+    return torch.stack([sp[i // per][i % per].to(device) for i in loc])
+
+
+def _make_sharded_spectra_chunk(mesh, nsub: int, n_fft: int,
+                                dec_stride: int, dec_len: int, T: int):
+    """The decimated regime's spectra kernel with trial groups sharded
+    over ``mesh``'s ``'dm'`` axis: ``fn(block, stage1_bins,
+    stage2_bins)`` -> each position's groups' raw spectra on its own
+    device, in group order (a group's spectra are its own, so each row
+    has the single-device bits). A position's dispatch halves its groups
+    on a device OOM (fault point ``specfuse.chunk_dispatch``)."""
+    from pypulsar_tpu_torch.ops.fourier_dedisperse import sweep_chunk_spectra
+    from pypulsar_tpu_torch.parallel.mesh import on_device, replicate
+
+    devices = mesh.axis_devices("dm")
+
+    def fn(block, stage1_bins, stage2_bins):
+        G = stage1_bins.shape[0]
+        if G % len(devices):
+            raise ValueError(f"group count {G} must divide the mesh 'dm' "
+                             f"axis {len(devices)}")
+        per = G // len(devices)
+        out = []
+        for i, (dev, x) in enumerate(zip(devices, replicate(block,
+                                                            devices))):
+            s1 = stage1_bins[i * per:(i + 1) * per]
+            s2 = stage2_bins[i * per:(i + 1) * per]
+
+            def run(lo, hi, x=x, s1=s1, s2=s2):
+                faultinject.trip("specfuse.chunk_dispatch")
+                return sweep_chunk_spectra(x, s1[lo:hi], s2[lo:hi], nsub,
+                                           n_fft, dec_stride, dec_len, T)
+
+            with on_device(dev):
+                parts = [r for _, _, r in halving_dispatch(
+                    run, per, what="specfuse.chunk")]
+                out.append(parts[0] if len(parts) == 1 else torch.cat(parts))
+        return out
+
+    return fn
+
+
 def fused_spectra_slice(reader, dms, schedule=None, downsamp: int = 1,
                         nsub: int = 64, group_size: int = 32, rfimask=None,
                         engine: str = "auto",
                         chunk_payload: Optional[int] = None,
                         mode: str = "stitch", device="cuda",
-                        verbose: bool = False) -> dict:
+                        verbose: bool = False, mesh=None) -> dict:
     """One pass over ``reader``: every trial of ``dms`` to its prepped
     (dereddened) T-point spectrum, resident on ``device``.
 
@@ -101,7 +161,11 @@ def fused_spectra_slice(reader, dms, schedule=None, downsamp: int = 1,
     a ``[Dpad, T//2 + 1]`` complex64 tensor (trials padded to the stage-1
     group; rows ``[:n_real]`` are ``dms`` in order), ready for
     ``accel_search_batch`` by row gathers. ``schedule`` is the
-    ``deredden_schedule(T//2 + 1)`` (built when omitted)."""
+    ``deredden_schedule(T//2 + 1)`` (built when omitted). With ``mesh``,
+    ``spectra`` is the list of the mesh positions' ``[Dpad/k, T//2 + 1]``
+    blocks, each on its own device (:func:`fused_rows`)."""
+    from pypulsar_tpu_torch.parallel.mesh import on_device
+    from pypulsar_tpu_torch.parallel.sweep import mesh_home
     from pypulsar_tpu_torch.fourier.kernels import (
         deredden_schedule,
         prep_spectra_batch,
@@ -124,11 +188,11 @@ def fused_spectra_slice(reader, dms, schedule=None, downsamp: int = 1,
                          f"one of {MODES}")
     factor = max(1, int(downsamp))
     dms = np.asarray(dms, dtype=np.float64)
-    device = resolve_device(device)
+    device = mesh_home(mesh) if mesh is not None else resolve_device(device)
     engine = resolve_engine(engine)
     plan, payload, T = dats_geometry(reader, dms, downsamp=factor,
                                      nsub=nsub, group_size=group_size,
-                                     chunk_payload=chunk_payload)
+                                     chunk_payload=chunk_payload, mesh=mesh)
     dt_eff = ReaderSource(reader).tsamp * factor
     if schedule is None:
         schedule = deredden_schedule(T // 2 + 1)
@@ -166,39 +230,62 @@ def fused_spectra_slice(reader, dms, schedule=None, downsamp: int = 1,
             with telemetry.span("specfuse_spectra"):
                 # each group's spectra are its own: the halves of an
                 # OOM-halved dispatch concatenate to the whole one
-                parts = [r for _, _, r in halving_dispatch(
-                    run, plan.n_groups, what="specfuse.chunk")]
-                raw = parts[0] if len(parts) == 1 else torch.cat(parts)
+                if mesh is not None:
+                    raws = _make_sharded_spectra_chunk(
+                        mesh, plan.nsub, n_fft, n_fft // T, T // 2 + 1, T)(
+                            block, plan.stage1_bins, plan.stage2_bins)
+                else:
+                    parts = [r for _, _, r in halving_dispatch(
+                        run, plan.n_groups, what="specfuse.chunk")]
+                    raws = [parts[0] if len(parts) == 1
+                            else torch.cat(parts)]
             del block
             telemetry.counter("specfuse.fft_pairs_elided", n_real)
             faultinject.trip("specfuse.after_stitch")
             with telemetry.span("specfuse_prep"):
-                spectra = prep_spectra_batch(spectra=raw, schedule=schedule,
-                                             device=device)
+                spectra = []
+                for raw in raws:
+                    with on_device(raw.device):
+                        spectra.append(prep_spectra_batch(
+                            spectra=raw, schedule=schedule,
+                            device=raw.device))
         else:
-            buf = torch.zeros((plan.n_trials, T), dtype=torch.float32,
-                              device=device)
+            devices = ([device] if mesh is None
+                       else mesh.axis_devices("dm"))
+            per = plan.n_trials // len(devices)
+            bufs = [torch.zeros((per, T), dtype=torch.float32, device=d)
+                    for d in devices]
             chunks = iter_device_chunks(
                 reader, dms, downsamp=factor, nsub=nsub,
                 group_size=plan.group_size, chunk_payload=chunk_payload,
                 rfimask=rfimask, engine=engine, device=device,
-                dispatch_point="specfuse.chunk_dispatch")
+                dispatch_point="specfuse.chunk_dispatch", mesh=mesh,
+                shard_parts=mesh is not None)
             for pos, valid, series in chunks:
                 with telemetry.span("specfuse_stitch", valid=int(valid)):
                     # the valid windows partition the time axis: the
                     # scatter takes the place of the streamed path's copy
-                    # to the host
-                    buf[:, pos:pos + valid] = series[:, :valid]
+                    # to the host; under a mesh each position stitches
+                    # its own rows on its own device
+                    parts = series if mesh is not None else [series]
+                    for buf, rows in zip(bufs, parts):
+                        buf[:, pos:pos + valid] = rows[:, :valid]
                 telemetry.counter("specfuse.chunks_stitched")
                 if verbose:
                     print(f"# specfuse chunk at {pos}: {valid} samples x "
                           f"{n_real} DMs stitched on the device")
             faultinject.trip("specfuse.after_stitch")
             with telemetry.span("specfuse_prep"):
-                spectra = prep_spectra_batch(buf, schedule, device=device)
-            del buf
+                spectra = []
+                for buf in bufs:
+                    with on_device(buf.device):
+                        spectra.append(prep_spectra_batch(
+                            buf, schedule, device=buf.device))
+            del bufs
         # the series bytes the streamed path would have moved over the
         # host link (the pull and the prep's re-ship), kept on the device
         telemetry.counter("specfuse.bytes_on_device", 8 * n_real * T)
+    if mesh is None:
+        spectra = spectra[0]
     return dict(spectra=spectra, n_real=n_real, T=T, dt_eff=dt_eff,
                 regime="decimated" if mode == "decimate" else "stitched")

@@ -37,6 +37,15 @@ Kill and resume: ``checkpoint_path`` on :func:`sweep_flat` and
 pass re-roots its block source at the cursor (:func:`reroot_source`:
 every reader seeks), and a DDplan step that finished leaves a done marker
 from which a resumed plan loads it without sweeping.
+
+Meshes (``parallel/mesh.py``): ``mesh=`` on :func:`sweep_flat`,
+:func:`sweep_ddplan`, :func:`run_step`, :func:`iter_device_chunks` and
+:func:`iter_dedispersed_chunks` shards each chunk's trial groups over the
+mesh's ``'dm'`` axis (``parallel/sweep.ShardedChunkEngine``): blocks ship
+to the mesh's first device and reach each other distinct card once, and
+the rows are the single-device rows' bits. :func:`sweep_ddplan_2d` runs
+each DDplan step as one chunk over a ``'dm'`` x ``'time'`` mesh
+(``parallel/sweep.make_sharded_sweep_chunk_2d``).
 """
 
 from __future__ import annotations
@@ -63,10 +72,17 @@ from pypulsar_tpu_torch.parallel.sweep import (
     ChunkEngine,
     GroupHalving,
     SweepCheckpoint,
+    ShardedChunkEngine,
     SweepResult,
     choose_group_size,
     default_chunk_payload,
+    finalize_sweep,
+    make_sharded_sweep_chunk_2d,
     make_sweep_plan,
+    mesh_home,
+    mesh_pad_groups,
+    mesh_tag,
+    padded_group_count,
     resolve_engine,
     sweep_stream,
 )
@@ -292,9 +308,12 @@ class ReaderSource:
                               self.end)
         else:
             nbits = int(r.nbits)
-            raw = r.iter_blocks(payload, overlap, start=self.start,
-                                end=min(self.end + overlap, self.total),
-                                raw=True)
+            # no block starts at or past the window's end: a block past
+            # it would be read and shipped ahead for nothing
+            raw = _raw_blocks(
+                lambda pos, n: next(r.iter_blocks(n, 0, start=pos,
+                                                  end=pos + n, raw=True))[1],
+                payload, overlap, self.total, self.start, self.end)
         for pos, dev in ship_ahead(raw, device):
             if pos >= self.end:  # an overlap-only tail past the window
                 break
@@ -500,18 +519,22 @@ def downsampled_blocks(src, factor: int, payload_ds: int, overlap_ds: int,
 
 
 def step_geometry(src, dms, factor: int, nsub: int, group_size: int,
-                  widths: Tuple[int, ...], chunk_payload: Optional[int]):
+                  widths: Tuple[int, ...], chunk_payload: Optional[int],
+                  mesh=None):
     """(plan, payload, n_ds) of one pass over ``src`` downsampled by
     ``factor``: the plan of ``dms`` (``group_size`` <= 0 picks the largest
-    group within the smearing bound), the chunk payload and the
-    downsampled length. The sweep and the series pass chunk by it."""
+    group within the smearing bound; with a ``mesh`` its groups padded to
+    the ``'dm'`` multiple), the chunk payload and the downsampled length.
+    The sweep and the series pass chunk by it."""
     dt_eff = src.tsamp * factor
     n_ds = src.nsamples // factor
     if group_size <= 0:
         group_size = choose_group_size(dms, src.frequencies, dt_eff, nsub)
     plan = make_sweep_plan(np.asarray(dms, dtype=np.float64),
                            src.frequencies, dt_eff, nsub=nsub,
-                           group_size=group_size, widths=widths)
+                           group_size=group_size, widths=widths,
+                           pad_groups_to=mesh_pad_groups(len(dms),
+                                                         group_size, mesh))
     if chunk_payload is None:
         chunk_payload = default_chunk_payload(plan.min_overlap)
     payload = min(chunk_payload, n_ds)
@@ -525,19 +548,21 @@ def run_step(src, dms, factor: int, nsub: int, group_size: int,
              device, verbose: bool = False, engine: str = "auto",
              label: str = "", checkpoint: Optional[SweepCheckpoint] = None,
              keep_chunk_peaks: bool = False, ckpt_extra: str = "",
-             host_downsample: bool = False
+             host_downsample: bool = False, mesh=None
              ) -> Optional[StepResult]:
     """Sweep ``dms`` over ``src`` downsampled by ``factor`` with the chunk
     ``engine``. ``group_size`` <= 0 picks the largest group within the
     smearing bound. ``checkpoint`` checkpoints the pass and resumes it,
     the source re-rooted at the cursor; ``ckpt_extra`` joins its
     fingerprint (the mask tag). ``host_downsample`` sums eligible
-    blocks on the host (:func:`host_downsample_wins`)."""
+    blocks on the host (:func:`host_downsample_wins`). ``mesh`` shards the
+    trial groups over its ``'dm'`` axis (``device`` is then its first
+    device)."""
     dt_eff = src.tsamp * factor
     if src.nsamples // factor == 0:
         return None
     plan, payload, _ = step_geometry(src, dms, factor, nsub, group_size,
-                                     widths, chunk_payload)
+                                     widths, chunk_payload, mesh)
     if verbose:
         print(f"# {label}downsamp={factor} dt={dt_eff:.3e}s "
               f"DMs {dms[0]:.2f}..{dms[-1]:.2f} ({len(dms)} trials, "
@@ -560,7 +585,7 @@ def run_step(src, dms, factor: int, nsub: int, group_size: int,
                                      device, host_downsample),
             payload, engine=engine, device=device, checkpoint=checkpoint,
             keep_chunk_peaks=keep_chunk_peaks, block_factory=block_factory,
-            checkpoint_context=ckpt_extra)
+            checkpoint_context=ckpt_extra, mesh=mesh)
     if verbose and res.engine_info.get("engine") == "tree":
         info = res.engine_info
         print(f"# {label}tree: {info['merge_levels']} merge levels, "
@@ -570,13 +595,15 @@ def run_step(src, dms, factor: int, nsub: int, group_size: int,
 
 
 def dats_geometry(reader, dms, downsamp: int = 1, nsub: int = 64,
-                  group_size: int = 32, chunk_payload: Optional[int] = None):
+                  group_size: int = 32, chunk_payload: Optional[int] = None,
+                  mesh=None):
     """(plan, payload, T_ds) of the streamed series pass for these
     parameters: a plan of the trial DMs with one boxcar width (the series
     needs no detection overlap), the chunk payload and the downsampled
-    series length. ``group_size`` <= 0 picks the group automatically."""
+    series length. ``group_size`` <= 0 picks the group automatically;
+    ``mesh`` pads the groups to its ``'dm'`` multiple."""
     return step_geometry(ReaderSource(reader), dms, max(1, int(downsamp)),
-                         nsub, group_size, (1,), chunk_payload)
+                         nsub, group_size, (1,), chunk_payload, mesh)
 
 
 def iter_device_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
@@ -584,7 +611,9 @@ def iter_device_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
                        chunk_payload: Optional[int] = None, rfimask=None,
                        engine: str = "auto", device="cuda",
                        dispatch_point: Optional[str] = None,
-                       host_downsample: bool = False):
+                       host_downsample: bool = False, mesh=None,
+                       shard_parts: bool = False,
+                       window: Optional[Tuple[int, int]] = None):
     """Stream the file once on ``device`` and yield ``(pos, valid,
     series)``: each chunk's ``[D, payload]`` dedispersed series of every
     (group-padded) trial on the device, by the chunk ``engine``, of which
@@ -598,54 +627,82 @@ def iter_device_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
     halves its trial groups on a device OOM
     (:class:`~pypulsar_tpu_torch.parallel.sweep.GroupHalving`).
     ``host_downsample`` sums eligible blocks on the host
-    (:func:`host_downsample_wins`)."""
+    (:func:`host_downsample_wins`). ``mesh`` shards the trial groups over
+    its ``'dm'`` axis (padded to its multiple; ``device`` is its first
+    device): the series gather there in group order, or with
+    ``shard_parts`` stay on their shards' devices as a list. ``window``
+    ``(s0, s1)`` (downsampled samples, whole chunks: a time shard's)
+    streams only the chunks that start in it."""
     factor = max(1, int(downsamp))
     dms = np.asarray(dms, dtype=np.float64)
-    device = resolve_device(device)
+    device = mesh_home(mesh) if mesh is not None else resolve_device(device)
     plan, payload, T = dats_geometry(reader, dms, downsamp=factor, nsub=nsub,
                                      group_size=group_size,
-                                     chunk_payload=chunk_payload)
+                                     chunk_payload=chunk_payload, mesh=mesh)
     need = payload + plan.min_overlap
-    eng = ChunkEngine(engine, plan.stage1_bins, plan.stage2_bins, plan.nsub,
-                      payload, plan.max_shift2, need, device)
-    if dispatch_point is not None:
-        eng = GroupHalving(eng, dispatch_point,
-                           dispatch_point.rsplit("_dispatch", 1)[0])
-    for pos, block in downsampled_blocks(make_source(reader, rfimask, device),
-                                         factor, payload, plan.min_overlap,
-                                         device, host_downsample):
+    what = (dispatch_point.rsplit("_dispatch", 1)[0]
+            if dispatch_point is not None else "")
+    if mesh is not None:
+        eng = ShardedChunkEngine(mesh, engine, plan.stage1_bins,
+                                 plan.stage2_bins, plan.nsub, payload,
+                                 plan.max_shift2, need, point=dispatch_point,
+                                 what=what)
+    else:
+        eng = ChunkEngine(engine, plan.stage1_bins, plan.stage2_bins,
+                          plan.nsub, payload, plan.max_shift2, need, device)
+        if dispatch_point is not None:
+            eng = GroupHalving(eng, dispatch_point, what)
+    if window is None:
+        src = make_source(reader, rfimask, device)
+    else:
+        s0, s1 = window
+        src = guard_source(ReaderSource(
+            reader, s0 * factor, s1 * factor if s1 < T else None))
+        if rfimask is not None:
+            src = MaskedSource(src, rfimask, device)
+    for pos, block in downsampled_blocks(src, factor, payload,
+                                         plan.min_overlap, device,
+                                         host_downsample):
         L = int(block.shape[1])
         if L < need:  # tail: zero-pad to the chunk's length
             block = F.pad(block, (0, need - L))
-        yield pos, min(payload, T - pos), eng.series(block)
+        yield pos, min(payload, T - pos), (
+            eng.series_parts(block) if shard_parts else eng.series(block))
 
 
 def iter_dedispersed_chunks(reader, dms, downsamp: int = 1, nsub: int = 64,
                             group_size: int = 32,
                             chunk_payload: Optional[int] = None,
                             rfimask=None, engine: str = "auto",
-                            device="cuda", verbose: bool = False):
+                            device="cuda", verbose: bool = False, mesh=None,
+                            window: Optional[Tuple[int, int]] = None):
     """:func:`iter_device_chunks` handed to the host: ``(pos, rows[D,
     valid])`` float32 chunks of every real DM trial's series, the values a
     ``.dat`` file holds. Each chunk's pull is a ``dedisperse_chunk`` span
     (the dedispersion's launches are queued before it, so the span's wall
     is the wait for them and the copy) and counts in
-    ``dedisperse.chunks`` and ``d2h.bytes``."""
+    ``dedisperse.chunks`` and ``d2h.bytes``. ``mesh`` shards the trial
+    groups over its ``'dm'`` axis (the rows are the single-device rows'
+    bits); the span carries the mesh positions' ids and each position
+    counts its chunks in ``device{id}.dedisperse.chunks``."""
     D = len(dms)
+    attrs = {} if mesh is None else {"dev": mesh.axis_ids("dm")}
     for pos, valid, series in iter_device_chunks(
             reader, dms, downsamp=downsamp, nsub=nsub, group_size=group_size,
             chunk_payload=chunk_payload, rfimask=rfimask, engine=engine,
-            device=device):
-        # the plan pads trial groups to the group size; only the real
-        # trials leave this generator
+            device=device, mesh=mesh, window=window):
+        # the plan pads trial groups to the group size (and the mesh's
+        # multiple); only the real trials leave this generator
         with telemetry.span("dedisperse_chunk", n_trials=D,
-                            valid=int(valid)):
+                            valid=int(valid), **attrs):
             rows = series[:D, :valid].contiguous()
             count_d2h(rows)
             host = rows.cpu().numpy()
         if verbose:
             print(f"# dats chunk at {pos}: {valid} samples x {D} DMs")
         telemetry.counter("dedisperse.chunks")
+        for i in attrs.get("dev", ()):
+            telemetry.counter(f"device{i}.dedisperse.chunks")
         yield pos, host
 
 
@@ -714,7 +771,8 @@ def sweep_flat(source, dms, downsamp: int = 1, nsub: int = 64,
                checkpoint_path: Optional[str] = None,
                checkpoint_every: int = 16,
                keep_chunk_peaks: bool = False,
-               host_downsample: bool = False) -> StagedSweepResult:
+               host_downsample: bool = False, mesh=None
+               ) -> StagedSweepResult:
     """Single-step sweep of an explicit DM grid over a filterbank reader,
     streamed in chunks of ``chunk_payload`` (default: 2^18 samples less
     the overlap) on ``device``. ``rfimask`` (an
@@ -723,9 +781,11 @@ def sweep_flat(source, dms, downsamp: int = 1, nsub: int = 64,
     the pass every ``checkpoint_every`` chunks and resumes from it;
     ``keep_chunk_peaks`` keeps each chunk's peaks
     (:meth:`StagedSweepResult.events`); ``host_downsample`` sums
-    eligible blocks on the host (:func:`host_downsample_wins`)."""
+    eligible blocks on the host (:func:`host_downsample_wins`). ``mesh``
+    shards the trial groups over its ``'dm'`` axis (``device`` is then
+    its first device)."""
     resolve_engine(engine)
-    device = resolve_device(device)
+    device = mesh_home(mesh) if mesh is not None else resolve_device(device)
     src = make_source(source, rfimask, device)
     ckpt = (SweepCheckpoint(checkpoint_path, every=checkpoint_every)
             if checkpoint_path else None)
@@ -734,7 +794,7 @@ def sweep_flat(source, dms, downsamp: int = 1, nsub: int = 64,
                     chunk_payload, device, verbose=verbose, engine=engine,
                     checkpoint=ckpt, keep_chunk_peaks=keep_chunk_peaks,
                     ckpt_extra=mask_tag(rfimask),
-                    host_downsample=host_downsample)
+                    host_downsample=host_downsample, mesh=mesh)
     return StagedSweepResult(steps=[] if step is None else [step],
                              quality=stream_quality(src))
 
@@ -745,7 +805,7 @@ def sweep_ddplan(source, ddplan, nsub: int = 64, group_size: int = 32,
                  engine: str = "auto", rfimask=None, device="cuda",
                  checkpoint_path: Optional[str] = None,
                  checkpoint_every: int = 16,
-                 host_downsample: bool = False
+                 host_downsample: bool = False, mesh=None
                  ) -> StagedSweepResult:
     """Sweep every step of ``ddplan`` (a
     :class:`~pypulsar_tpu_torch.plan.ddplan.DDplan`) over the reader
@@ -761,12 +821,14 @@ def sweep_ddplan(source, ddplan, nsub: int = 64, group_size: int = 32,
     removes the markers when the whole plan has finished.
     ``host_downsample`` sums each step's eligible blocks on the host
     (:func:`host_downsample_wins`; the results have the same bits either
-    way)."""
+    way). ``mesh`` shards every step's trial groups over its ``'dm'``
+    axis; the markers' fingerprint carries its size, as in the
+    reference."""
     engine = resolve_engine(engine)
-    device = resolve_device(device)
+    device = mesh_home(mesh) if mesh is not None else resolve_device(device)
     src = make_source(source, rfimask, device)
     mtag = mask_tag(rfimask)
-    context = f"engine={engine}{mtag}"
+    context = f"engine={engine}{mesh_tag(mesh)}{mtag}"
     probe = _source_probe(src) if checkpoint_path else b""
     steps: List[StepResult] = []
     done_fns: List[str] = []
@@ -790,7 +852,8 @@ def sweep_ddplan(source, ddplan, nsub: int = 64, group_size: int = 32,
         sr = run_step(src, dms, int(step.downsamp), nsub, group_size,
                       tuple(widths), chunk_payload, device, verbose=verbose,
                       engine=engine, label=f"step {si}: ", checkpoint=ckpt,
-                      ckpt_extra=mtag, host_downsample=host_downsample)
+                      ckpt_extra=mtag, host_downsample=host_downsample,
+                      mesh=mesh)
         if sr is None:
             break
         if done_fn:
@@ -800,6 +863,67 @@ def sweep_ddplan(source, ddplan, nsub: int = 64, group_size: int = 32,
     for fn in done_fns:  # the whole plan has finished
         if os.path.exists(fn):
             os.remove(fn)
+    return StagedSweepResult(steps=steps, quality=stream_quality(src))
+
+
+def sweep_ddplan_2d(source, ddplan, mesh, nsub: int = 64,
+                    group_size: int = 8,
+                    widths: Sequence[int] = DEFAULT_WIDTHS,
+                    engine: str = "auto",
+                    max_trials_per_step: Optional[int] = None,
+                    rfimask=None) -> StagedSweepResult:
+    """Each DDplan step as one chunk over a 2-D ``'dm'`` x ``'time'``
+    ``mesh`` (the reference's): the step's whole downsampled series, less
+    its per-channel float32 mean, is cut into ``mesh.shape['time']``
+    shards of ``n_ds // nt`` samples, halos pass between neighbours by
+    device-to-device copies and the trial groups shard over ``'dm'``
+    (``parallel/sweep.make_sharded_sweep_chunk_2d``). Against the 1-D
+    sweep at a payload of one time shard, the window maxima and their
+    samples are bit-identical and the SNR agrees within float64
+    re-association of the moments. ``max_trials_per_step`` caps each
+    step's trials. The tree engine is refused."""
+    engine = resolve_engine(engine)
+    home = mesh.devices.flat[0]
+    src = make_source(source, rfimask, home)
+    nd, nt = int(mesh.shape["dm"]), int(mesh.shape["time"])
+    steps: List[StepResult] = []
+    for si, step in enumerate(ddplan.DDsteps):
+        factor = int(step.downsamp)
+        dms = np.asarray(step.DMs, dtype=np.float64)
+        if max_trials_per_step is not None:
+            dms = dms[:max_trials_per_step]
+        dt_eff = src.tsamp * factor
+        n_ds = src.nsamples // factor
+        if n_ds == 0:
+            break
+        plan = make_sweep_plan(
+            dms, src.frequencies, dt_eff, nsub=nsub, group_size=group_size,
+            widths=tuple(widths),
+            pad_groups_to=padded_group_count(-(-len(dms) // group_size), nd))
+        local_payload = n_ds // nt
+        if plan.min_overlap >= local_payload:
+            raise ValueError(
+                f"step {si}: time shard {local_payload} samples does not "
+                f"cover the halo {plan.min_overlap}; fewer 'time' shards "
+                f"or more data needed")
+        T_used = local_payload * nt
+        blocks = [b for _, b in downsampled_blocks(src, factor, n_ds, 0,
+                                                   home)]
+        data = torch.cat(blocks, dim=1)[:, :T_used]
+        base = data.mean(dim=1, keepdim=True)
+        base_sum = float(base.double().sum().item())
+        fn = make_sharded_sweep_chunk_2d(
+            mesh, plan.nsub, local_payload, plan.min_overlap,
+            plan.max_shift2, tuple(plan.widths), engine=engine)
+        with telemetry.span("sweep_step_2d", aggregate=False,
+                            downsamp=factor, n_trials=len(dms),
+                            payload=int(local_payload)):
+            s, ss, mb, ab = fn(data - base, plan.stage1_bins,
+                               plan.stage2_bins)
+        del data, blocks
+        res = finalize_sweep(plan, T_used, s, ss, mb, ab,
+                             baseline_sum=base_sum)
+        steps.append(StepResult(downsamp=factor, dt=dt_eff, result=res))
     return StagedSweepResult(steps=steps, quality=stream_quality(src))
 
 

@@ -26,6 +26,22 @@ have the gather engine's bits.
 :func:`sweep_resident` is the reference's sweep of a device-resident
 ``[C, T]`` array: :func:`sweep_spectra` of its whole chunks.
 
+Sharding over a device mesh (``parallel/mesh.py``): with ``mesh=`` the
+trial groups split into contiguous blocks, one per ``'dm'`` position
+(:class:`ShardedChunkEngine`, :func:`make_sharded_sweep_chunk`,
+:func:`make_sharded_series_chunk`); every position runs its groups
+through its own engine on its own device, with no sync between shards,
+and the rows gather in group order. A group's rows depend on no other
+group, and the kernels add in a fixed order without atomics, so a shard
+computes exactly the single-device rows: sharded results are
+bit-identical at any device count. The group count must divide the
+``'dm'`` size (``make_sweep_plan(pad_groups_to=)``; padded groups repeat
+the last real DM and are dropped from the result). A chunk reaches each
+distinct device once. :func:`make_sharded_sweep_chunk_2d` also splits
+the time axis over ``'time'`` (the right neighbour's overlap comes by a
+device-to-device copy); its moment sums re-associate, so its peaks are
+bit-identical and its SNR agrees within float64 rounding.
+
 Both ``gather`` stages are one :func:`~pypulsar_tpu_torch.ops.gather_sum.shifted_gather_sum`
 each over ALL trial groups of a chunk (the reference scans the groups
 one by one), in its shared-source form: at stage 1 source set ``s`` is
@@ -82,6 +98,11 @@ from pypulsar_tpu_torch.ops.gather_sum import (
     GatherTables,
     gather_tables,
     shifted_gather_sum,
+)
+from pypulsar_tpu_torch.parallel.mesh import (
+    gather_rows,
+    on_device,
+    replicate,
 )
 from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience.retry import halving_dispatch
@@ -173,9 +194,12 @@ class SweepPlan:
 
 def make_sweep_plan(dms: Sequence[float], freqs: np.ndarray, dt: float,
                     nsub: int = 64, group_size: int = 32,
-                    widths: Tuple[int, ...] = DEFAULT_WIDTHS) -> SweepPlan:
+                    widths: Tuple[int, ...] = DEFAULT_WIDTHS,
+                    pad_groups_to: Optional[int] = None) -> SweepPlan:
     """Integer shift tables from float64 host math, bit-identical to the
-    reference's. Channels must be high-frequency-first."""
+    reference's. Channels must be high-frequency-first.
+    ``pad_groups_to`` pads the plan to that many trial groups (a mesh's
+    ``'dm'`` multiple); padded trials repeat the last real DM."""
     dms = np.asarray(dms, dtype=np.float64)
     freqs = np.asarray(freqs, dtype=np.float64)
     if group_size <= 0:
@@ -192,6 +216,10 @@ def make_sweep_plan(dms: Sequence[float], freqs: np.ndarray, dt: float,
     per = C // nsub
     n_real = len(dms)
     G = -(-n_real // group_size)
+    if pad_groups_to is not None:
+        if pad_groups_to < G:
+            raise ValueError("pad_groups_to smaller than required groups")
+        G = int(pad_groups_to)
     padded = np.concatenate([dms, np.repeat(dms[-1], G * group_size - n_real)])
 
     sub_hif = freqs[np.arange(nsub) * per]  # top frequency of each subband
@@ -214,6 +242,39 @@ def make_sweep_plan(dms: Sequence[float], freqs: np.ndarray, dt: float,
                      group_size=group_size, stage1_bins=stage1,
                      stage2_bins=stage2, subdms=subdms, n_real_trials=n_real,
                      widths=tuple(widths))
+
+
+def padded_group_count(n_groups: int, ndm: int = 1) -> int:
+    """The group count rounded up to a multiple of a mesh's ``'dm'``
+    size ``ndm`` (the reference's, without its compile buckets)."""
+    ndm = max(1, int(ndm))
+    return -(-int(n_groups) // ndm) * ndm
+
+
+def mesh_dm(mesh) -> int:
+    """The ``'dm'`` size of ``mesh``; 1 without a mesh."""
+    return 1 if mesh is None else int(mesh.shape["dm"])
+
+
+def mesh_tag(mesh) -> str:
+    """The checkpoint fingerprint's mesh part, as in the reference
+    (``/meshdm=K``); empty without a mesh, so a single-device checkpoint
+    keeps its fingerprint."""
+    return "" if mesh is None else f"/meshdm={mesh_dm(mesh)}"
+
+
+def mesh_pad_groups(n_dms: int, group_size: int, mesh) -> Optional[int]:
+    """The group padding that makes trial groups divide ``mesh``'s
+    ``'dm'`` axis; None without a mesh."""
+    if mesh is None:
+        return None
+    return padded_group_count(-(-int(n_dms) // group_size), mesh_dm(mesh))
+
+
+def mesh_home(mesh) -> torch.device:
+    """The device a mesh's results gather on: its first ``'dm'``
+    position's."""
+    return mesh.axis_devices("dm")[0]
 
 
 def default_chunk_payload(min_overlap: int) -> int:
@@ -411,6 +472,197 @@ class GroupHalving:
         return self._run("series", data)
 
 
+class ShardedChunkEngine:
+    """A :class:`ChunkEngine` per ``'dm'`` position of ``mesh`` (at
+    ``'time'`` index 0), each over its contiguous block of the trial
+    groups on its own device. A chunk reaches each distinct device once
+    (:func:`~pypulsar_tpu_torch.parallel.mesh.replicate`), each position
+    launches its own kernels with no sync between shards, and the rows
+    gather on the first position's device in group order. With
+    ``point`` each shard dispatches under :class:`GroupHalving` (its OOM
+    halving and that fault point)."""
+
+    def __init__(self, mesh, engine: str, stage1_bins, stage2_bins,
+                 nsub: int, out_len: int, slack2: int, need: int,
+                 point: Optional[str] = None, what: str = "sweep.chunk"):
+        self.engine = resolve_engine(engine)
+        self.devices = mesh.axis_devices("dm")
+        self.ids = mesh.axis_ids("dm")
+        self.home = self.devices[0]
+        s1 = np.asarray(stage1_bins, dtype=np.int32)
+        s2 = np.asarray(stage2_bins, dtype=np.int32)
+        k = len(self.devices)
+        if s1.shape[0] % k:
+            raise ValueError(
+                f"group count {s1.shape[0]} must divide the mesh 'dm' axis "
+                f"{k}; use make_sweep_plan(pad_groups_to=...)")
+        per = s1.shape[0] // k
+        self.shards = []
+        for i, dev in enumerate(self.devices):
+            with on_device(dev):
+                e = ChunkEngine(self.engine, s1[i * per:(i + 1) * per],
+                                s2[i * per:(i + 1) * per], nsub, out_len,
+                                slack2, need, dev)
+            self.shards.append(GroupHalving(e, point, what)
+                               if point is not None else e)
+
+    def info(self) -> dict:
+        """The first shard's :meth:`ChunkEngine.info`, the tree's rows and
+        state bytes summed over the shards, and the ``'dm'`` size."""
+        infos = [(s.eng if isinstance(s, GroupHalving) else s).info()
+                 for s in self.shards]
+        out = dict(infos[0], mesh_dm=len(self.shards))
+        for key in ("rows", "state_bytes"):
+            if key in out:
+                out[key] = sum(i[key] for i in infos)
+        return out
+
+    def _run(self, method: str, data, *args, gather: bool = True):
+        reps = replicate(data, self.devices)
+        parts = []
+        for i, (eng, x) in enumerate(zip(self.shards, reps)):
+            with on_device(self.devices[i]):
+                parts.append(getattr(eng, method)(x, *args))
+            telemetry.counter(f"device{self.ids[i]}.sweep.dispatches")
+        return gather_rows(parts, self.home) if gather else parts
+
+    def stats(self, data, widths: Tuple[int, ...], stat_len: int):
+        """Per-trial (sum, sumsq, maxbox, argbox) of chunk ``data`` over
+        every shard, on the first position's device."""
+        return self._run("stats", data, widths, stat_len)
+
+    def series(self, data):
+        """The ``[D, out_len]`` series of every shard, on the first
+        position's device."""
+        return self._run("series", data)
+
+    def series_parts(self, data) -> list:
+        """Each shard's series on its own device, in group order."""
+        return self._run("series", data, gather=False)
+
+
+def make_sharded_sweep_chunk(mesh, nsub: int, out_len: int, slack2: int,
+                             widths, stat_len: int, engine: str = "gather"):
+    """The chunk sweep with trial groups sharded over ``mesh``'s ``'dm'``
+    axis: ``fn(data, stage1_bins, stage2_bins)`` -> per-trial (sum,
+    sumsq, maxbox, argbox) on the first position's device, the
+    single-device rows' bits. The group count must divide the axis
+    (``make_sweep_plan(pad_groups_to=...)``)."""
+    engine = resolve_engine(engine)
+
+    def fn(data, stage1_bins, stage2_bins):
+        return ShardedChunkEngine(
+            mesh, engine, stage1_bins, stage2_bins, nsub, out_len, slack2,
+            data.shape[1]).stats(data, tuple(widths), stat_len)
+
+    return fn
+
+
+def make_sharded_series_chunk(mesh, nsub: int, out_len: int, slack2: int,
+                              engine: str = "gather"):
+    """:func:`dedisperse_series_chunk` with trial groups sharded over
+    ``mesh``'s ``'dm'`` axis: ``fn(data, stage1_bins, stage2_bins)`` ->
+    the ``[D, out_len]`` series in group order on the first position's
+    device, the single-device rows' bits."""
+    engine = resolve_engine(engine)
+
+    def fn(data, stage1_bins, stage2_bins):
+        return ShardedChunkEngine(
+            mesh, engine, stage1_bins, stage2_bins, nsub, out_len, slack2,
+            data.shape[1]).series(data)
+
+    return fn
+
+
+def make_sharded_sweep_chunk_2d(mesh, nsub: int, local_payload: int,
+                                overlap: int, slack2: int, widths,
+                                engine: str = "gather"):
+    """The chunk sweep sharded over both axes of ``mesh``: trial groups
+    over ``'dm'`` and the time axis over ``'time'``. Returns
+    ``fn(data, stage1_bins, stage2_bins)`` for ``data[C, T]`` with ``T =
+    local_payload * mesh.shape['time']`` (on any device).
+
+    Time shard ``ti`` holds ``data[:, ti*P:(ti+1)*P]`` on the devices of
+    its column and takes the first ``overlap`` samples of its right
+    neighbour's shard by a device-to-device copy (the reference's
+    ``ppermute``; the last shard gets zeros, the streamed tail's). Each
+    device sweeps its groups over its shard with ``stat_len = P``; the
+    moment sums add over the time shards in float64 in time order, and
+    the window maxima reduce with the earliest shard keeping a tie, at
+    global sample starts. Returns host numpy (sum, sumsq, maxbox,
+    argbox) in group order. The tree engine is refused, as in the
+    reference."""
+    engine = resolve_engine(engine)
+    if engine == "tree":
+        raise ValueError(
+            "engine='tree' supports the 1-D 'dm' mesh only (its merge "
+            "tables are host-built per device); use gather/scan/fourier "
+            "on the dm x time mesh")
+    widths = tuple(widths)
+    out_len = local_payload + max(widths)
+    nd, nt = int(mesh.shape["dm"]), int(mesh.shape["time"])
+    if overlap > local_payload and nt > 1:
+        raise ValueError(f"time shard {local_payload} samples does not "
+                         f"cover the halo {overlap}")
+
+    def fn(data, stage1_bins, stage2_bins):
+        s1 = np.asarray(stage1_bins, dtype=np.int32)
+        s2 = np.asarray(stage2_bins, dtype=np.int32)
+        C, T = data.shape
+        if T != local_payload * nt:
+            raise ValueError(f"data has {T} samples; the mesh needs "
+                             f"{local_payload} x {nt}")
+        if s1.shape[0] % nd:
+            raise ValueError(
+                f"group count {s1.shape[0]} must divide the mesh 'dm' "
+                f"axis {nd}; use make_sweep_plan(pad_groups_to=...)")
+        per = s1.shape[0] // nd
+        need = local_payload + overlap
+        # each time shard on its column's devices, once per distinct card
+        shards = [replicate(data[:, ti * local_payload:
+                                 (ti + 1) * local_payload].contiguous(),
+                            [mesh.devices[di, ti] for di in range(nd)])
+                  for ti in range(nt)]
+        rows = []
+        for di in range(nd):
+            acc = None
+            for ti in range(nt):
+                dev = mesh.devices[di, ti]
+                local = shards[ti][di]
+                if ti + 1 < nt:
+                    halo = shards[ti + 1][di][:, :overlap].to(dev)
+                else:
+                    halo = torch.zeros((C, overlap), dtype=local.dtype,
+                                       device=dev)
+                with on_device(dev):
+                    eng = ChunkEngine(engine, s1[di * per:(di + 1) * per],
+                                      s2[di * per:(di + 1) * per], nsub,
+                                      out_len, slack2, need, dev)
+                    ext = torch.cat([local, halo], dim=1)
+                    if ext.shape[1] < need:
+                        ext = F.pad(ext, (0, need - ext.shape[1]))
+                    s, ss, mb, ab = (t.cpu().numpy() for t in eng.stats(
+                        ext, widths, local_payload))
+                telemetry.counter(
+                    f"device{int(mesh.ids[di, ti])}.sweep.dispatches")
+                s = s.astype(np.float64)
+                ss = ss.astype(np.float64)
+                ab = ab.astype(np.int64) + ti * local_payload
+                if acc is None:
+                    acc = [s, ss, mb, ab]
+                    continue
+                acc[0] = acc[0] + s
+                acc[1] = acc[1] + ss
+                better = mb > acc[2]  # the earlier shard keeps a tie
+                acc[2] = np.where(better, mb, acc[2])
+                acc[3] = np.where(better, ab, acc[3])
+            rows.append(acc)
+        return tuple(np.concatenate([r[i] for r in rows])
+                     for i in range(4))
+
+    return fn
+
+
 def sweep_chunk(data, stage1_bins, stage2_bins, nsub: int, out_len: int,
                 slack2: int, widths, stat_len: int, engine: str = "gather"):
     """One chunk for all trial groups (the reference's ``sweep_chunk``):
@@ -495,6 +747,36 @@ class AccumParts(NamedTuple):
     baseline_sum: float
     chunk_mb: tuple = ()
     chunk_ab: tuple = ()
+
+
+def merge_accum_parts(parts: Sequence[AccumParts]) -> AccumParts:
+    """Merge per-window accumulators in window order (earliest first):
+    the float64 moment sums add in that order and a window's maxima
+    replace the incumbent's only where strictly greater, the choice the
+    chunk loop makes, so a time-sharded sweep merges to the sequential
+    result with bit-identical maxima and starts and moment sums that
+    differ only by float64 re-association. Chunk peak records
+    concatenate in window order."""
+    if not parts:
+        raise ValueError("no accumulator parts to merge")
+    n = parts[0].n
+    s = np.array(parts[0].s, dtype=np.float64)
+    ss = np.array(parts[0].ss, dtype=np.float64)
+    mb = np.array(parts[0].mb)
+    ab = np.array(parts[0].ab, dtype=np.int64)
+    chunk_mb = tuple(parts[0].chunk_mb)
+    chunk_ab = tuple(parts[0].chunk_ab)
+    for p in parts[1:]:
+        n += p.n
+        s += p.s
+        ss += p.ss
+        better = p.mb > mb
+        mb = np.where(better, p.mb, mb)
+        ab = np.where(better, p.ab, ab)
+        chunk_mb += tuple(p.chunk_mb)
+        chunk_ab += tuple(p.chunk_ab)
+    return AccumParts(n, s, ss, mb, ab, parts[0].baseline_sum,
+                      chunk_mb, chunk_ab)
 
 
 class _Accum:
@@ -694,7 +976,7 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
                  engine: str = "auto", device="cuda", finalize: bool = True,
                  checkpoint: Optional[SweepCheckpoint] = None,
                  keep_chunk_peaks: bool = False, block_factory=None,
-                 checkpoint_context: str = ""):
+                 checkpoint_context: str = "", mesh=None):
     """Run the sweep over a stream of (startsamp, block[chan, time])
     chunks, each ``chunk_payload`` samples plus an overlap of at least
     ``plan.min_overlap`` (only the last may be shorter). Blocks may be
@@ -715,9 +997,15 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
     is used (unless ``baseline`` is given), chunks before the cursor are
     skipped and, when ``block_factory(cursor)`` is given, the stream is
     rebuilt from the cursor instead of replayed. ``keep_chunk_peaks``
-    keeps each chunk's maxima (:meth:`SweepResult.events`)."""
-    device = resolve_device(device)
+    keeps each chunk's maxima (:meth:`SweepResult.events`).
+
+    ``mesh`` shards the trial groups over its ``'dm'`` axis
+    (:class:`ShardedChunkEngine`; blocks come to its first position's
+    device, which replaces ``device``); the fingerprint of a checkpoint
+    carries the ``'dm'`` size, as in the reference."""
     engine = resolve_engine(engine)
+    device = (mesh_home(mesh) if mesh is not None
+              else resolve_device(device))
     W = max(plan.widths)
     out_len = chunk_payload + W
     L1 = out_len + plan.max_shift2
@@ -726,7 +1014,7 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
                  keep_chunk_peaks=keep_chunk_peaks,
                  n_real=plan.n_real_trials)
     cursor = 0  # first payload sample not yet accumulated
-    ckpt_context = f"engine={engine}{checkpoint_context}"
+    ckpt_context = f"engine={engine}{mesh_tag(mesh)}{checkpoint_context}"
     if checkpoint is not None:
         state = checkpoint.load(plan, chunk_payload, ckpt_context,
                                 keep_chunk_peaks=keep_chunk_peaks)
@@ -736,8 +1024,14 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
                 baseline = saved_baseline  # a bit-identical resume needs it
             if cursor > 0 and block_factory is not None:
                 blocks = block_factory(cursor)
-    eng = ChunkEngine(engine, plan.stage1_bins, plan.stage2_bins, plan.nsub,
-                      out_len, plan.max_shift2, need, device)
+    if mesh is not None:
+        eng = halved = ShardedChunkEngine(
+            mesh, engine, plan.stage1_bins, plan.stage2_bins, plan.nsub,
+            out_len, plan.max_shift2, need, point="sweep.chunk_dispatch")
+    else:
+        eng = ChunkEngine(engine, plan.stage1_bins, plan.stage2_bins,
+                          plan.nsub, out_len, plan.max_shift2, need, device)
+        halved = GroupHalving(eng, "sweep.chunk_dispatch", "sweep.chunk")
     pending: list = []  # (start, stat_len, host outputs, copy-done event)
     host_baseline = None
 
@@ -762,8 +1056,6 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
             checkpoint.on_drained(plan, chunk_payload, acc, cursor,
                                   host_baseline, ckpt_context, n=n)
 
-    halved = GroupHalving(eng, "sweep.chunk_dispatch", "sweep.chunk")
-
     def process(start: int, data, L: int) -> None:
         if L < need:  # end of data: zero tail
             data = F.pad(data, (0, need - L))
@@ -778,7 +1070,7 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
             ready = None
             if device.type == "cuda":
                 ready = torch.cuda.Event()
-                ready.record()
+                ready.record(torch.cuda.current_stream(device))
             pending.append((start, stat_len, host, ready))
         if telemetry.is_active():
             # one record per streamed chunk: position, payload and how
@@ -850,17 +1142,24 @@ def sweep_stream(plan: SweepPlan, blocks, chunk_payload: int, baseline=None,
 def sweep_spectra(data, freqs, dt: float, dms, nsub: int = 64,
                   group_size: int = 32, widths=DEFAULT_WIDTHS,
                   chunk_payload: Optional[int] = None, engine: str = "auto",
-                  device="cuda") -> SweepResult:
+                  device="cuda", mesh=None,
+                  pad_groups_to: Optional[int] = None) -> SweepResult:
     """Sweep an in-memory ``data[chan, time]`` (numpy or tensor, channels
     high-frequency-first) over ``dms``. The baseline is the whole-series
     per-channel mean (float64 on the host for numpy data, cast to f32), so
-    the result does not depend on the chunking."""
-    device = resolve_device(device)
+    the result does not depend on the chunking. ``mesh`` shards the
+    trial groups over its ``'dm'`` axis (:func:`sweep_stream`), the
+    groups padded to its multiple unless ``pad_groups_to`` says how
+    far."""
+    device = (mesh_home(mesh) if mesh is not None
+              else resolve_device(device))
     freqs = np.asarray(freqs, dtype=np.float64)
     if group_size <= 0:
         group_size = choose_group_size(dms, freqs, dt, nsub)
+    if pad_groups_to is None:
+        pad_groups_to = mesh_pad_groups(len(dms), group_size, mesh)
     plan = make_sweep_plan(dms, freqs, dt, nsub=nsub, group_size=group_size,
-                           widths=tuple(widths))
+                           widths=tuple(widths), pad_groups_to=pad_groups_to)
     T = int(data.shape[1])
     if chunk_payload is None:
         chunk_payload = T
@@ -879,7 +1178,7 @@ def sweep_spectra(data, freqs, dt: float, dms, nsub: int = 64,
             pos += chunk_payload
 
     return sweep_stream(plan, blocks(), chunk_payload, baseline=baseline,
-                        engine=engine, device=device)
+                        engine=engine, device=device, mesh=mesh)
 
 
 def sweep_resident(data, freqs, dt: float, dms, nsub: int = 64,
@@ -895,13 +1194,10 @@ def sweep_resident(data, freqs, dt: float, dms, nsub: int = 64,
     the kept samples. A tensor already on ``device`` stays there; each
     chunk's statistics come back behind its launch (:func:`sweep_stream`).
 
-    ``engine="tree"`` is refused (as in the reference: sweep it with
-    :func:`sweep_spectra`), and so are ``mesh`` and ``pad_groups_to``,
-    which come with ROADMAP.md Queue 1 item 14."""
-    if mesh is not None or pad_groups_to is not None:
-        raise NotImplementedError(
-            "sweep_resident's mesh and pad_groups_to are not ported yet "
-            "(ROADMAP.md Queue 1 item 14 (multi-GPU))")
+    ``mesh`` shards the trial groups over its ``'dm'`` axis and
+    ``pad_groups_to`` pads the plan's groups (:func:`sweep_spectra`):
+    the rows are the single-device rows' bits. ``engine="tree"`` is
+    refused (as in the reference: sweep it with :func:`sweep_spectra`)."""
     if resolve_engine(engine) == "tree":
         raise ValueError(
             "sweep_resident does not take the tree engine (its host-built "
@@ -914,4 +1210,5 @@ def sweep_resident(data, freqs, dt: float, dms, nsub: int = 64,
         return sweep_spectra(data[:, :n_chunks * payload], freqs, dt, dms,
                              nsub=nsub, group_size=group_size, widths=widths,
                              chunk_payload=payload, engine=engine,
-                             device=device)
+                             device=device, mesh=mesh,
+                             pad_groups_to=pad_groups_to)

@@ -117,10 +117,13 @@ def is_device_fault(e: BaseException) -> bool:
 
 
 def halving_dispatch(run: Callable[[int, int], object], n: int,
-                     what: str = "dispatch") -> List[Tuple[int, int, object]]:
+                     what: str = "dispatch",
+                     min_size: int = 1) -> List[Tuple[int, int, object]]:
     """Run ``run(lo, hi)`` over ``[0, n)``, halving any slice whose
     dispatch raises a device OOM (:func:`is_oom_error`); returns
-    ``[(lo, hi, result), ...]`` in index order.
+    ``[(lo, hi, result), ...]`` in index order. With ``min_size`` > 1
+    (a mesh's device count) every slice stays a multiple of it, and a
+    slice of ``min_size`` re-raises.
 
     ``run`` must be a pure function of its slice (each item's result
     independent of the slicing). An OOM on a single item re-raises, as
@@ -136,13 +139,14 @@ def halving_dispatch(run: Callable[[int, int], object], n: int,
             out.append((lo, hi, run(lo, hi)))
             continue
         except Exception as e:  # noqa: BLE001 - classified below
-            if (not is_oom_error(e) or hi - lo <= 1
+            if (not is_oom_error(e) or hi - lo <= max(1, min_size)
                     or halvings >= MAX_HALVINGS):
                 raise
             err = e
         halvings += 1
         size = hi - lo
-        half = size // 2
+        m = max(1, int(min_size))
+        half = max(m, (size // 2 // m) * m)
         telemetry.counter("resilience.oom_backoffs")
         telemetry.event("resilience.oom_backoff", what=what, size=size,
                         new_size=half, error=type(err).__name__)

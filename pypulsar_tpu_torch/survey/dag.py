@@ -26,9 +26,12 @@ fleet scheduler (``survey/scheduler.py``) runs the same specs over many
 observations, with the stage deadlines its watchdog reads
 (``deadline_s``, ``deadline_per_mb``).
 
-Left out of the reference: the gang form of the sweep (``devices_max``,
-``gang_argv``: ``--mesh``, ROADMAP.md Queue 1 item 14; the sweep CLI
-refuses the flag).
+The sweep stage is gang-able (the reference's): ``devices_max`` is
+:data:`SWEEP_GANG_MAX` and its ``gang_argv`` (:func:`_sweep_gang_argv`)
+is the same argv plus ``--mesh k``, whose mesh the sweep builds from the
+scheduler's device lease. Gang size is placement, not science: the
+artifacts do not depend on ``k``, so a manifest resumes across gang
+sizes.
 """
 
 from __future__ import annotations
@@ -118,6 +121,9 @@ class StageSpec:
         default=None)
     deadline_s: Optional[float] = None
     deadline_per_mb: Optional[float] = None
+    devices_max: int = 1
+    gang_argv: Optional[Callable[[Observation, SurveyConfig, int],
+                                 List[str]]] = None
 
     def deadline_for(self, obs: Observation) -> Optional[float]:
         """This stage's deadline for ``obs`` in seconds, or None when
@@ -135,14 +141,17 @@ class StageSpec:
         return total if total > 0 else None
 
     def execute(self, obs: Observation, cfg: SurveyConfig,
-                device="cuda") -> None:
+                device="cuda", gang: int = 1) -> None:
         """Run the stage for ``obs``; a device-bound stage runs on
-        ``device`` (its argv gets ``--device``). Raises
-        :class:`StageExit` on a nonzero exit code."""
+        ``device`` (its argv gets ``--device``), a gang of ``gang`` > 1
+        with its ``gang_argv``. Raises :class:`StageExit` on a nonzero
+        exit code."""
         if self.run is not None:
             rc = self.run(obs, cfg)
         else:
-            argv = self.argv(obs, cfg)
+            argv = (self.gang_argv(obs, cfg, gang)
+                    if gang > 1 and self.gang_argv is not None
+                    else self.argv(obs, cfg))
             if self.device_bound:
                 argv = argv + ["--device", str(device)]
             rc = run_cli_tool(self.tool, argv)
@@ -182,6 +191,11 @@ def _mask_outputs(obs: Observation, cfg: SurveyConfig) -> List[str]:
     return outs
 
 
+#: widest gang one sweep stage may hold (leases, not a science knob: not
+#: in SurveyConfig, so changing it never restarts a manifest)
+SWEEP_GANG_MAX = 8
+
+
 def _sweep_argv(obs: Observation, cfg: SurveyConfig) -> List[str]:
     # spectral fusion has no series to tee to .dat files
     series = ["--spectral"] if cfg.accel_spectral else ["--write-dats"]
@@ -207,6 +221,13 @@ def _sweep_argv(obs: Observation, cfg: SurveyConfig) -> List[str]:
     if cfg.mask:
         argv += ["--mask", _mask_file(obs)]
     return argv
+
+
+def _sweep_gang_argv(obs: Observation, cfg: SurveyConfig,
+                     k: int) -> List[str]:
+    """The k-lease form of the sweep stage: the same argv plus ``--mesh
+    k`` (the sweep builds its mesh from the thread's gang lease)."""
+    return _sweep_argv(obs, cfg) + ["--mesh", str(k)]
 
 
 def _sweep_outputs(obs: Observation, cfg: SurveyConfig) -> List[str]:
@@ -291,7 +312,9 @@ def build_dag(cfg: SurveyConfig) -> List[StageSpec]:
         sweep_deps = ("mask",)
     stages += [
         StageSpec("sweep", "sweep", True, sweep_deps,
-                  _sweep_argv, _sweep_outputs),
+                  _sweep_argv, _sweep_outputs,
+                  devices_max=SWEEP_GANG_MAX,
+                  gang_argv=_sweep_gang_argv),
         StageSpec("sift", "sift", False, ("sweep",),
                   _sift_argv, _sift_outputs),
         StageSpec("fold", "foldbatch", True, ("sift",),

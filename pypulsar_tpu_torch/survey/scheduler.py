@@ -97,9 +97,28 @@ The reference's environment knobs are keywords here, with its defaults:
 (``PYPULSAR_TPU_CANDSTORE``), ``lane_width``
 (``PYPULSAR_TPU_BROKER_LANE``).
 
-Left out of the reference, each refused with its ROADMAP.md label: gang
-leases (``gang`` > 1, one stage over several cards) are item 14; the
-compile warm pool is item 16.
+Gang leases (the reference's): a stage whose spec declares
+``devices_max`` > 1 (the sweep) may take ``k`` leases for one execution
+(:meth:`FleetScheduler._gang_size`): ``gang=K`` pins ``k`` (shrunk to
+the healthy leases), ``gang="auto"`` widens a stage onto idle leases
+only while no other ready device stage could use them and the stage's
+measured share of the device chain's cost is at least
+``GANG_COST_MIN_FRAC``, and never onto leases that share a device (on
+the CPU every lease shares the one CPU, so ``"auto"`` keeps each stage
+on one lease there). A gang (k > 1) runs without a batch lane, as in the
+reference: its sweep claims no lane mates.
+Every decision is a ``survey.gang_decision``
+event (``k``, the lease ids, the reason). The ``k`` leases are claimed
+together (:meth:`FleetScheduler._acquire_devices`: first come, first
+served with reservation, so a wide gang is not starved by one-lease
+traffic, and a claim shrinks when leases are evicted while it waits),
+and the stage runs under ``parallel.mesh.device_lease`` of the leases'
+devices with its gang argv (the sweep's ``--mesh k``). The leases map to
+cards as single leases do, so a pool of more leases than cards names a
+card more than once: how a one-card machine runs a gang. Artifacts do
+not depend on ``k``.
+
+Left out of the reference: the compile warm pool (ROADMAP.md item 16).
 """
 
 from __future__ import annotations
@@ -119,6 +138,7 @@ import torch
 from pypulsar_tpu_torch.core.device import resolve_device
 from pypulsar_tpu_torch.obs import flightrec, telemetry, tracing
 from pypulsar_tpu_torch.parallel import broker as broker_mod
+from pypulsar_tpu_torch.parallel.mesh import device_lease
 from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience import health as health_mod
 from pypulsar_tpu_torch.resilience import locks as locks_mod
@@ -148,6 +168,10 @@ RETRY_BACKOFF_MAX_S = 5.0
 #: the reference's ``PYPULSAR_TPU_OBS_SLO_FRAC`` default: a stage that
 #: used more than this share of its deadline emits ``survey.slo_burn``
 SLO_FRAC = 0.8
+#: the reference's ``PYPULSAR_TPU_GANG_COST_MIN_FRAC`` default: ``gang=
+#: "auto"`` widens a stage only if it owns this share of the measured
+#: device chain
+GANG_COST_MIN_FRAC = 0.25
 
 _PENDING, _QUEUED, _RUNNING, _DONE, _QUARANTINED, _REMOTE = range(6)
 _TERMINAL = (_DONE, _QUARANTINED, _REMOTE)
@@ -231,11 +255,9 @@ class FleetScheduler:
                  candstore: bool = True,
                  lane_width: int = broker_mod.LANE_WIDTH,
                  host_strike_limit: Optional[int] = None):
-        if gang != "auto" and int(gang) > 1:
-            raise NotImplementedError(
-                f"gang leases (gang={gang}: one stage over several "
-                f"cards) need the multi-card sweep, not ported yet "
-                f"(ROADMAP.md Queue 1 item 14)")
+        if gang != "auto" and int(gang) < 1:
+            raise ValueError(f"gang must be >= 1 or 'auto', got {gang!r}")
+        self.gang = gang if gang == "auto" else int(gang)
         self.device = resolve_device(device)
         self.cfg = cfg if cfg is not None else SurveyConfig()
         self.stages = list(stages) if stages is not None \
@@ -308,6 +330,10 @@ class FleetScheduler:
             (i, s.name): _Task(i, s)
             for i in range(len(self.obs)) for s in self.stages}
         self._free_ids = set(range(self.devices))
+        # waiting lease claims, oldest first: (ticket, [need])
+        self._claims: List[Tuple[object, List[int]]] = []
+        # measured wall of each device-bound stage: name -> [s, n]
+        self._stage_cost: Dict[str, List[float]] = {}
         self.result = FleetResult()
         self._manifests: List[ObsManifest] = []
         self._traces: List[Optional[ObsTrace]] = []
@@ -1161,7 +1187,8 @@ class FleetScheduler:
     # -- execution ----------------------------------------------------------
 
     def _execute(self, task: _Task,
-                 dev_ids: Optional[List[int]] = None) -> None:
+                 dev_ids: Optional[List[int]] = None,
+                 gang: int = 1) -> None:
         obs = self.obs[task.obs_i]
         stage = task.stage
         if task.obs_i in self._verify_input \
@@ -1210,7 +1237,15 @@ class FleetScheduler:
                 with telemetry.span(f"survey.stage.{stage.name}",
                                     **span_attrs) as sp, \
                         self._device_ctx(dev):
-                    stage.execute(obs, self.cfg, device=dev)
+                    if gang > 1:
+                        # the gang's devices, published for the stage's
+                        # mesh (lease_devices) under the lease ids
+                        with device_lease([self._lease_device(i)
+                                           for i in dev_ids], ids=dev_ids):
+                            stage.execute(obs, self.cfg, device=dev,
+                                          gang=gang)
+                    else:
+                        stage.execute(obs, self.cfg, device=dev)
                 if sp is not None:
                     sp_sid = getattr(sp, "sid", None)
             dur = time.perf_counter() - t0
@@ -1251,9 +1286,16 @@ class FleetScheduler:
                             frac=round(dur / float(budget), 3))
         if self.verbose:
             print(f"# survey: {obs.name}: {stage.name} done "
-                  f"({dur:.2f}s, {len(outputs)} artifacts)")
+                  f"({dur:.2f}s, {len(outputs)} artifacts"
+                  + (f", gang x{gang} on leases {dev_ids}"
+                     if gang > 1 else "") + ")")
         with self._cv:
             task.state = _DONE
+            if stage.device_bound:
+                # the measured per-stage cost the auto gang consults
+                ent = self._stage_cost.setdefault(stage.name, [0.0, 0])
+                ent[0] += dur
+                ent[1] += 1
             self.result.ran.append((obs.name, stage.name))
             self._promote_locked(task.obs_i)
             obs_complete = all(
@@ -1405,50 +1447,133 @@ class FleetScheduler:
 
     # -- device leases ------------------------------------------------------
 
-    def _acquire_device(self) -> Optional[int]:
-        """Block until a lease id is free and claim it; None when the
-        fleet is unwinding."""
-        with self._cv:
-            while True:
-                if self._stop and self._fatal is not None:
-                    return None
-                if self._free_ids:
-                    i = min(self._free_ids)
-                    self._free_ids.discard(i)
-                    return i
-                self._cv.wait(0.1)
+    def _gang_size(self, task: _Task) -> Tuple[int, str]:
+        """(k, reason): how many leases this execution gets. ``gang=K``
+        pins k; ``"auto"`` widens a gang-able stage onto idle leases
+        only while no other ready device stage could use them, gated by
+        the stage's measured share of the device chain's cost. Gangs
+        shrink to the healthy leases (placement is not science: the
+        artifacts do not depend on k)."""
+        stage = task.stage
+        gmax = min(int(getattr(stage, "devices_max", 1)), self.devices)
+        healthy = len(self._healthy_ids())
+        if healthy < self.devices:
+            gmax = min(gmax, max(1, healthy))
+        if gmax <= 1:
+            return 1, ("single-device stage" if healthy >= self.devices
+                       else f"shrunk to {healthy} healthy lease(s)")
+        if self.gang == "auto":
+            # a gang gains only over distinct devices: "auto" never widens
+            # onto leases that share one, as every CPU lease does (a fixed
+            # gang, asked for, may)
+            distinct = len({self._lease_device(i)
+                            for i in self._healthy_ids()})
+            if distinct <= 1:
+                return 1, f"the {healthy} leases share one device"
+            gmax = min(gmax, distinct)
+        if self.gang != "auto":
+            k = min(int(self.gang), gmax)
+            reason = f"fixed --gang {self.gang}"
+            if k < int(self.gang):
+                reason += f" shrunk to {k} ({healthy} healthy leases)"
+            return k, reason
+        with self._lock:
+            other_ready = sum(
+                1 for t in self._tasks.values()
+                if t is not task and t.stage.device_bound
+                and t.state in (_QUEUED, _RUNNING))
+            cost = {n: c[0] / max(c[1], 1)
+                    for n, c in self._stage_cost.items() if c[1]}
+        idle = self.devices - 1 - other_ready
+        if idle <= 0:
+            return 1, (f"fleet-parallel: {other_ready} other ready "
+                       f"device stages fill the {self.devices} leases")
+        k = min(gmax, 1 + idle)
+        total = sum(cost.values())
+        mine = cost.get(stage.name)
+        if mine is not None and total > 0:
+            frac = mine / total
+            if frac < GANG_COST_MIN_FRAC:
+                return 1, (f"measured {stage.name} cost share "
+                           f"{frac:.0%} < {GANG_COST_MIN_FRAC:.0%} of "
+                           f"the device chain: gang not worth it")
+            return k, (f"gang x{k}: {idle} idle leases and "
+                       f"{stage.name} owns {frac:.0%} of the measured "
+                       f"device chain")
+        return k, f"gang x{k}: {idle} idle leases, cost unmeasured yet"
 
-    def _release_device(self, i: int) -> None:
+    def _acquire_devices(self, k: int) -> Optional[List[int]]:
+        """Block until ``k`` lease ids are free and claim them; None when
+        the fleet is unwinding. First come, first served with
+        reservation: an older waiting claim reserves freed leases (up to
+        its need) before a younger claim may take them, so a wide gang is
+        not starved by one-lease traffic. A claim shrinks when leases are
+        evicted while it waits (a gang asking for leases that no longer
+        exist retries at the surviving width)."""
+        ticket = object()
+        need = [k]
+        with self._cv:
+            self._claims.append((ticket, need))
+            try:
+                while True:
+                    if self._stop and self._fatal is not None:
+                        return None
+                    need[0] = min(need[0],
+                                  max(1, len(self._healthy_ids())))
+                    rem = len(self._free_ids)
+                    grant = False
+                    for t, n in self._claims:
+                        if t is ticket:
+                            grant = rem >= need[0]
+                            break
+                        rem -= min(n[0], rem)  # older claims reserve
+                    if grant:
+                        ids = sorted(self._free_ids)[:need[0]]
+                        self._free_ids.difference_update(ids)
+                        return ids
+                    self._cv.wait(0.1)
+            finally:
+                self._claims.remove((ticket, need))
+
+    def _release_devices(self, ids: List[int]) -> None:
         with self._cv:
             # a lease quarantined while this execution held it never
             # returns to the pool
-            if not self._health.is_quarantined(self._lease_real(i)):
-                self._free_ids.add(i)
+            self._free_ids.update(
+                i for i in ids
+                if not self._health.is_quarantined(self._lease_real(i)))
             self._cv.notify_all()
 
     def _run_device_task(self, task: _Task) -> None:
-        """One device-lane execution: take a lease, record the placement
-        decision, run the stage (and any lane mates) on its card."""
+        """One device-lane execution: decide the gang, take its leases,
+        record the placement decision, run the stage (a single lease's
+        with any lane mates) on its cards."""
         obs = self.obs[task.obs_i]
-        lease = self._acquire_device()
-        if lease is None:  # fleet unwinding while we waited
+        k, reason = self._gang_size(task)
+        ids = self._acquire_devices(k)
+        if ids is None:  # fleet unwinding while we waited
             return
-        task.last_dev_ids = [lease]
+        if len(ids) < k:  # the pool shrank while waiting: so does the gang
+            k = len(ids)
+            reason += f"; shrunk to {k} while waiting"
+        task.last_dev_ids = list(ids)
         try:
             telemetry.event("survey.gang_decision", obs=obs.name,
-                            stage=task.stage.name, k=1, chips=[lease],
-                            reason="single-device stage")
+                            stage=task.stage.name, k=k, chips=ids,
+                            reason=reason)
             trace = self._traces[task.obs_i]
             if trace is not None:
                 trace.event("survey.gang_decision", stage=task.stage.name,
-                            k=1, chips=[lease],
-                            reason="single-device stage")
+                            k=k, chips=ids, reason=reason)
+            if k > 1:
+                self._execute(task, dev_ids=ids, gang=k)
+                return
             mates = self._claim_lane_mates(task)
             for t in mates:
-                t.last_dev_ids = [lease]
-            self._run_lane(task, mates, lease)
+                t.last_dev_ids = list(ids)
+            self._run_lane(task, mates, ids[0])
         finally:
-            self._release_device(lease)
+            self._release_devices(ids)
 
     def _claim_lane_mates(self, task: _Task) -> List[_Task]:
         """A lease taken for a broker stage widens into a batch lane: it

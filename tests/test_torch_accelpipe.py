@@ -217,14 +217,27 @@ def test_scan_engine_stage_matches_reference_scan(runs):
     (["--mesh", "2"], "Queue 1 item 14"),
 ])
 def test_left_out_flags_fail_naming_the_roadmap(runs, capsys, flags, item):
+    """``--mesh`` (once refused naming ``item``) is ported: outside a
+    device lease a mesh wider than the host's one CPU device raises
+    before anything is written; under a lease of two CPU positions the
+    stage writes the single-device bytes."""
+    from pypulsar_tpu_torch.parallel.mesh import device_lease
+
     tag = str(runs["dir"] / "left_out")
-    with pytest.raises(SystemExit) as exc:
-        cli.main([runs["fil"], "-o", tag, *SWEEP, *ACCEL, *flags,
-                  "--device", "cpu"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP.md {item}" in err
+    argv = [runs["fil"], "-o", tag, *SWEEP, *ACCEL, *flags,
+            "--accel-only", "--device", "cpu"]
+    with pytest.raises(ValueError, match="lease"):
+        cli.main(argv)
     assert not glob.glob(tag + "*")
+    assert f"ROADMAP.md {item}" not in capsys.readouterr().err
+    with device_lease(["cpu", "cpu"]):
+        assert cli.main(argv) == 0
+    want = _cand_files(runs["port"])
+    assert len(_cand_files(tag)) == len(want) == 8
+    for fw in want:
+        with open(fw, "rb") as a, open(tag + _rel(fw, runs["port"]),
+                                       "rb") as b:
+            assert a.read() == b.read()
 
 
 def test_accel_only_requires_accel_search(runs):

@@ -248,15 +248,22 @@ def test_device_goes_to_the_device_bound_stages(monkeypatch, tmp_path):
 
 
 def test_left_out_configs_raise_naming_the_roadmap(tmp_path, capsys):
-    # the gang form of the sweep stage is its --mesh flag, which the
-    # sweep CLI refuses
-    sweep = next(s for s in dag.build_dag(dag.SurveyConfig())
-                 if s.name == "sweep")
+    # the gang form of the sweep stage is its argv plus --mesh K (the
+    # reference's), and the only gang-able stage; outside a device lease
+    # a mesh wider than the host's one CPU device raises, naming the lease
+    cfg = dag.SurveyConfig()
+    stages = {s.name: s for s in dag.build_dag(cfg)}
+    sweep = stages["sweep"]
     obs = Observation("a", str(tmp_path / "a.fil"), str(tmp_path / "a"))
-    argv = sweep.argv(obs, dag.SurveyConfig()) + ["--mesh", "2",
-                                                  "--device", "cpu"]
-    assert dag.run_cli_tool("sweep", argv) == 2
-    assert "Queue 1 item 14" in capsys.readouterr().err
+    assert sweep.devices_max == dag.SWEEP_GANG_MAX > 1
+    assert sweep.gang_argv(obs, cfg, 2) == sweep.argv(obs, cfg) + [
+        "--mesh", "2"]
+    assert all(s.devices_max == 1 and s.gang_argv is None
+               for n, s in stages.items() if n != "sweep")
+    argv = sweep.gang_argv(obs, cfg, 2) + ["--device", "cpu"]
+    with pytest.raises(ValueError, match="lease"):
+        dag.run_cli_tool("sweep", argv)
+    assert "item 14" not in capsys.readouterr().err
 
 
 def test_a_failing_stage_raises_stage_exit(tmp_path):

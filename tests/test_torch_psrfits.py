@@ -26,6 +26,7 @@ Contracts:
 import glob
 import json
 import os
+import shutil
 import warnings
 from fractions import Fraction
 
@@ -469,11 +470,26 @@ def test_cli_sweep_cands_match_reference(tmp_path, mode):
 
 
 def test_cli_sweep_refuses_several_files(tmp_path, capsys):
+    """Several files are the multi-file batch axis (ported): each file's
+    .cands beside it and one merged table; what is refused with several
+    files is the reference's single-file options (--journal,
+    --accel-search)."""
     fn = write_fits(str(tmp_path / "a.fits"), T=1000)
-    with pytest.raises(SystemExit) as e:
-        sweep_cli.main([fn, fn, "--numdms", "4", "--device", "cpu"])
-    assert e.value.code == 2
-    assert "ROADMAP.md Queue 1 item 14" in capsys.readouterr().err
+    fn2 = str(tmp_path / "b.fits")
+    shutil.copy(fn, fn2)
+    for extra in (["--journal", str(tmp_path / "j.jsonl")],
+                  ["--accel-search"]):
+        with pytest.raises(SystemExit) as e:
+            sweep_cli.main([fn, fn2, "--numdms", "4", "-s", "8",
+                            "--device", "cpu", *extra])
+        assert e.value.code == 2
+        assert "item 14" not in capsys.readouterr().err
+    assert sweep_cli.main([fn, fn2, "--numdms", "4", "-s", "8", "--device",
+                           "cpu"]) == 0
+    with open(str(tmp_path / "a.cands")) as a, \
+            open(str(tmp_path / "b.cands")) as b:
+        assert a.read() == b.read()
+    assert os.path.exists(str(tmp_path / "a_multi_merged.cands"))
 
 
 SIGMA = 3.0

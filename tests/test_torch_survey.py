@@ -55,6 +55,7 @@ from pypulsar_tpu_torch.parallel import broker
 from pypulsar_tpu_torch.resilience import faultinject, locks
 from pypulsar_tpu_torch.survey import dag
 from pypulsar_tpu_torch.survey.dag import StageSpec, SurveyConfig
+from pypulsar_tpu_torch.survey import scheduler as scheduler_mod
 from pypulsar_tpu_torch.survey.scheduler import FleetScheduler
 from pypulsar_tpu_torch.survey.state import (
     Observation,
@@ -1040,12 +1041,23 @@ def test_the_finished_observation_is_published_once(tmp_path):
 # ---------------------------------------------------------------------------
 
 
+# gang leases are ported: --gang K takes any K >= 1 (the gang tests
+# below), and what is refused there is a gang that is no integer >= 1;
+# the ids are the ones these cases had while --gang K > 1 was refused
+GANG_USAGE = "--gang must be an integer >= 1 or 'auto'"
+
+
 @pytest.mark.parametrize("flags, item", [
-    (["--gang", "2"], "Queue 1 item 14"),
-    (["--gang", "2", "--hosts", "2"], "Queue 1 item 14"),
-    (["--gang", "3", "--host-id", "h0"], "Queue 1 item 14"),
-    (["--gang", "2", "--host-lease", "5"], "Queue 1 item 14"),
-    (["--gang", "2", "--daemon"], "Queue 1 item 14"),
+    pytest.param(["--gang", "0"], GANG_USAGE,
+                 id="flags0-Queue 1 item 14"),
+    pytest.param(["--gang", "0", "--hosts", "2"], GANG_USAGE,
+                 id="flags1-Queue 1 item 14"),
+    pytest.param(["--gang", "x", "--host-id", "h0"], GANG_USAGE,
+                 id="flags2-Queue 1 item 14"),
+    pytest.param(["--gang", "-1", "--host-lease", "5"], GANG_USAGE,
+                 id="flags3-Queue 1 item 14"),
+    pytest.param(["--gang", "0", "--daemon"], GANG_USAGE,
+                 id="flags4-Queue 1 item 14"),
     (["--fault-chaos", "3:0.01", "--status-port", "0"], "Queue 1 item 16"),
     (["--status", "--follow", "--fault-chaos", "1:0.1"], "Queue 1 item 16"),
     (["--fault-chaos", "3:0.01"], "Queue 1 item 16"),
@@ -1060,16 +1072,20 @@ def test_refused_flags_exit_2_naming_their_item(tmp_path, capsys, flags,
         rc = e.code
     assert rc == 2
     err = capsys.readouterr().err
-    assert "not ported yet" in err and item in err
+    assert item in err
+    if item != GANG_USAGE:
+        assert "not ported yet" in err
     assert not os.path.exists(tmp_path / "out")
 
 
 def test_refused_scheduler_keywords_raise_naming_their_item(tmp_path):
-    # a plane and service mode are taken (tests/test_torch_multihost.py,
-    # tests/test_torch_daemon.py); gang leases stay item 14's
+    # a plane, service mode and gang leases are taken
+    # (tests/test_torch_multihost.py, tests/test_torch_daemon.py,
+    # tests/test_torch_mesh.py); a gang below one lease is refused
     assert _sched([], stages=_stub_stages(), service=True)._service
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _sched([], stages=_stub_stages(), gang=2)
+    with pytest.raises(ValueError, match="gang"):
+        _sched([], stages=_stub_stages(), gang=0)
+    assert _sched([], stages=_stub_stages(), gang=2).run().ok
     assert _sched([], stages=_stub_stages(), gang="auto").run().ok
 
 
@@ -1093,3 +1109,185 @@ def test_the_dispatcher_runs_survey_cands_and_tlmtrace(fleets, capsys):
     assert "# 1 candidate(s)" in capsys.readouterr().out
     assert dispatch.main(["survey", "--status", "-o",
                           os.path.join(fleets["root"], "none")]) == 1
+
+
+# ---------------------------------------------------------------------------
+# (e) gang leases: one stage over several leases (--gang K)
+# ---------------------------------------------------------------------------
+
+
+def _gang_stub(record, fail_first=False):
+    """A gang-able device stage that records the lease it ran under (and
+    fails its first execution with a device fault when asked)."""
+    from pypulsar_tpu_torch.parallel import mesh
+
+    state = {"n": 0}
+
+    def run(obs, cfg):
+        with _conc_lock:
+            state["n"] += 1
+            first = state["n"] == 1
+            record.append((obs.name, mesh.lease_device_ids(),
+                           time.perf_counter()))
+        time.sleep(0.05)
+        if fail_first and first:
+            raise faultinject.InjectedDeviceFault("stub.dispatch")
+        with open(f"{obs.outbase}.dev1.out", "w") as f:
+            f.write(f"dev1 {obs.name}\n")
+        return 0
+
+    return [StageSpec("dev1", "stub", True, (), lambda o, c: [],
+                      _stub_outputs("dev1"), run=run, devices_max=4),
+            _stub("host1", False, ("dev1",))]
+
+
+def _gang_decisions(tlm_records):
+    return [(r["attrs"]["obs"], r["attrs"]["k"], r["attrs"]["chips"])
+            for r in tlm_records if r.get("name") == "survey.gang_decision"]
+
+
+def test_gang_leases_are_distinct_and_published_to_the_stage(tmp_path):
+    record = []
+    path = str(tmp_path / "t.jsonl")
+    with telemetry.session(path):
+        result = _sched(_obs(tmp_path, ["a", "b", "c"]),
+                        stages=_gang_stub(record), devices=4,
+                        gang=2).run()
+    assert result.ok
+    decisions = [d for d in _gang_decisions(load_records(path))]
+    assert sorted(o for o, _, _ in decisions) == ["a", "b", "c"]
+    assert all(k == 2 and len(set(chips)) == 2 for _, k, chips in decisions)
+    # the stage ran under exactly its decision's leases
+    by_obs = {o: chips for o, _, chips in decisions}
+    assert {o: ids for o, ids, _ in record} == by_obs
+    for n in ("a", "b", "c"):
+        assert os.path.exists(str(tmp_path / n) + ".dev1.out")
+
+
+def test_gang_claims_are_first_come_and_a_wide_gang_is_not_starved(
+        tmp_path):
+    s = _sched(_obs(tmp_path, ["a"]), stages=_gang_stub([]), devices=2)
+    held = s._acquire_devices(1)
+    order = []
+
+    def claim(name, k):
+        ids = s._acquire_devices(k)
+        order.append((name, ids))
+        time.sleep(0.05)
+        s._release_devices(ids)
+
+    wide = threading.Thread(target=claim, args=("wide", 2))
+    wide.start()
+    while not s._claims:
+        time.sleep(0.01)
+    narrow = threading.Thread(target=claim, args=("narrow", 1))
+    narrow.start()
+    time.sleep(0.3)
+    # lease 1 is free, but the older wide claim reserves it
+    assert order == []
+    s._release_devices(held)
+    wide.join(5)
+    narrow.join(5)
+    assert [n for n, _ in order] == ["wide", "narrow"]
+    assert order[0][1] == [0, 1] and len(order[1][1]) == 1
+
+
+def test_the_auto_gang_follows_idle_leases_and_the_cost_gate(
+        tmp_path, monkeypatch):
+    s = _sched(_obs(tmp_path, ["a"]), stages=_gang_stub([]), devices=3,
+               gang="auto")
+    task = s._tasks[(0, "dev1")]
+    # the three CPU leases share one device: "auto" does not gang them
+    k, reason = s._gang_size(task)
+    assert k == 1 and "share one device" in reason
+    # leases on three cards
+    s._lease_device = lambda i: torch.device("cuda", i)
+    k, reason = s._gang_size(task)
+    assert k == 3 and "cost unmeasured" in reason
+    s._stage_cost = {"dev1": [1.0, 1], "other": [9.0, 1]}
+    k, reason = s._gang_size(task)
+    assert k == 1 and "cost share" in reason
+    monkeypatch.setattr(scheduler_mod, "GANG_COST_MIN_FRAC", 0.05)
+    assert s._gang_size(task)[0] == 3
+    monkeypatch.undo()
+    s._stage_cost = {"dev1": [9.0, 1], "other": [1.0, 1]}
+    assert s._gang_size(task)[0] == 3
+    # the host stage never gangs; a fixed gang is capped by the pool
+    assert s._gang_size(s._tasks[(0, "host1")])[0] == 1
+    s2 = _sched(_obs(tmp_path, ["a"]), stages=_gang_stub([]), devices=2,
+                gang=4)
+    k, reason = s2._gang_size(s2._tasks[(0, "dev1")])
+    assert k == 2 and "fixed --gang 4" in reason
+
+
+def test_the_default_cpu_fleet_on_two_leases_keeps_the_single_lease_path(
+        tmp_path):
+    """``survey --devices 2`` on the CPU with the default ``--gang auto``:
+    the sweep never gangs (both leases are the one CPU), runs with no
+    published lease, and keeps its batch lane."""
+    record = []
+
+    def run(obs, cfg):
+        from pypulsar_tpu_torch.parallel import mesh
+
+        with _conc_lock:
+            record.append((obs.name, mesh.lease_device_ids()))
+        with open(f"{obs.outbase}.sweep.out", "w") as f:
+            f.write(obs.name)
+        return 0
+
+    stages = [StageSpec("sweep", "stub", True, (), lambda o, c: [],
+                        _stub_outputs("sweep"), run=run,
+                        devices_max=dag.SWEEP_GANG_MAX)]
+    assert survey.build_parser().parse_args(
+        ["x.fil", "-o", "out"]).gang == "auto"
+    sched = _sched(_obs(tmp_path, ["a", "b"]), stages=stages, devices=2,
+                   gang="auto")
+    with sched._cv:
+        for i in range(2):
+            sched._promote_locked(i)
+    ta, tb = sched._tasks[(0, "sweep")], sched._tasks[(1, "sweep")]
+    k, reason = sched._gang_size(ta)
+    assert k == 1 and "share one device" in reason
+    assert sched._claim_lane_mates(ta) == [tb]
+    path = str(tmp_path / "t.jsonl")
+    with telemetry.session(path):
+        result = _sched(_obs(tmp_path, ["c", "d", "e"]), stages=stages,
+                        devices=2, gang="auto").run()
+    assert result.ok
+    ks = [k for _, k, _ in _gang_decisions(load_records(path))]
+    assert ks and set(ks) == {1}
+    assert sorted(record) == [("c", None), ("d", None), ("e", None)]
+
+
+def test_a_gang_shrinks_after_an_eviction(tmp_path):
+    record = []
+    path = str(tmp_path / "t.jsonl")
+    with telemetry.session(path):
+        result = _sched(_obs(tmp_path, ["a"]),
+                        stages=_gang_stub(record, fail_first=True),
+                        devices=2, gang=2, retries=2,
+                        strike_limit=1).run()
+    assert result.ok and len(result.evicted_devices) == 1
+    ks = [k for _, k, _ in _gang_decisions(load_records(path))]
+    assert ks == [2, 1]
+    # the retry ran on the one healthy lease, as a single-lease stage
+    assert [ids for _, ids, _ in record] == [[0, 1], None]
+
+
+def test_a_gang_killed_fleet_resumes_to_the_serial_bytes(fleets):
+    """The sweep as a gang of two leases (``--mesh 2`` on two CPU
+    positions), killed after its artifacts, resumed at one lease: the
+    artifacts are the serial chain's bytes."""
+    obs = _observations(fleets["root"], "gang", fleets["fils"][:1])
+    faultinject.configure("kill:survey.stage_done.sweep:1")
+    with pytest.raises(faultinject.InjectedKill):
+        FleetScheduler(obs, fleets["cfg"], device="cpu", devices=2,
+                       gang=2).run()
+    faultinject.reset()
+    assert _recorded(obs) == {("psr0", "mask")}
+    result = FleetScheduler(obs, fleets["cfg"], device="cpu",
+                            resume=True).run()
+    assert result.ok and ("psr0", "mask") in result.skipped
+    _assert_serial_bytes(fleets, os.path.dirname(obs[0].outbase),
+                         names=("psr0",))

@@ -455,9 +455,10 @@ def test_sweep_resident_meets_reference_resident():
 
 
 def test_sweep_resident_refusals_and_trace(tmp_path):
-    """The tree engine is refused as in the reference, the mesh and
-    padded groups name their ROADMAP item; a run records the reference's
-    span and counters."""
+    """The tree engine is refused as in the reference; a mesh and padded
+    groups give the single-device rows (tests/test_torch_mesh.py holds
+    them at every engine); a run records the reference's span and
+    counters."""
     from pypulsar_tpu_torch.obs import telemetry
 
     freqs, dt, data = _pulsed(C=32, T=3000)
@@ -469,9 +470,14 @@ def test_sweep_resident_refusals_and_trace(tmp_path):
         jax_sweep.sweep_resident(Spectra(freqs, dt, data), dms,
                                  engine="tree", nsub=8, group_size=4,
                                  chunk_payload=1000)
-    for extra in (dict(mesh=object()), dict(pad_groups_to=4)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            sweep.sweep_resident(data, freqs, dt, dms, **kw, **extra)
+    from pypulsar_tpu_torch.parallel.mesh import make_mesh
+
+    one = sweep.sweep_resident(data, freqs, dt, dms, **kw)
+    for extra in (dict(mesh=make_mesh([2], ("dm",), devices=["cpu"] * 2)),
+                  dict(pad_groups_to=4)):
+        got = sweep.sweep_resident(data, freqs, dt, dms, **kw, **extra)
+        np.testing.assert_array_equal(got.snr, one.snr)
+        np.testing.assert_array_equal(got.peak_sample, one.peak_sample)
     with telemetry.session(str(tmp_path / "t.jsonl")) as tlm:
         sweep.sweep_resident(data, freqs, dt, dms, **kw)
         totals = tlm.counter_totals()

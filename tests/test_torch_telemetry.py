@@ -368,7 +368,7 @@ def test_pull_and_ship_counters():
         assert tlm.counter_totals() == {}
         count_d2h(_FakeCuda(10, 4), _FakeCuda(3, 8))
         before = prefetch.ship_ahead.bytes
-        prefetch._count_shipped(96)
+        prefetch.count_shipped(96)
         assert prefetch.ship_ahead.bytes - before == 96
         prefetch.ship_ahead.bytes = before
         assert tlm.counter_totals() == {"d2h.bytes": 64, "d2h.pulls": 1,
