@@ -30,7 +30,18 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    sums rtol 1e-5 plus 1e-5 * sqrt(sum of squares) (a sum of zero-mean
    samples cancels), and each argbox start equal to the plain version's
    or holding the same maximum within rtol 1e-5;
-3. the flat sweep on a small file, on the card against the CPU;
+3. the flat sweep on a small file (256 channels, 2^16 8-bit samples),
+   on the card against the CPU; then the plain ``--write-dats`` writer
+   (``sweep --write-dats`` without ``--accel-search``) on it over 16
+   trials, its resident branch (the whole file a ``Spectra`` on the
+   card, each trial's exact per-channel dedispersion) on the card against
+   the same run with ``--device cpu``: every ``.dat`` within 1e-6 of the
+   series' largest magnitude (float32 sums in another order; the 8-bit
+   file's integer sums are exact, so 0 is expected), every ``.inf`` the
+   same bytes; then the streamed branch once (the writer's crossover at
+   0 bytes), on the card against the CPU under the same tolerance, and
+   not the resident series. One ``path write_dats_plain:`` line (walls,
+   largest differences);
 4. the main path: ``python -m pypulsar_tpu_torch.cli.sweep``'s entry point
    on a 1024-channel, 2^20-sample 8-bit file with a pulsar at DM 70, over
    1024 trials; the pulsar must be found and every kernel (gather-sum
@@ -224,7 +235,8 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    of 70, every kernel of the sweep launched. (c) The flat 1024-trial
    sweep of the 4-bit copy: best within 1 of DM 70, the same kernels.
    (d) ``run_observation`` (``SurveyConfig(lodm=54)``) on an 8-bit
-   PSRFITS copy of phase 8's RFI file with phase 8's gates (the tone and
+   PSRFITS copy of phase 8's RFI file (written beside (a)'s two copies,
+   in parallel threads) with phase 8's gates (the tone and
    the interval zapped, < 1% of other cells flagged, a DM-70 harmonic of
    3.8147 Hz with |z| <= 2 and sigma > 10, a ``.pfd`` of SNR > 10, the
    polynomial fold launched). (e) A float32 ``.fil`` of the first 2^18
@@ -368,7 +380,8 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    the pulsar, P 0.262144 s, DM 70) over phase 6's tables, ``pfd_snr
    --tsys 30 --gain 10 --haslam-map`` (a map written by
    ``skytemp.write_healpix_map``) and ``pfd_snr -m`` (a von Mises model)
-   over phase 7's archives at DM 70: each the bytes of the
+   over phase 7's archives at DM 70, the three processes and the
+   unknown tool's side by side: each the bytes of the
    tool's own ``main`` run here, the pulsar's rows (and only they)
    vetoed from phase 7's list, finite SNRs and a mean flux; an unknown
    tool exits 2 with a hint. One ``path NAME:`` line each.
@@ -479,6 +492,27 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    ``survey.gang_decision`` k = 2 in the trace. One ``path NAME:`` line
    each.
 
+21. Auto-tuning. (a) ``python -m pypulsar_tpu_torch.cli tune --search``
+   in-process through the dispatcher, into a cache file in the temporary
+   directory: the sweep stage at 64 channels, 2^16 samples, 32 DMs, and
+   the accel stage at 2^14 samples, zmax 20, 2 harmonics, 4 trials each
+   (``--trials 4``), measured on the card; each must store its entry and
+   the sweep measure must launch both gather-sum stages. One ``path
+   tune_search:`` line (trials, ``baseline_s``, ``best_s`` and the winner
+   of each stage). (b) A cache whose entries differ from the defaults at
+   phase 3's small file (accel: batch 16 and ``hbm_budget_bytes`` 2e9;
+   sweep: ``chunk_fft_len`` 2^16), then ``sweep --accel-search
+   --write-dats`` of that file over 32 trials (zmax 20, 2 harmonics) with
+   ``--tune off`` and with ``--tune cache`` at that file: the accel
+   dispatches (``accel.stream_batches``) must be 1 and 2, the series
+   pass's chunks (``dedisperse.chunks``) 1 and 2, and every output file
+   (``.dat``, ``.inf``, ``.cand``, ``.txtcand``, ``.cands``) the same
+   bytes. The same pair again with ``--mask`` (channels 3 and 4 and one
+   interval's channel 9 zapped): a mask fills zapped cells with each
+   chunk's statistic, so the stored chunk must not be consulted (1 and 1
+   chunks, one cache hit), the batch still moves (1 and 2 dispatches) and
+   every file keeps its bytes. One ``path tune_consult:`` line.
+
 Then a line of each phase's wall (``phase walls s:``, the script's time
 budget), one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
@@ -498,7 +532,10 @@ and phase 19's ``survey_hosts``, ``survey_adopt``, ``survey_daemon``
 and ``accel_serial_fallback``, and phase 20's ``mesh_resident_k1``,
 ``mesh_resident_k2``, ``mesh_resident_k4``, ``mesh_2d``,
 ``mesh_tree_k2``, ``mesh_stage``, ``time_shard_r0``, ``time_shard_r1``
-and ``survey_gang`` among them), the card line, and the last line ``{"ok": true, "device":
+and ``survey_gang``, phase 3's ``write_dats_plain`` and
+``write_dats_streamed`` and phase 21's ``tune_search``, ``tune_off``,
+``tune_cache``, ``tune_masked_off`` and ``tune_masked_cache`` among
+them), the card line, and the last line ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -528,6 +565,20 @@ SEED = 20261016
 #: phase 4's numbers that phase 20 reads (the bytes it shipped)
 PHASE4 = {}
 REPS = 10
+
+
+#: the child processes of phases 1-20 consult no tuning cache
+UNTUNED = ["--tune", "off"]
+
+
+def untuned(tmp) -> None:
+    """Phases 1-20 run at the defaults, whatever cache the machine holds:
+    the entry points of this process consult an empty cache in ``tmp``
+    (their children get :data:`UNTUNED`); phase 21 names its caches."""
+    from pypulsar_tpu_torch.tune import cache
+
+    path = os.path.join(tmp, "untuned", "tune.json")
+    cache.default_cache_path = lambda: path
 
 
 def fail(msg: str) -> None:
@@ -891,6 +942,99 @@ def check_small_sweep(tmp):
           f"max |dSNR| {np.abs(a.snr - b.snr).max():.3g}, peaks differing "
           f"{int((a.peak_sample != b.peak_sample).sum())}/{a.snr.size}, "
           f"best DM {a.best(1)[0]['dm']}")
+    return fn
+
+
+PLAIN_DMS = 16  # phase 3's plain --write-dats trials
+PLAIN_ARGV = ["--lodm", "30", "--dmstep", "2", "--numdms", str(PLAIN_DMS),
+              "--nsub", "32"]
+
+
+def dat_diff(base_a, base_b):
+    """The largest |difference| of two .dat sets of the same trials, and
+    the largest magnitude of ``base_b``'s; fails on a missing file or a
+    length or non-finite mismatch."""
+    import numpy as np
+
+    worst = scale = 0.0
+    dats = sorted(glob.glob(base_b + "_DM*.dat"))
+    if len(dats) != PLAIN_DMS:
+        fail(f"{base_b}: {len(dats)} .dat files, not {PLAIN_DMS}")
+    for fb in dats:
+        a = np.fromfile(base_a + fb[len(base_b):], np.float32)
+        b = np.fromfile(fb, np.float32)
+        if a.shape != b.shape or not np.isfinite(a).all():
+            fail(f"{fb}: card series misshapen or non-finite")
+        worst = max(worst, float(np.abs(a - b).max()))
+        scale = max(scale, float(np.abs(b).max()))
+    return worst, scale
+
+
+def plain_write_dats(tmp, fn, card):
+    """Phase 3 (F4): the plain --write-dats writer of the small file on
+    the card against the CPU, resident and streamed; returns the launches
+    of both card runs."""
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+
+    dms = 30.0 + 2.0 * np.arange(PLAIN_DMS)
+    sides = (("card", "cuda"), ("cpu", "cpu"))
+    runs = {}
+    for branch in ("plain", "streamed"):
+        for side, dev in sides:
+            base = os.path.join(tmp, f"{branch}_{side}")
+            with PathMeter(f"write_dats_{branch}", card) as pm:
+                if branch == "plain":
+                    rc = cli.main([fn, *PLAIN_ARGV, "--write-dats", "-o",
+                                   base, "--device", dev])
+                    if rc != 0:
+                        fail(f"plain --write-dats on {dev} exited {rc}")
+                else:
+                    with FilterbankFile(fn) as r:
+                        how = cli.write_dats_auto(
+                            base, r, dms, nsub=32, resident_limit=0,
+                            device=dev)
+                    if how != "streamed":
+                        fail(f"the writer at crossover 0 took the {how} "
+                             f"branch")
+            runs[branch, side] = (base, pm.wall_s, pm.launches)
+    diffs = {}
+    for branch in ("plain", "streamed"):
+        card_base, cpu_base = runs[branch, "card"][0], runs[branch, "cpu"][0]
+        worst, scale = dat_diff(card_base, cpu_base)
+        if worst > 1e-6 * scale:
+            fail(f"{branch} --write-dats: card and CPU .dat differ by "
+                 f"{worst:.3g} (scale {scale:.3g})")
+        diffs[branch] = worst
+        for fb in sorted(glob.glob(cpu_base + "_DM*.inf")):
+            with open(fb, "rb") as b, \
+                    open(card_base + fb[len(cpu_base):], "rb") as a:
+                name = os.path.basename
+                if a.read().replace(name(card_base).encode(),
+                                    name(cpu_base).encode()) != b.read():
+                    fail(f"{fb}: the card's .inf differs")
+    if runs["streamed", "card"][2]["gather_sum/stage1"] < 1:
+        fail("the streamed writer launched no gather-sum on the card")
+    resident, streamed = (np.fromfile(runs[b, "card"][0] + "_DM60.00.dat",
+                                      np.float32)
+                          for b in ("plain", "streamed"))
+    if np.array_equal(resident, streamed):
+        fail("the resident and streamed branches wrote the same series")
+    torch.cuda.synchronize()
+    print("path write_dats_plain: " + json.dumps({
+        "wall_s": runs["plain", "card"][1],
+        "cpu_wall_s": runs["plain", "cpu"][1],
+        "max_abs_diff": diffs["plain"], "scale": scale,
+        "streamed_wall_s": runs["streamed", "card"][1],
+        "streamed_cpu_wall_s": runs["streamed", "cpu"][1],
+        "streamed_max_abs_diff": diffs["streamed"], "trials": PLAIN_DMS,
+        "card": card, "launches": runs["plain", "card"][2],
+        "streamed_launches": runs["streamed", "card"][2]}))
+    return {"write_dats_plain": runs["plain", "card"][2],
+            "write_dats_streamed": runs["streamed", "card"][2]}
 
 
 def launch_counts() -> dict:
@@ -3810,24 +3954,28 @@ def best_cand(out):
     return float(best[0]), float(best[1]), len(rows)
 
 
-def psrfits_sweeps(tmp, fn, card):
+def psrfits_sweeps(tmp, fn, card, rfi_fn):
     """Phase 12 (a-c): PSRFITS copies of the phase-4 file at 8 and 4 bits,
     their card ingest held to the CPU's on every block the sweeps read,
     the DDplan sweep of DM 0-500 (configs[2]) on the 8-bit copy and the
-    flat 1024-trial sweep on the 4-bit copy."""
+    flat 1024-trial sweep on the 4-bit copy. Returns their launches and
+    (path, write s) of (d)'s copy of ``rfi_fn``."""
     import argparse
     import numpy as np
 
     from pypulsar_tpu_torch.cli import sweep as cli
     from pypulsar_tpu_torch.io.psrfits import PsrfitsFile
 
-    # the two copies are independent: written in parallel threads
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    # the three copies are independent: written in parallel threads
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         f8 = pool.submit(write_fits_copy, fn, os.path.join(tmp, "obs8.fits"),
                          8, SEED + 12)
         f4 = pool.submit(write_fits_copy, fn, os.path.join(tmp, "obs4.fits"),
                          4, SEED + 13)
+        frfi = pool.submit(write_fits_copy, rfi_fn, os.path.join(
+            tmp, "rfi.fits"), 8, SEED + 14, weights=False)
         (fits8, w8), (fits4, w4) = f8.result(), f4.result()
+        rfi_copy = frfi.result()
     with PsrfitsFile(fits8) as pf:
         plan = cli.make_ddplan(pf, argparse.Namespace(
             lodm=0.0, hidm=FITS_HIDM, plan_numsub=0, resolution=0.0))
@@ -3878,20 +4026,19 @@ def psrfits_sweeps(tmp, fn, card):
             dm_trials_per_s=1024 / m4.wall_s)
     for p in (fits8, fits4):
         os.remove(p)
-    return m8.launches, m4.launches
+    return m8.launches, m4.launches, rfi_copy
 
 
-def psrfits_chain(tmp, chain, info, card):
-    """Phase 12 (d): ``run_observation`` on a PSRFITS copy of phase 8's
-    RFI file, with phase 8's gates."""
+def psrfits_chain(tmp, chain, info, card, rfi_copy):
+    """Phase 12 (d): ``run_observation`` on ``rfi_copy`` (path, write s),
+    the PSRFITS copy of phase 8's RFI file, with phase 8's gates."""
     import numpy as np
 
     from pypulsar_tpu_torch.io.rfimask import RfifindMask
     from pypulsar_tpu_torch.survey import dag
     from pypulsar_tpu_torch.survey.state import Observation
 
-    fits, write_s = write_fits_copy(chain["rfi"], os.path.join(
-        tmp, "rfi.fits"), 8, SEED + 14, weights=False)
+    fits, write_s = rfi_copy
     os.makedirs(os.path.join(tmp, "fitschain"))
     obs = Observation("rfi_fits", fits, os.path.join(tmp, "fitschain",
                                                      "rfi"))
@@ -4041,9 +4188,10 @@ def split_mask(tmp, fn, info, card):
 
 def psrfits_phase(tmp, fn, info, chain, card):
     """Phase 12: returns the launches of each new driven path."""
-    ddplan8, flat4 = psrfits_sweeps(tmp, fn, card)
+    ddplan8, flat4, rfi_copy = psrfits_sweeps(tmp, fn, card, chain["rfi"])
     return {"psrfits_ddplan": ddplan8, "psrfits_flat4": flat4,
-            "psrfits_chain": psrfits_chain(tmp, chain, info, card),
+            "psrfits_chain": psrfits_chain(tmp, chain, info, card,
+                                           rfi_copy),
             "float32_fil": float32_fil_sweep(tmp, fn, card),
             "mask_split": split_mask(tmp, fn, info, card)}
 
@@ -4915,8 +5063,8 @@ def killed_run(mode, arg, tool, argv, timeout=600):
 
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", KILL_RUNNER, mode, arg,
-                           tool, *argv], cwd=HERE, capture_output=True,
-                          text=True, timeout=timeout)
+                           tool, *argv, *UNTUNED], cwd=HERE,
+                          capture_output=True, text=True, timeout=timeout)
     if proc.returncode != -signal.SIGKILL:
         fail(f"the killed {tool} run ({mode} {arg}) exited "
              f"{proc.returncode}, not by its kill: {proc.stderr[-3000:]}")
@@ -5544,7 +5692,7 @@ def fault_exit_resume(tmp, fn, card, series_launches):
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "pypulsar_tpu_torch.cli.sweep", *argv,
-         "--telemetry", trace, "--fault-inject",
+         *UNTUNED, "--telemetry", trace, "--fault-inject",
          "exit:accel.after_cand_write:3"], cwd=HERE, capture_output=True,
         text=True, timeout=600)
     child_s = time.perf_counter() - t0
@@ -5912,22 +6060,36 @@ def dispatcher_tools(tmp, card):
             ("pfd_snr", pfds + ["-m", model, "--json"], "model.json",
              pfd_snr.main)]
     env = dict(os.environ, PYTHONPATH=HERE)
-    walls = {}
-    for tool, args, name, main_ in runs:
-        by_cli = os.path.join(d, "cli_" + name)
+
+    def by_cli(tool, *args):  # (process, wall s) of one dispatcher run
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", "pypulsar_tpu_torch.cli", tool, *args,
-             by_cli], cwd=HERE, env=env, capture_output=True, text=True,
-            timeout=600)
-        walls[name] = time.perf_counter() - t0
+            [sys.executable, "-m", "pypulsar_tpu_torch.cli", tool, *args],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+        return proc, time.perf_counter() - t0
+
+    # the host tools' processes run side by side (each mostly its start),
+    # the unknown tool's too, and the tools' mains in this process
+    # meanwhile
+    with concurrent.futures.ThreadPoolExecutor(len(runs) + 1) as pool:
+        procs = [pool.submit(by_cli, tool, *args,
+                             os.path.join(d, "cli_" + name))
+                 for tool, args, name, _ in runs]
+        unknown = pool.submit(by_cli, "swep")
+        for tool, args, name, main_ in runs:
+            if run_quiet(main_, args + [os.path.join(d, "main_" + name)]
+                         )[0] != 0:
+                fail(f"{tool}.main exited non-zero")
+        done = [p.result() for p in procs]
+        bad = unknown.result()[0]
+    walls = {}
+    for (tool, _, name, _), (proc, wall) in zip(runs, done):
+        walls[name] = wall
         if proc.returncode != 0:
             fail(f"python -m pypulsar_tpu_torch.cli {tool} exited "
                  f"{proc.returncode}: {proc.stderr[-2000:]}")
-        in_proc = os.path.join(d, "main_" + name)
-        if run_quiet(main_, args + [in_proc])[0] != 0:
-            fail(f"{tool}.main exited non-zero")
-        with open(by_cli, "rb") as a, open(in_proc, "rb") as b:
+        with open(os.path.join(d, "cli_" + name), "rb") as a, \
+                open(os.path.join(d, "main_" + name), "rb") as b:
             if a.read() != b.read():
                 fail(f"{tool} through the dispatcher wrote other bytes than "
                      f"its main ({name})")
@@ -5948,9 +6110,6 @@ def dispatcher_tools(tmp, card):
             fail(f"pfd_snr {name}: no finite SNR")
     if not any(r["smean_mjy"] for r in rows["sky.json"]):
         fail("pfd_snr --tsys/--gain gave no mean flux")
-    bad = subprocess.run([sys.executable, "-m", "pypulsar_tpu_torch.cli",
-                          "swep"], cwd=HERE, env=env, capture_output=True,
-                         text=True, timeout=120)
     if bad.returncode != 2 or "did you mean 'sweep'" not in bad.stderr:
         fail(f"an unknown tool exited {bad.returncode}: {bad.stderr}")
     print("path dispatcher_tools: " + json.dumps({
@@ -5978,7 +6137,7 @@ def resident_phase(tmp, fn, card, gather_res, gather_launches):
 # ---------------------------------------------------------------------------
 
 FLEET_FLAGS = ["--lodm", str(STAGE_LODM), "--devices", "1",
-               "--max-host-workers", "2"]
+               "--max-host-workers", "2", *UNTUNED]
 FLEET_STAGES = ("mask", "sweep", "sift", "fold", "snr")
 FLEET_DEVICE_STAGES = ("mask", "sweep", "fold")
 FLEET_KILL_AT = "exit:survey.stage_done.sweep:1"  # the sweep's done
@@ -7313,6 +7472,129 @@ def mesh_phase(tmp, fn, info, chain, card, gather_res):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 21: auto-tuning
+# ---------------------------------------------------------------------------
+
+TUNE_TRIALS = 4
+TUNE_STAGES = (  # (stage, cli.tune geometry flags)
+    ("sweep", ["--nchan", "64", "--nsamp", str(1 << 16), "--dm-count",
+               "32"]),
+    ("accel", ["--nsamp", str(1 << 14), "--zmax", "20", "--numharm", "2"]))
+CONSULT_ARGV = ["--lodm", "30", "--dmstep", "1", "--numdms", "32",
+                "--nsub", "32", "--accel-search", "--accel-zmax", "20",
+                "--accel-numharm", "2", "--write-dats", "--device", "cuda"]
+CONSULT_CONFIG = {"accel": {"batch": 16, "hbm_budget_bytes": 2e9},
+                  "sweep": {"chunk_fft_len": 1 << 16}}
+
+
+def tune_search(tmp, card):
+    """Phase 21 (a): the bounded search of both stages through the
+    dispatcher; returns its launches."""
+    import contextlib
+    import io
+
+    from pypulsar_tpu_torch.cli import __main__ as dispatch
+
+    cache = os.path.join(tmp, "tune_search.json")
+    out = {}
+    with PathMeter("tune_search", card) as pm:
+        for stage, flags in TUNE_STAGES:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = dispatch.main(["tune", "--search", "--stage", stage,
+                                    *flags, "--trials", str(TUNE_TRIALS),
+                                    "--device", "cuda", "--cache", cache,
+                                    "--json"])
+            if rc != 0:
+                fail(f"tune --search --stage {stage} exited {rc}")
+            res = json.loads(buf.getvalue())
+            found = res["search"][stage]
+            if not 1 <= (found["n_trials"] or 0) <= TUNE_TRIALS:
+                fail(f"tune[{stage}]: {found['n_trials']} trials stored")
+            out[stage] = dict(found, winner=res["tuned"][stage])
+    if min(pm.launches["gather_sum/stage1"],
+           pm.launches["gather_sum/stage2"]) < 1:
+        fail(f"the sweep measure launched no gather-sum: {pm.launches}")
+    pm.line(trials=TUNE_TRIALS, stages=out)
+    return pm.launches
+
+
+def tune_consult(tmp, fn, card):
+    """Phase 21 (b): a non-default cache entry through ``sweep --tune
+    cache`` against ``--tune off``; returns the launches of both runs."""
+    import torch
+
+    from pypulsar_tpu_torch import tune
+    from pypulsar_tpu_torch.cli import sweep as cli
+    from pypulsar_tpu_torch.io.rfimask import write_mask
+    from pypulsar_tpu_torch.obs import telemetry
+
+    cache = os.path.join(tmp, "tune_consult.json")
+    c = tune.TuneCache(cache)
+    nsamp = 1 << 16  # phase 3's small file
+    c.store(tune.make_key("accel", nsamp=nsamp, zmax=20, device="cuda"),
+            CONSULT_CONFIG["accel"])
+    c.store(tune.make_key("sweep", nchan=256, nsamp=nsamp, dtype="nbits8",
+                          engine="gather", device="cuda"),
+            CONSULT_CONFIG["sweep"])
+    mask = write_mask(os.path.join(tmp, "consult.mask"), nchan=256,
+                      nint=4, ptsperint=nsamp // 4, zap_chans=[3, 4],
+                      zap_chans_per_int=[[], [9], [], []])
+    runs = {}
+    for mode, extra in (("off", ()), ("cache", ()),
+                        ("masked_off", ("--mask", mask)),
+                        ("masked_cache", ("--mask", mask))):
+        base = os.path.join(tmp, f"consult_{mode}", "x")
+        os.makedirs(os.path.dirname(base))
+        with telemetry.session() as tlm, \
+                PathMeter(f"tune_{mode}", card) as pm:
+            rc = cli.main([fn, "-o", base, *CONSULT_ARGV, *extra, "--tune",
+                           mode.split("_")[-1], "--tune-cache", cache])
+            counts = tlm.counter_totals()
+        if rc != 0:
+            fail(f"sweep --tune {mode} exited {rc}")
+        runs[mode] = dict(base=base, wall_s=pm.wall_s, launches=pm.launches,
+                          batches=int(counts.get("accel.stream_batches", 0)),
+                          chunks=int(counts.get("dedisperse.chunks", 0)),
+                          hits=int(counts.get("tune.cache_hit", 0)))
+    n_equal = 0
+    for pre, chunks, hits in (("", (1, 2), 2), ("masked_", (1, 1), 1)):
+        off, hit = runs[pre + "off"], runs[pre + "cache"]
+        if (off["batches"], hit["batches"]) != (1, 2):
+            fail(f"{pre}accel dispatches {off['batches']} / "
+                 f"{hit['batches']}, not 1 / 2 (batch 32 / the stored 16)")
+        if (off["chunks"], hit["chunks"]) != chunks or hit["hits"] != hits:
+            fail(f"{pre}series chunks {off['chunks']} / {hit['chunks']}, "
+                 f"cache hits {hit['hits']}, not {chunks} and {hits}")
+        names = [p for pat in ("_DM*.dat", "_DM*.inf", "_DM*_ACCEL_20.cand",
+                               "_DM*_ACCEL_20.txtcand", ".cands")
+                 for p in sorted(glob.glob(off["base"] + pat))]
+        if len(names) != 4 * 32 + 1:
+            fail(f"{pre}--tune off wrote {len(names)} files, not "
+                 f"{4 * 32 + 1}")
+        for p in names:
+            with open(p, "rb") as a, \
+                    open(hit["base"] + p[len(off["base"]):], "rb") as b:
+                if a.read() != b.read():
+                    fail(f"{pre}{os.path.basename(p)} differs under the "
+                         f"tuned config")
+        n_equal += len(names)
+    torch.cuda.synchronize()
+    print("path tune_consult: " + json.dumps({
+        "config": CONSULT_CONFIG, "files_equal": n_equal, "card": card,
+        **{f"{m}_{k}": runs[m][k] for m in runs
+           for k in ("wall_s", "batches", "chunks", "hits")}}))
+    return {f"tune_{m}": runs[m]["launches"] for m in runs}
+
+
+def tune_phase(tmp, small_fn, card):
+    """Phase 21: returns the launches of each driven path."""
+    out = {"tune_search": tune_search(tmp, card)}
+    out.update(tune_consult(tmp, small_fn, card))
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -7350,7 +7632,9 @@ def main() -> int:
     probe_batched_transforms(device)
     mark("2 kernels, 5 accel")
     with tempfile.TemporaryDirectory() as tmp:
-        check_small_sweep(tmp)
+        untuned(tmp)
+        small_fn = check_small_sweep(tmp)
+        plain_paths = plain_write_dats(tmp, small_fn, card)
         fn, info = write_obs(tmp)
         check_stage_kernels(fn, device)
         launches, _, gather_res = main_path(tmp, fn, info)
@@ -7392,6 +7676,8 @@ def main() -> int:
         mark("19 hosts, daemon")
         mesh_paths = mesh_phase(tmp, fn, info, chain, card, gather_res)
         mark("20 meshes")
+        tune_paths = tune_phase(tmp, small_fn, card)
+        mark("21 tune")
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -7403,7 +7689,7 @@ def main() -> int:
              "lane": lane_launches, **fits_paths, **spectra_paths,
              **hour_paths, **resume_paths, **telemetry_paths,
              **resident_paths, **fleet_paths, **plane_paths,
-             **mesh_paths}
+             **mesh_paths, **plain_paths, **tune_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}

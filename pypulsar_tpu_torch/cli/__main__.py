@@ -30,7 +30,7 @@ NOT_PORTED = {tool: "Queue 1 item 16" for tool in (
     "pulse_energy_distribution", "autozap", "combinefil",
     "stitchdat", "mockspecfil2subbands", "demodulate", "pfdinfo",
     "gridding", "fitkepler", "shapiro", "pbdot", "massfunc", "pyppdot",
-    "pyplotres", "coordconv", "psrlint", "tune")}
+    "pyplotres", "coordconv", "psrlint")}
 
 
 def main(argv=None) -> int:

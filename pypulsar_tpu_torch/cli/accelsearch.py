@@ -40,6 +40,15 @@ host prep, and each such retry is counted in
 ``["accel.serial_fallbacks"]``. A CUDA error, an out-of-memory among
 them, always raises: a sticky CUDA error poisons every later call.
 
+``--batch auto`` takes the tuning cache's batch for this geometry (the
+first input's length bucket, ``-z``), else 32: ``--tune {cache,search,
+off}`` (default ``cache``) and ``--tune-cache PATH`` (default
+``~/.cache/pypulsar_tpu_torch/tune.json``) as in ``cli.sweep``. The
+consulted config's device budgets (``hbm_budget_bytes``,
+``bank_cache_bytes``) reach every search and the device prep's cap. An
+explicit ``--batch N`` consults nothing: a search there could not move
+the batch, and a winner stored under the geometry's key would lack it.
+
 ``--skip-existing`` skips inputs whose ``.cand``/``.txtcand`` pair
 validates. The output names and writers are the streamed sweep handoff's
 (:mod:`pypulsar_tpu_torch.parallel.accelpipe`), so the two paths cannot
@@ -68,7 +77,6 @@ from pypulsar_tpu_torch.fourier import kernels
 from pypulsar_tpu_torch.io.infodata import InfoData
 from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.parallel.accelpipe import (
-    ACCEL_BATCH,
     accel_out_names,
     write_candfiles,
 )
@@ -127,9 +135,9 @@ def zap_spectrum(fft, T: float, zapfile: str):
 
 
 def _batch_arg(value: str):
-    """--batch: an int, or 'auto' for the reference's default of 32."""
+    """--batch: an int, or 'auto' (resolved after the tuning consult)."""
     if value == "auto":
-        return ACCEL_BATCH
+        return "auto"
     try:
         return int(value)
     except ValueError:
@@ -152,7 +160,8 @@ def build_parser():
                    help="search this many same-length spectra per "
                         "dispatch against the shared template banks; a "
                         "change of (bins, T) or prep kind starts a new "
-                        "group. 'auto' = 32. Default 1 = serial")
+                        "group. 'auto' = the tuning cache's, else 32. "
+                        "Default 1 = serial")
     p.add_argument("-z", "--zmax", type=float, default=200.0,
                    help="max drift in Fourier bins over the observation "
                         "(default 200)")
@@ -200,6 +209,14 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch ops)")
+    p.add_argument("--tune", default="cache", choices=("cache", "search",
+                                                       "off"),
+                   help="auto-tuning consult of this geometry: cache "
+                        "(default), search (a miss runs the bounded "
+                        "search) or off (no consult, no file I/O)")
+    p.add_argument("--tune-cache", default=None, metavar="PATH",
+                   help="tuning cache file (default "
+                        "~/.cache/pypulsar_tpu_torch/tune.json)")
     telemetry.add_telemetry_flag(
         p, what="per-file spans, batch counters, device stats")
     faultinject.add_fault_flag(p)
@@ -288,15 +305,50 @@ def search_one(infile, cfg, args):
         return None
     norm, T = prep
     with telemetry.span("accel_search", aggregate=False, batch=1):
-        cands = accelsearch.accel_search(norm, T, cfg, device=args.device)
+        cands = accelsearch.accel_search(
+            norm, T, cfg, hbm_budget_bytes=args.hbm_budget_bytes,
+            bank_cache_bytes=args.bank_cache_bytes, device=args.device)
     with telemetry.span("accel_write"):
         return write_results(infile, cands, T, args)
 
 
-def prep_cap(n: int) -> int:
-    """Series of ``n`` samples one device prep may take."""
-    budget = int(accelsearch.ACCEL_HBM_BYTES)
-    return max(1, budget // (PREP_BYTES_PER_SAMPLE * n))
+def prep_cap(n: int, budget=None) -> int:
+    """Series of ``n`` samples one device prep may take under ``budget``
+    device bytes (default ``accelsearch.ACCEL_HBM_BYTES``)."""
+    if budget is None:
+        budget = accelsearch.ACCEL_HBM_BYTES
+    return max(1, int(budget) // (PREP_BYTES_PER_SAMPLE * n))
+
+
+def apply_tuning(args) -> dict:
+    """The reference's consult, under ``--batch auto`` only: the accel
+    config cached for this geometry (the first input's sample count, a
+    ``.fft``'s from its bins, and ``-z``) resolved onto ``args``
+    (``batch``, ``hbm_budget_bytes``, ``bank_cache_bytes``); an explicit
+    batch keeps the defaults. Returns the resolved accel knobs."""
+    from pypulsar_tpu_torch import tune
+    from pypulsar_tpu_torch.tune.knobs import resolve_all
+
+    if args.batch != "auto":
+        v = resolve_all("accel", {"batch": args.batch})
+        args.hbm_budget_bytes = v["hbm_budget_bytes"]
+        args.bank_cache_bytes = v["bank_cache_bytes"]
+        return v
+    nsamp = None
+    try:
+        sz = os.path.getsize(args.infiles[0])
+        # .fft: N/2+1 complex64 bins of an N-sample series
+        nsamp = (sz // 4 if not args.infiles[0].endswith(".fft")
+                 else max(1, sz // 8 - 1) * 2)
+    except OSError:
+        pass  # a missing input fails later with the reader's error
+    v = resolve_all("accel", None, tune.apply_cached(
+        "accel", mode=args.tune, cache_path=args.tune_cache, nsamp=nsamp,
+        zmax=int(args.zmax), device=args.device))
+    args.batch = max(1, int(v["batch"]))
+    args.hbm_budget_bytes = v["hbm_budget_bytes"]
+    args.bank_cache_bytes = v["bank_cache_bytes"]
+    return v
 
 
 def main(argv=None):
@@ -304,6 +356,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.outbase and len(args.infiles) > 1:
         parser.error("-o/--outbase only applies to a single input file")
+    apply_tuning(args)
     if args.device_prep and args.batch < 2:
         parser.error("--device-prep only takes effect with --batch >= 2 "
                      "(device prep is the grouped-dispatch path)")
@@ -344,8 +397,10 @@ def _run(args, cfg):
                                     batch=len(group)):
                     return accelsearch.accel_search_batch(
                         torch.stack([g[1] for g in group]), T, cfg,
+                        hbm_budget_bytes=args.hbm_budget_bytes,
+                        bank_cache_bytes=args.bank_cache_bytes,
                         device=args.device)
-            cap = prep_cap(len(group[0][1]))
+            cap = prep_cap(len(group[0][1]), args.hbm_budget_bytes)
             accelsearch.COUNTERS["accel.prep_cap"] = max(
                 accelsearch.COUNTERS["accel.prep_cap"], min(cap, len(group)))
             out = []
@@ -358,7 +413,10 @@ def _run(args, cfg):
                 with telemetry.span("accel_search", aggregate=False,
                                     batch=n):
                     out.extend(accelsearch.accel_search_batch(
-                        spectra, T, cfg, device=args.device))
+                        spectra, T, cfg,
+                        hbm_budget_bytes=args.hbm_budget_bytes,
+                        bank_cache_bytes=args.bank_cache_bytes,
+                        device=args.device))
                 del spectra
             return out
 
@@ -375,7 +433,10 @@ def _run(args, cfg):
                     else:
                         norm1 = payload
                     write_results(fn, accelsearch.accel_search(
-                        norm1, T1, cfg, device=args.device), T1, args)
+                        norm1, T1, cfg,
+                        hbm_budget_bytes=args.hbm_budget_bytes,
+                        bank_cache_bytes=args.bank_cache_bytes,
+                        device=args.device), T1, args)
                     done += 1
                 except Exception as e1:  # noqa: BLE001 - policy in fail()
                     fail(fn, e1)

@@ -104,6 +104,13 @@ def build_parser():
                    help="work-unit journal: a rerun folds only the "
                         "candidates whose archives do not validate "
                         "(size and sha256)")
+    p.add_argument("--tune", default="cache", choices=("cache", "off"),
+                   help="auto-tuning consult of the fold stage's budgets "
+                        "(cache, the default; off reads nothing; the fold "
+                        "has no search)")
+    p.add_argument("--tune-cache", default=None, metavar="PATH",
+                   help="tuning cache file (default "
+                        "~/.cache/pypulsar_tpu_torch/tune.json)")
     telemetry.add_telemetry_flag(
         p, what="fold spans, group counters, device stats")
     faultinject.add_fault_flag(p)
@@ -147,7 +154,8 @@ def _run(args) -> int:
         refine=args.refine, ntrial_p=args.ntrial_p,
         ntrial_pd=args.ntrial_pd, max_drift=args.max_drift,
         prefetch_depth=args.prefetch, skip_existing=args.skip_existing,
-        journal_path=args.journal, device=args.device, verbose=True)
+        journal_path=args.journal, device=args.device, verbose=True,
+        tune_mode=args.tune, tune_cache=args.tune_cache)
     if args.datbase is not None:
         base = args.datbase
         summary = fold_pipeline(

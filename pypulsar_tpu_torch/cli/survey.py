@@ -268,7 +268,14 @@ def build_parser():
     g.add_argument("--accel-sigma", type=float, default=2.0)
     g.add_argument("--accel-batch", type=int, default=None,
                    help="spectra per accel dispatch (default: the sweep "
-                        "CLI's 32)")
+                        "CLI's tuning consult, else 32)")
+    g.add_argument("--tune", default=None, choices=("cache", "search",
+                                                    "off"),
+                   help="the sweep and fold stages' auto-tuning mode "
+                        "(default: the CLIs', cache; the fold takes search "
+                        "as cache); not part of the fingerprint")
+    g.add_argument("--tune-cache", default=None, metavar="PATH",
+                   help="the sweep and fold stages' tuning cache file")
     g.add_argument("--spectral", action="store_true",
                    help="spectral fusion: the sweep stage serves the "
                         "accel search from device-resident fused spectra "
@@ -490,7 +497,8 @@ def _survey_config(args):
         sift_sigma=args.sift_sigma, sift_min_hits=args.sift_min_hits,
         sift_min_dm=args.sift_min_dm,
         fold_nbins=args.fold_nbins, fold_npart=args.fold_npart,
-        fold_batch=args.fold_batch)
+        fold_batch=args.fold_batch, tune=args.tune,
+        tune_cache=args.tune_cache)
 
 
 def _parse_gang(args):

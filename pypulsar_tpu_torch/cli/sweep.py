@@ -29,6 +29,28 @@ device. ``--ddplan --hidm H`` sweeps a DDplan2b
 staged plan of ``--lodm`` .. ``H`` instead of a flat grid, each step at
 its own downsampling (single-pulse pass only).
 
+``--write-dats`` without ``--accel-search`` is the reference's plain
+writer (:func:`write_dats_auto`): a file whose float32 spectra fit in
+:data:`DATS_RESIDENT_LIMIT` bytes is read whole into a ``Spectra`` on the
+device and each trial's series is its exact per-channel dedispersion
+(circular shifts, the mask's whole-file fill); a larger file streams
+through the sweep's two-stage chunk engine (prepsubband's subband
+semantics, a zero-padded tail), the bytes the handoff's tee writes.
+
+``--tune {cache,search,off}`` (default ``cache``) consults the tuning
+cache (``--tune-cache PATH``, default
+``~/.cache/pypulsar_tpu_torch/tune.json``) at this run's geometry, as
+the reference's ``_apply_tuning`` does: the sweep's chunk length reaches
+the series passes that chunk the file (the ``.dat`` writer's streamed
+branch and the accel handoff; never the single-pulse pass, and never
+under ``--mask``, whose fill is a statistic of each chunk), the accel
+knobs the handoff (``--accel-batch`` still wins), and with
+``--spectral`` the specfuse slice budget (the reference consults that
+one inside its fused slice, after its handoff has sliced by the untuned
+budget). A stage is consulted only where its knobs are used. ``search``
+runs the bounded search on a miss and stores the winner; ``off`` reads
+nothing.
+
 ``--all-events`` (flat mode) keeps every chunk's peak of every trial and
 width and writes those at or above ``--threshold`` to
 ``{outbase}.events`` (the ``.cands`` columns), and their friends-of-
@@ -95,6 +117,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -104,6 +127,9 @@ from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience.dataguard import finite_rows
 from pypulsar_tpu_torch.resilience.journal import atomic_write_text
 
+#: float32 bytes of a file (channels x samples x 4) up to which plain
+#: --write-dats dedisperses a resident Spectra; past it the series stream
+DATS_RESIDENT_LIMIT = 2e9
 #: the .pulses columns after the .cands' six: (header, key, format)
 PULSE_COLS = (("n_hits", "n_hits", "%-7d"), ("dm_lo", "dm_lo", "%-8.3f"),
               ("dm_hi", "dm_hi", "%-8.3f"))
@@ -127,6 +153,78 @@ def write_cands(path, cands, extra_cols=()) -> None:
             + "".join("  " + fmt % c[k] for _, k, fmt in extra_cols)
             + "\n")
     atomic_write_text(path, "".join(lines))
+
+
+def write_dats_resident(outbase, reader, dms, downsamp: int = 1,
+                        rfimask=None, device="cuda") -> None:
+    """Per-DM ``.dat``/``.inf`` series of the whole file read into one
+    ``Spectra`` on ``device`` (the reference's ``_write_dats``): the
+    mask's median-mid80 fill over the whole file, the downsampling, then
+    each trial's exact per-channel dedispersion (circular shifts, summed
+    over channels on the device). Fill values are whole-file per-channel
+    statistics, where the streamed passes take them per raw block."""
+    from pypulsar_tpu_torch.core.device import count_d2h
+    from pypulsar_tpu_torch.io.datfile import write_dat
+    from pypulsar_tpu_torch.parallel.staged import ReaderSource, make_dat_inf
+
+    spec = reader.get_spectra(0, ReaderSource(reader).nsamples,
+                              device=device)
+    if rfimask is not None:
+        freqs = spec.freqs.cpu().numpy()
+        chanmask = rfimask.get_chan_mask(
+            0, spec.numspectra, hifreq_first=bool(freqs[0] > freqs[-1]))
+        spec = spec.masked(chanmask, maskval="median-mid80")
+    if downsamp > 1:
+        spec = spec.downsample(downsamp)
+    freqs = spec.freqs.cpu().numpy()
+    for dm in np.asarray(dms, dtype=np.float64):
+        ts = spec.dedispersed_timeseries(float(dm))
+        count_d2h(ts)
+        ts = ts.cpu().numpy()
+        base = f"{outbase}_DM{dm:.2f}"
+        write_dat(base, ts, make_dat_inf(base, reader, float(dm), len(ts),
+                                         float(spec.dt), freqs))
+
+
+def dats_resident(reader, limit: Optional[float] = None) -> bool:
+    """Whether plain ``--write-dats`` holds this file resident: its
+    float32 spectra take at most ``limit`` bytes (default
+    :data:`DATS_RESIDENT_LIMIT`)."""
+    from pypulsar_tpu_torch.parallel.staged import ReaderSource
+
+    src = ReaderSource(reader)
+    limit = DATS_RESIDENT_LIMIT if limit is None else limit
+    return 4.0 * len(src.frequencies) * src.nsamples <= limit
+
+
+def write_dats_auto(outbase, reader, dms, *, downsamp: int = 1,
+                    nsub: int = 64, group_size: int = 0,
+                    chunk_payload=None, rfimask=None, engine: str = "auto",
+                    device="cuda", mesh=None,
+                    resident_limit: Optional[float] = None,
+                    verbose: bool = False) -> str:
+    """Plain ``--write-dats`` (the reference's ``_write_dats_auto``): a
+    file whose float32 spectra take at most ``resident_limit`` bytes
+    (default :data:`DATS_RESIDENT_LIMIT`) goes to
+    :func:`write_dats_resident`, a larger one streams through the sweep's
+    chunk engine
+    (:func:`~pypulsar_tpu_torch.parallel.accelpipe.stream_series`, the
+    bytes of the reference's ``write_dats_streamed``). ``mesh`` shards
+    the streamed pass and holds the resident ``Spectra`` on its first
+    device. Returns ``"resident"`` or ``"streamed"``."""
+    from pypulsar_tpu_torch.parallel.accelpipe import stream_series
+    from pypulsar_tpu_torch.parallel.sweep import mesh_home
+
+    if dats_resident(reader, resident_limit):
+        write_dats_resident(outbase, reader, dms, max(1, int(downsamp)),
+                            rfimask, mesh_home(mesh) if mesh is not None
+                            else device)
+        return "resident"
+    stream_series(reader, dms, downsamp=downsamp, nsub=nsub,
+                  group_size=group_size, chunk_payload=chunk_payload,
+                  dat_outbase=outbase, keep=False, rfimask=rfimask,
+                  engine=engine, device=device, verbose=verbose, mesh=mesh)
+    return "streamed"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -182,9 +280,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     ap.add_argument("--write-dats", action="store_true",
-                    help="also write per-DM .dat/.inf series, streamed "
-                         "(prepsubband semantics); with --accel-search a "
-                         "tee of the handoff's own stream")
+                    help="also write per-DM .dat/.inf series: exact "
+                         "per-channel dedispersion of the resident file up "
+                         "to 2e9 float32 bytes, streamed (prepsubband "
+                         "semantics) past it; with --accel-search a tee of "
+                         "the handoff's own stream")
     ap.add_argument("--accel-search", action="store_true",
                     help="after the sweep, stream every DM trial's "
                          "dedispersed series into the batched acceleration "
@@ -201,9 +301,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="accel: max harmonics summed (default 8)")
     ap.add_argument("--accel-sigma", type=float, default=2.0,
                     help="accel: candidate significance floor (default 2)")
-    ap.add_argument("--accel-batch", type=int, default=32,
+    ap.add_argument("--accel-batch", type=int, default=None,
                     help="accel: spectra per search dispatch against the "
-                         "shared template banks (default 32)")
+                         "shared template banks (default: the tuning "
+                         "cache's, else 32; this flag always wins)")
     ap.add_argument("--accel-max-cands", type=int, default=200,
                     help="accel: cap on written candidates per trial "
                          "(default 200)")
@@ -269,10 +370,76 @@ def _parser() -> argparse.ArgumentParser:
                     help="processes in the group (with --coordinator)")
     ap.add_argument("--process-id", type=int, default=None,
                     help="this process's rank (with --coordinator)")
+    ap.add_argument("--tune", default="cache", choices=("cache", "search",
+                                                        "off"),
+                    help="auto-tuning consult at this run's geometry: "
+                         "cache (default; a hit applies the stored config), "
+                         "search (a miss runs the bounded search and "
+                         "stores the winner) or off (no consult, no file "
+                         "I/O)")
+    ap.add_argument("--tune-cache", default=None, metavar="PATH",
+                    help="tuning cache file (default "
+                         "~/.cache/pypulsar_tpu_torch/tune.json)")
     telemetry.add_telemetry_flag(
         ap, what="per-chunk spans, H2D/D2H byte counters, device stats")
     faultinject.add_fault_flag(ap)
     return ap
+
+
+def _tuned(args, reader, rfimask=None) -> dict:
+    """The single-file path's tuning consult (the reference's
+    ``_apply_tuning``): ``{stage: config}`` of the cached (or, with
+    ``--tune search``, searched) configs at this run's geometry, each
+    stage consulted only where its knobs are used. The sweep's chunk
+    reaches only a series pass that chunks the file (the accel handoff,
+    or a ``.dat`` writer past the resident limit), with no ``--chunk``
+    and no mask: a mask fills zapped cells with each chunk's own
+    statistic, so there the chunk is part of the results. The accel
+    stage is consulted with ``--accel-search``, the specfuse stage with
+    ``--spectral``."""
+    from pypulsar_tpu_torch import tune
+    from pypulsar_tpu_torch.parallel.staged import ReaderSource
+    from pypulsar_tpu_torch.parallel.sweep import resolve_engine
+
+    out = {"sweep": {}, "accel": {}, "specfuse": {}}
+    if args.tune == "off":
+        return out
+    src = ReaderSource(reader)
+    nchan, nsamp = len(src.frequencies), int(src.nsamples) or None
+    ds = max(1, int(args.downsamp))
+    common = dict(mode=args.tune, cache_path=args.tune_cache,
+                  device=args.device)
+    chunked = args.accel_search or (args.write_dats
+                                    and not dats_resident(reader))
+    if chunked and args.chunk is None and rfimask is None:
+        out["sweep"] = tune.apply_cached(
+            "sweep", nchan=nchan, nsamp=nsamp,
+            dtype=f"nbits{int(getattr(reader, 'nbits', 32) or 32)}",
+            engine=resolve_engine(args.engine), **common)
+    if args.accel_search:
+        out["accel"] = tune.apply_cached(
+            "accel", nsamp=nsamp // ds if nsamp else None,
+            zmax=int(args.accel_zmax), explicit={"batch": args.accel_batch},
+            **common)
+    if args.spectral:
+        out["specfuse"] = tune.apply_cached(
+            "specfuse", nchan=nchan, nsamp=nsamp // ds if nsamp else None,
+            **common)
+    return out
+
+
+def _series_chunk(args, reader, dms, tuned):
+    """The series passes' chunk payload: ``--chunk``, else the payload of
+    the tuned chunk length at this plan's overlap, else None (the
+    default)."""
+    if args.chunk is not None or "chunk_fft_len" not in tuned:
+        return args.chunk
+    from pypulsar_tpu_torch.parallel.staged import dats_geometry
+    from pypulsar_tpu_torch.parallel.sweep import default_chunk_payload
+
+    plan, _, _ = dats_geometry(reader, dms, downsamp=args.downsamp,
+                               nsub=args.nsub, group_size=args.group_size)
+    return default_chunk_payload(plan.min_overlap, tuned["chunk_fft_len"])
 
 
 def _journal_fingerprint(args, dms, widths, outbase, rfimask) -> str:
@@ -487,7 +654,6 @@ def _main_multi(args) -> int:
     from pypulsar_tpu_torch.cli import open_reader
     from pypulsar_tpu_torch.io.rfimask import RfifindMask
     from pypulsar_tpu_torch.parallel import distributed as dist
-    from pypulsar_tpu_torch.parallel.accelpipe import stream_series
     from pypulsar_tpu_torch.resilience.journal import atomic_write_text
 
     files = list(args.infile)
@@ -517,12 +683,11 @@ def _main_multi(args) -> int:
         write_cands(base + ".cands", hits)
         if args.write_dats and not args.ddplan:
             with open_reader(path) as reader:
-                stream_series(reader, dms, downsamp=args.downsamp,
-                              nsub=args.nsub, group_size=args.group_size,
-                              chunk_payload=args.chunk, dat_outbase=base,
-                              keep=False, rfimask=rfimask,
-                              engine=args.engine, device=args.device,
-                              mesh=mesh)
+                write_dats_auto(base, reader, dms, downsamp=args.downsamp,
+                                nsub=args.nsub, group_size=args.group_size,
+                                chunk_payload=args.chunk, rfimask=rfimask,
+                                engine=args.engine, device=args.device,
+                                mesh=mesh)
         print(f"# [process {rank}] {path}: {staged.n_trials} trials, "
               f"{len(hits)} detections >= {args.threshold} sigma -> "
               f"{base}.cands")
@@ -708,6 +873,8 @@ def _main_parsed(args) -> int:
     rc = 0
     try:
         with open_reader(infile) as reader:
+            tuned = _tuned(args, reader, rfimask)
+            chunk = _series_chunk(args, reader, dms, tuned["sweep"])
             if "sweep:cands" in journal_done and not args.accel_only:
                 print(f"# journal: {outbase}.cands validated complete; "
                       f"skipping the single-pulse sweep pass")
@@ -731,15 +898,25 @@ def _main_parsed(args) -> int:
                     sweep_accel_stream,
                 )
 
+                from pypulsar_tpu_torch.tune.knobs import resolve_all
+
                 acfg = AccelSearchConfig(
                     zmax=args.accel_zmax, dz=args.accel_dz,
                     numharm=args.accel_numharm, sigma_min=args.accel_sigma)
+                acc = resolve_all("accel", {"batch": args.accel_batch},
+                                  tuned["accel"])
                 summary = sweep_accel_stream(
-                    reader, dms, acfg, outbase, batch=args.accel_batch,
+                    reader, dms, acfg, outbase, batch=acc["batch"],
+                    hbm_budget_bytes=acc["hbm_budget_bytes"],
+                    stream_ram_bytes=acc["stream_ram_bytes"],
+                    bank_cache_bytes=acc["bank_cache_bytes"],
+                    specfuse_hbm_bytes=resolve_all(
+                        "specfuse", None,
+                        tuned["specfuse"])["specfuse_hbm_bytes"],
                     downsamp=args.downsamp, nsub=args.nsub,
                     # 0 = auto, resolved once over the whole grid inside
                     group_size=args.group_size, engine=args.engine,
-                    chunk_payload=args.chunk, write_dats=args.write_dats,
+                    chunk_payload=chunk, write_dats=args.write_dats,
                     max_cands=args.accel_max_cands,
                     prefetch_depth=args.accel_prefetch, rfimask=rfimask,
                     skip_existing=args.accel_skip_existing, journal=journal,
@@ -764,17 +941,13 @@ def _main_parsed(args) -> int:
                     # only the failed trials)
                     rc = 1
             elif args.write_dats:
-                from pypulsar_tpu_torch.parallel.accelpipe import (
-                    stream_series,
-                )
-
-                stream_series(reader, dms, downsamp=args.downsamp,
-                              nsub=args.nsub, group_size=args.group_size,
-                              chunk_payload=args.chunk, dat_outbase=outbase,
-                              keep=False, rfimask=rfimask,
-                              engine=args.engine, device=args.device,
-                              verbose=True, mesh=mesh)
-                print(f"# wrote {len(dms)} .dat/.inf series")
+                how = write_dats_auto(
+                    outbase, reader, dms, downsamp=args.downsamp,
+                    nsub=args.nsub, group_size=args.group_size,
+                    chunk_payload=chunk, rfimask=rfimask,
+                    engine=args.engine, device=args.device, verbose=True,
+                    mesh=mesh)
+                print(f"# wrote {len(dms)} .dat/.inf series ({how})")
     finally:
         if journal is not None:
             journal.close()

@@ -58,10 +58,14 @@ Left out of the reference, each with its reason:
   nothing per shape;
 - the NumPy-twin fallback on a device failure: a fold on another path
   than the one asked for is no result of that path;
-- the auto-tuning consult and the environment knobs (plain module
-  constants here, :data:`STREAM_RAM_BYTES` and
-  :data:`FOLD_STACK_BYTES`, which replaces the reference's
-  ``BINIDX_RAM_BYTES`` budget of fused ``[K, T]`` bins).
+- the environment knobs: the budgets are keywords of
+  :func:`fold_pipeline` (``stream_ram_bytes``, ``stack_bytes``) whose
+  defaults are the module constants :data:`STREAM_RAM_BYTES` and
+  :data:`FOLD_STACK_BYTES` (which replaces the reference's
+  ``BINIDX_RAM_BYTES`` budget of fused ``[K, T]`` bins). The auto-tuning
+  consult stays (``tune_mode``, ``tune_cache``): the ``fold`` stage's
+  cached config at the run's geometry fills the budgets the caller left
+  unset.
 
 Telemetry (the reference's names): a group's host prep is a
 ``fold_prep`` span, its device fold a ``foldpipe_group`` span counted in
@@ -252,13 +256,14 @@ def iter_groups_stream(groups, reader, downsamp: int = 1, nsub: int = 64,
                        group_size: int = 32,
                        chunk_payload: Optional[int] = None,
                        all_dms=None, rfimask=None, engine: str = "auto",
-                       device="cuda", verbose: bool = False):
+                       device="cuda", verbose: bool = False,
+                       stream_ram_bytes: float = STREAM_RAM_BYTES):
     """Yield fold groups from one streamed pass over the raw file: the
     DMs dedisperse through the sweep's chunk kernels
     (:func:`~pypulsar_tpu_torch.parallel.accelpipe.stream_series`) into a
     host buffer, and each DM's row serves every candidate at that DM.
-    Past :data:`STREAM_RAM_BYTES` the DM list streams in slices of one
-    pass each, aligned to stage-1 groups.
+    Past ``stream_ram_bytes`` the DM list streams in slices of one pass
+    each, aligned to stage-1 groups.
 
     ``all_dms`` (default: the groups' own DMs) is the whole candidate
     list's DM grid: group sizing, stage-1 grouping and slicing plan over
@@ -292,11 +297,11 @@ def iter_groups_stream(groups, reader, downsamp: int = 1, nsub: int = 64,
         telescope=str(getattr(reader, "telescope", "unknown") or "unknown"),
         filenm=os.path.basename(str(getattr(reader, "filename", "stream"))),
     )
-    slice_dms = max(1, int(STREAM_RAM_BYTES // (4 * max(T, 1))))
+    slice_dms = max(1, int(stream_ram_bytes // (4 * max(T, 1))))
     slice_dms = max(group_size, (slice_dms // group_size) * group_size)
     if slice_dms < len(dms) and verbose:
         print(f"# fold series buffer {4 * len(dms) * T / 1e9:.1f} GB over "
-              f"the {STREAM_RAM_BYTES / 1e9:.1f} GB budget; streaming in "
+              f"the {stream_ram_bytes / 1e9:.1f} GB budget; streaming in "
               f"{-(-len(dms) // slice_dms)} DM slices")
     for d0 in range(0, len(dms), slice_dms):
         dm_slice = dms[d0:d0 + slice_dms]
@@ -480,6 +485,10 @@ def fold_pipeline(
     engine: str = "auto",
     device="cuda",
     verbose: bool = False,
+    stream_ram_bytes: Optional[float] = None,
+    stack_bytes: Optional[float] = None,
+    tune_mode: str = "cache",
+    tune_cache: Optional[str] = None,
 ) -> dict:
     """Fold every candidate into ``{outbase}_{name}.pfd``, one batched
     device fold per DM group, on ``device``. ``source`` picks the series:
@@ -488,7 +497,11 @@ def fold_pipeline(
     given). ``skip_existing`` skips candidates whose archive already
     parses complete; ``journal_path`` keeps the run's work-unit journal
     (module docstring), ``source_id`` naming the ``.dat`` set in its
-    fingerprint. Returns a summary dict: per-candidate rows (archive path,
+    fingerprint. ``stream_ram_bytes`` and ``stack_bytes`` are the stream
+    source's host budget and a fused fold's stack budget: left None,
+    the ``fold`` stage's tuning consult (``tune_mode`` cache or off; the
+    fold has no search; ``tune_cache`` the cache path) fills them, else the module
+    constants. Returns a summary dict: per-candidate rows (archive path,
     refined p/pdot, chi2) and counts."""
     from pypulsar_tpu_torch.fold.engine import (
         drift_offsets,
@@ -501,11 +514,23 @@ def fold_pipeline(
         prefetch,
     )
 
+    from pypulsar_tpu_torch import tune
+
     device = resolve_device(device)
     if source == "stream" and reader is None:
         raise ValueError("source='stream' needs a reader")
     if source == "dats" and dat_for_dm is None:
         raise ValueError("source='dats' needs dat_for_dm")
+    # the reference's consult, at the raw file's geometry (none for .dat
+    # series): the cached budgets fill those the caller left unset
+    budgets = tune.knobs.resolve_all(
+        "fold", {"stream_ram_bytes": stream_ram_bytes,
+                 "stack_bytes": stack_bytes},
+        tune.apply_cached(
+            "fold", mode=tune_mode, cache_path=tune_cache, device=device,
+            nsamp=int(getattr(reader, "nsamples", 0) or 0) or None,
+            nchan=(len(np.asarray(reader.frequencies))
+                   if reader is not None else None)))
     cands = _named(cands)
     names = [pfd_out_name(outbase, c) for c in cands]
     units = [f"fold:{c.name}" for c in cands]
@@ -563,7 +588,8 @@ def fold_pipeline(
                 groups, reader, downsamp=downsamp, nsub=nsub,
                 group_size=group_size, chunk_payload=chunk_payload,
                 all_dms={c.dm for c in cands}, rfimask=rfimask, engine=engine,
-                device=device, verbose=verbose)
+                device=device, verbose=verbose,
+                stream_ram_bytes=budgets["stream_ram_bytes"])
         else:
             group_iter = iter_groups_dats(groups, dat_for_dm)
 
@@ -624,7 +650,7 @@ def fold_pipeline(
                         unit, n, nbins, npart, refine, offsets),
                     demux=lambda out, lo, hi: (
                         out[0][lo:hi], out[1][lo:hi] if refine else None),
-                    budget_rows=max(K, int(FOLD_STACK_BYTES
+                    budget_rows=max(K, int(budgets["stack_bytes"]
                                            // (4 * max(T, 1)))))
             del series_dev
 

@@ -277,10 +277,12 @@ def mesh_home(mesh) -> torch.device:
     return mesh.axis_devices("dm")[0]
 
 
-def default_chunk_payload(min_overlap: int) -> int:
-    """Streaming chunk payload: 2^18 samples, doubled until the overlap
-    fits in half of it, less the overlap."""
-    n = DEFAULT_CHUNK_FFT_LEN
+def default_chunk_payload(min_overlap: int,
+                          fft_len: int = DEFAULT_CHUNK_FFT_LEN) -> int:
+    """Streaming chunk payload: ``fft_len`` samples (2^18, or a tuned
+    chunk length), doubled until the overlap fits in half of it, less the
+    overlap."""
+    n = int(fft_len)
     while min_overlap >= n // 2:
         n <<= 1
     return n - min_overlap

@@ -46,6 +46,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 from pypulsar_tpu_torch.survey.state import Observation
 
 __all__ = [
+    "NOT_SCIENCE",
     "StageExit",
     "StageSpec",
     "SurveyConfig",
@@ -64,11 +65,18 @@ class SurveyConfig:
     defaults (field for field the reference's).
 
     ``accel_batch=None`` leaves ``--accel-batch`` off the sweep's argv,
-    so the sweep CLI's default of 32 applies: the port has no tuning
-    registry (ROADMAP.md Queue 1 item 16), and 32 is the reference
-    registry's default. ``accel_spectral=True`` fuses the sweep stage's
-    handoff on the device (``sweep --spectral``), and the fold stage
-    streams the raw file since no ``.dat`` exists."""
+    so the sweep CLI's tuning consult and then its default of 32 apply.
+    ``accel_spectral=True`` fuses the sweep stage's handoff on the device
+    (``sweep --spectral``), and the fold stage streams the raw file since
+    no ``.dat`` exists.
+
+    Two fields the reference reads from its environment are forwarded
+    to the sweep and fold stages' argv here: ``tune`` (``--tune``: cache,
+    search or off; None leaves the CLIs' default, cache; the fold, which
+    has no search, takes ``search`` as ``cache``) and ``tune_cache``
+    (``--tune-cache PATH``). They move throughput, never an artifact, so
+    the fleet's manifest fingerprint leaves them out
+    (:data:`NOT_SCIENCE`)."""
 
     # mask (rfifind)
     mask: bool = True
@@ -97,6 +105,14 @@ class SurveyConfig:
     fold_nbins: int = 64
     fold_npart: int = 32
     fold_batch: int = 32
+    # auto-tuning (the reference's PYPULSAR_TPU_TUNE / _TUNE_CACHE)
+    tune: Optional[str] = None
+    tune_cache: Optional[str] = None
+
+
+#: SurveyConfig fields that never change an artifact: left out of the
+#: fleet's manifest fingerprint
+NOT_SCIENCE = ("tune", "tune_cache")
 
 
 @dataclass(frozen=True)
@@ -220,7 +236,13 @@ def _sweep_argv(obs: Observation, cfg: SurveyConfig) -> List[str]:
         argv += ["--chunk", str(cfg.chunk)]
     if cfg.mask:
         argv += ["--mask", _mask_file(obs)]
-    return argv
+    return argv + _tune_argv(cfg, cfg.tune)
+
+
+def _tune_argv(cfg: SurveyConfig, mode: Optional[str]) -> List[str]:
+    return ((["--tune", mode] if mode is not None else [])
+            + (["--tune-cache", cfg.tune_cache]
+               if cfg.tune_cache is not None else []))
 
 
 def _sweep_gang_argv(obs: Observation, cfg: SurveyConfig,
@@ -255,7 +277,8 @@ def _sift_outputs(obs: Observation, cfg: SurveyConfig) -> List[str]:
 def _fold_argv(obs: Observation, cfg: SurveyConfig) -> List[str]:
     argv = ["--cands", f"{obs.outbase}.accelcands", "-o", obs.outbase,
             "-n", str(cfg.fold_nbins), "--npart", str(cfg.fold_npart),
-            "--batch", str(cfg.fold_batch)]
+            "--batch", str(cfg.fold_batch),
+            *_tune_argv(cfg, "cache" if cfg.tune == "search" else cfg.tune)]
     if cfg.accel_spectral:
         # no .dat tee: fold from the raw file, dedispersed with the
         # sweep's own series geometry and mask, so the folded series are

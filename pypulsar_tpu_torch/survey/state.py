@@ -120,8 +120,11 @@ def fleet_fingerprint(obs: Observation, cfg, stage_names: Sequence[str]) -> str:
         h.update(b"missing")
     h.update(("|".join(stage_names)).encode())
     if cfg is not None:
+        from pypulsar_tpu_torch.survey.dag import NOT_SCIENCE
+
         for key in sorted(vars(cfg)):
-            h.update(f"{key}={vars(cfg)[key]!r};".encode())
+            if key not in NOT_SCIENCE:  # the tuning mode and cache path
+                h.update(f"{key}={vars(cfg)[key]!r};".encode())
     return h.hexdigest()
 
 

@@ -35,6 +35,7 @@ from pypulsar_tpu_torch.fourier.prestofft import write_fft
 from pypulsar_tpu_torch.io import prestocand
 from pypulsar_tpu_torch.io.datfile import write_dat
 from pypulsar_tpu_torch.io.infodata import InfoData
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, DT = 1 << 15, 5e-4
@@ -348,8 +349,14 @@ def test_cli_refusals(files, capsys, argv, msg):
     assert msg in capsys.readouterr().err
 
 
-def test_batch_auto_is_the_reference_default():
-    args = cli.build_parser().parse_args(["x.dat", "--batch", "auto"])
+def test_batch_auto_is_the_reference_default(tmp_path):
+    """``--batch auto`` resolves after the tuning consult: on a miss (an
+    empty cache) it is the reference's default of 32."""
+    args = cli.build_parser().parse_args(
+        ["x.dat", "--batch", "auto", "--tune-cache",
+         str(tmp_path / "tune.json"), "--device", "cpu"])
+    assert args.batch == "auto"
+    cli.apply_tuning(args)
     assert args.batch == 32
 
 

@@ -43,6 +43,7 @@ from pypulsar_tpu_torch.io.synth import write_synthetic_fil
 from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.parallel import accelpipe
 from pypulsar_tpu_torch.resilience import faultinject
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 DT, NSAMP, PERIOD, DM = 5e-4, 1 << 14, 256, 40.0
 SIGMA = 3.0
@@ -182,18 +183,84 @@ def test_ram_budget_slices_keep_cand_bytes(runs):
                 assert a.read() == b.read()
 
 
+def _plain_dats(runs, side, monkeypatch=None):
+    """The JAX CLI's plain ``--write-dats`` (no ``--accel-search``) of the
+    fixture into ``{dir}/plain_{side}/x``; with ``monkeypatch`` its
+    crossover is set to 0 bytes, for this call only (its streamed
+    writer)."""
+    d = runs["dir"] / f"plain_{side}"
+    d.mkdir(exist_ok=True)
+    base = str(d / "x")
+    with pytest.MonkeyPatch.context() as mp:
+        if side == "ref_streamed":
+            mp.setenv("PYPULSAR_TPU_DATS_RESIDENT_LIMIT", "0")
+        assert jax_cli.main([runs["fil"], "-o", base, *SWEEP,
+                             "--write-dats", "--engine", "gather"]) == 0
+    return base
+
+
+def _assert_plain_dats_match(port, ref):
+    """The plain writer's contract: every ``.dat`` within 1e-6 of the
+    series' largest magnitude (float32 sums in another order; the 8-bit
+    fixture's integer sums are exact, so 0 here), every ``.inf`` byte for
+    byte once the analyzing package's name is the reference's (both
+    basenames are ``x``)."""
+    dats = sorted(glob.glob(ref + "_DM*.dat"))
+    assert len(dats) == 8
+    for fr in dats:
+        fp = port + _rel(fr, ref)
+        want, got = np.fromfile(fr, np.float32), np.fromfile(fp, np.float32)
+        assert got.shape == want.shape, fp
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max())
+        with open(fr[:-4] + ".inf", "rb") as a, \
+                open(fp[:-4] + ".inf", "rb") as b:
+            assert b.read().replace(b"pypulsar_tpu_torch",
+                                    b"pypulsar_tpu") == a.read(), fp
+        assert not os.path.exists(fp + ".tmp")
+
+
 def test_plain_write_dats_uses_the_streamed_writer(runs):
-    """--write-dats without --accel-search writes the handoff's bytes."""
-    tag = str(runs["dir"] / "w")
-    assert cli.main([runs["fil"], "-o", tag, *SWEEP, "--write-dats",
-                     "--device", "cpu"]) == 0
-    assert not _cand_files(tag)
-    for fr in sorted(glob.glob(runs["ref"] + "_DM*.dat")):
-        with open(fr, "rb") as a, open(tag + _rel(fr, runs["ref"]),
+    """The plain writer's streamed branch (a file past the crossover,
+    here a crossover of 0 bytes passed as the writer's keyword) writes
+    the JAX CLI's plain ``--write-dats`` series under the same crossover
+    (its streamed writer, the environment variable set for its call
+    only): prepsubband's subband sums with a zero-padded tail."""
+    ref = _plain_dats(runs, "ref_streamed")
+    d = runs["dir"] / "plain_port_streamed"
+    d.mkdir(exist_ok=True)
+    port = str(d / "x")
+    with FilterbankFile(runs["fil"]) as reader:
+        assert cli.write_dats_auto(
+            port, reader, 10.0 * np.arange(8), nsub=8, group_size=4,
+            resident_limit=0, device="cpu") == "streamed"
+    _assert_plain_dats_match(port, ref)
+    # the streamed branch is the handoff's tee
+    for fr in sorted(glob.glob(runs["port"] + "_DM*.dat")):
+        with open(fr, "rb") as a, open(port + _rel(fr, runs["port"]),
                                        "rb") as b:
             assert a.read() == b.read()
-    with open(tag + ".cands") as a, open(runs["port"] + ".cands") as b:
+
+
+def test_plain_write_dats_resident_matches_reference(runs):
+    """``sweep --write-dats`` without ``--accel-search`` on a file under
+    the crossover: the resident writer, each trial's exact per-channel
+    dedispersion, against the JAX CLI's plain run on the same fixture;
+    the ``.cands`` are the handoff stage's."""
+    ref = _plain_dats(runs, "ref")
+    d = runs["dir"] / "plain_port"
+    d.mkdir(exist_ok=True)
+    port = str(d / "x")
+    assert cli.main([runs["fil"], "-o", port, *SWEEP, "--write-dats",
+                     "--device", "cpu"]) == 0
+    assert not _cand_files(port)
+    _assert_plain_dats_match(port, ref)
+    with open(port + ".cands") as a, open(runs["port"] + ".cands") as b:
         assert a.read() == b.read()
+    # not the streamed series: the circular shifts wrap the tail
+    tee = np.fromfile(runs["port"] + "_DM70.00.dat", np.float32)
+    assert not np.array_equal(
+        np.fromfile(port + "_DM70.00.dat", np.float32), tee)
 
 
 def test_scan_engine_stage_matches_reference_scan(runs):

@@ -34,6 +34,7 @@ from pypulsar_tpu_torch.io.psrfits import PsrfitsFile
 from pypulsar_tpu_torch.io.rfimask import RfifindMask, write_mask
 from pypulsar_tpu_torch.parallel import staged, sweep
 from pypulsar_tpu_torch.plan.ddplan import Observation
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 C, DT = 32, 1e-3
 FREQS = 1500.0 - 4.0 * np.arange(C)

@@ -11,6 +11,7 @@ import pytest
 from pypulsar_tpu.cli import sweep as jax_cli
 from pypulsar_tpu_torch.cli import sweep as cli
 from pypulsar_tpu_torch.io import filterbank
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 
 def _read_cands(path):

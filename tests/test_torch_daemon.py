@@ -66,6 +66,7 @@ from tests.test_torch_survey import (
     _artifacts,
     _stub_stages,
 )
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

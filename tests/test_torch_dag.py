@@ -226,10 +226,14 @@ def test_stages_and_argv_equal_jax(tmp_path, kw):
 
 
 def test_survey_config_is_the_references():
+    """The reference's fields and defaults, then the two it reads from its
+    environment (the tuning mode and cache path), which the port forwards
+    to the sweep's argv and leaves out of the fleet fingerprint."""
     fields = [(f.name, f.default) for f in dataclasses.fields(
         dag.SurveyConfig)]
     assert fields == [(f.name, f.default) for f in dataclasses.fields(
-        jax_dag.SurveyConfig)]
+        jax_dag.SurveyConfig)] + [("tune", None), ("tune_cache", None)]
+    assert dag.NOT_SCIENCE == ("tune", "tune_cache")
 
 
 def test_device_goes_to_the_device_bound_stages(monkeypatch, tmp_path):

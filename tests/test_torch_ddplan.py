@@ -23,6 +23,7 @@ from pypulsar_tpu_torch.cli import sweep as cli
 from pypulsar_tpu_torch.io import filterbank
 from pypulsar_tpu_torch.parallel import staged
 from pypulsar_tpu_torch.plan import ddplan
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 # (dt, fctr, BW, numchan, numsamp), (loDM, hiDM, numsub, resolution ms)
 OBSERVATIONS = [

@@ -19,6 +19,7 @@ import pytest
 from pypulsar_tpu.cli import __main__ as jax_dispatch
 from pypulsar_tpu_torch.cli import __main__ as dispatch
 from pypulsar_tpu_torch.io.synth import write_synthetic_fil
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLI_DIR = os.path.join(HERE, "pypulsar_tpu_torch", "cli")
@@ -28,7 +29,7 @@ PORTED = [t for t in dispatch.TOOLS if t not in dispatch.NOT_PORTED]
 def test_tool_list_is_the_references():
     assert dispatch.TOOLS == jax_dispatch.TOOLS
     assert set(dispatch.NOT_PORTED) <= set(dispatch.TOOLS)
-    assert len(PORTED) == 19
+    assert len(PORTED) == 20
     for tool in dispatch.TOOLS:
         has_module = os.path.exists(os.path.join(CLI_DIR, f"{tool}.py"))
         assert has_module == (tool in PORTED), tool
@@ -75,12 +76,13 @@ def _run(*args):
 
 
 def test_module_entry_point_exit_codes():
-    """``python -m``: a ported tool's --help exits 0, an unknown tool and
-    an unported one exit 2."""
+    """``python -m``: a ported tool's --help exits 0 (``tune`` among
+    them), an unknown tool and an unported one exit 2."""
     assert _run("sift", "--help").returncode == 0
+    assert _run("tune", "--help").returncode == 0
     bad = _run("swep")
     assert bad.returncode == 2 and "did you mean 'sweep'" in bad.stderr
-    assert _run("tune").returncode == 2
+    assert _run("psrlint").returncode == 2
     assert _run().returncode == 1
 
 

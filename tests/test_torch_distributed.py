@@ -9,8 +9,8 @@ Contracts:
 - in one process the windows merge as in two; the port's merged windows
   meet the JAX package's merged windows within the sweep contract;
 - two ranks over gloo give every rank the same result, the CLI's
-  ``--time-shard --write-dats`` writes the single-process ``.dat`` bytes
-  and ``.cands``, and the multi-file sweep the per-file ``.cands`` of
+  ``--time-shard --write-dats`` writes the single-process streamed
+  writer's ``.dat`` bytes and the ``.cands``, and the multi-file sweep the per-file ``.cands`` of
   single runs and one merged table;
 - a failed rendezvous raises; nothing falls back to one process.
 
@@ -39,6 +39,7 @@ from pypulsar_tpu_torch.io.rfimask import RfifindMask
 from pypulsar_tpu_torch.io.synth import write_synthetic_fil
 from pypulsar_tpu_torch.parallel import distributed as dist
 from pypulsar_tpu_torch.parallel import staged, sweep
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DMS = 10.0 * np.arange(8)
@@ -288,8 +289,13 @@ def test_two_ranks_cli_time_shard_writes_the_single_bytes(files, two_ranks,
     one = str(tmp_path / "one")
     assert cli.main([files["fns"][0], "-o", one, "--lodm", "0", "--dmstep",
                      "10", "--numdms", "8", "-s", "8", "--group-size", "4",
-                     "--chunk", "1024", "--device", "cpu",
-                     "--write-dats"]) == 0
+                     "--chunk", "1024", "--device", "cpu"]) == 0
+    # the time shards stream their windows: the single process's streamed
+    # writer (the plain CLI streams only past the resident crossover)
+    with FilterbankFile(files["fns"][0]) as reader:
+        assert cli.write_dats_auto(
+            one, reader, DMS, nsub=8, group_size=4, chunk_payload=1024,
+            resident_limit=0, device="cpu") == "streamed"
     dats = sorted(glob.glob(one + "_DM*.dat"))
     assert len(dats) == 8
     for fn in dats:

@@ -29,6 +29,7 @@ from pypulsar_tpu_torch.parallel.events import group_events
 
 from test_torch_checkpoint import FREQS, _fil
 from test_torch_sweep import _exact_boxes
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 WIDTHS = sweep.DEFAULT_WIDTHS
 

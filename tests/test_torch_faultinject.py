@@ -55,6 +55,7 @@ from pypulsar_tpu_torch.resilience.retry import (
     is_oom_error,
     retry_transient,
 )
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SWEEP = ["--lodm", "0", "--dmstep", "10", "--numdms", "8", "-s", "8",

@@ -22,6 +22,7 @@ from pypulsar_tpu_torch.io.fbobs import FilterbankObs, fbobs
 from pypulsar_tpu_torch.io.filterbank import write_filterbank
 from pypulsar_tpu_torch.io.rfimask import RfifindMask
 from pypulsar_tpu_torch.parallel import staged
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 DT, C = 1e-3, 16
 

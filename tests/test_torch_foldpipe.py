@@ -37,6 +37,7 @@ from pypulsar_tpu_torch.io.prestopfd import PfdFile
 from pypulsar_tpu_torch.io.synth import write_synthetic_fil
 from pypulsar_tpu_torch.parallel import accelpipe, foldpipe
 from pypulsar_tpu_torch.resilience import retry
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 DT, NSAMP, PERIOD, DM = 5e-4, 1 << 14, 256, 40.0
 P0 = PERIOD * DT  # 0.128 s

@@ -26,6 +26,7 @@ from pypulsar_tpu_torch.resilience.journal import (
     atomic_open,
     file_digest,
 )
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 SWEEP = ["--lodm", "0", "--dmstep", "10", "--numdms", "6", "-s", "8",
          "--group-size", "2", "--threshold", "6"]

@@ -30,6 +30,7 @@ from pypulsar_tpu_torch.io.filterbank import FilterbankFile, write_filterbank
 from pypulsar_tpu_torch.io.rfimask import RfifindMask, write_mask
 from pypulsar_tpu_torch.io.synth import write_synthetic_fil
 from pypulsar_tpu_torch.parallel import staged
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 DT, NSAMP, PERIOD, DM = 5e-4, 1 << 14, 256, 40.0
 SIGMA = 3.0

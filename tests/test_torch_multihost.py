@@ -64,6 +64,7 @@ from tests.test_torch_survey import (
     SURVEY_FLAGS,
     _artifacts,
 )
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -19,6 +19,7 @@ import sys
 
 import numpy as np
 import pytest
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 

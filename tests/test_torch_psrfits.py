@@ -57,6 +57,7 @@ from pypulsar_tpu_torch.parallel import staged, sweep
 from pypulsar_tpu_torch.resilience import dataguard
 from pypulsar_tpu_torch.survey import dag
 from pypulsar_tpu_torch.survey.state import Observation
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 DT, C, NSBLK = 5e-4, 32, 128
 FREQS = 1500.0 - 8.0 * np.arange(C)  # high-frequency first

@@ -29,6 +29,7 @@ from pypulsar_tpu_torch.cli import rfifind as cli
 from pypulsar_tpu_torch.io import rfimask
 from pypulsar_tpu_torch.io.filterbank import FilterbankFile, write_filterbank
 from pypulsar_tpu_torch.ops import masking, rfifind
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 DT = 64e-6
 

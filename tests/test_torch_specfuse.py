@@ -33,6 +33,7 @@ from pypulsar_tpu_torch.io import prestocand
 from pypulsar_tpu_torch.io.filterbank import FilterbankFile
 from pypulsar_tpu_torch.io.synth import write_synthetic_fil
 from pypulsar_tpu_torch.parallel import accelpipe, specfuse
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 DT, NSAMP, PERIOD, DM = 5e-4, 15000, 256, 40.0
 SIGMA = 3.0

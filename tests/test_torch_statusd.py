@@ -33,6 +33,7 @@ from pypulsar_tpu_torch.resilience import faultinject, locks
 from pypulsar_tpu_torch.survey.daemon import tenants_json_path
 from tests.test_torch_dag import OBS, pulsar_fil8
 from tests.test_torch_survey import NAMES, REPO, SEEDS, SURVEY_FLAGS
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -72,6 +72,7 @@ from tests.test_torch_dag import (
     _txt_rows,
     pulsar_fil8,
 )
+from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEEDS = (5, 6)
