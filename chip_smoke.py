@@ -327,14 +327,15 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    third run launches no fold. One ``path NAME:`` line each.
 16. Telemetry and fault injection, reusing phase 6's, 7's, 8's and 10's
    outputs as the un-traced, un-faulted baselines. (a) Phase 6's sweep
-   stage run again untraced, with ``--telemetry`` twice and untraced
-   again, back to back: the same kernel launches, and every ``.dat``,
+   stage run again untraced and with ``--telemetry``, back to back (one
+   pair: phase 22's time came from a second): the same kernel
+   launches, and every ``.dat``,
    ``.cand``, ``.txtcand`` and the ``.cands`` the bytes of phase 6's; the trace opens with a
    version-1 meta record and ends with an end record, its ``h2d.bytes``
    equal the bytes the ship copied, its session-end device record's
    ``peak_bytes_in_use`` equals ``torch.cuda.max_memory_allocated()``;
-   printed: each wall (the overhead: the traced pair's mean over the
-   untraced pair's; and a bound on it, the host cost of a record timed
+   printed: each wall (the overhead: the traced run's over the
+   untraced run's; and a bound on it, the host cost of a record timed
    over 4000 records times the trace's records), the trace's bytes and
    records, the seconds of
    every span name, ``d2h.bytes``, the pending-depth maxima and
@@ -397,7 +398,11 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    directory), each pulsar folded to SNR > 10, every manifest with its
    five stages done and no quarantine, no device evicted
    (``_fleet_health.json``), the candidate store holding a DM-70 row of
-   the pulsar (its period or a harmonic) at SNR > 10, which ``cands
+   the pulsar (its period or a harmonic) at SNR > 10, the warm pool's
+   ``survey.precompile`` spans in the trace and its
+   ``survey.precompiled`` counter at 1 or more (printed: each warmed
+   observation's warmers' walls and each observation's first sweep chunk
+   dispatch, warmed or not), which ``cands
    --near`` lists, both gather-sum stages, boxcar and a fold form
    launched; printed: the fleet's wall against the sum of the three
    serial chains, each stage's wall from the trace, the device lane's
@@ -449,7 +454,11 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    must log the adoption from the silent host, skip the three stages
    host0 recorded, run the rest with the serial chains' bytes, and the
    stitched trace must pass ``--check`` despite host0's torn tail; the
-   time from the kill to the adoption. (c) ``survey --daemon --watch W
+   host that built the kernels (its log says so) must count
+   ``compile.cache_miss`` and no ``compile.persistent_hit`` in its trace,
+   the host that waited ``compile.persistent_hit`` and no
+   ``compile.cache_miss``; the time from the kill to the adoption. (c)
+   ``survey --daemon --watch W
    --daemon-port 0 --status-port 0`` with two ``--tenant`` specs and
    ``--daemon-idle-exit``: the RFI file copied into W (teamA), the
    second file submitted on the socket (teamB), ``/status.json`` polled
@@ -513,6 +522,24 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    chunks, one cache hit), the batch still moves (1 and 2 dispatches) and
    every file keeps its bytes. One ``path tune_consult:`` line.
 
+22. Chaos mode, lockdep's race mode and the reader fuzz, on two copies of
+   phase 3's small file. (a) ``survey`` of both (in this process, its
+   dispatcher's ``main``) at ``CHAOS_FLAGS``, unfaulted; then the same
+   fleet into another directory with ``--fault-chaos CHAOS_SPEC`` (a
+   seeded spray of OOMs, IO errors and device faults over every fault
+   point) and ``--fault-inject kill:survey.stage_done.sweep:1``,
+   resumed with ``--resume --fault-chaos CHAOS_SPEC`` until a round
+   finishes with no observation quarantined, at most 15 rounds (the
+   reference's ``tests/test_survey.py`` recipe): the kill must fire, at
+   least one chaos fault must fire, every artifact must have the bytes of
+   the unfaulted fleet, and a final ``--resume`` without chaos must run
+   0 stages and launch nothing; printed: the rounds and
+   ``fired_counts()``. (b) Race mode (``locks.configure_race``) armed
+   through (a): ``race_pauses()`` above 0. (c) ``run_reader_fuzz`` of
+   the ``filterbank``, ``psrfits`` (spectra read onto the card) and
+   ``dat`` readers, 60 mutations each at seed 11: no failure. One ``path
+   NAME:`` line each.
+
 Then a line of each phase's wall (``phase walls s:``, the script's time
 budget), one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
@@ -534,8 +561,9 @@ and ``accel_serial_fallback``, and phase 20's ``mesh_resident_k1``,
 ``mesh_tree_k2``, ``mesh_stage``, ``time_shard_r0``, ``time_shard_r1``
 and ``survey_gang``, phase 3's ``write_dats_plain`` and
 ``write_dats_streamed`` and phase 21's ``tune_search``, ``tune_off``,
-``tune_cache``, ``tune_masked_off`` and ``tune_masked_cache`` among
-them), the card line, and the last line ``{"ok": true, "device":
+``tune_cache``, ``tune_masked_off`` and ``tune_masked_cache`` and phase
+22's ``chaos_clean`` and ``chaos_fleet`` among them), the card line,
+and the last line ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -5517,17 +5545,17 @@ def telemetry_record_cost(path, n=2000):
 
 
 def traced_stage(tmp, fn, card):
-    """Phase 16 (a): phase 6's sweep stage run untraced, traced, traced
-    and untraced, back to back: the same launches and bytes (each the
-    bytes of phase 6's), each wall, the trace's size and its account of
-    the stage. Returns the first traced run's launches."""
+    """Phase 16 (a): phase 6's sweep stage run untraced and traced, back
+    to back: the same launches and bytes (each the bytes of phase 6's),
+    each wall, the trace's size and its account of the stage. Returns
+    the traced run's launches."""
     import torch
 
     from pypulsar_tpu_torch.cli import sweep as cli
 
     ref = os.path.join(tmp, "stage")
     runs = {}
-    for label in ("untraced", "traced", "traced_2", "untraced_2"):
+    for label in ("untraced", "traced"):
         out = os.path.join(tmp, f"tlm_{label}")
         trace = out + ".jsonl"
         extra = ["--write-dats"] + (["--telemetry", trace]
@@ -5545,8 +5573,7 @@ def traced_stage(tmp, fn, card):
                  f"{runs['untraced']['pm'].launches}")
     u, t = runs["untraced"], runs["traced"]
     walls = {k: v["pm"].wall_s for k, v in runs.items()}
-    traced_s = (walls["traced"] + walls["traced_2"]) / 2
-    untraced_s = (walls["untraced"] + walls["untraced_2"]) / 2
+    traced_s, untraced_s = walls["traced"], walls["untraced"]
     recs, counters, spans = read_trace(t["trace"])
     c, g = counters["counters"], counters["gauges"]
     if recs[0]["type"] != "meta" or recs[0].get("version") != 1 or \
@@ -6154,6 +6181,32 @@ def fleet_spans(trace):
     return dict(out)
 
 
+def warm_pool_view(trace):
+    """The warm pool in a fleet trace: ``survey.precompiled``, each
+    warmed observation's ``survey.precompile`` span (wall, count, each
+    warmer's wall) and each observation's first sweep chunk dispatch
+    (``dispatch_sweep_chunk``, s), matched by the trace id its stage
+    spans carry."""
+    recs, counters, _ = read_trace(trace)
+    warmed, obs_of, first = {}, {}, {}
+    for r in recs:
+        if r.get("type") != "span":
+            continue
+        attrs = r.get("attrs") or {}
+        if r["name"] == "survey.precompile":
+            warmed[attrs.get("obs")] = dict(attrs, wall_s=r["dur"])
+        elif r["name"].startswith("survey.stage.") and r.get("trace_id"):
+            obs_of[r["trace_id"]] = attrs.get("obs")
+    for r in recs:
+        if r.get("type") == "span" and r["name"] == "dispatch_sweep_chunk":
+            obs = obs_of.get(r.get("trace_id"))
+            if obs is not None and obs not in first:
+                first[obs] = r["dur"]
+    return {"precompiled": counters["counters"].get("survey.precompiled", 0),
+            "precompile": warmed,
+            "first_sweep_dispatch_s": first}
+
+
 def device_lane_idle(spans):
     """(busy s, idle s) of the device lane between its first start and
     last end: the union of the device stages' spans, and the gaps."""
@@ -6305,6 +6358,9 @@ def fleet_phase(tmp, fn, info, chain, card, device="cuda"):
     spans = fleet_spans(os.path.join(tlm, "fleet.jsonl"))
     busy, idle = device_lane_idle(spans)
     serial_sum = sum(serial_walls.values())
+    warm = warm_pool_view(os.path.join(tlm, "fleet.jsonl"))
+    if not warm["precompile"] or warm["precompiled"] < 1:
+        fail(f"the fleet's trace shows no warm pool at work: {warm}")
 
     # (b) a --resume of the finished fleet runs nothing
     before = sha256s(sorted(glob.glob(os.path.join(out_a, "*_cand*.pfd"))))
@@ -6377,6 +6433,7 @@ def fleet_phase(tmp, fn, info, chain, card, device="cuda"):
         "pulsars": {k: max(h, key=lambda r: r["snr"])
                     for k, h in hits.items()},
         "stored_pulsar": {k: best[k] for k in ("obs", "p_s", "dm", "snr")},
+        "warm_pool": warm,
         "fleet_health": health, "launches": launches}))
     print("path survey_fleet_resume_done: " + json.dumps({
         "card": card, "wall_s": wall_b, "launches": launches_b,
@@ -6643,8 +6700,8 @@ from pypulsar_tpu_torch.cli import survey
 
 _build.BUILD_DIR = sys.argv[1]
 print(f"# kernels ready in "
-      f"{_build.build_all(('gather_sum', 'boxcar_stats', 'fold_parts')):.1f} s",
-      flush=True)
+      f"{_build.build_all(('gather_sum', 'boxcar_stats', 'fold_parts')):.1f} s, "
+      f"{len(_build._built)} built here", flush=True)
 sys.exit(survey.main(sys.argv[2:]))
 """
 
@@ -6909,6 +6966,7 @@ def adopt_fleet(tmp, fleet, card):
         fail(f"the hosts' concurrent build left {libs} and temporaries")
     builds = [ln for log in logs for ln in read_log(log).splitlines()
               if "kernels ready in" in ln]
+    compiles = host_compiles(logs, tlm)
     print("path survey_adopt: " + json.dumps({
         "card": card, "lease_s": HOST_LEASE_S, "wall_s": wall,
         "builds": builds,
@@ -6918,10 +6976,44 @@ def adopt_fleet(tmp, fleet, card):
         "host1_said": [ln for ln in said.splitlines()
                        if "stages run" in ln],
         "files_equal_serial": files_equal, "kernels_built": libs,
+        "compile_counters": compiles,
         "tlmtrace_check": checked[0],
         "tolerated": checked[1].strip().splitlines()[:3],
         "launches": launches}))
     return launches
+
+
+def host_compiles(logs, tlm):
+    """Phase 19 (b)'s build accounting: the host whose log says it built
+    the kernels must count ``compile.cache_miss`` and no
+    ``compile.persistent_hit`` in its trace, the host that waited the
+    reverse; returns each host's ``compile.*`` counters and its
+    ``compile.first.<stage>`` spans (seconds, libraries)."""
+    from pypulsar_tpu_torch.obs.summarize import load_records, summarize
+
+    out, built, firsts = {}, [], {}
+    for r, log in enumerate(logs):
+        host = f"host{r}"
+        summary = summarize(load_records(os.path.join(
+            tlm, f"fleet.{host}.jsonl")))
+        c = summary.counters
+        out[host] = {k: v for k, v in c.items() if k.startswith("compile.")}
+        firsts[host] = {k: v for k, v in summary.stages.items()
+                        if k.startswith("compile.first.")}
+        if ", 0 built here" not in read_log(log):
+            built.append(host)
+    if len(built) != 1:
+        fail(f"not exactly one host built the kernels: {built}")
+    for host, c in out.items():
+        miss = c.get("compile.cache_miss", 0)
+        hit = c.get("compile.persistent_hit", 0)
+        if host in built:
+            ok, role = miss >= 1 and hit == 0, "built"
+        else:
+            ok, role = hit >= 1 and miss == 0, "waited"
+        if not ok:
+            fail(f"{host} ({role}) counted {c}")
+    return {"counters": out, "first_loads": firsts}
 
 
 def http_json(url):
@@ -7595,6 +7687,123 @@ def tune_phase(tmp, small_fn, card):
     return out
 
 
+CHAOS_COPIES = ("chaos_a", "chaos_b")
+#: SEED:RATE:KINDS of phase 22's spray: at this seed and rate the spray
+#: fires on the card and the fleet is done in a few rounds
+CHAOS_SPEC = "1:0.01:oom+io+device"
+CHAOS_KILL = "kill:survey.stage_done.sweep:1"
+CHAOS_ROUNDS = 15
+CHAOS_FLAGS = ["--lodm", "30", "--devices", "1", "--max-host-workers",
+               "2", "--retries", "2", *UNTUNED]
+RACE_SEED, RACE_PAUSE_US = 5, 100.0
+FUZZ_N, FUZZ_SEED = 60, 11
+
+
+def chaos_round(files, outdir, extra):
+    """One in-process ``survey`` of ``files``: (exit code, or "killed"
+    when an injected kill unwound it, and its stdout)."""
+    from pypulsar_tpu_torch.cli import __main__ as dispatch
+    from pypulsar_tpu_torch.parallel import broker
+    from pypulsar_tpu_torch.resilience import faultinject
+
+    argv = ["survey", *files, "-o", outdir, *CHAOS_FLAGS, "--device",
+            "cuda", *extra]
+    broker.reset()
+    try:
+        return run_quiet(dispatch.main, argv)
+    except faultinject.InjectedKill:
+        return "killed", ""
+    finally:
+        broker.reset()
+
+
+def chaos_phase(tmp, small_fn, card):
+    """Phase 22: a chaos fleet resumed to the unfaulted bytes under race
+    mode, and the reader fuzz; returns the launches of the unfaulted and
+    the chaos fleets."""
+    from pypulsar_tpu_torch.resilience import dataguard, faultinject, locks
+
+    indir = os.path.join(tmp, "chaos_in")
+    os.makedirs(indir)
+    files = []
+    for name in CHAOS_COPIES:
+        files.append(os.path.join(indir, name + ".fil"))
+        shutil.copyfile(small_fn, files[-1])
+    clean = os.path.join(tmp, "chaos_clean")
+    with PathMeter("chaos_clean", card) as pm_clean:
+        rc, said = chaos_round(files, clean, [])
+    if rc != 0:
+        fail(f"the unfaulted fleet exited {rc}: {said[-2000:]}")
+    check_fleet_launches("the unfaulted fleet", pm_clean.launches)
+
+    # (a) and (b): the spray, the kill and race mode, resumed until done
+    out = os.path.join(tmp, "chaos")
+    faultinject.reset()
+    locks.configure_race(RACE_SEED, pause_us=RACE_PAUSE_US)
+    rounds = []
+    try:
+        with PathMeter("chaos_fleet", card) as pm:
+            while len(rounds) < CHAOS_ROUNDS and (not rounds
+                                                  or rounds[-1] != 0):
+                extra = ["--fault-chaos", CHAOS_SPEC] + (
+                    ["--resume"] if rounds else ["--fault-inject",
+                                                 CHAOS_KILL])
+                rc, said = chaos_round(files, out, extra)
+                if rc not in (0, 1, "killed"):
+                    fail(f"chaos round {len(rounds) + 1} exited {rc}: "
+                         f"{said[-2000:]}")
+                rounds.append(rc)
+        fired = faultinject.fired_counts()
+        pauses = locks.race_pauses()
+    finally:
+        faultinject.reset()
+        locks.configure_race(None)
+    sprayed = sum(fired.get(k, 0) for k in ("oom", "io", "device"))
+    if rounds[-1] != 0:
+        fail(f"the chaos fleet did not finish in {CHAOS_ROUNDS} rounds: "
+             f"{rounds}, fired {fired}")
+    if "killed" not in rounds or fired.get("kill", 0) != 1 or sprayed < 1:
+        fail(f"the kill or the spray did not fire: rounds {rounds}, "
+             f"fired {fired}")
+    check_fleet_launches("the chaos fleet", pm.launches)
+    serials = {name: os.path.join(clean, name) for name in CHAOS_COPIES}
+    files_equal = fleet_bytes(serials, out, "(22a)")
+    with PathMeter("chaos_final_resume", card) as pm_final:
+        rc, said = chaos_round(files, out, ["--resume"])
+    n_stages = len(files) * len(FLEET_STAGES)
+    if rc != 0 or f"0 stages run, {n_stages} skipped" not in said or any(
+            pm_final.launches.values()):
+        fail(f"the final resume without chaos ran work: "
+             f"{pm_final.launches}; {said[-800:]}")
+    if pauses < 1:
+        fail("race mode paused at no lock boundary")
+
+    # (c) the reader fuzz
+    fuzz = {}
+    t0 = time.perf_counter()
+    for fmt in dataguard.FUZZ_FORMATS:
+        counts, failures = dataguard.run_reader_fuzz(
+            fmt, FUZZ_N, FUZZ_SEED, os.path.join(tmp, "fuzz", fmt),
+            device="cuda")
+        if failures or sum(counts.values()) != FUZZ_N:
+            fail(f"the {fmt} reader fuzz: {counts}, failures "
+                 f"{failures[:5]}")
+        fuzz[fmt] = counts
+    fuzz_s = time.perf_counter() - t0
+    pm.line(spec=CHAOS_SPEC, armed=CHAOS_KILL, rounds=rounds,
+            fired=fired, files_equal_unfaulted=files_equal,
+            unfaulted_wall_s=pm_clean.wall_s,
+            final_resume_wall_s=pm_final.wall_s,
+            said=said.strip().splitlines()[-1])
+    print("path race_mode: " + json.dumps({
+        "card": card, "seed": RACE_SEED, "pause_us": RACE_PAUSE_US,
+        "race_pauses": pauses}))
+    print("path reader_fuzz: " + json.dumps({
+        "card": card, "n": FUZZ_N, "seed": FUZZ_SEED, "outcomes": fuzz,
+        "failures": 0, "wall_s": fuzz_s}))
+    return {"chaos_clean": pm_clean.launches, "chaos_fleet": pm.launches}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -7678,6 +7887,8 @@ def main() -> int:
         mark("20 meshes")
         tune_paths = tune_phase(tmp, small_fn, card)
         mark("21 tune")
+        chaos_paths = chaos_phase(tmp, small_fn, card)
+        mark("22 chaos, race, fuzz")
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -7689,7 +7900,7 @@ def main() -> int:
              "lane": lane_launches, **fits_paths, **spectra_paths,
              **hour_paths, **resume_paths, **telemetry_paths,
              **resident_paths, **fleet_paths, **plane_paths,
-             **mesh_paths, **plain_paths, **tune_paths}
+             **mesh_paths, **plain_paths, **tune_paths, **chaos_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}

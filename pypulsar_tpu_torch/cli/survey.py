@@ -66,8 +66,12 @@ cards only when it owns enough of the measured device chain
 the CPU) are never ganged by it. A ganged sweep runs without a batch
 lane. The artifacts do not depend on the gang.
 
-Refused with exit 2 naming its ROADMAP.md item: ``--fault-chaos`` (item
-16).
+``--fault-chaos SEED:RATE[:kind+kind...]`` sprays seeded faults over
+every fault point of the run, the daemon's ingest points included
+(``resilience/faultinject.py``); with ``--fault-inject`` the armed
+faults win at their exact hits. A fleet under chaos is resumed with
+``--resume`` until it completes; its artifacts are then the bytes of an
+unfaulted fleet.
 """
 
 from __future__ import annotations
@@ -77,10 +81,6 @@ import glob
 import os
 import sys
 
-#: refused flags: argparse dest -> (flag, the ROADMAP.md item bringing it)
-NOT_PORTED = {
-    "fault_chaos": ("--fault-chaos", "Queue 1 item 16 (chaos mode)"),
-}
 #: ``--status --follow``'s refresh period (the reference's
 #: ``PYPULSAR_TPU_OBS_FOLLOW_S`` default), seconds
 FOLLOW_S = 2.0
@@ -90,7 +90,6 @@ def build_parser():
     from pypulsar_tpu_torch.obs import telemetry
     from pypulsar_tpu_torch.resilience import faultinject
 
-    not_ported = "not ported yet: ROADMAP.md "
     p = argparse.ArgumentParser(
         prog="survey",
         description="Orchestrate the rfifind -> sweep --accel-search -> "
@@ -294,8 +293,7 @@ def build_parser():
         p, what="fleet trace: per-stage spans + scheduler counters; "
                 "--telemetry-dir is the multi-trace form")
     faultinject.add_fault_flag(p)
-    p.add_argument("--fault-chaos", default=None, metavar="SEED:P",
-                   help=not_ported + NOT_PORTED["fault_chaos"][1])
+    faultinject.add_chaos_flag(p)
     return p
 
 
@@ -419,21 +417,9 @@ def _observations(infiles, outdir):
     return obs
 
 
-def _refusal(p, args):
-    """The first refused flag given (off its default), as its usage
-    error, or None."""
-    for dest, (flag, item) in NOT_PORTED.items():
-        if getattr(args, dest) != p.get_default(dest):
-            return f"{flag} is not ported yet (ROADMAP.md {item})"
-    return None
-
-
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    refusal = _refusal(p, args)
-    if refusal is not None:
-        p.error(refusal)
     if args.status:
         return _status(args.outdir, follow=args.follow,
                        port=args.status_port,
@@ -461,6 +447,8 @@ def main(argv=None):
 
     if args.fault_inject:
         faultinject.configure(args.fault_inject)
+    if args.fault_chaos:
+        faultinject.configure_chaos(args.fault_chaos)
     os.makedirs(args.outdir, exist_ok=True)
     host = args.host_id
     fleet_trace = args.telemetry

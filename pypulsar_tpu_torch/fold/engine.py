@@ -30,8 +30,10 @@ The device functions take tensors (run where they lie) or numpy arrays,
 moved to ``device=`` (default ``"cuda"``, which raises without a card).
 :func:`fold_parts_multi` and :func:`fold_parts_multi_poly` are their
 series-index forms (candidate k folds its own row of a ``[G, T]`` stack),
-the batch broker's fused fold (``parallel/broker.py``). The reference's
-compile-plane warmer (Queue 1 item 16) is not ported.
+the batch broker's fused fold (``parallel/broker.py``). The fold
+stage's warmer (:func:`warm_geometry`, registered with
+:mod:`pypulsar_tpu_torch.compile`) loads the candidate fold's library
+for the fleet's warm pool.
 
 Telemetry (the reference's names): every fold counts its folded samples
 in ``fold.samples`` and is a span named after the reference's function
@@ -49,6 +51,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pypulsar_tpu_torch.compile import register_warmer
 from pypulsar_tpu_torch.core import psrmath
 from pypulsar_tpu_torch.core.device import count_d2h, resolve_device
 from pypulsar_tpu_torch.core.psrmath import SECPERDAY
@@ -479,3 +482,39 @@ def fold_spectra(
     .pfd-style product) on ``device``."""
     return _fold_any(data, dt, nbins, data.shape[1], period, polycos,
                      mjdstart, normalize, device)
+
+
+# ---------------------------------------------------------------------------
+# the warm pool's planner
+
+
+def warm_geometry(*, n_samples=None, downsamp: int = 1, fold_nbins: int = 64,
+                  fold_npart: int = 32, fold_batch: int = 32,
+                  **_ignored) -> Optional[dict]:
+    """The candidate fold's geometry for one observation, as the
+    reference's ``_warm_fold`` derives it: the downsampled series length
+    ``T``, ``K`` candidates a dispatch (the fold batch: the port pads no
+    batch up a bucket ladder), ``nbins`` and ``npart``. None without
+    samples."""
+    T = int(n_samples or 0) // max(1, int(downsamp))
+    if T <= 0:
+        return None
+    return {"T": T, "K": max(1, int(fold_batch)), "nbins": int(fold_nbins),
+            "npart": int(fold_npart)}
+
+
+def _warm_fold(*, device="cuda", **geometry) -> int:
+    """The fold stage's warmer: on the card, load (building where absent)
+    the candidate fold's library, which both of its forms launch; returns
+    1, or 0 on a CPU device or without samples. Reads no data and
+    dispatches nothing."""
+    from pypulsar_tpu_torch.ops import _build
+
+    if warm_geometry(**geometry) is None or \
+            resolve_device(device).type != "cuda":
+        return 0
+    _build.load("fold_parts")
+    return 1
+
+
+register_warmer("fold", _warm_fold)

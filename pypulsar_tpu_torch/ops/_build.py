@@ -13,6 +13,16 @@ find the library, and every library lands by an atomic rename.
 Nothing here runs at import, because the CPU tests import every module:
 the compiler is called only when a kernel is asked for on a CUDA tensor,
 or by :func:`build_all`.
+
+The digest-named directory is the port's persistent kernel cache across
+processes and hosts, and :func:`load` keeps its accounting (the JAX
+package's compile-plane counters, read by ``tlmsum``'s compilation
+roll-up): ``compile.cache_hit`` for a load that finds the library
+already loaded in this process, and at each library's first load in the
+process ``compile.cache_miss`` when this process built it (here or in
+:func:`build_all`), ``compile.persistent_hit`` when it was on disk
+because another process or host built it, ``compile.ms`` (build plus
+load wall) and a ``compile.first.<stage>`` span (:data:`STAGES`).
 """
 
 from __future__ import annotations
@@ -35,8 +45,15 @@ BUILD_DIR = os.path.join(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("gather_sum", "boxcar_stats", "fold_parts", "fold_chan")
+#: the stage each kernel serves: its first load is a
+#: ``compile.first.<stage>`` span
+STAGES = {"gather_sum": "sweep", "boxcar_stats": "sweep",
+          "fold_parts": "fold", "fold_chan": "fold"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_name_locks: Dict[str, threading.Lock] = {}
+# library path -> build seconds of the libraries this process built
+_built: Dict[str, float] = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 
@@ -83,17 +100,19 @@ def _start(name: str):
         return None
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    return proc, tmp, out
+    return proc, tmp, out, t0
 
 
 def _finish(name: str, started) -> None:
-    proc, tmp, out = started
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
                            + log.decode(errors="replace"))
     os.replace(tmp, out)
+    _built[out] = time.perf_counter() - t0
 
 
 def build_all(names: Sequence[str] = KERNELS) -> float:
@@ -120,17 +139,43 @@ def build_all(names: Sequence[str] = KERNELS) -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            with _build_lock(name):
-                started = _start(name)
-                if started is not None:
-                    _finish(name, started)
-            lib = ctypes.CDLL(library_path(name))
-            _loaded[name] = lib
+    """The loaded library of ``csrc/<name>.cu``, built first if needed
+    (the module docstring's accounting)."""
+    from pypulsar_tpu_torch.obs import telemetry
+
+    first = None
+    lib = _loaded.get(name)
+    if lib is None:
+        # one thread builds and loads a source; a launch of another,
+        # loaded kernel never waits behind that build
+        with _lock:
+            name_lock = _name_locks.setdefault(name, threading.Lock())
+        with name_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                t0 = time.perf_counter()
+                with _build_lock(name):
+                    started = _start(name)
+                    if started is not None:
+                        _finish(name, started)
+                path = library_path(name)
+                lib = ctypes.CDLL(path)
+                _loaded[name] = lib
+                first = (path, started is not None,
+                         time.perf_counter() - t0)
+    if first is None:
+        telemetry.counter("compile.cache_hit")
         return lib
+    path, built_now, wall = first
+    if path in _built:
+        telemetry.counter("compile.cache_miss")
+        if not built_now:  # built earlier by build_all
+            wall += _built[path]
+    else:
+        telemetry.counter("compile.persistent_hit")
+    telemetry.counter("compile.ms", wall * 1e3)
+    telemetry.record_span(f"compile.first.{STAGES.get(name, name)}", wall)
+    return lib
 
 
 def count_launch(wrapper, key=None) -> None:

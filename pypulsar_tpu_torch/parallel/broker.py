@@ -74,6 +74,7 @@ import torch
 
 from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.resilience import faultinject
+from pypulsar_tpu_torch.resilience import locks as locks_mod
 from pypulsar_tpu_torch.resilience.retry import is_device_fault
 
 __all__ = [
@@ -154,7 +155,7 @@ class _Member:
         self.payload = payload
         self.n_rows = int(n_rows)
         self.tag = tag
-        self.event = threading.Event()
+        self.event = locks_mod.TrackedEvent("broker.member")
         self.result = None
         self.error: Optional[BaseException] = None
         self.delivered = False

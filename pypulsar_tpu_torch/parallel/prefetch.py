@@ -34,6 +34,7 @@ import torch
 
 from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.resilience import faultinject
+from pypulsar_tpu_torch.resilience.locks import TrackedEvent
 from pypulsar_tpu_torch.resilience.retry import retry_transient
 
 _DONE = object()
@@ -60,7 +61,7 @@ def prefetch(items: Iterable, depth: int = 2,
     gauge_name = f"{name}.pending_depth"
     deadline = None if timeout <= 0 else timeout
     q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
-    stop = threading.Event()
+    stop = TrackedEvent("prefetch.stop")
     # the consumer's trace context, re-entered by the worker so its spans
     # land on the stage's trace
     trace_ctx = telemetry.current_context()

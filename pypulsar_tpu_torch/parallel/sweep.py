@@ -88,6 +88,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pypulsar_tpu_torch.compile import register_warmer
 from pypulsar_tpu_torch.core import psrmath
 from pypulsar_tpu_torch.core.device import count_d2h, resolve_device
 from pypulsar_tpu_torch.obs import telemetry
@@ -1214,3 +1215,80 @@ def sweep_resident(data, freqs, dt: float, dms, nsub: int = 64,
                              chunk_payload=payload, engine=engine,
                              device=device, mesh=mesh,
                              pad_groups_to=pad_groups_to)
+
+
+# ---------------------------------------------------------------------------
+# the warm pool's planner
+
+
+def warm_geometry(*, dms, freqs, dt, nsub: int = 64, group_size: int = 0,
+                  widths=DEFAULT_WIDTHS, n_samples=None, downsamp: int = 1,
+                  chunk_payload: Optional[int] = None, engine: str = "auto",
+                  **_ignored) -> Optional[dict]:
+    """The geometry the streamed sweep will dispatch for one observation,
+    rebuilt as the reference's ``_warm_sweep`` rebuilds it: the plan (the
+    grid ``dms`` over the header's channels at the raw ``dt`` times
+    ``downsamp``, ``group_size`` <= 0 picking the group), the bounded
+    chunk payload (the default at the plan's overlap, clipped to the
+    downsampled length), ``out_len``, the chunk's ``need`` and the
+    resolved engine. None when there is nothing to plan, or the plan is
+    refused (the stage reports that)."""
+    dms = np.asarray(dms, dtype=np.float64)
+    # the plan wants high-frequency-first channels (the block sources
+    # flip ascending tables)
+    freqs = np.sort(np.asarray(freqs, dtype=np.float64))[::-1].copy()
+    if dms.size == 0 or freqs.size == 0 or not dt or dt <= 0:
+        return None
+    factor = max(1, int(downsamp))
+    dt = float(dt) * factor  # ``dt`` is the raw header sample time
+    try:
+        if group_size <= 0:
+            group_size = choose_group_size(dms, freqs, dt, nsub)
+        plan = make_sweep_plan(dms, freqs, dt, nsub=nsub,
+                               group_size=group_size, widths=tuple(widths))
+        engine = resolve_engine(engine)
+    except ValueError:
+        return None
+    if chunk_payload is None:
+        chunk_payload = default_chunk_payload(plan.min_overlap)
+    if n_samples:
+        n_ds = int(n_samples) // factor
+        chunk_payload = min(int(chunk_payload), n_ds)
+        if chunk_payload <= plan.min_overlap:
+            chunk_payload = min(n_ds, 2 * plan.min_overlap + 1)
+        if chunk_payload <= 0:
+            return None
+    out_len = int(chunk_payload) + max(plan.widths)
+    return {"plan": plan, "engine": engine,
+            "chunk_payload": int(chunk_payload), "out_len": out_len,
+            "need": out_len + plan.max_shift2 + plan.max_shift1}
+
+
+def _warm_sweep(*, device="cuda", **geometry) -> int:
+    """The sweep stage's warmer: on the card, load (building where
+    absent) the kernel libraries the first chunk launches, and for the
+    tree engine build its cached host plan and the plan's tables on
+    ``device``; returns how many it holds ready. Reads no data and
+    dispatches nothing; 0 on a CPU device or a geometry with nothing to
+    plan."""
+    from pypulsar_tpu_torch.ops import _build
+
+    geo = warm_geometry(**geometry)
+    if geo is None:
+        return 0
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return 0
+    names = (("boxcar_stats",) if geo["engine"] == "fourier"
+             else ("gather_sum", "boxcar_stats"))
+    for name in names:
+        _build.load(name)
+    if geo["engine"] != "tree":
+        return len(names)
+    plan = geo["plan"]
+    tdd.plan_from_bins(plan.stage1_bins,
+                       plan.stage2_bins).device_tables(device)
+    return len(names) + 1
+
+
+register_warmer("sweep", _warm_sweep)

@@ -1,6 +1,6 @@
-"""Data-integrity layer: a copy of the stream scrub and the output gates
-of ``pypulsar_tpu/resilience/dataguard.py``, without its environment
-switch. The scrub's counts go to the ``data.*`` telemetry counters, the
+"""Data-integrity layer: a copy of ``pypulsar_tpu/resilience/dataguard.py``
+without its environment switches. The scrub's counts go to the
+``data.*`` telemetry counters, the
 gates' drops to ``data.nonfinite_cands_dropped``, and an armed DATA fault
 (``resilience/faultinject.py``) corrupts the block at the scrub's read
 point, ``data.block``.
@@ -21,18 +21,33 @@ point, ``data.block``.
 - **Ingest validation** (:func:`validate_input`): the survey fleet's
   cheap look at each input before any stage runs, a data-quality report
   (the reference's ``validate_input``) or a :class:`DataFormatError`.
+- **Corruption recipes** (:func:`corrupt_file`, :func:`fuzz_mutate`,
+  :func:`run_reader_fuzz`): the reference's seeded file corruption (the
+  same kind and seed give its bytes) and its structure-aware fuzz of the
+  port's own readers, whose contract is that a mutated file parses
+  whole, parses a reported prefix, or raises a clean
+  :class:`~pypulsar_tpu_torch.io.errors.DataFormatError`: never anything
+  else.
+
+The reference's environment switches are a keyword and a constant here:
+``PYPULSAR_TPU_DATAGUARD`` (``guard_enabled``) is
+``guard_source(src, enabled=)``, and ``PYPULSAR_TPU_MAX_BAD_FRAC``
+(``max_bad_frac_default``) is :data:`MAX_BAD_FRAC`, which the fleet
+scheduler's ``max_bad_frac=`` keyword overrides.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import warnings
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from pypulsar_tpu_torch.io.errors import DataFormatError
 from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.resilience import faultinject
 
@@ -147,11 +162,12 @@ def _source_is_float(src) -> bool:
     return int(nbits) >= 32
 
 
-def guard_source(src):
+def guard_source(src, enabled: bool = True):
     """Wrap a staged block source with :class:`GuardedSource` when it can
     carry non-finite values, or when a DATA fault is armed (the injection
-    needs somewhere to land); otherwise return it as it is."""
-    if isinstance(src, GuardedSource):
+    needs somewhere to land); otherwise, or with ``enabled=False`` (the
+    reference's ``PYPULSAR_TPU_DATAGUARD=0``), return it as it is."""
+    if isinstance(src, GuardedSource) or not enabled:
         return src
     if not (faultinject.data_faults_armed() or _source_is_float(src)):
         return src
@@ -262,3 +278,272 @@ def _validate_psrfits(path: str) -> Dict:
                 "bad_frac": 1.0 if int(pf.nspec) == 0 else 0.0}
     finally:
         pf.close()
+
+
+def reader_quality(reader) -> Optional[Dict]:
+    """The salvage half of a reader's data-quality story (None when the
+    file read back whole)."""
+    return getattr(reader, "salvage", None)
+
+
+# ---------------------------------------------------------------------------
+# seeded file corruption (the reference's recipes, byte for byte)
+# ---------------------------------------------------------------------------
+
+CORRUPT_KINDS = ("truncate", "bitflip", "dropblock", "nanburst",
+                 "dcjump", "header")
+
+
+def _rng(seed: int, tag: str):
+    h = hashlib.sha256(f"{tag}:{seed}".encode()).digest()
+    return np.random.Generator(np.random.SFC64(list(h[:16])))
+
+
+def _sigproc_header_size(path: str) -> int:
+    from pypulsar_tpu_torch.io import sigproc
+
+    try:
+        with open(path, "rb") as f:
+            _, _, hsize = sigproc.read_header(f, path)
+        return hsize
+    except (DataFormatError, OSError):
+        return 0
+
+
+def corrupt_file(path: str, kind: str, seed: int = 0) -> Dict:
+    """Corrupt ``path`` in place with one data-fault kind of
+    :data:`CORRUPT_KINDS`, deterministically (the reference's recipe: the
+    same kind, seed and basename give its bytes). Returns a description
+    of what was done.
+
+    Payload-relative kinds locate the SIGPROC header first (size 0 for
+    other files: the whole file is payload). ``nanburst`` and ``dcjump``
+    read the payload as float32."""
+    if kind not in CORRUPT_KINDS:
+        raise ValueError(f"unknown corruption kind {kind!r}; expected "
+                         f"one of {CORRUPT_KINDS}")
+    size = os.path.getsize(path)
+    rng = _rng(seed, f"{kind}:{os.path.basename(path)}")
+    desc: Dict = {"kind": kind, "seed": seed, "path": path}
+    if kind == "header":
+        # scribble over the keyword stream right after HEADER_START: a
+        # parse must fail loudly (DataFormatError), never wander
+        with open(path, "r+b") as f:
+            f.seek(min(16, size))
+            f.write(rng.integers(0, 256, size=32,
+                                 dtype=np.uint8).tobytes())
+        desc["span"] = (16, 48)
+        return desc
+    hsize = _sigproc_header_size(path)
+    payload = size - hsize
+    if payload <= 0:
+        raise ValueError(f"{path}: no payload to corrupt")
+    if kind == "truncate":
+        # drop the tail 40%, landing mid-spectrum so the reader's
+        # partial-tail salvage is what runs
+        keep = hsize + int(payload * 0.6) + 1
+        os.truncate(path, min(keep, size))
+        desc["truncated_to"] = keep
+        return desc
+    if kind == "bitflip":
+        with open(path, "r+b") as f:
+            offs = sorted(int(o) for o in
+                          rng.integers(0, payload, size=64))
+            for o in offs:
+                f.seek(hsize + o)
+                b = f.read(1)
+                f.seek(hsize + o)
+                f.write(bytes([b[0] ^ (1 << int(rng.integers(0, 8)))]))
+        desc["flips"] = 64
+        return desc
+    # span and offset are 4-byte aligned relative to the payload, so the
+    # float32 cells after an odd-sized header are hit whole
+    span = max(4, (payload // 20) & ~3)  # ~5% of the payload
+    off = int(rng.integers(0, max(payload - span, 1))) & ~3
+    start = hsize + off
+    desc["span"] = (start, start + span)
+    if kind == "dropblock":
+        with open(path, "r+b") as f:
+            f.seek(start)
+            f.write(b"\x00" * span)
+        return desc
+    if kind == "nanburst":
+        burst = np.full(span // 4, np.nan, dtype=np.float32)
+        burst[0] = np.inf
+        with open(path, "r+b") as f:
+            f.seek(start)
+            f.write(burst.tobytes())
+        return desc
+    # dcjump: a large offset added to the span's float32 values
+    with open(path, "r+b") as f:
+        f.seek(start)
+        vals = np.frombuffer(f.read(span), dtype=np.float32).copy()
+        vals += np.float32(1e4)
+        f.seek(start)
+        f.write(vals.tobytes())
+    return desc
+
+
+# ---------------------------------------------------------------------------
+# structure-aware reader fuzz
+# ---------------------------------------------------------------------------
+
+#: the formats :func:`run_reader_fuzz` takes
+FUZZ_FORMATS = ("filterbank", "psrfits", "dat")
+
+
+def fuzz_mutate(data: bytes, rng) -> bytes:
+    """One seeded structural mutation of a file image (the reference's):
+    a truncation at a random offset, byte flips, a zeroed span, a span
+    of garbage, or a span duplicated over another (a framing slip)."""
+    if not data:
+        return data
+    op = int(rng.integers(0, 5))
+    n = len(data)
+    if op == 0:  # truncate
+        return data[: int(rng.integers(0, n))]
+    buf = bytearray(data)
+    if op == 1:  # flip 1-8 random bytes
+        for _ in range(int(rng.integers(1, 9))):
+            i = int(rng.integers(0, n))
+            buf[i] ^= 1 << int(rng.integers(0, 8))
+    elif op == 2:  # zero a span
+        span = int(rng.integers(1, max(n // 4, 2)))
+        i = int(rng.integers(0, max(n - span, 1)))
+        buf[i:i + span] = b"\x00" * span
+    elif op == 3:  # garbage a span
+        span = int(rng.integers(1, max(n // 8, 2)))
+        i = int(rng.integers(0, max(n - span, 1)))
+        buf[i:i + span] = rng.integers(0, 256, size=span,
+                                       dtype=np.uint8).tobytes()
+    else:  # duplicate a span over another
+        span = int(rng.integers(1, max(n // 8, 2)))
+        i = int(rng.integers(0, max(n - span, 1)))
+        j = int(rng.integers(0, max(n - span, 1)))
+        buf[j:j + span] = buf[i:i + span]
+    return bytes(buf)
+
+
+def run_reader_fuzz(fmt: str, n: int, seed: int, workdir: str,
+                    device="cuda") -> Tuple[Dict[str, int], List]:
+    """Fuzz one of the port's readers with ``n`` seeded mutations (the
+    reference's sequence for a seed) of a small valid file. Returns
+    ``(outcome counts, failures)``: ``ok`` (parsed whole), ``salvage``
+    (parsed a reported prefix) and ``error`` (a clean
+    :class:`DataFormatError`); ``failures`` lists each mutation that
+    escaped the contract with its exception. ``fmt`` is one of
+    :data:`FUZZ_FORMATS`; a PSRFITS file's spectra are read onto
+    ``device`` (default ``"cuda"``, which raises without a card)."""
+    if fmt == "psrfits":
+        from pypulsar_tpu_torch.core.device import resolve_device
+
+        device = resolve_device(device)
+    os.makedirs(workdir, exist_ok=True)
+    base = _fuzz_base(fmt, workdir)
+    rng = _rng(seed, f"fuzz:{fmt}")
+    counts = {"ok": 0, "salvage": 0, "error": 0}
+    failures: List = []
+    for i in range(n):
+        mutated = fuzz_mutate(base, rng)
+        try:
+            outcome = _fuzz_open(fmt, workdir, mutated, device)
+        except DataFormatError:
+            counts["error"] += 1
+        except Exception as e:  # noqa: BLE001 - the contract violation
+            failures.append((i, f"{type(e).__name__}: {e}"))
+        else:
+            counts[outcome] += 1
+    return counts, failures
+
+
+def _fuzz_base(fmt: str, workdir: str) -> bytes:
+    """A small valid file image of ``fmt`` (the reference's; sidecars
+    stay on disk where the format needs them)."""
+    rng = np.random.default_rng(7)
+    if fmt == "filterbank":
+        from pypulsar_tpu_torch.io.filterbank import write_filterbank
+
+        fn = os.path.join(workdir, "base.fil")
+        data = rng.standard_normal((64, 16)).astype(np.float32)
+        write_filterbank(fn, dict(nchans=16, tsamp=1e-3, fch1=1500.0,
+                                  foff=-1.0, nbits=32), data)
+    elif fmt == "psrfits":
+        from pypulsar_tpu_torch.io.psrfits import write_psrfits
+
+        fn = os.path.join(workdir, "base.fits")
+        data = rng.integers(0, 40, size=(8, 64)).astype(np.float32)
+        write_psrfits(fn, data, 1500.0 - np.arange(8.0), 1e-3,
+                      nsamp_per_subint=16, nbits=8)
+    elif fmt == "dat":
+        from pypulsar_tpu_torch.io.datfile import write_dat
+        from pypulsar_tpu_torch.io.infodata import InfoData
+
+        base = os.path.join(workdir, "base")
+        inf = InfoData()
+        inf.epoch = 55000.0
+        inf.dt = 1e-3
+        inf.DM = 10.0
+        write_dat(base, rng.standard_normal(256).astype(np.float32), inf)
+        fn = base + ".dat"
+        # the .inf sidecar stays valid on disk; the .dat bytes mutate
+    else:
+        raise ValueError(f"unknown fuzz format {fmt!r}; expected one of "
+                         f"{FUZZ_FORMATS}")
+    with open(fn, "rb") as f:
+        return f.read()
+
+
+def _fuzz_open(fmt: str, workdir: str, mutated: bytes, device) -> str:
+    """Open and read one mutated image; ``ok``/``salvage``, or raises
+    (a DataFormatError is a clean outcome, anything else a contract
+    violation the caller records)."""
+    if fmt == "filterbank":
+        from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+
+        fn = os.path.join(workdir, "mut.fil")
+        with open(fn, "wb") as f:
+            f.write(mutated)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            fb = FilterbankFile(fn)
+        try:
+            n = min(int(fb.number_of_samples), 8)
+            if n > 0:
+                fb.get_samples(0, n)
+            return "salvage" if fb.salvage else "ok"
+        finally:
+            fb.close()
+    if fmt == "psrfits":
+        from pypulsar_tpu_torch.io.psrfits import PsrfitsFile, is_PSRFITS
+
+        fn = os.path.join(workdir, "mut.fits")
+        with open(fn, "wb") as f:
+            f.write(mutated)
+        if not is_PSRFITS(fn):
+            raise DataFormatError(fn, "no longer sniffs as PSRFITS")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            pf = PsrfitsFile(fn)
+            try:
+                n = min(int(pf.nspec), 4)
+                if n > 0:
+                    pf.get_spectra(0, n, device=device)
+                return "ok"
+            finally:
+                pf.close()
+    if fmt == "dat":
+        from pypulsar_tpu_torch.io.datfile import Datfile
+
+        fn = os.path.join(workdir, "base.dat")  # beside its .inf sidecar
+        with open(fn, "wb") as f:
+            f.write(mutated)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            d = Datfile(fn)
+        try:
+            d.read_all()
+            return "salvage" if d.salvage else "ok"
+        finally:
+            d.close()
+    raise ValueError(f"unknown fuzz format {fmt!r}; expected one of "
+                     f"{FUZZ_FORMATS}")

@@ -45,10 +45,25 @@ accel dispatch. N defaults to 1 and counts 1-based hits of that point;
 each armed fault fires exactly once. Instrumented points call
 :func:`trip`, a single dict check when nothing is armed.
 
-Every firing emits a ``resilience.fault_injected`` telemetry event, so a
-fault-injection run's trace shows both the failure and the recovery it
-provoked. The reference's chaos mode and its environment channels are
-not ported (ROADMAP item 16): the port reads no environment variable.
+**Chaos mode** (the survey's ``--fault-chaos``, or
+:func:`configure_chaos`) is the probabilistic complement:
+``SEED:RATE[:kind+kind...]`` sprays faults across every point that
+trips. Each decision is the reference's pure hash of ``(seed, point,
+cumulative hit index)``: the same for a (point, hit) however threads
+interleave, yet fresh on every retry of a point (the hit index keeps
+counting), so a chaos fleet that resumes long enough completes. ``exit``
+is not a chaos kind: the harness that asserts recovery must survive its
+own faults. An armed fault still wins at its exact (point, N), and
+:func:`configure` leaves chaos armed; :func:`reset` clears both. Unlike
+the reference, the spray skips lockdep's race-mode points
+(:data:`LOCK_POINTS`).
+
+Every firing emits a ``resilience.fault_injected`` telemetry event (its
+``mode`` ``armed`` or ``chaos``), so a fault-injection run's trace shows
+both the failure and the recovery it provoked. The reference's
+environment channels (``PYPULSAR_TPU_FAULTS``, ``_CHAOS``, ``_HANG_S``)
+are not read: the port reads no environment variable, and :data:`HANG_S`
+bounds a hang.
 """
 
 from __future__ import annotations
@@ -57,7 +72,7 @@ import argparse
 import hashlib
 import os
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from pypulsar_tpu_torch.obs import telemetry
 
@@ -67,13 +82,17 @@ __all__ = [
     "InjectedIOError",
     "InjectedKill",
     "InjectedOOM",
+    "add_chaos_flag",
     "add_fault_flag",
+    "chaos_active",
     "configure",
+    "configure_chaos",
     "corrupt_array",
     "data_faults_armed",
     "fired_counts",
     "hits",
     "is_armed",
+    "parse_chaos_spec",
     "parse_spec",
     "reset",
     "trip",
@@ -87,6 +106,18 @@ KINDS = ("oom", "io", "kill", "exit", "hang", "device", "netstall")
 # finite-output gates the way a bit-flipped recording would. ``truncate``
 # zeroes the block tail (mid-stream shapes are static).
 DATA_KINDS = ("nanburst", "dropblock", "dcjump", "bitflip", "truncate")
+
+#: the kinds chaos mode draws: never ``exit`` (it would kill the very
+#: harness that resumes the fleet); ``netstall`` away from a plane point
+#: is a bounded hang the watchdog owns
+CHAOS_KINDS = ("oom", "io", "kill", "hang", "device", "netstall")
+
+#: the prefix of lockdep's race-mode points (``lock.<name>.<where>``,
+#: ``resilience/locks.py``): an armed fault fires there, the chaos spray
+#: does not, because a fault raised at a lock boundary lands in the
+#: runtime's own bookkeeping (the scheduler's condition, the telemetry
+#: session's lock), which no recovery path owns
+LOCK_POINTS = "lock."
 
 #: bound of a ``hang`` or ``netstall``, seconds
 HANG_S = 30.0
@@ -137,7 +168,9 @@ _armed: Dict[Tuple[str, str], int] = {}
 # same grammar, DATA kinds: fired by trip_data (mutation, not raise)
 _armed_data: Dict[Tuple[str, str], int] = {}
 _hits: Dict[str, int] = {}
-# kind -> times fired since the last configure/reset
+# chaos mode: None, or (seed, rate, kinds)
+_chaos: Optional[Tuple[int, float, Tuple[str, ...]]] = None
+# kind -> times fired (armed and chaos) since the last configure/reset
 _fired: Dict[str, int] = {}
 
 
@@ -176,19 +209,61 @@ def parse_spec(spec: str) -> Dict[Tuple[str, str], int]:
 
 def configure(spec) -> None:
     """Arm the faults in ``spec`` (replacing any armed set and zeroing the
-    hit/fired counters); None or an empty string clears the armed set."""
-    reset()
+    hit/fired counters); None or an empty string clears the armed set.
+    Chaos mode is armed apart (:func:`configure_chaos`) and stays armed,
+    so a deterministic fault composes with a chaos spray."""
+    _armed.clear()
+    _armed_data.clear()
+    _hits.clear()
+    _fired.clear()
     if spec:
         for (kind, point), n in parse_spec(spec).items():
             (_armed_data if kind in DATA_KINDS else _armed)[(kind, point)] = n
 
 
+def parse_chaos_spec(spec: str) -> Tuple[int, float, Tuple[str, ...]]:
+    """Parse ``SEED:RATE[:kind+kind...]`` into (seed, rate, kinds);
+    raises ValueError on a malformed spec, as :func:`parse_spec` does."""
+    fields = spec.split(":")
+    if len(fields) not in (2, 3):
+        raise ValueError(f"bad chaos spec {spec!r}; expected "
+                         f"SEED:RATE[:kind+kind...]")
+    seed = int(fields[0])
+    rate = float(fields[1])
+    if not 0.0 <= rate <= 1.0:
+        raise ValueError(f"chaos rate must be in [0, 1]; got {rate}")
+    kinds = CHAOS_KINDS
+    if len(fields) == 3 and fields[2]:
+        kinds = tuple(k.strip() for k in fields[2].split("+") if k.strip())
+        for k in kinds:
+            if k not in CHAOS_KINDS:
+                raise ValueError(f"unknown chaos kind {k!r}; expected "
+                                 f"some of {CHAOS_KINDS}")
+    return seed, rate, kinds
+
+
+def configure_chaos(spec) -> None:
+    """Arm (or, with None or an empty string, disarm) seeded chaos: every
+    :func:`trip` rolls ``hash(seed, point, hit)`` against the rate and
+    fires a hash-chosen kind on success. Composes with the armed set,
+    which wins at its exact (point, N)."""
+    global _chaos
+    _chaos = parse_chaos_spec(spec) if spec else None
+
+
+def chaos_active() -> bool:
+    return _chaos is not None
+
+
 def reset() -> None:
-    """Clear armed faults, hit and fired counters (test isolation)."""
+    """Clear armed faults, chaos mode, hit and fired counters (test
+    isolation)."""
+    global _chaos
     _armed.clear()
     _armed_data.clear()
     _hits.clear()
     _fired.clear()
+    _chaos = None
 
 
 def is_armed() -> bool:
@@ -202,22 +277,28 @@ def data_faults_armed() -> bool:
 
 
 def hits(point: str) -> int:
-    """How many times ``point`` has tripped while something was armed."""
+    """How many times ``point`` has tripped while something (a fault or
+    chaos) was armed."""
     return _hits.get(point, 0)
 
 
 def fired_counts() -> Dict[str, int]:
     """``{kind: times fired}`` since the last :func:`configure` or
-    :func:`reset`: the receipt that an armed fault actually fired."""
+    :func:`reset`, armed and chaos firings together: the receipt that a
+    fault family actually fired."""
     return dict(_fired)
 
 
-def _spec_arg(spec: str) -> str:
-    try:
-        parse_spec(spec)
-    except ValueError as e:
-        raise argparse.ArgumentTypeError(str(e)) from None
-    return spec
+def _checked(parse):
+    """An argparse ``type`` that returns a spec ``parse`` accepts, and
+    makes its ValueError a usage error (exit 2)."""
+    def check(spec: str) -> str:
+        try:
+            parse(spec)
+        except ValueError as e:
+            raise argparse.ArgumentTypeError(str(e)) from None
+        return spec
+    return check
 
 
 def add_fault_flag(parser):
@@ -226,7 +307,8 @@ def add_fault_flag(parser):
     malformed spec exits 2 at parse time; pass the value to
     :func:`configure`."""
     parser.add_argument(
-        "--fault-inject", default=None, metavar="SPEC", type=_spec_arg,
+        "--fault-inject", default=None, metavar="SPEC",
+        type=_checked(parse_spec),
         help="arm deterministic faults for resilience testing: "
              "kind:point[:N],... with kinds "
              "oom|io|kill|exit|hang|device|netstall (e.g. "
@@ -239,6 +321,21 @@ def add_fault_flag(parser):
     return parser
 
 
+def add_chaos_flag(parser):
+    """Install the shared ``--fault-chaos`` CLI option (the seeded
+    probabilistic mode; module docstring). A malformed spec exits 2 at
+    parse time; pass the value to :func:`configure_chaos`."""
+    parser.add_argument(
+        "--fault-chaos", default=None, metavar="SEED:RATE[:KINDS]",
+        type=_checked(parse_chaos_spec),
+        help="spray seeded probabilistic faults across every fault "
+             "point: each (point, hit) rolls hash(seed, point, hit) "
+             "against RATE and fires a hash-chosen kind (from "
+             "oom|io|kill|hang|device|netstall, or the +-separated KINDS "
+             "subset); deterministic per seed, fresh on every retry")
+    return parser
+
+
 def _hang(point: str) -> None:
     """Stop making progress, interruptibly: sleep in 50 ms slices,
     bounded by :data:`HANG_S` so an unwatched hang ends on its own."""
@@ -247,15 +344,15 @@ def _hang(point: str) -> None:
         time.sleep(0.05)
 
 
-def _record(kind: str, point: str, n: int) -> None:
+def _record(kind: str, point: str, n: int, mode: str = "armed") -> None:
     _fired[kind] = _fired.get(kind, 0) + 1
     telemetry.counter("resilience.faults_injected")
     telemetry.event("resilience.fault_injected", kind=kind, point=point,
-                    hit=n, mode="armed")
+                    hit=n, mode=mode)
 
 
-def _fire(kind: str, point: str, n: int) -> None:
-    _record(kind, point, n)
+def _fire(kind: str, point: str, n: int, mode: str = "armed") -> None:
+    _record(kind, point, n, mode)
     if kind == "oom":
         raise InjectedOOM(point)
     if kind == "io":
@@ -272,11 +369,25 @@ def _fire(kind: str, point: str, n: int) -> None:
     os._exit(137)  # "exit": SIGKILL-equivalent, no cleanup at all
 
 
+def _chaos_roll(point: str, n: int) -> Optional[str]:
+    """The chaos decision for the Nth hit of ``point``: None, or the kind
+    to fire; the reference's pure function of (seed, point, n), bit for
+    bit, so a redone unit re-rolls fresh instead of replaying its
+    fault."""
+    seed, rate, kinds = _chaos
+    h = hashlib.sha256(f"{seed}:{point}:{n}".encode()).digest()
+    u = int.from_bytes(h[:8], "big") / float(1 << 64)
+    if u >= rate:
+        return None
+    return kinds[int.from_bytes(h[8:12], "big") % len(kinds)]
+
+
 def trip(point: str) -> None:
     """Hook call at an instrumented point: fire the armed fault for this
-    point when its 1-based hit index is reached, else no-op. The
-    nothing-armed fast path is one truthiness check."""
-    if not _armed:
+    point when its 1-based hit index is reached, or, in chaos mode, on a
+    seeded roll; else no-op. The nothing-armed fast path is two
+    truthiness checks."""
+    if not _armed and _chaos is None:
         return
     n = _hits.get(point, 0) + 1
     _hits[point] = n
@@ -286,6 +397,10 @@ def trip(point: str) -> None:
             del _armed[key]
             _fire(kind, point, n)
             return
+    if _chaos is not None and not point.startswith(LOCK_POINTS):
+        kind = _chaos_roll(point, n)
+        if kind is not None:
+            _fire(kind, point, n, "chaos")
 
 
 def trip_data(point: str, arr):

@@ -290,7 +290,7 @@ class Watchdog:
         self.registry = registry
         self.interval = interval
         self._on_expire = on_expire
-        self._stop = threading.Event()
+        self._stop = locks.TrackedEvent("health.watchdog_stop")
         self._thread: Optional[threading.Thread] = None
 
     def start(self) -> None:

@@ -32,9 +32,16 @@ underlying acquire returns to the caller and popped after the
 underlying release, so the watchdog's defer-while-locked check covers
 the whole window in which an async exception could strand the lock.
 
-The reference's seeded race mode (``configure_race``: lock-boundary
-fault points and pauses, and its ``TrackedEvent``) serves the chaos
-mode, which is ROADMAP.md item 16; it is not ported.
+**Seeded interleaving (race mode).** With race mode armed
+(:func:`configure_race`; the reference also reads
+``PYPULSAR_TPU_RACE_SEED``, the port reads no environment variable),
+every tracked acquire and release, and every :class:`TrackedEvent`
+``set``, first trips the ``lock.<name>.<where>`` fault point (``where``:
+``acquired``, ``release``, ``set``), so an armed fault can land exactly
+at a lock boundary (the chaos spray skips these points:
+``faultinject.LOCK_POINTS``), and then sleeps a deterministic
+``hash(seed, name, where, hit)`` sliver of the pause, widening the race
+windows a chaos run exercises. :func:`race_pauses` counts the pauses.
 
 Import discipline: stdlib-only at module level; telemetry is imported
 lazily at call time.
@@ -42,6 +49,7 @@ lazily at call time.
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 import threading
@@ -51,10 +59,13 @@ from typing import Dict, List, Optional, Set, Tuple
 __all__ = [
     "LockOrderError",
     "TrackedCondition",
+    "TrackedEvent",
     "TrackedLock",
     "TrackedRLock",
     "configure",
+    "configure_race",
     "edges",
+    "race_pauses",
     "reset",
     "snapshot",
     "thread_holds_lock",
@@ -98,6 +109,15 @@ _stats: Dict[str, list] = {}
 # differ only at violation time)
 _mode = "warn"
 
+# race mode: None, or (seed, pause seconds); _race_hits counts pauses
+# under its own reentrant lock, never the registry's: a generator's
+# finalizer (prefetch's stop event) runs wherever the cyclic collector
+# does, inside the registry's critical sections too, and a pause there
+# must not wait on a lock its own thread holds
+_race: Optional[Tuple[int, float]] = None
+_race_hits = [0]
+_race_lock = threading.RLock()
+
 # thread-local reentrancy guard around telemetry emission: a gauge about
 # lock N must not recurse through the (tracked) telemetry session lock
 _tls = threading.local()
@@ -113,6 +133,47 @@ def configure(mode: str = "warn") -> None:
     if mode not in MODES:
         raise ValueError(f"lockdep mode {mode!r}; expected one of {MODES}")
     _mode = mode
+
+
+def configure_race(seed: Optional[int], pause_us: float = 100.0) -> None:
+    """Arm (``seed`` not None) or disarm the seeded lock-boundary fault
+    points and pauses of up to ``pause_us`` microseconds (module
+    docstring). Arming also turns tracking on from ``off``, so a race
+    run is always tracked, and zeroes :func:`race_pauses`."""
+    global _race, _mode
+    if seed is None:
+        _race = None
+        return
+    _race = (int(seed), max(0.0, float(pause_us)) * 1e-6)
+    if _mode == "off":
+        _mode = "warn"
+    _race_hits[0] = 0
+
+
+def _maybe_pause(name: str, where: str) -> None:
+    """Race mode's perturbation: trip the ``lock.<name>.<where>`` fault
+    point, then sleep a deterministic hash-derived sliver of the pause.
+    Reached only when race mode is armed."""
+    armed = _race
+    if armed is None:  # disarmed under us: a pause is best-effort
+        return
+    from pypulsar_tpu_torch.resilience import faultinject
+
+    faultinject.trip(f"lock.{name}.{where}")
+    seed, pause = armed
+    if pause <= 0:
+        return
+    with _race_lock:
+        _race_hits[0] += 1
+        n = _race_hits[0]
+    h = hashlib.sha256(f"{seed}:{name}:{where}:{n}".encode()).digest()
+    time.sleep(pause * (int.from_bytes(h[:4], "big") / float(1 << 32)))
+
+
+def race_pauses() -> int:
+    """Pauses injected since race mode was armed: the receipt that the
+    interleaving stress perturbed something."""
+    return _race_hits[0]
 
 
 def _tracking_enabled() -> bool:
@@ -336,11 +397,15 @@ class TrackedLock:
         self._entry_tls.entry = entry
         if waited > 0:
             _note_contention(self.name, waited, self.quiet)
+        if _race is not None:
+            _maybe_pause(self.name, "acquired")
         return True
 
     def release(self) -> None:
         entry = getattr(self._entry_tls, "entry", None)
         self._entry_tls.entry = None
+        if _race is not None:
+            _maybe_pause(self.name, "release")
         self._inner.release()
         _after_release(self.name, entry, self.quiet)
 
@@ -405,6 +470,8 @@ class TrackedRLock(TrackedLock):
         self._entry_tls.entry = entry
         if waited > 0:
             _note_contention(self.name, waited, self.quiet)
+        if _race is not None:
+            _maybe_pause(self.name, "acquired")
         return True
 
     def release(self) -> None:
@@ -465,6 +532,30 @@ class TrackedCondition(threading.Condition):
                          else TrackedRLock(name))
 
 
+class TrackedEvent:
+    """A ``threading.Event`` whose ``set`` passes race mode's pause (the
+    signal edge is where interleaving bugs hide; an event is never
+    held, so there is no held-set to track)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._inner = threading.Event()
+
+    def set(self) -> None:
+        if _race is not None:
+            _maybe_pause(self.name, "set")
+        self._inner.set()
+
+    def clear(self) -> None:
+        self._inner.clear()
+
+    def is_set(self) -> bool:
+        return self._inner.is_set()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        return self._inner.wait(timeout)
+
+
 # -- introspection -----------------------------------------------------------
 
 
@@ -494,14 +585,16 @@ def snapshot() -> Dict[str, dict]:
 
 
 def reset() -> None:
-    """Clear the order graph, violations and stats, and
-    return to the default ``warn`` mode (test isolation). Held-sets of
-    live threads are kept: wiping them under a running fleet would blind
-    the watchdog deferral."""
-    global _mode
+    """Clear the order graph, violations, stats and race mode, and return
+    to the default ``warn`` mode (test isolation). Held-sets of live
+    threads are kept: wiping them under a running fleet would blind the
+    watchdog deferral."""
+    global _mode, _race
     with _registry_lock:
         _edges.clear()
         _edge_first.clear()
         _violations.clear()
         _stats.clear()
     _mode = "warn"
+    _race = None
+    _race_hits[0] = 0

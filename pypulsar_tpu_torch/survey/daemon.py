@@ -46,7 +46,8 @@ in exactly ONE terminal column)::
   quota.
 
 Fault points ``daemon.arrival`` / ``daemon.admit`` / ``daemon.shed``
-are armed like every other point (``--fault-inject``):
+are armed like every other point (``--fault-inject``, the chaos
+spray of ``--fault-chaos``):
 the ingest edge is the daemon's own supervisor, so an injected fault
 there degrades to a retry at the next scan tick — the books stay
 balanced because the arrival is only counted once it gets past the
@@ -331,7 +332,7 @@ class SurveyDaemon:
         self._obs_state: Dict[str, str] = {}    # obs name -> state
         self._accepted_open = 0                 # accepted, not terminal
         self._names_used: set = set()
-        self._draining = threading.Event()
+        self._draining = locks_mod.TrackedEvent("survey.daemon.drain")
         self._t_last_arrival = time.monotonic()
         # watch-dir quiesce ledger: path -> (size, t_first_stable)
         self._quiesce: Dict[str, Tuple[int, float]] = {}

@@ -72,6 +72,7 @@ from typing import Dict, Optional
 
 from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.resilience import faultinject
+from pypulsar_tpu_torch.resilience.locks import TrackedEvent
 
 __all__ = [
     "DEFAULT_LEASE_S",
@@ -165,7 +166,7 @@ class FleetPlane:
         self.token: Optional[int] = None  # the HOST lease's token
         self._last_token = 0
         self._renew: Optional[threading.Thread] = None
-        self._stop = threading.Event()
+        self._stop = TrackedEvent("fleet.renew_stop")
 
     # -- fencing tokens ------------------------------------------------------
 

@@ -118,7 +118,19 @@ cards as single leases do, so a pool of more leases than cards names a
 card more than once: how a one-card machine runs a gang. Artifacts do
 not depend on ``k``.
 
-Left out of the reference: the compile warm pool (ROADMAP.md item 16).
+The warm pool (``warm_pool=True``, the default; the reference's
+``PYPULSAR_TPU_COMPILE_WARMPOOL``): a daemon thread started beside the
+host pool runs the compile plane's registered warmers
+(:mod:`pypulsar_tpu_torch.compile`) for each observation not yet
+started, one at a time, from its header's geometry, so its first device
+dispatch finds its kernels' libraries loaded (built, when a fresh
+directory has none) and the tree engine's plan made. Each warmed
+observation is a ``survey.precompile`` span (also in its own trace) and
+adds to the ``survey.precompiled`` counter. A header that cannot be read
+skips the observation (the stage machinery owns that error); a warmer
+that raises (a kernel that does not build, a CUDA error) is counted as
+``compile.warm_error`` and fails the fleet like a kill: in-flight stages
+settle, then :meth:`FleetScheduler.run` raises it.
 """
 
 from __future__ import annotations
@@ -168,6 +180,9 @@ RETRY_BACKOFF_MAX_S = 5.0
 #: the reference's ``PYPULSAR_TPU_OBS_SLO_FRAC`` default: a stage that
 #: used more than this share of its deadline emits ``survey.slo_burn``
 SLO_FRAC = 0.8
+#: how long :meth:`FleetScheduler.run` waits at its end for the warm
+#: pool's thread (a warmer between two kernel builds), seconds
+WARM_JOIN_S = 600.0
 #: the reference's ``PYPULSAR_TPU_GANG_COST_MIN_FRAC`` default: ``gang=
 #: "auto"`` widens a stage only if it owns this share of the measured
 #: device chain
@@ -254,7 +269,8 @@ class FleetScheduler:
                  slo_frac: float = SLO_FRAC,
                  candstore: bool = True,
                  lane_width: int = broker_mod.LANE_WIDTH,
-                 host_strike_limit: Optional[int] = None):
+                 host_strike_limit: Optional[int] = None,
+                 warm_pool: bool = True):
         if gang != "auto" and int(gang) < 1:
             raise ValueError(f"gang must be >= 1 or 'auto', got {gang!r}")
         self.gang = gang if gang == "auto" else int(gang)
@@ -289,6 +305,8 @@ class FleetScheduler:
         self.slo_frac = float(slo_frac)
         self.candstore = bool(candstore)
         self.lane_width = max(1, int(lane_width))
+        self.warm_pool = bool(warm_pool)
+        self._warm_thread: Optional[threading.Thread] = None
 
         # fleet health: heartbeats + watchdog, device strikes, admission
         self.stall_s = stall_s
@@ -382,7 +400,7 @@ class FleetScheduler:
         self.tenant_of = None
         # set once run() has opened the initial manifests and promoted
         # the initial obs: submit() before it would race that pass
-        self._ready = threading.Event()
+        self._ready = locks_mod.TrackedEvent("survey.sched.ready")
 
     # -- devices ------------------------------------------------------------
 
@@ -1696,6 +1714,102 @@ class FleetScheduler:
                 self._cv.notify_all()
             raise StopIteration
 
+    # -- the warm pool --------------------------------------------------------
+
+    def _obs_geometry(self, i: int) -> Optional[dict]:
+        """One observation's stage geometry for the compile plane's
+        warmers: the raw header (channel table, sample time, length),
+        the fleet config's grid and the fleet's device. None when the
+        header cannot be read (the stage machinery owns that error)."""
+        import numpy as np
+
+        from pypulsar_tpu_torch.cli import open_reader
+
+        cfg = self.cfg
+        try:
+            r = open_reader(self.obs[i].infile)
+            try:
+                freqs = np.asarray(r.frequencies, dtype=np.float64)
+                tsamp = float(r.tsamp)
+                nsamp = int(getattr(r, "number_of_samples", 0)
+                            or getattr(r, "nsamples", 0) or 0)
+            finally:
+                close = getattr(r, "close", None)
+                if close is not None:
+                    close()
+        except Exception:  # noqa: BLE001 - the stage reports a bad input
+            return None
+        return dict(
+            dms=cfg.lodm + cfg.dmstep * np.arange(max(1, cfg.numdms)),
+            freqs=freqs, dt=tsamp, n_samples=nsamp,
+            downsamp=max(1, cfg.downsamp), nsub=cfg.nsub,
+            group_size=cfg.group_size, chunk_payload=cfg.chunk,
+            fold_nbins=cfg.fold_nbins, fold_npart=cfg.fold_npart,
+            fold_batch=cfg.fold_batch, device=self.device)
+
+    def _warmpool_loop(self) -> None:
+        """The warm pool's thread: warm the next observation that has
+        not started, until every one is warmed or started; a warmer's
+        exception fails the fleet (module docstring)."""
+        try:
+            self._warm_observations()
+        except Exception as e:  # noqa: BLE001 - raised by run()
+            with self._cv:
+                if self._fatal is None:
+                    self._fatal = e
+                self._stop = True
+                self._cv.notify_all()
+
+    def _warm_observations(self) -> None:
+        import pypulsar_tpu_torch.fold.engine  # noqa: F401 - registers
+        import pypulsar_tpu_torch.parallel.sweep  # noqa: F401 - warmers
+        from pypulsar_tpu_torch.compile import warm_stage, warmable_stages
+
+        warmed: set = set()
+        while not self._stop:
+            target = None
+            with self._lock:
+                for i in range(len(self.obs)):
+                    if i in warmed:
+                        continue
+                    states = [self._tasks[(i, s.name)].state
+                              for s in self.stages]
+                    if all(st in _TERMINAL for st in states) or any(
+                            st == _RUNNING for st in states):
+                        warmed.add(i)  # nothing left, or already started
+                        continue
+                    target = i
+                    break
+            if target is None:
+                return
+            warmed.add(target)
+            geo = self._obs_geometry(target)
+            if geo is None:
+                continue
+            obs = self.obs[target]
+            t_rel = time.perf_counter() - self._t0
+            t0 = time.perf_counter()
+            n = 0
+            walls = {}  # each warmer's wall, on the spans
+            with telemetry.span("survey.precompile", obs=obs.name) as sp:
+                for stage in warmable_stages():
+                    if self._stop:
+                        break
+                    t1 = time.perf_counter()
+                    n += warm_stage(stage, **geo)
+                    walls[f"{stage}_s"] = round(time.perf_counter() - t1, 6)
+                if sp is not None:
+                    sp.set(compiled=n, **walls)
+            dur = time.perf_counter() - t0
+            telemetry.counter("survey.precompiled", n)
+            trace = self._traces[target]
+            if trace is not None:
+                trace.span("survey.precompile", t_rel, dur, compiled=n,
+                           **walls)
+            if self.verbose and n:
+                print(f"# survey: {obs.name}: warm pool precompiled {n} "
+                      f"kernel librar(ies) and plan(s) in {dur:.2f}s")
+
     # -- entry point --------------------------------------------------------
 
     def run(self) -> FleetResult:
@@ -1743,6 +1857,13 @@ class FleetScheduler:
                         self._promote_locked(i)
                     self._maybe_stop_locked()
             self._ready.set()
+            if self.warm_pool:
+                # a daemon: a warmer stuck in a build cannot hold the
+                # process at exit (run() waits a bound for it below)
+                self._warm_thread = threading.Thread(
+                    target=self._warmpool_loop, name="survey-warmpool",
+                    daemon=True)
+                self._warm_thread.start()
             workers = (
                 [threading.Thread(target=self._worker,
                                   args=(self._device_q, True),
@@ -1777,6 +1898,10 @@ class FleetScheduler:
             if self._claim_thread is not None:
                 self._claim_thread.join(timeout=5.0)
                 self._claim_thread = None
+            if self._warm_thread is not None:
+                # a warmer failing after the last stage still fails the run
+                self._warm_thread.join(timeout=WARM_JOIN_S)
+                self._warm_thread = None
             self._write_health_json()
             self.result.wall = time.perf_counter() - self._t0
             for m in self._manifests:

@@ -26,7 +26,7 @@ Contracts:
   first, the watchdog's stall and deadline interrupts, device strikes
   and eviction, the admission gate, the health roll-up in ``tlmsum``;
 - the refused flags and keywords exit 2 (raise) naming their ROADMAP.md
-  item.
+  item; ``--fault-chaos`` parses and arms the chaos spray.
 """
 
 import fnmatch
@@ -1059,9 +1059,6 @@ GANG_USAGE = "--gang must be an integer >= 1 or 'auto'"
                  id="flags3-Queue 1 item 14"),
     pytest.param(["--gang", "0", "--daemon"], GANG_USAGE,
                  id="flags4-Queue 1 item 14"),
-    (["--fault-chaos", "3:0.01", "--status-port", "0"], "Queue 1 item 16"),
-    (["--status", "--follow", "--fault-chaos", "1:0.1"], "Queue 1 item 16"),
-    (["--fault-chaos", "3:0.01"], "Queue 1 item 16"),
 ])
 def test_refused_flags_exit_2_naming_their_item(tmp_path, capsys, flags,
                                                 item):
@@ -1074,9 +1071,33 @@ def test_refused_flags_exit_2_naming_their_item(tmp_path, capsys, flags,
     assert rc == 2
     err = capsys.readouterr().err
     assert item in err
-    if item != GANG_USAGE:
-        assert "not ported yet" in err
     assert not os.path.exists(tmp_path / "out")
+
+
+# chaos mode is ported: the argv that exited 2 while --fault-chaos was
+# refused now parse, and a run arms the spray before its fleet starts
+@pytest.mark.parametrize("flags, runs", [
+    (["--fault-chaos", "3:0.01", "--status-port", "0"], "_run"),
+    (["--status", "--follow", "--fault-chaos", "1:0.1"], "_status"),
+    (["--fault-chaos", "3:0.01"], "_run"),
+])
+def test_fault_chaos_parses_and_arms_the_spray(tmp_path, monkeypatch,
+                                               flags, runs):
+    armed = []
+
+    def stand_in(*args, **kw):
+        armed.append(faultinject.chaos_active())
+        return 0
+
+    monkeypatch.setattr(survey, runs, stand_in)
+    argv = ["x.fil", "-o", str(tmp_path / "out"), "--device", "cpu",
+            *flags]
+    assert survey.main(argv) == 0
+    args = survey.build_parser().parse_args(argv)
+    spec = flags[flags.index("--fault-chaos") + 1]
+    assert args.fault_chaos == spec
+    # --status reads the manifests and arms nothing; a run arms chaos
+    assert armed == [runs == "_run"]
 
 
 def test_refused_scheduler_keywords_raise_naming_their_item(tmp_path):

@@ -59,8 +59,9 @@ WORK_COUNTERS = ("sweep.chunks", "sweep.trials_completed",
                  "rfifind.intervals")
 #: counter and span names only the JAX package records, with the reason
 JAX_ONLY = {
-    # the compile plane (ROADMAP.md Queue 1 item 16): torch compiles
-    # nothing per shape. The tuning cache's counters the port records
+    # the compile plane: the port's counts are the CUDA kernels' library
+    # loads (ops/_build.load), which a CPU run never makes; JAX compiles
+    # per shape on any backend. The tuning cache's counters the port records
     # too, but only where a stage's knobs are used (see
     # test_work_counters_and_spans_match_reference)
     "compile.": "compile plane",
