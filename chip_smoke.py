@@ -56,8 +56,9 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    (printed, not a check) of whether cuFFT keeps a spectrum's bits when
    the search's transforms are batched, and what batching saves;
 6. the survey's sweep stage on the same file, through the same entry
-   point: ``--accel-search --write-dats`` over 32 trials from DM 54
-   (the survey's defaults: zmax 200, 8 harmonics, sigma 2, batch 32).
+   point: ``--accel-search --write-dats`` over 16 trials from DM 62
+   (the survey's defaults: zmax 200, 8 harmonics, sigma 2, batch 32;
+   the survey's 32 trials cut to 16 for the script's time).
    First its kernels at its own shapes against the plain versions (both
    gather-sum stages of the single-pulse pass's plan and of the series
    pass's, at the group size the stage picks, and boxcar on the
@@ -89,7 +90,7 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    past 2^31), each form's kernel timed on inputs on the card beside its
    bound, its plain version and one ``index_add_`` of the same sums, and
    over all-short and all-long periods, and the polynomial form's wrapper
-   with its host check and upload of the table. Then ``cli.sift`` over the stage's 32 ``.cand`` files (``-s 4
+   with its host check and upload of the table. Then ``cli.sift`` over the stage's 16 ``.cand`` files (``-s 4
    --min-hits 2``), ``cli.foldbatch --datbase`` (``-n 64 --npart 32
    --batch 32``, the 33 x 17 refinement grid), ``cli.pfd_snr --json``,
    ``cli.foldbatch`` on the raw file (the stream source, ``-s 64
@@ -108,8 +109,9 @@ Phases, each of which raises on failure (exit code 1, no result lines):
 
 8. the survey's whole chain (``survey.dag.run_observation``: mask ->
    sweep ``--mask --journal`` -> sift -> fold -> snr) with the survey's
-   default ``SurveyConfig`` from DM 54 (mask on, 1-s intervals, 32
-   trials, the chain journal), on a copy of the phase-4 file with RFI
+   default ``SurveyConfig`` but its trials (mask on, 1-s intervals, the
+   chain journal; ``CHAIN_CFG``: 8 trials DM 58-72 in steps of 2, the
+   default 32 cut for the script's time), on a copy of the phase-4 file with RFI
    written into its data bytes: a square-wave tone of period 16 samples
    at 0/255 on 16 adjacent channels, and +25 counts on every channel over
    one 1-s interval. First the mask stage's gates: the card's block
@@ -142,7 +144,7 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    ``tree_level``, ``tree_snap`` and boxcar, the Fourier run through
    boxcar; wall, DM-trials/s, peak device memory and the tree's adds per
    sample and state bytes printed. (b) ``--accel-search --spectral``
-   over phase 6's 32 trials: every ``.cand``/``.txtcand`` the bytes of
+   over phase 6's 16 trials: every ``.cand``/``.txtcand`` the bytes of
    phase 6's, the DM-70 harmonic found, no series byte copied to the
    host; wall and spectra/s beside phase 6's. (c) The decimated regime
    (``sweep_accel_stream(spectral=True, specfuse_mode="decimate")``, the
@@ -150,7 +152,7 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    with sigma > 10, and the candidates it and the stitched run do not
    match under (0.5, 1.0, 0.5) counted (printed only: decimation is
    circular dedispersion by design). (d) ``run_observation`` with
-   ``SurveyConfig(lodm=54, accel_spectral=True)`` on phase 8's RFI copy:
+   ``SurveyConfig(**CHAIN_CFG, accel_spectral=True)`` on phase 8's RFI copy:
    each ``.cand``/``.txtcand`` the bytes of phase 8's chain, the pulsar
    folded to SNR > 10 from the raw-file stream, a journalled rerun of the
    sweep stage redoing nothing; each stage's wall beside phase 8's. (e)
@@ -196,7 +198,7 @@ Phases, each of which raises on failure (exit code 1, no result lines):
 
 11. the batch broker's lane and the multi-series fold kernel (the
    series-index forms of ``ops/csrc/fold_parts.cu``). (a) Both forms at a
-   lane's size: G = 4 series (phase 6's DM 70, 54, 62 and 85 ``.dat``
+   lane's size: G = 4 series (phase 6's DM 70, 62, 66 and 77 ``.dat``
    files, 2^20 samples, sample times 1, 2, 1 and 0.5 x 64 us), K = 128
    candidates (32 a series, interleaved; f2 = 0 on two series, pdot and
    f2 != 0 on the others), 64 bins, 32 partitions, and at an odd T
@@ -208,7 +210,7 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    alone the same bits; a series index of G refused. Timed as phase 2,
    beside the bound, the plain version and one ``index_add_`` after a
    gather of the rows. (b) ``survey.lane.run_lane`` over 2 observations
-   at the chain's size, phase 8's streamed ``SurveyConfig(lodm=54)``: A
+   at the chain's size, phase 8's streamed ``SurveyConfig(**CHAIN_CFG)``: A
    is phase 8's RFI copy (held to phase 8's artifacts), B a second
    ``io/synth.py`` file from another seed with its own pulsar (DM 62,
    period 2048 samples; held to its own serial ``run_observation``).
@@ -234,7 +236,7 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    (``BASELINE.json`` configs[2]): best candidate within one step's dDM
    of 70, every kernel of the sweep launched. (c) The flat 1024-trial
    sweep of the 4-bit copy: best within 1 of DM 70, the same kernels.
-   (d) ``run_observation`` (``SurveyConfig(lodm=54)``) on an 8-bit
+   (d) ``run_observation`` (``SurveyConfig(**CHAIN_CFG)``) on an 8-bit
    PSRFITS copy of phase 8's RFI file (written beside (a)'s two copies,
    in parallel threads) with phase 8's gates (the tone and
    the interval zapped, < 1% of other cells flagged, a DM-70 harmonic of
@@ -389,7 +391,7 @@ Phases, each of which raises on failure (exit code 1, no result lines):
 18. The survey fleet: ``python -m pypulsar_tpu_torch.cli survey`` (its
    dispatcher's ``main``, in this process) over three full-width files,
    phase 8's RFI copy, phase 11's second file (DM 62, period 2048) and
-   phase 4's clean file, at ``SurveyConfig(lodm=54)``'s flags with
+   phase 4's clean file, at ``SurveyConfig(**CHAIN_CFG)``'s flags with
    ``--devices 1 --max-host-workers 2``, the broker at its default
    window. First the clean file's serial ``run_observation`` (phases 8
    and 11 give the other two). (a) The fleet, traced
@@ -540,8 +542,39 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    ``dat`` readers, 60 mutations each at seed 11: no failure. One ``path
    NAME:`` line each.
 
-Then a line of each phase's wall (``phase walls s:``, the script's time
-budget), one JSON line of per-kernel numbers (each with its launches on every
+23. The data-file tools and psrlint (``PALFA_*`` constants; ~15-25 s).
+   (a) ``autozap`` at a PALFA beam's width: six ``.fft`` files of 2^22
+   samples at 64 us (268 s, 2^21 + 1 bins each, the port's
+   ``write_fft``) of noise, a persistent 60-Hz tone and its harmonic,
+   one file also a pulsar (P 73.1 ms, 5% duty). ``autozap --device cuda``
+   and ``--device cpu`` (in this process): both zaplists must hold both
+   tones, and the masks may differ only at bins whose last honing put
+   them within 1e-6 (relative) of their block's threshold (both detrend
+   in float64; the count is printed). Then ``accelsearch -z 20 --dz 2
+   -n 4`` of the pulsar's file on the card, without and with the card's
+   zaplist: the tones' candidates (within 0.05 Hz of 60 or 120 Hz) must
+   be there without it and gone with it, and the pulsar's (a harmonic of
+   13.68 Hz, sigma > 6) must stay. (b) The host tools on phase 3's small
+   file and phases 6, 7 and 14's outputs: ``combinefil`` of its two
+   channel halves (the data the source's), ``stitchdat`` of two halves
+   of phase 6's DM-70 ``.dat`` 1000 samples apart (the series the
+   original's and the first half's median between), ``mockspecfil2
+   subbands`` (each ``.sub`` its channel), ``demodulate`` of a 2^20-
+   sample ``.dat`` at 2 ms with a BT binary's ``.par`` (PB 0.02 d, A1 2
+   lt-s: samples dropped and added, an even length), ``pfdinfo`` of a
+   phase-7 ``.pfd`` (its attributes the ``PfdFile``'s),
+   ``pulse_energy_distribution -o X.npz`` over phase 14's pulse files
+   and ``coordconv`` through ``python -m pypulsar_tpu_torch.cli``
+   (b > 89 deg at the galactic pole). (c) ``python -m
+   pypulsar_tpu_torch.cli psrlint --json`` on the checkout (started in a
+   child at the phase's start, beside (a) and (b)): exit 0, no finding;
+   and on a temporary tree with one planted violation of each of the 17
+   rules and a stale suppression: exit 1, each rule named. One ``path
+   NAME:`` line each: ``autozap``, ``s27_tools``, ``psrlint``.
+
+Then a line of the script's slowest functions (``function walls s:``,
+each function's calls and inclusive wall, the 40 longest), a line of each
+phase's wall (``phase walls s:``, the script's time budget), one JSON line of per-kernel numbers (each with its launches on every
 driven path, phase 10's ``archive_fold``, ``prepfold``, ``prepfold_par``
 and ``prepfold_cands``, phase 11's ``lane``, phase 12's
 ``psrfits_ddplan``, ``psrfits_flat4``, ``psrfits_chain``, ``float32_fil``
@@ -561,18 +594,21 @@ and ``accel_serial_fallback``, and phase 20's ``mesh_resident_k1``,
 ``mesh_tree_k2``, ``mesh_stage``, ``time_shard_r0``, ``time_shard_r1``
 and ``survey_gang``, phase 3's ``write_dats_plain`` and
 ``write_dats_streamed`` and phase 21's ``tune_search``, ``tune_off``,
-``tune_cache``, ``tune_masked_off`` and ``tune_masked_cache`` and phase
-22's ``chaos_clean`` and ``chaos_fleet`` among them), the card line,
+``tune_cache``, ``tune_masked_off`` and ``tune_masked_cache``, phase
+22's ``chaos_clean`` and ``chaos_fleet`` and phase 23's ``autozap`` and
+``s27_tools`` among them), the card line,
 and the last line ``{"ok": true, "device":
 {...}}``.
 """
 
 import collections
 import concurrent.futures
+import contextlib
 import functools
 import glob
 import hashlib
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -607,6 +643,36 @@ def untuned(tmp) -> None:
 
     path = os.path.join(tmp, "untuned", "tune.json")
     cache.default_cache_path = lambda: path
+
+
+#: each function of this script: [calls, inclusive wall s]
+FUNCTION_WALLS = collections.defaultdict(lambda: [0, 0.0])
+
+
+def _walled(name, fn):
+    @functools.wraps(fn)
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            rec = FUNCTION_WALLS[name]
+            rec[0] += 1
+            rec[1] += time.perf_counter() - t0
+
+    return wrapper
+
+
+def wall_functions() -> None:
+    """Count the calls and inclusive wall of every function of this
+    script (:data:`FUNCTION_WALLS`), for the ``function walls s:`` line
+    that budgets its time."""
+    g = globals()
+    for name, fn in list(g.items()):
+        if callable(fn) and getattr(fn, "__module__", None) == __name__ \
+                and not isinstance(fn, type) and name not in (
+                    "main", "fail", "wall_functions", "_walled"):
+            g[name] = _walled(name, fn)
 
 
 def fail(msg: str) -> None:
@@ -1428,7 +1494,16 @@ class Timed:
         setattr(self.module, self.name, self.real)
 
 
-STAGE_LODM, STAGE_DMS = 54, 32  # the sweep stage's trials: DM 54..85
+# the sweep stage's trials: DM 62..77 (the survey's 32 cut to 16 for the
+# script's time; the pulsar's DM 70 inside)
+STAGE_LODM, STAGE_DMS = 62, 16
+# the survey chains' and fleets' trials: DM 58..72 in steps of 2 (the
+# survey's 32 cut to 8 for the script's time; both pulsars' DMs, 62 and
+# 70, on the grid, each with a trial on either side)
+CHAIN_LODM, CHAIN_DMSTEP, CHAIN_DMS = 58.0, 2.0, 8
+CHAIN_CFG = dict(lodm=CHAIN_LODM, dmstep=CHAIN_DMSTEP, numdms=CHAIN_DMS)
+CHAIN_FLAGS = ["--lodm", str(CHAIN_LODM), "--dmstep", str(CHAIN_DMSTEP),
+               "--numdms", str(CHAIN_DMS)]
 
 
 def check_stage_kernels(fn, device):
@@ -1608,14 +1683,18 @@ FAMILIES = (
 )
 
 
+PROFILE_DMS = 2  # the profiled handoff's trials
+
+
 def profile_handoff(cli, fn, out):
-    """The handoff (``--accel-only``) over 4 trials from DM 68 under
-    torch.profiler: device time by op family, and the device's idle
+    """The handoff (``--accel-only``) over 2 trials from DM 69 under
+    torch.profiler (4 before: the profiler's own host work, cut for the
+    script's time): device time by op family, and the device's idle
     share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    argv = stage_argv(fn, out, 68, 4, ["--accel-only"])
+    argv = stage_argv(fn, out, 69, PROFILE_DMS, ["--accel-only"])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1645,7 +1724,7 @@ def profile_handoff(cli, fn, out):
     fam["dedispersion kernels (gather-sum)"] = ours
     top.sort(key=lambda r: -r[1])
     print("handoff profile: " + json.dumps({
-        "trials": 4, "wall_ms": wall_ms, "kernel_ms": kernel_ms,
+        "trials": PROFILE_DMS, "wall_ms": wall_ms, "kernel_ms": kernel_ms,
         "copy_ms": copy_ms, "idle_share": 1.0 - kernel_ms / wall_ms,
         "by_family_ms": dict(fam),
         "other_ops_ms": dict(other.most_common(8)),
@@ -2334,7 +2413,7 @@ def survey_chain(tmp, fn, info, device, unmasked_stage_s):
     stats_err = check_mask_stage(tmp, rfi, device)
     os.makedirs(os.path.join(tmp, "chain"))
     obs = Observation("rfi", rfi, os.path.join(tmp, "chain", "rfi"))
-    cfg = dag.SurveyConfig(lodm=float(STAGE_LODM))
+    cfg = dag.SurveyConfig(**CHAIN_CFG)
     fill = collections.Counter()
     real_fill = staged.masked_block
 
@@ -2707,7 +2786,7 @@ def spectral_stage(tmp, fn, info, stage_s, stage_numbers):
 
 def decimated_regime(tmp, fn, info):
     """Phase 9 (c): the decimated regime (Fourier engine, one chunk) over
-    the same 32 trials; the pulsar must be found, and the candidates that
+    the same 16 trials; the pulsar must be found, and the candidates that
     the stitched run does not match are counted (the boundary semantics
     differ by design)."""
     import numpy as np
@@ -2778,7 +2857,7 @@ def spectral_chain(tmp, info, device, chain):
     os.makedirs(os.path.join(tmp, "chain_spectral"))
     obs = Observation("rfi", chain["rfi"],
                       os.path.join(tmp, "chain_spectral", "rfi"))
-    cfg = dag.SurveyConfig(lodm=float(STAGE_LODM), accel_spectral=True)
+    cfg = dag.SurveyConfig(**CHAIN_CFG, accel_spectral=True)
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3477,15 +3556,15 @@ def prepfold_phase(tmp, fn, info, device, report):
 # phase 11: the batch broker's lane and the multi-series fold kernel
 # ---------------------------------------------------------------------------
 
-# a lane of 4 observations' series (phase 6's DM 70, 54, 62 and 85 .dat
+# a lane of 4 observations' series (phase 6's DM 70, 62, 66 and 77 .dat
 # files), 32 candidates each, each series at its own sample time
-MULTI_DMS, MULTI_DT_SCALE = (70.0, 54.0, 62.0, 85.0), (1.0, 2.0, 1.0, 0.5)
+MULTI_DMS, MULTI_DT_SCALE = (70.0, 62.0, 66.0, 77.0), (1.0, 2.0, 1.0, 0.5)
 MULTI_ODD_T = 100003  # an odd series length: rows off a 16-byte boundary
 # observation B of the lane: its own pulsar, the geometry of the phase-4
 # file (a period that divides 2^20, so both files keep 2^20 samples)
 LANE_B_DM, LANE_B_PERIOD, LANE_B_SEED = 62.0, 2048, SEED + 13
 # the lane's broker window: the streamed sweep stage has ONE accel batch an
-# observation (32 trials), so the first leader waits for its mate's; a
+# observation (its 8 trials), so the first leader waits for its mate's; a
 # leader closes at once when its mate is aboard or gone
 LANE_WAIT_MS = 5000.0
 
@@ -3733,7 +3812,7 @@ def lane_phase(tmp, info, device, chain):
     if info_b["nsamp"] != info["nsamp"]:
         fail(f"observation B has {info_b['nsamp']} samples, not "
              f"{info['nsamp']}: not the lane's geometry")
-    cfg = dag.SurveyConfig(lodm=float(STAGE_LODM))
+    cfg = dag.SurveyConfig(**CHAIN_CFG)
     os.makedirs(os.path.join(tmp, "chain_b"))
     serial_b = Observation("psrb", fn_b, os.path.join(tmp, "chain_b", "psrb"))
     torch.cuda.synchronize()
@@ -3982,43 +4061,43 @@ def best_cand(out):
     return float(best[0]), float(best[1]), len(rows)
 
 
-def psrfits_sweeps(tmp, fn, card, rfi_fn):
-    """Phase 12 (a-c): PSRFITS copies of the phase-4 file at 8 and 4 bits,
-    their card ingest held to the CPU's on every block the sweeps read,
-    the DDplan sweep of DM 0-500 (configs[2]) on the 8-bit copy and the
-    flat 1024-trial sweep on the 4-bit copy. Returns their launches and
-    (path, write s) of (d)'s copy of ``rfi_fn``."""
+def psrfits_sweeps(tmp, card, setup):
+    """Phase 12 (a-c): PSRFITS copies of the phase-4 file at 8 and 4 bits
+    (written in the background, :func:`start_setup`), their card ingest
+    held to the CPU's on every block of the DDplan's first step (every
+    byte of the file once; its later steps read the same bytes in other
+    blocks, cut for the script's time) and of the flat sweep, the DDplan
+    sweep of DM 0-500 (configs[2]) on the 8-bit copy and the flat
+    1024-trial sweep on the 4-bit copy. Returns their launches and (path,
+    write s) of (d)'s copy of phase 8's RFI file."""
     import argparse
     import numpy as np
 
     from pypulsar_tpu_torch.cli import sweep as cli
     from pypulsar_tpu_torch.io.psrfits import PsrfitsFile
 
-    # the three copies are independent: written in parallel threads
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        f8 = pool.submit(write_fits_copy, fn, os.path.join(tmp, "obs8.fits"),
-                         8, SEED + 12)
-        f4 = pool.submit(write_fits_copy, fn, os.path.join(tmp, "obs4.fits"),
-                         4, SEED + 13)
-        frfi = pool.submit(write_fits_copy, rfi_fn, os.path.join(
-            tmp, "rfi.fits"), 8, SEED + 14, weights=False)
-        (fits8, w8), (fits4, w4) = f8.result(), f4.result()
-        rfi_copy = frfi.result()
+    t0 = time.perf_counter()
+    (fits8, w8), (fits4, w4) = setup["fits8"].result(), \
+        setup["fits4"].result()
+    rfi_copy = setup["rfi_fits"].result()
+    waited_s = time.perf_counter() - t0
     with PsrfitsFile(fits8) as pf:
         plan = cli.make_ddplan(pf, argparse.Namespace(
             lodm=0.0, hidm=FITS_HIDM, plan_numsub=0, resolution=0.0))
     flat_dms = 0.5 * np.arange(1024)
     t0 = time.perf_counter()
+    first = plan.DDsteps[0]
     n8 = check_card_ingest(fits8, sweep_geometries(
-        fits8, [(s.DMs, int(s.downsamp)) for s in plan.DDsteps]), "cuda")
+        fits8, [(first.DMs, int(first.downsamp))]), "cuda")
     n4 = check_card_ingest(fits4, sweep_geometries(fits4, [(flat_dms, 1)]),
                            "cuda")
     ingest_s = time.perf_counter() - t0
     print(f"psrfits ingest: wrote the 8-bit copy in {w8:.1f} s "
           f"({os.path.getsize(fits8) / 1e9:.3f} GB) and the 4-bit copy in "
-          f"{w4:.1f} s ({os.path.getsize(fits4) / 1e9:.3f} GB); the card's "
+          f"{w4:.1f} s ({os.path.getsize(fits4) / 1e9:.3f} GB) in the "
+          f"background (waited {waited_s:.1f} s here); the card's "
           f"blocks the CPU ingest's bits: {n8} blocks of the DDplan's "
-          f"steps (8-bit), {n4} of the flat sweep (4-bit), in "
+          f"first step (8-bit), {n4} of the flat sweep (4-bit), in "
           f"{ingest_s:.1f} s")
     out8 = os.path.join(tmp, "fits_ddplan")
     with PathMeter("psrfits_ddplan", card) as m8:
@@ -4070,7 +4149,7 @@ def psrfits_chain(tmp, chain, info, card, rfi_copy):
     os.makedirs(os.path.join(tmp, "fitschain"))
     obs = Observation("rfi_fits", fits, os.path.join(tmp, "fitschain",
                                                      "rfi"))
-    cfg = dag.SurveyConfig(lodm=float(STAGE_LODM))
+    cfg = dag.SurveyConfig(**CHAIN_CFG)
     with PathMeter("psrfits_chain", card) as m:
         walls = dag.run_observation(obs, cfg, device="cuda")
     need = SWEEP_KERNELS + ("fold_parts_poly",)
@@ -4214,9 +4293,9 @@ def split_mask(tmp, fn, info, card):
     return m.launches
 
 
-def psrfits_phase(tmp, fn, info, chain, card):
+def psrfits_phase(tmp, fn, info, chain, card, setup):
     """Phase 12: returns the launches of each new driven path."""
-    ddplan8, flat4, rfi_copy = psrfits_sweeps(tmp, fn, card, chain["rfi"])
+    ddplan8, flat4, rfi_copy = psrfits_sweeps(tmp, card, setup)
     return {"psrfits_ddplan": ddplan8, "psrfits_flat4": flat4,
             "psrfits_chain": psrfits_chain(tmp, chain, info, card,
                                            rfi_copy),
@@ -4581,6 +4660,37 @@ def write_hour_dat(base, amp, seed, n=None, dt=HOUR_DT, z0=None):
     inf.to_file(base + ".inf")
 
 
+def write_hour(base, amp, seed):
+    write_hour_dat(base, amp, seed)
+    return base
+
+
+def start_setup(tmp, fn, rfi_fn):
+    """Start the input files of phases 12 and 14 in the background, in
+    processes of their own beside phases 9-11: the PSRFITS copies of
+    ``fn`` at 8 and 4 bits and of phase 8's RFI file ``rfi_fn`` (each
+    future's result: path, write s), then the 1-h ``.dat`` files (each:
+    its base). Returns the futures and the pool, which the caller shuts
+    down."""
+    # spawn: a child of a process holding the card must not fork it
+    pool = concurrent.futures.ProcessPoolExecutor(
+        3, mp_context=multiprocessing.get_context("spawn"))
+    hdir = os.path.join(tmp, "hour")
+    os.makedirs(hdir)
+    setup = {"pool": pool,
+             "fits8": pool.submit(write_fits_copy, fn, os.path.join(
+                 tmp, "obs8.fits"), 8, SEED + 12),
+             "fits4": pool.submit(write_fits_copy, fn, os.path.join(
+                 tmp, "obs4.fits"), 4, SEED + 13),
+             "rfi_fits": pool.submit(write_fits_copy, rfi_fn, os.path.join(
+                 tmp, "rfi.fits"), 8, SEED + 14, weights=False)}
+    # the 1-h files are independent (a seed each)
+    setup["hour"] = [pool.submit(write_hour, os.path.join(hdir, f"hour{i}"),
+                                 amp, SEED + 40 + i)
+                     for i, amp in enumerate(HOUR_AMPS)]
+    return setup
+
+
 def link_inputs(dirname, bases, exts=(".dat", ".inf")):
     """Symlinks of the inputs in a directory of their own (a multi-file
     run writes each output beside its input)."""
@@ -4628,8 +4738,9 @@ def contract_misses(a, b, max_cands=200, margin=0.5):
     return miss(a, b) + miss(b, a)
 
 
-def hour_runs(tmp, card, device):
-    """Phase 14 (a)-(d): the 1-hour files through the card's search."""
+def hour_runs(tmp, card, device, setup):
+    """Phase 14 (a)-(d): the 1-hour files (written in the background,
+    :func:`start_setup`) through the card's search."""
     import numpy as np
 
     from pypulsar_tpu_torch.cli import accelsearch as acli
@@ -4637,20 +4748,14 @@ def hour_runs(tmp, card, device):
     from pypulsar_tpu_torch.fourier import accelsearch, kernels
     from pypulsar_tpu_torch.io.prestocand import read_rzwcands
 
-    print("cut: 4096 DM trials -> 7 spectra of 1 h (BASELINE.json "
-          "configs[4]: 4 searched with device prep, 2 with host prep, 1 "
+    print("cut: 4096 DM trials -> 6 spectra of 1 h (BASELINE.json "
+          "configs[4]: 4 searched with device prep, 1 with host prep, 1 "
           "serially)")
-    hdir = os.path.join(tmp, "hour")
-    os.makedirs(hdir)
     t0 = time.perf_counter()
-    bases = [os.path.join(hdir, f"hour{i}") for i in range(len(HOUR_AMPS))]
-    # the files are independent (a seed each): written in parallel threads
-    with concurrent.futures.ThreadPoolExecutor(len(bases)) as pool:
-        list(pool.map(write_hour_dat, bases, HOUR_AMPS,
-                      [SEED + 40 + i for i in range(len(bases))]))
+    bases = [f.result() for f in setup["hour"]]
     print(f"wrote {len(bases)} x {HOUR_N} samples "
-          f"({4 * HOUR_N / 1e6:.0f} MB each) in parallel in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"({4 * HOUR_N / 1e6:.0f} MB each) in the background (waited "
+          f"{time.perf_counter() - t0:.1f} s here)")
     T = HOUR_N * HOUR_DT
     # F2: one 1-hour series' card prep against float64 and the CPU's
     series = np.fromfile(bases[0] + ".dat", dtype=np.float32)[None]
@@ -4661,7 +4766,7 @@ def hour_runs(tmp, card, device):
     launches = {}
     runs = {
         "accel_hour_batch4": ("a", bases, ["--batch", "4"]),
-        "accel_hour_hostprep": ("b", bases[:2], ["--batch", "2",
+        "accel_hour_hostprep": ("b", bases[:1], ["--batch", "1",
                                                  "--no-device-prep"]),
         "accel_hour_serial": ("c", bases[:1], ["--batch", "1"]),
     }
@@ -5003,9 +5108,9 @@ def clear_accel_counters(what):
     accel_counters().clear()
 
 
-def accel_hour_phase(tmp, fn, info, card, device="cuda"):
+def accel_hour_phase(tmp, fn, info, card, setup, device="cuda"):
     """Phase 14: returns the launches of each new driven path."""
-    launches = hour_runs(tmp, card, device)
+    launches = hour_runs(tmp, card, device, setup)
     launches.update(fft_and_options(tmp, card, device))
     launches.update(hostprep_stage(tmp, fn, info, card))
     pulse_tools(tmp, info, card)
@@ -6163,7 +6268,7 @@ def resident_phase(tmp, fn, card, gather_res, gather_launches):
 # phase 18: the survey fleet
 # ---------------------------------------------------------------------------
 
-FLEET_FLAGS = ["--lodm", str(STAGE_LODM), "--devices", "1",
+FLEET_FLAGS = [*CHAIN_FLAGS, "--devices", "1",
                "--max-host-workers", "2", *UNTUNED]
 FLEET_STAGES = ("mask", "sweep", "sift", "fold", "snr")
 FLEET_DEVICE_STAGES = ("mask", "sweep", "fold")
@@ -6293,7 +6398,7 @@ def fleet_phase(tmp, fn, info, chain, card, device="cuda"):
         status_rows,
     )
 
-    cfg = dag.SurveyConfig(lodm=float(STAGE_LODM))
+    cfg = dag.SurveyConfig(**CHAIN_CFG)
     serial_b = chain["serial_b"]
     # the third file's serial chain (phases 8 and 11 give the other two)
     os.makedirs(os.path.join(tmp, "chain_obs"))
@@ -7325,13 +7430,13 @@ def mesh_resident(fn, card):
 
     from pypulsar_tpu_torch.io.filterbank import FilterbankFile
     from pypulsar_tpu_torch.parallel import staged, sweep
-    from pypulsar_tpu_torch.parallel.mesh import make_mesh
+    from pypulsar_tpu_torch.parallel.mesh import explicit_device, make_mesh
 
     with FilterbankFile(fn) as r:
         src = staged.ReaderSource(r)
         (_, data), = list(src.chan_major_blocks(src.nsamples, 0, "cuda"))
         freqs, dt = src.frequencies, src.tsamp
-    card0 = torch.device("cuda", torch.cuda.current_device())
+    card0 = explicit_device("cuda")
     dms = 0.5 * np.arange(1024)
     kw = dict(nsub=64, group_size=RESIDENT_GROUP,
               chunk_payload=RESIDENT_CHUNK, device="cuda")
@@ -7416,12 +7521,12 @@ def mesh_stage(tmp, fn):
     import torch
 
     from pypulsar_tpu_torch.cli import sweep as cli
-    from pypulsar_tpu_torch.parallel.mesh import device_lease
+    from pypulsar_tpu_torch.parallel.mesh import device_lease, explicit_device
 
     out = os.path.join(tmp, "stage_mesh")
     argv = stage_argv(fn, out, STAGE_LODM, STAGE_DMS,
                       ["--write-dats", "--mesh", "2"])
-    card0 = torch.device("cuda", torch.cuda.current_device())
+    card0 = explicit_device("cuda")
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -7804,6 +7909,414 @@ def chaos_phase(tmp, small_fn, card):
     return {"chaos_clean": pm_clean.launches, "chaos_fleet": pm.launches}
 
 
+#: phase 23 (a): a PALFA beam's series (2^22 samples at 64 us, 268 s);
+#: a session's dozens of beams cut to 6
+PALFA_N, PALFA_DT, PALFA_BEAMS = 1 << 22, 64e-6, 6
+PALFA_TONES = (60.0, 120.0)  # mains and its first harmonic, in every beam
+PALFA_PSR_P, PALFA_PSR_BEAM = 0.0731, 2  # s; the one beam with a pulsar
+ZAP_MASK_RTOL = 1e-6  # card and CPU masks may differ only this near
+ZAP_ACCEL = ["-z", "20", "--dz", "2", "-n", "4"]
+#: phase 23 (c): one planted violation of each rule, and a stale
+#: suppression (PL010); the sources are whole lines, so none of these
+#: strings is itself a fault spec or a telemetry name of this script
+LINT_PLANTED = {
+    "pypulsar_tpu_torch/planted.py": (
+        "import os, threading, torch\n"
+        "from pypulsar_tpu_torch.obs import telemetry\n"
+        "def f(a, n, out, acc=[]):\n"
+        "    x = a[n / 2]\n"
+        "    torch.cuda.set_device(0)\n"
+        "    open(out + '.cands', 'w').write('x')\n"
+        "    telemetry.span('planted')\n"
+        "    t = threading.Thread(target=print)\n"
+        "    t.start()\n"
+        "    telemetry.event('survey.planted_orphan', n=1)\n"
+        "    g = torch.compile(lambda y: y)\n"
+        "    return x, acc, os.getenv('HOME'), g\n"
+        "def h():  # psrlint: ignore[PL001] -- stale\n"
+        "    return 1\n"),
+    "pypulsar_tpu_torch/locking.py": (
+        "import threading\n"
+        "a_lock, b_lock = threading.Lock(), threading.Lock()\n"
+        "a_cv = threading.Condition()\n"
+        "def one(x):\n"
+        "    with a_lock:\n"
+        "        with b_lock:\n"
+        "            return x.item()\n"
+        "def two():\n"
+        "    with b_lock:\n"
+        "        with a_lock:\n"
+        "            pass\n"
+        "    a_lock.acquire()\n"
+        "    a_lock.release()\n"
+        "    with a_cv:\n"
+        "        a_cv.wait()\n"),
+    "pypulsar_tpu_torch/tune/knobs.py": (
+        "def _declare(name, stage, ktype, **kw):\n"
+        "    pass\n"
+        "def resolve(stage, name):\n"
+        "    pass\n"
+        "_declare('chunk', 'sweep', 'int')\n"
+        "def f():\n"
+        "    return resolve('sweep', 'chunkk')\n"),
+    "pypulsar_tpu_torch/io/planted.py": (
+        "import struct\n"
+        "def header(f):\n"
+        "    return struct.unpack('<i', f.read(4))\n"),
+    "pypulsar_tpu_torch/survey/planted.py": (
+        "def run(fn):\n"
+        "    try:\n"
+        "        return fn()\n"
+        "    except Exception:\n"
+        "        return None\n"),
+    "tests/test_torch_planted.py": (
+        "from pypulsar_tpu_torch.resilience import faultinject\n"
+        "def test_ghost():\n"
+        "    faultinject.configure('oom:ghost.planted:1')\n"),
+}
+
+
+def write_palfa_beams(d):
+    """Phase 23 (a)'s six ``.fft`` files; returns their paths."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.fourier.prestofft import write_fft
+    from pypulsar_tpu_torch.io.infodata import InfoData
+
+    os.makedirs(d)
+    rng = np.random.default_rng(SEED + 23)
+    t = np.arange(PALFA_N) * PALFA_DT
+    tones = (0.05 * np.sin(2 * np.pi * PALFA_TONES[0] * t)
+             + 0.02 * np.sin(2 * np.pi * PALFA_TONES[1] * t)).astype(
+                 np.float32)
+    fns = []
+    for i in range(PALFA_BEAMS):
+        x = rng.standard_normal(PALFA_N, dtype=np.float32) + tones
+        if i == PALFA_PSR_BEAM:
+            x += np.float32(0.1) * ((t / PALFA_PSR_P) % 1.0 < 0.05)
+        inf = InfoData()
+        inf.basenm, inf.object = f"beam{i}", f"PALFA_BEAM{i}"
+        inf.epoch, inf.dt, inf.N = 55000.0, PALFA_DT, PALFA_N
+        inf.telescope, inf.bary, inf.DM = "Arecibo", 1, 0.0
+        inf.RA, inf.DEC = "19:00:00.0000", "05:00:00.0000"
+        inf.lofreq, inf.BW, inf.numchan, inf.chan_width = (
+            1214.0, 300.0, 1, 300.0)
+        fns.append(os.path.join(d, f"beam{i}.fft"))
+        write_fft(fns[-1], np.fft.rfft(x).astype(np.complex64), inf)
+    return fns
+
+
+def zapped(zapfn, f0):
+    """Whether a row of the zaplist (centre, half-width) covers ``f0``."""
+    import numpy as np
+
+    rows = np.atleast_2d(np.loadtxt(zapfn))
+    return bool(any(c - w <= f0 <= c + w for c, w in rows))
+
+
+def autozap_path(tmp, card):
+    """Phase 23 (a): autozap on the card against the CPU at a PALFA beam's
+    width, then the card's zaplist through ``accelsearch --zapfile``."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import accelsearch as acli
+    from pypulsar_tpu_torch.cli import autozap
+    from pypulsar_tpu_torch.io.prestocand import read_rzwcands
+
+    d = os.path.join(tmp, "palfa")
+    t0 = time.perf_counter()
+    fns = write_palfa_beams(d)
+    write_s = time.perf_counter() - t0
+    out, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        base = os.path.join(d, f"zap_{dev}")
+        with PathMeter("autozap", card) as pm:
+            rc, _ = run_quiet(autozap.main, fns + [
+                "-o", base, "--device", dev, "--plotfile", base + ".npz"])
+        if rc != 0:
+            fail(f"autozap --device {dev} exited {rc}")
+        for f0 in PALFA_TONES:
+            if not zapped(base + ".zaplist", f0):
+                fail(f"autozap --device {dev}: the {f0}-Hz tone is not in "
+                     f"its zaplist")
+        with np.load(base + ".npz") as z:
+            out[dev] = {k: z[k] for k in ("mask", "margins")}
+        walls[dev] = pm.wall_s
+        if dev == "cuda":
+            card_pm = pm
+    differ = np.flatnonzero(out["cuda"]["mask"] != out["cpu"]["mask"])
+    near = np.minimum(np.abs(out["cuda"]["margins"][differ]),
+                      np.abs(out["cpu"]["margins"][differ]))
+    far = differ[~(near <= ZAP_MASK_RTOL)]
+    if far.size:
+        fail(f"autozap: the card's and the CPU's masks differ at "
+             f"{far.size} bins farther than {ZAP_MASK_RTOL} from their "
+             f"thresholds (bins {far[:5].tolist()})")
+    max_margin_diff = float(np.nanmax(np.abs(
+        out["cuda"]["margins"] - out["cpu"]["margins"])))
+
+    # the card's zaplist through the accel search of the pulsar's beam
+    psr = fns[PALFA_PSR_BEAM]
+    T = PALFA_N * PALFA_DT
+    found = {}
+    for label, extra in (("bare", []), ("zapped", [
+            "--zapfile", os.path.join(d, "zap_cuda.zaplist")])):
+        ob = os.path.join(d, f"accel_{label}")
+        # phase 22's chaos spray may have made serial fallbacks: faulted
+        # by design, so cleared here, not checked
+        accel_counters().clear()
+        with PathMeter("autozap_accel", card) as pm:
+            rc, _ = run_quiet(acli.main, [psr, *ZAP_ACCEL, "-o", ob,
+                                          "--device", "cuda", *extra])
+        if rc != 0 or accel_counters()["accel.serial_fallbacks"]:
+            fail(f"accelsearch {label} exited {rc}")
+        cands = read_rzwcands(f"{ob}_ACCEL_{ZAP_ACCEL[1]}.cand")
+        freqs = np.array([c.r / T for c in cands])
+        sigs = np.array([c.sig for c in cands])
+        tone = [f for f in freqs
+                if min(abs(f - f0) for f0 in PALFA_TONES) < 0.05]
+        k = np.round(freqs * PALFA_PSR_P)
+        psr_hit = (k >= 1) & (np.abs(freqs - k / PALFA_PSR_P) < 0.01) & (
+            sigs > 6.0)
+        found[label] = {"cands": len(cands), "tone_cands": len(tone),
+                        "pulsar_best_sigma": float(sigs[psr_hit].max())
+                        if psr_hit.any() else 0.0, "wall_s": pm.wall_s}
+    if not found["bare"]["tone_cands"] or found["zapped"]["tone_cands"]:
+        fail(f"accelsearch --zapfile: the tones' candidates are not there "
+             f"without the zaplist or not gone with it: {found}")
+    if found["zapped"]["pulsar_best_sigma"] <= 6.0:
+        fail(f"accelsearch --zapfile lost the pulsar: {found}")
+    card_pm.line(beams=PALFA_BEAMS, nsamp=PALFA_N, dt=PALFA_DT,
+                 write_s=write_s, cuda_s=walls["cuda"], cpu_s=walls["cpu"],
+                 masked_bins=int(out["cuda"]["mask"].sum()),
+                 mask_differences=int(differ.size),
+                 max_margin_difference=max_margin_diff, accel=found)
+    return {"autozap": card_pm.launches}
+
+
+def tools_path(tmp, small_fn, card, coord_child):
+    """Phase 23 (b): the host tools on phases 3, 6, 7 and 14's files;
+    ``coord_child`` is (Popen, stdout path) of ``python -m
+    pypulsar_tpu_torch.cli coordconv``."""
+    import re
+
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import (combinefil, demodulate,
+                                        mockspecfil2subbands, pfdinfo,
+                                        pulse_energy_distribution,
+                                        stitchdat)
+    from pypulsar_tpu_torch.io.datfile import write_dat
+    from pypulsar_tpu_torch.io.filterbank import (FilterbankFile,
+                                                  write_filterbank)
+    from pypulsar_tpu_torch.io.infodata import InfoData
+    from pypulsar_tpu_torch.io.parfile import write_par
+    from pypulsar_tpu_torch.io.prestopfd import PfdFile
+
+    d = os.path.join(tmp, "s27")
+    os.makedirs(d)
+    numbers = {}
+    with PathMeter("s27_tools", card) as pm:
+        # combinefil of the two channel halves of phase 3's file
+        t0 = time.perf_counter()
+        with FilterbankFile(small_fn) as fb:
+            hdr, data = dict(fb.header), fb.get_samples(0, fb.nspec)
+        half = hdr["nchans"] // 2
+        halves = []
+        for i in range(2):
+            h = dict(hdr, nchans=half,
+                     fch1=hdr["fch1"] + i * half * hdr["foff"])
+            halves.append(os.path.join(d, f"half{i}.fil"))
+            write_filterbank(halves[-1], h,
+                             data[:, i * half:(i + 1) * half])
+        comb = os.path.join(d, "comb.fil")
+        rc, _ = run_quiet(combinefil.main, halves[::-1] + ["-o", comb])
+        with FilterbankFile(comb) as fb:
+            same = (fb.header["nchans"] == hdr["nchans"]
+                    and fb.header["fch1"] == hdr["fch1"]
+                    and np.array_equal(fb.get_samples(0, fb.nspec), data))
+        if rc != 0 or not same:
+            fail(f"combinefil: exit {rc}, data the source's: {same}")
+        numbers["combinefil_s"] = time.perf_counter() - t0
+
+        # stitchdat of two halves of phase 6's DM-70 series, 1000 apart
+        t0 = time.perf_counter()
+        src = os.path.join(tmp, "stage_DM70.00")
+        ts = np.fromfile(src + ".dat", dtype=np.float32)
+        inf = InfoData(src + ".inf")
+        cut, gap = ts.size // 2, 1000
+        parts = []
+        for i, (lo, hi) in enumerate(((0, cut), (cut + gap, ts.size))):
+            part = InfoData(src + ".inf")
+            part.epoch = inf.epoch + lo * inf.dt / 86400.0
+            part.N = hi - lo
+            parts.append(os.path.join(d, f"part{i}"))
+            write_dat(parts[-1], ts[lo:hi], part)
+        stitched = os.path.join(d, "stitched")
+        rc, _ = run_quiet(stitchdat.main, [p + ".dat" for p in parts]
+                          + ["-o", stitched])
+        got = np.fromfile(stitched + ".dat", dtype=np.float32)
+        want = ts.copy()
+        want[cut:cut + gap] = np.median(ts[:cut])
+        if rc != 0 or not np.array_equal(got, want):
+            fail(f"stitchdat: exit {rc}, {got.size} samples against "
+                 f"{want.size}, equal: {np.array_equal(got, want)}")
+        numbers["stitchdat_s"] = time.perf_counter() - t0
+
+        # mockspecfil2subbands: each .sub file one channel, low first
+        t0 = time.perf_counter()
+        subs = os.path.join(d, "subs")
+        rc, _ = run_quiet(mockspecfil2subbands.main, [small_fn, "-o", subs])
+        C = hdr["nchans"]
+        bad = [j for j in range(C) if not np.array_equal(
+            np.fromfile(f"{subs}.sub{j:04d}", dtype=np.uint8),
+            data[:, C - 1 - j if hdr["foff"] < 0 else j])]
+        if rc != 0 or bad:
+            fail(f"mockspecfil2subbands: exit {rc}, channels wrong: "
+                 f"{bad[:5]}")
+        numbers["mockspecfil2subbands_s"] = time.perf_counter() - t0
+
+        # demodulate a binary's series: samples dropped and added
+        t0 = time.perf_counter()
+        n, dt = 1 << 20, 2e-3
+        binf = InfoData()
+        binf.epoch, binf.dt, binf.N, binf.bary, binf.DM = (
+            55000.0, dt, n, 1, 0.0)
+        binf.telescope, binf.object = "Arecibo", "BINARY"
+        binf.RA, binf.DEC = "19:00:00.0000", "05:00:00.0000"
+        binf.lofreq, binf.BW, binf.numchan, binf.chan_width = (
+            1214.0, 300.0, 1, 300.0)
+        binbase = os.path.join(d, "binary")
+        write_dat(binbase, np.random.default_rng(SEED).standard_normal(
+            n).astype(np.float32), binf)
+        par = os.path.join(d, "binary.par")
+        write_par(par, dict(PSR="J1900+0500", F0=100.0, F1=0.0,
+                            PEPOCH=55000.0, DM=0.0, RAJ="19:00:00",
+                            DECJ="05:00:00", BINARY="BT", A1=2.0, PB=0.02,
+                            T0=55000.0, OM=0.0, E=0.0))
+        cwd = os.getcwd()
+        os.chdir(d)  # the scratch ephemeris is written in the cwd
+        try:
+            rc, said = run_quiet(demodulate.main, [binbase + ".dat", "-f",
+                                                   par])
+        finally:
+            os.chdir(cwd)
+        nrem = int(said.split("removed:")[1].split()[0])
+        nadd = int(said.split("added:")[1].split()[0])
+        nout = os.path.getsize(binbase + "_demod.dat") // 4
+        if rc != 0 or not (nrem and nadd) or nout % 2 or \
+                nout != n + nadd - nrem - (n + nadd - nrem) % 2 or \
+                InfoData(binbase + "_demod.inf").N != nout:
+            fail(f"demodulate: exit {rc}, removed {nrem}, added {nadd}, "
+                 f"{nout} samples")
+        numbers.update(demodulate_s=time.perf_counter() - t0,
+                       demodulate_removed=nrem, demodulate_added=nadd)
+
+        # pfdinfo of a phase-7 archive
+        pfd_fn = sorted(glob.glob(os.path.join(tmp, "fold_dats_*.pfd")))[0]
+        rc, said = run_quiet(pfdinfo.main, [pfd_fn, "-a",
+                                            "candnm,proflen,npart,nsub"])
+        pfd = PfdFile(pfd_fn)
+        want = "\t".join(str(getattr(pfd, a)) for a in (
+            "candnm", "proflen", "npart", "nsub"))
+        if rc != 0 or said.strip() != want:
+            fail(f"pfdinfo: exit {rc}, {said!r} against {want!r}")
+
+        # pulse_energy_distribution over phase 14's pulse files
+        profs = glob.glob(os.path.join(tmp, "pulses", "psr.prof*"))
+        npz = os.path.join(d, "energies.npz")
+        rc, _ = run_quiet(pulse_energy_distribution.main,
+                          profs + ["-q", "-o", npz])
+        with np.load(npz) as z:
+            energies, counts = z["energies"], z["counts"]
+        if rc != 0 or not np.isfinite(energies).all() or \
+                not 0 < energies.size <= len(profs) or \
+                counts.sum() != energies.size:
+            fail(f"pulse_energy_distribution: exit {rc}, "
+                 f"{energies.size} energies of {len(profs)} files")
+        numbers["pulse_files"] = len(profs)
+
+        # coordconv through the dispatcher, in the child started with
+        # the phase
+        proc, log = coord_child
+        rc = proc.wait(timeout=120)
+        with open(log) as f:
+            said = f.read()
+        lb = [float(v) for v in re.findall(r"-?\d+\.\d*", said)]
+        if rc != 0 or len(lb) != 2 or not lb[1] > 89.0:
+            fail(f"coordconv: exit {rc}, {said[-500:]!r}")
+        numbers["galactic"] = lb
+    pm.line(**numbers)
+    return {"s27_tools": pm.launches}
+
+
+def start_children(tmp):
+    """Phase 23's children, started together: (c)'s two linters (the
+    checkout and the planted tree) and (b)'s ``coordconv``. Returns
+    [(name, Popen, stdout path)] and the time they started."""
+    plant = os.path.join(tmp, "lint_planted")
+    for rel, src in LINT_PLANTED.items():
+        path = os.path.join(plant, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(src)
+    kids = []
+    for name, argv in (
+            ("checkout", ["psrlint", "--json"]),
+            ("planted", ["psrlint", "--json", "--root", plant]),
+            ("coordconv", ["coordconv", "192.25", "27.4"])):
+        log = os.path.join(tmp, f"child_{name}.out")
+        with open(log, "w") as f:
+            kids.append((name, subprocess.Popen(
+                [sys.executable, "-m", "pypulsar_tpu_torch.cli", *argv],
+                cwd=HERE, stdout=f, stderr=subprocess.STDOUT), log))
+    return kids, time.perf_counter()
+
+
+def check_psrlint(kids, t0, card):
+    """Phase 23 (c): the checkout is clean, the planted tree names every
+    rule."""
+    from pypulsar_tpu_torch.analysis import all_rules
+
+    reports = {}
+    for name, proc, log in kids[:2]:
+        rc = proc.wait(timeout=600)
+        with open(log) as f:
+            text = f.read()
+        try:
+            reports[name] = (rc, json.loads(text))
+        except ValueError:
+            fail(f"psrlint on the {name} tree exited {rc}: {text[-1500:]}")
+    wall = time.perf_counter() - t0
+    rc, doc = reports["checkout"]
+    if rc != 0 or doc["findings"]:
+        fail(f"psrlint on the checkout exited {rc}: {doc['findings'][:5]}")
+    rc, planted = reports["planted"]
+    want = {r.code for r in all_rules()} | {"PL010"}
+    if rc != 1 or set(planted["counts"]) != want:
+        fail(f"psrlint on the planted tree exited {rc}, named "
+             f"{sorted(planted['counts'])}, not {sorted(want)}")
+    print("path psrlint: " + json.dumps({
+        "wall_s": wall, "files": doc["files"], "rules": len(doc["rules"]),
+        "findings": 0, "planted_counts": planted["counts"],
+        "card": card}))
+
+
+def tools_phase(tmp, small_fn, card):
+    """Phase 23: returns the launches of (a) and (b)."""
+    kids, t0 = start_children(tmp)
+    try:
+        launches = autozap_path(tmp, card)
+        launches.update(tools_path(tmp, small_fn, card, kids[2][1:]))
+        check_psrlint(kids, t0, card)
+    finally:
+        for _, proc, _ in kids:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -7816,6 +8329,8 @@ def main() -> int:
         fail("no CUDA device: this smoke test runs on the card only")
     sys.path.insert(0, HERE)
     from pypulsar_tpu_torch.ops import _build
+
+    wall_functions()
 
     card = card_line()
     t_start = time.perf_counter()
@@ -7840,7 +8355,8 @@ def main() -> int:
     check_small_accel(device)
     probe_batched_transforms(device)
     mark("2 kernels, 5 accel")
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as stack:
         untuned(tmp)
         small_fn = check_small_sweep(tmp)
         plain_paths = plain_write_dats(tmp, small_fn, card)
@@ -7854,6 +8370,9 @@ def main() -> int:
         fold_dats, fold_stream = fold_stage(tmp, fn, info, device, report)
         mark("7 fold")
         chain = survey_chain(tmp, fn, info, device, stage_s)
+        setup = start_setup(tmp, fn, chain["rfi"])
+        # on a failure too: no writer outlives the script or its temp dir
+        stack.callback(setup["pool"].shutdown, cancel_futures=True)
         mark("8 chain")
         engines = engine_paths(tmp, fn, info, device, report, gather_res)
         spectral = spectral_stage(tmp, fn, info, stage_s, stage_numbers)
@@ -7866,11 +8385,12 @@ def main() -> int:
         lane_launches = lane_and_multi_phase(tmp, info, device, report,
                                              chain)
         mark("11 lane")
-        fits_paths = psrfits_phase(tmp, fn, info, chain, card)
+        fits_paths = psrfits_phase(tmp, fn, info, chain, card, setup)
         mark("12 inputs")
         spectra_paths = spectra_phase(tmp, fn, card)
         mark("13 spectra")
-        hour_paths = accel_hour_phase(tmp, fn, info, card)
+        hour_paths = accel_hour_phase(tmp, fn, info, card, setup)
+        setup["pool"].shutdown()
         mark("14 1-h search")
         resume_paths = resume_phase(tmp, fn, info, card)
         mark("15 resume")
@@ -7889,6 +8409,8 @@ def main() -> int:
         mark("21 tune")
         chaos_paths = chaos_phase(tmp, small_fn, card)
         mark("22 chaos, race, fuzz")
+        tools_paths = tools_phase(tmp, small_fn, card)
+        mark("23 tools, psrlint")
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -7900,7 +8422,8 @@ def main() -> int:
              "lane": lane_launches, **fits_paths, **spectra_paths,
              **hour_paths, **resume_paths, **telemetry_paths,
              **resident_paths, **fleet_paths, **plane_paths,
-             **mesh_paths, **plain_paths, **tune_paths, **chaos_paths}
+             **mesh_paths, **plain_paths, **tune_paths, **chaos_paths,
+             **tools_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}
@@ -7916,12 +8439,16 @@ def main() -> int:
                  else engines["tree"] if k["name"].startswith(
                      "gather_sum/tree") else launches)
         k["launches"] = first[k["name"]]
+    slowest = sorted(FUNCTION_WALLS.items(), key=lambda kv: -kv[1][1])[:40]
+    print("function walls s: " + json.dumps(dict(slowest)))
     print("phase walls s: " + json.dumps(phase_s))
     print(json.dumps({"kernels": report}))
     print(card)
+    # the contract's card count: every card, not a lease's
+    count = torch.cuda.device_count()  # psrlint: ignore[PL002] -- the contract
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": count}}))
     return 0
 
 

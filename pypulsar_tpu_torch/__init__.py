@@ -14,4 +14,14 @@ The port imports ``torch``, numpy and scipy, never ``jax`` and nothing of
 unless the caller passes ``device="cpu"``.
 """
 
-from pypulsar_tpu_torch.core.spectra import Spectra  # noqa: E402,F401
+__all__ = ["Spectra"]
+
+
+def __getattr__(name):
+    # imported on first use: a tool that needs no torch (psrlint,
+    # coordconv, pfdinfo) starts without paying torch's import
+    if name == "Spectra":
+        from pypulsar_tpu_torch.core.spectra import Spectra
+
+        return Spectra
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

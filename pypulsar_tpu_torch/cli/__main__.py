@@ -27,10 +27,8 @@ TOOLS = [
 #: the JAX package's tools the port does not have yet, with the ROADMAP.md
 #: item that brings each
 NOT_PORTED = {tool: "Queue 1 item 16" for tool in (
-    "pulse_energy_distribution", "autozap", "combinefil",
-    "stitchdat", "mockspecfil2subbands", "demodulate", "pfdinfo",
     "gridding", "fitkepler", "shapiro", "pbdot", "massfunc", "pyppdot",
-    "pyplotres", "coordconv", "psrlint")}
+    "pyplotres")}
 
 
 def main(argv=None) -> int:

@@ -239,8 +239,10 @@ class SpectraInfo:
         self.num_polns = subint["NPOL"]
         self._validate_subint(ii, subint)
 
-        # PSRFITS_POLN env override (reference :275-282)
-        envval = os.getenv("PSRFITS_POLN")
+        # PSRFITS_POLN env override (reference :275-282): PRESTO's own
+        # variable for the file format, read as PRESTO's reader reads it
+        envval = os.getenv(  # psrlint: ignore[PL011] -- PRESTO's format variable
+            "PSRFITS_POLN")
         if envval is not None:
             ival = int(envval)
             if -1 < ival < self.num_polns:

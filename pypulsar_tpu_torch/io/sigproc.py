@@ -1,8 +1,8 @@
 """SIGPROC filterbank header codec (read and write).
 
 Copy of the header half of ``pypulsar_tpu/io/sigproc.py`` and its
-telescope id table: length-prefixed keyword strings followed by typed
-little-endian values, with located
+telescope and backend id tables: length-prefixed keyword strings
+followed by typed little-endian values, with located
 :class:`~pypulsar_tpu_torch.io.errors.DataFormatError` on malformed or
 truncated headers and a sanity check of the geometry fields.
 """
@@ -44,8 +44,9 @@ HEADER_TYPES: Dict[str, str] = {
     "signed": "b",
 }
 
-# SIGPROC telescope id table (public convention); prepfold names a .fil's
-# telescope with it
+# SIGPROC telescope and backend id tables (public convention); prepfold
+# names a .fil's telescope with the first, mockspecfil2subbands its
+# backend with the second
 ids_to_telescope = {
     0: "Fake",
     1: "Arecibo",
@@ -65,6 +66,21 @@ ids_to_telescope = {
     64: "MeerKAT",
 }
 telescope_to_ids = {v: k for k, v in ids_to_telescope.items()}
+ids_to_machine = {
+    0: "FAKE",
+    1: "PSPM",
+    2: "WAPP",
+    3: "AOFTM",
+    4: "BCPM1",
+    5: "OOTY",
+    6: "SCAMP",
+    7: "SPIGOT",
+    11: "BG/P",
+    12: "PDEV",
+    20: "CHIME+PSR",
+    64: "KAT+DC",
+}
+machine_to_ids = {v: k for k, v in ids_to_machine.items()}
 
 # a real header holds ~25 keywords; garbage must end with a clean error
 MAX_HEADER_KEYS = 512

@@ -680,7 +680,10 @@ def _collect_devices() -> list:
 
         if not torch.cuda.is_initialized():
             return devices
-        for d in range(torch.cuda.device_count()):
+        # the records observe every card the allocator used, leased or
+        # not: an enumeration that selects nothing
+        n_cards = torch.cuda.device_count()  # psrlint: ignore[PL002] -- observes
+        for d in range(n_cards):
             ms = torch.cuda.memory_stats(d)
             if not ms.get("allocation.all.allocated"):
                 continue  # the run never allocated there

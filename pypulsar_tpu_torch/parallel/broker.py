@@ -73,6 +73,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from pypulsar_tpu_torch.obs import telemetry
+from pypulsar_tpu_torch.parallel import mesh
 from pypulsar_tpu_torch.resilience import faultinject
 from pypulsar_tpu_torch.resilience import locks as locks_mod
 from pypulsar_tpu_torch.resilience.retry import is_device_fault
@@ -106,10 +107,7 @@ def device_scope(device) -> Tuple[str, str]:
     """The device component of a dispatch key: ``("dev", "cuda:0")``,
     with a CUDA device's index made explicit, so two spellings of one
     card key alike and two cards never fuse."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return ("dev", str(device))
+    return ("dev", str(mesh.explicit_device(device)))
 
 
 def dispatch_key(stage: str, geometry: Tuple, config: Tuple,

@@ -93,6 +93,13 @@ def _norm(device) -> torch.device:
     return d
 
 
+def explicit_device(device) -> torch.device:
+    """``device`` with a CUDA device's index made explicit: the public
+    form of the registry's normalisation, for code outside it that keys
+    or names a card."""
+    return _norm(device)
+
+
 def device_key(device) -> tuple:
     """(type, index) of a device: two mesh positions on one card share
     it."""

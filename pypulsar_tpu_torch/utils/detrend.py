@@ -82,42 +82,48 @@ def fit_poly(ydata, xdata, order=1):
     return coeffs, np.dot(Afull, coeffs).squeeze()
 
 
-def detrend_blocks(y, x, omit, order=1, device="cuda") -> np.ndarray:
+def detrend_blocks(y, x, omit, order=1, device="cuda",
+                   dtype=torch.float32) -> np.ndarray:
     """Masked polynomial detrend of a stack of blocks on ``device``.
 
     ``y``/``x``/``omit`` are [B, L]: B independent blocks of L samples
     with per-cell omit masks (True = left out of the fit, detrended in
     the output all the same). ``old_detrend`` of each block, as one
-    float32 weighted least-squares batch: omitted and non-finite cells
+    weighted least-squares batch: omitted and non-finite cells
     get weight 0 in the normal equations ``(A^T W A) c = A^T W y``
     (a ridge of 1e-6 keeps a block with fewer kept cells than
     coefficients solvable), and x is centred and scaled over each
     block's kept cells so the system stays well conditioned. A block
-    with no kept cell comes back unchanged. Returns [B, L] float32."""
+    with no kept cell comes back unchanged. ``dtype`` is the solve's
+    precision: float32 by default, as the JAX package solves it;
+    ``torch.float64`` gives the reference's host ``lstsq`` precision,
+    where a card and a CPU agree to rounding (autozap's choice). Returns
+    [B, L] of ``dtype``."""
     device = resolve_device(device)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
 
-    def on(a, dtype):
-        return torch.as_tensor(np.asarray(a, dtype=dtype), device=device)
+    def on(a, kind):
+        return torch.as_tensor(np.asarray(a, dtype=kind), device=device)
 
-    y, x = on(y, np.float32), on(x, np.float32)
+    y, x = on(y, np_dtype), on(x, np_dtype)
     keep = ~on(omit, bool)
     # zero weight alone is no exclusion: 0 * (-inf or NaN) is NaN, so
     # non-finite cells leave the fit and keep their values in y - fit
     finite = torch.isfinite(y) & torch.isfinite(x)
-    w = (keep & finite).to(torch.float32)
-    zero = torch.zeros((), dtype=torch.float32, device=device)
+    w = (keep & finite).to(y.dtype)
+    zero = torch.zeros((), dtype=y.dtype, device=device)
     y_fit = torch.where(finite, y, zero)
     x_fit = torch.where(finite, x, zero)
     n = w.sum(dim=1, keepdim=True).clamp_min(1.0)
     xc = (x_fit * w).sum(dim=1, keepdim=True) / n
     xs = torch.sqrt((w * (x_fit - xc) ** 2).sum(dim=1, keepdim=True) / n)
     xs = xs.clamp_min(1e-12)
-    powers = torch.arange(order + 1, device=device, dtype=torch.float32)
+    powers = torch.arange(order + 1, device=device, dtype=y.dtype)
     A = ((x_fit - xc) / xs)[:, :, None] ** powers  # [B, L, k]
     Aw = A * w[:, :, None]
     M = torch.einsum("bli,blj->bij", Aw, A)
     r = torch.einsum("bli,bl->bi", Aw, y_fit)
-    M = M + 1e-6 * torch.eye(order + 1, device=device)
+    M = M + 1e-6 * torch.eye(order + 1, device=device, dtype=y.dtype)
     c = torch.linalg.solve(M, r[..., None])[..., 0]  # [B, k]
     # the polynomial at the true (finite) x positions
     fit = torch.einsum("bli,bi->bl", ((x - xc) / xs)[:, :, None] ** powers,

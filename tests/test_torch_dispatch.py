@@ -29,7 +29,7 @@ PORTED = [t for t in dispatch.TOOLS if t not in dispatch.NOT_PORTED]
 def test_tool_list_is_the_references():
     assert dispatch.TOOLS == jax_dispatch.TOOLS
     assert set(dispatch.NOT_PORTED) <= set(dispatch.TOOLS)
-    assert len(PORTED) == 20
+    assert len(PORTED) == 29
     for tool in dispatch.TOOLS:
         has_module = os.path.exists(os.path.join(CLI_DIR, f"{tool}.py"))
         assert has_module == (tool in PORTED), tool
@@ -76,13 +76,15 @@ def _run(*args):
 
 
 def test_module_entry_point_exit_codes():
-    """``python -m``: a ported tool's --help exits 0 (``tune`` among
-    them), an unknown tool and an unported one exit 2."""
+    """``python -m``: a ported tool's --help exits 0 (``tune`` and
+    ``psrlint`` among them), an unknown tool and an unported one exit
+    2."""
     assert _run("sift", "--help").returncode == 0
     assert _run("tune", "--help").returncode == 0
+    assert _run("psrlint", "--help").returncode == 0
     bad = _run("swep")
     assert bad.returncode == 2 and "did you mean 'sweep'" in bad.stderr
-    assert _run("psrlint").returncode == 2
+    assert _run("pyplotres").returncode == 2
     assert _run().returncode == 1
 
 
