@@ -571,6 +571,25 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    and on a temporary tree with one planted violation of each of the 17
    rules and a stale suppression: exit 1, each rule named. One ``path
    NAME:`` line each: ``autozap``, ``s27_tools``, ``psrlint``.
+24. The last host slice (~2-10 s). (a) Phase 3's file swept at 16 trials
+   inside ``utils/profiling.trace`` (a ``torch.profiler`` session with
+   the card's activity) in a fresh child started before phase 23: the
+   results' bytes an untraced run's here, the Chrome trace written under
+   the trace directory naming the gather-sum and boxcar kernels
+   (launches from the child's wrapper counters). (b)
+   ``cli/zero_dm_filter.filter`` of a uint8 [time, chan] block of that
+   file on the card against ``device="cpu"`` (``unproven_differences``,
+   phase 13's test). (c) ``massfunc``, ``pbdot`` and ``shapiro`` at fixed
+   arguments, ``fitkepler`` recovering a known orbit from a text file,
+   ``gridding`` recovering a pulsar's position from ``.pfd``s made by
+   ``make_pfd`` at several offsets, ``pyppdot`` on the bundled catalog
+   and ``pyplotres`` on a ``resid2.tmp`` of ``write_residuals``, all in
+   process through the dispatcher, each plotting tool with ``-o X.npz``.
+   (d) ``io/datafile.autogen_dataobj`` on a PSRFITS file named as a Mock
+   spectrometer beam. (e) Whether the machine has ``pycparser``; with it
+   a WAPP file's header and lags are read back. One ``path
+   s27b_traced_sweep:`` line and one ``path s27b:`` line with each
+   step's wall.
 
 Then a line of the script's slowest functions (``function walls s:``,
 each function's calls and inclusive wall, the 40 longest), a line of each
@@ -596,7 +615,8 @@ and ``survey_gang``, phase 3's ``write_dats_plain`` and
 ``write_dats_streamed`` and phase 21's ``tune_search``, ``tune_off``,
 ``tune_cache``, ``tune_masked_off`` and ``tune_masked_cache``, phase
 22's ``chaos_clean`` and ``chaos_fleet`` and phase 23's ``autozap`` and
-``s27_tools`` among them), the card line,
+``s27_tools`` and phase 24's ``s27b_traced_sweep`` among them), the
+card line,
 and the last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -8316,6 +8336,333 @@ def tools_phase(tmp, small_fn, card):
                 proc.wait()
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 24: the last host slice
+
+#: phase 24 (a): the traced sweep's trials on phase 3's file (DM 40 among
+#: them)
+TRACE_DMS = tuple(30.0 + 2.0 * i for i in range(16))
+#: the kernels phase 24 (a)'s trace must name (``kernel_name`` of each
+#: record of the trace's ``kernel`` category)
+TRACED_KERNELS = ("gather_sum_kernel", "boxcar_segment_kernel")
+#: phase 24 (c): the orbit fitkepler recovers (asini lt-s, Pb d, P s, T0
+#: MJD, ecc, omega rad) and its start
+KEPLER_TRUE = (2.0, 0.5, 0.005, 55000.1, 0.0, 0.0)
+KEPLER_INIT = ("1.5", "0.45", "0.005", "55000.05", "0.001", "0.0")
+
+
+def small_sweep_result(small_fn, device="cuda"):
+    """Phase 24 (a)'s sweep of phase 3's file: the flat sweep at
+    :data:`TRACE_DMS`, phase 3's geometry."""
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.parallel.staged import sweep_flat
+
+    with FilterbankFile(small_fn) as r:
+        return sweep_flat(r, TRACE_DMS, nsub=32, group_size=8,
+                          chunk_payload=20000, device=device).steps[0].result
+
+
+#: the sweep result's fields phase 24 (a) holds bit for bit
+TRACE_FIELDS = ("dms", "snr", "peak_sample", "mean", "std")
+#: phase 24 (a)'s child: the traced sweep in a fresh process (argv:
+#: checkout, file, trace directory, result path). Started beside phase
+#: 23: in this process, after earlier profiler sessions and minutes of
+#: other work, a trace on the H100 kept 2 kernel records of the sweep's
+#: 30; a fresh process's keeps them all.
+TRACE_RUNNER = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import chip_smoke as cs
+from pypulsar_tpu_torch.utils import profiling
+small_fn, logdir, out = sys.argv[2:5]
+torch.cuda.init()
+cs.reset_launch_counts()
+t0 = time.perf_counter()
+with profiling.trace(logdir):
+    res = cs.small_sweep_result(small_fn)
+traced_s = time.perf_counter() - t0
+np.savez(out + ".npz", **{f: getattr(res, f) for f in cs.TRACE_FIELDS})
+with open(out, "w") as f:
+    json.dump({"traced_s": traced_s, "launches": cs.launch_counts()}, f)
+"""
+
+
+def start_traced_sweep(tmp, small_fn):
+    """Phase 24 (a)'s child, started before phase 23: (Popen, log, trace
+    directory, result path)."""
+    logdir = os.path.join(tmp, "trace")
+    out = os.path.join(tmp, "trace.json")
+    log = os.path.join(tmp, "trace.log")
+    return (child(["-c", TRACE_RUNNER, HERE, small_fn, logdir, out], log),
+            log, logdir, out)
+
+
+def stop_child(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def traced_sweep(small_fn, card, traced):
+    """Phase 24 (a): the child's traced sweep against an untraced one
+    here; returns its launches and the two walls."""
+    import numpy as np
+    import torch
+
+    proc, log, logdir, out = traced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = small_sweep_result(small_fn)
+    plain_s = time.perf_counter() - t0
+    rc = proc.wait(timeout=300)
+    if rc != 0:
+        fail(f"traced sweep: the child exited {rc}: {read_log(log)[-1500:]}")
+    with open(out) as f:
+        rec = json.load(f)
+    with np.load(out + ".npz") as z:
+        for field in TRACE_FIELDS:
+            a, b = getattr(plain, field), z[field]
+            if a.dtype != b.dtype or a.shape != b.shape or \
+                    a.tobytes() != b.tobytes():
+                fail(f"traced sweep: {field} is not the untraced run's "
+                     f"bytes")
+        if not (np.isfinite(z["snr"]).all() and z["snr"].shape[0] == 16):
+            fail("traced sweep: non-finite or misshapen SNR")
+        best_dm = float(z["dms"][int(z["snr"].max(axis=1).argmax())])
+    names = sorted(glob.glob(os.path.join(logdir, "*.pt.trace.json")))
+    if len(names) != 1:
+        fail(f"traced sweep: {len(names)} trace files under {logdir}")
+    with open(names[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = collections.Counter(
+        kernel_name(e.get("name", "")) for e in events
+        if e.get("cat") == "kernel")
+    missing = [k for k in TRACED_KERNELS if not kernels[k]]
+    if missing:
+        fail(f"traced sweep: the trace names no {missing}; it names "
+             f"{kernels.most_common(8)}")
+    launches = rec["launches"]
+    launched = {k: v for k, v in launches.items() if v}
+    if set(launched) != {"gather_sum/stage1", "gather_sum/stage2",
+                         "boxcar_stats"}:
+        fail(f"traced sweep: the wrappers counted {launched}")
+    print("path s27b_traced_sweep: " + json.dumps({
+        "trials": 16, "untraced_s": plain_s, "traced_s": rec["traced_s"],
+        "trace_bytes": os.path.getsize(names[0]),
+        "trace_kernel_records": {k: kernels[k] for k in TRACED_KERNELS},
+        "trace_kernels_all": sum(kernels.values()), "best_dm": best_dm,
+        "card": card, "launches": launches}))
+    return {"s27b_traced_sweep": launches}, plain_s, rec["traced_s"]
+
+
+def zero_dm_block(small_fn):
+    """Phase 24 (b): ``zero_dm_filter.filter`` of a uint8 block on the
+    card against the CPU; returns (shape, differing bytes)."""
+    from pypulsar_tpu_torch.cli import zero_dm_filter
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+
+    with FilterbankFile(small_fn) as r:
+        n, C = r.nspec, r.nchans
+        block = r._read_raw_block(0, n).reshape(n, C)
+    got = zero_dm_filter.filter(block)
+    want = zero_dm_filter.filter(block, device="cpu")
+    if got.dtype != block.dtype or got.shape != block.shape:
+        fail(f"zero_dm_filter.filter: {got.dtype} {got.shape} from a "
+             f"{block.dtype} {block.shape} block")
+    bad = zero_dm_filter.unproven_differences(block, got, want)
+    if bad.size:
+        fail(f"zero_dm_filter.filter: {len(bad)} bytes differ from the "
+             f"CPU's without a float64 tie, first at {bad[0].tolist()}")
+    return list(block.shape), int((got != want).sum())
+
+
+def host_clis(d):
+    """Phase 24 (c): the seven CLIs through the dispatcher; returns their
+    numbers and walls."""
+    import importlib.util
+    import re
+    import warnings
+
+    import numpy as np
+
+    from pypulsar_tpu_torch.cli import __main__ as dispatch
+    from pypulsar_tpu_torch.cli.fitkepler import kepler_period
+    from pypulsar_tpu_torch.cli.gridding import angsep_arcmin
+    from pypulsar_tpu_torch.astro.estimate_snr import airy_pattern
+    from pypulsar_tpu_torch.io.prestopfd import make_pfd
+    from pypulsar_tpu_torch.io.residuals import write_residuals
+
+    def tool(argv, npz=None):
+        argv = argv + (["-o", os.path.join(d, npz)] if npz else [])
+        rc, said = run_quiet(dispatch.main, argv)
+        if rc != 0:
+            fail(f"{argv[0]} exited {rc}: {said[-500:]}")
+        if npz:
+            return said, np.load(os.path.join(d, npz))
+        return said
+
+    numbers, walls = {}, {}
+    t0 = time.perf_counter()
+    said = tool(["massfunc", "-f", "0.15", "-m", "1.4", "-i", "60"])
+    mc = float(re.findall(r"([\d.]+) Msun", said)[0])
+    fm = (mc * np.sin(np.deg2rad(60.0))) ** 3 / (1.4 + mc) ** 2
+    if abs(fm - 0.15) > 1e-5:
+        fail(f"massfunc: {mc} Msun gives a mass function of {fm}")
+    numbers["massfunc_msun"] = mc
+    _, z = tool(["pbdot"], "pbdot.npz")
+    if z["pbdots"].shape != (1000, 1000) or not (z["pbdots"] < 0).all():
+        fail("pbdot: the Pb-dot plane is misshapen or not all decay")
+    numbers["pbdot_nan_share"] = float(np.isnan(
+        z["tspans_needed_days"]).mean())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the tool's low-eccentricity note
+        _, z = tool(["shapiro"], "shapiro.npz")
+    incl = z["inclination"]
+    if incl.shape != (1000, 1000) or incl.min() < 0 or incl.max() > 91:
+        fail("shapiro: inclinations outside 0-91 deg")
+    numbers["shapiro_max_us"] = float(np.nanmax(z["delays"]) * 1e6)
+    walls["mass_tools_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED % 2 ** 31)
+    mjds = 55000.0 + np.linspace(0, 1.0, 40)
+    ps = kepler_period(mjds, *KEPLER_TRUE) + rng.randn(40) * 2e-9
+    ptxt = os.path.join(d, "periods.txt")
+    np.savetxt(ptxt, np.column_stack([mjds, ps * 1000,
+                                      np.full(40, 2e-6)]))
+    _, z = tool(["fitkepler", ptxt, "--init", *KEPLER_INIT],
+                "fitkepler.npz")
+    fit = z["params"]
+    if abs(fit[0] / KEPLER_TRUE[0] - 1) > 0.01 or \
+            abs(fit[1] / KEPLER_TRUE[1] - 1) > 0.001:
+        fail(f"fitkepler: fitted {fit.tolist()} for {KEPLER_TRUE}")
+    numbers["fitkepler"] = fit.tolist()
+    walls["fitkepler_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    true_ra = (12 + 2.0 / 3600) * 15 * 60  # arcmin
+    true_dec = (30 + 30.0 / 3600) * 60
+    pfds = []
+    for ii, (dra, ddec) in enumerate([(0, 0), (1.0, 0), (-1.0, 0),
+                                      (0, 1.0), (0, -1.0)]):
+        ra_am, dec_am = 12 * 15 * 60 + dra, 30 * 60 + ddec
+        snr = 40.0 * float(airy_pattern(3.35, angsep_arcmin(
+            true_ra, true_dec, ra_am, dec_am))[0])
+        phases = np.arange(64) / 64
+        shape = snr * 1.17 * np.exp(-0.5 * ((phases - 0.3) / 0.03) ** 2)
+        pfd = make_pfd(rng.randn(8, 4, 64) + shape / 4, dt=1e-3,
+                       lofreq=1400.0, chan_wid=25.0, fold_p1=0.064,
+                       bestdm=0.0, candnm="GRID")
+        h, rem = divmod(ra_am / 900.0, 1)
+        m, rem = divmod(rem * 60, 1)
+        dh, drem = divmod(dec_am / 60, 1)
+        dm_, drem = divmod(drem * 60, 1)
+        pfd.rastr = "%02d:%02d:%07.4f" % (h, m, rem * 60)
+        pfd.decstr = "%02d:%02d:%07.4f" % (dh, dm_, drem * 60)
+        pfds.append(os.path.join(d, f"point{ii}.pfd"))
+        pfd.write(pfds[-1])
+    _, z = tool(["gridding", *pfds], "gridding.npz")
+    _, fra, fdec = z["fit"]
+    if abs(fra - true_ra) > 2.0 or abs(fdec - true_dec) > 2.0:
+        fail(f"gridding: fitted ({fra}, {fdec}) arcmin for ({true_ra}, "
+             f"{true_dec})")
+    numbers["gridding_offset_arcmin"] = [float(fra - true_ra),
+                                         float(fdec - true_dec)]
+    walls["gridding_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _, z = tool(["pyppdot", "--def-lines", "--binaries", "--magnetars"],
+                "pyppdot.npz")
+    names = list(z["names"])
+    if len(names) < 1000 or "B0531+21" not in names or \
+            not (np.isfinite(z["p"]).all() and (z["pdot"] > 0).all()):
+        fail(f"pyppdot: {len(names)} pulsars from the bundled catalog")
+    numbers["pyppdot_pulsars"] = len(names)
+    n = 30
+    res = os.path.join(d, "resid2.tmp")
+    post = rng.randn(n) * 1e-4
+    write_residuals(res, bary_TOA=55000 + np.arange(n, dtype=float),
+                    postfit_phs=post * 10.0, postfit_sec=post,
+                    prefit_sec=post + 1e-4)
+    _, z = tool(["pyplotres", "--resid-file", res, "--both"],
+                "pyplotres.npz")
+    if not (np.array_equal(z["postfit"], post * 1e6)
+            and np.array_equal(z["prefit"], (post + 1e-4) * 1e6)):
+        fail("pyplotres: the plotted residuals are not the file's")
+    walls["catalog_residuals_s"] = time.perf_counter() - t0
+    numbers["matplotlib_installed"] = \
+        importlib.util.find_spec("matplotlib") is not None
+    return numbers, walls
+
+
+def datafile_and_wapp(d):
+    """Phase 24 (d) and (e): the data-file object of a Mock PSRFITS beam,
+    and a WAPP file read back when ``pycparser`` is there."""
+    import importlib.util
+    import struct
+
+    import numpy as np
+
+    from pypulsar_tpu_torch.io import datafile
+    from pypulsar_tpu_torch.io.psrfits import write_psrfits
+
+    fn = os.path.join(d, "4bit-p2030.20101105.FAKE.b3s1g0.00100.fits")
+    write_psrfits(fn, np.random.default_rng(SEED).integers(
+        0, 255, (8, 128)).astype(np.float32), 1400.0 + np.arange(8),
+        tsamp=6.4e-5, nsamp_per_subint=64, nbits=8, start_mjd=55500.25,
+        src_name="FAKE", extra_primary={"IBEAM": 3})
+    obj = datafile.autogen_dataobj([fn])
+    if type(obj).__name__ != "MockPsrfitsData" or obj.beam_id != 3 or \
+            abs(obj.sample_time - 64.0) > 1e-9 or obj.num_samples != 128:
+        fail(f"autogen_dataobj: {type(obj).__name__}, beam {obj.beam_id}, "
+             f"{obj.sample_time} us, {obj.num_samples} samples")
+    out = {"datafile": type(obj).__name__}
+    out["pycparser"] = importlib.util.find_spec("pycparser") is not None
+    if out["pycparser"]:
+        from pypulsar_tpu_torch.io.wapp import WappFile
+
+        wfn = os.path.join(d, "p2030.FAKE.wapp1.55000.0003")
+        src = ("struct WAPP_HEADER { char src_name[12]; double samp_time;"
+               " int num_lags; int lagformat; };")
+        lags = np.arange(16 * 8, dtype=np.int32)
+        with open(wfn, "wb") as f:
+            f.write(src.encode() + b"\0" + struct.pack(
+                "=12sdii", b"J0000+0000", 64.0, 8, 1))
+            lags.tofile(f)
+        with WappFile(wfn) as w:
+            if w.number_of_samples != 16 or not np.array_equal(
+                    w.read_lags(3, 4), lags.reshape(16, 8)[3:7]):
+                fail("WappFile: the 32-bit lags read back wrong")
+        out["wapp_samples"] = 16
+    return out
+
+
+def s27b_phase(tmp, small_fn, card, traced):
+    """Phase 24; ``traced`` is :func:`start_traced_sweep`'s child.
+    Returns the traced sweep's launches."""
+    d = os.path.join(tmp, "s27b")
+    os.makedirs(d)
+    walls = {}
+    t0 = time.perf_counter()
+    shape, differing = zero_dm_block(small_fn)
+    walls["zero_dm_filter_s"] = time.perf_counter() - t0
+    numbers, cli_walls = host_clis(d)
+    walls.update(cli_walls)
+    t0 = time.perf_counter()
+    numbers.update(datafile_and_wapp(d))
+    walls["datafile_wapp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches, plain_s, traced_s = traced_sweep(small_fn, card, traced)
+    walls["traced_sweep_s"] = time.perf_counter() - t0
+    print("path s27b: " + json.dumps({
+        "walls_s": walls, "untraced_sweep_s": plain_s,
+        "traced_sweep_s": traced_s, "zero_dm_block": shape,
+        "zero_dm_differing_bytes": differing, **numbers, "card": card}))
+    return launches
+
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
@@ -8409,8 +8756,14 @@ def main() -> int:
         mark("21 tune")
         chaos_paths = chaos_phase(tmp, small_fn, card)
         mark("22 chaos, race, fuzz")
+        traced = start_traced_sweep(tmp, small_fn)
+        # on a failure too: the child outlives neither the script nor
+        # its temp dir
+        stack.callback(stop_child, traced[0])
         tools_paths = tools_phase(tmp, small_fn, card)
         mark("23 tools, psrlint")
+        s27b_paths = s27b_phase(tmp, small_fn, card, traced)
+        mark("24 last host slice")
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,
@@ -8423,7 +8776,7 @@ def main() -> int:
              **hour_paths, **resume_paths, **telemetry_paths,
              **resident_paths, **fleet_paths, **plane_paths,
              **mesh_paths, **plain_paths, **tune_paths, **chaos_paths,
-             **tools_paths}
+             **tools_paths, **s27b_paths}
     for k in report:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in paths.items()}

@@ -6,9 +6,8 @@ B1950 <-> J2000 precession via fixed rotation matrices (slalib-free).
 All transforms accept/return units "sexigesimal", "deg", "hour", or "rad"
 and dispatch through :mod:`pypulsar_tpu_torch.astro.protractor`.
 ``pfd_snr --tsys/--gain`` reads the galactic position of an archive
-through :func:`equatorial_to_galactic`. :func:`ha_from_mjdlon` needs the
-sidereal clock (``astro/clock``), which comes with ROADMAP.md Queue 1
-item 16.
+through :func:`equatorial_to_galactic`; :func:`ha_from_mjdlon` reads the
+sidereal clock of ``astro/clock``.
 """
 
 import numpy as np
@@ -54,11 +53,10 @@ def ha_from_lst(lst, ra):
 
 
 def ha_from_mjdlon(mjd, lon, ra):
-    """Hour angle (hours) from MJD, longitude (deg, West negative), RA
-    (hours): not ported yet (the sidereal clock, ``astro/clock``)."""
-    raise NotImplementedError(
-        "ha_from_mjdlon needs astro/clock, which is not ported yet "
-        "(ROADMAP.md Queue 1 item 16)")
+    """Hour angle (hours) from MJD, longitude (deg, West negative), RA (hours)."""
+    from pypulsar_tpu_torch.astro import clock
+
+    return clock.MJD_lon_to_LST(mjd, lon) - ra
 
 
 def equatorial_to_ecliptic(ra, decl, input="sexigesimal", output="deg", J2000=True):

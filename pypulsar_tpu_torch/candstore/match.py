@@ -1,9 +1,8 @@
 """(P, DM) matching: known-source catalogs and harmonic ratios.
 
 A copy of ``pypulsar_tpu/candstore/match.py`` (the port imports nothing
-of the JAX package): the matcher of ``cli/sift.py --known-sources``. The
-cross-observation candidate store that shares it in the JAX package
-comes with ROADMAP.md Queue 1 item 16.
+of the JAX package): the matcher of ``cli/sift.py --known-sources`` and
+of the cross-observation candidate sift (``candstore/sift.py``).
 
 A catalog file is plain text, one source per line::
 

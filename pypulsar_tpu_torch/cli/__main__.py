@@ -1,10 +1,9 @@
 """``python -m pypulsar_tpu_torch.cli <tool> [args...]``: the tool
 dispatcher (port of ``pypulsar_tpu/cli/__main__.py``).
 
-``TOOLS`` lists the JAX package's tools in its order. A tool in
-:data:`NOT_PORTED` exits 2 naming the ROADMAP.md item that brings it; an
-unknown name exits 2 with the closest match; a bare call prints the list
-and exits 1, ``-h``/``--help`` prints it and exits 0. Any other tool's
+``TOOLS`` lists the JAX package's tools in its order, every one of them
+ported. An unknown name exits 2 with the closest match; a bare call prints
+the list and exits 1, ``-h``/``--help`` prints it and exits 0. A tool's
 ``main`` runs on the remaining arguments and its return is the exit code.
 """
 
@@ -24,11 +23,6 @@ TOOLS = [
     "pyppdot", "pyplotres", "coordconv", "tlmsum", "tlmtrace", "psrlint",
     "tune", "cands",
 ]
-#: the JAX package's tools the port does not have yet, with the ROADMAP.md
-#: item that brings each
-NOT_PORTED = {tool: "Queue 1 item 16" for tool in (
-    "gridding", "fitkepler", "shapiro", "pbdot", "massfunc", "pyppdot",
-    "pyplotres")}
 
 
 def main(argv=None) -> int:
@@ -37,11 +31,7 @@ def main(argv=None) -> int:
         print("usage: python -m pypulsar_tpu_torch.cli <tool> [args...]\n")
         print("available tools:")
         for tool in TOOLS:
-            if tool in NOT_PORTED:
-                print(f"  {tool}  (not ported yet: ROADMAP.md "
-                      f"{NOT_PORTED[tool]})")
-            else:
-                print(f"  {tool}")
+            print(f"  {tool}")
         return 0 if argv else 1
     tool = argv[0]
     if tool not in TOOLS:
@@ -54,10 +44,6 @@ def main(argv=None) -> int:
         hint = f"; did you mean {close[0]!r}?" if close else ""
         print(f"unknown tool {tool!r}{hint} (run with --help for the list)",
               file=sys.stderr)
-        return 2
-    if tool in NOT_PORTED:
-        print(f"tool {tool!r} is not ported yet (ROADMAP.md "
-              f"{NOT_PORTED[tool]})", file=sys.stderr)
         return 2
     mod = importlib.import_module(f"pypulsar_tpu_torch.cli.{tool}")
     return mod.main(argv[1:])

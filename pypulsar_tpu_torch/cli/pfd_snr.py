@@ -17,7 +17,9 @@ exit 0). Host numpy only.
 constant; the JAX package hands ``read_gaussfitfile``'s (components,
 constant) pair to the model selection as it is, which fails there.
 ``-m`` beside ``-g``, and ``--haslam-map`` without ``--tsys/--gain``, exit
-2. ``--interactive`` (a matplotlib picker) is not ported yet and exits 2.
+2. ``-i/--interactive`` shows each archive's profile and scores every
+on-pulse region dragged over it (:func:`interactive_snr`, matplotlib's
+picker of ``utils/interactive``); it excludes ``--json``.
 
 Run as ``python -m pypulsar_tpu_torch.cli.pfd_snr 'X_*.pfd' --json X_snr.json``.
 """
@@ -33,16 +35,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from pypulsar_tpu_torch.astro import sextant, skytemp
+from pypulsar_tpu_torch.astro import estimate_snr, sextant, skytemp
 from pypulsar_tpu_torch.fold import profile_snr
 from pypulsar_tpu_torch.io.prestopfd import PfdFile
-
-#: flags of the reference's snr stage that the port does not take yet,
-#: with the ROADMAP.md item that brings each
-NOT_PORTED = {
-    "interactive": ("--interactive",
-                    "Queue 1 item 16 (utils/interactive, on matplotlib)"),
-}
 
 
 def parse_model_file(modelfn: str) -> List[Tuple[float, float, float]]:
@@ -78,7 +73,7 @@ def model_from_gaussians(gaussfn: str, proflen: int) -> np.ndarray:
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="pfd_snr",
-        description="Calculate SNR from .pfd files (non-interactive)")
+        description="Calculate SNR from .pfd files")
     parser.add_argument("files", nargs="+", help=".pfd files")
     parser.add_argument("--on-pulse", dest="on_pulse", nargs=2, type=float,
                         default=None,
@@ -111,22 +106,10 @@ def build_parser():
                         default=None,
                         help="pygaussfit-created Gaussians file")
     parser.add_argument("-i", "--interactive", action="store_true",
-                        help="not ported yet: ROADMAP.md "
-                             + NOT_PORTED["interactive"][1])
+                        help="show the profile and drag-select the "
+                             "on-pulse region; SNR reprints on every "
+                             "selection")
     return parser
-
-
-def airy_pattern(fwhm: float, x: float) -> float:
-    """Airy beam power pattern normalized to Airy(0) = 1; ``fwhm`` and
-    ``x`` in the same angular units, half maximum at 1.61633 (copy of
-    ``pypulsar_tpu/astro/estimate_snr.py``'s ``airy_pattern`` for one
-    offset)."""
-    if x == 0:
-        return 1.0
-    from scipy import special
-
-    scaled_x = float(x) / fwhm * (2.0 * 1.61633)
-    return float((2 * special.j1(scaled_x) / scaled_x) ** 2)
 
 
 def effective_sefd(args, pfd) -> Optional[float]:
@@ -148,12 +131,54 @@ def effective_sefd(args, pfd) -> Optional[float]:
         print("Sky temp at %g MHz: %g K" % (fctr, tsky))
         sefd = (args.tsys + tsky) / args.gain
     if sefd is not None and args.fwhm is not None and args.sep is not None:
-        factor = airy_pattern(args.fwhm, args.sep)
+        factor = float(estimate_snr.airy_pattern(args.fwhm, args.sep)[0])
         print("Pulsar is off-centre")
         print("Reducing SEFD by factor of %g (SEFD: %g->%g)"
               % (factor, sefd, sefd / factor))
         sefd /= factor
     return sefd
+
+
+def interactive_snr(pfd, sefd=None, show=True):
+    """Manual on-pulse selection: drag over the profile; the SNR is
+    recomputed and printed on every selection. Returns the last
+    selection's result (None if the last drag was invalid or nothing was
+    picked). With ``show=False`` no figure is drawn and matplotlib is not
+    imported.
+
+    The archive is dedispersed and period-adjusted before plotting, so
+    the profile shown is the one each selection is scored against
+    (``pfd_snr(dedisperse=False)`` below)."""
+    from pypulsar_tpu_torch.utils.interactive import OnPulsePicker
+
+    pfd.dedisperse(doppler=True)
+    pfd.adjust_period()
+    proflen = pfd.proflen
+
+    def evaluate(lo, hi):
+        regions = [(int(lo * proflen), int(np.ceil(hi * proflen)))]
+        try:
+            result = profile_snr.pfd_snr(pfd, regions=regions, sefd=sefd,
+                                         dedisperse=False)
+        except profile_snr.OnPulseError as e:
+            print("on-pulse [%.3f, %.3f]: %s" % (lo, hi, e))
+            return None
+        print("on-pulse [%.3f, %.3f] -> SNR %.3f" % (lo, hi, result["snr"]))
+        return result
+
+    picker = OnPulsePicker(evaluate)
+    if show:
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        phases = np.arange(proflen) / proflen
+        ax.plot(phases, np.asarray(pfd.sumprof), drawstyle="steps-post")
+        ax.set_xlabel("Pulse phase")
+        ax.set_ylabel("Intensity")
+        ax.set_title("drag to select the on-pulse region; close when done")
+        picker.connect(ax)
+        plt.show()
+    return picker.result
 
 
 def expand_pfd_args(files: List[str]) -> List[str]:
@@ -173,9 +198,6 @@ def expand_pfd_args(files: List[str]) -> List[str]:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    for dest, (flag, item) in NOT_PORTED.items():
-        if getattr(args, dest):
-            ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
     if args.sefd is not None and (args.tsys is not None
                                   or args.gain is not None):
         print("Gain and/or system temperature should not be provided if "
@@ -184,6 +206,10 @@ def main(argv=None) -> int:
     if (args.tsys is None) != (args.gain is None):
         print("Both gain and system temperature must be provided "
               "together.", file=sys.stderr)
+        return 1
+    if args.json and args.interactive:
+        print("--json is batch mode; it does not compose with "
+              "--interactive.", file=sys.stderr)
         return 1
     if args.haslam_map is not None and args.tsys is None:
         ap.error("--haslam-map needs --tsys and --gain")
@@ -237,6 +263,15 @@ def _null_row(pfd, pfdfn: str, error: str) -> dict:
 def _append_archive_row(args, pfd, pfdfn: str, rows: list) -> None:
     """Analyse one archive into its summary row."""
     sefd = effective_sefd(args, pfd)
+    if args.interactive:
+        result = interactive_snr(pfd, sefd)
+        if result is not None:
+            print("SNR: %.3f" % result["snr"])
+            if result["smean"] is not None:
+                print("Mean flux density (mJy): %.4f" % result["smean"])
+        else:
+            print("no valid on-pulse selection")
+        return
     regions = model = None
     if args.on_pulse is not None:
         lo, hi = args.on_pulse

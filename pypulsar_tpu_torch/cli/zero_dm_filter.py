@@ -15,6 +15,9 @@ the CPU and the JAX package may round it to neighbouring counts:
 twin. Sub-byte files (1, 2 or 4 bits) are refused: the JAX package writes
 their unpacked samples under a header that still says packed.
 
+:func:`filter` is the library call on one numpy block (the reference's
+name), on ``device``.
+
 Run as ``python -m pypulsar_tpu_torch.cli.zero_dm_filter FILE -o OUT``.
 """
 
@@ -50,6 +53,26 @@ def filter_block(raw: torch.Tensor) -> torch.Tensor:
     # 16-bit samples go back as the int16 of the same two bytes
     out = out.clamp_(0, 65535).to(torch.int32)
     return torch.where(out > 32767, out - 65536, out).to(torch.int16)
+
+
+def filter(data: np.ndarray, device="cuda") -> np.ndarray:  # noqa: A001 - reference name
+    """Zero-DM filter one numpy [time, chan] block on ``device``: each
+    sample less its mean over the channels, rounded half to even and
+    clipped to the dtype's range for integer dtypes, returned in
+    ``data``'s dtype. uint8 and float32 blocks travel in their own dtype
+    (:func:`filter_block`); any other dtype as float32, as the JAX
+    package's ``filter`` widens it."""
+    device = resolve_device(device)
+    data = np.ascontiguousarray(data)
+    if data.dtype in (np.uint8, np.float32):
+        block = torch.from_numpy(data).to(device)
+        return filter_block(block).cpu().numpy()
+    x = torch.from_numpy(data.astype(np.float32)).to(device)
+    out = zero_dm(x.t()).t()
+    if np.issubdtype(data.dtype, np.integer):
+        info = np.iinfo(data.dtype)
+        out = torch.round(out).clamp_(float(info.min), float(info.max))
+    return out.cpu().numpy().astype(data.dtype)
 
 
 def zero_dm_file(infile: str, outfile: str,

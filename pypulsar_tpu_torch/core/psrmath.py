@@ -3,7 +3,9 @@ in float64 numpy.
 
 Copy of the dispersion, period and profile helpers of
 ``pypulsar_tpu/core/psrmath.py`` (the port imports nothing of the JAX
-package). The sweep's integer shift tables are rounded from these delays
+package), with its constants and the binary and spin-down formulas
+that ``cli/fitkepler``, ``cli/pyppdot`` and ``cli/pbdot`` use. The
+sweep's integer shift tables are rounded from these delays
 and the fold's phase bins from these frequencies, so the formulas stay
 bit-identical to the reference's: PRESTO's convention
 ``t = DM / (2.41e-4 * f^2)`` seconds with ``f`` in MHz.
@@ -14,8 +16,20 @@ from __future__ import annotations
 import numpy as np
 
 SECPERDAY = 86400.0
+SECPERJULYR = 31557600.0
+TWOPI = 2.0 * np.pi
+PIBYTWO = np.pi / 2.0
+DEGTORAD = np.pi / 180.0
+RADTODEG = 180.0 / np.pi
+HRTORAD = np.pi / 12.0
+RADTOHR = 12.0 / np.pi
+ARCSECTORAD = np.pi / (180.0 * 3600.0)
+RADTOARCSEC = 1.0 / ARCSECTORAD
+#: GM_sun / c^3 in seconds
+Tsun = 4.925490947e-6
 #: dispersion constant: delay[s] = DM / (DM_CONST_INV * f_MHz^2)
 DM_CONST_INV = 2.41e-4
+KDM = 1.0 / DM_CONST_INV  # ~4149.38 s MHz^2 cm^3 / pc
 
 
 def p_to_f(p, pd, pdd=None):
@@ -33,6 +47,40 @@ def p_to_f(p, pd, pdd=None):
 
 # identical algebra both directions (prepfold's --par header periods)
 f_to_p = p_to_f
+
+
+def pulsar_B(p, pd):
+    """Surface magnetic field (Gauss) from P (s) and Pdot."""
+    return 3.2e19 * np.sqrt(p * pd)
+
+
+def pulsar_age(f, fdot, n=3, fo=1e99):
+    """Characteristic age (s) for braking index n."""
+    return -f / ((n - 1.0) * fdot) * (1.0 - (f / fo) ** (n - 1.0))
+
+
+def pulsar_edot(f, fdot, I=1.0e45):
+    """Spin-down luminosity (erg/s)."""
+    return -4.0 * np.pi * np.pi * I * f * fdot
+
+
+def mass_funct(pb, x):
+    """Binary mass function (Msun). pb: orbital period (s), x: a*sin(i)/c (s)."""
+    return 4.0 * np.pi ** 2 / Tsun * x ** 3.0 / pb ** 2.0
+
+
+def mass_funct2(mp, mc, i):
+    """Mass function (Msun) from component masses and inclination (rad)."""
+    return (mc * np.sin(i)) ** 3.0 / (mc + mp) ** 2.0
+
+
+def companion_mass_limits(pb, x, mpsr=1.4):
+    """Solve f(mc) = mass_funct for mc at i=90deg (minimum companion mass)."""
+    fm = mass_funct(pb, x)
+    mc = max(fm, 0.1)
+    for _ in range(200):
+        mc = (fm * (mpsr + mc) ** 2.0) ** (1.0 / 3.0)
+    return mc
 
 
 def delay_from_DM(DM, freq_emitted):
@@ -80,3 +128,8 @@ def gaussian_profile(N, phase, fwhm):
     phss = (phss + 0.5) % 1.0 - 0.5  # wrap to [-0.5, 0.5)
     return (np.exp(-0.5 * (phss / sigma) ** 2.0)
             / (sigma * np.sqrt(2.0 * np.pi)) / N)
+
+
+def span_bins(delays_sec, dt):
+    """Integer bin delays, rounded half-even (``np.round``)."""
+    return np.round(np.asarray(delays_sec) / dt).astype(np.int64)

@@ -88,6 +88,13 @@ class FilterbankObs:
             chunks.append(read(self.fbs[ii], lo, hi - lo))
         return np.concatenate(chunks) if len(chunks) > 1 else chunks[0]
 
+    def get_time_interval(self, starttime: float, endtime: float) -> np.ndarray:
+        """Samples in ``[starttime, endtime)`` seconds, the times rounded
+        to the nearest sample (so float representation error cannot shift
+        the window by one sample)."""
+        return self.get_sample_interval(int(round(starttime / self.tsamp)),
+                                        int(round(endtime / self.tsamp)))
+
     def get_sample_interval(self, startsamp: int, endsamp: int) -> np.ndarray:
         """Read global samples ``[startsamp, endsamp)`` spanning member
         files; returns (nsamples, nchans) float32."""

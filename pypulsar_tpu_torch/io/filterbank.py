@@ -109,6 +109,30 @@ class FilterbankFile:
     def __exit__(self, *exc):
         self.close()
 
+    @property
+    def obs_duration(self) -> float:
+        return self.number_of_samples * self.tsamp
+
+    def seek_to_sample(self, sampnum: int):
+        self.filfile.seek(self.header_size + self.bytes_per_spectrum * sampnum)
+
+    def read_Nsamples(self, N: int) -> np.ndarray:
+        """N samples from the file position in the native dtype, flat
+        (sub-byte samples still packed)."""
+        count = N * self.bytes_per_spectrum // self.dtype.itemsize
+        return np.fromfile(self.filfile, dtype=self.dtype, count=count)
+
+    def read_all_samples(self) -> np.ndarray:
+        """Every sample, flat; sub-byte files unpacked to one uint8 a
+        channel (``io/psrfits``'s unpackers)."""
+        self.seek_to_sample(0)
+        data = np.fromfile(self.filfile, dtype=self.dtype)
+        if self.nbits < 8:
+            from pypulsar_tpu_torch.io.psrfits import _UNPACKERS
+
+            data = _UNPACKERS[self.nbits](data)
+        return data
+
     def _read_raw_block(self, startsamp: int, N: int) -> np.ndarray:
         """N samples from ``startsamp`` in the file's native dtype, flat."""
         startsamp, N = int(startsamp), int(N)
@@ -116,9 +140,9 @@ class FilterbankFile:
             raise ValueError(
                 f"requested samples [{startsamp}, {startsamp + N}) outside "
                 f"file range [0, {self.number_of_samples})")
-        self.filfile.seek(self.header_size + self.bytes_per_spectrum * startsamp)
+        self.seek_to_sample(startsamp)
         count = N * self.bytes_per_spectrum // self.dtype.itemsize
-        data = np.fromfile(self.filfile, dtype=self.dtype, count=count)
+        data = self.read_Nsamples(N)
         if data.size != count:
             raise DataFormatError(self.filename, f"short read of {N} samples "
                                   f"at sample {startsamp}")

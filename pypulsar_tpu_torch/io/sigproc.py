@@ -1,7 +1,8 @@
 """SIGPROC filterbank header codec (read and write).
 
-Copy of the header half of ``pypulsar_tpu/io/sigproc.py`` and its
-telescope and backend id tables: length-prefixed keyword strings
+Copy of the header half of ``pypulsar_tpu/io/sigproc.py``, its
+telescope and backend id tables and its ``src_raj``/``src_dej`` string
+forms: length-prefixed keyword strings
 followed by typed little-endian values, with located
 :class:`~pypulsar_tpu_torch.io.errors.DataFormatError` on malformed or
 truncated headers and a sanity check of the geometry fields.
@@ -191,3 +192,27 @@ def pack_header(header: Dict[str, object], order=None) -> bytes:
     chunks += [addto_hdr(k, header[k]) for k in keys]
     chunks.append(addto_hdr("HEADER_END", None))
     return b"".join(chunks)
+
+
+def ra_to_hms_string(src_raj: float) -> str:
+    """SIGPROC src_raj double (HHMMSS.S) -> 'HH:MM:SS.SSSS', its fields
+    split by floor division of the integer part."""
+    sign = "-" if src_raj < 0 else ""
+    v = abs(src_raj)
+    whole = int(v)
+    hh = whole // 10000
+    mm = (whole - hh * 10000) // 100
+    ss = v - hh * 10000 - mm * 100
+    return f"{sign}{hh:02d}:{mm:02d}:{ss:07.4f}"
+
+
+def dec_to_dms_string(src_dej: float) -> str:
+    """SIGPROC src_dej double (DDMMSS.S) -> 'DD:MM:SS.SSSS' (floor-split
+    like :func:`ra_to_hms_string`)."""
+    sign = "-" if src_dej < 0 else ""
+    v = abs(src_dej)
+    whole = int(v)
+    dd = whole // 10000
+    mm = (whole - dd * 10000) // 100
+    ss = v - dd * 10000 - mm * 100
+    return f"{sign}{dd:02d}:{mm:02d}:{ss:07.4f}"

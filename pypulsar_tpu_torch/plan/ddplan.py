@@ -6,8 +6,9 @@ Given the observation's sampling, band and DM range, a staged plan of
 (downsample factor, DM step, number of DMs, optional subband counts) that
 bounds the total smearing while minimizing work. Pure host arithmetic;
 :func:`pypulsar_tpu_torch.parallel.staged.sweep_ddplan` sweeps each
-step's trial list ``step.DMs``. The reference's ``DDplan.plot``
-(matplotlib) is not copied.
+step's trial list ``step.DMs``. :meth:`DDplan.plot` writes the
+smearing plot's arrays to an ``.npz`` name without matplotlib, and draws
+it with matplotlib otherwise.
 """
 
 import numpy as np
@@ -242,6 +243,80 @@ class DDplan:
     def all_dms(self):
         """Concatenated DM trial list over all steps."""
         return np.concatenate([step.DMs for step in self.DDsteps])
+
+    def plot_arrays(self) -> dict:
+        """The smearing plot's curves: each step's DMs (``step_dms``,
+        ``step_index`` naming the step of each), sample time, DM-step,
+        subband-step and total smearing, and over every DM the optimal
+        and channel smearing."""
+        allDMs = np.concatenate([step.DMs for step in self.DDsteps])
+        chan_smear = dm_smear(allDMs, self.obs.chanwidth, self.obs.fctr)
+        bw_smear = dm_smear(ALLOW_DMSTEPS[0], self.obs.BW, self.obs.fctr)
+        return dict(
+            step_dms=allDMs,
+            step_index=np.concatenate([np.full(step.numDMs, ii) for ii, step
+                                       in enumerate(self.DDsteps)]),
+            sample_time=np.concatenate([
+                np.zeros(step.numDMs) + self.obs.dt * step.downsamp
+                for step in self.DDsteps]),
+            dm_step_smearing=np.concatenate([
+                np.zeros(step.numDMs) + step.BW_smearing
+                for step in self.DDsteps]),
+            sub_smearing=np.concatenate([
+                np.zeros(step.numDMs) + (step.sub_smearing if self.numsub
+                                         else 0.0)
+                for step in self.DDsteps]),
+            total_smearing=np.concatenate([step.tot_smear
+                                           for step in self.DDsteps]),
+            work_fracts=np.asarray(self.work_fracts, dtype=np.float64),
+            optimal_smearing=np.sqrt(2 * self.obs.dt**2.0 + chan_smear**2.0
+                                     + bw_smear**2.0),
+            channel_smearing=chan_smear)
+
+    def plot(self, fn=None):
+        """Smearing-vs-DM summary plot. ``fn`` ending in ``.npz`` gets
+        :meth:`plot_arrays` (no matplotlib) and None is returned; any
+        other ``fn`` is drawn with matplotlib and saved, None shows it."""
+        from pypulsar_tpu_torch.cli import save_arrays
+
+        if save_arrays(fn, **self.plot_arrays()):
+            return None
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure(figsize=(11, 8.5))
+        stepDMs = []
+        for ii, (step, wf) in enumerate(zip(self.DDsteps, self.work_fracts)):
+            stepDMs.append(step.DMs)
+            plt.plot(step.DMs, np.zeros(step.numDMs) + self.obs.dt * step.downsamp,
+                     "#33CC33", label=(ii and "_nolegend_") or "Sample Time (ms)")
+            plt.plot(step.DMs, np.zeros(step.numDMs) + step.BW_smearing, "r",
+                     label=(ii and "_nolegend_") or "DM Stepsize Smearing")
+            if self.numsub:
+                plt.plot(step.DMs, np.zeros(step.numDMs) + step.sub_smearing,
+                         "#993399",
+                         label=(ii and "_nolegend_") or "Subband Stepsize Smearing")
+            plt.plot(step.DMs, step.tot_smear, "k",
+                     label=(ii and "_nolegend_") or "Total Smearing")
+            midDM = step.DMs.min() + np.ptp(step.DMs) * 0.5
+            plt.text(midDM, 1.1 * np.median(step.tot_smear),
+                     "%d (%.1f%%)" % (step.numDMs, 100.0 * wf),
+                     rotation="vertical", size="small", ha="center", va="bottom")
+        arrays = self.plot_arrays()
+        allDMs, tot_smear = arrays["step_dms"], arrays["optimal_smearing"]
+        plt.plot(allDMs, tot_smear, "#FF9933", label="Optimal Smearing")
+        plt.plot(allDMs, arrays["channel_smearing"], "b",
+                 label="Channel Smearing")
+        plt.yscale("log")
+        plt.xlabel(r"Dispersion Measure (pc cm$^{-3}$)")
+        plt.ylabel(r"Smearing (s)")
+        plt.xlim(allDMs.min(), allDMs.max())
+        plt.ylim(0.3 * tot_smear.min(), 2.5 * tot_smear.max())
+        plt.legend(loc="lower right")
+        if fn is not None:
+            plt.savefig(fn, orientation="landscape")
+        else:
+            plt.show()
+        return fig
 
     def __str__(self):
         lines = []

@@ -68,7 +68,7 @@ import os
 import socket
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from pypulsar_tpu_torch.obs import telemetry
 from pypulsar_tpu_torch.resilience import faultinject
@@ -336,6 +336,11 @@ class FleetPlane:
         bound = float(rec.get("lease_s") or self.lease_s)
         beat = float(rec.get("_mtime", rec.get("beat", 0.0)))
         return (now - beat) <= bound
+
+    def live_hosts(self) -> List[str]:
+        """The hosts whose heartbeat is within the liveness bound, sorted."""
+        return sorted(h for h, rec in self.hosts().items()
+                      if self.is_live(rec))
 
     # -- observation claims --------------------------------------------------
 

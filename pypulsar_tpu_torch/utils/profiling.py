@@ -1,7 +1,7 @@
-"""Per-stage timing: a thin shim over the structured telemetry subsystem
-(``obs/telemetry.py``; a copy of the JAX package's
-``utils/profiling.py`` without its ``jax.profiler`` trace, whose
-counterpart is ``torch.profiler`` itself).
+"""Per-stage timing, a thin shim over the structured telemetry subsystem
+(``obs/telemetry.py``), and a ``torch.profiler`` trace of the kernels
+(port of the JAX package's ``utils/profiling.py``, whose ``trace`` wraps
+``jax.profiler``).
 
 The ``stage(...)`` call sites feed both ``stage_report`` breakdowns and
 ``--telemetry`` JSONL traces (obs records each stage as a nested span
@@ -13,12 +13,16 @@ alongside counters and device stats):
     with profiling.stage("dedisperse"):     # inside instrumented code
         out = kernel(x)
 
+    with profiling.trace("prof"):           # kernel-level timeline
+        run_sweep(...)
+
 Zero overhead when inactive (one module-global check, inherited from the
 obs layer)."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
 import time
 from typing import Dict, TextIO
@@ -97,3 +101,37 @@ def _print_report(stages: Dict[str, list], total: float, file: TextIO) -> None:
     if stages:
         print(f"#   {'(untracked)':<24s} {other:9.3f}s  "
               f"{100.0 * other / max(total, 1e-12):5.1f}%", file=file)
+
+
+@contextlib.contextmanager
+def trace(logdir: str, device="cuda"):
+    """Wrap a block in a ``torch.profiler`` session and write its Chrome
+    trace (``<worker>.<ns>.pt.trace.json``, TensorBoard's naming) under
+    ``logdir``: host operator activity, plus every kernel the card runs
+    (the hand-written ones too) when ``device`` is a CUDA device. Yields
+    the profiler. Without a card ``device="cuda"`` raises; pass
+    ``device="cpu"`` for a host-only trace.
+
+    View it in Perfetto or TensorBoard. Kernel launch counts come from
+    the wrappers' counters, not from this table, which can drop records.
+    Separate from :func:`stage_report` so host attribution works without
+    the (large) trace machinery."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, \
+        tensorboard_trace_handler
+
+    from pypulsar_tpu_torch.core.device import resolve_device
+
+    dev = resolve_device(device)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        try:
+            yield prof
+        finally:
+            if dev.type == "cuda":
+                # the trace closes after the block's last kernel ends
+                torch.cuda.synchronize(dev)

@@ -1,11 +1,11 @@
 """``python -m pypulsar_tpu_torch.cli <tool>``, the port's tool dispatcher
 (``cli/__main__.py``), against the JAX package's.
 
-Contracts: the JAX package's tool list in its order; every tool the port
-has runs through the dispatcher with the exit code and outputs of its
-own ``main``; an unported tool exits 2 naming its ROADMAP.md item, an
-unknown one exits 2 with the JAX package's closest-match hint; a bare
-call lists the tools and exits 1, ``--help`` exits 0.
+Contracts: the JAX package's tool list in its order, every tool ported;
+every tool runs through the dispatcher with the exit code and outputs of
+its own ``main`` (the last seven ported give the JAX package's ``--help``
+and exit 0); an unknown one exits 2 with the JAX package's closest-match
+hint; a bare call lists the tools and exits 1, ``--help`` exits 0.
 """
 
 import importlib
@@ -23,13 +23,16 @@ from tests.torch_hermetic import hermetic_tune_cache  # noqa: F401
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLI_DIR = os.path.join(HERE, "pypulsar_tpu_torch", "cli")
-PORTED = [t for t in dispatch.TOOLS if t not in dispatch.NOT_PORTED]
+PORTED = list(dispatch.TOOLS)
+#: the tools the dispatcher refused until they were ported last
+LAST_PORTED = ["gridding", "fitkepler", "shapiro", "pbdot", "massfunc",
+               "pyppdot", "pyplotres"]
 
 
 def test_tool_list_is_the_references():
     assert dispatch.TOOLS == jax_dispatch.TOOLS
-    assert set(dispatch.NOT_PORTED) <= set(dispatch.TOOLS)
-    assert len(PORTED) == 29
+    assert not hasattr(dispatch, "NOT_PORTED")
+    assert len(PORTED) == 36
     for tool in dispatch.TOOLS:
         has_module = os.path.exists(os.path.join(CLI_DIR, f"{tool}.py"))
         assert has_module == (tool in PORTED), tool
@@ -41,11 +44,18 @@ def test_ported_tools_have_a_main(tool):
     assert callable(mod.main)
 
 
-@pytest.mark.parametrize("tool", sorted(dispatch.NOT_PORTED))
-def test_unported_tool_exits_2_naming_its_item(tool, capsys):
-    assert dispatch.main([tool, "--help"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md Queue 1 item 16" in err
+@pytest.mark.parametrize("tool", LAST_PORTED)
+def test_last_ported_tool_help_exits_0(tool, capsys):
+    """The tool's own ``--help`` through the dispatcher: exit 0 and the
+    JAX package's usage text."""
+    with pytest.raises(SystemExit) as e:
+        dispatch.main([tool, "--help"])
+    assert e.value.code == 0
+    got = capsys.readouterr().out
+    with pytest.raises(SystemExit) as e:
+        jax_dispatch.main([tool, "--help"])
+    assert e.value.code == 0
+    assert got == capsys.readouterr().out and got.startswith("usage:")
 
 
 @pytest.mark.parametrize("name", ["swep", "pfdsnr", "zzz"])
@@ -63,7 +73,7 @@ def test_bare_call_and_help(capsys):
     listing = capsys.readouterr().out
     for tool in dispatch.TOOLS:
         assert f"  {tool}" in listing
-    assert listing.count("not ported yet") == len(dispatch.NOT_PORTED)
+    assert "not ported yet" not in listing
     assert dispatch.main(["--help"]) == 0
     assert dispatch.main(["-h"]) == 0
 
@@ -77,14 +87,13 @@ def _run(*args):
 
 def test_module_entry_point_exit_codes():
     """``python -m``: a ported tool's --help exits 0 (``tune`` and
-    ``psrlint`` among them), an unknown tool and an unported one exit
-    2."""
+    ``psrlint`` and ``pyplotres`` among them), an unknown tool exits 2."""
     assert _run("sift", "--help").returncode == 0
     assert _run("tune", "--help").returncode == 0
     assert _run("psrlint", "--help").returncode == 0
     bad = _run("swep")
     assert bad.returncode == 2 and "did you mean 'sweep'" in bad.stderr
-    assert _run("pyplotres").returncode == 2
+    assert _run("pyplotres", "--help").returncode == 0
     assert _run().returncode == 1
 
 

@@ -404,16 +404,25 @@ def test_pfd_snr_functions_match_reference(archives):
         jax_profile_snr.mean_flux(20.0, 4.0, 64, 10.0, 67.1, 300.0)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["-i"], "Queue 1 item 16"),
-])
-def test_pfd_snr_left_out_flags_exit_2(archives, capsys, flags, item):
+@pytest.mark.parametrize("flags", [["-i"], ["-i", "--sefd", "2.5"]])
+def test_pfd_snr_interactive_matches_reference(archives, capsys, flags):
+    """``-i`` (``interactive_snr``): a figure closed unpicked (the Agg
+    backend's show returns at once) prints the JAX package's lines, and
+    the dedispersed, period-adjusted profile it shows is the JAX
+    package's."""
+    import matplotlib
+
+    matplotlib.use("Agg", force=True)
     _, paths = archives
-    with pytest.raises(SystemExit) as e:
-        pfd_snr.main([paths[0], *flags])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
+    assert pfd_snr.main([paths[0], *flags]) == 0
+    got = capsys.readouterr().out
+    assert jax_pfd_snr.main([paths[0], *flags]) == 0
+    assert got == capsys.readouterr().out
+    assert "no valid on-pulse selection" in got
+    pfd, jpfd = prestopfd.PfdFile(paths[0]), jax_prestopfd.PfdFile(paths[0])
+    assert pfd_snr.interactive_snr(pfd, show=False) is None
+    assert jax_pfd_snr.interactive_snr(jpfd, show=False) is None
+    assert np.array_equal(np.asarray(pfd.sumprof), np.asarray(jpfd.sumprof))
 
 
 @pytest.fixture(scope="module")
