@@ -590,6 +590,21 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    a WAPP file's header and lags are read back. One ``path
    s27b_traced_sweep:`` line and one ``path s27b:`` line with each
    step's wall.
+25. The host codec and its ``pread`` ring (~5-15 s). (a) Each of the
+   seven loops of ``pypulsar_tpu_torch/native`` (built in phase 1 by
+   ``g++``) against its NumPy twin at a PSRFITS subint's size (4096
+   spectra x 1024 channels; packed 4/2/1-bit, uint8, uint16, float32):
+   bit for bit, but ``zero_dm`` (atol 2e-4) and ``boxcar_peak_snr``
+   (rtol 1e-5); each one's wall and GB/s. (b) Phase 4's ingest alone:
+   ``ship_ahead(iter_blocks(payload, overlap, raw=True, prefetch=p))`` of
+   phase 4's file to the card at phase 4's geometry, no kernel, the ring
+   on and off twice each (on, off, on, off): walls, GB/s, the host's
+   RSS while blocks arrive, and each device block's digest, equal in the
+   four passes; the bytes shipped are phase 4's; phase 4's sweep wall
+   (over the ring) beside them. (c) A consumer stopped after one block,
+   and a truncated copy that raises ``DataFormatError``: the process's
+   thread count (``/proc/self/task``) comes back each time. One ``path
+   native_ingest:`` line.
 
 Then a line of the script's slowest functions (``function walls s:``,
 each function's calls and inclusive wall, the 40 longest), a line of each
@@ -6824,9 +6839,10 @@ from pypulsar_tpu_torch.ops import _build
 from pypulsar_tpu_torch.cli import survey
 
 _build.BUILD_DIR = sys.argv[1]
-print(f"# kernels ready in "
-      f"{_build.build_all(('gather_sum', 'boxcar_stats', 'fold_parts')):.1f} s, "
-      f"{len(_build._built)} built here", flush=True)
+built = _build.build_all(('gather_sum', 'boxcar_stats', 'fold_parts',
+                          'psrcodec'))
+print(f"# kernels ready in {built:.1f} s, {len(_build._built)} built here",
+      flush=True)
 sys.exit(survey.main(sys.argv[2:]))
 """
 
@@ -8664,6 +8680,342 @@ def s27b_phase(tmp, small_fn, card, traced):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the host codec and its pread ring
+# ---------------------------------------------------------------------------
+
+#: phase 25 (a)'s subint: spectra x channels
+SUBINT = (4096, 1024)
+#: phase 25 (a)'s boxcar series and widths (0 and past the end give 0)
+BOXCAR_N = 1 << 20
+BOXCAR_WIDTHS = (0, 1, 2, 4, 8, 16, 32, BOXCAR_N, BOXCAR_N + 1)
+#: phase 25 (c)'s truncated copy: samples copied, then kept; and (c)'s
+#: blocks (payload, overlap), many to a file so the ring is mid-stream
+TRUNC_COPY, TRUNC_KEEP, TEARDOWN_BLOCK = 1 << 17, 100000, (1 << 15, 1024)
+
+
+def codec_cases(rng):
+    """Phase 25 (a): (name, function, inputs, bytes in + out, (rtol,
+    atol) or None for bit for bit) of the seven loops at a subint's
+    size."""
+    import numpy as np
+
+    nspec, nchan = SUBINT
+    n = nspec * nchan
+    packed = rng.integers(0, 256, n // 2, dtype=np.uint8)
+    data = (rng.random((nspec, nchan)) * 100).astype(np.float32)
+    per_chan = [(rng.random(nchan) + 0.5).astype(np.float32),
+                rng.standard_normal(nchan).astype(np.float32),
+                (rng.random(nchan) > 0.1).astype(np.float32)]
+    series = rng.standard_normal(BOXCAR_N).astype(np.float32)
+    series[100000:100008] += 10.0
+    u8 = rng.integers(0, 256, n, dtype=np.uint8)
+    u16 = rng.integers(0, 65536, n).astype(np.uint16)
+    f32 = rng.standard_normal(n).astype(np.float32)
+    cases = [(f"unpack_bits/{b}", "unpack_bits", (packed[:n * b // 8], b),
+              n * b // 8 + 4 * n, None) for b in (4, 2, 1)]
+    cases += [(f"widen/{a.dtype}", "widen", (a,), a.nbytes + 4 * n, None)
+              for a in (u8, u16, f32)]
+    cases.append(("scale_offset_weight", "scale_offset_weight",
+                  (data, *per_chan), 8 * n + 12 * nchan, None))
+    cases.append(("zero_dm", "zero_dm", (data,), 8 * n, (0.0, 2e-4)))
+    cases += [(f"transpose_to_chan_major/{a.dtype}",
+               "transpose_to_chan_major", (a, nspec, nchan),
+               a.nbytes + 4 * n, None) for a in (u8, u16, f32)]
+    cases.append(("boxcar_peak_snr", "boxcar_peak_snr",
+                  (series, BOXCAR_WIDTHS), 4 * BOXCAR_N, (1e-5, 0.0)))
+    return cases
+
+
+def check_codec():
+    """Phase 25 (a): each loop against its NumPy twin; returns each
+    case's wall ms and GB/s."""
+    import numpy as np
+
+    from pypulsar_tpu_torch import native
+
+    out = {}
+    for what, name, args, nbytes, tol in codec_cases(
+            np.random.default_rng(SEED)):
+        copies = lambda: [a.copy() if isinstance(a, np.ndarray) else a
+                          for a in args]
+        fn, twin = getattr(native, name), getattr(native, "_numpy_" + name)
+        fn(*copies())  # the first call loads the library
+        walls = []
+        for _ in range(3):
+            inputs = copies()
+            t0 = time.perf_counter()
+            got = fn(*inputs)
+            walls.append(time.perf_counter() - t0)
+        want = twin(*copies())
+        if got.dtype != np.float32 or got.shape != want.shape:
+            fail(f"codec {what}: {got.dtype} {got.shape} against the "
+                 f"twin's {want.dtype} {want.shape}")
+        if tol is None:
+            if not np.array_equal(got, want):
+                fail(f"codec {what}: not the twin's bits "
+                     f"({int((got != want).sum())} values differ)")
+            err = 0.0
+        else:
+            err = float(np.abs(got - want).max())
+            if not np.allclose(got, want, rtol=tol[0], atol=tol[1]):
+                fail(f"codec {what}: {err:.3g} from the twin (rtol "
+                     f"{tol[0]}, atol {tol[1]})")
+        wall = min(walls)
+        out[what] = {"ms": wall * 1e3, "gb_per_s": nbytes / wall / 1e9,
+                     "max_abs_err": err}
+    return out
+
+
+def _device_digest(block, weights):
+    """Two int64 sums over a uint8 block's 32-bit words, plain and
+    weighted (mod 2^64: exact whatever the reduction's order), on the
+    device."""
+    import torch
+
+    words = block.reshape(-1).view(torch.int32).to(torch.int64)
+    return torch.stack([words.sum(), (words * weights[:words.numel()]).sum()])
+
+
+def _rss_kb():
+    """The process's resident set now, kB (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    return -1
+
+
+def copied_blocks(fb, payload, overlap):
+    """(pos, [time, chan] uint8 block) of an 8-bit file from the ring with
+    each block copied out before its slot goes back (the JAX package's
+    contract, ``PrefetchReader``'s default; no program path reads so)."""
+    from pypulsar_tpu_torch.native import PrefetchReader
+
+    for pos, buf in PrefetchReader(fb.filename, fb.header_size,
+                                   fb.bytes_per_spectrum,
+                                   fb.number_of_samples, payload, overlap):
+        yield pos, buf.reshape(-1, fb.nchans)
+
+
+#: phase 25 (b)'s reads of raw blocks: the ring lending its slots to the
+#: ship thread (``ReaderSource``'s), the ring copying each block out, and
+#: one synchronous read a block (``prefetch=False``, and ``iter_blocks``'
+#: way for blocks the caller keeps)
+INGEST_MODES = {
+    "ring_lent": lambda fb, p, o: fb.iter_blocks(p, o, raw=True,
+                                                 borrow=True),
+    "ring_copied": copied_blocks,
+    "sync": lambda fb, p, o: fb.iter_blocks(p, o, raw=True, borrow=True,
+                                            prefetch=False)}
+#: phase 25 (b)'s widened reads (float32 blocks widened from the ring's
+#: lent slots, and ``iter_blocks``' synchronous ones), host only, over
+#: this many blocks of phase 4's file
+WIDENED_BLOCKS = 2
+
+
+def ingest_pass(fn, payload, overlap, mode, weights):
+    """Phase 25 (b): one ship of phase 4's file to the card, read as
+    :data:`INGEST_MODES` ``mode`` says; (wall s, bytes, digests, the
+    largest RSS seen while blocks arrived, kB)."""
+    import torch
+
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.parallel import prefetch as pf
+
+    digests, rss, nbytes = [], 0, 0
+    with FilterbankFile(fn) as fb:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shipped = pf.ship_ahead(INGEST_MODES[mode](fb, payload, overlap),
+                                torch.device("cuda"))
+        for pos, dev in shipped:
+            nbytes += dev.numel()
+            digests.append((pos, _device_digest(dev, weights)))
+            rss = max(rss, _rss_kb())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, nbytes, [(p, tuple(d.tolist())) for p, d in digests], rss
+
+
+def widened_pass(fn, payload, overlap, ring):
+    """Phase 25 (b): the wall s of :data:`WIDENED_BLOCKS` float32 blocks
+    of phase 4's file, widened from the ring's lent slots or read by
+    ``iter_blocks`` synchronously, and a digest of them (float64 sums
+    of every 97th row)."""
+    import numpy as np
+
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+
+    digest = []
+    with FilterbankFile(fn) as fb:
+        blocks = fb.iter_blocks(payload, overlap, raw=ring, borrow=ring,
+                                prefetch=ring)
+        t0 = time.perf_counter()
+        for _ in range(WIDENED_BLOCKS):
+            pos, block = next(blocks)
+            if ring:  # phase 4's file is 8-bit
+                block = block.astype(np.float32)
+            digest.append((pos, block.shape, float(block[::97].sum(
+                dtype=np.float64))))
+        wall = time.perf_counter() - t0
+        blocks.close()
+    return wall, digest
+
+
+def _threads():
+    return set(os.listdir("/proc/self/task"))
+
+
+def _threads_after(before, wait_s=5.0):
+    """The threads alive once none is left that ``before`` lacks (or
+    after ``wait_s``: a joined thread leaves the task list a moment after
+    its join returns)."""
+    give_up = time.monotonic() + wait_s
+    while _threads() - before and time.monotonic() < give_up:
+        time.sleep(0.01)
+    return _threads()
+
+
+def ring_teardown(tmp, fn):
+    """Phase 25 (c): the thread counts before, during and after a
+    consumer that stops after one block, and before and after a
+    truncated copy raises; no thread may be left that was not there
+    before."""
+    import warnings
+
+    import torch
+
+    from pypulsar_tpu_torch.io.errors import DataFormatError
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.parallel import staged
+
+    out, left = {}, {}
+    with FilterbankFile(fn) as fb:
+        before = _threads()
+        blocks = staged.ReaderSource(fb).chan_major_blocks(
+            *TEARDOWN_BLOCK, torch.device("cuda"))
+        next(blocks)
+        during = _threads()
+        blocks.close()
+        after = _threads_after(before)
+        out["early_stop"] = [len(before), len(during), len(after)]
+        left["early stop"] = after - before
+        if not during - before:
+            fail("ring teardown: no ring or ship thread while a block was "
+                 "held")
+        header = fb.header_size
+        nbytes = header + TRUNC_COPY * fb.bytes_per_spectrum
+        keep = header + TRUNC_KEEP * fb.bytes_per_spectrum
+    copy = os.path.join(tmp, "native_truncated.fil")
+    with open(fn, "rb") as src, open(copy, "wb") as dst:
+        dst.write(src.read(nbytes))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the copy's header says 2^20
+        fb = FilterbankFile(copy)
+    with fb:
+        os.truncate(copy, keep)
+        before = _threads()
+        try:
+            for _ in staged.ReaderSource(fb).chan_major_blocks(
+                    *TEARDOWN_BLOCK, torch.device("cuda")):
+                pass
+        except DataFormatError as e:
+            out["truncated_error"] = str(e).split(": ", 1)[1]
+        else:
+            fail("a copy truncated under its reader raised nothing")
+        after = _threads_after(before)
+        out["truncated"] = [len(before), len(after)]
+        left["truncated copy"] = after - before
+    os.unlink(copy)
+    for what, tids in left.items():
+        if tids:
+            fail(f"ring teardown: after the {what}, threads {sorted(tids)} "
+                 f"are left ({out})")
+    return out
+
+
+def native_phase(tmp, fn, card, gather_wall):
+    """Phase 25: the codec against its twins, phase 4's ingest with the
+    ring on and off, and the ring's teardown."""
+    import resource
+
+    import numpy as np
+    import torch
+
+    from pypulsar_tpu_torch.io.filterbank import FilterbankFile
+    from pypulsar_tpu_torch.parallel import prefetch as pf
+    from pypulsar_tpu_torch.parallel import staged
+    from pypulsar_tpu_torch.parallel.sweep import DEFAULT_WIDTHS
+
+    walls = {}
+    t0 = time.perf_counter()
+    codec = check_codec()
+    walls["codec_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with FilterbankFile(fn) as fb:
+        plan, payload, _ = staged.step_geometry(
+            staged.ReaderSource(fb), np.arange(1024) * 0.5, 1, 64, 0,
+            DEFAULT_WIDTHS, None)
+        overlap = int(plan.min_overlap)
+        longest = (payload + overlap) * fb.bytes_per_spectrum // 4
+    seeded = torch.Generator("cuda").manual_seed(SEED)
+    weights = torch.randint(-(1 << 62), 1 << 62, (longest,),
+                            dtype=torch.int64, device="cuda",
+                            generator=seeded)
+    passes, shipped = [], []
+    for mode in (*INGEST_MODES, *INGEST_MODES):
+        pf.ship_ahead.bytes = 0
+        wall, nbytes, digests, rss = ingest_pass(fn, payload, overlap, mode,
+                                                 weights)
+        shipped.append(int(pf.ship_ahead.bytes))
+        passes.append({"mode": mode, "wall_s": wall,
+                       "gb_per_s": nbytes / wall / 1e9, "bytes": nbytes,
+                       "blocks": len(digests), "rss_kb": rss,
+                       "digests": digests})
+    del weights
+    if any(p["digests"] != passes[0]["digests"] for p in passes[1:]):
+        fail("phase 4's ingest: the device blocks' digests differ between "
+             "the passes (" + ", ".join(INGEST_MODES) + ")")
+    if set(shipped) != {PHASE4["h2d_bytes"]}:
+        fail(f"phase 4's ingest shipped {shipped} bytes, phase 4's sweep "
+             f"{PHASE4['h2d_bytes']}: not phase 4's geometry")
+    widened = [(ring, *widened_pass(fn, payload, overlap, ring))
+               for ring in (True, False, True, False)]
+    if any(w[2] != widened[0][2] for w in widened[1:]):
+        fail("iter_blocks' float32 blocks differ between the ring and "
+             "synchronous reads")
+    walls["ingest_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    teardown = ring_teardown(tmp, fn)
+    walls["teardown_s"] = time.perf_counter() - t0
+    by_mode = {m: [p["wall_s"] for p in passes if p["mode"] == m]
+               for m in INGEST_MODES}
+    sync = statistics.mean(by_mode["sync"])
+    widened_s = {"ring": [w[1] for w in widened if w[0]],
+                 "sync": [w[1] for w in widened if not w[0]]}
+    print("path native_ingest: " + json.dumps({
+        "walls_s": walls, "codec": codec,
+        "geometry": {"payload": int(payload), "overlap": overlap},
+        "passes": [{k: v for k, v in p.items() if k != "digests"}
+                   for p in passes],
+        "mode_walls_s": by_mode,
+        "over_sync": {m: statistics.mean(w) / sync
+                      for m, w in by_mode.items()},
+        "widened_blocks": WIDENED_BLOCKS, "widened_walls_s": widened_s,
+        "widened_ring_over_sync": statistics.mean(widened_s["ring"])
+        / statistics.mean(widened_s["sync"]),
+        "blocks_equal": True, "block_digest_0": passes[0]["digests"][0],
+        "host_peak_rss_kb": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss,
+        "phase4_sweep_s_this_run": gather_wall,
+        "phase4_sweep_s_perf_md": 0.736,
+        "note": "phase 4's sweep (this run, over the ring) and PERF.md's "
+                "0.736 s (an earlier run, synchronous reads) are different "
+                "runs",
+        "teardown_threads": teardown, "card": card}))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pypulsar_tpu_torch")):
         fail("run from a checkout: pypulsar_tpu_torch/ is not beside "
@@ -8709,7 +9061,7 @@ def main() -> int:
         plain_paths = plain_write_dats(tmp, small_fn, card)
         fn, info = write_obs(tmp)
         check_stage_kernels(fn, device)
-        launches, _, gather_res = main_path(tmp, fn, info)
+        launches, gather_wall, gather_res = main_path(tmp, fn, info)
         mark("3 small sweep, 4 main path")
         stage_sp, stage_series, stage_s, stage_numbers = stage_path(
             tmp, fn, info)
@@ -8764,6 +9116,8 @@ def main() -> int:
         mark("23 tools, psrlint")
         s27b_paths = s27b_phase(tmp, small_fn, card, traced)
         mark("24 last host slice")
+        native_phase(tmp, fn, card, gather_wall)
+        mark("25 host codec, ring")
     paths = {"sweep_1024_trials": launches,
              "stage_single_pulse_pass": stage_sp,
              "stage_series_pass": stage_series,

@@ -87,8 +87,8 @@ def zero_dm_file(infile: str, outfile: str,
                 f"writes 8-, 16- and 32-bit files only")
         with atomic_open(outfile, "wb") as out:
             out.write(sigproc.pack_header(infb.header))
-            for _, block in ship_ahead(infb.iter_blocks(block_samples,
-                                                        raw=True), device):
+            for _, block in ship_ahead(infb.iter_blocks(
+                    block_samples, raw=True, borrow=True), device):
                 filtered = filter_block(block).cpu().numpy()
                 filtered.view(infb.dtype).tofile(out)
         return infb.nspec

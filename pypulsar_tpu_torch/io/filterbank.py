@@ -1,8 +1,10 @@
 """SIGPROC filterbank reader and writer.
 
-Port of ``pypulsar_tpu/io/filterbank.py`` without its native prefetcher:
-blocks are read with numpy, and the streamed sweep ships them ahead from
-a daemon thread (:mod:`pypulsar_tpu_torch.parallel.prefetch`).
+Port of ``pypulsar_tpu/io/filterbank.py``: :meth:`FilterbankFile.iter_blocks`
+reads the raw blocks its consumer borrows ahead on the host codec's
+``pread`` ring (:class:`pypulsar_tpu_torch.native.PrefetchReader`), and
+the streamed sweep ships its blocks ahead from a daemon thread
+(:mod:`pypulsar_tpu_torch.parallel.prefetch`).
 :meth:`FilterbankFile.get_spectra` is the loader of a ``Spectra``: the
 block travels in the file's own dtype and is widened and transposed on
 the device.
@@ -166,7 +168,8 @@ class FilterbankFile:
                            float(self.tsamp), int(startsamp), device)
 
     def iter_blocks(self, block_size: int, overlap: int = 0, start: int = 0,
-                    end: Optional[int] = None, raw: bool = False,
+                    end: Optional[int] = None, prefetch: bool = True,
+                    raw: bool = False, borrow: bool = False,
                     ) -> Iterator[Tuple[int, np.ndarray]]:
         """Yield (startsamp, block[time, ...]) stepping by ``block_size``,
         each block ``block_size + overlap`` samples long except at the
@@ -174,12 +177,42 @@ class FilterbankFile:
 
         ``raw`` yields the file's native dtype: packed
         [time, nchans * nbits // 8] uint8 for sub-byte files. Otherwise
-        blocks are [time, chan] float32."""
+        blocks are [time, chan] float32.
+
+        ``prefetch`` (the default) with ``borrow`` reads raw blocks on the
+        host codec's ring
+        (:class:`~pypulsar_tpu_torch.native.PrefetchReader`), a few blocks
+        ahead of the consumer, each block the ring's own slot, valid
+        until the next block is asked for: for a consumer that copies
+        each block before it pulls the next, as the ship-ahead thread
+        does into pinned memory. Every other block is read when it is
+        asked for, into an array of its own: on the card's host the
+        ring took longer for those, a copy out of its slot and its
+        widened blocks alike (``chip_smoke.py`` phase 25, ``PERF.md``).
+        Every way yields the same bytes and raises
+        :class:`~pypulsar_tpu_torch.io.errors.DataFormatError` on a
+        short read. Closing the generator closes the ring."""
         if start < 0:
             raise ValueError(f"iter_blocks start must be >= 0; got {start}")
         end = (self.number_of_samples if end is None
                else min(end, self.number_of_samples))
         row_len = (self.bytes_per_spectrum if self.nbits < 8 else self.nchans)
+        if prefetch and borrow and raw and start < end:
+            from pypulsar_tpu_torch.native import PrefetchReader
+
+            blocks = iter(PrefetchReader(
+                self.filename, self.header_size
+                + start * self.bytes_per_spectrum, self.bytes_per_spectrum,
+                end - start, block_size, overlap, first_sample=start,
+                borrow=True))
+            try:
+                for pos, buf in blocks:
+                    n = buf.size // self.bytes_per_spectrum
+                    yield pos + start, buf.view(self.dtype).reshape(
+                        n, row_len)
+            finally:
+                blocks.close()
+            return
         pos = start
         while pos < end:
             n = min(block_size + overlap, end - pos)

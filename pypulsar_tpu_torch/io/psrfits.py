@@ -8,7 +8,8 @@ to without astropy; BINTABLE data stay memmapped):
   :func:`DATEOBS_to_MJD` and :class:`SpectraInfo`, whose header checks
   raise the located :class:`~pypulsar_tpu_torch.io.errors.DataFormatError`;
 - :class:`PsrfitsFile`: ``read_subint`` applies ``(data*scales +
-  offsets)*weights`` per channel on the host with numpy;
+  offsets)*weights`` per channel on the host, in the host codec
+  (:mod:`pypulsar_tpu_torch.native`) where the arrays allow;
   :meth:`PsrfitsFile.raw_subints` hands the stored subint bytes with
   their scales, offsets and weights to
   :func:`pypulsar_tpu_torch.parallel.staged.ingest_psrfits`, which does
@@ -460,10 +461,15 @@ class PsrfitsFile:
         """One subint as float32 [nsamp_per_subint, nchan] with
         ``(data*scales + offsets)*weights`` applied per channel, each sum
         rounded to float32 on its own. Multi-polarisation data keep
-        polarisation ``specinfo.default_poln``."""
+        polarisation ``specinfo.default_poln``. Sub-byte samples are
+        unpacked, and float32 per-channel arrays of ``nchan`` applied, by
+        the host codec (:mod:`pypulsar_tpu_torch.native`), with the bits
+        of the numpy arithmetic it replaces."""
+        from pypulsar_tpu_torch import native
+
         subintdata = np.asarray(self.fits["SUBINT"].data[isub]["DATA"])
         if self.nbits in _UNPACKERS:
-            data = _UNPACKERS[self.nbits](subintdata.ravel()).astype(np.float32)
+            data = native.unpack_bits(subintdata.ravel(), self.nbits)
         else:
             data = subintdata.astype(np.float32).ravel()
         offsets = self.get_offsets(isub) if apply_offsets else 0
@@ -479,6 +485,11 @@ class PsrfitsFile:
             offsets = np.asarray(offsets).reshape(-1)[sl]
         else:
             data = data.reshape((self.nsamp_per_subint, self.nchan))
+        if all(np.ndim(a) and np.asarray(a).size == self.nchan
+               and np.asarray(a).dtype.kind == "f"
+               and np.asarray(a).dtype.itemsize == 4
+               for a in (scales, offsets, weights)):
+            return native.scale_offset_weight(data, scales, offsets, weights)
         return ((data * scales) + offsets) * weights
 
     def get_weights(self, isub: int) -> np.ndarray:

@@ -9,8 +9,9 @@ block N+1 overlaps the kernels of block N.
 
 Contract (as the reference's): items arrive in order; an exception in the
 worker re-raises in the consumer at its next pull; a consumer that stops
-early signals the worker, which then stops producing. The transform
-retries a transient ``OSError`` (``retries``, through
+early signals the worker, which then stops producing and closes the
+items' iterator (a read-ahead ring's generator joins its thread there).
+The transform retries a transient ``OSError`` (``retries``, through
 ``resilience.retry.retry_transient``) with the fault point
 ``{name}.produce`` inside the retry loop; the consumer waits at most
 ``timeout`` seconds an item (:data:`PREFETCH_TIMEOUT_S`; <= 0 waits
@@ -67,9 +68,10 @@ def prefetch(items: Iterable, depth: int = 2,
     trace_ctx = telemetry.current_context()
 
     def worker():
+        it = iter(items)
         with telemetry.adopt_context(trace_ctx):
             try:
-                for item in items:
+                for item in it:
                     if stop.is_set():
                         return
                     out = _produce(xf, item, name, retries)
@@ -79,6 +81,10 @@ def prefetch(items: Iterable, depth: int = 2,
             except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
                 q.put(e)
                 return
+            finally:  # the thread that iterates a generator closes it
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
             q.put(_DONE)
 
     t = threading.Thread(target=worker, name=f"pypulsar-torch-{name}",
@@ -142,6 +148,13 @@ def ship(block, device: torch.device):
     return devs if isinstance(block, tuple) else devs[0]
 
 
+def _copied(block):
+    """A copy of a host block (or of each array of a tuple)."""
+    if isinstance(block, tuple):
+        return tuple(np.array(b) for b in block)
+    return np.array(block)
+
+
 def count_shipped(nbytes: int) -> None:
     """Count ``nbytes`` copied to a CUDA device in ``ship_ahead.bytes``
     and the ``h2d.bytes`` counter."""
@@ -156,11 +169,16 @@ def ship_ahead(raw_blocks: Iterable, device: torch.device, depth: int = 2):
     arrives as the tuple of their tensors. ``ship_ahead.bytes`` (and the
     ``h2d.bytes`` counter) count the bytes copied to a CUDA device (set it
     to 0 to start again). The worker's transform retries a transient read
-    error twice; its fault point is ``sweep.ship.produce``."""
+    error twice; its fault point is ``sweep.ship.produce``.
+
+    A block may be a buffer lent until the next one is pulled (a
+    read-ahead ring's slot): the worker copies it, into pinned memory on
+    a CUDA device and into a host tensor of its own on the CPU, before it
+    pulls the next."""
     device = torch.device(device)
     if device.type != "cuda":
         yield from prefetch(raw_blocks, depth,
-                            lambda it: (it[0], ship(it[1], device)),
+                            lambda it: (it[0], ship(_copied(it[1]), device)),
                             name=SHIP_NAME, retries=2)
         return
     side = torch.cuda.Stream(device)
@@ -178,13 +196,17 @@ def ship_ahead(raw_blocks: Iterable, device: torch.device, depth: int = 2):
         return pos, dev, ready, hosts
 
     current = torch.cuda.current_stream(device)
-    for pos, dev, ready, hosts in prefetch(raw_blocks, depth, ship_pinned,
-                                           name=SHIP_NAME, retries=2):
-        current.wait_event(ready)
-        for d in (dev if isinstance(dev, tuple) else (dev,)):
-            d.record_stream(current)
-        del hosts  # the pinned buffers are the allocator's once copied
-        yield pos, dev
+    pulled = prefetch(raw_blocks, depth, ship_pinned, name=SHIP_NAME,
+                      retries=2)
+    try:
+        for pos, dev, ready, hosts in pulled:
+            current.wait_event(ready)
+            for d in (dev if isinstance(dev, tuple) else (dev,)):
+                d.record_stream(current)
+            del hosts  # the pinned buffers are the allocator's once copied
+            yield pos, dev
+    finally:  # an early stop ends the worker now
+        pulled.close()
 
 
 ship_ahead.bytes = 0

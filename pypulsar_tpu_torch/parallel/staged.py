@@ -255,6 +255,19 @@ def _raw_blocks(read, payload: int, overlap: int, total: int,
         pos += payload
 
 
+def _before(blocks, end: int):
+    """The (pos, block) of ``blocks`` that start before ``end``: a block
+    at or past it (an overlap-only tail past a window) would be shipped
+    ahead for nothing. Closes ``blocks`` when it stops."""
+    try:
+        for pos, block in blocks:
+            if pos >= end:
+                return
+            yield pos, block
+    finally:
+        blocks.close()
+
+
 class ReaderSource:
     """High-frequency-first block source over a file reader: a SIGPROC
     :class:`~pypulsar_tpu_torch.io.filterbank.FilterbankFile` (1-16 bit
@@ -308,16 +321,20 @@ class ReaderSource:
                               self.end)
         else:
             nbits = int(r.nbits)
-            # no block starts at or past the window's end: a block past
-            # it would be read and shipped ahead for nothing
-            raw = _raw_blocks(
-                lambda pos, n: next(r.iter_blocks(n, 0, start=pos,
-                                                  end=pos + n, raw=True))[1],
-                payload, overlap, self.total, self.start, self.end)
-        for pos, dev in ship_ahead(raw, device):
-            if pos >= self.end:  # an overlap-only tail past the window
-                break
-            yield pos, ingest_tc(dev, self._flip, min(nbits, 8))
+            # one read-ahead ring over the window; it reads past the
+            # window's end so in-window blocks keep their overlap, and
+            # lends each slot to the ship thread, whose pinned copy is
+            # the block's copy-out
+            raw = _before(r.iter_blocks(
+                payload, overlap, start=self.start,
+                end=min(self.end + overlap, self.total), raw=True,
+                borrow=True), self.end)
+        shipped = ship_ahead(raw, device)
+        try:
+            for pos, dev in shipped:
+                yield pos, ingest_tc(dev, self._flip, min(nbits, 8))
+        finally:  # an early stop closes the ship thread and the ring now
+            shipped.close()
 
     def _psrfits_blocks(self, payload: int, overlap: int, device):
         r = self.reader
@@ -477,23 +494,31 @@ def _host_downsampled_blocks(src: ReaderSource, factor: int,
             f"windowed source [{src.start}, {src.end}) is not a whole "
             f"multiple of payload={payload}; seam samples would be counted "
             f"in two windows")
-    raw = reader.iter_blocks(payload, overlap, start=src.start,
-                             end=min(src.end + overlap, src.total), raw=True)
+    # the sums are new arrays, made before the ring's next block
+    raw = _before(reader.iter_blocks(
+        payload, overlap, start=src.start,
+        end=min(src.end + overlap, src.total), raw=True, borrow=True),
+        src.end)
 
     def sums():
-        for pos, block in raw:
-            if pos >= src.end:  # an overlap-only tail past the window
-                break
-            if nbits < 8:
-                block = unpack_subbyte(block, nbits)
-            nbin = block.shape[0] // factor
-            if nbin == 0:
-                continue  # tail shorter than one output bin
-            yield pos, block[:nbin * factor].reshape(
-                nbin, factor, block.shape[1]).sum(axis=1, dtype=acc_dtype)
+        try:
+            for pos, block in raw:
+                if nbits < 8:
+                    block = unpack_subbyte(block, nbits)
+                nbin = block.shape[0] // factor
+                if nbin == 0:
+                    continue  # tail shorter than one output bin
+                yield pos, block[:nbin * factor].reshape(
+                    nbin, factor, block.shape[1]).sum(axis=1, dtype=acc_dtype)
+        finally:
+            raw.close()
 
-    for pos, dev in ship_ahead(sums(), device):
-        yield pos // factor, ingest_tc(dev, src._flip, 8)
+    shipped = ship_ahead(sums(), device)
+    try:
+        for pos, dev in shipped:
+            yield pos // factor, ingest_tc(dev, src._flip, 8)
+    finally:
+        shipped.close()
 
 
 def downsampled_blocks(src, factor: int, payload_ds: int, overlap_ds: int,

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from pypulsar_tpu.fourier import accelsearch as jax_accel
 from pypulsar_tpu.fourier import kernels as jax_kernels
+from pypulsar_tpu.fourier import numpy_ref
 from pypulsar_tpu_torch.fourier import accelsearch as accel
 from pypulsar_tpu_torch.fourier import kernels
 from pypulsar_tpu_torch.params import accel_config_from_reference
@@ -57,6 +58,19 @@ def _ref_spectra(series):
     """The reference's normalized spectra (its own device prep) as numpy."""
     re, im = jax_kernels.prep_spectra_batch(series)
     return (np.asarray(re) + 1j * np.asarray(im)).astype(np.complex64)
+
+
+def _float64_spectra(series):
+    """``prep_spectra_batch``'s spectra in float64 throughout: numpy's
+    rfft of each mean-subtracted series, dereddened by the plain
+    sequential routine (``pypulsar_tpu.fourier.numpy_ref.deredden``, no
+    code of either side under comparison), rounded to complex64 at the
+    end: the witness that tells which of two float32 preps strayed when
+    they disagree."""
+    s64 = np.asarray(series, dtype=np.float64)
+    fft = np.fft.rfft(s64 - s64.mean(axis=1, keepdims=True), axis=1)
+    return np.stack([numpy_ref.deredden(f) for f in fft]).astype(
+        np.complex64)
 
 
 def _assert_contract(ref, got, floor, margin=MARGIN, dr=0.5, dz=1.0,
@@ -149,16 +163,34 @@ def own_threads():
 def test_prep_spectra_batch_matches_reference(n, mean, seed, own_threads):
     """rfft + deredden within 2e-5 of the largest magnitude, including a
     +1000 DC offset (8-bit data sits far above zero). Each side reads its
-    own copy of the series (JAX may alias a host buffer it is given)."""
+    own copy of the series (JAX may alias a host buffer it is given).
+
+    A float64 transform is the witness (Queue 3 F2): the port must sit
+    within 2e-5 of it, and where the port and the reference part, the
+    message gives each side's distance from float64 overall and at the
+    bin where they part most (the reference is not under test)."""
     series = _series([(37.0, 0.0, 0.2), (23.0, 4.0, 0.2), (0, 0, 0.0)], n,
                      seed, mean)
     got = kernels.prep_spectra_batch(series.copy(), device="cpu").numpy()
     ref = _ref_spectra(series.copy())
-    assert got.shape == ref.shape == (3, n // 2 + 1)
+    f64 = _float64_spectra(series.copy())
+    assert got.shape == ref.shape == f64.shape == (3, n // 2 + 1)
+    scale = np.abs(f64[:, 1:]).max()
+    port_f64, ref_f64 = np.abs(got - f64), np.abs(ref - f64)
+    worst = np.unravel_index(port_f64.argmax(), port_f64.shape)
+    assert port_f64.max() / scale < 2e-5, \
+        (f"the port strayed from float64 by {port_f64.max() / scale:.3g} "
+         f"of the largest magnitude (the reference {ref_f64.max() / scale:.3g}"
+         f"); at spectrum {worst[0]}, bin {worst[1]}: port {got[worst]}, "
+         f"reference {ref[worst]}, float64 {f64[worst]}")
     diff = np.abs(got - ref)
     at = np.unravel_index(diff.argmax(), diff.shape)
     assert diff.max() / np.abs(ref[:, 1:]).max() < 2e-5, \
-        f"bin {at}: port {got[at]}, reference {ref[at]}"
+        (f"bin {at}: port {got[at]}, reference {ref[at]}, float64 "
+         f"{f64[at]}; from float64 there: port {port_f64[at] / scale:.3g}, "
+         f"reference {ref_f64[at] / scale:.3g} of the largest magnitude; "
+         f"overall: port {port_f64.max() / scale:.3g}, reference "
+         f"{ref_f64.max() / scale:.3g}")
     assert np.all(got[:, 0] == 1.0)
 
 
